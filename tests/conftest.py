@@ -36,6 +36,10 @@ def pytest_configure(config):
         "markers",
         "chaos: fault-injection soaks (tools/chaos_check.py runs the "
         "full matrix); long ones are also marked slow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips "
+        "where torch.cuda.is_available() is false")
 
 
 @pytest.fixture(autouse=True)
