@@ -1,9 +1,12 @@
 """Load the JAX package's weights into the port.
 
 The port's modules mirror the reference's module tree and parameter
-names (`layers.0.self_attn.q_proj.weight`, ...) and keep its layouts
-(`Linear.weight` is [in, out] in both), so a reference `state_dict()`,
-turned into numpy arrays, maps name for name onto the port's modules:
+names (`layers.0.self_attn.q_proj.weight`,
+`ernie.embeddings.word_embeddings.weight`, ...) and keep its layouts
+(`Linear.weight` is [in, out] and `Embedding.weight` [vocab, dim] in
+both), so a reference `state_dict()` — a Transformer's or an ERNIE
+model's — turned into numpy arrays, maps name for name onto the port's
+modules:
 
     np_state = {k: np.asarray(v) for k, v in jax_layer.state_dict().items()}
     port_layer.load_state_dict(from_jax_state(np_state))

@@ -34,35 +34,13 @@
 // over the 8 lanes of a row with warp shuffles, and p goes through
 // shared memory to the p.v product. wgmma/TMA are left for a later PR.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int THREADS = 128;  // 16 row groups x 8 column groups
-constexpr int RPT = 4;        // logits rows per thread
-constexpr int CPT = 8;        // logits columns per thread
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// value as it is after a cast to the operand type (identity for fp32)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
+using namespace flash;
 
 template <int D>
 constexpr int smem_floats() {
@@ -78,7 +56,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int sq, int sk, int d, long long qsb, long long qsh,
                  long long qss, long long ksb, long long ksh, long long kss,
                  long long vsb, long long vsh, long long vss, float scale,
-                 int causal) {
+                 int causal, Dropout dr) {
   constexpr int LD = D + 1;       // padded row stride of the q/k/v tiles
   constexpr int LP = BK + 1;      // padded row stride of the p tile
   constexpr int OPT = D / 8;      // accumulator columns per thread
@@ -116,9 +94,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kend = max(0, min(sk, last_row + off + 1));
   }
 
+  const bool drop = dr.block_q > 0;
   float m[RPT], l[RPT], acc[RPT][OPT];
+  unsigned int row_key[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
+    row_key[i] = drop ? drop_row_key(dr, bh, q0 + rg * RPT + i) : 0u;
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -179,8 +160,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        float p = expf(s[i][j] - m_new);
         rs += p;
+        if (drop)
+          p = drop_keep(dr, row_key[i], k0 + cg + 8 * j) ? p * dr.inv_keep
+                                                         : 0.f;
         ps[(rg * RPT + i) * LP + cg + 8 * j] = round_to<T>(p);
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -225,7 +209,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, void* lse, int B, int H, int sq, int sk, int d,
-           const long long* st, float scale, int causal,
+           const long long* st, float scale, int causal, Dropout dr,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -237,7 +221,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<float*>(lse), H, sq, sk, d, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal,
+      dr);
   return (int)cudaGetLastError();
 }
 
@@ -247,26 +232,32 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // q [B, H, sq, d], k/v [B, H, sk, d] with unit stride on d and element
 // strides (batch, head, row) given in `strides` (q, k, v: 9 values);
 // bias: [B, sk] float32 or null; out [B, H, sq, d] contiguous; lse
-// [B * H, sq] float32. Returns the cudaError_t of the launch.
+// [B * H, sq] float32. Dropout: seed, uint32 keep threshold, 1/keep and
+// the logical blocks (block_q = 0: no dropout). Returns the cudaError_t of
+// the launch.
 extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* bias,
                             void* out, void* lse, int B, int H, int sq,
                             int sk, int d, const long long* strides,
-                            float scale, int causal, void* stream) {
+                            float scale, int causal, unsigned int seed,
+                            unsigned int thresh, float inv_keep, int block_q,
+                            int block_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > 128 || (dtype != 0 && dtype != 1))
+  if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
+      block_k < 0 || (block_q > 0) != (block_k > 0))
     return (int)cudaErrorInvalidValue;
+  const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64)
     return dtype == 0
         ? launch<float, 64>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                            strides, scale, causal, s)
+                            strides, scale, causal, dr, s)
         : launch<__nv_bfloat16, 64>(q, k, v, bias, out, lse, B, H, sq, sk,
-                                    d, strides, scale, causal, s);
+                                    d, strides, scale, causal, dr, s);
   return dtype == 0
       ? launch<float, 128>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                           strides, scale, causal, s)
+                           strides, scale, causal, dr, s)
       : launch<__nv_bfloat16, 128>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                                   strides, scale, causal, s);
+                                   strides, scale, causal, dr, s);
 }

@@ -1,5 +1,5 @@
-"""Linear, Embedding, LayerNorm and Dropout with the JAX package's
-parameter layouts and initialisers.
+"""Linear, Embedding, LayerNorm, Dropout and Tanh with the JAX
+package's parameter layouts and initialisers.
 
 `Linear.weight` keeps the reference's [in_features, out_features]
 layout (y = x @ W + b), so a JAX `state_dict()` loads without any
@@ -16,10 +16,32 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
+from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh"]
 
-Dropout = nn.Dropout   # upscale-in-train, identity in eval: the reference's
+
+class Dropout(nn.Module):
+    """Upscale-in-train dropout, identity in eval (the reference's).
+    `generator`: the torch.Generator its masks are drawn from, on the
+    device of the inputs (None: that device's default generator);
+    `SpmdTrainer` binds its own."""
+
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.training, self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Tanh(nn.Module):
+    def forward(self, x):
+        return F.tanh(x)
 
 
 def _param(shape, device, init=None):

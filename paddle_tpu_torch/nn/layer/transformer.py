@@ -4,9 +4,10 @@ Mirrors the JAX package's `nn/layer/transformer.py` (MultiHeadAttention,
 TransformerEncoder/Decoder, Transformer): same module tree and parameter
 names, head-batched (B, H, S, D) attention through `ops.attention`,
 which reaches the flash-forward kernel for prefill, the encoder and
-every cross-attention, and the split-K flash-decode kernel for decode
-steps. The paged cache branch and the speculative verify scope belong to
-later slices.
+every cross-attention, the split-K flash-decode kernel for decode steps,
+and in training the flash forward with in-kernel attention dropout and
+the two flash-backward kernels. The paged cache branch and the
+speculative verify scope belong to later slices.
 
 Where JAX was pure, the port updates in place: a `StaticKVCache` step
 writes the new K/V into the preallocated buffers it was given (the
@@ -30,10 +31,14 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]
 
+_ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu}
+
+
 def _activation(name):
-    if name != "relu":
-        raise ValueError(f"activation {name!r} is not ported yet (relu is)")
-    return F.relu
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"activation {name!r} is not ported yet "
+                         f"({sorted(_ACTIVATIONS)} are)")
+    return _ACTIVATIONS[name]
 
 
 class MultiHeadAttention(nn.Module):
@@ -54,6 +59,9 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.dropout = dropout
+        #: CPU torch.Generator of the per-call attention-dropout seeds
+        #: (None: torch's default CPU generator); SpmdTrainer binds its own
+        self.seed_generator = None
         kw = dict(device=device, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
@@ -68,6 +76,16 @@ class MultiHeadAttention(nn.Module):
         b, h, s, d = x.shape
         return x.transpose(1, 2).reshape(b, s, h * d)
 
+    def _attend(self, q, k, v, attn_mask, is_causal):
+        """Attention with in-kernel dropout in training: each call draws
+        its own seed."""
+        seed = None
+        if self.training and self.dropout:
+            seed = F.draw_seed(self.seed_generator)
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask, self.dropout, is_causal, self.training,
+            dropout_seed=seed)
+
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, is_causal=False):
         """Without a cache: attention over `key`/`value` (default: self).
@@ -79,9 +97,7 @@ class MultiHeadAttention(nn.Module):
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
         if isinstance(cache, self.StaticCache):
-            out = F.scaled_dot_product_attention(
-                q, cache.k, cache.v, attn_mask, self.dropout, is_causal,
-                self.training)
+            out = self._attend(q, cache.k, cache.v, attn_mask, is_causal)
             return self.out_proj(self._merge_heads(out))
         k = self._split_heads(self.k_proj(key))
         v = self._split_heads(self.v_proj(value))
@@ -93,9 +109,7 @@ class MultiHeadAttention(nn.Module):
             k = torch.cat([cache.k, k], dim=2)
             v = torch.cat([cache.v, v], dim=2)
             cache = self.Cache(k, v)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask,
-                                             self.dropout, is_causal,
-                                             self.training)
+        out = self._attend(q, k, v, attn_mask, is_causal)
         out = self.out_proj(self._merge_heads(out))
         return out if cache is None else (out, cache)
 
@@ -154,28 +168,47 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer (the reference's normalize_before=False)."""
+    """Encoder layer (the JAX `TransformerEncoderLayer`): post-norm by
+    default, pre-norm with `normalize_before`. `attn_dropout` (default
+    `dropout`) drops attention probabilities in-kernel; `act_dropout`
+    (default `dropout`) follows the activation."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
-                 activation="relu", *, device=None, generator=None):
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
-        self.self_attn = MultiHeadAttention(d_model, nhead, dropout, **kw)
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead,
+            dropout if attn_dropout is None else attn_dropout, **kw)
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
-        self.dropout_act = Dropout(dropout)
+        self.dropout_act = Dropout(dropout if act_dropout is None
+                                   else act_dropout)
         self.activation = _activation(activation)
 
     def forward(self, src, src_mask=None):
-        src = self.norm1(src + self.dropout1(
-            self.self_attn(src, src, src, src_mask)))
-        ffn = self.linear2(self.dropout_act(self.activation(
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        src = residual + self.dropout1(self.self_attn(src, src, src,
+                                                      src_mask))
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout_act(self.activation(
             self.linear1(src))))
-        return self.norm2(src + self.dropout2(ffn))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src
 
 
 class TransformerEncoder(nn.Module):

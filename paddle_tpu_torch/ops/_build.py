@@ -31,16 +31,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+#: the dropout arguments of the flash kernels: seed, keep threshold,
+#: 1/keep, logical block_q, block_k
+_DROP = [_U, _U, _F, _I, _I]
 #: argtypes of each library's C entry point (see the .cu sources)
 _SIGNATURES = {
     "flash_fwd": ("pt_flash_fwd",
                   [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _STRIDES, _F, _I, _P]),
+                   _STRIDES, _F, _I, *_DROP, _P]),
     "flash_decode": ("pt_flash_decode",
                      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _STRIDES, _F, _P]),
+    "flash_bwd_dq": ("pt_flash_bwd_dq",
+                     [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _STRIDES, _F,
+                      _I, *_DROP, _P]),
+    "flash_bwd_dkv": ("pt_flash_bwd_dkv",
+                      [_I, _I, *[_P] * 10, _I, _I, _I, _I, _I, _STRIDES, _F,
+                       _I, *_DROP, _P]),
 }
 
 _lock = threading.Lock()

@@ -159,5 +159,7 @@ def test_wrappers_count_no_launch_on_cpu():
     TA.reset_launches()
     q, k, v, lengths, bias = _decode_inputs()
     TA.flash_decode(_t(q), _t(k), _t(v), _t(lengths), _t(bias))
-    TA.flash_attention_fwd(_t(k), _t(k), _t(v), None, True)
-    assert TA.LAUNCHES == {"flash_fwd": 0, "flash_decode": 0}
+    out, lse = TA.flash_attention_fwd(_t(k), _t(k), _t(v), None, True)
+    TA.flash_attention_bwd(_t(k), _t(k), _t(v), None, out, lse, out, True)
+    assert TA.LAUNCHES == {"flash_fwd": 0, "flash_decode": 0,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}

@@ -5,11 +5,17 @@ machine that has only PyTorch for CUDA:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
-Shapes go beyond the serving path's (ragged and odd lengths, end-aligned
-causal with sq != sk, head dims 40 and 128, bf16). Tolerances: fp32
-rtol 1e-5 / atol 2e-5 (reordered sums); bf16 rtol / atol 1e-2 (the two
-sides may round an output to neighbouring bf16 values, 2^-7 apart at
-magnitude 1).
+Shapes go beyond the serving and training paths' (ragged and odd
+lengths, end-aligned causal with sq != sk, head dims 40 and 128, bf16,
+attention dropout). Tolerances: fp32 rtol 1e-5 / atol 2e-5 (reordered
+sums); bf16 rtol / atol 1e-2 (the two sides may round an output to
+neighbouring bf16 values, 2^-7 apart at magnitude 1). The backward
+kernels' fp32 gradients: rtol 1e-4 / atol 1e-4 (sums of up to sk
+products of O(1) terms in another order); bf16 gradients: the largest
+|kernel - plain| at most 1e-3 of the plain version's largest entry (both
+round ds and p to bf16 at the same points and accumulate in float32, so
+they differ only by the order of the float32 sums; a fault such as a
+missing 1/keep factor moves the largest entries by several percent).
 """
 import pytest
 import torch
@@ -17,6 +23,8 @@ import torch
 from paddle_tpu_torch.ops import attention as TA
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+GRAD_TOL = {torch.float32: (1e-4, 1e-4)}
+REL_BF16_GRAD = 1e-3     # of the plain gradient's largest entry
 
 
 @pytest.fixture
@@ -32,9 +40,9 @@ def _rand(shape, seed, dev, dtype=torch.float32):
     return torch.randn(shape, generator=g).to(dev, dtype)
 
 
-def _pad_bias(lens, sk, dev):
+def _pad_bias(lens, sk, dev, neg=-1e30):
     kpos = torch.arange(sk)
-    bias = torch.where(kpos[None] >= torch.tensor(lens)[:, None], -1e30, 0.0)
+    bias = torch.where(kpos[None] >= torch.tensor(lens)[:, None], neg, 0.0)
     return bias.float().contiguous().to(dev)
 
 
@@ -138,6 +146,17 @@ def test_sdpa_refuses_a_per_query_mask_off_the_cpu():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def test_sdpa_refuses_dropout_under_a_per_query_mask():
+    """Attention dropout rides the flash kernels only: under a mask that
+    no kernel takes, sdpa raises on the CPU too."""
+    q = _rand((2, 2, 16, 32), 16, "cpu")
+    before = dict(TA.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        TA.sdpa(q, q, q, _rich_mask(2, 16, "cpu"), dropout_p=0.1,
+                dropout_seed=3)
+    assert TA.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_sdpa_refuses_a_per_query_mask_on_card(cuda):
     q = _rand((2, 2, 16, 32), 15, cuda)
@@ -163,3 +182,118 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                                    dtype=torch.float64))
     with pytest.raises(ValueError, match="on different devices"):
         TA.flash_attention_fwd(q, q.cpu(), q)
+
+
+# b, h, sq, sk, d, causal, key lengths (None = no bias), dropout_p, dtype
+_BWD = {
+    "ernie_like_bias_dropout": (2, 3, 256, 256, 64, False, [256, 150],
+                                0.1, torch.float32),
+    "causal_bias_dropout": (1, 2, 200, 200, 64, True, [130], 0.1,
+                            torch.float32),
+    "end_aligned_sq_lt_sk": (1, 2, 77, 131, 32, True, None, 0.0,
+                             torch.float32),
+    "d128_ragged": (2, 2, 130, 130, 128, False, [60, 130], 0.2,
+                    torch.float32),
+    "bf16_bias_dropout": (2, 2, 192, 192, 64, False, [192, 100], 0.1,
+                          torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_BWD))
+def test_flash_backward_kernels_match_plain(cuda, case):
+    b, h, sq, sk, d, causal, lens, p, dt = _BWD[case]
+    q = _rand((b, sq, h, d), 21, cuda, dt).transpose(1, 2)    # strided
+    k = _rand((b, sk, h, d), 22, cuda, dt).transpose(1, 2)
+    v = _rand((b, h, sk, d), 23, cuda, dt)
+    g = _rand((b, sq, h, d), 24, cuda, dt).transpose(1, 2)
+    bias = None if lens is None else _pad_bias(lens, sk, cuda, -1e4)
+    drop = TA.drop_spec(p, -7, sq, sk, 64, 32)
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, None, drop)
+    want_out, want_lse = TA.flash_attention_fwd_plain(q, k, v, bias, causal,
+                                                      None, drop)
+    rtol, atol = TOL[dt]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
+    before = dict(TA.LAUNCHES)
+    got = TA.flash_attention_bwd(q, k, v, bias, want_out, want_lse, g,
+                                 causal, None, drop)
+    assert TA.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert TA.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = TA.flash_attention_bwd_plain(q, k, v, bias, want_out, want_lse,
+                                        g, causal, None, drop)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None
+            continue
+        if dt == torch.bfloat16:
+            err = (a.float() - w.float()).abs().max().item()
+            limit = REL_BF16_GRAD * w.float().abs().max().item()
+            assert err <= limit, f"{name}: max_abs_err {err} > {limit}"
+            continue
+        rtol, atol = GRAD_TOL[dt]
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card_matches_cpu(cuda):
+    """The autograd Function on the card against the same Function on
+    the CPU (plain versions): outputs and every gradient, dropout on.
+    The dropout bits are a hash, so both devices drop the same logits."""
+    b, h, s, d = 2, 2, 160, 64
+    lens = [160, 97]
+    res = {}
+    for dev in ("cpu", cuda):
+        q, k, v, g = (_rand((b, h, s, d), 30 + i, dev).requires_grad_(i < 3)
+                      for i in range(4))
+        bias = _pad_bias(lens, s, dev, -1e4).requires_grad_()
+        out = TA.flash_attention(q, k, v, bias, False, None, dropout_p=0.1,
+                                 dropout_seed=123)
+        (out * g).sum().backward()
+        res[str(dev)] = [t.detach().cpu() for t in
+                         (out, q.grad, k.grad, v.grad, bias.grad)]
+    for a, w in zip(res[str(cuda)], res["cpu"]):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_card_paths_never_reach_a_plain_version(cuda, monkeypatch):
+    """With every plain version (and torch's SDPA) made to raise, a bf16
+    ERNIE train step with dropout and a decode step still run on the
+    card: the wrappers launch the kernels and nothing else."""
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    from paddle_tpu_torch.text import (ErnieConfig,
+                                       ErnieForSequenceClassification)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("flash_attention_fwd_plain", "flash_attention_bwd_plain",
+                 "flash_decode_plain", "_decode_partials_plain",
+                 "sdpa_reference", "dropout_keep_reference"):
+        monkeypatch.setattr(TA, name, boom)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        boom)
+    model = ErnieForSequenceClassification(
+        ErnieConfig.tiny(), device=cuda,
+        generator=torch.Generator().manual_seed(0))
+    tr = SpmdTrainer(model, lambda out, y: torch.nn.functional.cross_entropy(
+        out.float(), y), fopt.adamw(1e-3), compute_dtype="bfloat16",
+        device=cuda)
+    ids = torch.randint(1, 1024, (2, 96), generator=torch.Generator()
+                        .manual_seed(1))
+    mask = torch.ones(2, 96)
+    mask[1, 60:] = 0
+    TA.reset_launches()
+    loss = tr.step((ids, torch.zeros_like(ids), mask), torch.tensor([0, 1]))
+    assert torch.isfinite(loss).item()
+    assert TA.LAUNCHES["flash_fwd"] == 2          # one per layer
+    assert TA.LAUNCHES["flash_bwd_dq"] == 2
+    assert TA.LAUNCHES["flash_bwd_dkv"] == 2
+    q = _rand((2, 2, 1, 32), 40, cuda)
+    kv = _rand((2, 2, 80, 32), 41, cuda)
+    TA.decode_attention(q, kv, kv, torch.tensor([80, 7], device=cuda))
+    assert TA.LAUNCHES["flash_decode"] == 1
