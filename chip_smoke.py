@@ -8,7 +8,16 @@ Phases; any failure exits nonzero before the result lines:
  1. Device: the card's name and power limit (nvidia-smi) and the build
     time of the hand-written CUDA kernels (paddle_tpu_torch/csrc).
  2. Each kernel against its plain PyTorch version on the card, at the
-    shapes the serving path gives it (fp32, atol 2e-5).
+    shapes the serving paths give it: flash_fwd and flash_decode (fp32,
+    atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
+    verify step), fp32 and bf16, ragged lengths, a key-bias hole;
+    paged_flash_decode (T 1) and paged_flash_verify (T 4, the paged
+    speculative step, and T 256, a prefix hit's tail prefill) at S8 h8
+    page 16 mp67 over a shuffled page table with trash and unmapped
+    entries, pages fp32, bf16 and int8 with scales. Limits: fp32 output
+    (fp32, bf16 or int8 pages under an fp32 query: the dequant is the
+    same arithmetic on both sides) atol 2e-5; bf16 output 1e-2 of the
+    plain version's largest entry.
  3. Serve Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
     vocab 37000; random weights from --seed) through ServingServer: 16
     requests over 8 slots, source memories of 256 tokens encoded on the
@@ -27,7 +36,32 @@ Phases; any failure exits nonzero before the result lines:
     ("ms") and with its torch combine ("with_combine_ms", the scope of
     the plain and library times). Then a second pass of 8 requests under
     torch.profiler: device time by kernel and the device's busy share.
- 5. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
+ 5. Dense speculative serve: ServingEngine(spec_k=4) with the phase-3
+    weights, 8 requests whose prompts repeat a seeded 16-token period
+    (300-1000 tokens), 32 new tokens, through ServingServer. Tokens equal
+    the phase-3 plain dense engine's on the same requests (a mismatch
+    passes only where the phase prints the first diverging step and a
+    top-2 logit margin below 1e-4 there, teacher-forced on the card).
+    Prints the acceptance rate, the effective k and tokens/s;
+    flash_verify must have launched.
+ 6. Paged serve: ServingEngine(paged=True, page_size=16, num_slots=8,
+    max_len=1056) through ServingServer, fp32 pages, 16 requests of a
+    seeded 512-token shared preamble plus a distinct 32-480-token tail
+    (one source memory, so the radix prefix cache matches the preamble).
+    Tokens equal the dense engine's request for request (or a sub-1e-4
+    tie, as in phase 5); at least one partial prefix hit (the tail
+    prefill through paged_flash_verify at T up to 512); the allocator
+    clean after the drain and every page free after a prefix flush.
+    Then the same with spec_k=4. Both paged kernels must have launched;
+    a profiled pass of 8 more requests gives the device's busy share.
+ 7. int8 pages: kv_dtype="int8", 4 of the phase-6 requests; token
+    agreement with the fp32 pages is printed, not asserted.
+ 8. Timing of flash_verify, paged_flash_decode and paged_flash_verify at
+    the phase-5/6 shapes: kernel (partials only) and with the combine,
+    the bytes / operations bound, the plain version, and SDPA on the
+    pre-gathered dense K/V with the equivalent mask (a yardstick; the
+    gather is not timed).
+ 9. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
     pad bias over ragged lengths, attention dropout 0.1 on the logical
     512 x 512 blocks): flash_fwd with dropout, flash_bwd_dq and
     flash_bwd_dkv against their plain versions on the same inputs, fp32
@@ -35,7 +69,7 @@ Phases; any failure exits nonzero before the result lines:
     and bf16 (relative to the plain version's largest entry: 1e-3 of it
     for the gradients and dbias, 1e-2 for the output, about one bf16
     rounding step).
- 6. Train ERNIE-base (hidden 768, 12 layers, 12 heads, FFN 3072, GELU,
+10. Train ERNIE-base (hidden 768, 12 layers, 12 heads, FFN 3072, GELU,
     vocab 30522, max_position 1026, 2 classes; hidden and attention
     dropout 0.1; bf16 compute on fp32 masters; AdamW lr 5e-5, weight
     decay 0.01; random weights from --seed) through SpmdTrainer for 12
@@ -45,26 +79,27 @@ Phases; any failure exits nonzero before the result lines:
     times, and every loss must be finite. Reports seq/s over the last 10
     steps, peak device memory, and (two more steps under torch.profiler)
     the device's busy share and device time by kernel.
- 7. One fp32 step of a 2-layer full-width model (attention dropout 0.1,
+11. One fp32 step of a 2-layer full-width model (attention dropout 0.1,
     hidden dropout 0, batch 2 x 1024) on the card and on the CPU (plain
     versions; the dropout bits are a device-independent hash): the
     losses agree within rtol 1e-4, all gradients within a relative L2
     distance of 1e-4, and each parameter's gradient within 1e-3 of its
     own largest entry (plus 1e-7 for gradients that are zero in exact
     arithmetic).
- 8. Timing of the training kernels at the phase-6 shapes (bf16): kernel,
+12. Timing of the training kernels at the phase-10 shapes (bf16): kernel,
     bound (published H100 SXM peaks: bf16 989 TFLOP/s, fp32 67 TFLOP/s,
     3.35 TB/s; forward 4, dq 6, dkv 8 x b*h*sq*sk*d operations), plain
     version, and torch's scaled_dot_product_attention as the yardstick
     (forward alone for flash_fwd; forward + backward for the backward
     kernels, whose sum it compares with).
- 9. Output: a {"kernels": [...]} line, then the card's name and power
+13. Output: a {"kernels": [...]} line, then the card's name and power
     limit, then {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -83,6 +118,9 @@ ATOL_LOGITS = 1e-3
 GAP = 1e-3
 D_MODEL, HEADS, LAYERS, FFN, VOCAB = 512, 8, 6, 2048, 37000
 SLOTS, REQUESTS, SRC_LEN, NEW_TOKENS, MAX_LEN = 8, 16, 256, 32, 1056
+# speculative and paged serving (phases 5-8)
+SPEC_K, PAGE, PREAMBLE, PERIOD, TIE = 4, 16, 512, 16, 1e-4
+REL_BF16_ATT = 1e-2   # bf16 attention outputs, of the plain's largest entry
 # ERNIE-base fine-tune (the JAX bench's `_ernie_long` configuration)
 E_HIDDEN, E_LAYERS, E_HEADS, E_FFN, E_VOCAB = 768, 12, 12, 3072, 30522
 E_BATCH, E_SEQ, E_STEPS, E_DROPOUT, E_LR = 8, 1024, 12, 0.1, 5e-5
@@ -422,6 +460,378 @@ def cpu_rerun(A, served):
                                  f"{served[:upto]} != CPU tokens "
                                  f"{list(toks[0][:upto])}")
 
+# --------------------------------------- verify and paged kernels (2, 8)
+
+def ver_case(g, b, h, T, L, d, lens, dtype):
+    """The dense verify step's operands: q from the [b, T, h*d]
+    projection (strided), the pool's K/V, a key-bias hole."""
+    q = torch.randn(b, T, h * d, generator=g, device="cuda").to(dtype) \
+        .view(b, T, h, d).transpose(1, 2)
+    k = torch.randn(b, h, L, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, h, L, d, generator=g, device="cuda").to(dtype)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    bias = torch.zeros(b, L, device="cuda")
+    bias[:, 20:40] = -1e30
+    return q, k, v, length, bias
+
+
+def paged_case(g, S, h, psz, mp, d, T, lens, q_dtype, kv_dtype):
+    """A paged read's operands: pages of a shuffled pool (unused pages
+    too), each slot's table entries past its written pages pointing at
+    the trash row or unmapped (-1), int8 pages with per-(page, head)
+    scales, a key-bias hole."""
+    N = S * mp + 8
+    table = torch.randperm(N, generator=g, device="cuda")[:S * mp] \
+        .reshape(S, mp).to(torch.int32)
+    for s, n in enumerate(lens):
+        table[s, -(-n // psz):] = -1 if s % 2 else N
+    raw = [torch.randn(N + 1, h, psz, d, generator=g, device="cuda")
+           for _ in range(2)]
+    scales = [None, None]
+    if kv_dtype == torch.int8:
+        for i, x in enumerate(raw):
+            sc = x.abs().amax((2, 3), keepdim=True) / 127.0
+            raw[i] = torch.round(x / sc).clamp(-127, 127)
+            scales[i] = sc.contiguous()
+    kp, vp = (x.to(kv_dtype) for x in raw)
+    q = torch.randn(S, T, h * d, generator=g, device="cuda").to(q_dtype) \
+        .view(S, T, h, d).transpose(1, 2)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    bias = torch.zeros(S, mp * psz, device="cuda")
+    bias[:, 20:40] = -1e30
+    return q, kp, vp, scales[0], scales[1], table, length, bias
+
+
+def new_kernel_cases(g):
+    """{kernel: {case: (inputs)}} at the shapes of the phase-5/6 paths."""
+    lens8 = [60, 1060, 700, 300, 129, 128, 1000, 513]
+    plens = [60, 1072, 700, 300, 129, 128, 1000, 513]
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    return {
+        "flash_verify": {
+            "spec step b8 h8 T4 L1060 fp32": ver_case(
+                g, SLOTS, HEADS, SPEC_K, MAX_LEN + SPEC_K, 64, lens8, f32),
+            "spec step b8 h8 T4 L1060 bf16": ver_case(
+                g, SLOTS, HEADS, SPEC_K, MAX_LEN + SPEC_K, 64, lens8, bf16)},
+        "paged_flash_decode": {
+            f"decode S8 h8 mp67 pages {n}": paged_case(
+                g, SLOTS, HEADS, PAGE, 67, 64, 1, plens, qd, kd)
+            for n, qd, kd in (("fp32", f32, f32), ("bf16", f32, bf16),
+                              ("int8", f32, i8), ("bf16 q bf16", bf16,
+                                                  bf16))},
+        "paged_flash_verify": {
+            **{f"spec step S8 h8 T4 mp67 pages {n}": paged_case(
+                g, SLOTS, HEADS, PAGE, 67, 64, SPEC_K, plens, qd, kd)
+               for n, qd, kd in (("fp32", f32, f32), ("bf16", f32, bf16),
+                                 ("int8", f32, i8),
+                                 ("bf16 q bf16", bf16, bf16))},
+            **{f"tail prefill S8 h8 T256 mp67 pages {n}": paged_case(
+                g, SLOTS, HEADS, PAGE, 67, 64, 256,
+                [max(256, x) for x in plens], qd, kd)
+               for n, qd, kd in (("fp32", f32, f32), ("int8", f32, i8))}},
+    }
+
+
+def check_new_kernels(A, cases):
+    """Phase 2, second part: flash_verify, paged_flash_decode and
+    paged_flash_verify against their plain versions. Returns
+    ({kernel: max_abs_err of the fp32-output cases}, {kernel: the same
+    for the bf16-output cases})."""
+    errs, errs16 = {}, {}
+    for kname, group in cases.items():
+        wrapper, plain = getattr(A, kname), getattr(A, kname + "_plain")
+        for cname, args in group.items():
+            got, want = wrapper(*args), plain(*args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            if got.dtype == torch.float32:
+                limit, into = ATOL_KERNEL, errs
+            else:
+                limit = REL_BF16_ATT * want.float().abs().max().item()
+                into = errs16
+            log(f"  {kname:18s} {cname}: max_abs_err {e:.3e} (limit "
+                f"{limit:.3e})")
+            if not e <= limit:
+                raise AssertionError(f"{kname} disagrees with its plain "
+                                     f"version on {cname}: {e}")
+            into[kname] = max(into.get(kname, 0.0), e)
+    return errs, errs16
+
+
+def _visible(length, T):
+    """Key-query pairs one row of a T-token verify block sees."""
+    return sum(int(length) - T + t + 1 for t in range(T))
+
+
+def read_numbers(A, kname, args):
+    """Phase 8: kernel (partials only) and with the combine, bound, plain
+    version, and SDPA on the pre-gathered dense K/V with the equivalent
+    [b, 1, T, L] mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kname == "flash_verify":
+        q, k, v, length, bias = args
+        kd, vd, elt, extra = k, v, k.element_size(), 0
+        kern = lambda: A._verify_partials_cuda(      # noqa: E731
+            q, k, v, length, bias, None, A.DECODE_SPLIT)
+        ns = -(-k.shape[2] // A.DECODE_SPLIT)
+    else:
+        q, kp, vp, ks, vs, table, length, bias = args
+        kd = A.paged_gather_kv(kp, ks, table, q.dtype)
+        vd = A.paged_gather_kv(vp, vs, table, q.dtype)
+        elt = kp.element_size()
+        psz = kp.shape[2]
+        # the table, and the scales of every page a row reads
+        extra = table.numel() * 4 + (0 if ks is None else 2 * 4 * q.shape[1]
+                                     * sum(-(-int(n) // psz) for n in length))
+        kern = lambda: A._paged_partials_cuda(       # noqa: E731
+            kname, q, kp, vp, ks, vs, table, length, bias, None)
+        ns = -(-table.shape[1] // A._pages_per_split(psz))
+    b, h, T, d = q.shape
+    L = kd.shape[2]
+    n = sum(int(x) for x in length)             # keys this data needs
+    pairs = sum(_visible(x, T) for x in length)
+    nbytes = (2.0 * n * h * d * elt + q.numel() * q.element_size()
+              + 4.0 * (bias.numel() + b + b * h * ns * T * (d + 2)) + extra)
+    flops = 4.0 * pairs * h * d
+    kpos = torch.arange(L, device="cuda")
+    qpos = length[:, None].long() - T + torch.arange(T, device="cuda")
+    mask = (torch.where(kpos[None, None] <= qpos[:, :, None], 0.0, -1e30)
+            + bias[:, None, :])[:, None].to(q.dtype)
+    ms = device_ms(kern)
+    whole = device_ms(lambda: getattr(A, kname)(*args))
+    plain = device_ms(lambda: getattr(A, kname + "_plain")(*args))
+    lib = device_ms(lambda: sdpa(q, kd, vd, attn_mask=mask))
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+# ------------------------------------------- speculative and paged serves
+
+def run_server(engine, prompts, memories, new_tokens=NEW_TOKENS):
+    """Serve the requests through a new ServingServer on `engine`.
+    Returns (tokens per request, wall seconds)."""
+    from paddle_tpu_torch.serving import ServingServer
+
+    server = ServingServer(engine, max_queue=len(prompts))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        reqs = [server.submit(p, m, max_new_tokens=new_tokens, eos_id=1)
+                for p, m in zip(prompts, memories)]
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown(drain=True, timeout=60)
+    for i, res in enumerate(results):
+        if not res.ok:
+            raise AssertionError(f"request {i} finished {res.finish_reason}"
+                                 f": {res.error!r}")
+    return [list(r.tokens) for r in results], wall
+
+
+def top2_margin(net, prompt, memory, toks, j):
+    """Top-2 logit margin of generated step j, teacher-forced on the card
+    with the first j tokens (the serving layout: prompt bucket with its
+    pad hole, then the generated tokens)."""
+    from paddle_tpu_torch.core.bucketing import pad_prompt_row
+    from paddle_tpu_torch.text.generation import pad_bias_row
+
+    row, P0, Pb = pad_prompt_row(prompt, 1)
+    seq = np.concatenate([row[0], np.asarray(toks[:j], np.int64)])
+    x = torch.as_tensor(seq, device="cuda")[None]
+    bias = pad_bias_row([P0], Pb, len(seq), "cuda")
+    with torch.inference_mode():
+        out = net.decoder(net.embed(x), memory[None].to("cuda"),
+                          bias[:, None, None, :], None, tgt_is_causal=True)
+        lg = net.project(out)[0, P0 - 1 if j == 0 else Pb + j - 1]
+    top = lg.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def same_tokens(label, want, got, net, prompts, memories):
+    """Request-for-request token equality; a divergence passes only at a
+    top-2 margin below TIE (printed). Returns the count of tied requests."""
+    ties = 0
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        j = next((t for t, (a, b) in enumerate(zip(w, g)) if a != b),
+                 min(len(w), len(g)))
+        margin = top2_margin(net, prompts[i], memories[i], w, j)
+        log(f"  {label} request {i}: first diverging step {j} "
+            f"({w[j:j + 1]} vs {g[j:j + 1]}), top-2 logit margin "
+            f"{margin:.3e}")
+        if not margin < TIE:
+            raise AssertionError(f"{label}: request {i} diverges at step {j} "
+                                 f"with a top-2 margin of {margin}")
+        ties += 1
+    return ties
+
+
+def spec_serve(A, seed, model, embed, project, dense, memory):
+    """Phase 5. Returns (launches, snapshot, tokens/s)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    rs = np.random.RandomState(seed + 5)
+    prompts = []
+    for _ in range(SLOTS):
+        p = np.resize(rs.randint(2, VOCAB, PERIOD), int(rs.randint(300, 1001)))
+        p[0] = 0
+        prompts.append(p)
+    mems = [memory[i] for i in range(SLOTS)]
+    want, _ = run_server(dense, prompts, mems)
+    engine = ServingEngine(model.decoder, embed, project, num_slots=SLOTS,
+                           max_len=MAX_LEN, spec_k=SPEC_K, device="cuda")
+    A.reset_launches()
+    got, wall = run_server(engine, prompts, mems)
+    launches = dict(A.LAUNCHES)
+    snap = engine.metrics.snapshot()
+    net = _StepNet(model.decoder, embed, project).eval()
+    ties = same_tokens("spec", want, got, net, prompts, mems)
+    sp = snap["speculation"]
+    n_tok = sum(len(t) for t in got)
+    log(f"  {SLOTS} requests, {n_tok} tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.1f} tokens/s; acceptance rate "
+        f"{sp['acceptance_rate']}, effective_k {sp['effective_k']}, "
+        f"{sp['rounds']} rounds, p50 verify step "
+        f"{sp['verify_step_ms'].get('p50', 0):.2f} ms; tokens equal the "
+        f"dense engine's ({ties} ties); launches {launches}")
+    if launches["flash_verify"] < 1:
+        raise AssertionError("flash_verify was never launched while serving")
+    return launches, snap, n_tok / wall
+
+
+def paged_requests(seed, n, memory):
+    rs = np.random.RandomState(seed)
+    pre = rs.randint(2, VOCAB, PREAMBLE)
+    pre[0] = 0
+    prompts = [np.concatenate([pre, rs.randint(2, VOCAB,
+                                              int(rs.randint(32, 481)))])
+               for _ in range(n)]
+    return prompts, [memory] * n
+
+
+def paged_serve(A, seed, model, embed, project, dense, memory):
+    """Phase 6 (and the engine of phase 7). Returns ({path: launches},
+    {path: snapshot}, {path: tokens/s}, fp32 tokens, prompts, memories)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    prompts, mems = paged_requests(seed + 6, REQUESTS, memory)
+    want, _ = run_server(dense, prompts, mems)
+    net = _StepNet(model.decoder, embed, project).eval()
+    launches, snaps, rates, engines = {}, {}, {}, {}
+    for path, spec_k in (("paged", None), ("paged_spec", SPEC_K)):
+        engine = ServingEngine(model.decoder, embed, project, paged=True,
+                               page_size=PAGE, num_slots=SLOTS,
+                               max_len=MAX_LEN, spec_k=spec_k, device="cuda")
+        A.reset_launches()
+        got, wall = run_server(engine, prompts, mems)
+        launches[path] = dict(A.LAUNCHES)
+        snaps[path] = snap = engine.metrics.snapshot()
+        engine._alloc.check()
+        ties = same_tokens(path, want, got, net, prompts, mems)
+        if path == "paged":
+            fp32_tokens = got
+        pre, pg = snap["prefix"], snap["paging"]
+        n_tok = sum(len(t) for t in got)
+        rates[path] = n_tok / wall
+        extra = ""
+        if spec_k:
+            sp = snap["speculation"]
+            extra = (f"; acceptance rate {sp['acceptance_rate']}, "
+                     f"effective_k {sp['effective_k']}")
+        log(f"  {path}: {REQUESTS} requests, {n_tok} tokens in {wall:.3f} s:"
+            f" {rates[path]:.1f} tokens/s; p50 TTFT "
+            f"{snap['ttft_ms']['p50']:.1f} ms; prefix whole/partial/miss "
+            f"{pre['whole_hits']}/{pre['partial_hits']}/{pre['misses']}, "
+            f"hit-token ratio {pre['hit_token_ratio']}, cow {pre['cow_copies']}"
+            f"; pages in use {pg['pages_in_use']} of {engine.num_pages}, "
+            f"waits {pg['page_waits']}, oom {pg['oom_evictions']}{extra}; "
+            f"tokens equal the dense engine's ({ties} ties); launches "
+            f"{launches[path]}")
+        if pre["partial_hits"] < 1:
+            raise AssertionError(f"{path}: no partial prefix hit")
+        need = ["paged_flash_verify"] + ([] if spec_k else
+                                         ["paged_flash_decode"])
+        for name in need:
+            if launches[path][name] < 1:
+                raise AssertionError(f"{name} was never launched on {path}")
+        engines[path] = engine
+    # a profiled pass of SLOTS more requests (new tails: partial hits)
+    more, more_mems = paged_requests(seed + 6, REQUESTS + SLOTS, memory)
+    # flash_fwd_kernel: prefill of the cold join; split_attn_kernel: the
+    # paged decode and verify kernels (one template)
+    profile_pass(engines["paged"], more[REQUESTS:], more_mems[REQUESTS:],
+                 ("flash_fwd_kernel", "split_attn_kernel"))
+    for path, engine in engines.items():
+        engine.flush_prefix_cache()
+        engine._alloc.check()
+        if engine._alloc.pages_free != engine.num_pages:
+            raise AssertionError(f"{path}: pages leaked after the drain")
+    log(f"  allocators clean after the drain; all pages free after the "
+        f"prefix flush")
+    return launches, snaps, rates, fp32_tokens, prompts, mems
+
+
+def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
+    """Phase 7: int8 pages; agreement with the fp32 pages printed."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(model.decoder, embed, project, paged=True,
+                           page_size=PAGE, num_slots=SLOTS, max_len=MAX_LEN,
+                           kv_dtype="int8", device="cuda")
+    A.reset_launches()
+    got, wall = run_server(engine, prompts[:4], mems[:4])
+    launches = dict(A.LAUNCHES)
+    agree = int(sum(a == b for g, w in zip(got, fp32_tokens)
+                    for a, b in zip(g, w)))
+    first = [next((t for t, (a, b) in enumerate(zip(g, w)) if a != b),
+                  len(g)) for g, w in zip(got, fp32_tokens)]
+    log(f"  int8 pages: 4 requests in {wall:.3f} s; {agree} of "
+        f"{sum(len(t) for t in got)} tokens equal the fp32 pages' "
+        f"(tokens before the first difference: {first}); launches "
+        f"{launches}")
+    return {"agree": agree, "first_difference": first}
+
+
+def profile_pass(engine, prompts, memories, kernel_names):
+    """A pass under torch.profiler: wall, the device's busy share, and
+    device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_server(engine, prompts, memories)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_rows(prof)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        log("  profiler recorded no device time: breakdown not measured")
+        return
+    groups = {k: 0.0 for k in (*kernel_names, "gemm", "other")}
+    for ms, _, key in rows:
+        low = key.lower()
+        grp = next((k for k in kernel_names if k in key), None)
+        if grp is None:
+            grp = ("gemm" if "gemm" in low or "cutlass" in low
+                   or "nvjet" in low else "other")
+        groups[grp] += ms
+    log(f"  profiled {len(prompts)} requests: wall {wall * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
+        f"{100 * (1 - busy / (wall * 1e3)):.1f}%")
+    log("  device ms by group: " + ", ".join(
+        f"{k} {v:.2f} ({100 * v / busy:.1f}%)" for k, v in groups.items()))
+    for ms, n, key in sorted(rows, reverse=True)[:6]:
+        log(f"    {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+
+
 # ------------------------------------------------------------- training
 
 def train_case(g, dtype, seed=1234):
@@ -447,7 +857,7 @@ def train_case(g, dtype, seed=1234):
 
 
 def check_train_kernels(A, g):
-    """Phase 5: the three training kernels against their plain versions
+    """Phase 9: the three training kernels against their plain versions
     at the ERNIE shapes, fp32 and bf16. Returns ({kernel: max_abs_err
     fp32}, {kernel: max_abs_err bf16}, bf16 inputs)."""
     errs, errs16 = {}, {}
@@ -522,7 +932,7 @@ def ce_loss(logits, labels):
 
 
 def train(A, seed):
-    """Phase 6. Returns (launches, losses, seq/s, peak bytes, trainer,
+    """Phase 10. Returns (launches, losses, seq/s, peak bytes, trainer,
     batch)."""
     from paddle_tpu_torch.optimizer import functional as fopt
     from paddle_tpu_torch.parallel import SpmdTrainer
@@ -560,7 +970,7 @@ def train(A, seed):
 
 
 def profile_training(tr, batch, steps=2):
-    """Phase 6b: two more steps under torch.profiler: the device's busy
+    """Phase 10b: two more steps under torch.profiler: the device's busy
     share of the window and device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -600,7 +1010,7 @@ def profile_training(tr, batch, steps=2):
 
 
 def card_vs_cpu_step(seed):
-    """Phase 7: one fp32 forward + backward of a 2-layer full-width
+    """Phase 11: one fp32 forward + backward of a 2-layer full-width
     model with attention dropout on the card and on the CPU."""
     from paddle_tpu_torch.optimizer import functional as fopt
     from paddle_tpu_torch.parallel import SpmdTrainer
@@ -641,7 +1051,7 @@ def card_vs_cpu_step(seed):
 
 
 def train_numbers(A, case):
-    """Phase 8: each training kernel's time at the main path's shapes
+    """Phase 12: each training kernel's time at the main path's shapes
     (bf16), its bound, its plain version's and the library yardstick."""
     q, k, v, bias, do, drop = case
     b, h, s, d = q.shape
@@ -726,9 +1136,11 @@ def main():
         f"{_build.build_info().get('compiled', [])})")
 
     log("phase 2: kernels against their plain versions (fp32, atol "
-        f"{ATOL_KERNEL})")
+        f"{ATOL_KERNEL}; bf16 {REL_BF16_ATT} of the largest plain entry)")
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     errs, fwd, dec = check_kernels(A, g)
+    new_cases = new_kernel_cases(g)
+    new_errs, new_errs16 = check_new_kernels(A, new_cases)
 
     log(f"phase 3: serve Transformer-base, {REQUESTS} requests over "
         f"{SLOTS} slots")
@@ -767,14 +1179,83 @@ def main():
             "shape": head["case"],
             "launches_per_token": launches[kname] / n_tok, "cases": rows}
     profile_serving(engine, served[3], served[4])
-    del served, engine
+    model, embed, project, memory = served[0], served[1], served[2], \
+        served[4]
+
+    log(f"phase 5: dense speculative serve, spec_k {SPEC_K}, {SLOTS} "
+        f"requests with a {PERIOD}-token period")
+    s_launches, s_snap, s_rate = spec_serve(A, args.seed, model, embed,
+                                            project, engine, memory)
+
+    log(f"phase 6: paged serve, page {PAGE}, {REQUESTS} requests with a "
+        f"{PREAMBLE}-token shared preamble; then with spec_k {SPEC_K}")
+    p_launches, p_snaps, p_rates, p_tokens, p_prompts, p_mems = paged_serve(
+        A, args.seed, model, embed, project, engine, memory[0])
+
+    log("phase 7: int8 pages, 4 requests")
+    int8 = int8_serve(A, model, embed, project, p_prompts, p_mems, p_tokens)
+
+    log("phase 8: timing of flash_verify, paged_flash_decode and "
+        "paged_flash_verify (median of 25, ms)")
+    new_launches = {
+        "flash_verify": s_launches["flash_verify"],
+        "paged_flash_decode": p_launches["paged"]["paged_flash_decode"],
+        "paged_flash_verify": p_launches["paged"]["paged_flash_verify"]
+        + p_launches["paged_spec"]["paged_flash_verify"]}
+    timed = {"flash_verify": ("spec step b8 h8 T4 L1060 fp32",),
+             "paged_flash_decode": ("decode S8 h8 mp67 pages fp32",
+                                    "decode S8 h8 mp67 pages int8"),
+             "paged_flash_verify": ("spec step S8 h8 T4 mp67 pages fp32",
+                                    "tail prefill S8 h8 T256 mp67 pages "
+                                    "fp32")}
+    sources = {"flash_verify": ("flash_verify.cu", 1580),
+               "paged_flash_decode": ("paged_decode.cu", 1750),
+               "paged_flash_verify": ("paged_verify.cu", 1939)}
+    for kname, cnames in timed.items():
+        rows = []
+        for cname in cnames:
+            nums = read_numbers(A, kname, new_cases[kname][cname])
+            rows.append(dict(case=cname, **nums))
+            log(f"  {kname} {cname}: kernel {nums['ms']:.4f} (with combine "
+                f"{nums['with_combine_ms']:.4f}) bound {nums['bound_ms']:.4f}"
+                f" ({nums['bound_by']}) plain {nums['plain_ms']:.4f} sdpa "
+                f"{nums['library_ms']:.4f}")
+        head = rows[0]
+        src, line = sources[kname]
+        kernels[kname] = {
+            "name": kname, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": f"paddle_tpu/ops/attention.py:{line}",
+            "launches": new_launches[kname],
+            "max_abs_err": new_errs[kname],
+            "max_abs_err_bf16": new_errs16.get(kname),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["case"],
+            "cases": rows}
+    kernels["paged_flash_verify"]["launches_by_path"] = {
+        "paged": p_launches["paged"]["paged_flash_verify"],
+        "paged_spec": p_launches["paged_spec"]["paged_flash_verify"]}
+    serving = {"dense_tokens_per_s": n_tok / wall,
+               "spec_tokens_per_s": s_rate,
+               "spec_acceptance_rate":
+                   s_snap["speculation"]["acceptance_rate"],
+               "paged_tokens_per_s": p_rates["paged"],
+               "paged_spec_tokens_per_s": p_rates["paged_spec"],
+               "paged_prefix": p_snaps["paged"]["prefix"],
+               "int8_tokens_equal_fp32": int8["agree"]}
+    log(f"  serving summary {json.dumps(serving)}")
+    # the serving engines hold reference cycles (engine <-> layout): free
+    # their pools now, so the training phases' peak memory is their own
+    del served, engine, model, embed, project, memory, new_cases
+    gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 5: training kernels against their plain versions at the "
+    log("phase 9: training kernels against their plain versions at the "
         "ERNIE-base shapes")
     t_errs, t_errs16, t_case = check_train_kernels(A, g)
 
-    log(f"phase 6: train ERNIE-base, {E_STEPS} steps of {E_BATCH} x "
+    log(f"phase 10: train ERNIE-base, {E_STEPS} steps of {E_BATCH} x "
         f"{E_SEQ} tokens, bf16 compute, dropout {E_DROPOUT}")
     t_launches, losses, seq_s, peak, tr, batch = train(A, args.seed)
     log(f"  losses {[round(x, 4) for x in losses]}")
@@ -784,18 +1265,22 @@ def main():
     del tr, batch
     torch.cuda.empty_cache()
 
-    log("phase 7: one fp32 step of a 2-layer full-width model on the card "
+    log("phase 11: one fp32 step of a 2-layer full-width model on the card "
         "and on the CPU (attention dropout 0.1)")
     card_vs_cpu_step(args.seed)
 
-    log("phase 8: timing of the training kernels (bf16, median, ms)")
+    log("phase 12: timing of the training kernels (bf16, median, ms)")
     t_rows = train_numbers(A, t_case)
     kernels["flash_fwd"]["cases"].append(dict(
         case="train b8 h12 s1024 d64 bf16 bias dropout 0.1",
         **t_rows["flash_fwd"]))
-    kernels["flash_fwd"]["launches_by_path"] = {
-        "serve": launches["flash_fwd"], "train": t_launches["flash_fwd"]}
-    kernels["flash_fwd"]["launches"] += t_launches["flash_fwd"]
+    by_path = {"serve": launches["flash_fwd"],
+               "spec": s_launches["flash_fwd"],
+               "paged": p_launches["paged"]["flash_fwd"],
+               "paged_spec": p_launches["paged_spec"]["flash_fwd"],
+               "train": t_launches["flash_fwd"]}
+    kernels["flash_fwd"]["launches_by_path"] = by_path
+    kernels["flash_fwd"]["launches"] = sum(by_path.values())
     kernels["flash_fwd"]["max_abs_err"] = max(errs["flash_fwd"],
                                               t_errs["flash_fwd"])
     for kname, line in (("flash_bwd_dq", 591), ("flash_bwd_dkv", 721)):

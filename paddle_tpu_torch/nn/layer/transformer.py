@@ -5,9 +5,10 @@ TransformerEncoder/Decoder, Transformer): same module tree and parameter
 names, head-batched (B, H, S, D) attention through `ops.attention`,
 which reaches the flash-forward kernel for prefill, the encoder and
 every cross-attention, the split-K flash-decode kernel for decode steps,
-and in training the flash forward with in-kernel attention dropout and
-the two flash-backward kernels. The paged cache branch and the
-speculative verify scope belong to later slices.
+the flash-verify kernel for speculative verify blocks (inside
+`ops.attention.kv_verify_scope`), the paged decode and verify kernels
+for a `PagedKVCache`, and in training the flash forward with in-kernel
+attention dropout and the two flash-backward kernels.
 
 Where JAX was pure, the port updates in place: a `StaticKVCache` step
 writes the new K/V into the preallocated buffers it was given (the
@@ -24,6 +25,7 @@ from torch import nn
 
 from ...core.device import resolve_device
 from ...ops import attention as A
+from ...serving import paging as PG
 from .. import functional as F
 from .common import Dropout, LayerNorm, Linear
 
@@ -101,6 +103,9 @@ class MultiHeadAttention(nn.Module):
             return self.out_proj(self._merge_heads(out))
         k = self._split_heads(self.k_proj(key))
         v = self._split_heads(self.v_proj(value))
+        if isinstance(cache, PG.PagedKVCache):
+            out, cache = self._paged_kv_attention(q, k, v, attn_mask, cache)
+            return self.out_proj(self._merge_heads(out)), cache
         if isinstance(cache, self.StaticKVCache):
             out, cache = self._static_kv_attention(q, k, v, attn_mask,
                                                    cache)
@@ -119,16 +124,25 @@ class MultiHeadAttention(nn.Module):
         place and the query attends over the written positions through
         the split-K flash decode. S > 1 is the prefill of an EMPTY
         cache: the block lands at positions [0, S) in place and attends
-        causally within itself through the flash forward. `attn_mask`:
-        optional [B, max_len] (or [B, 1, 1, max_len]) key bias for the
-        pad hole."""
+        causally within itself through the flash forward. Inside
+        `ops.attention.kv_verify_scope` an S > 1 block is instead a
+        speculative VERIFY block: the S tokens land at each row's own
+        write offset and attend causally within the block through the
+        flash verify (rolling the index back is the caller's acceptance
+        logic). `attn_mask`: optional [B, max_len] (or [B, 1, 1,
+        max_len]) key bias for the pad hole."""
         kbuf, vbuf, idx = cache.k, cache.v, cache.index
         b, h, s, d = q.shape
-        if s == 1:
-            rows = torch.arange(b, device=kbuf.device)
-            pos = idx.long()
-            kbuf[rows, :, pos] = k[:, :, 0].to(kbuf.dtype)
-            vbuf[rows, :, pos] = v[:, :, 0].to(vbuf.dtype)
+        verify = s > 1 and A.in_kv_verify_scope()
+        if s == 1 or verify:
+            # per-ROW write positions (a block that would run past the
+            # buffer starts at L - s, as the JAX dynamic_update_slice
+            # clamps)
+            rows = torch.arange(b, device=kbuf.device)[:, None]
+            start = torch.clamp(idx.long(), max=kbuf.shape[2] - s)
+            pos = start[:, None] + torch.arange(s, device=kbuf.device)[None]
+            kbuf[rows, :, pos] = k.transpose(1, 2).to(kbuf.dtype)
+            vbuf[rows, :, pos] = v.transpose(1, 2).to(vbuf.dtype)
         else:
             kbuf[:, :, :s] = k.to(kbuf.dtype)
             vbuf[:, :, :s] = v.to(vbuf.dtype)
@@ -138,10 +152,83 @@ class MultiHeadAttention(nn.Module):
             mask = mask.reshape(mask.shape[0], mask.shape[-1])
         if s == 1:
             out = A.decode_attention(q, kbuf, vbuf, idx + 1, bias=mask)
+        elif verify:
+            out = A.verify_attention(q, kbuf, vbuf, idx + s, bias=mask)
         else:
             bias4 = None if mask is None else mask.float()[:, None, None, :]
             out = A.sdpa(q, k, v, bias4, is_causal=True)
         return out, new_cache
+
+    def _paged_kv_attention(self, q, k, v, attn_mask, cache):
+        """Attention through a paged pool (serving only): the S == 1
+        decode token, or inside `kv_verify_scope` an S-token verify block,
+        is written (quantized when the pages are int8, rescaling a page
+        its token outranges) into the physical pages the slot's table
+        maps for its write positions, in place; then the queries attend
+        over the pages through the paged decode or verify dispatch. A
+        multi-token call outside the verify scope raises: prompt prefill
+        runs into a dense batch-1 cache that the serving join scatters
+        into pages (`paged_prompt_splice`)."""
+        b, h, s, d = q.shape
+        verify = s > 1 and A.in_kv_verify_scope()
+        if s != 1 and not verify:
+            raise ValueError(
+                "PagedKVCache attention is decode-only (one query token per "
+                "slot); prefill goes through the join path, and a "
+                "multi-token speculative verify block rides "
+                "ops.attention.kv_verify_scope")
+        idx, table = cache.index, cache.table
+        PG.write_tokens(cache.k, cache.k_scale, table, idx, k)
+        PG.write_tokens(cache.v, cache.v_scale, table, idx, v)
+        new_cache = cache._replace(index=idx + s)
+        mask = attn_mask
+        if mask is not None and mask.dim() > 2:
+            mask = mask.reshape(mask.shape[0], mask.shape[-1])
+        read = A.paged_verify_attention if verify else \
+            A.paged_decode_attention
+        out = read(q, cache.k, cache.v, cache.k_scale, cache.v_scale, table,
+                   idx + s, bias=mask)
+        return out, new_cache
+
+    def gen_paged_cache(self, num_pages, page_size, num_slots, max_pages,
+                        dtype, kv_dtype=None):
+        """Per-layer paged pool: zeroed [num_pages + 1, H, page_size, D]
+        K and V page tensors (the +1 row is the trash page inactive
+        slots' masked writes land on), per-(page, head) scales when
+        kv_dtype is int8, an unmapped (trash-clipped) table and zero
+        write indices. K and V are separate tensors, since steps write
+        them in place. The serving engine owns the host-side
+        PageAllocator and page table; this only shapes the device
+        state."""
+        dev = self.q_proj.weight.device
+        storage, quantized = PG.resolve_kv_dtype(kv_dtype, dtype)
+        shape = (int(num_pages) + 1, self.num_heads, int(page_size),
+                 self.head_dim)
+
+        def scales():
+            return torch.zeros((int(num_pages) + 1, self.num_heads, 1, 1),
+                               dtype=torch.float32, device=dev)
+
+        return PG.PagedKVCache(
+            torch.zeros(shape, dtype=storage, device=dev),
+            torch.zeros(shape, dtype=storage, device=dev),
+            scales() if quantized else None, scales() if quantized else None,
+            torch.full((int(num_slots), int(max_pages)), int(num_pages),
+                       dtype=torch.int32, device=dev),
+            torch.zeros((int(num_slots),), dtype=torch.int32, device=dev))
+
+    @staticmethod
+    def paged_prompt_splice(cache, page_ids, k_new, v_new):
+        """Slot JOIN for paged pools: scatter a prefilled [1, H, P, D] K/V
+        block into the physical pages `page_ids` ([ceil(P / page_size)]),
+        quantizing per page when the pages are int8, in place. Returns
+        the cache."""
+        quantized = cache.k_scale is not None
+        PG.write_prompt_pages(cache.k, cache.k_scale, page_ids, k_new,
+                              quantized)
+        PG.write_prompt_pages(cache.v, cache.v_scale, page_ids, v_new,
+                              quantized)
+        return cache
 
     def gen_cache(self, key, value=None, type=None, max_length=None,
                   batch_size=None, dtype=None):

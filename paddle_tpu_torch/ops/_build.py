@@ -37,6 +37,9 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 #: the dropout arguments of the flash kernels: seed, keep threshold,
 #: 1/keep, logical block_q, block_k
 _DROP = [_U, _U, _F, _I, _I]
+#: the paged kernels: device, q dtype, page dtype, 11 pointers, S, H, T,
+#: mp, psz, n_rows, d, pages_per_split, strides, scale, stream
+_PAGED = [_I, _I, _I, *[_P] * 11, *[_I] * 8, _STRIDES, _F, _P]
 #: argtypes of each library's C entry point (see the .cu sources)
 _SIGNATURES = {
     "flash_fwd": ("pt_flash_fwd",
@@ -51,6 +54,11 @@ _SIGNATURES = {
     "flash_bwd_dkv": ("pt_flash_bwd_dkv",
                       [_I, _I, *[_P] * 10, _I, _I, _I, _I, _I, _STRIDES, _F,
                        _I, *_DROP, _P]),
+    "flash_verify": ("pt_flash_verify",
+                     [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _STRIDES, _F,
+                      _P]),
+    "paged_decode": ("pt_paged_decode", _PAGED),
+    "paged_verify": ("pt_paged_verify", _PAGED),
 }
 
 _lock = threading.Lock()

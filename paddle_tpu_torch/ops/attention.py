@@ -20,6 +20,15 @@ package's `ops/attention.py`.
     against a preallocated KV cache, split-K over the cache length with
     per-row written lengths; the logsumexp combine of the per-split
     partials runs here as torch ops (the JAX package does it in XLA).
+  * `flash_verify` -> `csrc/flash_verify.cu`: the speculative-decoding
+    VERIFY block, T query tokens per row just written at the row's own
+    offset, causal within the block (key j visible to row i while
+    j <= length - T + i), split-K like the decode.
+  * `paged_flash_decode` -> `csrc/paged_decode.cu` and
+    `paged_flash_verify` -> `csrc/paged_verify.cu`: the same two reads
+    through a paged pool ([N+1, h, page_size, d] pages, row N the trash
+    page, a [S, max_pages] page table, int8 pages dequantized by
+    per-(page, head) scales), without a dense copy of the cache.
 
 Attention dropout is the JAX package's counter hash (`_hash_bits`), not
 torch's RNG: the keep bit of logit (row, col) is a murmur3-finalised
@@ -38,11 +47,17 @@ flash kernels. A richer (per-query or per-head) mask goes to the
 `sdpa_reference` composition on the CPU only and without attention
 dropout; on the card, or with dropout, it raises, since no kernel takes
 such a mask yet (pass a [b, sk] key bias with `is_causal` instead).
+The paged dispatchers follow the JAX fallback on the CPU: gather the
+dense logical view of the pages, then run the same plain dense decode or
+verify that the dense pool runs, so fp32 pages serve the dense pool's
+tokens bit for bit; on the card they launch the paged kernels.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -54,16 +69,24 @@ __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
-           "flash_decode_plain", "sdpa", "decode_attention", "DECODE_SPLIT"]
+           "flash_decode_plain", "sdpa", "decode_attention", "DECODE_SPLIT",
+           "kv_verify_scope", "in_kv_verify_scope",
+           "verify_attention_reference", "flash_verify", "flash_verify_plain",
+           "verify_attention", "paged_gather_kv", "paged_flash_decode",
+           "paged_flash_decode_plain", "paged_decode_attention",
+           "paged_flash_verify", "paged_flash_verify_plain",
+           "paged_verify_attention"]
 
 NEG = -1e30
-#: keys per split of the decode kernel: 128 keys keep a [8 x 8 heads]
-#: decode batch at ~1k cached tokens above 500 blocks on 132 SMs
+#: keys per split of the decode and verify kernels (dense and paged):
+#: 128 keys keep a [8 x 8 heads] decode batch at ~1k cached tokens above
+#: 500 blocks on 132 SMs
 DECODE_SPLIT = 128
 #: kernel launches per wrapper; each wrapper adds one where it launches
 #: its kernel and nowhere else (plain CPU runs do not count)
 LAUNCHES = {"flash_fwd": 0, "flash_decode": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "flash_verify": 0, "paged_flash_decode": 0,
+            "paged_flash_verify": 0}
 
 
 def reset_launches():
@@ -691,6 +714,338 @@ def flash_decode(q, k, v, length, bias=None, scale=None):
 
 
 # --------------------------------------------------------------------------
+# verify-mode attention: a T-token draft-verify block against the cache
+# --------------------------------------------------------------------------
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def kv_verify_scope():
+    """While set (on this thread), a multi-token `MultiHeadAttention` call
+    against a preallocated cache (dense or paged) is a speculative
+    VERIFY block: the T tokens land at each row's own write offset and
+    attend causally within the block through `verify_attention`,
+    instead of prefilling an empty cache. Rolling the write index back
+    afterwards is the caller's acceptance logic."""
+    prev = in_kv_verify_scope()
+    _SCOPE.verify = True
+    try:
+        yield
+    finally:
+        _SCOPE.verify = prev
+
+
+def in_kv_verify_scope():
+    return getattr(_SCOPE, "verify", False)
+
+
+def _verify_lengths(name, q, k, length):
+    b, h, T, d = q.shape
+    if T < 1 or k.shape[2] < T:
+        raise ValueError(f"{name}: {T} query tokens against a cache of "
+                         f"{k.shape[2]}")
+    return _lengths(length, b, q.device)
+
+
+def verify_attention_reference(q, k, v, length, bias=None, scale=None):
+    """Plain verify attention: q [b, h, T, d] are T tokens just written
+    into k/v [b, h, L, d] at each row's own offset; `length` (an int or
+    [b]) counts the written keys AFTER that write, so query i sits at
+    position length - T + i and sees keys <= its own position. bias: an
+    optional [b, L] additive key bias. With T == 1 this is
+    `decode_attention_reference`."""
+    b, h, T, d = q.shape
+    L = k.shape[2]
+    length = _verify_lengths("verify_attention_reference", q, k, length)
+    kpos = torch.arange(L, device=q.device)
+    qpos = length[:, None] - T + torch.arange(T, device=q.device)[None]
+    m = torch.where(kpos[None, None, :] <= qpos[:, :, None], 0.0,
+                    NEG).float()                            # [b, T, L]
+    if bias is not None:
+        m = m + bias.float().reshape(b, 1, L)
+    return sdpa_reference(q, k, v, m[:, None], False, scale)
+
+
+def _split_partials(qs, kf, vf, length, bias, split, p_dtype):
+    """Per-split partials (acc [b*h, ns, T, d], m and l [b*h, ns, T]) of
+    T query rows against the cache, as the verify kernels define them:
+    logits = qs . k (qs already scaled), key j hidden from row i past
+    position length - T + i (-1e30), then the [b, L] bias; m the split's
+    max, p = exp(logits - m), l = sum(p), acc = p . v with p rounded to
+    `p_dtype` (None: float32). A split starting at or past the row's
+    length is the exact-zero partial (acc 0, m -1e30, l 0). Keys past L
+    (a ragged last split) never enter the softmax. qs, kf and vf are in
+    the accumulation type."""
+    b, h, T, d = qs.shape
+    L = kf.shape[2]
+    ns = -(-L // split)
+    pad = ns * split - L
+    dev = qs.device
+    logits = torch.matmul(qs, kf.transpose(-1, -2))          # [b, h, T, L]
+    kpos = torch.arange(L, device=dev)
+    qpos = length[:, None] - T + torch.arange(T, device=dev)[None]
+    logits = torch.where(kpos[None, None, None, :] <= qpos[:, None, :, None],
+                         logits, NEG)
+    if bias is not None:
+        logits = logits + bias.to(qs.dtype)[:, None, None, :]
+    logits = F.pad(logits, (0, pad), value=float("-inf"))
+    logits = logits.reshape(b, h, T, ns, split)
+    m = logits.amax(-1)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).to(qs.dtype)
+    vp = F.pad(vf, (0, 0, 0, pad)).reshape(b, h, ns, split, d)
+    acc = torch.einsum("bhtns,bhnsd->bhntd", p, vp)
+    starts = torch.arange(ns, device=dev) * split
+    skip = (starts[None, :] >= length[:, None])[:, None, :, None]  # b,1,ns,1
+    acc = acc.masked_fill(skip[..., None], 0.0)
+    m = m.transpose(2, 3).masked_fill(skip, NEG)
+    l = l.transpose(2, 3).masked_fill(skip, 0.0)
+    return (acc.reshape(b * h, ns, T, d), m.reshape(b * h, ns, T),
+            l.reshape(b * h, ns, T))
+
+
+def _verify_partials_plain(q, k, v, length, bias, scale, split):
+    """The dense verify kernel's partials: q scaled and rounded to its
+    dtype (the TPU kernel's order), p rounded to q's dtype for p . v."""
+    return _split_partials(_scaled_q(q, _scale(q.shape[-1], scale)),
+                           _up(k, q), _up(v, q), length, bias, split,
+                           q.dtype)
+
+
+def _verify_partials_cuda(q, k, v, length, bias, scale, split):
+    _check_operands("flash_verify", q, k, v,
+                    (length,) if bias is None else (length, bias))
+    b, h, T, d = q.shape
+    L = k.shape[2]
+    _check_bias("flash_verify", bias, b, L)
+    if length.dtype != torch.int32 or not length.is_contiguous():
+        raise ValueError("flash_verify: length must be contiguous int32")
+    ns = -(-L // split)
+    acc = torch.empty((b * h, ns, T, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b * h, ns, T), dtype=torch.float32, device=q.device)
+    l = torch.empty((b * h, ns, T), dtype=torch.float32, device=q.device)
+    fn = _build.kernels().flash_verify
+    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
+             k.data_ptr(), v.data_ptr(),
+             None if bias is None else bias.data_ptr(), length.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, T, L, d,
+             int(split), _row_strides(q, k, v), float(_scale(d, scale)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_verify", err)
+    LAUNCHES["flash_verify"] += 1
+    return acc, m, l
+
+
+def flash_verify_plain(q, k, v, length, bias=None, scale=None):
+    """The verify kernel's function in plain PyTorch, on any device: the
+    same per-split partials and the same combine."""
+    length = _verify_lengths("flash_verify", q, k, length)
+    b, h, T, d = q.shape
+    parts = _verify_partials_plain(q, k, v, length, bias, scale,
+                                   DECODE_SPLIT)
+    return _combine(*parts, q.dtype).reshape(b, h, T, d)
+
+
+def flash_verify(q, k, v, length, bias=None, scale=None):
+    """Split-K verify: q [b, h, T, d] (T tokens just written at each
+    row's own offset) against k/v [b, h, L, d]; `length` (an int or [b]
+    int32) counts each row's written keys after that write; bias an
+    optional [b, L] float32 key bias. Returns [b, h, T, d]. CPU tensors
+    compute the partials with the plain version; CUDA tensors launch
+    `csrc/flash_verify.cu` (any L and T, head_dim <= 128)."""
+    length = _verify_lengths("flash_verify", q, k, length)
+    b, h, T, d = q.shape
+    if _device_kind("flash_verify", q) == "cpu":
+        parts = _verify_partials_plain(q, k, v, length, bias, scale,
+                                       DECODE_SPLIT)
+    else:
+        parts = _verify_partials_cuda(q, k, v, length, bias, scale,
+                                      DECODE_SPLIT)
+    return _combine(*parts, q.dtype).reshape(b, h, T, d)
+
+
+# --------------------------------------------------------------------------
+# paged decode / verify: the reads through a page table
+# --------------------------------------------------------------------------
+
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _pages_per_split(page_size):
+    """Pages per split of the paged kernels: DECODE_SPLIT keys (one page
+    when pages are larger)."""
+    return max(1, DECODE_SPLIT // int(page_size))
+
+
+def _table_rows(table, n_rows):
+    """Physical page rows of `table` entries: an unmapped (-1) or
+    out-of-range entry reads the trash row n_rows - 1, as the JAX
+    package's trash-clipped table does."""
+    table = table.long()
+    return torch.where((table < 0) | (table >= n_rows), n_rows - 1, table)
+
+
+def paged_gather_kv(pages, scales, table, compute_dtype):
+    """Dense [S, h, max_pages * page_size, d] logical view of a paged
+    cache ([N+1, h, psz, d] pages through a [S, max_pages] table),
+    dequantized by the per-(page, head) scales [N+1, h, 1, 1] when given.
+    Entries through the trash row gather garbage that the written-length
+    mask hides."""
+    S, mp = table.shape
+    _, h, psz, d = pages.shape
+    rows = _table_rows(table, pages.shape[0])
+    g = pages[rows]                                   # [S, mp, h, psz, d]
+    if scales is not None:
+        g = g.float() * scales[rows]
+    return g.permute(0, 2, 1, 3, 4).reshape(S, h, mp * psz, d) \
+        .to(compute_dtype)
+
+
+def _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias, scale):
+    """The paged kernels' partials: q, K, V and p in float32 after the
+    dequant (no rounding to the operand type, the TPU kernels' order),
+    one partial per run of `_pages_per_split` logical pages."""
+    acc_t = _acc(q)
+    qs = q.to(acc_t) * _scale(q.shape[-1], scale)
+    kf = paged_gather_kv(kp, ks, table, acc_t)
+    vf = paged_gather_kv(vp, vs, table, acc_t)
+    split = _pages_per_split(kp.shape[2]) * kp.shape[2]
+    return _split_partials(qs, kf, vf, length, bias, split, None)
+
+
+def _check_paged(name, q, kp, vp, ks, vs, table, length, bias):
+    for t in (kp, vp, table, length, *(x for x in (ks, vs, bias)
+                                       if x is not None)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on different devices "
+                             f"({t.device} vs {q.device})")
+    if q.dtype not in _DTYPES or kp.dtype not in _KV_DTYPES \
+            or vp.dtype != kp.dtype:
+        raise TypeError(f"{name}: q must be float32 or bfloat16 and the "
+                        f"pages one of float32, bfloat16, int8; got "
+                        f"{q.dtype}/{kp.dtype}/{vp.dtype}")
+    S, h, T, d = q.shape
+    if kp.dim() != 4 or vp.shape != kp.shape or kp.shape[1] != h \
+            or kp.shape[3] != d:
+        raise ValueError(f"{name}: pages must be [N+1, {h}, page_size, {d}]"
+                         f", got {tuple(kp.shape)} / {tuple(vp.shape)}")
+    if not 1 <= d <= 128:
+        raise ValueError(f"{name}: head_dim {d} outside the kernel's 1..128")
+    if q.stride(-1) != 1 or kp.stride(-1) != 1 or vp.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    if (ks is None) != (vs is None) or (kp.dtype == torch.int8
+                                        and ks is None):
+        raise ValueError(f"{name}: int8 pages need both k and v scales")
+    for sc in (ks, vs):
+        if sc is not None and (sc.dtype != torch.float32
+                               or tuple(sc.shape) != (kp.shape[0], h, 1, 1)
+                               or not sc.is_contiguous()):
+            raise ValueError(f"{name}: scales must be contiguous float32 "
+                             f"[{kp.shape[0]}, {h}, 1, 1]")
+    if table.dtype != torch.int32 or table.dim() != 2 \
+            or table.shape[0] != S or not table.is_contiguous():
+        raise ValueError(f"{name}: table must be contiguous int32 [{S}, "
+                         f"max_pages]")
+    if length.dtype != torch.int32 or not length.is_contiguous():
+        raise ValueError(f"{name}: length must be contiguous int32")
+    _check_bias(name, bias, S, table.shape[1] * kp.shape[2])
+
+
+def _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length, bias,
+                         scale):
+    _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
+    S, h, T, d = q.shape
+    mp, psz = table.shape[1], kp.shape[2]
+    ppb = _pages_per_split(psz)
+    ns = -(-mp // ppb)
+    acc = torch.empty((S * h, ns, T, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device)
+    l = torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device)
+    strides = _build.strides_arg([*q.stride()[:3], *kp.stride()[:3],
+                                  *vp.stride()[:3]])
+    fn = getattr(_build.kernels(), {"paged_flash_decode": "paged_decode",
+                                    "paged_flash_verify": "paged_verify"}[name])
+    err = fn(q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
+             q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+             None if ks is None else ks.data_ptr(),
+             None if vs is None else vs.data_ptr(), table.data_ptr(),
+             length.data_ptr(), None if bias is None else bias.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(), S, h, T, mp, psz,
+             kp.shape[0], d, ppb, strides, float(_scale(d, scale)),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return acc, m, l
+
+
+def _paged_lengths(name, q, table, kp, length, single):
+    S, h, T, d = q.shape
+    if single and T != 1:
+        raise ValueError(f"{name} takes a single query token per slot, got "
+                         f"T={T}; a verify block runs on paged_flash_verify")
+    if table.shape[1] * kp.shape[2] < T:
+        raise ValueError(f"{name}: {T} query tokens against "
+                         f"{table.shape[1]} pages of {kp.shape[2]}")
+    return _lengths(length, S, q.device)
+
+
+def _paged_call(name, single, plain, q, kp, vp, ks, vs, table, length,
+                bias, scale):
+    """A paged read: its kernel (CUDA tensors) or plain version (CPU
+    tensors, or `plain`), then the combine."""
+    length = _paged_lengths(name, q, table, kp, length, single)
+    if plain or _device_kind(name, q) == "cpu":
+        parts = _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias,
+                                      scale)
+    else:
+        parts = _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length,
+                                     bias, scale)
+    return _combine(*parts, q.dtype).reshape(q.shape)
+
+
+def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale, table,
+                             length, bias=None, scale=None):
+    """The paged decode kernel's function in plain PyTorch, on any
+    device: the same per-run partials and the same combine."""
+    return _paged_call("paged_flash_decode", True, True, q, k_pages, v_pages,
+                       k_scale, v_scale, table, length, bias, scale)
+
+
+def paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, table,
+                       length, bias=None, scale=None):
+    """Paged decode: one query token per slot, q [S, h, 1, d], against
+    K/V read through the page table: pages [N+1, h, psz, d] (float32,
+    bfloat16, or int8 with k_scale / v_scale [N+1, h, 1, 1]), table
+    [S, max_pages] int32 (unmapped entries read the trash row N),
+    length [S] written counts, bias an optional [S, max_pages * psz]
+    float32 key bias in logical positions. CPU tensors run the plain
+    version; CUDA tensors launch `csrc/paged_decode.cu`."""
+    return _paged_call("paged_flash_decode", True, False, q, k_pages,
+                       v_pages, k_scale, v_scale, table, length, bias, scale)
+
+
+def paged_flash_verify_plain(q, k_pages, v_pages, k_scale, v_scale, table,
+                             length, bias=None, scale=None):
+    """The paged verify kernel's function in plain PyTorch, on any
+    device."""
+    return _paged_call("paged_flash_verify", False, True, q, k_pages,
+                       v_pages, k_scale, v_scale, table, length, bias, scale)
+
+
+def paged_flash_verify(q, k_pages, v_pages, k_scale, v_scale, table,
+                       length, bias=None, scale=None):
+    """Paged verify: T query tokens per slot, q [S, h, T, d], just
+    written through the table at each slot's own offset (length counts
+    after the write), against K/V read through the table; the rest as
+    `paged_flash_decode`. CUDA tensors launch `csrc/paged_verify.cu`."""
+    return _paged_call("paged_flash_verify", False, False, q, k_pages,
+                       v_pages, k_scale, v_scale, table, length, bias, scale)
+
+
+# --------------------------------------------------------------------------
 # dispatchers
 # --------------------------------------------------------------------------
 
@@ -724,6 +1079,50 @@ def sdpa(q, k, v, mask=None, is_causal=False, scale=None, dropout_p=0.0,
 def decode_attention(q, k, v, length, bias=None, scale=None):
     """Single-token decode against a preallocated cache through the
     split-K flash decode (bias: [b, L] or [b, 1, 1, L])."""
-    if bias is not None:
-        bias = bias.float().reshape(q.shape[0], k.shape[2]).contiguous()
-    return flash_decode(q, k, v, length, bias, scale)
+    return flash_decode(q, k, v, length, _flat_bias(bias, q, k.shape[2]),
+                        scale)
+
+
+def _flat_bias(bias, q, L):
+    """A [b, L] or [b, 1, 1, L] key bias as a contiguous [b, L] float32."""
+    if bias is None:
+        return None
+    return bias.float().reshape(q.shape[0], L).contiguous()
+
+
+def verify_attention(q, k, v, length, bias=None, scale=None):
+    """Verify-block attention against a preallocated cache through the
+    split-K flash verify (bias: [b, L] or [b, 1, 1, L])."""
+    return flash_verify(q, k, v, length, _flat_bias(bias, q, k.shape[2]),
+                        scale)
+
+
+def _paged_dispatch(paged_fn, dense_fn, q, k_pages, v_pages, k_scale,
+                    v_scale, table, length, bias, scale):
+    bias = _flat_bias(bias, q, table.shape[1] * k_pages.shape[2])
+    if q.device.type == "cpu":
+        kd = paged_gather_kv(k_pages, k_scale, table, q.dtype)
+        vd = paged_gather_kv(v_pages, v_scale, table, q.dtype)
+        return dense_fn(q, kd, vd, length, bias, scale)
+    return paged_fn(q, k_pages, v_pages, k_scale, v_scale, table, length,
+                    bias, scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, k_scale, v_scale, table,
+                           length, bias=None, scale=None):
+    """Paged decode dispatch (the JAX `paged_decode_attention`): on the
+    CPU, gather the dense logical view and run the dense pool's plain
+    decode (fp32 pages then give the dense pool's output bit for bit);
+    on the card, the page-table kernel."""
+    return _paged_dispatch(paged_flash_decode, flash_decode, q, k_pages,
+                           v_pages, k_scale, v_scale, table, length, bias,
+                           scale)
+
+
+def paged_verify_attention(q, k_pages, v_pages, k_scale, v_scale, table,
+                           length, bias=None, scale=None):
+    """Paged verify dispatch: the gather + dense plain verify on the CPU,
+    the page-table verify kernel on the card."""
+    return _paged_dispatch(paged_flash_verify, flash_verify, q, k_pages,
+                           v_pages, k_scale, v_scale, table, length, bias,
+                           scale)

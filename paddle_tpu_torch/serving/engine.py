@@ -1,19 +1,28 @@
-"""Continuous-batching generation engine over a fixed slot pool.
+"""Continuous-batching generation engines over a fixed slot pool.
 
 Iteration-level batching as in the JAX package (`serving/engine.py`):
-the pool owns S cache slots (per-layer [S, H, max_len, D] K/V buffers
-with per-row write indices, pooled cross-attention K/V and pad-bias
-rows); one batched decode step runs over all slots with an active mask;
-a free slot is refilled by prefilling the new prompt (bucketed to a
-power of two) straight into the slot's pool rows.
+the pool owns S cache slots; one batched decode step runs over all
+slots with an active mask; a free slot is refilled by prefilling the new
+prompt (bucketed to a power of two) into the slot's cache.
+
+  * `ServingEngine(...)`: the dense pool (per-layer [S, H, pool_len, D]
+    K/V rows per slot).
+  * `ServingEngine(..., paged=True)` (a `PagedServingEngine`): a global
+    pool of fixed-size pages mapped through a host-owned page table,
+    with admission on free pages, on-demand decode pages, out-of-pages
+    eviction, and the radix prefix cache (whole hits attach the cached
+    pages with zero prefill; partial hits prefill only the divergent
+    tail; copy-on-write keeps shared pages immutable).
+  * `spec_k=k` on either: speculative decoding (an n-gram self-draft and
+    one k-token verify per iteration, adaptive effective k).
 
 Numerics contract: every slot reproduces `generate_eager` for its own
-prompt token for token. All per-slot operations are row-wise, so
-co-resident requests cannot perturb each other's output.
+prompt token for token, speculation included (greedy acceptance). All
+per-slot operations are row-wise, so co-resident requests cannot
+perturb each other's output.
 
-This slice serves the dense pool on one card. The paged pool, the
-speculative stepper, LoRA adapters, int8 weights and chunked prefill
-are later slices and are refused at construction.
+LoRA adapters, int8 weights and chunked prefill are later slices and
+are refused at construction.
 """
 from __future__ import annotations
 
@@ -24,15 +33,16 @@ import torch
 
 from ..core.bucketing import bucket_size, pad_prompt_row
 from ..core.device import resolve_device
-from .layers import DenseLayout, PlainStepper, SinglePlacement
+from .layers import (DenseLayout, PagedLayout, PlainStepper, SinglePlacement,
+                     SpecStepper)
 from .metrics import ServingMetrics
+from .paging import (PageAllocator, RadixPrefixCache, pages_for,
+                     resolve_kv_dtype)
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "PagedServingEngine"]
 
 #: engine options of the JAX package that later slices of the port bring
-_LATER = {"paged": "the paged-pool slice (kernels #6-7)",
-          "spec_k": "the speculative-decoding slice (kernel #5)",
-          "adapters": "the int8/LoRA slice (kernels #8-9)",
+_LATER = {"adapters": "the int8/LoRA slice (kernels #8-9)",
           "quantize": "the int8/LoRA slice (kernels #8-9)",
           "prefill_chunk": "the traffic-shaping slice"}
 
@@ -66,6 +76,19 @@ class _EngineBase:
     def _decode_step(self, active):
         raise NotImplementedError
 
+    def _evict(self, slot):
+        """Host bookkeeping when a slot is released (paged: its pages)."""
+
+    def _admission_gate(self, request):
+        """Resource headroom beyond a free slot. False pushes the request
+        back to the queue HEAD and ends this iteration's joins (the paged
+        pool's out-of-pages backpressure)."""
+        return True
+
+    def _iteration_gauges(self):
+        """Extra per-iteration gauges for `metrics.record_iteration`."""
+        return None
+
     def _reset_pool(self):
         """Rebuild device pool state after a decode-step failure."""
 
@@ -75,6 +98,7 @@ class _EngineBase:
     def _finish_slot(self, s, reason, now):
         r = self.slots[s]
         self.slots[s] = None
+        self._evict(s)
         self.metrics.record_finish(reason)
         r.finish(reason, now)
 
@@ -87,6 +111,7 @@ class _EngineBase:
             if r is None:
                 continue
             self.slots[s] = None
+            self._evict(s)
             self.metrics.record_finish("error")
             r.finish("error", now, error=exc)
         self._reset_pool()
@@ -114,7 +139,8 @@ class _EngineBase:
 
     def run_iteration(self, scheduler):
         """One iteration: harvest, admit, decode. Returns True when any
-        work was done (False = idle)."""
+        work was done (False = idle). A speculative step delivers up to
+        k tokens per slot, stopping the moment the slot finishes."""
         now = self.clock()
         progress = False
         for s, r in enumerate(self.slots):
@@ -146,6 +172,11 @@ class _EngineBase:
                 r.fail(e, now)
                 self.metrics.record_finish("error")
                 continue
+            if not self._admission_gate(r):
+                # resource backpressure: the request stays queued at the
+                # head, joins stop for this iteration, decode drains
+                scheduler.push_front(r)
+                break
             s = free[0]
             r.state, r.slot = "RUNNING", s
             self.slots[s] = r
@@ -156,6 +187,7 @@ class _EngineBase:
                 # request and frees its slot; the join's writes were
                 # slot-local, so the pool keeps serving
                 self.slots[s] = None
+                self._evict(s)
                 r.slot = None
                 self.metrics.record_error("slot_join", e)
                 r.fail(e, self.clock())
@@ -183,14 +215,23 @@ class _EngineBase:
             else:
                 now2 = self.clock()
                 n = 0
+                if isinstance(toks, tuple):
+                    emit, n_emit = toks      # speculative: [S, k], [S]
+                else:
+                    emit, n_emit = toks[:, None], np.ones_like(toks)
                 for s, r in enumerate(list(self.slots)):
-                    if r is not None and active[s]:
-                        self._deliver(r, int(toks[s]), now2)
+                    if r is None or not active[s]:
+                        continue
+                    for j in range(int(n_emit[s])):
+                        if self.slots[s] is not r or r.state == "DONE":
+                            break
+                        self._deliver(r, int(emit[s, j]), now2)
                         n += 1
                 self.metrics.record_decode(n, now2 - t0)
                 progress = True
         self.metrics.record_iteration(scheduler.depth(),
-                                      self.occupancy() / self.num_slots)
+                                      self.occupancy() / self.num_slots,
+                                      **(self._iteration_gauges() or {}))
         return progress
 
     def serve_until_idle(self, scheduler, max_iterations=None):
@@ -216,11 +257,19 @@ class _EngineBase:
 
 class ServingEngine(_EngineBase):
     """The model-backed engine: a (decoder, embed, project) triple over a
-    pooled StaticKVCache of `num_slots` rows x `max_len` positions on
-    `device` (None means the CUDA card; the model must already live
-    there). On CUDA every attention runs through the flash-forward and
-    flash-decode kernels, and float32 matmuls are kept at full precision
-    (`torch.backends.cuda.matmul.allow_tf32 = False`).
+    pooled cache of `num_slots` rows x `max_len` positions on `device`
+    (None means the CUDA card; the model must already live there). On
+    CUDA every attention runs through the port's kernels, and float32
+    matmuls are kept at full precision
+    (`torch.backends.cuda.matmul.allow_tf32 = False`). `paged=True`
+    builds a `PagedServingEngine`.
+
+    Speculative decoding: `spec_k >= 2` turns the batched decode step
+    into an n-gram draft (`spec_ngram`) plus one spec_k-token verify,
+    delivering up to spec_k tokens per slot per iteration with the same
+    tokens; the pool carries spec_k extra positions so a round's
+    fixed-k write never clips. The effective k adapts batch-wide on the
+    acceptance-rate EMA (`spec_adapt*`, see `layers.SpecStepper`).
 
     Admission contract: a request needs `bucket(prompt_len) +
     max_new_tokens <= max_len` cache positions and a cross-attention
@@ -228,13 +277,22 @@ class ServingEngine(_EngineBase):
     at positions [0, Pb), its pad hole key-masked forever, generated
     tokens at Pb, Pb + 1, ..."""
 
+    def __new__(cls, *args, **kw):
+        # `paged=True` routes construction to the paged-pool engine, so
+        # callers opt into paging without a second entry point
+        if cls is ServingEngine and kw.get("paged"):
+            return object.__new__(PagedServingEngine)
+        return object.__new__(cls)
+
     def __init__(self, decoder, embed, project, *, num_slots=8,
                  max_len=128, max_joins_per_iter=2, metrics=None,
                  clock=time.monotonic, device=None, paged=False,
-                 spec_k=None, adapters=None, quantize=None,
-                 prefill_chunk=None):
-        later = {"paged": paged, "spec_k": spec_k, "adapters": adapters,
-                 "quantize": quantize, "prefill_chunk": prefill_chunk}
+                 spec_k=None, spec_ngram=2, spec_adapt=True,
+                 spec_adapt_low=0.15, spec_adapt_high=0.6,
+                 spec_adapt_patience=4, spec_adapt_alpha=0.3, adapters=None,
+                 quantize=None, prefill_chunk=None):
+        later = {"adapters": adapters, "quantize": quantize,
+                 "prefill_chunk": prefill_chunk}
         for name, value in later.items():
             if value:
                 raise NotImplementedError(
@@ -253,12 +311,33 @@ class ServingEngine(_EngineBase):
                 raise ValueError(f"parameter {name} lives on {p.device}, "
                                  f"the engine serves on {self.device}")
         self.max_len = int(max_len)
-        self._pool_len = self.max_len
-        self.layout = DenseLayout(self)
+        if spec_k is not None:
+            spec_k = int(spec_k)
+            if spec_k < 2:
+                raise ValueError("spec_k must be >= 2 (the pending token "
+                                 "plus at least one draft)")
+        self.spec_k = spec_k
+        self.spec_ngram = int(spec_ngram)
+        self.spec_adapt = bool(spec_adapt)
+        self.spec_adapt_low = float(spec_adapt_low)
+        self.spec_adapt_high = float(spec_adapt_high)
+        self.spec_adapt_patience = int(spec_adapt_patience)
+        self.spec_adapt_alpha = float(spec_adapt_alpha)
+        self._pool_len = self.max_len + (spec_k or 0)
+        self.layout = (PagedLayout(self) if isinstance(self, PagedServingEngine)
+                       else DenseLayout(self))
         self.placement = SinglePlacement(self)
-        self.stepper = PlainStepper(self)
+        self.stepper = SpecStepper(self) if spec_k else PlainStepper(self)
         self._state = None          # built on the first join
         self._mem_shape = None
+        self._dtype = None
+
+    def _pool_variant(self):
+        """Label of the pool for per-variant metric splits."""
+        return "paged" if isinstance(self, PagedServingEngine) else "dense"
+
+    def _max_len_detail(self):
+        return ""
 
     def admit_check(self, r):
         P = max(1, int(r.prompt.shape[0]))
@@ -266,7 +345,8 @@ class ServingEngine(_EngineBase):
         if Pb + r.max_new_tokens > self.max_len:
             raise ValueError(f"request needs bucket({P})={Pb} prompt slots "
                              f"+ {r.max_new_tokens} decode slots > pool "
-                             f"max_len {self.max_len}")
+                             f"max_len {self.max_len}"
+                             f"{self._max_len_detail()}")
         if r.memory is None or r.memory.dim() != 2:
             raise ValueError("ServingEngine requests need a 2-D "
                              "cross-attention memory [M, D]")
@@ -281,6 +361,11 @@ class ServingEngine(_EngineBase):
             self._state = self.placement.run(self.layout.build_state,
                                              memory)
             self._mem_shape = tuple(memory.shape)
+            self._dtype = memory.dtype
+            self._post_state_build()
+
+    def _post_state_build(self):
+        """Hook once the pool state exists (paged: the page byte size)."""
 
     def _join(self, s, r):
         pad_id = int(r.eos_id) if r.eos_id is not None else 0
@@ -292,8 +377,405 @@ class ServingEngine(_EngineBase):
                                   memory[None])
 
     def _decode_step(self, active):
+        # plain vs speculative is the stepper axis (layers.py)
         return self.stepper.decode(active)
 
     def _reset_pool(self):
         # every slot is empty by now: the next join rebuilds a zeroed pool
         self._state = None
+
+
+class PagedServingEngine(ServingEngine):
+    """The serving pool over PAGED KV storage: `ServingEngine(...,
+    paged=True)`. Per layer, K/V live in a global pool of fixed-size pages
+    ([num_pages + 1, H, page_size, D]; the last row is the trash page);
+    each slot maps its logical positions through a host-owned int32 page
+    table shipped to the device every step:
+
+      * a join allocates only the pages its PROMPT bucket needs; decode
+        pages are mapped on demand as the write position crosses page
+        boundaries, so occupancy follows actual tokens, and `num_pages`
+        may be far below `num_slots * max_pages` (oversubscription);
+      * the radix prefix cache (`prefix_cache=True`): a prompt already in
+        it joins with zero prefill (the shared pages mapped read-only,
+        refcounted); a prompt sharing a cached prefix prefills only its
+        divergent tail (`pattach`, one verify block through the pages);
+        a shared page the joiner would decode-write into is copied first
+        (copy-on-write), so co-resident requests stay isolated;
+        `radix_mid_page` chooses how a match ending inside a page is
+        served ("round_down": re-prefill from the page boundary; "cow":
+        copy the partly matching page);
+      * admission runs on free-page headroom (prompt pages + a decode
+        reservation of `reserve_decode_frac`): too few pages DEFER the
+        queue head (`paging.page_waits`) instead of failing it; a pool
+        that still runs dry mid-decode evicts the starved slot with its
+        partial tokens and an `OutOfPages` cause (`paging.oom_evictions`);
+      * pages store the compute dtype (default), bf16 or int8 with
+        per-(page, head) scales behind `kv_dtype=`, dequantized at read
+        time (in the kernels on the card).
+
+    Numerics contract: with `kv_dtype=None` every request's tokens equal
+    the dense `ServingEngine`'s (bit for bit on the CPU, where the paged
+    reads gather the dense view), provided `max_len` is a page multiple
+    (it is rounded up to one)."""
+
+    def __init__(self, decoder, embed, project, *, num_slots=8,
+                 max_len=128, page_size=16, num_pages=None,
+                 kv_dtype=None, prefix_cache=True, prefix_capacity=64,
+                 radix_mid_page="round_down", reserve_decode_frac=1.0,
+                 paged=True, **kw):
+        page_size = int(page_size)
+        max_len = pages_for(max_len, page_size) * page_size
+        super().__init__(decoder, embed, project, num_slots=num_slots,
+                         max_len=max_len, **kw)
+        self.page_size = page_size
+        # a speculative pool writes up to spec_k tokens past a row's
+        # admitted budget before rolling back: page-cover that overhang
+        self._pool_len = pages_for(self.max_len + (self.spec_k or 0),
+                                   page_size) * page_size
+        self.max_pages = self._pool_len // page_size
+        self.num_pages = (int(num_pages) if num_pages is not None
+                          else self.num_slots * self.max_pages)
+        self.kv_dtype = kv_dtype
+        self.reserve_decode_frac = float(reserve_decode_frac)
+        self._alloc = PageAllocator(self.num_pages, page_size)
+        self._prefix = (RadixPrefixCache(self._alloc, prefix_capacity,
+                                         page_size=page_size,
+                                         mid_page=radix_mid_page)
+                        if prefix_cache else None)
+        self._table = np.full((self.num_slots, self.max_pages), -1, np.int32)
+        self._index = np.zeros(self.num_slots, np.int32)
+        # total pages each occupied slot will have mapped by the time its
+        # request hits max_new_tokens: admission subtracts the unmapped
+        # remainder from the free headroom (reserve_decode_frac=1.0 is a
+        # no-OOM guarantee)
+        self._slot_pages_total = np.zeros(self.num_slots, np.int64)
+        self._page_bytes = None
+        self._prefix_params = None   # parameter state the cache holds for
+        self.prefill_count = 0       # real prefills run (prefix hits skip)
+
+    def _max_len_detail(self):
+        return f" (= {self.max_pages} pages x {self.page_size} tokens, paged)"
+
+    def _spec_overhang(self):
+        """Positions a speculative verify may write past a row's accepted
+        budget before the rollback: admission and the per-slot page
+        reservations cover them."""
+        return (self.spec_k - 1) if self.spec_k else 0
+
+    def admit_check(self, r):
+        super().admit_check(r)
+        # liveness: a request the whole (empty) pool could never hold
+        # must fail fast, not defer at the backpressure gate forever
+        P = max(1, int(r.prompt.shape[0]))
+        need = pages_for(bucket_size(P) + r.max_new_tokens +
+                         self._spec_overhang(), self.page_size)
+        if need > self.num_pages:
+            raise ValueError(f"request needs {need} pages > pool num_pages "
+                             f"{self.num_pages} ({self.page_size}-token "
+                             f"pages)")
+
+    def _post_state_build(self):
+        storage, quantized = resolve_kv_dtype(self.kv_dtype, self._dtype)
+        h0 = self._net.decoder.layers[0].self_attn
+        per_buf = h0.num_heads * self.page_size * h0.head_dim * \
+            torch.empty((), dtype=storage).element_size()
+        scale_b = h0.num_heads * 4 if quantized else 0
+        self._page_bytes = 2 * len(self._net.decoder.layers) * \
+            (per_buf + scale_b)
+
+    # ---- host page bookkeeping ----
+    def _alloc_pages(self, n):
+        """Allocate n pages, reclaiming LRU prefix-cache entries under
+        pressure first."""
+        if self._alloc.pages_free < n and self._prefix is not None:
+            self._prefix.reclaim(n)
+        return self._alloc.alloc(n)
+
+    def _release_slot(self, s):
+        mapped = [int(p) for p in self._table[s] if p >= 0]
+        if mapped:
+            self._alloc.decref(mapped)
+        self._table[s] = -1
+        self._index[s] = 0
+        self._slot_pages_total[s] = 0
+
+    def _evict(self, s):
+        self._release_slot(s)
+
+    def _device_table(self):
+        # unmapped entries point at the trash row (num_pages): inactive
+        # slots' masked writes can never land on live pages
+        return torch.as_tensor(
+            np.where(self._table < 0, self.num_pages, self._table)
+            .astype(np.int32), device=self.device)
+
+    def flush_prefix_cache(self):
+        """Drop every prefix-cache entry (releases the cache's page
+        references; pages still mapped by live slots survive via their
+        own). After a full drain the allocator is all free again."""
+        if self._prefix is not None:
+            self._prefix.flush()
+
+    def _reset_pool(self):
+        # a decode-step failure evicted every slot (pages returned); the
+        # device pages are rebuilt zeroed on the next join, so the prefix
+        # cache's pages would hold garbage: flush it
+        self.flush_prefix_cache()
+        self._table[:] = -1
+        self._index[:] = 0
+        self._state = None
+
+    # ---- admission: free-page headroom ----
+    def _pages_needed(self, r):
+        pad_id = int(r.eos_id) if r.eos_id is not None else 0
+        row, P0, Pb = pad_prompt_row(r.prompt, pad_id)
+        n_pp = pages_for(Pb, self.page_size)
+        need_prompt = n_pp
+        if self._prefix is not None:
+            res = self._prefix.peek(row[0, :P0], P0, Pb, self._mem_key(r),
+                                    None,
+                                    allow_partial=self._radix_partial_ok())
+            if res is not None and res[0] == "whole":
+                # shared pages are free; only a COW of the partial tail
+                # page (when the bucket ends mid-page) is new
+                need_prompt = 1 if Pb % self.page_size else 0
+            elif res is not None:
+                # matched prefix pages are free; the joiner allocates the
+                # rest (COW page included) + a possible tail COW
+                m = len(res[1]["pages"])
+                need_prompt = (n_pp - m) + (1 if Pb % self.page_size else 0)
+        total = pages_for(Pb + r.max_new_tokens + self._spec_overhang(),
+                          self.page_size)
+        reserve = int(np.ceil(self.reserve_decode_frac * (total - n_pp)))
+        return need_prompt + reserve
+
+    def _outstanding_reservations(self):
+        """Pages already-admitted slots will still map before they finish
+        (scaled by the reservation fraction): subtracted from the free
+        headroom so admission never promises the same page twice."""
+        out = 0
+        for s, r in enumerate(self.slots):
+            if r is None:
+                continue
+            mapped = int((self._table[s] >= 0).sum())
+            remain = max(0, int(self._slot_pages_total[s]) - mapped)
+            out += int(np.ceil(self.reserve_decode_frac * remain))
+        return out
+
+    def _admission_gate(self, r):
+        need = self._pages_needed(r) + self._outstanding_reservations()
+        if self._alloc.pages_free < need and self._prefix is not None:
+            self._prefix.reclaim(need)
+        if self._alloc.pages_free >= need:
+            return True
+        self.metrics.record_page_wait()
+        return False
+
+    def _iteration_gauges(self):
+        gauges = {"pages_in_use": self._alloc.pages_in_use,
+                  "pages_free": self._alloc.pages_free}
+        if self._prefix is not None:
+            st = self._prefix.stats()
+            gauges.update({"trie_nodes": st["nodes"],
+                           "trie_pages": st["pages"]})
+        active_toks = sum(int(self._index[s])
+                          for s, r in enumerate(self.slots) if r is not None)
+        if active_toks and self._page_bytes:
+            gauges["bytes_per_active_token"] = \
+                self._alloc.pages_in_use * self._page_bytes / active_toks
+        return gauges
+
+    # ---- join: prefill into pages, or attach shared prefix pages ----
+    @staticmethod
+    def _mem_key(r):
+        """The request's memory on the host, for the prefix cache's
+        digests (copied off the card once per request)."""
+        host = getattr(r, "_mem_host", None)
+        if host is None:
+            host = r._mem_host = r.memory.detach().cpu().numpy()
+        return host
+
+    def _radix_partial_ok(self):
+        """Partial (tail-prefill) reuse needs pages in the COMPUTE dtype:
+        the pattach tail attends to the seed K/V as STORED, a cold
+        prefill to full-precision K/V, so quantized pools keep whole-
+        prompt reuse only."""
+        if self._dtype is None:
+            return False         # no pool yet: nothing cached to match
+        storage, quantized = resolve_kv_dtype(self.kv_dtype, self._dtype)
+        return not quantized and storage == self._dtype
+
+    def _check_params(self):
+        """Prefix-cache entries hold MODEL-DERIVED state (prompt K/V
+        pages and the first greedy token): any in-place change of a
+        parameter (its version counter moves) or a rebound parameter
+        makes them stale, so the cache is flushed."""
+        cur = tuple((p.data_ptr(), p._version)
+                    for p in self._net.parameters())
+        if self._prefix_params is not None and cur != self._prefix_params:
+            self.flush_prefix_cache()
+        self._prefix_params = cur
+
+    def _join(self, s, r):
+        memory = r.memory.to(self.device)
+        self._ensure_state(memory)
+        if self._prefix is not None:
+            self._check_params()
+        # idempotent: a half-joined earlier attempt's pages are released
+        # before this one allocates
+        self._release_slot(s)
+        pad_id = int(r.eos_id) if r.eos_id is not None else 0
+        prompt_b, P0, Pb = pad_prompt_row(r.prompt, pad_id)
+        self._slot_pages_total[s] = pages_for(
+            Pb + r.max_new_tokens + self._spec_overhang(), self.page_size)
+        res = None
+        if self._prefix is not None:
+            res = self._prefix.lookup(prompt_b[0, :P0], P0, Pb,
+                                      self._mem_key(r), None,
+                                      allow_partial=self._radix_partial_ok())
+            kind = res[0] if res is not None else "miss"
+            matched = (P0 if kind == "whole" else
+                       res[1]["seed_len"] if kind == "partial" else 0)
+            self.metrics.record_prefix(kind, matched_tokens=matched,
+                                       prompt_tokens=P0)
+        args = (s, r, prompt_b, P0, Pb, memory[None])
+        if res is not None and res[0] == "whole":
+            return self._attach_shared(res[1], *args)
+        if res is not None:
+            return self._pattach_join(res[1], *args)
+        return self._prefill_join(*args)
+
+    def _prefill_join(self, s, r, prompt_b, P0, Pb, memory):
+        n_pp = pages_for(Pb, self.page_size)
+        pages = self._alloc_pages(n_pp)
+        try:
+            tok0 = self.placement.run(
+                self.layout.join, s, torch.as_tensor(prompt_b,
+                                                     device=self.device),
+                P0, memory, pages)
+        except Exception:
+            self._alloc.decref(pages)
+            raise
+        self._table[s, :n_pp] = pages
+        self._index[s] = Pb
+        self.prefill_count += 1
+        # tok0 stays the device scalar: the trie stores it raw and
+        # resolves it at the first whole hit
+        if self._prefix is not None:
+            self._prefix.insert(prompt_b[0, :P0], P0, Pb, self._mem_key(r),
+                                None, pages, tok0)
+        self._cow_tail(s, Pb)
+        return tok0
+
+    def _pattach_join(self, match, s, r, prompt_b, P0, Pb, memory):
+        """Radix PARTIAL hit: map the matched prefix pages read-only, COW
+        the mid-page divergence point (when the match ends inside a
+        page), and prefill ONLY the divergent tail through
+        `PagedLayout.pattach`: prefill work scales with the missed
+        tokens, not the prompt. The extended prompt is inserted back into
+        the trie."""
+        psz = self.page_size
+        matched = [int(p) for p in match["pages"]]
+        m = len(matched)
+        j = int(match["j"])
+        seed_len = m * psz + j
+        n_pp = pages_for(Pb, psz)
+        self._alloc.incref(matched)
+        owned = []       # pages THIS join allocated (released on failure)
+        try:
+            if j:
+                dst = self._alloc_pages(1)[0]
+                owned.append(dst)
+                self.placement.run(self.layout.cow, int(match["cow_src"]),
+                                   dst)
+                self.metrics.record_cow_copy()
+                head = matched + [dst]
+            else:
+                head = list(matched)
+            fresh = self._alloc_pages(n_pp - len(head)) \
+                if n_pp > len(head) else []
+            owned.extend(fresh)
+            full_pages = head + fresh
+            n_tail = P0 - seed_len
+            # >= 2: the tail block takes the verify path, never the
+            # single-token decode path
+            Tb = max(2, bucket_size(n_tail))
+            Mb = bucket_size(m + (1 if j else 0), minimum=1)
+            W = min(self.max_pages, Mb + pages_for(Tb, psz))
+            trow = np.full((1, W), self.num_pages, np.int32)
+            k = min(W, n_pp)
+            trow[0, :k] = full_pages[:k]
+            tail = np.full((1, Tb), int(r.eos_id) if r.eos_id is not None
+                           else 0, np.int64)
+            tail[0, :n_tail] = prompt_b[0, seed_len:P0]
+            dev = self.device
+            tok0 = self.placement.run(
+                self.layout.pattach, s, torch.as_tensor(trow, device=dev),
+                torch.as_tensor(tail, device=dev), seed_len, P0, Pb, memory,
+                torch.as_tensor(prompt_b, device=dev))
+        except Exception:
+            if owned:
+                self._alloc.decref(owned)
+            self._alloc.decref(matched)
+            raise
+        self._table[s, :n_pp] = full_pages
+        self._index[s] = Pb
+        # insert BEFORE the tail COW, so the trie adopts the slot's pages
+        # while they are still the canonical prompt pages
+        self._prefix.insert(prompt_b[0, :P0], P0, Pb, self._mem_key(r),
+                            None, full_pages, tok0)
+        self._cow_tail(s, Pb)
+        return tok0
+
+    def _attach_shared(self, hit, s, r, prompt_b, P0, Pb, memory):
+        """Whole prefix hit: map the shared prompt pages read-only and
+        splice only the per-request rows; zero self-attention prefill."""
+        pages = hit["pages"]
+        self._alloc.incref(pages)
+        try:
+            tok0 = self.placement.run(
+                self.layout.attach, s, int(hit["tok0"]), P0, Pb, memory,
+                torch.as_tensor(prompt_b, device=self.device))
+        except Exception:
+            self._alloc.decref(pages)
+            raise
+        self._table[s, :len(pages)] = pages
+        self._index[s] = Pb
+        self._cow_tail(s, Pb)
+        return tok0
+
+    def _cow_tail(self, s, Pb):
+        """Copy-on-write: when the bucket boundary falls mid-page, the
+        first decode write lands inside the last prompt page; if that
+        page is shared (prefix cache or a co-resident holder), give this
+        slot a private copy first so the shared original stays
+        immutable."""
+        if Pb % self.page_size == 0:
+            return
+        pi = Pb // self.page_size
+        src = int(self._table[s, pi])
+        if src < 0 or self._alloc.refcount[src] <= 1:
+            return
+        dst = self._alloc_pages(1)[0]
+        try:
+            self.placement.run(self.layout.cow, src, dst)
+        except Exception:
+            self._alloc.decref([dst])
+            raise
+        self._alloc.decref([src])
+        self._table[s, pi] = dst
+        self.metrics.record_cow_copy()
+
+    def _evict_oom(self, s, exc, now):
+        """The pool ran dry mid-decode: the starved slot ends with its
+        partial tokens and the `OutOfPages` cause; the pool keeps
+        serving."""
+        r = self.slots[s]
+        self.slots[s] = None
+        self._evict(s)
+        self.metrics.record_oom_eviction()
+        self.metrics.record_error("out_of_pages", exc)
+        self.metrics.record_finish("error")
+        r.finish("error", now, error=exc)
+

@@ -1,6 +1,11 @@
-"""Serving metrics the dense path records: requests, tokens, TTFT and
-slot occupancy. Thread-safe; `snapshot()` may be called from any
-thread at any time."""
+"""Serving metrics: requests, tokens, TTFT and slot occupancy; the
+"paging" section (page occupancy, waits, out-of-pages evictions) once a
+paged pool records, the "prefix" section (radix prefix-cache hits,
+copy-on-write copies, trie size) once a paged join consults the trie,
+and the "speculation" section (draft acceptance, adaptive k, draft and
+verify step latency) once a speculative step runs. The section and key
+names are the JAX package's (`serving/metrics.py`). Thread-safe;
+`snapshot()` may be called from any thread at any time."""
 from __future__ import annotations
 
 import threading
@@ -37,6 +42,9 @@ class _Reservoir:
                 "p50": float(np.percentile(a, 50)),
                 "p99": float(np.percentile(a, 99)), "max": float(a.max())}
 
+    def p50(self, scale=1.0):
+        return self.summary(scale).get("p50")
+
 
 class ServingMetrics:
     def __init__(self, clock=time.monotonic):
@@ -63,6 +71,35 @@ class ServingMetrics:
         self.token_latency_s = _Reservoir()
         self.queue_depth = _Reservoir(512)
         self.occupancy = _Reservoir(512)
+        # paging (the section appears once a paged pool records)
+        self.pages_in_use = None          # last-iteration gauges
+        self.pages_free = None
+        self.page_waits = 0               # admissions deferred on pages
+        self.oom_evictions = 0            # mid-decode OutOfPages victims
+        self.bytes_per_token = _Reservoir(512)
+        # the radix prefix cache (once a paged join consults the trie)
+        self._prefix_recorded = False
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_whole_hits = 0
+        self.prefix_partial_hits = 0
+        self.prefix_matched_tokens = 0    # prompt tokens served cached
+        self.prefix_prompt_tokens = 0     # prompt tokens offered
+        self.cow_copies = 0
+        self.trie_nodes = None
+        self.trie_pages = None
+        # speculative decoding (once a draft / verify pair runs)
+        self._spec_recorded = False
+        self.spec_rounds = 0
+        self.drafts_proposed = 0
+        self.drafts_accepted = 0
+        self.accepted_per_step = _Reservoir(512)
+        self.draft_step_s = _Reservoir(512)
+        self.verify_step_s = _Reservoir(512)
+        self.spec_k_eff = None
+        self.spec_k_shrinks = 0
+        self.spec_k_grows = 0
+        self._spec_by_variant = {}
 
     def reset(self):
         """Start a fresh measurement epoch."""
@@ -116,11 +153,86 @@ class ServingMetrics:
             self.last_error = {"where": where, "type": type(exc).__name__,
                                "message": str(exc), "at": self._clock()}
 
-    def record_iteration(self, queue_depth, occupancy):
+    def record_iteration(self, queue_depth, occupancy, pages_in_use=None,
+                         pages_free=None, bytes_per_active_token=None,
+                         trie_nodes=None, trie_pages=None):
         with self._lock:
             self.iterations += 1
             self.queue_depth.add(queue_depth)
             self.occupancy.add(occupancy)
+            if pages_in_use is not None:
+                self.pages_in_use = int(pages_in_use)
+            if pages_free is not None:
+                self.pages_free = int(pages_free)
+            if trie_nodes is not None:
+                self.trie_nodes = int(trie_nodes)
+            if trie_pages is not None:
+                self.trie_pages = int(trie_pages)
+            if bytes_per_active_token is not None:
+                self.bytes_per_token.add(bytes_per_active_token)
+
+    def record_prefix(self, kind, matched_tokens=0, prompt_tokens=0):
+        """A paged join consulted the prefix cache: `kind` is "whole"
+        (every prompt page mapped shared, zero prefill), "partial" (the
+        matched prefix mapped, only the divergent tail prefilled) or
+        "miss". The token counts feed hit_token_ratio."""
+        with self._lock:
+            self._prefix_recorded = True
+            if kind == "whole":
+                self.prefix_hits += 1
+                self.prefix_whole_hits += 1
+            elif kind == "partial":
+                self.prefix_hits += 1
+                self.prefix_partial_hits += 1
+            else:
+                self.prefix_misses += 1
+            self.prefix_matched_tokens += int(matched_tokens)
+            self.prefix_prompt_tokens += int(prompt_tokens)
+
+    def record_cow_copy(self, n=1):
+        with self._lock:
+            self._prefix_recorded = True
+            self.cow_copies += n
+
+    def record_page_wait(self):
+        """Admission deferred: too few free pages for the queue head."""
+        with self._lock:
+            self.page_waits += 1
+
+    def record_oom_eviction(self, n=1):
+        with self._lock:
+            self.oom_evictions += n
+
+    def record_spec_step(self, n_active, proposed, accepted, draft_s,
+                         verify_s, k_eff=None, variant=None, k_shrinks=None,
+                         k_grows=None):
+        """One speculative iteration: `proposed` draft tokens went into
+        the verify step for the spec-enabled active slots and `accepted`
+        of them matched; `draft_s` / `verify_s` are the two dispatch wall
+        times; `k_eff` the adaptive draft depth after this round, with
+        the stepper's cumulative shrink / grow counts; `variant` the pool
+        (dense / paged) keying the per-variant step-ms split."""
+        with self._lock:
+            self._spec_recorded = True
+            self.spec_rounds += 1
+            self.drafts_proposed += int(proposed)
+            self.drafts_accepted += int(accepted)
+            if n_active:
+                self.accepted_per_step.add(accepted / n_active)
+            self.draft_step_s.add(draft_s)
+            self.verify_step_s.add(verify_s)
+            if k_eff is not None:
+                self.spec_k_eff = int(k_eff)
+            if k_shrinks is not None:
+                self.spec_k_shrinks = int(k_shrinks)
+            if k_grows is not None:
+                self.spec_k_grows = int(k_grows)
+            if variant is not None:
+                v = self._spec_by_variant.setdefault(
+                    variant, {"draft": _Reservoir(256),
+                              "verify": _Reservoir(256)})
+                v["draft"].add(draft_s)
+                v["verify"].add(verify_s)
 
     def snapshot(self):
         with self._lock:
@@ -145,4 +257,53 @@ class ServingMetrics:
                 "token_latency_ms": self.token_latency_s.summary(1e3),
                 "queue_depth": self.queue_depth.summary(),
                 "occupancy": self.occupancy.summary(),
+                **self._sections(),
             }
+
+    def _sections(self):
+        """The paging / prefix / speculation sections recorded so far
+        (called under the lock)."""
+        out = {}
+        if self.pages_in_use is not None:
+            out["paging"] = {
+                "pages_in_use": self.pages_in_use,
+                "pages_free": self.pages_free,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_hit_rate": round(
+                    self.prefix_hits /
+                    max(1, self.prefix_hits + self.prefix_misses), 3),
+                "page_waits": self.page_waits,
+                "oom_evictions": self.oom_evictions,
+                "bytes_per_active_token": self.bytes_per_token.summary()}
+        if self._prefix_recorded:
+            out["prefix"] = {
+                "whole_hits": self.prefix_whole_hits,
+                "partial_hits": self.prefix_partial_hits,
+                "misses": self.prefix_misses,
+                "hit_token_ratio": round(
+                    self.prefix_matched_tokens /
+                    max(1, self.prefix_prompt_tokens), 4),
+                "cow_copies": self.cow_copies,
+                "trie_nodes": self.trie_nodes or 0,
+                "trie_pages": self.trie_pages or 0}
+        if self._spec_recorded:
+            out["speculation"] = {
+                "rounds": self.spec_rounds,
+                "drafts_proposed": self.drafts_proposed,
+                "drafts_accepted": self.drafts_accepted,
+                "acceptance_rate": round(
+                    self.drafts_accepted / max(1, self.drafts_proposed), 4),
+                "accepted_per_step": self.accepted_per_step.summary(),
+                "draft_step_ms": self.draft_step_s.summary(1e3),
+                "verify_step_ms": self.verify_step_s.summary(1e3),
+                "wasted_draft_tokens":
+                    self.drafts_proposed - self.drafts_accepted,
+                "effective_k": self.spec_k_eff,
+                "k_shrink_events": self.spec_k_shrinks,
+                "k_grow_events": self.spec_k_grows,
+                "step_ms_by_variant": {
+                    v: {"draft_p50": r["draft"].p50(1e3),
+                        "verify_p50": r["verify"].p50(1e3)}
+                    for v, r in self._spec_by_variant.items()}}
+        return out

@@ -171,6 +171,16 @@ class Scheduler:
                 continue
             return r
 
+    def push_front(self, request):
+        """Return an already-admitted request to the HEAD of the queue
+        (FIFO order kept): the paged engine's page-headroom gate defers
+        the queue head when free pages cannot cover its prompt and
+        reservation, so out-of-pages backpressure keeps it queued
+        instead of failing it. Bypasses the high-water mark and the
+        drain check on purpose: the request was admitted once already."""
+        with self._lock:
+            self._q.appendleft(request)
+
     def depth(self):
         with self._lock:
             return len(self._q)

@@ -61,12 +61,21 @@ class _StepNet(nn.Module):
             return self.embed(tokens, positions)
         return self.embed(tokens)
 
+    def cross_kv(self, memory):
+        """Per-layer cross-attention (K, V) of `memory` [B, M, D]: the
+        only model compute of a prefix-hit attach."""
+        return [tuple(layer.cross_attn.gen_cache(
+            memory, type=MultiHeadAttention.StaticCache))
+            for layer in self.decoder.layers]
+
     def forward(self, tokens, positions, memory, tgt_mask=None,
                 memory_mask=None, inc=None, static_kv=None, prefill=False):
+        """One pass over `tokens` with the self-attention caches `inc`
+        (StaticKVCache or PagedKVCache per layer) and the cross-attention
+        K/V `static_kv`. prefill=True computes the cross K/V from
+        `memory` first and returns them too."""
         if prefill:
-            static_kv = [tuple(layer.cross_attn.gen_cache(
-                memory, type=MultiHeadAttention.StaticCache))
-                for layer in self.decoder.layers]
+            static_kv = self.cross_kv(memory)
         x = self._embed(tokens, positions)
         cache = [(inc[i], MultiHeadAttention.StaticCache(sk, sv))
                  for i, (sk, sv) in enumerate(static_kv)]

@@ -161,5 +161,14 @@ def test_wrappers_count_no_launch_on_cpu():
     TA.flash_decode(_t(q), _t(k), _t(v), _t(lengths), _t(bias))
     out, lse = TA.flash_attention_fwd(_t(k), _t(k), _t(v), None, True)
     TA.flash_attention_bwd(_t(k), _t(k), _t(v), None, out, lse, out, True)
+    TA.flash_verify(_t(k[:, :, :3]), _t(k), _t(v), _t(lengths + 3))
+    pages = _t(k.reshape(-1, 2, 16, 32)[:9])
+    table = torch.arange(8, dtype=torch.int32).reshape(4, 2)
+    TA.paged_flash_decode(_t(q), pages, pages, None, None, table,
+                          torch.full((4,), 20, dtype=torch.int32))
+    TA.paged_flash_verify(_t(k[:, :, :3]), pages, pages, None, None, table,
+                          torch.full((4,), 20, dtype=torch.int32))
     assert TA.LAUNCHES == {"flash_fwd": 0, "flash_decode": 0,
-                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "flash_verify": 0, "paged_flash_decode": 0,
+                           "paged_flash_verify": 0}

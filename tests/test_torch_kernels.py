@@ -105,6 +105,110 @@ def test_flash_decode_kernel_matches_plain(cuda, case):
                                atol=atol)
 
 
+# b, h, T, L, d, lengths after the write, dtype
+_VER = {
+    "spec_T4_ragged": (8, 8, 4, 1060, 64, [4, 1060, 700, 300, 129, 128,
+                                            1000, 513], torch.float32),
+    "spec_T4_bf16": (4, 2, 4, 300, 64, [300, 10, 4, 133], torch.bfloat16),
+    "one_token": (3, 2, 1, 200, 64, [1, 200, 129], torch.float32),
+    "T9_d128": (2, 2, 9, 390, 128, [390, 20], torch.float32),
+    "T256_d40": (1, 2, 256, 600, 40, [555], torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_VER))
+def test_flash_verify_kernel_matches_plain(cuda, case):
+    b, h, T, L, d, lens, dt = _VER[case]
+    q = _rand((b, T, h, d), 50, cuda, dt).transpose(1, 2)   # strided
+    k = _rand((b, h, L, d), 51, cuda, dt)
+    v = _rand((b, h, L, d), 52, cuda, dt)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    bias = torch.zeros(b, L, device=cuda)
+    bias[:, 1:min(L, 40)] = -1e30            # a pad hole after key 0
+    before = TA.LAUNCHES["flash_verify"]
+    got = TA.flash_verify(q, k, v, length, bias)
+    assert TA.LAUNCHES["flash_verify"] == before + 1
+    want = TA.flash_verify_plain(q, k, v, length, bias)
+    rtol, atol = TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    ref = TA.verify_attention_reference(q, k, v, length, bias)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, dev, seed=60):
+    """Pages with a shuffled table: every slot maps pages from one
+    permutation of the pool; some entries point at the trash row (N) or
+    are unmapped (-1), past each slot's written length."""
+    N = S * mp + 3
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randperm(N, generator=g)[:S * mp].reshape(S, mp) \
+        .to(torch.int32)
+    for s, n in enumerate(lens):
+        first_dead = -(-n // psz)
+        if first_dead < mp:
+            table[s, first_dead:] = -1 if s % 2 else N
+    raw = [torch.randn(N + 1, h, psz, d, generator=g) for _ in range(2)]
+    scales = [None, None]
+    if kv_dt == torch.int8:
+        for i, x in enumerate(raw):
+            sc = x.abs().amax((2, 3), keepdim=True) / 127.0
+            raw[i] = torch.round(x / sc).clamp(-127, 127)
+            scales[i] = sc.to(dev).contiguous()
+    kp, vp = (x.to(kv_dt).to(dev) for x in raw)
+    q = torch.randn(S, T, h, d, generator=g).to(q_dt).to(dev).transpose(1, 2)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bias = (torch.randn(S, mp * psz, generator=g) * 0.1).to(dev)
+    bias[:, 3:9] = -1e30
+    return q, kp, vp, scales[0], scales[1], table.to(dev), length, bias
+
+
+# S, h, psz, mp, d, T, lengths after the write, q dtype, page dtype
+_PAGED = {
+    "decode_f32": (8, 8, 16, 67, 64, 1, [1, 1072, 700, 300, 129, 128, 1000,
+                                         513], torch.float32, torch.float32),
+    "decode_int8": (4, 2, 16, 9, 64, 1, [5, 144, 17, 100], torch.float32,
+                    torch.int8),
+    "decode_bf16_pages": (4, 2, 16, 9, 64, 1, [5, 144, 17, 100],
+                          torch.float32, torch.bfloat16),
+    "decode_bf16_q_d128": (2, 2, 8, 30, 128, 1, [240, 31], torch.bfloat16,
+                           torch.bfloat16),
+    "verify_T4_f32": (8, 8, 16, 67, 64, 4, [4, 1072, 700, 300, 129, 128,
+                                            1000, 513], torch.float32,
+                      torch.float32),
+    "verify_T4_int8": (4, 2, 16, 9, 64, 4, [5, 144, 17, 100], torch.float32,
+                       torch.int8),
+    "verify_T256_f32": (2, 8, 16, 67, 64, 256, [1000, 300], torch.float32,
+                        torch.float32),
+    "verify_T7_bf16_q": (3, 2, 16, 12, 40, 7, [7, 192, 60], torch.bfloat16,
+                         torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_PAGED))
+def test_paged_kernels_match_plain(cuda, case):
+    S, h, psz, mp, d, T, lens, q_dt, kv_dt = _PAGED[case]
+    args = _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, cuda)
+    name = "paged_flash_decode" if T == 1 else "paged_flash_verify"
+    before = TA.LAUNCHES[name]
+    got = getattr(TA, name)(*args)
+    assert TA.LAUNCHES[name] == before + 1
+    want = getattr(TA, name + "_plain")(*args)
+    rtol, atol = TOL[q_dt]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    # the dispatcher on the card is the kernel; the gather + dense plain
+    # path (the CPU dispatch) agrees within the same limits
+    q, kp, vp, ks, vs, table, length, bias = args
+    kd = TA.paged_gather_kv(kp, ks, table, torch.float32)
+    vd = TA.paged_gather_kv(vp, vs, table, torch.float32)
+    ref = TA.verify_attention_reference(q.float(), kd, vd, length, bias)
+    torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card(cuda):
     """The serving layers' call: decode against a pool view, the flash
@@ -273,7 +377,11 @@ def test_card_paths_never_reach_a_plain_version(cuda, monkeypatch):
 
     for name in ("flash_attention_fwd_plain", "flash_attention_bwd_plain",
                  "flash_decode_plain", "_decode_partials_plain",
-                 "sdpa_reference", "dropout_keep_reference"):
+                 "flash_verify_plain", "_verify_partials_plain",
+                 "paged_flash_decode_plain", "paged_flash_verify_plain",
+                 "_paged_partials_plain", "paged_gather_kv",
+                 "sdpa_reference", "dropout_keep_reference",
+                 "verify_attention_reference"):
         monkeypatch.setattr(TA, name, boom)
     monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
                         boom)
@@ -297,3 +405,13 @@ def test_card_paths_never_reach_a_plain_version(cuda, monkeypatch):
     kv = _rand((2, 2, 80, 32), 41, cuda)
     TA.decode_attention(q, kv, kv, torch.tensor([80, 7], device=cuda))
     assert TA.LAUNCHES["flash_decode"] == 1
+    length = torch.tensor([80, 7], dtype=torch.int32, device=cuda)
+    TA.verify_attention(_rand((2, 2, 3, 32), 42, cuda), kv, kv, length)
+    assert TA.LAUNCHES["flash_verify"] == 1
+    for T, name in ((1, "paged_flash_decode"), (3, "paged_flash_verify")):
+        q, kp, vp, ks, vs, table, length, bias = _paged_case(
+            2, 2, 16, 5, 32, T, [70, 9], torch.float32, torch.int8, cuda)
+        fn = (TA.paged_decode_attention if T == 1 else
+              TA.paged_verify_attention)
+        fn(q, kp, vp, ks, vs, table, length, bias[:, None, None, :])
+        assert TA.LAUNCHES[name] == 1

@@ -22,8 +22,8 @@ from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.convert import from_jax_state
 from paddle_tpu_torch.core.bucketing import bucket_size, pad_prompt_row
-from paddle_tpu_torch.serving import (Request, Scheduler, ServingEngine,
-                                      ServingServer)
+from paddle_tpu_torch.serving import (PagedServingEngine, Request,
+                                      Scheduler, ServingEngine, ServingServer)
 from paddle_tpu_torch.text.generation import generate_eager
 
 torch.set_num_threads(2)
@@ -34,8 +34,7 @@ def _np_state(layer):
     return {k: np.asarray(v) for k, v in layer.state_dict().items()}
 
 
-@pytest.fixture(scope="module")
-def stacks():
+def build_stacks():
     """(JAX decoder, embed, project) and the port's copy."""
     np.random.seed(3)
     jdec = TransformerDecoder(TransformerDecoderLayer(D, H, FF, dropout=0.0),
@@ -50,6 +49,11 @@ def stacks():
         t.load_state_dict(from_jax_state(_np_state(j)))
         t.eval()
     return (jdec, jemb, jproj), (tdec, temb, tproj)
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    return build_stacks()
 
 
 def _requests(seed=5, n=10):
@@ -144,10 +148,18 @@ def test_prefill_logits_match_jax(stacks):
 
 
 def test_engine_refuses_later_slices_and_unservable_requests(stacks):
-    for kw in ({"paged": True}, {"spec_k": 2}, {"prefill_chunk": 8},
-               {"quantize": "int8"}, {"adapters": object()}):
+    for kw in ({"prefill_chunk": 8}, {"quantize": "int8"},
+               {"adapters": object()}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ServingEngine(*stacks[1], device="cpu", **kw)
+    with pytest.raises(ValueError, match="spec_k"):
+        ServingEngine(*stacks[1], device="cpu", spec_k=1)
+    paged = ServingEngine(*stacks[1], device="cpu", paged=True, num_pages=3,
+                          max_len=MAX_LEN, page_size=8)
+    assert isinstance(paged, PagedServingEngine)
+    with pytest.raises(ValueError, match="pages"):
+        paged.admit_check(Request(np.zeros(20, np.int32), np.zeros((5, D)),
+                                  max_new_tokens=8))
     eng = ServingEngine(*stacks[1], num_slots=SLOTS, max_len=MAX_LEN,
                         device="cpu")
     with pytest.raises(ValueError, match="max_len"):
