@@ -92,7 +92,40 @@ Phases; any failure exits nonzero before the result lines:
     version, and torch's scaled_dot_product_attention as the yardstick
     (forward alone for flash_fwd; forward + backward for the backward
     kernels, whose sum it compares with).
-13. Output: a {"kernels": [...]} line, then the card's name and power
+13. int8_matmul and lora_gather against their plain versions on the card:
+    int8_matmul at m 8, 32 and 1024 (a decode step, a 4-token verify
+    step, a prompt bucket) on every (d, n) of the decoder and the
+    vocabulary projection (512x512, 512x2048, 2048x512, 512x37000),
+    plus a bf16 x; lora_gather at b 8 s 1, b 8 s 4 and b 1 s 1024 on
+    512x512, 512x2048 and 2048x512, rank 8, capacity 5, ids mixing the
+    base row 0 and every tenant. Limits: fp32 1e-5 of the plain version's
+    largest entry (sums over d <= 2048 in another order), bf16 1e-2.
+14. Multi-tenant dense serve at the phase-3 width and weights: an
+    AdapterPool of 4 tenants (`register_random(seed=100+i, scale=0.05)`,
+    rank 8, capacity 5; `bench.py` `_serving_multitenant`), 8 slots, 16
+    requests (4 a tenant, prompts of 300-1000 tokens, 32 new tokens)
+    through ServingServer. (a) fp32 base: tokens equal, request for
+    request, those of a solo fp32 engine per tenant whose target weights
+    hold the tenant's `merged_weights` (a divergence passes only with a
+    top-2 margin below 1e-4 there, as in phase 5). (b) quantize="int8":
+    token agreement with (a) at least 0.8 and weights at least 1.9x
+    smaller. The launch counters are zeroed before each serve; lora_gather
+    (a, b) and int8_matmul (b) must have grown. Prints the tenancy
+    section, tokens/s and the p50 TTFT.
+15. Multi-tenant paged serve: the phase-6 preamble requests split across
+    two tenants and the base, paged=True, page 16, fp32 pages, then with
+    spec_k=4; tokens equal the dense multi-tenant engine's (or a sub-1e-4
+    tie under the tenant's adapter). The prefix trie must hold exactly
+    three scopes (two tenants and the base), each entered by a miss, so
+    no hit crossed tenants; allocator clean, AdapterPool.check() passes
+    and no row pinned after the drain.
+16. Timing of int8_matmul and lora_gather at the phase-13 shapes: kernel,
+    bound (published H100 SXM peaks: fp32 67 TFLOP/s, 3.35 TB/s), plain
+    version, and the library yardstick (torch.matmul on the dequantized
+    weight; torch.bmm twice on the gathered banks; the port never calls
+    either). Then a profiled pass of 8 requests through the int8 + LoRA
+    engine: the device's busy share and device time by kernel.
+17. Output: a {"kernels": [...]} line, then the card's name and power
     limit, then {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
@@ -127,6 +160,12 @@ E_BATCH, E_SEQ, E_STEPS, E_DROPOUT, E_LR = 8, 1024, 12, 0.1, 5e-5
 ATOL_GRAD = 1e-4
 # bf16 limits of phase 5, as fractions of the plain version's largest entry
 REL_BF16_GRAD, REL_BF16_OUT = 1e-3, 1e-2
+# multi-tenant serving (phases 13-16; bench.py `_serving_multitenant`)
+MT_TENANTS, MT_RANK, MT_REQUESTS, MT_AGREE = 4, 8, 16, 0.8
+QUANT_SHAPES = ((512, 512), (512, 2048), (2048, 512), (512, VOCAB))
+# float32 int8 / LoRA kernels, of the plain version's largest entry (sums
+# over d <= 2048 in another order)
+REL_F32_QUANT = 1e-5
 
 
 def log(*a):
@@ -609,17 +648,21 @@ def read_numbers(A, kname, args):
 
 # ------------------------------------------- speculative and paged serves
 
-def run_server(engine, prompts, memories, new_tokens=NEW_TOKENS):
-    """Serve the requests through a new ServingServer on `engine`.
+def run_server(engine, prompts, memories, new_tokens=NEW_TOKENS,
+               adapters=None):
+    """Serve the requests (under the tenant adapters named in `adapters`,
+    None for the base model) through a new ServingServer on `engine`.
     Returns (tokens per request, wall seconds)."""
     from paddle_tpu_torch.serving import ServingServer
 
     server = ServingServer(engine, max_queue=len(prompts))
+    adapters = adapters or [None] * len(prompts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        reqs = [server.submit(p, m, max_new_tokens=new_tokens, eos_id=1)
-                for p, m in zip(prompts, memories)]
+        reqs = [server.submit(p, m, max_new_tokens=new_tokens, eos_id=1,
+                              adapter=a)
+                for p, m, a in zip(prompts, memories, adapters)]
         results = [r.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
     finally:
@@ -650,16 +693,19 @@ def top2_margin(net, prompt, memory, toks, j):
     return float(top[0] - top[1])
 
 
-def same_tokens(label, want, got, net, prompts, memories):
+def same_tokens(label, want, got, net, prompts, memories, margin_fn=None):
     """Request-for-request token equality; a divergence passes only at a
-    top-2 margin below TIE (printed). Returns the count of tied requests."""
+    top-2 margin below TIE (printed; `margin_fn(i, tokens, j)` computes it
+    where the request needs more than `net`). Returns the count of tied
+    requests."""
     ties = 0
     for i, (w, g) in enumerate(zip(want, got)):
         if w == g:
             continue
         j = next((t for t, (a, b) in enumerate(zip(w, g)) if a != b),
                  min(len(w), len(g)))
-        margin = top2_margin(net, prompts[i], memories[i], w, j)
+        margin = (margin_fn(i, w, j) if margin_fn is not None else
+                  top2_margin(net, prompts[i], memories[i], w, j))
         log(f"  {label} request {i}: first diverging step {j} "
             f"({w[j:j + 1]} vs {g[j:j + 1]}), top-2 logit margin "
             f"{margin:.3e}")
@@ -798,7 +844,7 @@ def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
     return {"agree": agree, "first_difference": first}
 
 
-def profile_pass(engine, prompts, memories, kernel_names):
+def profile_pass(engine, prompts, memories, kernel_names, adapters=None):
     """A pass under torch.profiler: wall, the device's busy share, and
     device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
@@ -807,7 +853,7 @@ def profile_pass(engine, prompts, memories, kernel_names):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_server(engine, prompts, memories)
+        run_server(engine, prompts, memories, adapters=adapters)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = kernel_rows(prof)
@@ -1112,6 +1158,296 @@ def train_numbers(A, case):
 
 
 
+# ------------------------------------- multi-tenant serving (13-16)
+
+def int8_cases(Q, g):
+    """{case: (x, q, scale)} at the multi-tenant serve's shapes: m = 8 (a
+    decode step over 8 slots), 32 (a 4-token verify step) and 1024 (a
+    prompt bucket), every (d, n) of the decoder and the vocabulary
+    projection, Xavier-scaled weights quantized per column; plus one bf16
+    x."""
+    cases = {}
+    for d, n in QUANT_SHAPES:
+        w = torch.randn(d, n, generator=g, device="cuda") * \
+            (6.0 / (d + n)) ** 0.5
+        q, scale = Q.quantize_int8_weight(w)
+        for m in (8, 32, 1024):
+            cases[f"m{m} {d}x{n}"] = (
+                torch.randn(m, d, generator=g, device="cuda"), q, scale)
+    x, q, scale = cases["m8 512x2048"]
+    cases["m8 512x2048 bf16 x"] = (x.bfloat16(), q, scale)
+    return cases
+
+
+def lora_cases(g):
+    """{case: (x, A, B, host ids)}: decode (b 8, s 1), verify (b 8, s 4)
+    and a join (b 1, s 1024) on each (d, n) of the adapter targets, rank
+    8, capacity tenants + 1 (bank row 0 zero), ids mixing the base and
+    every tenant."""
+    cases = {}
+    cap = MT_TENANTS + 1
+    for d, n in ((512, 512), (512, 2048), (2048, 512)):
+        A = torch.randn(cap, d, MT_RANK, generator=g, device="cuda") * 0.05
+        B = torch.randn(cap, MT_RANK, n, generator=g, device="cuda") * 0.05
+        A[0] = 0.0
+        B[0] = 0.0
+        for b, s in ((8, 1), (8, 4), (1, 1024)):
+            ids = [0, 1, 2, 3, 4, 0, 2, 4] if b == 8 else [3]
+            cases[f"b{b} s{s} {d}x{n}"] = (
+                torch.randn(b, s, d, generator=g, device="cuda"), A, B,
+                torch.tensor(ids, dtype=torch.int32))
+    return cases
+
+
+def check_quant_kernels(Q, g):
+    """Phase 13: int8_matmul and lora_gather against their plain versions.
+    Returns ({kernel: max_abs_err fp32}, {kernel: max_abs_err bf16},
+    int8 cases, lora cases)."""
+    i8, lo = int8_cases(Q, g), lora_cases(g)
+    errs, errs16 = {}, {}
+    for kname, cases, fn, plain in (
+            ("int8_matmul", i8, Q.int8_matmul, Q.int8_matmul_reference),
+            ("lora_gather", lo, Q.lora_delta, Q.lora_delta_reference)):
+        for cname, args in cases.items():
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            fp32 = got.dtype == torch.float32
+            limit = (REL_F32_QUANT if fp32 else REL_BF16_ATT) * \
+                want.float().abs().max().item()
+            log(f"  {kname:12s} {cname}: max_abs_err {e:.3e} (limit "
+                f"{limit:.3e})")
+            if not e <= limit:
+                raise AssertionError(f"{kname} disagrees with its plain "
+                                     f"version on {cname}: {e}")
+            into = errs if fp32 else errs16
+            into[kname] = max(into.get(kname, 0.0), e)
+    return errs, errs16, i8, lo
+
+
+def mt_requests(seed):
+    """16 requests, 4 per tenant: prompts of 300-1000 tokens."""
+    rs = np.random.RandomState(seed)
+    prompts, names = [], []
+    for i in range(MT_REQUESTS):
+        p = rs.randint(2, VOCAB, int(rs.randint(300, 1001)))
+        p[0] = 0
+        prompts.append(p)
+        names.append(f"tenant{i % MT_TENANTS}")
+    return prompts, names
+
+
+def adapter_pool(decoder):
+    from paddle_tpu_torch.serving import AdapterPool
+
+    pool = AdapterPool(decoder, capacity=MT_TENANTS + 1, rank=MT_RANK)
+    for i in range(MT_TENANTS):
+        pool.register_random(f"tenant{i}", seed=100 + i, scale=0.05)
+    return pool
+
+
+def tenant_margin(Q, net, pool, prompts, memories, names):
+    """margin_fn for `same_tokens`: the top-2 margin under the request's
+    tenant adapter (a lora_scope over the pool's bank row)."""
+    def fn(i, toks, j):
+        row = pool.acquire(names[i])
+        try:
+            with Q.lora_scope(np.asarray([row], np.int32), pool.banks()):
+                return top2_margin(net, prompts[i], memories[i], toks, j)
+        finally:
+            pool.release(row)
+    return fn
+
+
+def mt_dense_serve(Q, seed, memory):
+    """Phase 14. (a) float32 base with adapters, against solo engines on
+    the merged weights; (b) quantize="int8" with adapters. Returns a dict
+    of results (engines included)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.adapters import decoder_lora_targets
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    model, embed, project = build_model(seed, "cuda")
+    base = copy.deepcopy((model.decoder, embed, project))  # before any pool
+    del model
+    prompts, names = mt_requests(seed + 14)
+    mems = [memory[i] for i in range(MT_REQUESTS)]
+    out = {"prompts": prompts, "names": names, "mems": mems}
+    stack = copy.deepcopy(base)
+    pool = adapter_pool(stack[0])
+    engine = ServingEngine(*stack, num_slots=SLOTS, max_len=MAX_LEN,
+                           adapters=pool, device="cuda")
+    Q.reset_launches()
+    got, wall = run_server(engine, prompts, mems, adapters=names)
+    launches = launch_counts()
+    snap = engine.metrics.snapshot()
+    pool.check()
+    if launches["lora_gather"] < 1:
+        raise AssertionError("lora_gather was never launched while serving")
+    n_tok = sum(len(t) for t in got)
+    log(f"  (a) fp32 + adapters: {MT_REQUESTS} requests, {n_tok} tokens in "
+        f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s; p50 TTFT "
+        f"{snap['ttft_ms']['p50']:.1f} ms; launches {launches}")
+    log(f"      tenancy {json.dumps(snap['tenancy'])}")
+    ties = 0
+    for t in range(MT_TENANTS):
+        name = f"tenant{t}"
+        mine = [i for i in range(MT_REQUESTS) if names[i] == name]
+        solo = copy.deepcopy(base)
+        targets = decoder_lora_targets(solo[0])
+        with torch.no_grad():
+            for k, w in pool.merged_weights(name):
+                targets[k].weight.copy_(w)
+        seng = ServingEngine(*solo, num_slots=SLOTS, max_len=MAX_LEN,
+                             device="cuda")
+        want, _ = run_server(seng, [prompts[i] for i in mine],
+                             [mems[i] for i in mine])
+        ties += same_tokens(f"merged {name}", want, [got[i] for i in mine],
+                            _StepNet(*solo).eval(),
+                            [prompts[i] for i in mine],
+                            [mems[i] for i in mine])
+        del seng, solo, targets
+    log(f"  (a) tokens equal the solo merged-weight engines' request for "
+        f"request ({ties} ties)")
+    out.update(fp32_engine=engine, fp32_pool=pool, fp32_tokens=got,
+               fp32_launches=launches, fp32_snap=snap, fp32_rate=n_tok / wall,
+               ties=ties)
+
+    stack8 = copy.deepcopy(base)
+    pool8 = adapter_pool(stack8[0])
+    engine8 = ServingEngine(*stack8, num_slots=SLOTS, max_len=MAX_LEN,
+                            adapters=pool8, quantize="int8", device="cuda")
+    del base
+    Q.reset_launches()
+    got8, wall8 = run_server(engine8, prompts, mems, adapters=names)
+    launches8 = launch_counts()
+    snap8 = engine8.metrics.snapshot()
+    pool8.check()
+    for name in ("int8_matmul", "lora_gather"):
+        if launches8[name] < 1:
+            raise AssertionError(f"{name} was never launched on the int8 "
+                                 f"serve")
+    agree = sum(a == b for g8, g32 in zip(got8, got)
+                for a, b in zip(g8, g32))
+    total = sum(len(t) for t in got)
+    agreement = agree / total
+    shrink = engine.weights_bytes() / engine8.weights_bytes()
+    n8 = sum(len(t) for t in got8)
+    log(f"  (b) int8 + adapters: {n8} tokens in {wall8:.3f} s: "
+        f"{n8 / wall8:.1f} tokens/s; p50 TTFT {snap8['ttft_ms']['p50']:.1f} "
+        f"ms; token agreement with (a) {agree}/{total} = {agreement:.4f} "
+        f"(floor {MT_AGREE}); weights {engine.weights_bytes()} -> "
+        f"{engine8.weights_bytes()} bytes ({shrink:.3f}x smaller, floor "
+        f"1.9), adapter banks {engine8.adapter_bytes()} bytes; launches "
+        f"{launches8}")
+    log(f"      tenancy {json.dumps(snap8['tenancy'])}")
+    log(f"      memory {json.dumps(snap8['memory'])}")
+    if not agreement >= MT_AGREE:
+        raise AssertionError(f"int8 token agreement {agreement} < "
+                             f"{MT_AGREE}")
+    if not shrink >= 1.9:
+        raise AssertionError(f"int8 weights only {shrink}x smaller")
+    out.update(int8_engine=engine8, int8_tokens=got8, int8_launches=launches8,
+               int8_snap=snap8, int8_rate=n8 / wall8, agreement=agreement,
+               shrink=shrink)
+    return out
+
+
+def mt_paged_serve(Q, seed, mt, memory):
+    """Phase 15: the phase-6 preamble requests split across two tenants
+    and the base, on the paged pool (fp32 pages), then with spec_k 4; the
+    tokens of the dense multi-tenant engine. Returns ({path: launches},
+    {path: snapshot})."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    dense, pool = mt["fp32_engine"], mt["fp32_pool"]
+    net = dense._net
+    prompts, mems = paged_requests(seed + 6, REQUESTS, memory)
+    names = [(None, "tenant0", "tenant1")[i % 3] for i in range(REQUESTS)]
+    want, _ = run_server(dense, prompts, mems, adapters=names)
+    margin = tenant_margin(Q, _StepNet(net.decoder, net.embed,
+                                       net.project).eval(),
+                           pool, prompts, mems, names)
+    launches, snaps = {}, {}
+    for path, spec_k in (("mt_paged", None), ("mt_paged_spec", SPEC_K)):
+        engine = ServingEngine(net.decoder, net.embed, net.project,
+                               paged=True, page_size=PAGE, num_slots=SLOTS,
+                               max_len=MAX_LEN, spec_k=spec_k, adapters=pool,
+                               device="cuda")
+        Q.reset_launches()
+        got, wall = run_server(engine, prompts, mems, adapters=names)
+        launches[path] = launch_counts()
+        snaps[path] = snap = engine.metrics.snapshot()
+        ties = same_tokens(path, want, got, None, prompts, mems, margin)
+        pre = snap["prefix"]
+        scopes = sorted(str(k[1]) for k in engine._prefix._roots)
+        n_tok = sum(len(t) for t in got)
+        log(f"  {path}: {REQUESTS} requests, {n_tok} tokens in {wall:.3f} s:"
+            f" {n_tok / wall:.1f} tokens/s; prefix whole/partial/miss "
+            f"{pre['whole_hits']}/{pre['partial_hits']}/{pre['misses']}, "
+            f"hit-token ratio {pre['hit_token_ratio']}; trie scopes "
+            f"{scopes}; tokens equal the dense multi-tenant engine's "
+            f"({ties} ties); launches {launches[path]}")
+        log(f"      tenancy {json.dumps(snap['tenancy'])}")
+        # one scope per tenant and the base, each entered by a miss: a hit
+        # never crossed tenants (the preamble is shared by all 16)
+        if len(scopes) != 3 or pre["misses"] < 3:
+            raise AssertionError(f"{path}: prefix scopes {scopes}, misses "
+                                 f"{pre['misses']}")
+        if launches[path]["lora_gather"] < 1:
+            raise AssertionError(f"lora_gather was never launched on {path}")
+        engine.flush_prefix_cache()
+        engine._alloc.check()
+        if engine._alloc.pages_free != engine.num_pages:
+            raise AssertionError(f"{path}: pages leaked after the drain")
+        pool.check()
+        if pool.refcount.sum():
+            raise AssertionError(f"{path}: adapter rows still pinned")
+        del engine
+    log("  allocators clean and adapter rows unpinned after the drains")
+    return launches, snaps
+
+
+def quant_numbers(Q, kname, args):
+    """Phase 16: kernel, bound, plain version and the library yardstick
+    (torch.matmul on the pre-dequantized weight; torch.bmm twice on the
+    pre-gathered banks) at one case."""
+    if kname == "int8_matmul":
+        x, q, scale = args
+        m, d = x.shape
+        n = q.shape[1]
+        flops = 2.0 * m * d * n
+        nbytes = 4.0 * m * d + d * n + 4.0 * n + 4.0 * m * n
+        w = q.float() * scale
+        kern = lambda: Q._int8_matmul_cuda(x, q, scale)       # noqa: E731
+        plain = lambda: Q.int8_matmul_reference(x, q, scale)  # noqa: E731
+        lib = lambda: torch.matmul(x, w)                      # noqa: E731
+    else:
+        x, A, B, ids = args
+        b, s, d = x.shape
+        r, n = B.shape[1], B.shape[2]
+        ids_dev = ids.to("cuda")
+        distinct = len(set(ids.tolist()))
+        flops = 2.0 * b * s * r * (d + n)
+        nbytes = 4.0 * (b * s * d + distinct * r * (d + n) + b + b * s * n)
+        ag, bg = A[ids_dev.long()], B[ids_dev.long()]
+        kern = lambda: Q._lora_gather_cuda(x, A, B, ids_dev)  # noqa: E731
+        plain = lambda: Q.lora_delta_reference(x, A, B, ids)  # noqa: E731
+        lib = lambda: torch.bmm(torch.bmm(x, ag), bg)         # noqa: E731
+    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(lib),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def launch_counts():
+    from paddle_tpu_torch.ops import _build
+
+    return _build.launches()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1122,6 +1458,7 @@ def main():
     sys.path.insert(0, HERE)
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import quant as Q
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1246,7 +1583,9 @@ def main():
                "int8_tokens_equal_fp32": int8["agree"]}
     log(f"  serving summary {json.dumps(serving)}")
     # the serving engines hold reference cycles (engine <-> layout): free
-    # their pools now, so the training phases' peak memory is their own
+    # their pools now, so the training phases' peak memory is their own;
+    # the source memories wait on the host for phases 14-15
+    mt_memory = memory.cpu()
     del served, engine, model, embed, project, memory, new_cases
     gc.collect()
     torch.cuda.empty_cache()
@@ -1294,11 +1633,71 @@ def main():
             "library_scope": "sdpa forward + backward",
             "plain_scope": "flash_attention_bwd_plain (dq, dk, dv)",
             **t_rows[kname]}
-    kernels = list(kernels.values())
     busy = "not measured" if prof is None else \
         f"{100 * prof['busy_share']:.1f}%"
     log(f"  training: {seq_s:.2f} seq/s, peak {peak / 2 ** 30:.2f} GiB, "
         f"device busy {busy}")
+    del t_case
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 13: int8_matmul and lora_gather against their plain versions "
+        f"(fp32 {REL_F32_QUANT} and bf16 {REL_BF16_ATT} of the largest plain "
+        f"entry)")
+    q_errs, q_errs16, i8_cases, lo_cases = check_quant_kernels(Q, g)
+
+    log(f"phase 14: multi-tenant dense serve, {MT_TENANTS} tenants (rank "
+        f"{MT_RANK}, capacity {MT_TENANTS + 1}), {MT_REQUESTS} requests over "
+        f"{SLOTS} slots: (a) fp32, (b) quantize='int8'")
+    mt = mt_dense_serve(Q, args.seed, mt_memory)
+
+    log("phase 15: multi-tenant paged serve (page 16, fp32 pages), then "
+        f"with spec_k {SPEC_K}")
+    mp_launches, mp_snaps = mt_paged_serve(Q, args.seed, mt, mt_memory[0])
+
+    log("phase 16: timing of int8_matmul and lora_gather (median of 25, ms)")
+    by_path = {"mt_fp32": mt["fp32_launches"], "mt_int8": mt["int8_launches"],
+               **mp_launches}
+    for kname, cases, head, line in (
+            ("int8_matmul", i8_cases, "m8 512x37000", 116),
+            ("lora_gather", lo_cases, "b8 s1 512x2048", 243)):
+        rows = []
+        for cname, inputs in cases.items():
+            if "bf16" in cname:
+                continue
+            nums = quant_numbers(Q, kname, inputs)
+            rows.append(dict(case=cname, **nums))
+            log(f"  {kname} {cname}: kernel {nums['ms']:.4f} bound "
+                f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
+                f"{nums['plain_ms']:.4f} library {nums['library_ms']:.4f}")
+        top = next(r for r in rows if r["case"] == head)
+        paths = {p: c[kname] for p, c in by_path.items() if c[kname]}
+        kernels[kname] = {
+            "name": kname, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{kname}.cu",
+            "replaces": f"paddle_tpu/ops/quant.py:{line}",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": q_errs[kname],
+            "max_abs_err_bf16": q_errs16.get(kname),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "shape": head,
+            "library_scope": ("torch.matmul on the dequantized weight"
+                              if kname == "int8_matmul" else
+                              "torch.bmm x2 on the gathered banks"),
+            "cases": rows}
+    prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
+    profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
+                 ("int8_matmul", "lora_gather", "flash_fwd_kernel",
+                  "flash_decode_kernel"), adapters=names[:SLOTS])
+    log("  multi-tenant summary " + json.dumps({
+        "fp32_tokens_per_s": mt["fp32_rate"],
+        "int8_tokens_per_s": mt["int8_rate"],
+        "int8_token_agreement": mt["agreement"],
+        "int8_weight_shrink": mt["shrink"],
+        "merged_weight_ties": mt["ties"],
+        "paged_prefix": {p: s["prefix"] for p, s in mp_snaps.items()}}))
+    kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,13 @@ modules:
     port_layer.load_state_dict(from_jax_state(np_state))
 
 Both packages then compute the same function; the parity tests rely on
-this.
+this. A quantized JAX net (`quantize_net`, or an engine built with
+`quantize="int8"`) carries `weight_q` (int8) and `weight_scale` buffers
+in place of `weight`; it loads into a port net on which `quantize_net`
+has run, which has the same buffers:
+
+    quantize_net(port_decoder, port_embed, port_project)
+    port_decoder.load_state_dict(from_jax_state(np_state))
 """
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ __all__ = ["from_jax_state"]
 
 def from_jax_state(np_state):
     """{name: numpy array} -> {name: CPU torch tensor} with the same
-    names, dtypes kept (float64 arrays from an x64 session become
-    float32: the port's parameters are float32)."""
+    names, dtypes kept: int8 stays int8, float64 arrays from an x64
+    session become float32 (the port's parameters are float32)."""
     out = {}
     for name, arr in np_state.items():
         arr = np.asarray(arr)

@@ -1,13 +1,16 @@
 """Functional entries the layers call (the JAX package's
-`nn/functional`): activations, dropout and attention."""
+`nn/functional`): activations, dropout, attention, and the int8 and
+LoRA matmuls of multi-tenant serving."""
 from __future__ import annotations
 
 import torch
 
 from ..ops import attention as A
+from ..ops import quant as Q
 
 __all__ = ["relu", "gelu", "tanh", "dropout", "draw_seed",
-           "scaled_dot_product_attention"]
+           "scaled_dot_product_attention", "linear_int8", "embedding_int8",
+           "lora_delta"]
 
 
 def relu(x):
@@ -59,3 +62,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         dropout_seed = draw_seed()
     return A.sdpa(query, key, value, attn_mask, is_causal, dropout_p=p,
                   dropout_seed=dropout_seed)
+
+
+def linear_int8(x, weight_q, scale, bias=None):
+    """Scaled int8 matmul: `weight_q` int8 [in, out] with per-output-
+    channel float32 `scale`, float32 accumulate, result in x's dtype
+    (`ops.quant.int8_matmul`), plus `bias`."""
+    return Q.int8_matmul(x, weight_q, scale, bias)
+
+
+def embedding_int8(x, weight_q, scale, dtype):
+    """Embedding lookup over an int8 table with per-output-channel scales:
+    gather and scale, no dequantized copy (`ops.quant.int8_gather`)."""
+    return Q.int8_gather(x, weight_q, scale, dtype)
+
+
+def lora_delta(x, A, B, ids):
+    """Per-row low-rank adapter delta `(x @ A[ids]) @ B[ids]` over stacked
+    banks (`ops.quant.lora_delta`; id 0 is the base model, a zero
+    delta)."""
+    return Q.lora_delta(x, A, B, ids)

@@ -200,7 +200,7 @@ class MultiHeadAttention(nn.Module):
         them in place. The serving engine owns the host-side
         PageAllocator and page table; this only shapes the device
         state."""
-        dev = self.q_proj.weight.device
+        dev = self.q_proj.device
         storage, quantized = PG.resolve_kv_dtype(kv_dtype, dtype)
         shape = (int(num_pages) + 1, self.num_heads, int(page_size),
                  self.head_dim)
@@ -236,10 +236,10 @@ class MultiHeadAttention(nn.Module):
         max_length=N: a zeroed StaticKVCache [B, H, N, D] (separate K and
         V buffers, since steps write them in place) with zero indices.
         Otherwise an empty concat-grown Cache."""
-        dev = self.q_proj.weight.device
+        dev = self.q_proj.device
         if max_length is not None:
             b = batch_size if batch_size is not None else key.shape[0]
-            dtype = dtype or self.q_proj.weight.dtype
+            dtype = dtype or self.q_proj.param_dtype
             shape = (int(b), self.num_heads, int(max_length), self.head_dim)
             return self.StaticKVCache(
                 torch.zeros(shape, dtype=dtype, device=dev),

@@ -1,1 +1,1 @@
-"""Attention ops and the hand-written CUDA kernels' build."""
+"""Attention, int8 and LoRA ops and the hand-written CUDA kernels' build."""

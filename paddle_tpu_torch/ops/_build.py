@@ -21,7 +21,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["build", "kernels", "build_info"]
+__all__ = ["build", "kernels", "build_info", "counter", "reset_launches",
+           "launches", "raise_on"]
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -59,7 +60,48 @@ _SIGNATURES = {
                       _P]),
     "paged_decode": ("pt_paged_decode", _PAGED),
     "paged_verify": ("pt_paged_verify", _PAGED),
+    "int8_matmul": ("pt_int8_matmul",
+                    [_I, *[_P] * 5, _I, _I, _I, _I, _P]),
+    "lora_gather": ("pt_lora_gather",
+                    [_I, *[_P] * 5, _I, _I, _I, _I, _I, _I, _P]),
 }
+
+#: the launch counters of the kernel wrappers, one dict per ops module
+_COUNTERS = []
+
+
+def counter(names):
+    """A launch-count dict {kernel: 0} for one ops module's wrappers. Each
+    wrapper adds one where it launches its kernel and nowhere else (plain
+    CPU runs do not count)."""
+    d = {name: 0 for name in names}
+    _COUNTERS.append(d)
+    return d
+
+
+def reset_launches():
+    """Zero the launch counts of every kernel."""
+    for d in _COUNTERS:
+        for name in d:
+            d[name] = 0
+
+
+def launches():
+    """{kernel: launches} over every ops module."""
+    out = {}
+    for d in _COUNTERS:
+        out.update(d)
+    return out
+
+
+def raise_on(name, err):
+    """Raise when a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        import torch
+
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
+                           f"({torch.cuda.get_device_name()})")
+
 
 _lock = threading.Lock()
 _kernels = None

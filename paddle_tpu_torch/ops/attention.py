@@ -83,15 +83,12 @@ NEG = -1e30
 #: 500 blocks on 132 SMs
 DECODE_SPLIT = 128
 #: kernel launches per wrapper; each wrapper adds one where it launches
-#: its kernel and nowhere else (plain CPU runs do not count)
-LAUNCHES = {"flash_fwd": 0, "flash_decode": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "flash_verify": 0, "paged_flash_decode": 0,
-            "paged_flash_verify": 0}
-
-
-def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+#: its kernel and nowhere else (plain CPU runs do not count).
+#: `reset_launches` zeroes these and `ops.quant.LAUNCHES` together.
+LAUNCHES = _build.counter(["flash_fwd", "flash_decode", "flash_bwd_dq",
+                           "flash_bwd_dkv", "flash_verify",
+                           "paged_flash_decode", "paged_flash_verify"])
+reset_launches = _build.reset_launches
 
 
 def _scale(d, scale):
@@ -366,10 +363,7 @@ def _check_bias(name, bias, b, n):
                          f"{tuple(bias.shape)}")
 
 
-def _raise_on(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"({torch.cuda.get_device_name()})")
+_raise_on = _build.raise_on
 
 
 def _drop_args(drop):

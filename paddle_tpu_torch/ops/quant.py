@@ -1,0 +1,312 @@
+"""Quantized and gathered matmuls for multi-tenant serving: plain PyTorch
+versions and the wrappers of the port's hand-written Hopper kernels (the
+JAX package's `ops/quant.py`).
+
+  * `int8_matmul` -> `csrc/int8_matmul.cu`: a weight stored as symmetric
+    per-output-channel int8 with float32 scales (`quantize_int8_weight`),
+    ``y = (f32(x) @ f32(q)) * scale [+ bias]`` with a float32 accumulate,
+    cast back to x's type. The large dense weights of a serving stack
+    (attention projections, FFN, the logits projection) take this path
+    after `quantize="int8"`.
+  * `lora_delta` -> `csrc/lora_gather.cu`: the per-row low-rank adapter
+    delta of the multi-tenant pool, ``(f32(x[i]) @ A[ids[i]]) @
+    B[ids[i]]`` over stacked ``A [cap, d_in, r]`` / ``B [cap, r, d_out]``
+    banks. Bank row 0 is the base model and stays all-zero, so base
+    requests get an exact zero through the same arithmetic.
+  * `int8_gather`: the embedding lookup over an int8 table (gather the
+    rows, apply the scales); plain torch, as the JAX package has no
+    Pallas kernel behind it.
+
+Each dispatcher runs the plain version when its tensors lie on the CPU
+and launches the kernel when they lie on a CUDA card; there is no
+fallback from a failed launch. The kernels take any m, n and d, and any
+rank up to `LORA_MAX_RANK` (the wrapper raises above it). `LAUNCHES`
+counts kernel launches per wrapper.
+
+The adapter ids and banks reach the Linear layers through a scope
+(`lora_scope`), not through signatures: the serving bodies open it
+around the net's call, and every Linear an `AdapterPool` installed
+`_lora_idx` on adds its delta. The ids are host integers, validated
+against the bank capacity on the host and copied to the card once per
+scope (the TPU kernel took them by scalar prefetch), so no kernel ever
+reads a bank out of bounds.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ["LAUNCHES", "reset_launches", "LORA_MAX_RANK",
+           "quantize_int8_weight", "int8_matmul_reference", "int8_matmul",
+           "int8_gather", "lora_delta_reference", "lora_delta",
+           "merge_lora_weight", "lora_scope", "current_lora"]
+
+#: kernel launches per wrapper (`reset_launches` zeroes these and
+#: `ops.attention.LAUNCHES` together)
+LAUNCHES = _build.counter(["int8_matmul", "lora_gather"])
+reset_launches = _build.reset_launches
+_QMAX = 127.0
+#: the largest adapter rank `csrc/lora_gather.cu` takes
+LORA_MAX_RANK = 32
+#: the skinny path of `csrc/int8_matmul.cu` (m <= 32): output columns a
+#: block, the k-chunk a block reduces at a time, and the blocks to aim for
+#: (two an SM on the H100's 132) when d is split across blocks
+_SKINNY_M, _SKINNY_COLS, _SKINNY_KC, _TARGET_BLOCKS = 32, 32, 256, 264
+
+
+# --------------------------------------------------------------------------
+# weight quantization
+# --------------------------------------------------------------------------
+
+def quantize_int8_weight(w):
+    """Symmetric per-output-channel int8: ``w [..., d_out]`` -> ``(q int8,
+    scale float32 [d_out])`` with ``scale = amax(|column|) / 127`` (1.0
+    for an all-zero column, so the dequant never divides by zero) and
+    ``q = clip(round(w / scale), -127, 127)``, rounding half to even."""
+    w32 = torch.as_tensor(w).float()
+    red = tuple(range(w32.dim() - 1))
+    amax = w32.abs().amax(dim=red)
+    scale = torch.where(amax > 0, amax / _QMAX,
+                        torch.ones_like(amax)).float()
+    q = torch.clamp(torch.round(w32 / scale), -_QMAX, _QMAX).to(torch.int8)
+    return q, scale
+
+
+# --------------------------------------------------------------------------
+# int8 matmul: plain version, kernel wrapper, dispatcher
+# --------------------------------------------------------------------------
+
+def int8_matmul_reference(x, q, scale, bias=None):
+    """``(f32(x) @ f32(q)) * scale`` cast to x's type, then ``+ bias``:
+    the kernel's function in plain PyTorch, on any device. Scaling after
+    the product equals dequantizing first (the scales are per output
+    channel)."""
+    acc = torch.matmul(x.float(), q.float()) * scale.float()
+    out = acc.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def _check_device(name, *ts):
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices "
+                             f"({t.device} vs {dev})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {dev.type} tensors")
+    return dev.type
+
+
+def _int8_splits(m, d, n):
+    """How many blocks split the d of a skinny (m <= 32) product's column
+    strip: enough for `_TARGET_BLOCKS` blocks, at most one a k-chunk."""
+    if m > _SKINNY_M:
+        return 1
+    strips = -(-n // _SKINNY_COLS)
+    chunks = -(-d // _SKINNY_KC)
+    return max(1, min(chunks, -(-_TARGET_BLOCKS // strips)))
+
+
+def _int8_matmul_cuda(x, q, scale):
+    """Launch `csrc/int8_matmul.cu` on a contiguous float32 x [m, d], a
+    contiguous int8 q [d, n] and float32 scale [n]; returns float32
+    [m, n]."""
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("int8_matmul: x must be a contiguous float32 "
+                         f"[m, d] tensor, got {x.dtype} {tuple(x.shape)}")
+    if q.dtype != torch.int8 or q.dim() != 2 or not q.is_contiguous():
+        raise ValueError("int8_matmul: q must be a contiguous int8 [d, n] "
+                         f"tensor, got {q.dtype} {tuple(q.shape)}")
+    m, d = x.shape
+    n = q.shape[1]
+    if q.shape[0] != d:
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} and q "
+                         f"{tuple(q.shape)} do not chain")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (n,) \
+            or not scale.is_contiguous():
+        raise ValueError(f"int8_matmul: scale must be a contiguous float32 "
+                         f"[{n}] tensor, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    splits = _int8_splits(m, d, n)
+    work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    err = _build.kernels().int8_matmul(
+        x.device.index or 0, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), None if work is None else work.data_ptr(), m, d, n,
+        splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on("int8_matmul", err)
+    LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+def int8_matmul(x, q, scale, bias=None):
+    """Scaled int8 matmul: ``x [..., d_in] @ q int8 [d_in, d_out] * scale
+    [d_out] (+ bias)``, float32 accumulate, result in x's type (a bf16 x
+    is cast to float32 for the product). CPU tensors run
+    `int8_matmul_reference`; CUDA tensors launch `csrc/int8_matmul.cu`."""
+    if _check_device("int8_matmul", x, q, scale) == "cpu":
+        return int8_matmul_reference(x, q, scale, bias)
+    d, n = q.shape
+    lead = x.shape[:-1]
+    acc = _int8_matmul_cuda(x.reshape(-1, d).float().contiguous(), q,
+                            scale)
+    out = acc.to(x.dtype).reshape(*lead, n)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def int8_gather(ids, q, scale, dtype):
+    """Embedding lookup over an int8 table: the id rows times the
+    per-output-channel scale, in `dtype` (no dequantized [V, D] copy)."""
+    return (q[ids].float() * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# gathered LoRA matmul: plain version, kernel wrapper, dispatcher
+# --------------------------------------------------------------------------
+
+def lora_delta_reference(x, A, B, ids):
+    """``(f32(x) @ A[ids]) @ B[ids]`` cast to x's type: x [b, s, d_in],
+    A [cap, d_in, r], B [cap, r, d_out], ids [b] (host or device
+    integers). The kernel's function in plain PyTorch, on any device."""
+    ids = torch.as_tensor(ids, device=A.device).long()
+    Ag = A[ids].float()                                  # [b, d_in, r]
+    Bg = B[ids].float()                                  # [b, r, d_out]
+    xa = torch.bmm(x.float(), Ag)
+    return torch.bmm(xa, Bg).to(x.dtype)
+
+
+def _host_ids(ids, cap, b):
+    """The ids as a host int32 array of length b, each in [0, cap)."""
+    if torch.is_tensor(ids):
+        ids = ids.detach().cpu().numpy()   # a device tensor syncs here
+    ids = np.asarray(ids).reshape(-1)
+    if ids.shape[0] != b:
+        raise ValueError(f"lora_delta: {ids.shape[0]} adapter ids for "
+                         f"{b} batch rows")
+    if ids.size and (ids.min() < 0 or ids.max() >= cap):
+        raise ValueError(f"lora_delta: adapter ids {ids.tolist()} outside "
+                         f"the banks' rows [0, {cap})")
+    return ids.astype(np.int32)
+
+
+def _device_ids(ids, cap, b, device):
+    """Validated int32 ids on `device`. The ids a `lora_scope` holds are
+    copied once per scope and device (through pinned memory, without a
+    device sync); other ids are copied per call."""
+    host = _host_ids(ids, cap, b)
+    ctx = getattr(_LORA_STATE, "ctx", None)
+    memo = None
+    if ctx is not None and ctx[0] is ids:
+        memo = _LORA_STATE.placed
+        hit = memo.get(device)
+        if hit is not None:
+            return hit
+    t = torch.from_numpy(host)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    if memo is not None:
+        memo[device] = t
+    return t
+
+
+def _lora_gather_cuda(x, A, B, ids):
+    """Launch `csrc/lora_gather.cu` on a contiguous float32 x [b, s, d],
+    float32 banks A [cap, d, r] / B [cap, r, n] and int32 ids [b] on the
+    card (validated by the caller); returns float32 [b, s, n]."""
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("lora_delta: x must be a contiguous float32 "
+                         f"[b, s, d] tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    for name, t in (("A", A), ("B", B)):
+        if t.dtype != torch.float32 or t.dim() != 3 \
+                or not t.is_contiguous():
+            raise ValueError(f"lora_delta: bank {name} must be a "
+                             f"contiguous float32 3-D tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    b, s, d = x.shape
+    cap, _, r = A.shape
+    n = B.shape[2]
+    if tuple(A.shape) != (cap, d, r) or tuple(B.shape) != (cap, r, n):
+        raise ValueError(f"lora_delta: banks A {tuple(A.shape)} / B "
+                         f"{tuple(B.shape)} do not fit x {tuple(x.shape)}")
+    if not 1 <= r <= LORA_MAX_RANK:
+        raise ValueError(f"lora_delta: rank {r} outside the kernel's "
+                         f"1..{LORA_MAX_RANK}")
+    if ids.dtype != torch.int32 or tuple(ids.shape) != (b,):
+        raise ValueError(f"lora_delta: ids must be int32 [{b}]")
+    out = torch.empty((b, s, n), dtype=torch.float32, device=x.device)
+    if b * s * n == 0:
+        return out
+    err = _build.kernels().lora_gather(
+        x.device.index or 0, x.data_ptr(), A.data_ptr(), B.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), b, s, d, r, n, cap,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on("lora_gather", err)
+    LAUNCHES["lora_gather"] += 1
+    return out
+
+
+def lora_delta(x, A, B, ids):
+    """Gathered-LoRA delta ``(f32(x[i]) @ A[ids[i]]) @ B[ids[i]]`` per batch
+    row i, in x's type: x [b, s, d_in]; ids [b] host integers (numpy, a
+    list or a CPU tensor; a CUDA tensor costs a device sync for its
+    check), each in [0, cap) or ValueError. CPU tensors run
+    `lora_delta_reference`; CUDA tensors launch `csrc/lora_gather.cu`."""
+    b = x.shape[0]
+    if _check_device("lora_delta", x, A, B) == "cpu":
+        return lora_delta_reference(x, A, B, _host_ids(ids, A.shape[0], b))
+    dev_ids = _device_ids(ids, A.shape[0], b, x.device)
+    out = _lora_gather_cuda(x.float().contiguous(), A, B, dev_ids)
+    return out.to(x.dtype)
+
+
+def merge_lora_weight(w, wA, wB):
+    """``W + A @ B`` in float32, cast back to W's type, on W's device: the
+    merged-weight equivalent of the factored delta (B pre-scaled by
+    alpha / r, the `AdapterPool` convention)."""
+    w = torch.as_tensor(w)
+    a = torch.as_tensor(wA, dtype=torch.float32, device=w.device)
+    b = torch.as_tensor(wB, dtype=torch.float32, device=w.device)
+    return (w.float() + a @ b).to(w.dtype)
+
+
+# --------------------------------------------------------------------------
+# the adapter scope the serving bodies open
+# --------------------------------------------------------------------------
+
+_LORA_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def lora_scope(ids, banks):
+    """Make (per-row adapter ids, [(A, B), ...] banks) visible to the
+    Linear layers inside this scope, on this thread. `ids` holds one bank
+    row per batch row of every Linear input (host integers); `banks` is
+    indexed by each target layer's `_lora_idx`. Re-entrant: the previous
+    scope is restored on exit. Outside any scope `current_lora()` is
+    None."""
+    prev = (getattr(_LORA_STATE, "ctx", None),
+            getattr(_LORA_STATE, "placed", None))
+    _LORA_STATE.ctx = (ids, banks)
+    _LORA_STATE.placed = {}
+    try:
+        yield
+    finally:
+        _LORA_STATE.ctx, _LORA_STATE.placed = prev
+
+
+def current_lora():
+    """The active (ids, banks) pair, or None outside any lora_scope."""
+    return getattr(_LORA_STATE, "ctx", None)

@@ -15,14 +15,22 @@ prompt (bucketed to a power of two) into the slot's cache.
     tail; copy-on-write keeps shared pages immutable).
   * `spec_k=k` on either: speculative decoding (an n-gram self-draft and
     one k-token verify per iteration, adaptive effective k).
+  * `adapters=AdapterPool(...)` on either: multi-tenant serving. Each
+    request names its tenant (`Request(..., adapter=name)`); the slot
+    pins a bank row of the pool, and every join and step adds the
+    per-row LoRA delta of its slots' tenants (`ops.quant.lora_scope`),
+    so one batched step serves many tenants. A pool with every row
+    pinned defers the queue head (`tenancy.adapter_waits`).
+  * `quantize="int8"`: the stack's large dense weights become int8 with
+    per-output-channel scales (`adapters.quantize_net`), in place.
 
 Numerics contract: every slot reproduces `generate_eager` for its own
-prompt token for token, speculation included (greedy acceptance). All
-per-slot operations are row-wise, so co-resident requests cannot
-perturb each other's output.
+prompt token for token (under a `lora_scope` of its tenant's bank row),
+speculation included (greedy acceptance). All per-slot operations are
+row-wise, so co-resident requests cannot perturb each other's output.
 
-LoRA adapters, int8 weights and chunked prefill are later slices and
-are refused at construction.
+Chunked prefill (`prefill_chunk`) is a later slice and is refused at
+construction.
 """
 from __future__ import annotations
 
@@ -42,9 +50,18 @@ from .paging import (PageAllocator, RadixPrefixCache, pages_for,
 __all__ = ["ServingEngine", "PagedServingEngine"]
 
 #: engine options of the JAX package that later slices of the port bring
-_LATER = {"adapters": "the int8/LoRA slice (kernels #8-9)",
-          "quantize": "the int8/LoRA slice (kernels #8-9)",
-          "prefill_chunk": "the traffic-shaping slice"}
+_LATER = {"prefill_chunk": "the traffic-shaping slice"}
+
+
+def _tensor_bytes(x):
+    """Bytes of every tensor in a nested dict / list / tuple."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(_tensor_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in x)
+    return 0
 
 
 class _EngineBase:
@@ -81,9 +98,14 @@ class _EngineBase:
 
     def _admission_gate(self, request):
         """Resource headroom beyond a free slot. False pushes the request
-        back to the queue HEAD and ends this iteration's joins (the paged
-        pool's out-of-pages backpressure)."""
+        back to the queue HEAD and ends this iteration's joins (adapter
+        rows, the paged pool's pages)."""
         return True
+
+    def _tenant_of(self, request):
+        """Tenant label for per-tenant accounting (None: the engine
+        carries no AdapterPool)."""
+        return None
 
     def _iteration_gauges(self):
         """Extra per-iteration gauges for `metrics.record_iteration`."""
@@ -120,7 +142,7 @@ class _EngineBase:
         if r.state == "DONE":
             return
         r.tokens.append(tok)
-        self.metrics.record_token()
+        self.metrics.record_token(self._tenant_of(r))
         if r.first_token_at is None:
             r.first_token_at = now
             if r.submitted_at is not None:
@@ -291,13 +313,10 @@ class ServingEngine(_EngineBase):
                  spec_adapt_low=0.15, spec_adapt_high=0.6,
                  spec_adapt_patience=4, spec_adapt_alpha=0.3, adapters=None,
                  quantize=None, prefill_chunk=None):
-        later = {"adapters": adapters, "quantize": quantize,
-                 "prefill_chunk": prefill_chunk}
-        for name, value in later.items():
-            if value:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: it comes "
-                    f"with {_LATER[name]}")
+        if prefill_chunk:
+            raise NotImplementedError(
+                f"ServingEngine(prefill_chunk=...) is not ported yet: it "
+                f"comes with {_LATER['prefill_chunk']}")
         super().__init__(num_slots, max_joins_per_iter=max_joins_per_iter,
                          metrics=metrics, clock=clock)
         from ..text.generation import _StepNet
@@ -305,8 +324,28 @@ class ServingEngine(_EngineBase):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
+        # int8 base weights: every large dense weight of the stack becomes
+        # int8 + per-output-channel scales, in place and one-way (the
+        # engine owns the model it serves); quantize=None touches nothing
+        if quantize is not None:
+            if str(quantize) != "int8":
+                raise ValueError(f"quantize={quantize!r}: only 'int8' is "
+                                 f"supported")
+            from .adapters import quantize_net
+
+            quantize_net(decoder, embed, project)
+        # batched LoRA adapters: the slots' bank rows ride into every join
+        # and step through ops.quant.lora_scope
+        if adapters is not None and adapters.decoder is not decoder:
+            raise ValueError("the AdapterPool was built for a different "
+                             "decoder than this engine serves")
+        self._apool = adapters
+        self._adapter_rows = np.zeros(self.num_slots, np.int64)
+        if adapters is not None:
+            adapters.bind_metrics(self.metrics)
         self._net = _StepNet(decoder, embed, project).eval()
-        for name, p in self._net.named_parameters():
+        for name, p in [*self._net.named_parameters(),
+                        *self._net.named_buffers()]:
             if p.device != self.device:
                 raise ValueError(f"parameter {name} lives on {p.device}, "
                                  f"the engine serves on {self.device}")
@@ -331,6 +370,8 @@ class ServingEngine(_EngineBase):
         self._state = None          # built on the first join
         self._mem_shape = None
         self._dtype = None
+        self._weights_bytes = None
+        self.metrics.set_memory_provider(self.memory_ledger)
 
     def _pool_variant(self):
         """Label of the pool for per-variant metric splits."""
@@ -339,7 +380,119 @@ class ServingEngine(_EngineBase):
     def _max_len_detail(self):
         return ""
 
+    # ---- multi-tenant adapter plumbing (serving/adapters.py) ----
+    def _tenant_of(self, r):
+        if self._apool is None:
+            return None
+        return getattr(r, "adapter", None) or "base"
+
+    def _lora_ctx(self, rows):
+        """The adapter scope a body opens around the net: `rows` holds one
+        bank row per batch row (a join's one row, a step's [S] slot rows).
+        A no-op scope when the engine carries no pool."""
+        import contextlib
+
+        if self._apool is None:
+            return contextlib.nullcontext()
+        from ..ops.quant import lora_scope
+
+        return lora_scope(np.asarray(rows, np.int32).reshape(-1),
+                          self._apool.banks())
+
+    def _release_slot_adapter(self, s):
+        row = int(self._adapter_rows[s])
+        if row:
+            self._adapter_rows[s] = 0
+            self._apool.release(row)
+
+    def _pinned_join(self, s, r, join):
+        """Run `join(row)` with the request's bank row (0 = base) pinned
+        for slot `s`: an earlier attempt's row is released first, and the
+        row is released again if the join fails."""
+        self._release_slot_adapter(s)
+        if self._apool is None:
+            return join(0)
+        row = self._apool.acquire(getattr(r, "adapter", None))
+        try:
+            tok0 = join(row)
+        except Exception:
+            self._apool.release(row)
+            raise
+        self._adapter_rows[s] = row
+        return tok0
+
+    def _adapter_gate(self, r):
+        """Admission headroom for the request's adapter: False defers the
+        queue head until a bank row frees (the OutOfAdapters
+        backpressure)."""
+        if self._apool is None:
+            return True
+        name = getattr(r, "adapter", None)
+        if name is None or self._apool.can_acquire(name):
+            return True
+        self.metrics.record_adapter_wait()
+        return False
+
+    def _admission_gate(self, r):
+        return self._adapter_gate(r)
+
+    def _tenant_slot_counts(self):
+        out = {}
+        for req in self.slots:
+            if req is not None:
+                t = self._tenant_of(req)
+                out[t] = out.get(t, 0) + 1
+        return out
+
+    def _iteration_gauges(self):
+        if self._apool is None:
+            return None
+        return {"tenant_slots": self._tenant_slot_counts()}
+
+    def _evict(self, s):
+        self._release_slot_adapter(s)
+
+    # ---- the memory ledger ----
+    def weights_bytes(self):
+        """Bytes of the parameters and buffers the engine serves with."""
+        if self._weights_bytes is None:
+            self._weights_bytes = sum(
+                _tensor_bytes(t) for t in [*self._net.parameters(),
+                                           *self._net.buffers()])
+        return self._weights_bytes
+
+    def pool_bytes(self):
+        """Bytes of the slot pool's device state (0 before the first
+        join builds it)."""
+        return _tensor_bytes(self._state)
+
+    def pool_in_use_bytes(self):
+        """The live part of the pool: the dense pool commits every row."""
+        return self.pool_bytes()
+
+    def adapter_bytes(self):
+        """Bytes of the stacked LoRA banks (0 without an AdapterPool)."""
+        return 0 if self._apool is None else self._apool.bytes()
+
+    def memory_ledger(self):
+        """The `memory` section's components: weights, pool, adapter banks
+        and the bytes in use."""
+        w, a = self.weights_bytes(), self.adapter_bytes()
+        return {"weights_bytes": w, "pool_bytes": self.pool_bytes(),
+                "adapter_bytes": a,
+                "in_use_bytes": w + a + self.pool_in_use_bytes()}
+
     def admit_check(self, r):
+        name = getattr(r, "adapter", None)
+        if name is not None:
+            if self._apool is None:
+                raise ValueError(f"request names adapter {name!r} but this "
+                                 f"engine carries no AdapterPool "
+                                 f"(adapters=)")
+            if not self._apool.registered(name):
+                raise ValueError(f"adapter {name!r} is not registered with "
+                                 f"the pool (tenants: "
+                                 f"{self._apool.tenants()})")
         P = max(1, int(r.prompt.shape[0]))
         Pb = bucket_size(P)
         if Pb + r.max_new_tokens > self.max_len:
@@ -373,8 +526,8 @@ class ServingEngine(_EngineBase):
         memory = r.memory.to(self.device)
         self._ensure_state(memory)
         prompt = torch.as_tensor(prompt_b, device=self.device)
-        return self.placement.run(self.layout.join, s, prompt, P0,
-                                  memory[None])
+        return self._pinned_join(s, r, lambda row: self.placement.run(
+            self.layout.join, s, prompt, P0, memory[None], row))
 
     def _decode_step(self, active):
         # plain vs speculative is the stepper axis (layers.py)
@@ -443,6 +596,20 @@ class PagedServingEngine(ServingEngine):
                                          page_size=page_size,
                                          mid_page=radix_mid_page)
                         if prefix_cache else None)
+        if self._prefix is not None and self._apool is not None:
+            # eager tenant invalidation: re-registering an adapter drops
+            # its cached prefixes now (the generation in the tenant key
+            # would also miss them on the next touch)
+            import weakref
+
+            wr = weakref.ref(self)
+
+            def _drop(name, gen):
+                e = wr()
+                if e is not None and e._prefix is not None:
+                    e._prefix.drop_tenant(name)
+
+            self._apool.on_invalidate(_drop)
         self._table = np.full((self.num_slots, self.max_pages), -1, np.int32)
         self._index = np.zeros(self.num_slots, np.int32)
         # total pages each occupied slot will have mapped by the time its
@@ -501,7 +668,13 @@ class PagedServingEngine(ServingEngine):
         self._slot_pages_total[s] = 0
 
     def _evict(self, s):
+        super()._evict(s)          # the adapter row
         self._release_slot(s)
+
+    def pool_in_use_bytes(self):
+        """The pool less its free pages."""
+        return self.pool_bytes() - \
+            self._alloc.pages_free * (self._page_bytes or 0)
 
     def _device_table(self):
         # unmapped entries point at the trash row (num_pages): inactive
@@ -534,7 +707,7 @@ class PagedServingEngine(ServingEngine):
         need_prompt = n_pp
         if self._prefix is not None:
             res = self._prefix.peek(row[0, :P0], P0, Pb, self._mem_key(r),
-                                    None,
+                                    self._tenant_key(r),
                                     allow_partial=self._radix_partial_ok())
             if res is not None and res[0] == "whole":
                 # shared pages are free; only a COW of the partial tail
@@ -564,6 +737,8 @@ class PagedServingEngine(ServingEngine):
         return out
 
     def _admission_gate(self, r):
+        if not self._adapter_gate(r):
+            return False
         need = self._pages_needed(r) + self._outstanding_reservations()
         if self._alloc.pages_free < need and self._prefix is not None:
             self._prefix.reclaim(need)
@@ -575,6 +750,8 @@ class PagedServingEngine(ServingEngine):
     def _iteration_gauges(self):
         gauges = {"pages_in_use": self._alloc.pages_in_use,
                   "pages_free": self._alloc.pages_free}
+        if self._apool is not None:
+            gauges["tenant_slots"] = self._tenant_slot_counts()
         if self._prefix is not None:
             st = self._prefix.stats()
             gauges.update({"trie_nodes": st["nodes"],
@@ -587,6 +764,17 @@ class PagedServingEngine(ServingEngine):
         return gauges
 
     # ---- join: prefill into pages, or attach shared prefix pages ----
+    def _tenant_key(self, r):
+        """The radix trie's tenant scope. Prompt K/V depend on the adapter
+        that prefilled them (LoRA on the K/V projections), so adapter
+        traffic gets its own subtree keyed by (adapter name, registration
+        generation; never the recyclable bank row), while requests without
+        an adapter share one base subtree."""
+        name = getattr(r, "adapter", None)
+        if name is None or self._apool is None:
+            return None
+        return (name, self._apool.generation(name))
+
     @staticmethod
     def _mem_key(r):
         """The request's memory on the host, for the prefix cache's
@@ -625,6 +813,10 @@ class PagedServingEngine(ServingEngine):
         # idempotent: a half-joined earlier attempt's pages are released
         # before this one allocates
         self._release_slot(s)
+        return self._pinned_join(
+            s, r, lambda row: self._join_inner(s, r, memory, row))
+
+    def _join_inner(self, s, r, memory, row):
         pad_id = int(r.eos_id) if r.eos_id is not None else 0
         prompt_b, P0, Pb = pad_prompt_row(r.prompt, pad_id)
         self._slot_pages_total[s] = pages_for(
@@ -632,7 +824,7 @@ class PagedServingEngine(ServingEngine):
         res = None
         if self._prefix is not None:
             res = self._prefix.lookup(prompt_b[0, :P0], P0, Pb,
-                                      self._mem_key(r), None,
+                                      self._mem_key(r), self._tenant_key(r),
                                       allow_partial=self._radix_partial_ok())
             kind = res[0] if res is not None else "miss"
             matched = (P0 if kind == "whole" else
@@ -643,17 +835,17 @@ class PagedServingEngine(ServingEngine):
         if res is not None and res[0] == "whole":
             return self._attach_shared(res[1], *args)
         if res is not None:
-            return self._pattach_join(res[1], *args)
-        return self._prefill_join(*args)
+            return self._pattach_join(res[1], *args, row)
+        return self._prefill_join(*args, row)
 
-    def _prefill_join(self, s, r, prompt_b, P0, Pb, memory):
+    def _prefill_join(self, s, r, prompt_b, P0, Pb, memory, row):
         n_pp = pages_for(Pb, self.page_size)
         pages = self._alloc_pages(n_pp)
         try:
             tok0 = self.placement.run(
                 self.layout.join, s, torch.as_tensor(prompt_b,
                                                      device=self.device),
-                P0, memory, pages)
+                P0, memory, pages, row)
         except Exception:
             self._alloc.decref(pages)
             raise
@@ -664,11 +856,11 @@ class PagedServingEngine(ServingEngine):
         # resolves it at the first whole hit
         if self._prefix is not None:
             self._prefix.insert(prompt_b[0, :P0], P0, Pb, self._mem_key(r),
-                                None, pages, tok0)
+                                self._tenant_key(r), pages, tok0)
         self._cow_tail(s, Pb)
         return tok0
 
-    def _pattach_join(self, match, s, r, prompt_b, P0, Pb, memory):
+    def _pattach_join(self, match, s, r, prompt_b, P0, Pb, memory, row):
         """Radix PARTIAL hit: map the matched prefix pages read-only, COW
         the mid-page divergence point (when the match ends inside a
         page), and prefill ONLY the divergent tail through
@@ -713,7 +905,7 @@ class PagedServingEngine(ServingEngine):
             tok0 = self.placement.run(
                 self.layout.pattach, s, torch.as_tensor(trow, device=dev),
                 torch.as_tensor(tail, device=dev), seed_len, P0, Pb, memory,
-                torch.as_tensor(prompt_b, device=dev))
+                torch.as_tensor(prompt_b, device=dev), row)
         except Exception:
             if owned:
                 self._alloc.decref(owned)
@@ -724,7 +916,7 @@ class PagedServingEngine(ServingEngine):
         # insert BEFORE the tail COW, so the trie adopts the slot's pages
         # while they are still the canonical prompt pages
         self._prefix.insert(prompt_b[0, :P0], P0, Pb, self._mem_key(r),
-                            None, full_pages, tok0)
+                            self._tenant_key(r), full_pages, tok0)
         self._cow_tail(s, Pb)
         return tok0
 

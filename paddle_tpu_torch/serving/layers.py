@@ -22,6 +22,12 @@ the slot's rows, a paged join scatters the prefilled prompt into its
 pages, and every step writes each slot's new K/V at its own positions.
 Every write is slot-local (or lands on the paged pool's trash page), so
 a join never touches another slot's rows or pages.
+
+With an AdapterPool every body that runs the decoder's self-attention and
+FFN (join, pattach, step, spec step) runs under the engine's
+`_lora_ctx`, whose ids are per batch row: a join's one bank row, a
+step's [S] slot rows (a verify block's T tokens share their row's). The
+prefix-hit attach and the page copy run no adapter target.
 """
 from __future__ import annotations
 
@@ -176,10 +182,11 @@ class DenseLayout(CacheLayout):
             dtype=memory.dtype) for layer in eng._net.decoder.layers]
         return self._spec_state(state)
 
-    def join(self, slot, prompt, length, memory):
+    def join(self, slot, prompt, length, memory, row=0):
         """Prefill `prompt` [1, Pb] (true length `length`) with `memory`
-        [1, M, D] into pool slot `slot`, in place. Returns token 0 as a
-        device scalar (the caller syncs once per admission round)."""
+        [1, M, D] into pool slot `slot`, in place, under adapter bank row
+        `row`. Returns token 0 as a device scalar (the caller syncs once
+        per admission round)."""
         from ..nn.layer.transformer import MultiHeadAttention as MHA
 
         eng = self.eng
@@ -192,8 +199,9 @@ class DenseLayout(CacheLayout):
             c.k[slot:slot + 1, :, :Pb], c.v[slot:slot + 1, :, :Pb],
             torch.zeros((1,), dtype=torch.int32, device=eng.device))
             for c in st["inc"]]
-        logits, _, static1, bias_row = eng._net.prefill(
-            prompt, length, memory, views, eng._pool_len)
+        with eng._lora_ctx([row]):
+            logits, _, static1, bias_row = eng._net.prefill(
+                prompt, length, memory, views, eng._pool_len)
         # token 0 conditions on the row's LAST REAL prompt position
         tok0 = logits[0, length - 1].argmax(-1)
         for c in st["inc"]:
@@ -213,9 +221,10 @@ class DenseLayout(CacheLayout):
         st = eng._state
         inc = st["inc"]
         posn = inc[0].index[:, None].long()
-        logits, inc2 = eng._net(st["tok"][:, None], posn, None,
-                                tgt_mask=st["bias"], inc=inc,
-                                static_kv=st["static"])
+        with eng._lora_ctx(eng._adapter_rows):
+            logits, inc2 = eng._net(st["tok"][:, None], posn, None,
+                                    tgt_mask=st["bias"], inc=inc,
+                                    static_kv=st["static"])
         nxt = torch.where(active, logits[:, 0].argmax(-1), st["tok"])
         for c, c2 in zip(inc, inc2):
             c.index.copy_(torch.where(active, c2.index, c.index))
@@ -238,7 +247,7 @@ class DenseLayout(CacheLayout):
         idx0 = inc[0].index.clone()     # the rollback rewrites it in place
         drafts, fed = self._verify_block(drafts, spec_on, k_eff)
         posn = idx0[:, None].long() + torch.arange(k, device=eng.device)[None]
-        with A.kv_verify_scope():
+        with A.kv_verify_scope(), eng._lora_ctx(eng._adapter_rows):
             logits, inc2 = eng._net(_feedable(fed), posn, None,
                                     tgt_mask=st["bias"], inc=inc,
                                     static_kv=st["static"])
@@ -308,10 +317,11 @@ class PagedLayout(CacheLayout):
         state["paged"] = paged
         return self._spec_state(state)
 
-    def join(self, slot, prompt, length, memory, page_ids):
-        """Prefill `prompt` [1, Pb] into a batch-1 dense cache, then
-        scatter its K/V into the physical pages `page_ids` (quantized per
-        page for int8 pools). Returns token 0 as a device scalar."""
+    def join(self, slot, prompt, length, memory, page_ids, row=0):
+        """Prefill `prompt` [1, Pb] into a batch-1 dense cache under
+        adapter bank row `row`, then scatter its K/V into the physical
+        pages `page_ids` (quantized per page for int8 pools). Returns
+        token 0 as a device scalar."""
         from ..nn.layer.transformer import MultiHeadAttention as MHA
 
         eng = self.eng
@@ -320,8 +330,9 @@ class PagedLayout(CacheLayout):
         inc0 = [layer.self_attn.gen_cache(None, max_length=Pb, batch_size=1,
                                           dtype=memory.dtype)
                 for layer in eng._net.decoder.layers]
-        logits, inc1, static1, bias_row = eng._net.prefill(
-            prompt, length, memory, inc0, eng._pool_len)
+        with eng._lora_ctx([row]):
+            logits, inc1, static1, bias_row = eng._net.prefill(
+                prompt, length, memory, inc0, eng._pool_len)
         tok0 = logits[0, length - 1].argmax(-1)
         for cache, c in zip(self._caches(None, None), inc1):
             MHA.paged_prompt_splice(cache, page_ids, c.k, c.v)
@@ -354,14 +365,15 @@ class PagedLayout(CacheLayout):
             PG.copy_page(pc["v"], pc["vs"], src, dst)
 
     def pattach(self, slot, trow, tail, seed_len, length, Pb, memory,
-                prompt):
+                prompt, row=0):
         """Radix partial hit: prefill ONLY the prompt's divergent tail
         [1, Tb], seeded by the matched pages, as one verify block through
-        the pool itself: the tail K/V land at positions [seed_len,
-        seed_len + Tb) through the width-clipped table row `trow` [1, W]
-        and the verify read sees the seed K/V through the same row (bias
-        clipped to W pages), so the attention reads only the hit, not the
-        whole pool. Returns token 0 as a device scalar."""
+        the pool itself (under adapter bank row `row`): the tail K/V land
+        at positions [seed_len, seed_len + Tb) through the width-clipped
+        table row `trow` [1, W] and the verify read sees the seed K/V
+        through the same row (bias clipped to W pages), so the attention
+        reads only the hit, not the whole pool. Returns token 0 as a
+        device scalar."""
         from ..ops import attention as A
 
         eng = self.eng
@@ -373,7 +385,7 @@ class PagedLayout(CacheLayout):
                            device=eng.device)
         posn = int(seed_len) + torch.arange(tail.shape[1],
                                             device=eng.device)[None]
-        with A.kv_verify_scope():
+        with A.kv_verify_scope(), eng._lora_ctx([row]):
             logits, _ = eng._net(tail, posn, memory,
                                  tgt_mask=bias_row[:, :W * eng.page_size],
                                  inc=self._caches(trow, index),
@@ -397,10 +409,11 @@ class PagedLayout(CacheLayout):
         eng = self.eng
         st = eng._state
         table, index = self._step_inputs()
-        logits, _ = eng._net(st["tok"][:, None], index[:, None].long(), None,
-                             tgt_mask=st["bias"],
-                             inc=self._caches(table, index),
-                             static_kv=st["static"])
+        with eng._lora_ctx(eng._adapter_rows):
+            logits, _ = eng._net(st["tok"][:, None], index[:, None].long(),
+                                 None, tgt_mask=st["bias"],
+                                 inc=self._caches(table, index),
+                                 static_kv=st["static"])
         nxt = torch.where(active, logits[:, 0].argmax(-1), st["tok"])
         st["tok"].copy_(nxt)
         return nxt
@@ -419,7 +432,7 @@ class PagedLayout(CacheLayout):
         table, index = self._step_inputs()
         drafts, fed = self._verify_block(drafts, spec_on, k_eff)
         posn = index[:, None].long() + torch.arange(k, device=eng.device)[None]
-        with A.kv_verify_scope():
+        with A.kv_verify_scope(), eng._lora_ctx(eng._adapter_rows):
             logits, _ = eng._net(_feedable(fed), posn, None,
                                  tgt_mask=st["bias"],
                                  inc=self._caches(table, index),

@@ -2,10 +2,14 @@
 "paging" section (page occupancy, waits, out-of-pages evictions) once a
 paged pool records, the "prefix" section (radix prefix-cache hits,
 copy-on-write copies, trie size) once a paged join consults the trie,
-and the "speculation" section (draft acceptance, adaptive k, draft and
-verify step latency) once a speculative step runs. The section and key
-names are the JAX package's (`serving/metrics.py`). Thread-safe;
-`snapshot()` may be called from any thread at any time."""
+the "speculation" section (draft acceptance, adaptive k, draft and
+verify step latency) once a speculative step runs, the "tenancy"
+section (tokens and slots by tenant, adapter loads, evictions, hit rate,
+waits, fairness) once an engine with an AdapterPool records, and the
+"memory" section (weights, pool and adapter-bank bytes) once an engine
+registers its ledger. The section and key names are the JAX package's
+(`serving/metrics.py`). Thread-safe; `snapshot()` may be called from any
+thread at any time."""
 from __future__ import annotations
 
 import threading
@@ -14,6 +18,17 @@ import time
 import numpy as np
 
 __all__ = ["ServingMetrics"]
+
+
+def _jain(tokens_by_tenant):
+    """Jain's fairness index over per-tenant delivered tokens:
+    (sum x)^2 / (n * sum x^2), 1.0 when every tenant got an equal share,
+    1/n when one tenant took everything."""
+    xs = [float(v) for v in tokens_by_tenant.values() if v > 0]
+    if not xs:
+        return 1.0
+    s = sum(xs)
+    return round((s * s) / (len(xs) * sum(x * x for x in xs)), 4)
 
 
 class _Reservoir:
@@ -50,6 +65,7 @@ class ServingMetrics:
     def __init__(self, clock=time.monotonic):
         self._clock = clock
         self._lock = threading.Lock()
+        self._memory_provider = None
         self._init_counters()
 
     def _init_counters(self):
@@ -100,6 +116,15 @@ class ServingMetrics:
         self.spec_k_shrinks = 0
         self.spec_k_grows = 0
         self._spec_by_variant = {}
+        # multi-tenant serving (once an engine with an AdapterPool records)
+        self._tenancy = False
+        self.tokens_by_tenant = {}
+        self.tenant_slots = None          # last-iteration gauge
+        self.adapter_loads = 0
+        self.adapter_evictions = 0
+        self.adapter_hits = 0
+        self.adapter_misses = 0
+        self.adapter_waits = 0
 
     def reset(self):
         """Start a fresh measurement epoch."""
@@ -122,9 +147,16 @@ class ServingMetrics:
         with self._lock:
             self.ttft_s.add(ttft_s)
 
-    def record_token(self):
+    def record_token(self, tenant=None):
+        """One delivered token; `tenant` (the adapter name, "base", or
+        None when the engine carries no AdapterPool) feeds the tenancy
+        section."""
         with self._lock:
             self.tokens_out += 1
+            if tenant is not None:
+                self._tenancy = True
+                self.tokens_by_tenant[tenant] = \
+                    self.tokens_by_tenant.get(tenant, 0) + 1
 
     def record_decode(self, n_tokens, dt_s):
         """One batched decode step delivered `n_tokens` in `dt_s`."""
@@ -155,11 +187,15 @@ class ServingMetrics:
 
     def record_iteration(self, queue_depth, occupancy, pages_in_use=None,
                          pages_free=None, bytes_per_active_token=None,
-                         trie_nodes=None, trie_pages=None):
+                         trie_nodes=None, trie_pages=None,
+                         tenant_slots=None):
         with self._lock:
             self.iterations += 1
             self.queue_depth.add(queue_depth)
             self.occupancy.add(occupancy)
+            if tenant_slots is not None:
+                self._tenancy = True
+                self.tenant_slots = dict(tenant_slots)
             if pages_in_use is not None:
                 self.pages_in_use = int(pages_in_use)
             if pages_free is not None:
@@ -203,6 +239,41 @@ class ServingMetrics:
         with self._lock:
             self.oom_evictions += n
 
+    # ---- multi-tenant accounting (the AdapterPool mirrors its events) ----
+    def record_adapter_acquire(self, hit):
+        """An adapter acquire resolved: hit = the adapter's bank row was
+        already hot (the adapter cache), miss = a load had to run."""
+        with self._lock:
+            self._tenancy = True
+            if hit:
+                self.adapter_hits += 1
+            else:
+                self.adapter_misses += 1
+
+    def record_adapter_load(self):
+        with self._lock:
+            self._tenancy = True
+            self.adapter_loads += 1
+
+    def record_adapter_eviction(self):
+        with self._lock:
+            self._tenancy = True
+            self.adapter_evictions += 1
+
+    def record_adapter_wait(self):
+        """Admission deferred: every adapter row is pinned by live
+        slots."""
+        with self._lock:
+            self._tenancy = True
+            self.adapter_waits += 1
+
+    def set_memory_provider(self, provider):
+        """Register the engine's ledger: `provider()` returns
+        {weights_bytes, pool_bytes, adapter_bytes, in_use_bytes};
+        `snapshot()` calls it outside the metrics lock."""
+        with self._lock:
+            self._memory_provider = provider
+
     def record_spec_step(self, n_active, proposed, accepted, draft_s,
                          verify_s, k_eff=None, variant=None, k_shrinks=None,
                          k_grows=None):
@@ -235,6 +306,9 @@ class ServingMetrics:
                 v["verify"].add(verify_s)
 
     def snapshot(self):
+        # the ledger walks engine state: read it OUTSIDE the metrics lock
+        provider = self._memory_provider
+        ledger = provider() if provider is not None else None
         with self._lock:
             tps = (self.decode_tokens / self.decode_time_s
                    if self.decode_time_s > 0 else 0.0)
@@ -257,13 +331,31 @@ class ServingMetrics:
                 "token_latency_ms": self.token_latency_s.summary(1e3),
                 "queue_depth": self.queue_depth.summary(),
                 "occupancy": self.occupancy.summary(),
-                **self._sections(),
+                **self._sections(ledger),
             }
 
-    def _sections(self):
-        """The paging / prefix / speculation sections recorded so far
-        (called under the lock)."""
+    def _sections(self, ledger):
+        """The paging / prefix / speculation / tenancy / memory sections
+        recorded so far (called under the lock)."""
         out = {}
+        if ledger is not None:
+            w, p = int(ledger["weights_bytes"]), int(ledger["pool_bytes"])
+            a = int(ledger["adapter_bytes"])
+            out["memory"] = {"weights_bytes": w, "pool_bytes": p,
+                             "adapter_bytes": a, "total_bytes": w + p + a,
+                             "in_use_bytes": int(ledger["in_use_bytes"])}
+        if self._tenancy:
+            out["tenancy"] = {
+                "tenants": len(self.tokens_by_tenant),
+                "active_slots_by_tenant": dict(self.tenant_slots or {}),
+                "tokens_by_tenant": dict(self.tokens_by_tenant),
+                "adapter_loads": self.adapter_loads,
+                "adapter_evictions": self.adapter_evictions,
+                "adapter_hit_rate": round(
+                    self.adapter_hits /
+                    max(1, self.adapter_hits + self.adapter_misses), 4),
+                "adapter_waits": self.adapter_waits,
+                "fairness": _jain(self.tokens_by_tenant)}
         if self.pages_in_use is not None:
             out["paging"] = {
                 "pages_in_use": self.pages_in_use,

@@ -53,12 +53,13 @@ class RequestResult(collections.namedtuple(
 
 class Request:
     """One generation request: a 1-D prompt and a [M, D] cross-attention
-    memory (a tensor on any device, or an array)."""
+    memory (a tensor on any device, or an array). `adapter` names the
+    registered tenant adapter it decodes under (None: the base model)."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt, memory=None, *, max_new_tokens=32, eos_id=1,
-                 deadline=None, stream_cb=None):
+                 deadline=None, stream_cb=None, adapter=None):
         prompt = np.asarray(prompt)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D [P], got {prompt.shape}")
@@ -71,6 +72,7 @@ class Request:
         self.eos_id = eos_id
         self.deadline = deadline      # absolute engine-clock seconds
         self.stream_cb = stream_cb    # called (request, token) per token
+        self.adapter = adapter
         self.tokens = []
         self.state = "QUEUED"         # QUEUED -> RUNNING -> DONE
         self.finish_reason = None

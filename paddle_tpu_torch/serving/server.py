@@ -57,17 +57,20 @@ class ServingServer:
         return self
 
     def submit(self, prompt, memory=None, *, max_new_tokens=32, eos_id=1,
-               deadline=None, timeout=None, stream_cb=None):
+               deadline=None, timeout=None, stream_cb=None, adapter=None):
         """Enqueue one generation request; returns the `Request` whose
         `.result()` blocks for a RequestResult. `timeout` (seconds from
-        now) is sugar for an absolute `deadline` on the engine clock."""
+        now) is sugar for an absolute `deadline` on the engine clock.
+        `adapter` names the registered tenant adapter to decode under
+        (None: the base model); an unknown name raises ValueError here."""
         if self._dead:
             raise ServerCrashed(f"server is dead ({self._crash_cause!r}); "
                                 f"restart it")
         if timeout is not None:
             deadline = self.clock() + float(timeout)
         r = Request(prompt, memory, max_new_tokens=max_new_tokens,
-                    eos_id=eos_id, deadline=deadline, stream_cb=stream_cb)
+                    eos_id=eos_id, deadline=deadline, stream_cb=stream_cb,
+                    adapter=adapter)
         self.engine.admit_check(r)   # fail fast, before queueing
         try:
             self.scheduler.submit(r)

@@ -16,11 +16,16 @@ products of O(1) terms in another order); bf16 gradients: the largest
 round ds and p to bf16 at the same points and accumulate in float32, so
 they differ only by the order of the float32 sums; a fault such as a
 missing 1/keep factor moves the largest entries by several percent).
+The int8 matmul and gathered-LoRA kernels: the largest |kernel - plain|
+at most 1e-5 of the plain version's largest entry in float32 (sums of up
+to d products in another order) and 1e-2 of it for a bf16 x (the result
+is rounded to bf16, 2^-8 relative).
 """
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import attention as TA
+from paddle_tpu_torch.ops import quant as TQ
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 GRAD_TOL = {torch.float32: (1e-4, 1e-4)}
@@ -415,3 +420,104 @@ def test_card_paths_never_reach_a_plain_version(cuda, monkeypatch):
               TA.paged_verify_attention)
         fn(q, kp, vp, ks, vs, table, length, bias[:, None, None, :])
         assert TA.LAUNCHES[name] == 1
+
+
+# m, d, n, x dtype: decode and verify steps (the skinny path, m <= 32,
+# d split across blocks where n gives few column strips), the vocabulary
+# projection (n = 37000, rows 8- but not 16-byte aligned), prefill tiles
+# with ragged edges on every side
+_I8 = {
+    "decode_m8_512x2048": (8, 512, 2048, torch.float32),
+    "decode_m8_2048x512_split_d": (8, 2048, 512, torch.float32),
+    "m1_ragged_n37": (1, 100, 37, torch.float32),
+    "m17_odd_n1001": (17, 300, 1001, torch.float32),
+    "verify_m32_vocab": (32, 512, 37000, torch.float32),
+    "m33_tiled_edges": (33, 70, 130, torch.float32),
+    "prefill_m1024_2048x512": (1024, 2048, 512, torch.float32),
+    "d3_tiny_depth": (40, 3, 65, torch.float32),
+    "bf16_m8": (8, 512, 512, torch.bfloat16),
+    "bf16_m200": (200, 512, 512, torch.bfloat16),
+}
+REL_QUANT = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_close(got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    limit = rel * want.float().abs().max().item()
+    assert err <= limit, f"max |kernel - plain| {err} > {limit}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_I8))
+def test_int8_matmul_kernel_matches_plain(cuda, case):
+    m, d, n, dt = _I8[case]
+    x = _rand((m, d), 50, cuda, dt)
+    q, scale = TQ.quantize_int8_weight(_rand((d, n), 51, cuda) * 0.05)
+    bias = _rand((n,), 52, cuda)
+    before = TQ.LAUNCHES["int8_matmul"]
+    got = TQ.int8_matmul(x, q, scale, bias)
+    assert TQ.LAUNCHES["int8_matmul"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    _rel_close(got, TQ.int8_matmul_reference(x, q, scale, bias),
+               REL_QUANT[dt])
+
+
+# b, s, d, r, n, capacity, ids, x dtype
+_LORA = {
+    "decode_b8_s1": (8, 1, 512, 8, 2048, 5, [0, 1, 2, 3, 4, 0, 2, 4],
+                     torch.float32),
+    "verify_b8_s4": (8, 4, 2048, 8, 512, 5, [4, 3, 2, 1, 0, 1, 0, 3],
+                     torch.float32),
+    "prefill_b1_s1024": (1, 1024, 512, 8, 2048, 5, [3], torch.float32),
+    "rank32_ragged": (3, 37, 100, 32, 300, 4, [1, 0, 3], torch.float32),
+    "rank1": (2, 5, 64, 1, 33, 2, [1, 1], torch.float32),
+    "bf16_b8_s4": (8, 4, 512, 8, 512, 5, [0, 1, 2, 3, 4, 4, 3, 2],
+                   torch.bfloat16),
+}
+
+
+def _banks(cap, d, r, n, dev):
+    A = _rand((cap, d, r), 60, dev) * 0.05
+    B = _rand((cap, r, n), 61, dev) * 0.05
+    A[0] = 0.0
+    B[0] = 0.0
+    return A, B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_LORA))
+def test_lora_gather_kernel_matches_plain(cuda, case):
+    b, s, d, r, n, cap, ids, dt = _LORA[case]
+    x = _rand((b, s, d), 62, cuda, dt)
+    A, B = _banks(cap, d, r, n, cuda)
+    before = TQ.LAUNCHES["lora_gather"]
+    got = TQ.lora_delta(x, A, B, ids)
+    assert TQ.LAUNCHES["lora_gather"] == before + 1
+    assert got.dtype == dt and got.shape == (b, s, n)
+    _rel_close(got, TQ.lora_delta_reference(x, A, B, ids), REL_QUANT[dt])
+    for i, row in enumerate(ids):
+        if row == 0:                     # the base row: an exact zero
+            assert torch.count_nonzero(got[i]).item() == 0
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = _rand((2, 3, 16), 70, cuda)
+    A, B = _banks(3, 16, 4, 8, cuda)
+    nan_x = x.clone()
+    nan_x[1, 0, 0] = float("nan")
+    out = TQ.lora_delta(nan_x, A, B, [1, 0])  # id 0 is computed, not skipped
+    assert torch.isnan(out[1, 0]).all() and not torch.isnan(out[0]).any()
+    for bad in ([0, 3], [-1, 0]):
+        with pytest.raises(ValueError, match="outside"):
+            TQ.lora_delta(x, A, B, bad)
+    with pytest.raises(ValueError, match="outside"):
+        TQ.lora_delta(x, A, B, torch.tensor([0, 5], device=cuda))
+    wide = _rand((3, 16, 33), 71, cuda)
+    with pytest.raises(ValueError, match="rank 33"):
+        TQ.lora_delta(x, wide, _rand((3, 33, 8), 72, cuda), [0, 1])
+    q, scale = TQ.quantize_int8_weight(_rand((16, 8), 73, cuda))
+    with pytest.raises(ValueError, match="on different devices"):
+        TQ.int8_matmul(x, q.cpu(), scale)
+    with pytest.raises(ValueError, match="int8"):
+        TQ.int8_matmul(x, q.float(), scale)

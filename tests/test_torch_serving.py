@@ -148,10 +148,10 @@ def test_prefill_logits_match_jax(stacks):
 
 
 def test_engine_refuses_later_slices_and_unservable_requests(stacks):
-    for kw in ({"prefill_chunk": 8}, {"quantize": "int8"},
-               {"adapters": object()}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ServingEngine(*stacks[1], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ServingEngine(*stacks[1], device="cpu", prefill_chunk=8)
+    with pytest.raises(ValueError, match="only 'int8'"):
+        ServingEngine(*stacks[1], device="cpu", quantize="int4")
     with pytest.raises(ValueError, match="spec_k"):
         ServingEngine(*stacks[1], device="cpu", spec_k=1)
     paged = ServingEngine(*stacks[1], device="cpu", paged=True, num_pages=3,
