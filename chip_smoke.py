@@ -125,8 +125,44 @@ Phases; any failure exits nonzero before the result lines:
     weight; torch.bmm twice on the gathered banks; the port never calls
     either). Then a profiled pass of 8 requests through the int8 + LoRA
     engine: the device's busy share and device time by kernel.
-17. Output: a {"kernels": [...]} line, then the card's name and power
-    limit, then {"ok": true, "device": {...}} as the last line.
+17. fused_conv_fwd and fused_conv_bwd (the fused 1x1-conv + BN op)
+    against their plain versions at ResNet-50's bottleneck shapes, conv1
+    and conv3 of each stage: (Ci, Co, HW) = (256, 64, 3136), (64, 256,
+    3136), (512, 128, 784), (128, 512, 784), (1024, 256, 196), (256,
+    1024, 196), (2048, 512, 49), (512, 2048, 49); bf16 at batch 128 with
+    norm and ReLU, float32 at batch 8, one float32 identity case; stats
+    cotangents nonzero. Limits, of the plain version's largest entry:
+    float32 z and dx 1e-5, the stats, dW, dscale and dshift 1e-4 (sums
+    over up to 401,408 positions in another order; float32 outputs in
+    the bf16 runs too); bf16 z and dx one bf16 ulp of each element.
+18. The BN chain of each stage at batch 128, bf16: x -> fused(conv1 W)
+    -> bn_scale_shift -> fused(conv3 W, norm + ReLU) -> bn_scale_shift ->
+    a loss over z and both stats, forward and backward through the
+    autograd Function (the kernels) and through the plain versions; the
+    gradients of x, both W and every gamma, beta within 1e-2 of their
+    largest entry, and within 1e-3 (bf16 x, W) or 1e-5 (float32 gamma,
+    beta) relative L2. The launch counters are zeroed just before the kernel
+    run and read just after: two of each kernel a chain.
+19. Train ResNet-50 at the bench configuration (`bench.py` `_resnet50`):
+    resnet50(num_classes=1000), batch 128 x 3 x 224 x 224 from --seed,
+    compute_dtype="bfloat16", momentum(0.1, 0.9), float32 log-softmax
+    cross entropy, 12 steps: every loss finite, imgs/s over steps 3-12,
+    peak memory (of the trainer's own allocations); two profiled steps
+    (busy share, device ms by group); then one step of
+    resnet50(num_classes=10) at 2 x 3 x 64 x 64 on the card and on the
+    CPU in float64 (loss rtol 1e-12, gradients 1e-10 relative L2,
+    running stats 1e-11) and in float32 (loss rtol 1e-4; gradients and running
+    stats within 5e-2 / 5e-4 of float64: the random-init step is
+    ill-conditioned, see `resnet_card_vs_cpu`).
+20. Timing of fused_conv_fwd and fused_conv_bwd at the phase-17 shapes
+    (bf16, batch 128): kernel, bound (bf16 989 TFLOP/s, 3.35 TB/s),
+    plain version, and the library yardstick (torch.matmul on the
+    materialised activation plus the two float32-accumulated sums over
+    its bf16 z, sum and vector_norm squared; the backward's two
+    torch.matmul on the materialised dz_eff; the port never calls them).
+21. Output: a {"kernels": [...]} line for all eleven kernels, then the
+    card's name and power limit, then {"ok": true, "device": {...}} as
+    the last line.
 """
 from __future__ import annotations
 
@@ -166,6 +202,35 @@ QUANT_SHAPES = ((512, 512), (512, 2048), (2048, 512), (512, VOCAB))
 # float32 int8 / LoRA kernels, of the plain version's largest entry (sums
 # over d <= 2048 in another order)
 REL_F32_QUANT = 1e-5
+# ResNet-50 training (bench.py `_resnet50`) and the fused 1x1-conv + BN
+# op at its bottleneck shapes (phases 17-20): (Ci, Co, HW) of conv1 and
+# conv3 of each stage
+R_BATCH, R_IMG, R_STEPS, R_CLASSES, R_LR, R_MU = 128, 224, 12, 1000, 0.1, 0.9
+FC_BATCH, FC_BATCH_F32 = 128, 8
+FC_SHAPES = ((256, 64, 3136), (64, 256, 3136), (512, 128, 784),
+             (128, 512, 784), (1024, 256, 196), (256, 1024, 196),
+             (2048, 512, 49), (512, 2048, 49))
+# float32 limits, of the plain version's largest entry: z and dx (sums over
+# Ci or Co <= 2048), the stats, dW, dscale and dshift (sums over up to
+# 401,408 positions in another order; float32 in the bf16 runs too). A
+# bf16 z or dx is held to one bf16 ulp of each element, and at most 1% of
+# its elements may differ at all: both sides round float32 sums of the
+# same bf16-rounded operands, so only a sum within its reordering error
+# (~1e-6 relative) of a rounding midpoint may land on the neighbouring
+# bf16, while unrounded operands (errors ~2^-9 relative) move ~30%
+REL_FC_NEAR, REL_FC_FAR, ULP_FC_BF16, SHARE_FC_BF16 = 1e-5, 1e-4, 1.0, 1e-2
+# the BN chains (phase 18): each gradient's largest error within 1e-2 of
+# its largest entry, and its relative L2 error within 1e-3 for the bf16
+# leaves (x, W1, W3) and 1e-5 for the float32 ones (gamma, beta). The
+# kernels read 1.2e-4 and 2.9e-7 at most; the same kernels with xn left
+# unrounded read 2.5e-3 (W3) and 4.3e-5 (gamma3)
+REL_FC_CHAIN, L2_CHAIN_BF16, L2_CHAIN_F32 = 1e-2, 1e-3, 1e-5
+# the card-vs-CPU ResNet-50 step (phase 19c). float64: above what float64
+# rounding can move this ill-conditioned step by (the float32 distances
+# scaled by 2**-29: loss 8e-15, gradients 7e-11, stats 2e-13); float32
+# against float64: 1.4x / 5x the CPU's own float32 distance at this size
+F64_LOSS, F64_GRAD, F64_STATS = 1e-12, 1e-10, 1e-11
+F32_GRAD, F32_STATS = 5e-2, 5e-4
 
 
 def log(*a):
@@ -1442,6 +1507,397 @@ def quant_numbers(Q, kname, args):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# -------------------------------- the fused 1x1-conv + BN op (17, 18, 20)
+
+def fc_case(g, B, ci, co, hw, dtype, norm=True):
+    """Inputs of one fused op at a ResNet-50 bottleneck shape: x as a BN'd
+    activation, a folded scale / shift, He-scaled W, and cotangents of z
+    and of both stats (nonzero: the BN-chain path)."""
+    x = torch.randn(B, ci, hw, generator=g, device="cuda").to(dtype)
+    sc = torch.rand(ci, generator=g, device="cuda") + 0.5 if norm else None
+    sh = torch.randn(ci, generator=g, device="cuda") * 0.1 if norm else None
+    w = (torch.randn(co, ci, generator=g, device="cuda")
+         * (2.0 / ci) ** 0.5).to(dtype)
+    dz = torch.randn(B, co, hw, generator=g, device="cuda").to(dtype)
+    ds = torch.randn(co, generator=g, device="cuda")
+    dss = torch.randn(co, generator=g, device="cuda") * 0.01
+    return x, sc, sh, w, dz, ds, dss
+
+
+def bf16_ulps(a, b):
+    """(the largest |a - b| in units of the bf16 spacing at max(|a|, |b|),
+    element by element; the share of elements that differ)."""
+    a, b = a.float(), b.float()
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    return (float(((a - b).abs() / ulp).max()),
+            float((a != b).float().mean()))
+
+
+def check_fused_kernels(FC, g):
+    """Phase 17: fused_conv_fwd / fused_conv_bwd against their plain
+    versions at the eight bottleneck shapes: bf16 at batch 128 (norm and
+    ReLU), float32 at batch 8, and one identity case (no norm, no ReLU).
+    Every output of a case is measured and printed before a miss raises.
+    Returns ({kernel: max_abs_err f32}, {kernel: max_abs_err bf16})."""
+    errs, errs16 = {}, {}
+    runs = [(shape, torch.bfloat16, FC_BATCH, True) for shape in FC_SHAPES]
+    runs += [(shape, torch.float32, FC_BATCH_F32, True)
+             for shape in FC_SHAPES]
+    runs.append((FC_SHAPES[0], torch.float32, FC_BATCH_F32, False))
+    for (ci, co, hw), dtype, B, norm in runs:
+        args = fc_case(g, B, ci, co, hw, dtype, norm)
+        x, sc, sh, w, dz, ds, dss = args
+        relu = norm
+        got = FC._fwd_cuda(x, sc, sh, w, relu)
+        want = FC.fused_fwd_reference(x, sc, sh, w, relu)
+        z = want[0]
+        gotb = FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss, relu)
+        wantb = FC.fused_bwd_reference(x, sc, sh, w, z, dz, ds, dss, relu)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        parts = [("fused_conv_fwd", n, a, b, near) for n, a, b, near in
+                 zip(("z", "sum", "sumsq"), got, want, (True, False, False))]
+        parts += [("fused_conv_bwd", n, a, b, near) for n, a, b, near in
+                  zip(("dx", "dW", "dscale", "dshift"), gotb, wantb,
+                      (True, False, False, False)) if norm or n in ("dx",
+                                                                     "dW")]
+        worst, shown, missed = {}, [], []
+        for kname, name, a, b, near in parts:
+            e = (a.float() - b.float()).abs().max().item()
+            if f32 or not near:
+                m = e
+                limit = (REL_FC_NEAR if near else REL_FC_FAR) * \
+                    b.float().abs().max().item()
+                shown.append(f"{name} {e:.2e}/{limit:.2e}")
+            else:
+                m, share = bf16_ulps(a, b)
+                limit = ULP_FC_BF16
+                shown.append(f"{name} {m:.2f}/{limit:.0f} ulp, "
+                             f"{share:.2e}/{SHARE_FC_BF16:.0e} differ")
+                if not share <= SHARE_FC_BF16:
+                    missed.append(f"{kname} {name}: {share} of the "
+                                  f"elements differ > {SHARE_FC_BF16}")
+            if not m <= limit:
+                missed.append(f"{kname} {name}: {m} > {limit}")
+            worst[kname] = max(worst.get(kname, 0.0), e)
+        into = errs if f32 else errs16
+        for kname in ("fused_conv_fwd", "fused_conv_bwd"):
+            into[kname] = max(into.get(kname, 0.0), worst[kname])
+        tag = "norm relu" if norm else "identity"
+        log(f"  B{B} Ci {ci} Co {co} HW {hw} {str(dtype)[6:]} {tag}: " +
+            ", ".join(shown))
+        if missed:
+            raise AssertionError(
+                f"disagreement with the plain versions at B{B} "
+                f"{(ci, co, hw)} {dtype}: {'; '.join(missed)}")
+    return errs, errs16
+
+
+def bn_chain(fused, bnss, x, w1, w3, g1, b1, g3, b3, cot):
+    """x -> fused(conv1 W, identity) -> bn_scale_shift -> fused(conv3 W,
+    norm + ReLU) -> bn_scale_shift -> a loss over z and both stats."""
+    B, _, hw = x.shape
+    z1, s1, ss1 = fused(x, None, None, w1, relu=False)
+    sc1, sh1, _, _ = bnss(g1, b1, s1, ss1, B * hw)
+    z3, s3, ss3 = fused(z1, sc1, sh1, w3, relu=True)
+    sc3, sh3, _, _ = bnss(g3, b3, s3, ss3, B * hw)
+    gz, a3, c3 = cot
+    return ((z3.float() * gz).sum() + (sc3 * a3).sum() + (sh3 * c3).sum())
+
+
+def run_bn_chains(FC, g):
+    """Phase 18: the BN chain of each stage (conv1 then conv3 of a
+    bottleneck, the 3x3 between them left out) in bf16 at batch 128,
+    forward and backward through the autograd Function on the card, then
+    through the plain versions. Returns (launches, {stage: {"max_rel":
+    each gradient's largest error of its largest entry, "rel_l2": its
+    relative L2 error}})."""
+    stages = [(FC_SHAPES[i][0], FC_SHAPES[i][1], FC_SHAPES[i][2])
+              for i in (0, 2, 4, 6)]
+    inputs = []
+    for ci, co, hw in stages:
+        x = torch.randn(FC_BATCH, ci, hw, generator=g, device="cuda")
+        x = torch.relu(x).bfloat16()          # a block's input: post-ReLU
+        w1 = (torch.randn(co, ci, generator=g, device="cuda")
+              * (2.0 / ci) ** 0.5).bfloat16()
+        w3 = (torch.randn(ci, co, generator=g, device="cuda")
+              * (2.0 / co) ** 0.5).bfloat16()
+        gb = [torch.rand(n, generator=g, device="cuda") + 0.5
+              for n in (co, ci)]
+        bb = [torch.randn(n, generator=g, device="cuda") * 0.1
+              for n in (co, ci)]
+        cot = (torch.randn(FC_BATCH, ci, hw, generator=g, device="cuda"),
+               torch.randn(ci, generator=g, device="cuda"),
+               torch.randn(ci, generator=g, device="cuda"))
+        inputs.append(((x, w1, w3, gb[0], bb[0], gb[1], bb[1]), cot))
+
+    def grads(fused, leaves, cot):
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        bn_chain(fused, FC.bn_scale_shift, *ts, cot).backward()
+        return [t.grad.float() for t in ts]
+
+    torch.cuda.synchronize()
+    FC.reset_launches()
+    got = [grads(FC.fused_scale_act_mm_stats, *inp) for inp in inputs]
+    torch.cuda.synchronize()
+    launches = {k: FC.LAUNCHES[k] for k in ("fused_conv_fwd",
+                                             "fused_conv_bwd")}
+    for k, n in launches.items():
+        if n != 2 * len(stages):
+            raise AssertionError(f"{k} launched {n} times over "
+                                 f"{len(stages)} two-op chains")
+    errs = {}
+    names = ("x", "W1", "W3", "gamma1", "beta1", "gamma3", "beta3")
+    for (ci, co, hw), inp, mine in zip(stages, inputs, got):
+        want = grads(FC.fused_scale_act_mm_stats_plain, *inp)
+        rel = {n: (a - b).abs().max().item() / b.abs().max().item()
+               for n, a, b in zip(names, mine, want)}
+        l2 = {n: ((a - b).norm() / b.norm()).item()
+              for n, a, b in zip(names, mine, want)}
+        log(f"  stage Ci {ci} Co {co} HW {hw}: max error / largest entry "
+            f"and relative L2 of the gradients: " + ", ".join(
+                f"{n} {rel[n]:.2e} {l2[n]:.2e}" for n in names))
+        missed = [f"{n}: max {rel[n]} > {REL_FC_CHAIN}" for n in names
+                  if not rel[n] <= REL_FC_CHAIN]
+        for n, leaf in zip(names, inp[0]):
+            limit = L2_CHAIN_BF16 if leaf.dtype == torch.bfloat16 \
+                else L2_CHAIN_F32
+            if not l2[n] <= limit:
+                missed.append(f"{n}: relative L2 {l2[n]} > {limit}")
+        if missed:
+            raise AssertionError(f"BN chain gradients differ at "
+                                 f"{(ci, co, hw)}: {'; '.join(missed)}")
+        errs[f"{ci}x{co}x{hw}"] = {"max_rel": rel, "rel_l2": l2}
+    return launches, errs
+
+
+def fused_numbers(FC, args):
+    """Phase 20: each kernel's time at one shape (bf16, batch 128), its
+    bound, its plain version's and the library yardstick's (torch.matmul
+    on the materialised activation plus sum and vector_norm squared of z,
+    float32-accumulated, for the forward; the two torch.matmuls of the
+    backward on the materialised dz_eff)."""
+    x, sc, sh, w, dz, ds, dss = args
+    B, ci, hw = x.shape
+    co = w.shape[0]
+    z = FC._fwd_cuda(x, sc, sh, w)[0]
+    xn = torch.relu(x.float() * sc[:, None] + sh[:, None]).to(x.dtype)
+    dzb = (dz.float() + ds[:, None] + 2.0 * z.float() * dss[:, None]).to(
+        x.dtype)
+    dz2 = dzb.transpose(0, 1).reshape(co, B * hw).contiguous()
+    xn2 = xn.transpose(0, 1).reshape(ci, B * hw).contiguous()
+    wt = w.t().contiguous()
+
+    def lib_fwd():
+        zz = torch.matmul(w, xn)
+        return zz.sum((0, 2), dtype=torch.float32), torch.linalg.vector_norm(
+            zz, dim=(0, 2), dtype=torch.float32).square()
+
+    def lib_bwd():
+        return torch.matmul(wt, dzb), torch.matmul(dz2, xn2.t())
+
+    el = x.element_size()
+    act, out = B * ci * hw * el, B * co * hw * el
+    small = w.numel() * el + 8.0 * ci + 8.0 * co
+    rows = {}
+    for kname, flops, nbytes, kern, plain, lib in (
+            ("fused_conv_fwd", 2.0 * B * co * ci * hw, act + out + small,
+             lambda: FC._fwd_cuda(x, sc, sh, w),
+             lambda: FC.fused_fwd_reference(x, sc, sh, w), lib_fwd),
+            ("fused_conv_bwd", 4.0 * B * co * ci * hw,
+             2 * act + 2 * out + small + 4.0 * co * ci + 8.0 * ci,
+             lambda: FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss),
+             lambda: FC.fused_bwd_reference(x, sc, sh, w, z, dz, ds, dss),
+             lib_bwd)):
+        t_ops = flops / BF16_FLOPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        rows[kname] = {
+            "case": f"B{B} Ci {ci} Co {co} HW {hw} bf16",
+            "ms": device_ms(kern), "plain_ms": device_ms(plain, runs=10),
+            "library_ms": device_ms(lib),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    del xn, dzb, dz2, xn2
+    return rows
+
+
+# ------------------------------------------------------- ResNet-50 (19)
+
+def softmax_ce(logits, labels):
+    """The bench's loss: float32 (or wider) log-softmax cross entropy."""
+    lp = torch.log_softmax(logits.to(torch.promote_types(logits.dtype,
+                                                         torch.float32)), -1)
+    return -lp.gather(1, labels[:, None]).mean()
+
+
+def resnet_trainer(device, num_classes, seed, compute_dtype):
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=num_classes, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+    return SpmdTrainer(model, softmax_ce, fopt.momentum(R_LR, R_MU),
+                       compute_dtype=compute_dtype, device=device,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def train_resnet(seed):
+    """Phase 19: ResNet-50 at the bench configuration, R_STEPS steps on one
+    batch. Returns (launches, losses, imgs/s, peak bytes, trainer,
+    batch). The peak counts the trainer's own allocations: what earlier
+    phases left on the card at its start is taken off."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    log(f"  {before / 2 ** 30:.3f} GiB allocated before the trainer")
+    tr = resnet_trainer("cuda", R_CLASSES, seed, "bfloat16")
+    rs = np.random.RandomState(seed)
+    imgs = torch.from_numpy(rs.randn(R_BATCH, 3, R_IMG, R_IMG).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rs.randint(0, R_CLASSES, (R_BATCH,)).astype(
+        np.int64)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from paddle_tpu_torch.ops import _build
+    _build.reset_launches()
+    losses = []
+    for i in range(R_STEPS):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(tr.step((imgs,), labels))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches().items() if v}
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    return launches, losses, R_BATCH * (R_STEPS - 2) / wall, \
+        torch.cuda.max_memory_allocated() - before, tr, ((imgs,), labels)
+
+
+def profile_resnet(tr, batch, steps=2):
+    """Phase 19b: two more steps under torch.profiler: the device's busy
+    share and device ms per step by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_rows(prof)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        log("  profiler recorded no device time: breakdown not measured")
+        return None
+    groups = {"conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
+              "other": 0.0}
+    for ms, _, key in rows:
+        low = key.lower()
+        grp = ("conv" if any(t in low for t in (
+                   "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit"))
+               else "gemm" if any(t in low for t in (
+                   "gemm", "cutlass", "nvjet", "xmma"))
+               else "reduce" if "reduce" in low
+               else "elementwise" if any(t in low for t in (
+                   "elementwise", "vectorized", "unrolled"))
+               else "other")
+        groups[grp] += ms
+    share = busy / (wall * 1e3)
+    log(f"  profiled {steps} steps: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * share:.1f}%), idle {100 * (1 - share):.1f}%")
+    log("  device ms per step by group: " + ", ".join(
+        f"{k} {v / steps:.2f} ({100 * v / busy:.1f}%)"
+        for k, v in groups.items()))
+    for ms, n, key in sorted(rows, reverse=True)[:8]:
+        log(f"    {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    return {"busy_share": share, "step_ms": wall * 1e3 / steps,
+            "groups_ms_per_step": {k: v / steps for k, v in groups.items()}}
+
+
+def resnet_card_vs_cpu(seed):
+    """Phase 19c: one forward + backward of resnet50(num_classes=10) at
+    2 x 3 x 64 x 64, the same weights and batch on the card and on the
+    CPU, in float64 and in float32.
+
+    float64 holds the port's code on the card to the CPU's: loss rtol
+    F64_LOSS, gradients (relative L2) F64_GRAD, running stats (of each
+    buffer's largest entry) F64_STATS. float32 cannot be held so close:
+    at random init the step is ill-conditioned (in float64, perturbing
+    every weight and pixel by half a float32 ulp moves the gradient by
+    1.0e-2 relative L2 and the running stats by 1.2e-5,
+    tools/probe_resnet_conditioning.py), so two correct float32 runs
+    differ by about that much. The float32 loss agrees with the CPU's
+    within rtol 1e-4; its gradients and running stats must lie within
+    F32_GRAD / F32_STATS of the float64 result. The fp32 card
+    convolutions rely on torch.backends.cudnn.allow_tf32 = False (set in
+    main): in TF32 they would keep ~3 decimal digits."""
+    rs = np.random.RandomState(seed + 1)
+    imgs = rs.randn(2, 3, 64, 64).astype(np.float32)
+    labels = rs.randint(0, 10, (2,)).astype(np.int64)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = resnet_trainer(dev, 10, seed, None)
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads((imgs,), labels)
+        res[dev, 32] = (float(loss), {n: g.cpu().double() for n, g in
+                                      grads.items()},
+                        {n: b.cpu().double() for n, b in tr.buffers.items()})
+        model = resnet_trainer(dev, 10, seed, None).layer.double()
+        loss = softmax_ce(model(torch.from_numpy(imgs).double().to(dev)),
+                          torch.from_numpy(labels).to(dev))
+        loss.backward()
+        res[dev, 64] = (float(loss.detach()),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        {n: b.cpu() for n, b in model.named_buffers()})
+        log(f"  {dev}: loss float32 {res[dev, 32][0]:.6f}, float64 "
+            f"{res[dev, 64][0]:.15f} in {time.perf_counter() - t0:.2f} s")
+
+    def rel_l2(a, b):
+        num = sum(float((a[n] - b[n]).pow(2).sum()) for n in b)
+        return (num / sum(float(b[n].pow(2).sum()) for n in b)) ** 0.5
+
+    def stats_err(a, b):
+        return max(float((a[n] - b[n]).abs().max() / b[n].abs().max())
+                   for n in b)
+
+    (l64, g64, b64), (l64c, g64c, b64c) = res["cuda", 64], res["cpu", 64]
+    (l32, g32, b32), (l32c, g32c, b32c) = res["cuda", 32], res["cpu", 32]
+    out = {"loss_rel_f64": abs(l64 - l64c) / abs(l64c),
+           "grad_rel_l2_f64": rel_l2(g64, g64c),
+           "stats_err_f64": stats_err(b64, b64c),
+           "loss_rel_f32": abs(l32 - l32c) / abs(l32c),
+           "grad_rel_l2_f32_card_f64": rel_l2(g32, g64c),
+           "grad_rel_l2_f32_cpu_f64": rel_l2(g32c, g64c),
+           "grad_rel_l2_f32_card_cpu": rel_l2(g32, g32c),
+           "stats_err_f32_card_f64": stats_err(b32, b64c),
+           "stats_err_f32_cpu_f64": stats_err(b32c, b64c)}
+    log(f"  float64, card vs CPU: loss {out['loss_rel_f64']:.2e} (limit "
+        f"{F64_LOSS}), gradients {out['grad_rel_l2_f64']:.2e} ({F64_GRAD}), "
+        f"running stats {out['stats_err_f64']:.2e} ({F64_STATS})")
+    log(f"  float32: loss card vs CPU {out['loss_rel_f32']:.2e} (limit "
+        f"1e-4); gradients from float64: card "
+        f"{out['grad_rel_l2_f32_card_f64']:.3e} (limit {F32_GRAD}), CPU "
+        f"{out['grad_rel_l2_f32_cpu_f64']:.3e}, card vs CPU "
+        f"{out['grad_rel_l2_f32_card_cpu']:.3e}; running stats from "
+        f"float64: card {out['stats_err_f32_card_f64']:.3e} (limit "
+        f"{F32_STATS}), CPU {out['stats_err_f32_cpu_f64']:.3e}")
+    for key, limit in (("loss_rel_f64", F64_LOSS),
+                       ("grad_rel_l2_f64", F64_GRAD),
+                       ("stats_err_f64", F64_STATS), ("loss_rel_f32", 1e-4),
+                       ("grad_rel_l2_f32_card_f64", F32_GRAD),
+                       ("stats_err_f32_card_f64", F32_STATS)):
+        if not out[key] <= limit:
+            raise AssertionError(f"ResNet-50 card step: {key} {out[key]} > "
+                                 f"{limit}")
+    return out
+
+
 def launch_counts():
     from paddle_tpu_torch.ops import _build
 
@@ -1458,8 +1914,11 @@ def main():
     sys.path.insert(0, HERE)
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import fused_conv as FC
     from paddle_tpu_torch.ops import quant as Q
 
+    # full float32 products and convolutions: the fp32 card-vs-CPU checks
+    # (phases 11 and 19) rely on it, TF32 keeps ~3 decimal digits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -1697,6 +2156,83 @@ def main():
         "int8_weight_shrink": mt["shrink"],
         "merged_weight_ties": mt["ties"],
         "paged_prefix": {p: s["prefix"] for p, s in mp_snaps.items()}}))
+    del mt, prompts, names, mems, i8_cases, lo_cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 17: fused_conv_fwd and fused_conv_bwd against their plain "
+        f"versions at ResNet-50's bottleneck shapes (fp32 z / dx "
+        f"{REL_FC_NEAR}, stats / dW / dscale / dshift {REL_FC_FAR} of the "
+        f"largest plain entry; bf16 z / dx {ULP_FC_BF16:.0f} bf16 ulp of "
+        f"each element; error/limit)")
+    fc_errs, fc_errs16 = check_fused_kernels(FC, g)
+
+    log(f"phase 18: the BN chain of each stage (bf16, batch {FC_BATCH}): "
+        "kernels against the plain versions, forward and backward")
+    fc_launches, chain_errs = run_bn_chains(FC, g)
+    log(f"  launches {fc_launches}")
+
+    log(f"phase 19: train ResNet-50, {R_STEPS} steps of {R_BATCH} x 3 x "
+        f"{R_IMG} x {R_IMG}, bf16 compute, momentum({R_LR}, {R_MU})")
+    r_launches, r_losses, imgs_s, r_peak, r_tr, r_batch = train_resnet(
+        args.seed)
+    log(f"  losses {[round(x, 4) for x in r_losses]}")
+    log(f"  {imgs_s:.2f} imgs/s over the last {R_STEPS - 2} steps; peak "
+        f"device memory {r_peak / 2 ** 30:.2f} GiB; launches of the ported "
+        f"kernels {r_launches} (the model runs none: its convolutions are "
+        f"cuDNN's, as the JAX model's are XLA's)")
+    r_prof = profile_resnet(r_tr, r_batch)
+    del r_tr, r_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  one fp32 step of resnet50(num_classes=10) at 2 x 3 x 64 x 64 on "
+        "the card and on the CPU")
+    r_check = resnet_card_vs_cpu(args.seed)
+    busy = "not measured" if r_prof is None else \
+        f"{100 * r_prof['busy_share']:.1f}%"
+    log(f"  ResNet-50: {imgs_s:.2f} imgs/s, peak {r_peak / 2 ** 30:.2f} "
+        f"GiB, device busy {busy} ({card})")
+
+    log("phase 20: timing of fused_conv_fwd and fused_conv_bwd (bf16, "
+        f"batch {FC_BATCH}, median, ms)")
+    fc_rows = {"fused_conv_fwd": [], "fused_conv_bwd": []}
+    g20 = torch.Generator(device="cuda").manual_seed(args.seed + 20)
+    for ci, co, hw in FC_SHAPES:
+        case = fc_case(g20, FC_BATCH, ci, co, hw, torch.bfloat16)
+        for kname, row in fused_numbers(FC, case).items():
+            fc_rows[kname].append(row)
+            log(f"  {kname} {row['case']}: kernel {row['ms']:.4f} bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}) plain "
+                f"{row['plain_ms']:.4f} library {row['library_ms']:.4f}")
+    for kname, line in (("fused_conv_fwd", 66), ("fused_conv_bwd", 123)):
+        head = fc_rows[kname][0]
+        kernels[kname] = {
+            "name": kname, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{kname}.cu",
+            "replaces": f"paddle_tpu/ops/fused_conv.py:{line}",
+            "launches": fc_launches[kname],
+            "launches_by_path": {"bn_chain": fc_launches[kname]},
+            "max_abs_err": fc_errs[kname],
+            "max_abs_err_bf16": fc_errs16[kname],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["case"],
+            "library_scope": (
+                "torch.matmul on the materialised act(x * scale + shift) "
+                "plus z.sum and vector_norm(z) ** 2, float32-accumulated" if kname == "fused_conv_fwd"
+                else "the two torch.matmul of the backward on the "
+                     "materialised dz_eff and activation"),
+            "cases": fc_rows[kname]}
+    log("  vision summary " + json.dumps({
+        "resnet50_imgs_per_s": imgs_s, "resnet50_peak_gib": r_peak / 2 ** 30,
+        "resnet50_busy_share": None if r_prof is None
+        else r_prof["busy_share"],
+        "resnet50_groups_ms_per_step": None if r_prof is None
+        else r_prof["groups_ms_per_step"],
+        "resnet50_losses": r_losses, "card_vs_cpu": r_check,
+        "bn_chain_worst_rel": chain_errs}))
+
+    log("phase 21: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

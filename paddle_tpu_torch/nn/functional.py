@@ -1,16 +1,19 @@
 """Functional entries the layers call (the JAX package's
-`nn/functional`): activations, dropout, attention, and the int8 and
-LoRA matmuls of multi-tenant serving."""
+`nn/functional`): activations, dropout, attention, the int8 and LoRA
+matmuls of multi-tenant serving, and the convolution, pooling and batch
+normalisation of the vision models."""
 from __future__ import annotations
 
 import torch
 
 from ..ops import attention as A
+from ..ops import kernels as K
 from ..ops import quant as Q
 
 __all__ = ["relu", "gelu", "tanh", "dropout", "draw_seed",
            "scaled_dot_product_attention", "linear_int8", "embedding_int8",
-           "lora_delta"]
+           "lora_delta", "conv2d", "max_pool2d", "adaptive_avg_pool2d",
+           "batch_norm"]
 
 
 def relu(x):
@@ -82,3 +85,44 @@ def lora_delta(x, A, B, ids):
     banks (`ops.quant.lora_delta`; id 0 is the base model, a zero
     delta)."""
     return Q.lora_delta(x, A, B, ids)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    """2-D convolution of an NCHW x by an OIHW weight
+    (`ops.kernels.conv2d`), plus a per-channel bias."""
+    out = K.conv2d(x, weight, stride, padding, dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0):
+    return K.max_pool2d(x, kernel_size, stride, padding)
+
+
+def adaptive_avg_pool2d(x, output_size):
+    return K.adaptive_avg_pool2d(x, output_size)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5):
+    """Batch normalisation over the channels of an NCHW x with the
+    reference's semantics (`ops.kernels`). In training it normalizes
+    with the batch stats and updates `running_mean` / `running_var` in
+    place, outside autograd (``momentum * running + (1 - momentum) *
+    batch``, biased variance); otherwise it normalizes with the running
+    stats. A missing weight / bias is 1 / 0."""
+    c = x.shape[1]
+    if weight is None:
+        weight = torch.ones(c, dtype=x.dtype, device=x.device)
+    if bias is None:
+        bias = torch.zeros(c, dtype=x.dtype, device=x.device)
+    if training:
+        y, new_mean, new_var, _, _ = K.batch_norm_train(
+            x, weight, bias, running_mean, running_var, momentum, epsilon)
+        with torch.no_grad():
+            running_mean.copy_(new_mean)
+            running_var.copy_(new_var)
+        return y
+    return K.batch_norm_infer(x, weight, bias, running_mean, running_var,
+                              epsilon)

@@ -1,5 +1,6 @@
-"""Linear, Embedding, LayerNorm, Dropout and Tanh with the JAX
-package's parameter layouts and initialisers.
+"""Linear, Embedding, LayerNorm, Dropout, Tanh, ReLU and the vision
+layers (Sequential, Conv2D, MaxPool2D, AdaptiveAvgPool2D, BatchNorm2D)
+with the JAX package's parameter layouts, names and initialisers.
 
 `Linear.weight` keeps the reference's [in_features, out_features]
 layout (y = x @ W + b), so a JAX `state_dict()` loads without any
@@ -25,7 +26,9 @@ from torch import nn
 from ...core.device import resolve_device
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
+           "Sequential", "Conv2D", "MaxPool2D", "AdaptiveAvgPool2D",
+           "BatchNorm2D"]
 
 
 class Dropout(nn.Module):
@@ -49,6 +52,15 @@ class Dropout(nn.Module):
 class Tanh(nn.Module):
     def forward(self, x):
         return F.tanh(x)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return F.relu(x)
+
+
+#: children named "0", "1", ... in order, as the reference's Sequential
+Sequential = nn.Sequential
 
 
 def _param(shape, device, init=None):
@@ -179,3 +191,75 @@ class LayerNorm(nn.Module):
         return torch.nn.functional.layer_norm(
             x, self._normalized_shape, self.weight, self.bias,
             self._epsilon)
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+class Conv2D(nn.Module):
+    """2-D convolution over NCHW, weight [out, in / groups, kh, kw] ~ N(0,
+    2 / fan_in) (the reference's MSRA default, fan_in = in * kh * kw /
+    groups), bias [out] zeros; `bias_attr=False` builds no bias."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, bias_attr=None, *,
+                 device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        k = _pair(kernel_size)
+        self._stride, self._padding = stride, padding
+        self._dilation, self._groups = dilation, groups
+        std = math.sqrt(2.0 / (in_channels * k[0] * k[1] // groups))
+        self.weight = _param(
+            (out_channels, in_channels // groups, k[0], k[1]), dev,
+            lambda t: t.normal_(0.0, std, generator=generator))
+        self.bias = None if bias_attr is False else _param((out_channels,),
+                                                           dev)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups)
+
+
+class MaxPool2D(nn.Module):
+    """Max pooling with -inf padding."""
+
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self._args = (kernel_size, stride, padding)
+
+    def forward(self, x):
+        return F.max_pool2d(x, *self._args)
+
+
+class AdaptiveAvgPool2D(nn.Module):
+    def __init__(self, output_size):
+        super().__init__()
+        self._output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self._output_size)
+
+
+class BatchNorm2D(nn.Module):
+    """Batch normalisation over NCHW channels with the reference's
+    semantics (`nn.functional.batch_norm`): weight 1, bias 0, float32
+    buffers `_mean` (0) and `_variance` (1) that training updates in
+    place with ``momentum * running + (1 - momentum) * batch``."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self._momentum, self._epsilon = momentum, epsilon
+        self.weight = _param((num_features,), dev, lambda t: t.fill_(1))
+        self.bias = _param((num_features,), dev)
+        self.register_buffer("_mean", torch.zeros(num_features, device=dev))
+        self.register_buffer("_variance", torch.ones(num_features,
+                                                     device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon)

@@ -64,6 +64,10 @@ _SIGNATURES = {
                     [_I, *[_P] * 5, _I, _I, _I, _I, _P]),
     "lora_gather": ("pt_lora_gather",
                     [_I, *[_P] * 5, _I, _I, _I, _I, _I, _I, _P]),
+    "fused_conv_fwd": ("pt_fused_conv_fwd", [_I, _I, *[_P] * 8, *[_I] * 7,
+                                             _P]),
+    "fused_conv_bwd": ("pt_fused_conv_bwd", [_I, _I, *[_P] * 14, *[_I] * 8,
+                                             _P]),
 }
 
 #: the launch counters of the kernel wrappers, one dict per ops module

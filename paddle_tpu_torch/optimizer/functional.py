@@ -5,8 +5,10 @@ package's `optimizer/functional.py`): `init(params) -> state` and
 `adam` / `adamw` keep the JAX package's arithmetic step for step: the
 bias corrections c1 = 1 - beta1^t and c2 = 1 - beta2^t in float32, the
 decoupled decay added to the update (`m_hat / (sqrt(v_hat) + eps) +
-wd * p`), then `p - lr * update`. Each rule is plain torch ops per
-tensor; the fused optimizer step belongs to a later slice.
+wd * p`), then `p - lr * update`. `momentum` is the reference's
+momentum_op: ``g += wd * p; v = mu * v + g; p -= lr * v`` (or ``lr * (g
++ mu * v)`` with Nesterov). Each rule is plain torch ops per tensor; the
+fused optimizer step belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -14,10 +16,19 @@ import collections
 
 import torch
 
-__all__ = ["Transform", "AdamState", "adam", "adamw"]
+__all__ = ["Transform", "AdamState", "MomentumState", "adam", "adamw",
+           "momentum"]
 
 Transform = collections.namedtuple("Transform", ["init", "update"])
 AdamState = collections.namedtuple("AdamState", ["count", "m", "v"])
+MomentumState = collections.namedtuple("MomentumState",
+                                       ["count", "velocity"])
+
+
+def _constant_lr(learning_rate):
+    if callable(learning_rate):
+        raise NotImplementedError("learning-rate schedules come with a "
+                                  "later slice; pass a float")
 
 
 def _f32_pow(base, t):
@@ -32,9 +43,7 @@ def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
     """Adam, or AdamW with `decoupled`. `decay_mask(name) -> bool`
     limits the weight decay to the parameters it accepts (all of them
     when None)."""
-    if callable(learning_rate):
-        raise NotImplementedError("learning-rate schedules come with a "
-                                  "later slice; pass a float")
+    _constant_lr(learning_rate)
 
     def init(params):
         return AdamState(
@@ -70,3 +79,30 @@ def adamw(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
           weight_decay=0.01, decay_mask=None):
     return adam(learning_rate, beta1, beta2, epsilon, weight_decay,
                 decoupled=True, decay_mask=decay_mask)
+
+
+def momentum(learning_rate=0.01, mu=0.9, weight_decay=0.0,
+             use_nesterov=False):
+    """SGD with momentum (the reference's momentum_op): the decay joins
+    the gradient, ``v = mu * v + g``, then ``p - lr * v`` (Nesterov: ``p
+    - lr * (g + mu * v)``). Velocities start at zero."""
+    _constant_lr(learning_rate)
+
+    def init(params):
+        return MomentumState(
+            count=0,
+            velocity={n: torch.zeros_like(p) for n, p in params.items()})
+
+    def update(params, grads, state):
+        new_p, new_v = {}, {}
+        for n, p in params.items():
+            g = grads[n].to(p.dtype)
+            if weight_decay:
+                g = g + weight_decay * p
+            v = mu * state.velocity[n] + g
+            new_p[n] = p - learning_rate * (g + mu * v if use_nesterov
+                                            else v)
+            new_v[n] = v
+        return new_p, MomentumState(state.count + 1, new_v)
+
+    return Transform(init, update)

@@ -7,6 +7,12 @@ layer's parameters, kept in float32 ("master" weights). Under
 float inputs to that type, through `torch.func.functional_call`, so the
 gradients land on the float32 masters; the loss is averaged in float32.
 
+Buffers (BatchNorm's running stats) are not cast: they stay float32 on
+the layer, and a training forward updates them in place outside
+autograd, which is what the JAX trainer's buffer channel computes (the
+new stats of each step, in float32, carried to the next). `buffers`
+reads them; `eval_step` runs the inference branch on them.
+
 All the randomness of a step flows from the trainer's `generator`, a CPU
 torch.Generator: at construction the trainer binds it to every
 `MultiHeadAttention` (each call draws its attention-dropout seed from
@@ -82,18 +88,39 @@ class SpmdTrainer:
             x = torch.from_numpy(x)
         return x.to(self.device)
 
-    def _forward_loss(self, inputs, labels):
-        self.layer.train()
+    @property
+    def buffers(self):
+        """{name: buffer} of the layer (float32 under any compute_dtype),
+        as the steps so far left them."""
+        return dict(self.layer.named_buffers())
+
+    def _apply(self, inputs):
         cdt = self.compute_dtype
         if cdt is None:
-            out = self.layer(*inputs)
-        else:
-            params = {n: p.to(cdt) for n, p in self.params.items()}
-            inputs = tuple(
-                x.to(cdt) if x is not None and x.is_floating_point() else x
-                for x in inputs)
-            out = torch.func.functional_call(self.layer, params, inputs)
-        return self.loss_fn(out, labels).float().mean()
+            return self.layer(*inputs)
+        params = {n: p.to(cdt) for n, p in self.params.items()}
+        inputs = tuple(
+            x.to(cdt) if x is not None and x.is_floating_point() else x
+            for x in inputs)
+        return torch.func.functional_call(self.layer, params, inputs)
+
+    def _forward_loss(self, inputs, labels):
+        self.layer.train()
+        return self.loss_fn(self._apply(inputs), labels).float().mean()
+
+    def eval_step(self, inputs):
+        """The layer's inference forward (BatchNorm on its running stats,
+        no update) under the trainer's compute_dtype, without gradients;
+        returns the outputs."""
+        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
+            else (inputs,)
+        inputs = tuple(self._to_device(x) for x in inputs)
+        self.layer.eval()
+        try:
+            with torch.no_grad():
+                return self._apply(inputs)
+        finally:
+            self.layer.train()
 
     def loss_and_grads(self, inputs, labels):
         """Forward and backward on one batch without the update: (loss,

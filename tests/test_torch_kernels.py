@@ -19,12 +19,22 @@ missing 1/keep factor moves the largest entries by several percent).
 The int8 matmul and gathered-LoRA kernels: the largest |kernel - plain|
 at most 1e-5 of the plain version's largest entry in float32 (sums of up
 to d products in another order) and 1e-2 of it for a bf16 x (the result
-is rounded to bf16, 2^-8 relative).
+is rounded to bf16, 2^-8 relative). The fused 1x1-conv + BN kernels: in
+float32 z and dx within 1e-5 of the plain version's largest entry (sums
+of up to Ci or Co products), the stats, dW, dscale and dshift within 1e-4
+(sums over B * HW positions, partials added in another order), in the
+bf16 cases too, since those outputs are float32; a bf16 z or dx within
+one bf16 ulp of each element, at most 1% of them differing (both sides
+round float32 sums of the same bf16-rounded activation and dz_eff, so
+only a sum within its reordering error of a rounding midpoint may land
+on the neighbouring bf16; a kernel that skipped that rounding would
+move a large share of the elements).
 """
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import attention as TA
+from paddle_tpu_torch.ops import fused_conv as TFC
 from paddle_tpu_torch.ops import quant as TQ
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
@@ -521,3 +531,129 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         TQ.int8_matmul(x, q.cpu(), scale)
     with pytest.raises(ValueError, match="int8"):
         TQ.int8_matmul(x, q.float(), scale)
+
+
+# B, Ci, Co, HW, relu, norm, x dtype, w dtype: a ResNet-50 conv1 shape,
+# ragged HW (no multiple of the 64-column tile), Co / Ci not multiples of
+# the 64-row tile, the identity, a mixed-type product, a dW split over
+# many k-ranges, and a product smaller than one tile
+_FC = {
+    "resnet_conv1_b2_bf16": (2, 256, 64, 3136, True, True, torch.bfloat16,
+                             torch.bfloat16),
+    "hw49_f32": (3, 40, 70, 49, True, True, torch.float32, torch.float32),
+    "identity_f32": (2, 16, 8, 200, False, False, torch.float32,
+                     torch.float32),
+    "relu_no_norm_bf16": (2, 33, 65, 77, True, False, torch.bfloat16,
+                          torch.bfloat16),
+    "mixed_bf16x_f32w": (2, 64, 32, 196, True, True, torch.bfloat16,
+                         torch.float32),
+    "split_dw_f32": (8, 64, 256, 784, True, True, torch.float32,
+                     torch.float32),
+    "tiny_f32": (1, 3, 5, 7, True, True, torch.float32, torch.float32),
+}
+# of the plain version's largest entry: float32 z and dx, then the float32
+# stats, dW, dscale and dshift (in the bf16 cases too). A bf16 z or dx is
+# held to one bf16 ulp of each element, with at most 1% of the elements
+# differing: both sides round float32 sums of the same bf16-rounded
+# operands.
+REL_FC = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (None, 1e-4)}
+
+
+def _fc_close(got, want, near):
+    if near is not None:
+        _rel_close(got, want, near)
+        return
+    a, b = got.float(), want.float()
+    m = torch.maximum(a.abs(), b.abs())
+    ulp = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+    assert ((a - b).abs() / ulp).max().item() <= 1.0
+    assert (a != b).float().mean().item() <= 1e-2
+
+
+def _fc_case(B, Ci, Co, HW, norm, xdt, wdt, dev, seed=80):
+    x = _rand((B, Ci, HW), seed, dev, xdt)
+    sc = (_rand((Ci,), seed + 1, dev).abs() + 0.5) if norm else None
+    sh = _rand((Ci,), seed + 2, dev) * 0.1 if norm else None
+    w = (_rand((Co, Ci), seed + 3, dev) * Ci ** -0.5).to(wdt)
+    dz = _rand((B, Co, HW), seed + 4, dev, xdt)
+    ds = _rand((Co,), seed + 5, dev)
+    dss = _rand((Co,), seed + 6, dev) * 0.01
+    return x, sc, sh, w, dz, ds, dss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_FC))
+def test_fused_conv_kernels_match_plain(cuda, case):
+    B, Ci, Co, HW, relu, norm, xdt, wdt = _FC[case]
+    x, sc, sh, w, dz, ds, dss = _fc_case(B, Ci, Co, HW, norm, xdt, wdt, cuda)
+    before = dict(TFC.LAUNCHES)
+    got = TFC._fwd_cuda(x, sc, sh, w, relu)
+    want = TFC.fused_fwd_reference(x, sc, sh, w, relu)
+    assert TFC.LAUNCHES["fused_conv_fwd"] == before["fused_conv_fwd"] + 1
+    assert got[0].dtype == xdt and got[0].shape == (B, Co, HW)
+    near, far = REL_FC[xdt]
+    _fc_close(got[0], want[0], near)
+    _rel_close(got[1], want[1], far)
+    _rel_close(got[2], want[2], far)
+    z = want[0]                  # both backward versions read one stored z
+    got = TFC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss, relu)
+    want = TFC.fused_bwd_reference(x, sc, sh, w, z, dz, ds, dss, relu)
+    assert TFC.LAUNCHES["fused_conv_bwd"] == before["fused_conv_bwd"] + 1
+    assert got[0].dtype == xdt and got[1].dtype == torch.float32
+    _fc_close(got[0], want[0], near)
+    for g, wv in zip(got[1:], want[1:]):
+        if norm or g is got[1]:
+            _rel_close(g, wv, far)
+        else:
+            assert not g.any()         # no norm: dscale = dshift = 0
+
+
+@pytest.mark.cuda
+def test_fused_conv_kernels_are_deterministic_and_checked(cuda):
+    """Partials are added in a fixed order: two runs agree bit for bit.
+    The wrapper refuses what the kernels do not take."""
+    x, sc, sh, w, dz, ds, dss = _fc_case(4, 96, 80, 300, True,
+                                         torch.float32, torch.float32, cuda)
+    a = TFC._fwd_cuda(x, sc, sh, w) + TFC._bwd_cuda(x, sc, sh, w,
+                                                    x[:, :80], dz, ds, dss)
+    b = TFC._fwd_cuda(x, sc, sh, w) + TFC._bwd_cuda(x, sc, sh, w,
+                                                    x[:, :80], dz, ds, dss)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="different devices"):
+        TFC.fused_scale_act_mm_stats(x, sc.cpu(), sh.cpu(), w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TFC.fused_scale_act_mm_stats(x.half(), sc, sh, w)
+
+
+@pytest.mark.cuda
+def test_fused_conv_on_card_launches_kernels_and_matches_cpu(cuda,
+                                                             monkeypatch):
+    """With the plain versions made to raise, the differentiable op runs
+    forward and backward on the card through the two kernels, and its
+    values and gradients equal the CPU's (float32)."""
+    args = _fc_case(2, 48, 40, 196, True, torch.float32, torch.float32,
+                    torch.device("cpu"))
+    x, sc, sh, w, dz, ds, dss = args
+
+    def run(dev):
+        ts = [t.detach().to(dev).requires_grad_() for t in (x, sc, sh, w)]
+        z, s, ss = TFC.fused_scale_act_mm_stats(*ts, relu=True)
+        ((z * dz.to(dev)).sum() + (s * ds.to(dev)).sum()
+         + (ss * dss.to(dev)).sum()).backward()
+        return [t.detach().cpu() for t in (z, s, ss)] + [
+            t.grad.cpu() for t in ts]
+
+    cpu = run("cpu")
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(TFC, "fused_fwd_reference", boom)
+    monkeypatch.setattr(TFC, "fused_bwd_reference", boom)
+    TFC.reset_launches()
+    card = run(cuda)
+    assert TFC.LAUNCHES["fused_conv_fwd"] == 1
+    assert TFC.LAUNCHES["fused_conv_bwd"] == 1
+    for i, (g, wv) in enumerate(zip(card, cpu)):
+        _rel_close(g, wv, 1e-5 if i in (0, 3) else 1e-4)

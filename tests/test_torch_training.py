@@ -128,10 +128,26 @@ def _case_inputs(b=2, h=2, s=128, d=32):
     return q, k, v, _key_bias(b, s, 4), g
 
 
+@pytest.fixture
+def one_intra_op_thread():
+    """Run the port's side on one intra-op thread. On two, the CPU's
+    `torch.exp` in the plain flash forward now and then (the first call
+    of a fresh process on a loaded CPU) returned one thread's half of
+    the batch about 1e-4 less exact, which moved the float32 outputs by
+    3e-5 against JAX; on one thread it never did
+    (`tools/probe_thread_drift.py`: 2 of 24 probes on two threads, 0 of
+    24 on one). The JAX side never moved."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("bias,causal,p", _CASES,
                          ids=[f"bias{int(b)}-causal{int(c)}-p{p}"
                               for b, c, p in _CASES])
-def test_flash_fwd_bwd_fp32_match_jax_kernels(bias, causal, p):
+def test_flash_fwd_bwd_fp32_match_jax_kernels(bias, causal, p,
+                                              one_intra_op_thread):
     q, k, v, kb, g = _case_inputs()
     kb = kb if bias else None
     want = _jax_flash(q, k, v, kb, g, causal, p, 1234, jnp.float32)
