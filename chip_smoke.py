@@ -231,6 +231,18 @@ REL_FC_CHAIN, L2_CHAIN_BF16, L2_CHAIN_F32 = 1e-2, 1e-3, 1e-5
 # against float64: 1.4x / 5x the CPU's own float32 distance at this size
 F64_LOSS, F64_GRAD, F64_STATS = 1e-12, 1e-10, 1e-11
 F32_GRAD, F32_STATS = 5e-2, 5e-4
+# packed ERNIE-base training (phases 21-24; bench.py:293 `_packed_varlen`):
+# 16 sequences of 64-1024 tokens packed into rows of 1024
+P_BATCH, P_MIN_LEN = 16, 64
+# packed against padded logits (phase 23), of the largest |logit|: tile
+# boundaries fall at other offsets in the two layouts, so float32 sums
+# are taken in another order
+REL_PACKED = 1e-4
+# phase 21's small grid (s 384): per-row segment lengths with boundaries
+# inside and across 64-token tiles, a one-token segment and a segment
+# spanning tiles; key ids for the kv case (every query id has keys)
+SEG_GRID = ([1, 129, 70, 56, 128], [64, 64, 128, 100, 28])
+SEG_KV = ([10, 300, 100, 90, 20], [100, 50, 150, 150, 70])
 
 
 def log(*a):
@@ -967,52 +979,67 @@ def train_case(g, dtype, seed=1234):
     return q, k, v, bias, do, drop
 
 
+def judge_train_kernels(A, case, causal, label, errs, errs16, **ids):
+    """The three training kernels against their plain versions on one
+    case (q, k, v, bias, dO, dropout spec; segment ids as keywords), each
+    within its limit: fp32 atol 2e-5 for the forward, 1e-4 for the
+    gradients, 1e-3 for dbias (a sum over heads and rows of dlogits);
+    bf16 1e-2 of the plain version's largest entry for the output, 1e-3
+    for the gradients and dbias. Folds each kernel's largest error into
+    errs (fp32) or errs16 (bf16)."""
+    q, k, v, bias, do, drop = case
+    out, lse = A.flash_attention_fwd(q, k, v, bias, causal, None, drop,
+                                     **ids)
+    pout, plse = A.flash_attention_fwd_plain(q, k, v, bias, causal, None,
+                                             drop, **ids)
+    got = A.flash_attention_bwd(q, k, v, bias, pout, plse, do, causal,
+                                None, drop, **ids)
+    want = A.flash_attention_bwd_plain(q, k, v, bias, pout, plse, do,
+                                       causal, None, drop, **ids)
+    torch.cuda.synchronize()
+    mags = {"flash_fwd": pout.float().abs().max().item(),
+            "flash_bwd_dq": want[0].float().abs().max().item(),
+            "flash_bwd_dkv": max(w.float().abs().max().item()
+                                 for w in want[1:3])}
+    e = {"flash_fwd": max((out.float() - pout.float()).abs().max().item(),
+                          (lse - plse).abs().max().item()),
+         "flash_bwd_dq": (got[0].float() - want[0].float()).abs().max()
+         .item(),
+         "flash_bwd_dkv": max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got[1:3], want[1:3]))}
+    if bias is not None:
+        mags["flash_bwd_dkv dbias"] = want[3].abs().max().item()
+        e["flash_bwd_dkv dbias"] = (got[3] - want[3]).abs().max().item()
+    fp32 = q.dtype == torch.float32
+    for name, err in e.items():
+        if fp32:
+            limit = ATOL_KERNEL if name == "flash_fwd" else ATOL_GRAD
+            if name.endswith("dbias"):
+                limit *= 10
+        else:
+            limit = mags[name] * (REL_BF16_OUT if name == "flash_fwd"
+                                  else REL_BF16_GRAD)
+        log(f"  {name:22s} {str(q.dtype)[6:]:8s} {label}: max_abs_err "
+            f"{err:.3e} (limit {limit:.3e}; largest plain entry "
+            f"{mags[name]:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"in {q.dtype} on {label}: {err}")
+        into = errs if fp32 else errs16
+        into[name.split()[0]] = max(err, into.get(name.split()[0], 0.0))
+
+
 def check_train_kernels(A, g):
     """Phase 9: the three training kernels against their plain versions
     at the ERNIE shapes, fp32 and bf16. Returns ({kernel: max_abs_err
     fp32}, {kernel: max_abs_err bf16}, bf16 inputs)."""
     errs, errs16 = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, bias, do, drop = train_case(g, dtype)
-        out, lse = A.flash_attention_fwd(q, k, v, bias, False, None, drop)
-        pout, plse = A.flash_attention_fwd_plain(q, k, v, bias, False,
-                                                 None, drop)
-        got = A.flash_attention_bwd(q, k, v, bias, pout, plse, do, False,
-                                    None, drop)
-        want = A.flash_attention_bwd_plain(q, k, v, bias, pout, plse, do,
-                                           False, None, drop)
-        torch.cuda.synchronize()
-        mags = {"flash_fwd": pout.float().abs().max().item(),
-                "flash_bwd_dq": want[0].float().abs().max().item(),
-                "flash_bwd_dkv": max(w.float().abs().max().item()
-                                     for w in want[1:3]),
-                "flash_bwd_dkv dbias": want[3].abs().max().item()}
-        e = {"flash_fwd": max((out.float() - pout.float()).abs().max()
-                              .item(), (lse - plse).abs().max().item()),
-             "flash_bwd_dq": (got[0].float() - want[0].float()).abs().max()
-             .item(),
-             "flash_bwd_dkv": max((a.float() - w.float()).abs().max().item()
-                                  for a, w in zip(got[1:3], want[1:3])),
-             "flash_bwd_dkv dbias": (got[3] - want[3]).abs().max().item()}
-        fp32 = dtype == torch.float32
-        for name, err in e.items():
-            if fp32:
-                limit = ATOL_KERNEL if name == "flash_fwd" else ATOL_GRAD
-                if name.endswith("dbias"):
-                    # a sum over 12 heads x 1024 rows of dlogits
-                    limit *= 10
-            else:
-                limit = mags[name] * (REL_BF16_OUT if name == "flash_fwd"
-                                      else REL_BF16_GRAD)
-            log(f"  {name:22s} {str(dtype)[6:]:8s} b8 h12 s1024 d64 bias "
-                f"dropout 0.1: max_abs_err {err:.3e} (limit {limit:.3e}; "
-                f"largest plain entry {mags[name]:.3e})")
-            if not err <= limit:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version in {dtype}: {err}")
-            (errs if fp32 else errs16)[name.split()[0]] = max(
-                err, (errs if fp32 else errs16).get(name.split()[0], 0.0))
-    return errs, errs16, (q, k, v, bias, do, drop)
+        case = train_case(g, dtype)
+        judge_train_kernels(A, case, False,
+                            "b8 h12 s1024 d64 bias dropout 0.1", errs,
+                            errs16)
+    return errs, errs16, case
 
 
 def ernie(device, layers, dropout, seed):
@@ -1042,21 +1069,27 @@ def ce_loss(logits, labels):
     return torch.nn.functional.cross_entropy(logits.float(), labels)
 
 
-def train(A, seed):
-    """Phase 10. Returns (launches, losses, seq/s, peak bytes, trainer,
+def train(A, seed, batch=None):
+    """Phase 10 (and the two runs of phase 22): ERNIE-base, E_STEPS steps
+    on one batch ((inputs, labels); default phase 10's 8 x 1024 padded
+    rows). Returns (launches, segment-branch launches, losses, seq/s,
+    peak bytes net of what earlier phases left allocated, trainer,
     batch)."""
     from paddle_tpu_torch.optimizer import functional as fopt
     from paddle_tpu_torch.parallel import SpmdTrainer
 
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     model = ernie("cuda", E_LAYERS, (E_DROPOUT, E_DROPOUT), seed)
     tr = SpmdTrainer(model, ce_loss, fopt.adamw(E_LR, weight_decay=0.01),
                      compute_dtype="bfloat16", device="cuda",
                      generator=torch.Generator().manual_seed(seed))
-    inputs, labels = ernie_batch(seed, E_BATCH, E_SEQ)
-    inputs = tuple(torch.as_tensor(x, device="cuda") for x in inputs)
+    inputs, labels = batch or ernie_batch(seed, E_BATCH, E_SEQ)
+    inputs = tuple(None if x is None else torch.as_tensor(x, device="cuda")
+                   for x in inputs)
     labels = torch.as_tensor(labels, device="cuda")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
     losses = []
     for i in range(E_STEPS):
@@ -1066,9 +1099,9 @@ def train(A, seed):
         losses.append(tr.step(inputs, labels))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
+    launches, seg = dict(A.LAUNCHES), dict(A.SEG_LAUNCHES)
     losses = [float(x) for x in losses]
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - before
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
     want = E_LAYERS * E_STEPS
@@ -1076,8 +1109,8 @@ def train(A, seed):
         if launches[name] != want:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {E_STEPS} steps, expected {want}")
-    return launches, losses, E_BATCH * (E_STEPS - 2) / wall, peak, tr, \
-        (inputs, labels)
+    return launches, seg, losses, len(labels) * (E_STEPS - 2) / wall, \
+        peak, tr, (inputs, labels)
 
 
 def profile_training(tr, batch, steps=2):
@@ -1898,6 +1931,247 @@ def resnet_card_vs_cpu(seed):
     return out
 
 
+# ------------------------------- packed ERNIE-base training (21-24)
+
+def seg_ids(rows):
+    """[b, s] int32 segment ids on the card from per-row segment lengths
+    (non-decreasing along each row)."""
+    return torch.stack([torch.cat([
+        torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(r)])
+        for r in rows]).to("cuda")
+
+
+def packed_batch(seed):
+    """`bench.py:293` `_packed_varlen`'s batch: P_BATCH sequences from
+    RandomState(seed), lengths uniform in [64, 1024] and sorted, token
+    ids from the vocabulary; the padded rows with their 1/0 mask, and
+    `pack_padded(row_len=1024)` of the same sequences. Returns (padded
+    inputs, packed inputs, labels, PackedBatch)."""
+    from paddle_tpu_torch.core.lod import pack_padded
+
+    rs = np.random.RandomState(seed)
+    lens = np.sort(rs.randint(P_MIN_LEN, E_SEQ + 1, size=P_BATCH))
+    ids = np.zeros((P_BATCH, E_SEQ), np.int64)
+    mask = np.zeros((P_BATCH, E_SEQ), np.float32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rs.randint(1, E_VOCAB, n)
+        mask[i, :n] = 1.0
+    labels = rs.randint(0, 2, (P_BATCH,)).astype(np.int64)
+    pk = pack_padded(ids, lens, row_len=E_SEQ)
+    packed = (pk.data, None, None, pk.positions.astype(np.int64),
+              pk.segment_ids, pk.cls_flat_index().astype(np.int64))
+    return (ids, np.zeros_like(ids), mask), packed, labels, pk
+
+
+def seg_case(g, b, h, sq, sk, d, dtype, bias, p):
+    """Segment-branch operands as the layers produce them ([b, s, h*d]
+    projections viewed as [b, h, s, d]), an optional small key bias and
+    the dropout spec of one call."""
+    from paddle_tpu_torch.ops import attention as A
+
+    def proj(s):
+        return torch.randn(b, s, h * d, generator=g, device="cuda") \
+            .to(dtype).view(b, s, h, d).transpose(1, 2)
+    q, k, v, do = proj(sq), proj(sk), proj(sk), proj(sq)
+    kb = (0.5 * torch.randn(b, sk, generator=g, device="cuda")) \
+        .contiguous() if bias else None
+    return q, k, v, kb, do, A.drop_spec(p, 4321, sq, sk)
+
+
+def check_segment_kernels(A, g, pk):
+    """Phase 21: the segment branch of the three training kernels against
+    their plain versions (phase 9's limits) on a small grid and at the
+    packed batch's shape, then the exact no-leakage check. Returns
+    ({kernel: max_abs_err fp32}, {kernel: max_abs_err bf16}, the packed
+    bf16 case and its segment ids)."""
+    errs, errs16 = {}, {}
+    segs = seg_ids(SEG_GRID)
+    b, s = segs.shape
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for bias in (False, True):
+                for p in (0.0, E_DROPOUT):
+                    case = seg_case(g, b, 2, s, s, 64, dtype, bias, p)
+                    judge_train_kernels(
+                        A, case, causal, f"b{b} h2 s{s} d64 causal "
+                        f"{int(causal)} bias {int(bias)} dropout {p}", errs,
+                        errs16, segment_ids=segs)
+    kv = seg_ids(SEG_KV)
+    case = seg_case(g, b, 2, s, kv.shape[1], 64, torch.float32, True, 0.0)
+    judge_train_kernels(A, case, False, f"kv ids differ, s{s} x "
+                        f"{kv.shape[1]}", errs, errs16, segment_ids=segs,
+                        kv_segment_ids=kv)
+    packed = torch.as_tensor(pk.segment_ids, device="cuda")
+    rows = packed.shape[0]
+    case = seg_case(g, rows, E_HEADS, E_SEQ, E_SEQ, E_HIDDEN // E_HEADS,
+                    torch.bfloat16, False, E_DROPOUT)
+    judge_train_kernels(A, case, False, f"packed {rows} rows h{E_HEADS} "
+                        f"s{E_SEQ} d64 dropout {E_DROPOUT}", errs, errs16,
+                        segment_ids=packed)
+    no_leakage(A, case, packed)
+    return errs, errs16, case, packed
+
+
+def no_leakage(A, case, segs):
+    """Fresh values for every token of an even segment id (q, k, v and
+    dO) must leave the output, dq, dk and dv of the odd-id tokens bitwise
+    unchanged: the kernels' own forward and backward, dropout on."""
+    q, k, v, _, do, drop = case
+    odd = (segs % 2 == 1)[:, None, :, None]
+
+    def run(q, k, v, do):
+        out, lse = A.flash_attention_fwd(q, k, v, None, False, None, drop,
+                                         segs)
+        grads = A.flash_attention_bwd(q, k, v, None, out, lse, do, False,
+                                      None, drop, True, segs)
+        return (out,) + tuple(grads[:3])
+
+    base = run(q, k, v, do)
+    moved = run(*(torch.where(odd, t, 3.0 * torch.randn_like(t))
+                  for t in (q, k, v, do)))
+    torch.cuda.synchronize()
+    keep = odd.expand_as(base[0])
+    for name, a, w in zip(("out", "dq", "dk", "dv"), base, moved):
+        if not torch.equal(a[keep], w[keep]):
+            raise AssertionError(f"{name} of a segment moved when only "
+                                 f"other segments' inputs changed")
+        if torch.equal(a, w):
+            raise AssertionError(f"{name}: the perturbation changed nothing")
+    log(f"  no leakage: out, dq, dk, dv of the odd segments bitwise equal "
+        f"after fresh q, k, v, dO in the even ones")
+
+
+def packed_training(A, seed, padded, packed, labels, pk):
+    """Phase 22: ERNIE-base trained E_STEPS steps on the padded rows and
+    on the packed rows (same sequences, model, optimizer and dropout).
+    Returns {run: numbers}."""
+    want = E_LAYERS * E_STEPS
+    res = {}
+    for run, inputs in (("padded", padded), ("packed", packed)):
+        launches, seg, losses, seq_s, peak, tr, batch = train(
+            A, seed, (inputs, labels))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{run}: non-finite loss {losses}")
+        want_seg = want if run == "packed" else 0
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if seg[name] != want_seg:
+                raise AssertionError(f"{run}: {name} ran its segment branch "
+                                     f"{seg[name]} times, expected "
+                                     f"{want_seg}")
+        rows = batch[0][0].shape[0]
+        log(f"  {run}: {rows} rows x {E_SEQ}; losses "
+            f"{[round(x, 4) for x in losses]}")
+        log(f"  {run}: {seq_s:.2f} seq/s over the last {E_STEPS - 2} steps; "
+            f"peak {peak / 2 ** 30:.2f} GiB; launches "
+            f"{ {k: launches[k] for k in seg} }, segment branch {seg}")
+        prof = profile_training(tr, batch)
+        res[run] = {"rows": rows, "seq_per_s": seq_s, "peak_gib":
+                    peak / 2 ** 30, "losses": losses,
+                    "launches": {k: launches[k] for k in seg},
+                    "segment_launches": seg,
+                    "busy_share": None if prof is None
+                    else prof["busy_share"],
+                    "step_ms": None if prof is None else prof["step_ms"],
+                    "groups_ms_per_step": None if prof is None
+                    else prof["groups_ms_per_step"]}
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["packed"]["fill"] = pk.fill
+    return res
+
+
+def packed_logits_agree(A, seed, padded, packed):
+    """Phase 23: a 2-layer full-width ERNIE at dropout 0, float32, on the
+    card: each sequence's logits from the packed rows against its logits
+    from the padded rows, within REL_PACKED of the largest |logit|."""
+    model = ernie("cuda", 2, (0.0, 0.0), seed).eval()
+
+    def run(inputs):
+        with torch.no_grad():
+            return model(*(None if x is None else
+                           torch.as_tensor(x, device="cuda")
+                           for x in inputs))
+
+    want = run(padded)
+    A.reset_launches()
+    got = run(packed)
+    seg = dict(A.SEG_LAUNCHES)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    limit = REL_PACKED * want.abs().max().item()
+    log(f"  {got.shape[0]} sequences: max |packed - padded| logit {err:.3e} "
+        f"(limit {limit:.3e}); segment-branch launches {seg}")
+    if not err <= limit or seg["flash_fwd"] != 2:
+        raise AssertionError(f"packed logits differ from padded: {err}")
+    return {"max_abs_err": err, "limit": limit}
+
+
+def segment_numbers(A, case, segs):
+    """Phase 24: the segment branch's time at the packed shape (bf16,
+    dropout), its bound over the same-segment pairs these ids visit, the
+    plain versions and SDPA with the dense boolean segment mask (a
+    yardstick the port never calls)."""
+    q, k, v, _, do, drop = case
+    b, h, s, d = q.shape
+    counts = [torch.unique_consecutive(r, return_counts=True)[1]
+              for r in segs.cpu()]
+    pairs = h * sum(int((c.long() ** 2).sum()) for c in counts)
+    qkv = b * h * s * d * q.element_size()
+    row = 4.0 * b * h * s
+    ids = 4.0 * b * s
+    out, lse = A.flash_attention_fwd(q, k, v, None, False, None, drop, segs)
+    delta = A._delta(do, out)
+    lse2 = lse.reshape(b * h, s)
+    pair_segs = (segs, segs)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (segs[:, :, None] == segs[:, None, :])[:, None]
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        o = sdpa(qg, kg, vg, attn_mask=mask, dropout_p=E_DROPOUT)
+        o.backward(do)
+
+    plain_bwd = device_ms(lambda: A.flash_attention_bwd_plain(
+        q, k, v, None, out, lse, do, False, None, drop, False, segs),
+        runs=10)
+    lib_fb = device_ms(lib_fwd_bwd, runs=10)
+    rows = {}
+    for name, mult, nbytes, fn, plain, lib in (
+            ("flash_fwd", 4, 4 * qkv + row + ids,
+             lambda: A._flash_fwd_cuda(q, k, v, None, False, None, drop,
+                                       pair_segs),
+             device_ms(lambda: A.flash_attention_fwd_plain(
+                 q, k, v, None, False, None, drop, segs), runs=10),
+             device_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                    dropout_p=E_DROPOUT), runs=10)),
+            ("flash_bwd_dq", 6, 5 * qkv + 2 * row + ids,
+             lambda: A._flash_bwd_dq_cuda(q, k, v, None, do, lse2, delta,
+                                          False, None, drop, pair_segs),
+             plain_bwd, lib_fb),
+            ("flash_bwd_dkv", 8, 6 * qkv + 2 * row + ids,
+             lambda: A._flash_bwd_dkv_cuda(q, k, v, None, do, lse2, delta,
+                                           False, None, drop, False,
+                                           pair_segs),
+             plain_bwd, lib_fb)):
+        t_ops = mult * pairs * d / BF16_FLOPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        ms = device_ms(fn)
+        rows[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes"}
+        log(f"  {name} packed {b} rows h{h} s{s} d{d} bf16 segments "
+            f"dropout: kernel {ms:.4f} bound {rows[name]['bound_ms']:.4f} "
+            f"({rows[name]['bound_by']}) plain {plain:.4f} sdpa+mask "
+            f"{lib:.4f}")
+    log(f"  same-segment pairs {pairs} of {b * h * s * s} "
+        f"({100 * pairs / (b * h * s * s):.1f}%); the three kernels "
+        f"{sum(r['ms'] for r in rows.values()):.4f} ms, sdpa forward + "
+        f"backward with the mask {lib_fb:.4f} ms")
+    return rows
+
+
 def launch_counts():
     from paddle_tpu_torch.ops import _build
 
@@ -2055,7 +2329,7 @@ def main():
 
     log(f"phase 10: train ERNIE-base, {E_STEPS} steps of {E_BATCH} x "
         f"{E_SEQ} tokens, bf16 compute, dropout {E_DROPOUT}")
-    t_launches, losses, seq_s, peak, tr, batch = train(A, args.seed)
+    t_launches, _, losses, seq_s, peak, tr, batch = train(A, args.seed)
     log(f"  losses {[round(x, 4) for x in losses]}")
     log(f"  {seq_s:.2f} seq/s over the last {E_STEPS - 2} steps; peak "
         f"device memory {peak / 2 ** 30:.2f} GiB; launches {t_launches}")
@@ -2232,7 +2506,49 @@ def main():
         "resnet50_losses": r_losses, "card_vs_cpu": r_check,
         "bn_chain_worst_rel": chain_errs}))
 
-    log("phase 21: output")
+    log("phase 21: the segment branch of flash_fwd, flash_bwd_dq and "
+        "flash_bwd_dkv against their plain versions (phase 9's limits), "
+        "then no leakage across segments")
+    padded, packed, p_labels, pk = packed_batch(args.seed)
+    s_errs, s_errs16, s_case, s_segs = check_segment_kernels(A, g, pk)
+
+    log(f"phase 22: train ERNIE-base on {P_BATCH} sequences of "
+        f"{P_MIN_LEN}-{E_SEQ} tokens, padded and packed ({pk.num_rows} rows, "
+        f"fill {pk.fill:.4f}), {E_STEPS} steps each, bf16, dropout "
+        f"{E_DROPOUT}")
+    ab = packed_training(A, args.seed, padded, packed, p_labels, pk)
+    ratio = ab["packed"]["seq_per_s"] / ab["padded"]["seq_per_s"]
+    log(f"  packed / padded seq/s {ratio:.3f} ({card})")
+
+    log("phase 23: packed against padded logits, 2 layers at full width, "
+        "float32, dropout 0")
+    agree = packed_logits_agree(A, args.seed, padded, packed)
+
+    log("phase 24: timing of the segment branch at the packed shape (bf16, "
+        "median, ms)")
+    s_rows = segment_numbers(A, s_case, s_segs)
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        row = kernels[kname]
+        paths = row.get("launches_by_path") or {"train": row["launches"]}
+        for run in ("padded", "packed"):
+            paths[f"{run}_train16"] = ab[run]["launches"][kname]
+        row["launches_by_path"] = paths
+        row["launches"] = sum(paths.values())
+        row["max_abs_err"] = max(row["max_abs_err"], s_errs[kname])
+        row["segment_branch"] = {
+            "shape": f"packed {pk.num_rows} rows h{E_HEADS} s{E_SEQ} d64 "
+                     f"bf16 dropout {E_DROPOUT}",
+            "launches": ab["packed"]["segment_launches"][kname],
+            "max_abs_err": s_errs[kname], "max_abs_err_bf16":
+            s_errs16[kname], "library_scope": "sdpa with the dense boolean "
+            "segment mask" + (" (forward)" if kname == "flash_fwd" else
+                              ", forward + backward"), **s_rows[kname]}
+    log("  packed summary " + json.dumps({
+        "card": card, "rows": pk.num_rows, "fill": pk.fill,
+        "padded": ab["padded"], "packed": ab["packed"],
+        "logits_agree": agree}))
+
+    log("phase 25: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,10 +3,12 @@
 //
 // Replaces: paddle_tpu/ops/attention.py `dkv_kernel` inside
 // `flash_attention_bwd` (the Pallas dK/dV kernel, grid (b*h, key block),
-// looping over query blocks). Same math per (query row, key):
+// looping over query blocks), without and with segment ids (`has_segs`).
+// Same math per (query row, key):
 //   qbs      = round(q * scale)     (the forward's folded query; it is
 //                                    also the s*q that dk needs)
-//   logits   = qbs . k + bias, causal keys (end-aligned) -1e30
+//   logits   = qbs . k + bias, pairs of different segments and causal
+//              keys (end-aligned) -1e30
 //   p        = exp(logits - lse)
 //   dp       = dO . v;  with dropout pd = D(p), dp = D(dp), where D drops
 //              and upscales with the forward's keep bits
@@ -15,10 +17,13 @@
 //   dk      += round(dlogits)^T . qbs
 //   dbias   += sum over rows of dlogits   (per b*h; the wrapper sums heads)
 // "round" is a cast to the operand type, as in the TPU kernel.
+// Segment ids (flash_common.cuh): a key tile visits only the query tiles
+// of [lower_bound(qseg, min kseg), upper_bound(qseg, max kseg)),
+// intersected with the causal start; masked pairs have p = 0, so they add
+// nothing to dk, dv or dbias.
 // Differences from the TPU kernel, by design: end-aligned causal for any
 // sq / sk (the query loop starts at the first tile that can see the key
-// tile), ragged tails masked here, no block-divisibility gate; segment ids
-// are not taken yet.
+// tile), ragged tails masked here, no block-divisibility gate.
 //
 // What bounds it on an H100: 8 * b*h*sq*sk*d operations (two logits-sized
 // products, dv and dk) on the CUDA cores in fp32 (67 TFLOP/s), against
@@ -43,14 +48,17 @@ using namespace flash;
 template <int D>
 constexpr int smem_floats() {
   // k, v, round(q*scale), dO tiles [64][D + 1]; round(pd), dlogits tiles
-  // [64][BK + 1]; key bias [BK]; lse, delta [BQ]
-  return 4 * 64 * (D + 1) + 2 * BQ * (BK + 1) + BK + 2 * BQ;
+  // [64][BK + 1]; key bias [BK]; lse, delta [BQ]; as int: the query
+  // tile's segment ids [BQ] and the segment range [2]
+  return 4 * 64 * (D + 1) + 2 * BQ * (BK + 1) + BK + 2 * BQ + BQ + 2;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
+                     const int* __restrict__ qseg,
+                     const int* __restrict__ kseg,
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, float* __restrict__ db, int H,
@@ -69,6 +77,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* bs = dls + BQ * LP;      // key bias
   float* ls = bs + BK;            // lse of the tile's rows
   float* des = ls + BQ;           // delta of the tile's rows
+  int* qids = reinterpret_cast<int*>(des + BQ);  // the rows' segment ids
+  int* seg_sh = qids + BQ;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3;        // logits phase: rows 4*rg .. 4*rg + 3
@@ -85,6 +95,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * st.v[3] + h * st.v[4];
   const T* vp = v + b * st.v[6] + h * st.v[7];
   const T* gp = g + b * st.v[9] + h * st.v[10];
+  const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
+  const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
 
   for (int i = tid; i < BK * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -107,12 +119,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < OPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   }
+  // segment ids of the logits phase's keys cg + 8*j
+  int kid[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int col = k0 + cg + 8 * j;
+    kid[j] = (ksp && col < sk) ? ksp[col] : 0;
+  }
 
   // first query tile that sees any key of this tile: row >= k0 - off
-  int q_lo = 0;
+  int q_lo = 0, q_end = sq;
   if (causal) q_lo = max(0, k0 - off) / BQ * BQ;
+  if (ksp) {
+    const int2 w = seg_window(ksp, k0, min(k0 + BK, sk), qsp, sq, seg_sh);
+    q_lo = max(q_lo, w.x / BQ * BQ);
+    q_end = w.y;
+  }
 
-  for (int q0 = q_lo; q0 < sq; q0 += BQ) {
+  for (int q0 = q_lo; q0 < q_end; q0 += BQ) {
     __syncthreads();              // previous tile fully consumed
     for (int i = tid; i < BQ * D; i += THREADS) {
       const int r = i / D, c = i % D;
@@ -128,6 +152,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = q0 + tid < sq;
       ls[tid] = ok ? lse[(long long)bh * sq + q0 + tid] : 0.f;
       des[tid] = ok ? delta[(long long)bh * sq + q0 + tid] : 0.f;
+      qids[tid] = (qsp && ok) ? qsp[q0 + tid] : 0;
     }
     __syncthreads();
 
@@ -164,10 +189,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = q0 + lr;
       const unsigned int row_key = drop ? drop_row_key(dr, bh, row) : 0u;
       const float lse_r = ls[lr], dl_r = des[lr];
+      const int qid = qids[lr];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + cg + 8 * j;
         float x = s[i][j] + bs[cg + 8 * j];
+        if (qsp && qid != kid[j]) x = NEG;
         if (causal && col > row + off) x = NEG;
         const float p = (col < sk && row < sq) ? expf(x - lse_r) : 0.f;
         float pd = p, dpv = dp[i][j];
@@ -226,7 +253,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* g, const void* lse, const void* delta, void* dk,
+           const void* qseg, const void* kseg, const void* g,
+           const void* lse, const void* delta, void* dk,
            void* dv, void* db, int B, int H, int sq, int sk, int d,
            const Strides4& st, float scale, int causal, Dropout dr,
            cudaStream_t stream) {
@@ -239,6 +267,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
       static_cast<const T*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk),
       static_cast<T*>(dv), static_cast<float*>(db), H, sq, sk, d, st, scale,
@@ -249,12 +278,14 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Operands as in pt_flash_bwd_dq; dk / dv [B, H, sk, d] contiguous; db
+// Operands (segment ids included) as in pt_flash_bwd_dq; dk / dv
+// [B, H, sk, d] contiguous; db
 // [B * H, sk] float32, or null when the key bias needs no gradient (or
 // there is none). Returns the cudaError_t of the launch.
 extern "C" int pt_flash_bwd_dkv(int device, int dtype, const void* q,
                                 const void* k, const void* v,
-                                const void* bias, const void* g,
+                                const void* bias, const void* qseg,
+                                const void* kseg, const void* g,
                                 const void* lse, const void* delta, void* dk,
                                 void* dv, void* db, int B, int H, int sq,
                                 int sk, int d, const long long* strides,
@@ -264,22 +295,23 @@ extern "C" int pt_flash_bwd_dkv(int device, int dtype, const void* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
-      block_k < 0 || (block_q > 0) != (block_k > 0))
+      block_k < 0 || (block_q > 0) != (block_k > 0) ||
+      (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64)
     return dtype == 0
-        ? launch<float, 64>(q, k, v, bias, g, lse, delta, dk, dv, db, B, H,
-                            sq, sk, d, st, scale, causal, dr, s)
-        : launch<__nv_bfloat16, 64>(q, k, v, bias, g, lse, delta, dk, dv,
-                                    db, B, H, sq, sk, d, st, scale, causal,
-                                    dr, s);
+        ? launch<float, 64>(q, k, v, bias, qseg, kseg, g, lse, delta, dk, dv,
+                            db, B, H, sq, sk, d, st, scale, causal, dr, s)
+        : launch<__nv_bfloat16, 64>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                    dk, dv, db, B, H, sq, sk, d, st, scale,
+                                    causal, dr, s);
   return dtype == 0
-      ? launch<float, 128>(q, k, v, bias, g, lse, delta, dk, dv, db, B, H,
-                           sq, sk, d, st, scale, causal, dr, s)
-      : launch<__nv_bfloat16, 128>(q, k, v, bias, g, lse, delta, dk, dv, db,
-                                   B, H, sq, sk, d, st, scale, causal, dr,
-                                   s);
+      ? launch<float, 128>(q, k, v, bias, qseg, kseg, g, lse, delta, dk, dv,
+                           db, B, H, sq, sk, d, st, scale, causal, dr, s)
+      : launch<__nv_bfloat16, 128>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                   dk, dv, db, B, H, sq, sk, d, st, scale,
+                                   causal, dr, s);
 }

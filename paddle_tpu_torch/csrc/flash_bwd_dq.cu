@@ -2,8 +2,10 @@
 //
 // Replaces: paddle_tpu/ops/attention.py `dq_kernel` inside
 // `flash_attention_bwd` (the Pallas dQ kernel, grid (b*h, query block),
-// looping over key blocks). Same math per (query row, key):
-//   logits = round(q * scale) . k + bias, causal keys (end-aligned) -1e30
+// looping over key blocks), without and with segment ids (`has_segs`).
+// Same math per (query row, key):
+//   logits = round(q * scale) . k + bias, pairs of different segments
+//            and causal keys (end-aligned) -1e30
 //   p      = exp(logits - lse)                  (lse saved by the forward)
 //   dp     = dO . v, dropped and upscaled by the forward's keep bits
 //   ds     = p * (dp - delta)                   (delta = rowsum(dO * O))
@@ -11,9 +13,12 @@
 // The scale folds into the query for the logits (as in the forward, so the
 // recomputed logits match the saved lse) and into k for the product
 // (`kbs` in the TPU kernel); "round" is a cast to the operand type.
+// Segment ids (flash_common.cuh): a query tile visits only the key tiles
+// of [lower_bound(kseg, min qseg), upper_bound(kseg, max qseg)), as the
+// forward does; masked pairs get p = 0 and add nothing.
 // Differences from the TPU kernel, by design: end-aligned causal for any
 // sq / sk, ragged tails masked here (keys past sk get p = 0), no
-// block-divisibility gate; segment ids are not taken yet.
+// block-divisibility gate.
 //
 // What bounds it on an H100: 6 * b*h*sq*sk*d operations (two logits-sized
 // products and the dq product) on the CUDA cores in fp32 (67 TFLOP/s),
@@ -39,14 +44,17 @@ using namespace flash;
 template <int D>
 constexpr int smem_floats() {
   // q, dO, k, round(k*scale), v tiles [64][D + 1], ds tile [64][BK + 1],
-  // bias tile [BK]
-  return 5 * 64 * (D + 1) + BQ * (BK + 1) + BK;
+  // bias tile [BK]; as int: the key tile's segment ids [BK] and the
+  // segment range [2]
+  return 5 * 64 * (D + 1) + BQ * (BK + 1) + BK + BK + 2;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
+                    const int* __restrict__ qseg,
+                    const int* __restrict__ kseg,
                     const T* __restrict__ g, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int sq, int sk, int d, Strides4 st,
@@ -62,6 +70,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = kbs + BK * LD;      // v
   float* dss = vs + BK * LD;      // round(ds)
   float* bs = dss + BQ * LP;      // key bias
+  int* kids = reinterpret_cast<int*>(bs + BK);  // key tile's segment ids
+  int* seg_sh = kids + BK;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3;
@@ -77,6 +87,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + b * st.v[6] + h * st.v[7];
   const T* gp = g + b * st.v[9] + h * st.v[10];
   const float* bp = bias ? bias + (long long)b * sk : nullptr;
+  const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
+  const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -91,10 +103,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   float lse_r[RPT], dl_r[RPT], acc[RPT][OPT];
   unsigned int row_key[RPT];
+  int qid[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + rg * RPT + i;
     const bool ok = row < sq;
+    qid[i] = (qsp && ok) ? qsp[row] : 0;
     lse_r[i] = ok ? lse[(long long)bh * sq + row] : 0.f;
     dl_r[i] = ok ? delta[(long long)bh * sq + row] : 0.f;
     row_key[i] = drop ? drop_row_key(dr, bh, row) : 0u;
@@ -102,13 +116,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < OPT; ++j) acc[i][j] = 0.f;
   }
 
-  int kend = sk;
+  int kbeg = 0, kend = sk;
   if (causal) {
     const int last_row = min(q0 + BQ, sq) - 1;
     kend = max(0, min(sk, last_row + off + 1));
   }
+  if (qsp) {
+    const int2 w = seg_window(qsp, q0, min(q0 + BQ, sq), ksp, sk, seg_sh);
+    kbeg = w.x / BK * BK;
+    kend = min(kend, w.y);
+  }
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();              // previous tile fully consumed
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
@@ -121,7 +140,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kbs[r * LD + c] = round_to<T>(kx * scale);
       vs[r * LD + c] = vx;
     }
-    if (tid < BK) bs[tid] = (bp && k0 + tid < sk) ? bp[k0 + tid] : 0.f;
+    if (tid < BK) {
+      bs[tid] = (bp && k0 + tid < sk) ? bp[k0 + tid] : 0.f;
+      kids[tid] = (ksp && k0 + tid < sk) ? ksp[k0 + tid] : 0;
+    }
     __syncthreads();
 
     float s[RPT][CPT], dp[RPT][CPT];
@@ -158,6 +180,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + cg + 8 * j;
         float x = s[i][j] + bs[cg + 8 * j];
+        if (ksp && qid[i] != kids[cg + 8 * j]) x = NEG;
         if (causal && col > row + off) x = NEG;
         const float p = (col < sk && row < sq) ? expf(x - lse_r[i]) : 0.f;
         float dpv = dp[i][j];
@@ -198,7 +221,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* g, const void* lse, const void* delta, void* dq,
+           const void* qseg, const void* kseg, const void* g,
+           const void* lse, const void* delta, void* dq,
            int B, int H, int sq, int sk, int d, const Strides4& st,
            float scale, int causal, Dropout dr, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
@@ -210,6 +234,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
       static_cast<const T*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), H, sq, sk, d,
       st, scale, causal, dr);
@@ -221,12 +246,14 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // q / dO [B, H, sq, d], k / v [B, H, sk, d] with unit stride on d and
 // element strides (batch, head, row) in `strides` (q, k, v, dO: 12 values,
-// host memory); bias [B, sk] float32 or null; lse and delta [B * H, sq]
-// float32; dq [B, H, sq, d] contiguous. Dropout as in pt_flash_fwd
-// (block_q = 0: none). Returns the cudaError_t of the launch.
+// host memory); bias [B, sk] float32 or null; qseg / kseg as in
+// pt_flash_fwd; lse and delta [B * H, sq] float32; dq [B, H, sq, d]
+// contiguous. Dropout as in pt_flash_fwd (block_q = 0: none). Returns the
+// cudaError_t of the launch.
 extern "C" int pt_flash_bwd_dq(int device, int dtype, const void* q,
                                const void* k, const void* v,
-                               const void* bias, const void* g,
+                               const void* bias, const void* qseg,
+                               const void* kseg, const void* g,
                                const void* lse, const void* delta, void* dq,
                                int B, int H, int sq, int sk, int d,
                                const long long* strides, float scale,
@@ -236,20 +263,23 @@ extern "C" int pt_flash_bwd_dq(int device, int dtype, const void* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
-      block_k < 0 || (block_q > 0) != (block_k > 0))
+      block_k < 0 || (block_q > 0) != (block_k > 0) ||
+      (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64)
     return dtype == 0
-        ? launch<float, 64>(q, k, v, bias, g, lse, delta, dq, B, H, sq, sk,
-                            d, st, scale, causal, dr, s)
-        : launch<__nv_bfloat16, 64>(q, k, v, bias, g, lse, delta, dq, B, H,
-                                    sq, sk, d, st, scale, causal, dr, s);
+        ? launch<float, 64>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B,
+                            H, sq, sk, d, st, scale, causal, dr, s)
+        : launch<__nv_bfloat16, 64>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                    dq, B, H, sq, sk, d, st, scale, causal,
+                                    dr, s);
   return dtype == 0
-      ? launch<float, 128>(q, k, v, bias, g, lse, delta, dq, B, H, sq, sk, d,
-                           st, scale, causal, dr, s)
-      : launch<__nv_bfloat16, 128>(q, k, v, bias, g, lse, delta, dq, B, H,
-                                   sq, sk, d, st, scale, causal, dr, s);
+      ? launch<float, 128>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H,
+                           sq, sk, d, st, scale, causal, dr, s)
+      : launch<__nv_bfloat16, 128>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                   dq, B, H, sq, sk, d, st, scale, causal, dr,
+                                   s);
 }

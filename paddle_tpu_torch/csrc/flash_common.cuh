@@ -1,6 +1,6 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): operand-type conversions and the
-// attention-dropout bits.
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): operand-type conversions, the
+// attention-dropout bits and the segment-id bounds of packed rows.
 //
 // Every kernel stages its tiles in shared memory as float32 with a padded
 // row stride (D + 1), so column reads are free of bank conflicts, and
@@ -72,6 +72,59 @@ __device__ __forceinline__ bool drop_keep(const Dropout& dr,
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x >= dr.thresh;
+}
+
+// Packed rows (the segment-id branch): per-token int32 ids, [B, sq] for
+// the queries and [B, sk] for the keys, non-decreasing along each row
+// (`core/lod.pack_padded`), restrict attention to pairs of equal ids. A
+// pair of different ids is masked like a causal key (-1e30), and a tile
+// visits only the tiles of the other side whose tokens share an id with
+// it: with monotone ids those tokens form one range, found by binary
+// search.
+
+// first index of ids[0, n) (non-decreasing) whose id is >= v, or > v
+// when `upper`
+__device__ __forceinline__ int seg_bound(const int* ids, int n, int v,
+                                         bool upper) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int x = ids[mid];
+    if (x < v || (upper && x == v))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The token range [lo, hi) of the other side (ids other[0, n)) whose ids
+// lie within [min, max] of this tile's ids own[t0, t1), t0 < t1: the only
+// tokens this tile's tokens pair with. Called by every thread of the
+// block (it synchronises): the first warp reduces, its first lane
+// searches, and `sh` (2 ints of shared memory) broadcasts the range.
+__device__ __forceinline__ int2 seg_window(const int* own, int t0, int t1,
+                                           const int* other, int n,
+                                           int* sh) {
+  if (threadIdx.x < 32) {
+    int mn = 0x7fffffff, mx = -0x7fffffff - 1;
+    for (int t = t0 + (int)threadIdx.x; t < t1; t += 32) {
+      const int x = own[t];
+      mn = min(mn, x);
+      mx = max(mx, x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    if (threadIdx.x == 0) {
+      sh[0] = seg_bound(other, n, mn, false);
+      sh[1] = seg_bound(other, n, mx, true);
+    }
+  }
+  __syncthreads();
+  return make_int2(sh[0], sh[1]);
 }
 
 // element strides (batch, head, row) of four [B, H, s, d] operands,

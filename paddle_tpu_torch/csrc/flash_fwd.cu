@@ -1,13 +1,23 @@
 // Flash-attention forward for Hopper (sm_90a): out = softmax(q k^T * scale
-// + bias [+ causal mask]) v, plus the per-row logsumexp.
+// + bias [+ causal mask] [+ segment mask]) v, plus the per-row logsumexp.
 //
 // Replaces: paddle_tpu/ops/attention.py `_flash_fwd_kernels` (the Pallas
-// online-softmax forward, called from `flash_attention_fwd`). Same math:
-// the scale folds into the query once, an optional [b, sk] f32 key bias is
-// added to the logits, causal keys are set to -1e30, the running max starts
-// at -1e30, p is rounded to the operand type before the p.v product while
-// the normaliser sums the unrounded p, and the epilogue divides by
-// max(l, 1e-30) and writes lse = m + log(max(l, 1e-30)).
+// online-softmax forward, called from `flash_attention_fwd`), both of its
+// variants (without and with segment ids, `has_segs`). Same math: the
+// scale folds into the query once, an optional [b, sk] f32 key bias is
+// added to the logits, pairs of different segments and causal keys are
+// set to -1e30, the running max starts at -1e30, p is rounded to the
+// operand type before the p.v product while the normaliser sums the
+// unrounded p, and the epilogue divides by max(l, 1e-30) and writes
+// lse = m + log(max(l, 1e-30)).
+//
+// Segment ids (packed rows, flash_common.cuh): a query tile visits only
+// the key tiles of [lower_bound(kseg, min qseg), upper_bound(kseg, max
+// qseg)), intersected with the causal range. A row whose first visited
+// keys all lie in other segments sums exp(0) terms under m = -1e30; its
+// first same-segment key wipes them (alpha = exp(-1e30 - m) = 0), as in
+// the TPU kernel. The dropout bits stay addressed by global (row, col), so
+// skipping tiles moves none.
 //
 // Differences from the TPU kernel, by design:
 //  * Causal masking is END-aligned (key j visible to row i while
@@ -44,14 +54,16 @@ using namespace flash;
 
 template <int D>
 constexpr int smem_floats() {
-  // q, k, v tiles [64][D + 1], p tile [64][BK + 1], bias tile [BK]
-  return 3 * 64 * (D + 1) + BQ * (BK + 1) + BK;
+  // q, k, v tiles [64][D + 1], p tile [64][BK + 1], bias tile [BK]; as
+  // int: the key tile's segment ids [BK] and the segment range [2]
+  return 3 * 64 * (D + 1) + BQ * (BK + 1) + BK + BK + 2;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
+                 const int* __restrict__ qseg, const int* __restrict__ kseg,
                  T* __restrict__ out, float* __restrict__ lse, int H,
                  int sq, int sk, int d, long long qsb, long long qsh,
                  long long qss, long long ksb, long long ksh, long long kss,
@@ -66,6 +78,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + BK * LD;
   float* ps = vs + BK * LD;
   float* bs = ps + BQ * LP;
+  int* kids = reinterpret_cast<int*>(bs + BK);  // key tile's segment ids
+  int* seg_sh = kids + BK;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3;        // row group: rows 4*rg .. 4*rg + 3
@@ -79,6 +93,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * ksb + h * ksh;
   const T* vp = v + b * vsb + h * vsh;
   const float* bp = bias ? bias + (long long)b * sk : nullptr;
+  const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
+  const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
@@ -88,10 +104,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[r * LD + c] = x;
   }
 
-  int kend = sk;
+  int kbeg = 0, kend = sk;
   if (causal) {
     const int last_row = min(q0 + BQ, sq) - 1;
     kend = max(0, min(sk, last_row + off + 1));
+  }
+  int qid[RPT];
+  if (qsp) {
+    const int2 w = seg_window(qsp, q0, min(q0 + BQ, sq), ksp, sk, seg_sh);
+    kbeg = w.x / BK * BK;
+    kend = min(kend, w.y);
   }
 
   const bool drop = dr.block_q > 0;
@@ -99,14 +121,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   unsigned int row_key[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    row_key[i] = drop ? drop_row_key(dr, bh, q0 + rg * RPT + i) : 0u;
+    const int row = q0 + rg * RPT + i;
+    qid[i] = (qsp && row < sq) ? qsp[row] : 0;
+    row_key[i] = drop ? drop_row_key(dr, bh, row) : 0u;
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < OPT; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();              // previous tile fully consumed
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
@@ -118,7 +142,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[r * LD + c] = kx;
       vs[r * LD + c] = vx;
     }
-    if (tid < BK) bs[tid] = (bp && k0 + tid < sk) ? bp[k0 + tid] : 0.f;
+    if (tid < BK) {
+      bs[tid] = (bp && k0 + tid < sk) ? bp[k0 + tid] : 0.f;
+      kids[tid] = (ksp && k0 + tid < sk) ? ksp[k0 + tid] : 0;
+    }
     __syncthreads();
 
     float s[RPT][CPT];
@@ -147,6 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + cg + 8 * j;
         float x = s[i][j] + bs[cg + 8 * j];
+        if (ksp && qid[i] != kids[cg + 8 * j]) x = NEG;
         if (causal && col > row + off) x = NEG;
         if (col >= sk) x = -INFINITY;
         s[i][j] = x;
@@ -208,7 +236,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* out, void* lse, int B, int H, int sq, int sk, int d,
+           const void* qseg, const void* kseg, void* out, void* lse, int B,
+           int H, int sq, int sk, int d,
            const long long* st, float scale, int causal, Dropout dr,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
@@ -220,6 +249,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
       static_cast<T*>(out), static_cast<float*>(lse), H, sq, sk, d, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal,
       dr);
@@ -231,33 +261,37 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // q [B, H, sq, d], k/v [B, H, sk, d] with unit stride on d and element
 // strides (batch, head, row) given in `strides` (q, k, v: 9 values);
-// bias: [B, sk] float32 or null; out [B, H, sq, d] contiguous; lse
-// [B * H, sq] float32. Dropout: seed, uint32 keep threshold, 1/keep and
-// the logical blocks (block_q = 0: no dropout). Returns the cudaError_t of
-// the launch.
+// bias: [B, sk] float32 or null; qseg / kseg: [B, sq] / [B, sk] int32
+// segment ids, non-decreasing along each row, or both null; out
+// [B, H, sq, d] contiguous; lse [B * H, sq] float32. Dropout: seed, uint32
+// keep threshold, 1/keep and the logical blocks (block_q = 0: no
+// dropout). Returns the cudaError_t of the launch.
 extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* bias,
-                            void* out, void* lse, int B, int H, int sq,
-                            int sk, int d, const long long* strides,
+                            const void* qseg, const void* kseg, void* out,
+                            void* lse, int B, int H, int sq, int sk, int d,
+                            const long long* strides,
                             float scale, int causal, unsigned int seed,
                             unsigned int thresh, float inv_keep, int block_q,
                             int block_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
-      block_k < 0 || (block_q > 0) != (block_k > 0))
+      block_k < 0 || (block_q > 0) != (block_k > 0) ||
+      (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 64)
     return dtype == 0
-        ? launch<float, 64>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                            strides, scale, causal, dr, s)
-        : launch<__nv_bfloat16, 64>(q, k, v, bias, out, lse, B, H, sq, sk,
-                                    d, strides, scale, causal, dr, s);
+        ? launch<float, 64>(q, k, v, bias, qseg, kseg, out, lse, B, H, sq,
+                            sk, d, strides, scale, causal, dr, s)
+        : launch<__nv_bfloat16, 64>(q, k, v, bias, qseg, kseg, out, lse, B,
+                                    H, sq, sk, d, strides, scale, causal,
+                                    dr, s);
   return dtype == 0
-      ? launch<float, 128>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                           strides, scale, causal, dr, s)
-      : launch<__nv_bfloat16, 128>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                                   strides, scale, causal, dr, s);
+      ? launch<float, 128>(q, k, v, bias, qseg, kseg, out, lse, B, H, sq, sk,
+                           d, strides, scale, causal, dr, s)
+      : launch<__nv_bfloat16, 128>(q, k, v, bias, qseg, kseg, out, lse, B, H,
+                                   sq, sk, d, strides, scale, causal, dr, s);
 }

@@ -78,7 +78,7 @@ class MultiHeadAttention(nn.Module):
         b, h, s, d = x.shape
         return x.transpose(1, 2).reshape(b, s, h * d)
 
-    def _attend(self, q, k, v, attn_mask, is_causal):
+    def _attend(self, q, k, v, attn_mask, is_causal, segment_ids=None):
         """Attention with in-kernel dropout in training: each call draws
         its own seed."""
         seed = None
@@ -86,15 +86,19 @@ class MultiHeadAttention(nn.Module):
             seed = F.draw_seed(self.seed_generator)
         return F.scaled_dot_product_attention(
             q, k, v, attn_mask, self.dropout, is_causal, self.training,
-            dropout_seed=seed)
+            dropout_seed=seed, segment_ids=segment_ids)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
-                cache=None, is_causal=False):
-        """Without a cache: attention over `key`/`value` (default: self).
-        StaticCache: the precomputed cross-attention K/V (returns the
-        output only). Cache: the concat-grown eager cache (returns
-        (out, cache)). StaticKVCache: the in-place decode cache (returns
-        (out, cache))."""
+                cache=None, is_causal=False, segment_ids=None):
+        """Without a cache: attention over `key`/`value` (default: self);
+        segment_ids ([B, S] integer, packed rows) restrict it to
+        same-segment tokens. StaticCache: the precomputed cross-attention
+        K/V (returns the output only). Cache: the concat-grown eager
+        cache (returns (out, cache)). StaticKVCache: the in-place decode
+        cache (returns (out, cache))."""
+        if segment_ids is not None and cache is not None:
+            raise ValueError("segment_ids apply to the no-cache path only "
+                             "(packed training and encoding)")
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
@@ -114,7 +118,7 @@ class MultiHeadAttention(nn.Module):
             k = torch.cat([cache.k, k], dim=2)
             v = torch.cat([cache.v, v], dim=2)
             cache = self.Cache(k, v)
-        out = self._attend(q, k, v, attn_mask, is_causal)
+        out = self._attend(q, k, v, attn_mask, is_causal, segment_ids)
         out = self.out_proj(self._merge_heads(out))
         return out if cache is None else (out, cache)
 
@@ -279,12 +283,12 @@ class TransformerEncoderLayer(nn.Module):
                                    else act_dropout)
         self.activation = _activation(activation)
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, segment_ids=None):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src,
-                                                      src_mask))
+        src = residual + self.dropout1(self.self_attn(
+            src, src, src, src_mask, segment_ids=segment_ids))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -306,10 +310,10 @@ class TransformerEncoder(nn.Module):
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, segment_ids=None):
         out = src
         for layer in self.layers:
-            out = layer(out, src_mask)
+            out = layer(out, src_mask, segment_ids=segment_ids)
         return out
 
 

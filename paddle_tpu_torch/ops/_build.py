@@ -44,16 +44,16 @@ _PAGED = [_I, _I, _I, *[_P] * 11, *[_I] * 8, _STRIDES, _F, _P]
 #: argtypes of each library's C entry point (see the .cu sources)
 _SIGNATURES = {
     "flash_fwd": ("pt_flash_fwd",
-                  [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _STRIDES, _F, _I, *_DROP, _P]),
+                  [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _STRIDES, _F, _I,
+                   *_DROP, _P]),
     "flash_decode": ("pt_flash_decode",
                      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _STRIDES, _F, _P]),
     "flash_bwd_dq": ("pt_flash_bwd_dq",
-                     [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _STRIDES, _F,
+                     [_I, _I, *[_P] * 10, _I, _I, _I, _I, _I, _STRIDES, _F,
                       _I, *_DROP, _P]),
     "flash_bwd_dkv": ("pt_flash_bwd_dkv",
-                      [_I, _I, *[_P] * 10, _I, _I, _I, _I, _I, _STRIDES, _F,
+                      [_I, _I, *[_P] * 12, _I, _I, _I, _I, _I, _STRIDES, _F,
                        _I, *_DROP, _P]),
     "flash_verify": ("pt_flash_verify",
                      [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _STRIDES, _F,
@@ -72,20 +72,24 @@ _SIGNATURES = {
 
 #: the launch counters of the kernel wrappers, one dict per ops module
 _COUNTERS = []
+#: counters of one branch of kernels that `_COUNTERS` already count
+_BRANCHES = []
 
 
-def counter(names):
+def counter(names, branch=False):
     """A launch-count dict {kernel: 0} for one ops module's wrappers. Each
     wrapper adds one where it launches its kernel and nowhere else (plain
-    CPU runs do not count)."""
+    CPU runs do not count). branch=True: the launches of one branch of
+    kernels counted elsewhere (zeroed by `reset_launches`, left out of
+    `launches()`)."""
     d = {name: 0 for name in names}
-    _COUNTERS.append(d)
+    (_BRANCHES if branch else _COUNTERS).append(d)
     return d
 
 
 def reset_launches():
-    """Zero the launch counts of every kernel."""
-    for d in _COUNTERS:
+    """Zero the launch counts of every kernel and branch."""
+    for d in _COUNTERS + _BRANCHES:
         for name in d:
             d[name] = 0
 

@@ -5,10 +5,10 @@ Layout: (batch, heads, seq, head_dim) throughout, as in the JAX
 package's `ops/attention.py`.
 
   * `flash_attention_fwd` -> `csrc/flash_fwd.cu`: online-softmax
-    attention with an optional [b, sk] key bias, causal masking and
-    in-kernel attention dropout, returning (out, lse). Carries prompt
-    prefill, encoder self-attention, every cross-attention over the
-    memory, and the training forward.
+    attention with an optional [b, sk] key bias, causal masking,
+    in-kernel attention dropout and packed segment ids, returning (out,
+    lse). Carries prompt prefill, encoder self-attention, every
+    cross-attention over the memory, and the training forward.
   * `flash_attention_bwd` -> `csrc/flash_bwd_dq.cu` (dQ, looping over
     key tiles) and `csrc/flash_bwd_dkv.cu` (dK, dV and the key-bias
     gradient, looping over query tiles). Both recompute the
@@ -16,6 +16,12 @@ package's `ops/attention.py`.
     torch op here, as it is one XLA op in the JAX package.
   * `flash_attention`: the differentiable entry (`_FlashAttention`, a
     `torch.autograd.Function` over the three kernels).
+  * Packed sequences (`core/lod.pack_padded`): `segment_ids` [b, sq]
+    and `kv_segment_ids` [b, sk] (default: the query's), non-decreasing
+    along each row, restrict attention to same-segment pairs. The three
+    kernels turn them into loop bounds that skip every tile outside a
+    tile's segment range and mask cross-segment pairs (-1e30) on the
+    tiles they visit; `segment_bias` is the dense form of that mask.
   * `flash_decode` -> `csrc/flash_decode.cu`: one query token per row
     against a preallocated KV cache, split-K over the cache length with
     per-row written lengths; the logsumexp combine of the per-split
@@ -41,12 +47,14 @@ bits on any device, and they equal the JAX interpret-mode kernels'.
 Each wrapper runs its kernel's plain PyTorch version when its tensors
 lie on the CPU, and launches the kernel when they lie on a CUDA card;
 there is no fallback from a failed launch. `LAUNCHES` counts kernel
-launches per wrapper. The dispatchers `sdpa` and `decode_attention`
-mirror the JAX ones: a mask that reduces to a per-key bias rides the
-flash kernels. A richer (per-query or per-head) mask goes to the
-`sdpa_reference` composition on the CPU only and without attention
-dropout; on the card, or with dropout, it raises, since no kernel takes
-such a mask yet (pass a [b, sk] key bias with `is_causal` instead).
+launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
+among them. The dispatchers `sdpa` and `decode_attention` mirror the
+JAX ones: a mask that reduces to a per-key bias, and packed segment
+ids, ride the flash kernels. A richer (per-query or per-head) mask goes
+to the `sdpa_reference` composition on the CPU only and without
+attention dropout; on the card, or with dropout, it raises: no kernel
+takes such a mask (pass segment ids, or a [b, sk] key bias with
+`is_causal`).
 The paged dispatchers follow the JAX fallback on the CPU: gather the
 dense logical view of the pages, then run the same plain dense decode or
 verify that the dense pool runs, so fp32 pages serve the dense pool's
@@ -65,7 +73,8 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
-           "dropout_keep_reference", "sdpa_reference",
+           "dropout_keep_reference", "sdpa_reference", "segment_bias",
+           "SEG_LAUNCHES",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -88,6 +97,10 @@ DECODE_SPLIT = 128
 LAUNCHES = _build.counter(["flash_fwd", "flash_decode", "flash_bwd_dq",
                            "flash_bwd_dkv", "flash_verify",
                            "paged_flash_decode", "paged_flash_verify"])
+#: launches of the segment-id branch of the three flash kernels (each
+#: also counted in LAUNCHES)
+SEG_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
+                              branch=True)
 reset_launches = _build.reset_launches
 
 
@@ -248,6 +261,42 @@ def sdpa_reference(q, k, v, mask=None, is_causal=False, scale=None):
     return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
+def segment_bias(segment_ids, kv_segment_ids=None):
+    """Additive float32 [b, 1, sq, sk] attention bias from per-token
+    segment ids ([b, sq] / [b, sk] int): 0 within a segment, -1e30
+    across (the JAX `segment_bias`). The dense form of the kernels'
+    segment mask, for the reference composition and the tests."""
+    seg_q = torch.as_tensor(segment_ids)
+    seg_k = seg_q if kv_segment_ids is None else \
+        torch.as_tensor(kv_segment_ids, device=seg_q.device)
+    eq = seg_q[:, :, None] == seg_k[:, None, :]
+    return torch.where(eq, 0.0, NEG).float()[:, None]
+
+
+def _segments(segment_ids, kv_segment_ids, q, k):
+    """(query ids [b, sq], key ids [b, sk]) as contiguous int32 on q's
+    device, or None without segment ids. The key ids default to the
+    query's (self-attention packing). No monotonicity check: it would
+    cost a device sync per call; ids that decrease along a row give
+    unspecified output."""
+    if segment_ids is None:
+        if kv_segment_ids is not None:
+            raise ValueError("kv_segment_ids needs segment_ids")
+        return None
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
+    kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+    out = []
+    for ids, n, what in ((segment_ids, sq, "query"), (kv, sk, "key")):
+        ids = torch.as_tensor(ids)
+        if tuple(ids.shape) != (b, n) or ids.is_floating_point() \
+                or ids.is_complex() or ids.dtype == torch.bool:
+            raise ValueError(f"{what} segment ids must be an integer "
+                             f"[{b}, {n}] tensor, got {ids.dtype} "
+                             f"{tuple(ids.shape)}")
+        out.append(ids.to(device=q.device, dtype=torch.int32).contiguous())
+    return tuple(out)
+
+
 def _kv_bias(mask, b, sk):
     """A mask that varies only over (batch, key) as a [b, sk] float32
     additive bias — the padded-batch case; None when it is richer."""
@@ -289,13 +338,17 @@ def _lengths(length, b, device):
 # flash forward: plain version + kernel wrapper
 # --------------------------------------------------------------------------
 
-def _logits(q, k, bias, is_causal, s):
-    """The kernels' logits as float32: round(q * s) . k + bias, causal
-    keys (end-aligned) set to -1e30."""
+def _logits(q, k, bias, is_causal, s, segs=None):
+    """The kernels' logits as float32: round(q * s) . k + bias, then
+    pairs of different segments (segs: the `_segments` pair) and causal
+    keys (end-aligned) set to -1e30, in the JAX kernel's order."""
     sq, sk = q.shape[2], k.shape[2]
     logits = torch.matmul(_scaled_q(q, s), _up(k, q).transpose(-1, -2))
     if bias is not None:
         logits = logits + _up(bias, q)[:, None, None, :]
+    if segs is not None:
+        same = segs[0][:, None, :, None] == segs[1][:, None, None, :]
+        logits = logits.masked_fill(~same, NEG)
     if is_causal:
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
@@ -304,18 +357,22 @@ def _logits(q, k, bias, is_causal, s):
 
 
 def flash_attention_fwd_plain(q, k, v, bias=None, is_causal=False,
-                              scale=None, dropout=None):
+                              scale=None, dropout=None, segment_ids=None,
+                              kv_segment_ids=None):
     """The flash forward's function in plain PyTorch: (out [b,h,sq,d],
     lse [b*h, sq, 1]). Running max floored at -1e30, p rounded to the
     operand type for the p.v product, normaliser floored at 1e-30 —
     the kernel's math without the tiling. With `dropout` (a DropSpec)
     the p.v product sees the dropped, upscaled p while the normaliser
-    keeps summing the raw p (the JAX kernel's order). Rows with no
-    visible key at all are degenerate and left unspecified (the kernel
-    may differ)."""
+    keeps summing the raw p (the JAX kernel's order). Segment ids mask
+    cross-segment pairs with -1e30 (the kernel's skipped tiles hold
+    only such pairs). Rows with no visible key at all (no same-segment
+    key, under the causal mask) are degenerate and left unspecified
+    (the kernel may differ)."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    logits = _logits(q, k, bias, is_causal, _scale(d, scale))
+    segs = _segments(segment_ids, kv_segment_ids, q, k)
+    logits = _logits(q, k, bias, is_causal, _scale(d, scale), segs)
     m = logits.amax(-1, keepdim=True).clamp_min(NEG)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -380,9 +437,23 @@ def _row_strides(*ts):
     return _build.strides_arg([x for t in ts for x in t.stride()[:3]])
 
 
-def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None):
+def _seg_ptrs(segs):
+    """The (query ids, key ids) pointers of a C entry point: both null
+    without segments."""
+    return (None, None) if segs is None else \
+        (segs[0].data_ptr(), segs[1].data_ptr())
+
+
+def _count(name, segs):
+    LAUNCHES[name] += 1
+    if segs is not None:
+        SEG_LAUNCHES[name] += 1
+
+
+def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
+                    segs=None):
     _check_operands("flash_fwd", q, k, v,
-                    () if bias is None else (bias,))
+                    (() if bias is None else (bias,)) + (segs or ()))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_bias("flash_fwd", bias, b, sk)
@@ -393,13 +464,13 @@ def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None):
     fn = _build.kernels().flash_fwd
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), b, h, sq, sk, d, _row_strides(q, k, v),
-             float(_scale(d, scale)), int(bool(is_causal)),
-             *_drop_args(dropout),
+             None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
+             out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
+             _row_strides(q, k, v), float(_scale(d, scale)),
+             int(bool(is_causal)), *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", segs)
     return out, lse
 
 
@@ -410,17 +481,21 @@ def _device_kind(name, q):
 
 
 def flash_attention_fwd(q, k, v, bias=None, is_causal=False, scale=None,
-                        dropout=None):
+                        dropout=None, segment_ids=None, kv_segment_ids=None):
     """Flash forward: (out [b, h, sq, d], lse [b*h, sq, 1]). bias: an
     optional [b, sk] float32 additive key bias. Causal aligns at the
     end of the key axis (the reference semantics; start-aligned when
-    sq == sk). dropout: a DropSpec (see `drop_spec`) or None. CPU
-    tensors run `flash_attention_fwd_plain`; CUDA tensors launch
-    `csrc/flash_fwd.cu` (any sq / sk, head_dim <= 128)."""
+    sq == sk). dropout: a DropSpec (see `drop_spec`) or None.
+    segment_ids / kv_segment_ids: [b, sq] / [b, sk] integer ids,
+    non-decreasing along each row (see `_segments`). CPU tensors run
+    `flash_attention_fwd_plain`; CUDA tensors launch `csrc/flash_fwd.cu`
+    (any sq / sk, head_dim <= 128)."""
     if _device_kind("flash_attention_fwd", q) == "cpu":
         return flash_attention_fwd_plain(q, k, v, bias, is_causal, scale,
-                                         dropout)
-    return _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout)
+                                         dropout, segment_ids,
+                                         kv_segment_ids)
+    return _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout,
+                           _segments(segment_ids, kv_segment_ids, q, k))
 
 
 # --------------------------------------------------------------------------
@@ -435,18 +510,21 @@ def _delta(g, out):
 
 
 def flash_attention_bwd_plain(q, k, v, bias, out, lse, g, is_causal=False,
-                              scale=None, dropout=None, need_dbias=True):
+                              scale=None, dropout=None, need_dbias=True,
+                              segment_ids=None, kv_segment_ids=None):
     """The backward kernels' function in plain PyTorch: (dq, dk, dv,
     dbias). The logits are recomputed with the forward's scale folding
     and subtract the saved lse; dq folds the scale into k and dk into q
     (each rounded to the operand type, as the JAX kernels do); with
     dropout, dP and the P of the dV product see the same keep bits as
-    the forward. dbias ([b, sk] float32, the key bias's gradient summed
-    over heads) is None without a bias or when not needed."""
+    the forward; cross-segment pairs get p = 0. dbias ([b, sk] float32,
+    the key bias's gradient summed over heads) is None without a bias or
+    when not needed."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     s = _scale(d, scale)
-    logits = _logits(q, k, bias, is_causal, s)
+    segs = _segments(segment_ids, kv_segment_ids, q, k)
+    logits = _logits(q, k, bias, is_causal, s, segs)
     p = torch.exp(logits - lse.reshape(b, h, sq, 1))
     dp = torch.matmul(_up(g, q), _up(v, q).transpose(-1, -2))
     pd = p
@@ -466,9 +544,9 @@ def flash_attention_bwd_plain(q, k, v, bias, out, lse, g, is_causal=False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def _check_bwd(name, q, k, v, bias, g, lse, delta):
+def _check_bwd(name, q, k, v, bias, g, lse, delta, segs):
     _check_operands(name, q, k, v, tuple(
-        t for t in (bias, g, lse, delta) if t is not None))
+        t for t in (bias, g, lse, delta) if t is not None) + (segs or ()))
     b, h, sq, _ = q.shape
     _check_bias(name, bias, b, k.shape[2])
     if g.shape != q.shape or g.dtype != q.dtype or g.stride(-1) != 1:
@@ -482,8 +560,8 @@ def _check_bwd(name, q, k, v, bias, g, lse, delta):
 
 
 def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
-                       dropout=None):
-    _check_bwd("flash_bwd_dq", q, k, v, bias, g, lse, delta)
+                       dropout=None, segs=None):
+    _check_bwd("flash_bwd_dq", q, k, v, bias, g, lse, delta, segs)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
@@ -492,20 +570,21 @@ def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
     fn = _build.kernels().flash_bwd_dq
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
-             d, _row_strides(q, k, v, g), float(_scale(d, scale)),
-             int(bool(is_causal)), *_drop_args(dropout),
+             None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
+             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             b, h, sq, sk, d, _row_strides(q, k, v, g),
+             float(_scale(d, scale)), int(bool(is_causal)),
+             *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dq", err)
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq", segs)
     return dq
 
 
 def _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
-                        dropout=None, need_dbias=True):
+                        dropout=None, need_dbias=True, segs=None):
     """(dk, dv, dbias per (b*h, key) as [b*h, sk] float32 or None)."""
-    _check_bwd("flash_bwd_dkv", q, k, v, bias, g, lse, delta)
+    _check_bwd("flash_bwd_dkv", q, k, v, bias, g, lse, delta, segs)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
@@ -518,19 +597,20 @@ def _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
     fn = _build.kernels().flash_bwd_dkv
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             None if db is None else db.data_ptr(), b, h, sq, sk, d,
-             _row_strides(q, k, v, g), float(_scale(d, scale)),
+             None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
+             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), None if db is None else db.data_ptr(), b, h, sq,
+             sk, d, _row_strides(q, k, v, g), float(_scale(d, scale)),
              int(bool(is_causal)), *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dkv", err)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count("flash_bwd_dkv", segs)
     return dk, dv, db
 
 
 def flash_attention_bwd(q, k, v, bias, out, lse, g, is_causal=False,
-                        scale=None, dropout=None, need_dbias=True):
+                        scale=None, dropout=None, need_dbias=True,
+                        segment_ids=None, kv_segment_ids=None):
     """Flash backward: (dq, dk, dv, dbias) from the forward's inputs, its
     output and lse, and dO = g (any strides with a contiguous head dim).
     CPU tensors run `flash_attention_bwd_plain`; CUDA tensors launch
@@ -539,14 +619,17 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g, is_causal=False,
     if _device_kind("flash_attention_bwd", q) == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias, out, lse, g,
                                          is_causal, scale, dropout,
-                                         need_dbias)
+                                         need_dbias, segment_ids,
+                                         kv_segment_ids)
     b, h, _, _ = q.shape
+    segs = _segments(segment_ids, kv_segment_ids, q, k)
     delta = _delta(g, out)
     lse = lse.reshape(b * h, -1)
     dq = _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
-                            dropout)
+                            dropout, segs)
     dk, dv, db = _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta,
-                                     is_causal, scale, dropout, need_dbias)
+                                     is_causal, scale, dropout, need_dbias,
+                                     segs)
     dbias = None if db is None else db.reshape(b, h, -1).sum(1)
     return dq, dk, dv, dbias
 
@@ -554,45 +637,53 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g, is_causal=False,
 class _FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the JAX `_flash_diff_fn`): the
     forward kernel saves out and lse, the two backward kernels recompute
-    P from them; the dropout bits are regenerated from the saved seed."""
+    P from them; the dropout bits are regenerated from the saved seed.
+    The segment ids are saved and get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, is_causal, scale, dropout):
+    def forward(ctx, q, k, v, bias, is_causal, scale, dropout, qseg, kseg):
         out, lse = flash_attention_fwd(q, k, v, bias, is_causal, scale,
-                                       dropout)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
+                                       dropout, qseg, kseg)
+        ctx.save_for_backward(q, k, v, bias, out, lse, qseg, kseg)
         ctx.cfg = (is_causal, scale, dropout)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, out, lse = ctx.saved_tensors
+        q, k, v, bias, out, lse, qseg, kseg = ctx.saved_tensors
         is_causal, scale, dropout = ctx.cfg
         need_dbias = bias is not None and ctx.needs_input_grad[3]
         dq, dk, dv, dbias = flash_attention_bwd(
             q, k, v, bias, out, lse, g, is_causal, scale, dropout,
-            need_dbias)
-        return dq, dk, dv, dbias, None, None, None
+            need_dbias, qseg, kseg)
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, is_causal=False, scale=None,
                     block_q=None, block_k=None, dropout_p=0.0,
-                    dropout_seed=None):
+                    dropout_seed=None, segment_ids=None,
+                    kv_segment_ids=None):
     """Differentiable flash attention over [b, h, s, d] operands (the
     JAX `flash_attention`): bias an optional [b, sk] float32 key bias
     (it gets a gradient when it requires one); dropout_p the in-kernel
     attention dropout, addressed by (dropout_seed, b*h, logical block)
     so the forward and both backward kernels regenerate the same bits.
     block_q / block_k override the logical dropout blocks (the JAX
-    package's block sizes); the kernels tile by 64 regardless. Without
-    gradients to compute it runs the forward alone."""
+    package's block sizes); the kernels tile by 64 regardless.
+    segment_ids ([b, sq] integer, non-decreasing along each row: the
+    `core/lod.pack_padded` layout) restrict attention to same-segment
+    pairs, and the kernels skip the tiles that hold none;
+    kv_segment_ids ([b, sk]) defaults to segment_ids. Without gradients
+    to compute it runs the forward alone."""
     sq, sk = q.shape[2], k.shape[2]
     dropout = drop_spec(dropout_p, dropout_seed, sq, sk, block_q, block_k)
+    segs = _segments(segment_ids, kv_segment_ids, q, k) or (None, None)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
         return _FlashAttention.apply(q, k, v, bias, is_causal, scale,
-                                     dropout)
-    return flash_attention_fwd(q, k, v, bias, is_causal, scale, dropout)[0]
+                                     dropout, *segs)
+    return flash_attention_fwd(q, k, v, bias, is_causal, scale, dropout,
+                               *segs)[0]
 
 
 # --------------------------------------------------------------------------
@@ -1044,30 +1135,33 @@ def paged_flash_verify(q, k_pages, v_pages, k_scale, v_scale, table,
 # --------------------------------------------------------------------------
 
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None, dropout_p=0.0,
-         dropout_seed=None):
+         dropout_seed=None, segment_ids=None):
     """Attention dispatch (the JAX `sdpa`): the differentiable flash
     attention whenever the mask reduces to a per-key bias (none, or
     every padded batch), with in-kernel attention dropout when
-    dropout_p > 0 (dropout_seed then required). A richer mask runs the
-    reference composition on the CPU without dropout, and raises on any
-    other device or with dropout: no kernel takes it yet."""
+    dropout_p > 0 (dropout_seed then required) and the segment mask of
+    packed rows when segment_ids ([b, s] integer, non-decreasing along
+    each row) are given, on every device. A richer mask runs the
+    reference composition (with the segment mask folded in) on the CPU
+    without dropout, and raises on any other device or with dropout:
+    no kernel takes such a mask."""
     bias = None if mask is None else _kv_bias(mask, q.shape[0], k.shape[2])
     if mask is None or bias is not None:
         return flash_attention(q, k, v, bias, is_causal, scale,
-                               dropout_p=dropout_p, dropout_seed=dropout_seed)
+                               dropout_p=dropout_p, dropout_seed=dropout_seed,
+                               segment_ids=segment_ids)
     if q.device.type == "cpu" and not dropout_p:
+        if segment_ids is not None:
+            if mask.dtype == torch.bool:
+                mask = torch.where(mask, 0.0, NEG).float()
+            mask = mask.float() + segment_bias(segment_ids).to(q.device)
         return sdpa_reference(q, k, v, mask, is_causal, scale)
-    if dropout_p:
-        raise NotImplementedError(
-            f"sdpa: attention dropout under a {tuple(mask.shape)} mask that "
-            f"varies per query or per head has no kernel yet (it comes "
-            f"with the packed slice's segment ids). Pass a [b, 1, 1, sk] "
-            f"key bias with is_causal=True")
+    where = "with attention dropout" if dropout_p else \
+        f"on a {q.device.type} device"
     raise NotImplementedError(
-        f"sdpa: a {tuple(mask.shape)} mask varies per query or per head, "
-        f"and no {q.device.type} kernel takes such a mask yet (per-query "
-        f"masks come with the packed slice's segment ids). Pass a "
-        f"[b, 1, 1, sk] key bias with is_causal=True, or run on the CPU")
+        f"sdpa: no kernel takes a {tuple(mask.shape)} mask that varies per "
+        f"query or per head ({where}). Pass packed segment ids "
+        f"(segment_ids=) or a [b, 1, 1, sk] key bias with is_causal=True")
 
 
 def decode_attention(q, k, v, length, bias=None, scale=None):

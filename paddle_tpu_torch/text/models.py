@@ -5,9 +5,9 @@ The module tree and parameter names match the JAX package's
 `ernie.encoder.layers.0.self_attn.q_proj.weight`, ...), so
 `convert.from_jax_state` loads a JAX `state_dict()` as it stands.
 Attention runs through the flash kernels with in-kernel attention
-dropout in training. The packed-varlen inputs (segment ids, per-sequence
-CLS indices), `ErnieForPretraining` and the MoE feed-forward belong to
-later slices.
+dropout in training, over padded rows (a key bias) or packed rows
+(segment ids, per-sequence CLS indices). `ErnieForPretraining` and the
+MoE feed-forward are not ported.
 """
 from __future__ import annotations
 
@@ -78,7 +78,16 @@ class ErnieEmbeddings(nn.Module):
 class ErnieModel(nn.Module):
     """BERT/ERNIE encoder. attention_mask: (B, S) 1/0 valid-token mask,
     applied as a (1 - mask) * -1e4 key bias (the flash kernels' key-bias
-    path). Returns (sequence output, pooled CLS output)."""
+    path). Returns (sequence output, pooled CLS output).
+
+    Packed varlen feeds (LoD-native fine-tuning): pass the fields of
+    `core.lod.pack_padded` instead of a padded batch: `input_ids` =
+    packed.data, `position_ids` = packed.positions, `attn_segment_ids`
+    = packed.segment_ids and `cls_flat_index` = packed.cls_flat_index(),
+    which pools each SEQUENCE's first token from the flattened
+    [rows * row_len, H] view (several sequences share a row). No
+    attention_mask is needed: pads form their own segment, and the
+    segment ids ride the flash kernels' segment branch."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
         super().__init__()
@@ -95,14 +104,26 @@ class ErnieModel(nn.Module):
         self.pooler_act = Tanh()
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
-                attention_mask=None):
+                attention_mask=None, attn_segment_ids=None,
+                cls_flat_index=None):
         mask = None
         if attention_mask is not None:
             # (B, S) -> additive (B, 1, 1, S) over heads and queries
             mask = (1.0 - attention_mask.float())[:, None, None, :] * -1e4
+        if attn_segment_ids is not None:
+            # int32 on the device once, not in every layer
+            attn_segment_ids = torch.as_tensor(
+                attn_segment_ids, device=input_ids.device).to(torch.int32)
         x = self.embeddings(input_ids, token_type_ids, position_ids)
-        seq_out = self.encoder(x, mask)
-        pooled = self.pooler_act(self.pooler(seq_out[:, 0]))
+        seq_out = self.encoder(x, mask, segment_ids=attn_segment_ids)
+        if cls_flat_index is not None:
+            b, s, hdim = seq_out.shape
+            index = torch.as_tensor(cls_flat_index, device=seq_out.device)
+            cls_tok = seq_out.reshape(b * s, hdim).index_select(
+                0, index.long())
+        else:
+            cls_tok = seq_out[:, 0]
+        pooled = self.pooler_act(self.pooler(cls_tok))
         return seq_out, pooled
 
 
@@ -116,8 +137,11 @@ class ErnieForSequenceClassification(nn.Module):
                                  device=device, generator=generator)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                position_ids=None):
+                position_ids=None, attn_segment_ids=None,
+                cls_flat_index=None):
         _, pooled = self.ernie(input_ids, token_type_ids,
                                position_ids=position_ids,
-                               attention_mask=attention_mask)
+                               attention_mask=attention_mask,
+                               attn_segment_ids=attn_segment_ids,
+                               cls_flat_index=cls_flat_index)
         return self.classifier(self.dropout(pooled))

@@ -7,8 +7,8 @@ machine that has only PyTorch for CUDA:
 
 Shapes go beyond the serving and training paths' (ragged and odd
 lengths, end-aligned causal with sq != sk, head dims 40 and 128, bf16,
-attention dropout). Tolerances: fp32 rtol 1e-5 / atol 2e-5 (reordered
-sums); bf16 rtol / atol 1e-2 (the two sides may round an output to
+attention dropout, packed segment ids). Tolerances: fp32 rtol 1e-5 /
+atol 2e-5 (reordered sums); bf16 rtol / atol 1e-2 (the two sides may round an output to
 neighbouring bf16 values, 2^-7 apart at magnitude 1). The backward
 kernels' fp32 gradients: rtol 1e-4 / atol 1e-4 (sums of up to sk
 products of O(1) terms in another order); bf16 gradients: the largest
@@ -356,6 +356,107 @@ def test_flash_backward_kernels_match_plain(cuda, case):
                                    atol=atol, msg=lambda m: f"{name}: {m}")
 
 
+def _segment_ids(lens_rows, dev):
+    """[b, s] non-decreasing segment ids from per-row segment lengths."""
+    rows = [torch.cat([torch.full((n,), i, dtype=torch.int32)
+                       for i, n in enumerate(lens)]) for lens in lens_rows]
+    return torch.stack(rows).to(dev)
+
+
+# b, h, d, causal, key bias, dropout_p, dtype, query segment lengths per
+# row, key segment lengths per row (None: the query's). Segments shorter
+# than, straddling and spanning several 64-token tiles; a one-token
+# segment; a trailing pad segment (the `pack_padded` layout)
+_SEG = {
+    "fp32_plain": (2, 2, 64, False, False, 0.0, torch.float32,
+                   [[100, 60, 96], [200, 40, 16]], None),
+    "fp32_causal_bias_dropout": (2, 3, 64, True, True, 0.1, torch.float32,
+                                 [[1, 129, 70, 56], [64, 64, 128]], None),
+    "d128_many_small": (1, 2, 128, False, True, 0.2, torch.float32,
+                        [[7, 13, 30, 1, 64, 65, 20, 10]], None),
+    "kv_ids_differ": (2, 2, 32, False, True, 0.0, torch.float32,
+                      [[50, 40, 38], [70, 58]], [[60, 100, 32], [90, 102]]),
+    "bf16_packed_rows_dropout": (2, 2, 64, False, False, 0.1,
+                                 torch.bfloat16,
+                                 [[300, 200, 400, 124], [700, 250, 74]],
+                                 None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SEG))
+def test_flash_segment_branch_matches_plain(cuda, case):
+    """The segment-id branch of the three flash kernels against their
+    plain versions, forward and backward; each launch is counted as a
+    segment-branch launch."""
+    b, h, d, causal, has_bias, p, dt, qlens, klens = _SEG[case]
+    seg = _segment_ids(qlens, cuda)
+    kseg = None if klens is None else _segment_ids(klens, cuda)
+    sq = seg.shape[1]
+    sk = sq if kseg is None else kseg.shape[1]
+    q = _rand((b, sq, h, d), 51, cuda, dt).transpose(1, 2)    # strided
+    k = _rand((b, h, sk, d), 52, cuda, dt)
+    v = _rand((b, sk, h, d), 53, cuda, dt).transpose(1, 2)
+    g = _rand((b, h, sq, d), 54, cuda, dt)
+    bias = (_rand((b, sk), 55, cuda) * 0.5).contiguous() if has_bias \
+        else None
+    drop = TA.drop_spec(p, 11, sq, sk)
+    ids = dict(segment_ids=seg, kv_segment_ids=kseg)
+    before = dict(TA.SEG_LAUNCHES)
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, None, drop,
+                                      **ids)
+    want_out, want_lse = TA.flash_attention_fwd_plain(
+        q, k, v, bias, causal, None, drop, **ids)
+    rtol, atol = TOL[dt]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
+    got = TA.flash_attention_bwd(q, k, v, bias, want_out, want_lse, g,
+                                 causal, None, drop, **ids)
+    want = TA.flash_attention_bwd_plain(q, k, v, bias, want_out, want_lse,
+                                        g, causal, None, drop, **ids)
+    assert {n: TA.SEG_LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None
+            continue
+        if dt == torch.bfloat16:
+            err = (a.float() - w.float()).abs().max().item()
+            limit = REL_BF16_GRAD * w.float().abs().max().item()
+            assert err <= limit, f"{name}: max_abs_err {err} > {limit}"
+            continue
+        rtol, atol = GRAD_TOL[dt]
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_segment_branch_has_no_cross_segment_leakage(cuda, dt):
+    """Other segments' q, k, v and dO leave a segment's output, dq, dk
+    and dv bitwise unchanged on the card."""
+    b, h, d = 2, 2, 64
+    seg = _segment_ids([[130, 300, 94], [64, 400, 60]], cuda)
+    s = seg.shape[1]
+    base = [_rand((b, h, s, d), 60 + i, cuda, dt) for i in range(4)]
+    moved = [t.clone() for t in base]
+    other = (seg != 1)[:, None, :, None]            # all but segment 1
+    for i, t in enumerate(moved):
+        t.copy_(torch.where(other, 50 * _rand(t.shape, 70 + i, cuda, dt), t))
+
+    def run(q, k, v, g):
+        ts = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = TA.flash_attention(*ts, None, True, None, dropout_p=0.1,
+                                 dropout_seed=5, segment_ids=seg)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in ts]
+
+    keep = (seg == 1)[:, None, :, None].expand(b, h, s, d)
+    for a, w in zip(run(*base), run(*moved)):
+        assert torch.equal(a[keep], w[keep])
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_on_card_matches_cpu(cuda):
     """The autograd Function on the card against the same Function on
@@ -430,6 +531,43 @@ def test_card_paths_never_reach_a_plain_version(cuda, monkeypatch):
               TA.paged_verify_attention)
         fn(q, kp, vp, ks, vs, table, length, bias[:, None, None, :])
         assert TA.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+def test_packed_ernie_step_runs_the_segment_branch_only(cuda, monkeypatch):
+    """A bf16 ERNIE train step on `pack_padded` rows (dropout on) with
+    every plain version made to raise: each layer launches the three
+    kernels once, all through the segment branch."""
+    from paddle_tpu_torch.core.lod import pack_padded
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import SpmdTrainer
+    from paddle_tpu_torch.text import (ErnieConfig,
+                                       ErnieForSequenceClassification)
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("flash_attention_fwd_plain", "flash_attention_bwd_plain",
+                 "sdpa_reference", "dropout_keep_reference"):
+        monkeypatch.setattr(TA, name, boom)
+    model = ErnieForSequenceClassification(
+        ErnieConfig.tiny(), device=cuda,
+        generator=torch.Generator().manual_seed(0))
+    tr = SpmdTrainer(model, lambda out, y: torch.nn.functional.cross_entropy(
+        out.float(), y), fopt.adamw(1e-3), compute_dtype="bfloat16",
+        device=cuda)
+    lens = [90, 20, 64, 33, 120, 7]
+    ids = torch.randint(1, 1024, (len(lens), 128),
+                        generator=torch.Generator().manual_seed(2)).numpy()
+    pk = pack_padded(ids, lens, row_len=128)
+    inputs = (pk.data, None, None, pk.positions.astype("int64"),
+              pk.segment_ids, pk.cls_flat_index().astype("int64"))
+    TA.reset_launches()
+    loss = tr.step(inputs, torch.tensor([0, 1, 1, 0, 1, 0]))
+    assert torch.isfinite(loss).item()
+    want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert TA.SEG_LAUNCHES == want
+    assert {n: TA.LAUNCHES[n] for n in want} == want
 
 
 # m, d, n, x dtype: decode and verify steps (the skinny path, m <= 32,

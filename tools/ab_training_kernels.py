@@ -1,0 +1,75 @@
+"""Time the port's three training attention kernels (flash_fwd,
+flash_bwd_dq, flash_bwd_dkv) of two or more checkouts on one card, in
+turns, at `chip_smoke.py` phase 12's shapes (ERNIE-base b8 h12 s1024
+d64, bf16, a -1e4 pad bias, attention dropout 0.1; the padded path, no
+segment ids).
+
+Each ROOT is a directory holding a `paddle_tpu_torch/` package (a
+checkout, or `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`).
+Every ROOT runs in a process of its own, so each builds and loads its
+own kernels; list them in the order to run, e.g. parent, change,
+change, parent, to see the spread beside the difference. Prints one
+JSON line per run: the root and each kernel's median device ms over 25
+runs (`chip_smoke.device_ms`), with the card's name and power limit.
+
+    python tools/ab_training_kernels.py PARENT . . PARENT
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_root(root):
+    """The three kernels' device ms with the package under `root`."""
+    sys.path.insert(0, root)
+    sys.path.insert(1, HERE)
+    import torch
+
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import attention as A
+
+    if not os.path.abspath(A.__file__).startswith(root):
+        raise RuntimeError(f"imported {A.__file__}, not the package under "
+                           f"{root}")
+    A._build.kernels()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, bias, do, drop = cs.train_case(g, torch.bfloat16)
+    b, h, s, _ = q.shape
+    out, lse = A.flash_attention_fwd(q, k, v, bias, False, None, drop)
+    delta = A._delta(do, out)
+    lse2 = lse.reshape(b * h, s)
+    return {
+        "root": root, "card": cs.card_line(),
+        "flash_fwd": cs.device_ms(lambda: A._flash_fwd_cuda(
+            q, k, v, bias, False, None, drop)),
+        "flash_bwd_dq": cs.device_ms(lambda: A._flash_bwd_dq_cuda(
+            q, k, v, bias, do, lse2, delta, False, None, drop)),
+        "flash_bwd_dkv": cs.device_ms(lambda: A._flash_bwd_dkv_cuda(
+            q, k, v, bias, do, lse2, delta, False, None, drop, False))}
+
+
+def main(argv):
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(time_root(os.path.abspath(argv[2]))), flush=True)
+        return 0
+    if len(argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in argv[1:]:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one", root], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
