@@ -21,20 +21,34 @@
 // block-divisibility gate.
 //
 // What bounds it on an H100: 6 * b*h*sq*sk*d operations (two logits-sized
-// products and the dq product) on the CUDA cores in fp32 (67 TFLOP/s),
-// against reading q, dO, lse, delta once and k, v, bias once per query
-// tile. At the ERNIE shapes (s = 1024, d = 64) it is bound by the FMAs and
-// their shared-memory operands, not by device memory. Design: one
-// 128-thread block per (query tile of 64 rows, b*h); the block keeps
-// round(q * scale), dO, lse and delta of its rows for the whole key loop
-// and stages k, round(k * scale), v and the key bias tile by tile (64
-// keys) in shared memory with padded rows; each thread owns 4 rows x 8 key
-// columns of p / dp and 4 rows x d/8 columns of the dq accumulator; ds
-// goes through shared memory (written and read by the same warp) to the
-// dq product. wgmma/TMA are left for a later PR.
+// products and the dq product), against reading q, dO, lse, delta once and
+// k, v, bias once per query tile.
+//
+// bfloat16 (the training path): the three products run on the tensor
+// cores (bf16 wgmma, 989 TFLOP/s), so the exp, the masks and the dropout
+// hash on the CUDA cores are the other half of the work. One warpgroup
+// (128 threads) per (query tile of 64 rows, b*h). The tile's q and dO stay
+// in swizzled shared memory, its lse, delta and ids in registers; k, v,
+// the key bias and ids stream in 64-key tiles through a ring of three
+// buffers, cp.async filling the next tile's under this tile's work.
+// Per key tile: S = Q.K^T and dP = dO.V^T by wgmma from shared memory
+// into fp32 registers; p, the dropout and ds = p * (dp - delta) in those
+// registers; round(ds) packed straight into the A registers of
+// dQ += dS.K (B = the same k tile read MN-major), which runs on under the
+// next tile's copies and S. When the scale is a
+// power of two (d = 64: 0.125), round(q * scale) = q * scale exactly, so
+// the raw tiles feed the products and the scale multiplies the fp32
+// results; any other scale stages round(q * scale) in place once and
+// round(k * scale) per tile.
+// float32 keeps the SIMT kernel below: tiles in shared memory as fp32
+// with padded rows, every product an fmaf on the CUDA cores (67 TFLOP/s),
+// each thread 4 rows x 8 key columns of p / dp and 4 rows x d/8 columns
+// of dq, ds through shared memory to the dq product; it matches the plain
+// version's float32 sums exactly on the ERNIE shapes.
 
 #include <math.h>
 
+#include "flash_bwd_mma.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -49,14 +63,14 @@ constexpr int smem_floats() {
   return 5 * 64 * (D + 1) + BQ * (BK + 1) + BK + BK + 2;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ bias,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ bias,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ g, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int sq, int sk, int d, Strides4 st,
                     float scale, int causal, Dropout dr) {
   constexpr int LD = D + 1;
@@ -82,10 +96,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int off = sk - sq;
   const bool drop = dr.block_q > 0;
 
-  const T* qp = q + b * st.v[0] + h * st.v[1];
-  const T* kp = k + b * st.v[3] + h * st.v[4];
-  const T* vp = v + b * st.v[6] + h * st.v[7];
-  const T* gp = g + b * st.v[9] + h * st.v[10];
+  const float* qp = q + b * st.v[0] + h * st.v[1];
+  const float* kp = k + b * st.v[3] + h * st.v[4];
+  const float* vp = v + b * st.v[6] + h * st.v[7];
+  const float* gp = g + b * st.v[9] + h * st.v[10];
   const float* bp = bias ? bias + (long long)b * sk : nullptr;
   const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
   const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
@@ -94,8 +108,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, c = i % D;
     float qx = 0.f, gx = 0.f;
     if (q0 + r < sq && c < d) {
-      qx = round_to<T>(to_f(qp[(long long)(q0 + r) * st.v[2] + c]) * scale);
-      gx = to_f(gp[(long long)(q0 + r) * st.v[11] + c]);
+      qx = qp[(long long)(q0 + r) * st.v[2] + c] * scale;
+      gx = gp[(long long)(q0 + r) * st.v[11] + c];
     }
     qs[r * LD + c] = qx;
     gs[r * LD + c] = gx;
@@ -133,11 +147,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, c = i % D;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < sk && c < d) {
-        kx = to_f(kp[(long long)(k0 + r) * st.v[5] + c]);
-        vx = to_f(vp[(long long)(k0 + r) * st.v[8] + c]);
+        kx = kp[(long long)(k0 + r) * st.v[5] + c];
+        vx = vp[(long long)(k0 + r) * st.v[8] + c];
       }
       ks[r * LD + c] = kx;
-      kbs[r * LD + c] = round_to<T>(kx * scale);
+      kbs[r * LD + c] = kx * scale;
       vs[r * LD + c] = vx;
     }
     if (tid < BK) {
@@ -187,7 +201,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (drop)
           dpv = drop_keep(dr, row_key[i], col) ? dpv * dr.inv_keep : 0.f;
         dss[(rg * RPT + i) * LP + cg + 8 * j] =
-            round_to<T>(p * (dpv - dl_r[i]));
+            p * (dpv - dl_r[i]);
       }
     }
     __syncwarp();                 // a row's ds is written by its own warp
@@ -210,16 +224,253 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + rg * RPT + i;
     if (row >= sq) continue;
-    T* op = dq + ((long long)bh * sq + row) * d;
+    float* op = dq + ((long long)bh * sq + row) * d;
 #pragma unroll
     for (int c = 0; c < OPT; ++c) {
       const int col = cg + 8 * c;
-      if (col < d) op[col] = from_f<T>(acc[i][c]);
+      if (col < d) op[col] = acc[i][c];
     }
   }
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------- bf16
+
+// dynamic shared memory of the wgmma kernel: q, dO, NS k and NS v tiles,
+// round(k * scale) unless the scale is a power of two; per key tile (NS
+// buffers) the bias, the ids and the dropout column keys; the segment
+// range; 1 KiB to align the tiles to the swizzle's 1024 bytes
+constexpr int NS = 3;             // key-tile buffers of the wgmma kernel
+
+template <int D>
+constexpr int mma_smem_bytes(bool pow2) {
+  return (2 + 2 * NS + (pow2 ? 0 : 1)) * (D / 64) * mma::TILE_BYTES +
+         3 * NS * BK * 4 + 16 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const float* __restrict__ bias, const int* __restrict__ qseg,
+                 const int* __restrict__ kseg,
+                 const __nv_bfloat16* __restrict__ g,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int H, int sq, int sk, int d,
+                 Strides4 st, float scale, int causal, Dropout dr, int vec,
+                 int pow2) {
+  using namespace mma;
+  constexpr int TB = (D / 64) * TILE_BYTES;   // one tile of D columns
+  constexpr int NB = D / 64;                  // 64-column blocks of dq
+  constexpr int KS = D / 16;                  // reduction steps of S, dP
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;                 // q, or round(q * scale)
+  uint8_t* gs = qs + TB;              // dO
+  uint8_t* ks = gs + TB;              // k, NS buffers
+  uint8_t* vs = ks + NS * TB;         // v, NS buffers
+  uint8_t* kt = vs + NS * TB;         // round(k * scale) (!pow2)
+  float* bs = reinterpret_cast<float*>(kt + (pow2 ? 0 : TB));  // [NS][BK]
+  int* kids = reinterpret_cast<int*>(bs + NS * BK);            // [NS][BK]
+  unsigned int* cks =
+      reinterpret_cast<unsigned int*>(kids + NS * BK);         // [NS][BK]
+  int* seg_sh = reinterpret_cast<int*>(cks + NS * BK);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const int off = sk - sq;
+  const bool drop = dr.block_q > 0;
+  const float s_scale = pow2 ? scale : 1.f;
+
+  const __nv_bfloat16* qp = q + b * st.v[0] + h * st.v[1];
+  const __nv_bfloat16* kp = k + b * st.v[3] + h * st.v[4];
+  const __nv_bfloat16* vp = v + b * st.v[6] + h * st.v[7];
+  const __nv_bfloat16* gp = g + b * st.v[9] + h * st.v[10];
+  const float* bp = bias ? bias + (long long)b * sk : nullptr;
+  const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
+  const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
+
+  int kbeg = 0, kend = sk;
+  if (causal) {
+    const int last_row = min(q0 + BQ, sq) - 1;
+    kend = max(0, min(sk, last_row + off + 1));
+  }
+  if (qsp) {
+    const int2 w = seg_window(qsp, q0, min(q0 + BQ, sq), ksp, sk, seg_sh);
+    kbeg = w.x / BK * BK;
+    kend = min(kend, w.y);
+  }
+  const int nt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  // the key tile t into buffer `buf`: k and v by cp.async (or element
+  // loads), the bias and ids by 4-byte cp.async, the dropout column keys
+  // computed here
+  auto fetch = [&](int t, int buf) {
+    const int k0 = kbeg + t * BK;
+    load_tile<D>(ks + buf * TB, kp, st.v[5], k0, sk, d, vec);
+    load_tile<D>(vs + buf * TB, vp, st.v[8], k0, sk, d, vec);
+    if (tid < BK) {
+      const int col = k0 + tid;
+      const bool ok = col < sk;
+      float* bd = bs + buf * BK + tid;
+      int* kd = kids + buf * BK + tid;
+      if (bp) cp_async4(bd, ok ? bp + col : bp, ok ? 4 : 0);
+      else *bd = 0.f;
+      if (ksp) cp_async4(kd, ok ? ksp + col : ksp, ok ? 4 : 0);
+      else *kd = 0;
+      cks[buf * BK + tid] = drop ? drop_col_key(dr, col) : 0u;
+    }
+  };
+
+  load_tile<D>(qs, qp, st.v[2], q0, sq, d, vec);
+  load_tile<D>(gs, gp, st.v[11], q0, sq, d, vec);
+  if (nt > 0) fetch(0, 0);
+  cp_async_commit();
+
+  // this thread's two rows (accumulator rows frag_row(0) and + 8)
+  float lse_r[2], dl_r[2];
+  unsigned int rk[2];
+  int qid[2], rows[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = q0 + frag_row(2 * x);
+    const bool ok = row < sq;
+    rows[x] = row;
+    lse_r[x] = ok ? lse[(long long)bh * sq + row] : 0.f;
+    dl_r[x] = ok ? delta[(long long)bh * sq + row] : 0.f;
+    qid[x] = (qsp && ok) ? qsp[row] : 0;
+    rk[x] = drop ? drop_row_key(dr, bh, row) : 0u;
+  }
+
+  // dq, set by the first tile's product (scale-d 0): zeros written here
+  // would be register moves that ptxas finds beside a running product,
+  // and it would then serialise every wgmma of the kernel (C7515)
+  float acc[NB][32];
+
+  // Per key tile t: S(t) and dP(t) are two wgmma groups, so p is computed
+  // while dP(t) runs, and dQ(t) is left running into the next tile, under
+  // its barrier and copies, until the wait for S(t + 1) retires it. Its k
+  // tile (buffer t % NS) is refilled only at tile t + 2, after every warp
+  // has waited for dQ(t) and passed that tile's barrier.
+  for (int t = 0; t < nt; ++t) {
+    const int buf = t % NS;
+    const int k0 = kbeg + t * BK;
+    cp_async_wait<0>();           // tile t (and q, dO) have landed
+    fence_async_smem();
+    __syncthreads();
+    if (t + 1 < nt) fetch(t + 1, (t + 1) % NS);
+    cp_async_commit();
+    uint8_t* kb = ks + buf * TB;
+    const uint8_t* kdq = kb;      // the B operand of the dq product
+    if (!pow2) {                  // kt is read by dQ(t - 1): retire it
+      wgmma_wait<0>();
+      __syncthreads();
+      if (t == 0) scale_tile<D>(qs, qs, scale);
+      scale_tile<D>(kt, kb, scale);
+      kdq = kt;
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    float s[32], dp[32];
+    wgmma_fence();
+    wgmma_ss_k<KS>(s, qs, kb);
+    wgmma_commit();
+    wgmma_ss_k<KS>(dp, gs, vs + buf * TB);
+    wgmma_commit();
+    wgmma_wait<1>();              // dQ(t - 1) and S(t) are done
+    fence_regs(s);
+
+    const float* bt = bs + buf * BK;
+    const int* kt_ids = kids + buf * BK;
+    float p[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int x = (i >> 1) & 1;
+      const int lc = frag_col(i);
+      const int col = k0 + lc;
+      float l = s[i] * s_scale + bt[lc];
+      if (ksp && qid[x] != kt_ids[lc]) l = NEG;
+      if (causal && col > rows[x] + off) l = NEG;
+      p[i] = (col < sk && rows[x] < sq) ? expf(l - lse_r[x]) : 0.f;
+    }
+    wgmma_wait<0>();              // dP(t) is done
+    fence_regs(dp);
+    const unsigned int* ck = cks + buf * BK;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int x = (i >> 1) & 1;
+      float dpv = dp[i];
+      if (drop)
+        dpv = drop_keep_mixed(dr, rk[x] ^ ck[frag_col(i)]) ? dpv * dr.inv_keep
+                                                           : 0.f;
+      p[i] = p[i] * (dpv - dl_r[x]);  // ds
+    }
+
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) to_a(p, kk, a[kk]);
+#pragma unroll
+    for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        wgmma_rs(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),
+                 t > 0 || kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
+  cp_async_wait<0>();
+
+  const float o_scale = pow2 ? scale : 1.f;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = rows[(i >> 1) & 1];
+      const int col = 64 * n + frag_col(i);
+      if (row >= sq || col >= d) continue;
+      __nv_bfloat16* op = dq + ((long long)bh * sq + row) * d + col;
+      op[0] = __float2bfloat16(nt > 0 ? acc[n][i] * o_scale : 0.f);
+      if (col + 1 < d)
+        op[1] = __float2bfloat16(nt > 0 ? acc[n][i + 1] * o_scale : 0.f);
+    }
+}
+
+int launch_mma(const void* q, const void* k, const void* v,
+               const void* bias, const void* qseg, const void* kseg,
+               const void* g, const void* lse, const void* delta, void* dq,
+               int B, int H, int sq, int sk, int d, const Strides4& st,
+               float scale, int causal, Dropout dr, int vec, int pow2,
+               cudaStream_t stream) {
+  dim3 grid((sq + BQ - 1) / BQ, B * H);
+  auto run = [&](auto kernel, int smem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, 128, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const float*>(bias), static_cast<const int*>(qseg),
+        static_cast<const int*>(kseg), static_cast<const __nv_bfloat16*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<__nv_bfloat16*>(dq), H, sq, sk, d, st, scale, causal, dr,
+        vec, pow2);
+    return (int)cudaGetLastError();
+  };
+  return d <= 64 ? run(flash_bwd_dq_mma<64>, mma_smem_bytes<64>(pow2))
+                 : run(flash_bwd_dq_mma<128>, mma_smem_bytes<128>(pow2));
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* qseg, const void* kseg, const void* g,
            const void* lse, const void* delta, void* dq,
@@ -227,28 +478,40 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
            float scale, int causal, Dropout dr, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>,
+      flash_bwd_dq_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const int*>(qseg), static_cast<const int*>(kseg),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), H, sq, sk, d,
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), H, sq, sk, d,
       st, scale, causal, dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// q / dO [B, H, sq, d], k / v [B, H, sk, d] with unit stride on d and
-// element strides (batch, head, row) in `strides` (q, k, v, dO: 12 values,
-// host memory); bias [B, sk] float32 or null; qseg / kseg as in
-// pt_flash_fwd; lse and delta [B * H, sq] float32; dq [B, H, sq, d]
-// contiguous. Dropout as in pt_flash_fwd (block_q = 0: none). Returns the
+// Whether the bf16 kernels of this library and of flash_bwd_dkv.cu copy
+// the tiles of these four views (q, k, v, dO; strides as in
+// pt_flash_bwd_dq) by 16-byte cp.async (1) or element by element (0):
+// the one rule the entry points apply, asked by the wrapper to count the
+// element-copy launches.
+extern "C" int pt_flash_bwd_vector_loads(const void* q, const void* k,
+                                         const void* v, const void* g,
+                                         const long long* strides, int d) {
+  const void* views[4] = {q, k, v, g};
+  return mma::vector_loads(views, strides, d);
+}
+
+// C entry point, bound with ctypes. dtype: 0 = float32 (the SIMT kernel),
+// 1 = bfloat16 (the wgmma kernel). q / dO [B, H, sq, d], k / v
+// [B, H, sk, d] with unit stride on d and element strides (batch, head,
+// row) in `strides` (q, k, v, dO: 12 values, host memory); bias [B, sk]
+// float32 or null; qseg / kseg as in pt_flash_fwd; lse and delta
+// [B * H, sq] float32; dq [B, H, sq, d] contiguous. Dropout as in pt_flash_fwd (block_q = 0: none). Returns the
 // cudaError_t of the launch.
 extern "C" int pt_flash_bwd_dq(int device, int dtype, const void* q,
                                const void* k, const void* v,
@@ -269,17 +532,16 @@ extern "C" int pt_flash_bwd_dq(int device, int dtype, const void* q,
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64)
-    return dtype == 0
-        ? launch<float, 64>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B,
-                            H, sq, sk, d, st, scale, causal, dr, s)
-        : launch<__nv_bfloat16, 64>(q, k, v, bias, qseg, kseg, g, lse, delta,
-                                    dq, B, H, sq, sk, d, st, scale, causal,
-                                    dr, s);
-  return dtype == 0
-      ? launch<float, 128>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H,
-                           sq, sk, d, st, scale, causal, dr, s)
-      : launch<__nv_bfloat16, 128>(q, k, v, bias, qseg, kseg, g, lse, delta,
-                                   dq, B, H, sq, sk, d, st, scale, causal, dr,
-                                   s);
+  if (dtype == 1) {
+    const void* views[4] = {q, k, v, g};
+    return launch_mma(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H, sq,
+                      sk, d, st, scale, causal, dr,
+                      mma::vector_loads(views, strides, d),
+                      mma::power_of_two(scale), s);
+  }
+  return d <= 64
+      ? launch<64>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H,
+                          sq, sk, d, st, scale, causal, dr, s)
+      : launch<128>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H,
+                           sq, sk, d, st, scale, causal, dr, s);
 }

@@ -1,0 +1,287 @@
+// The tensor-core pieces of the bf16 flash-attention backward
+// (flash_bwd_dq.cu and flash_bwd_dkv.cu), for Hopper (sm_90a).
+//
+// Tiles are 64 rows of bf16 in shared memory, 128 bytes (64 columns) a
+// row, in the 128-byte swizzle that wgmma reads: the 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8) of its row, and a head dim of 128 is
+// two such 64-column tiles 8 KiB apart. One layout serves both roles of
+// a tile: read K-major (its columns are the reduction dim: Q.K^T) and
+// read MN-major (its rows are the reduction dim: dS.K), by the transpose
+// bit of the B descriptor.
+//
+// Copies are cp.async (16 bytes a thread) when every row of a view starts
+// on 16 bytes, else element by element (`vec`, decided by the C entry
+// point and mirrored by the wrapper's counter).
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace flash {
+namespace mma {
+
+constexpr int ROWS = 64;              // rows of a tile, and of a warpgroup
+constexpr int TILE_BYTES = ROWS * 128;  // one 64-column swizzled tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c (any column block) of row r in a tile
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 3) * TILE_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + 64) of a [n, d] bf16 matrix (row stride ld elements)
+// into a swizzled tile of D columns (64 or 128); rows >= n and columns
+// >= d read as zeros. Called by all 128 threads; cp.async copies join the
+// caller's next commit group.
+template <int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int r0, int n, int d,
+                                          bool vec) {
+  constexpr int CH = D / 8;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < ROWS * CH / 128; ++j) {
+      const int i = threadIdx.x + 128 * j;
+      const int r = i / CH, c = i % CH;
+      const bool ok = r0 + r < n && c * 8 < d;
+      cp_async16(dst + sw_off(r, c),
+                 ok ? src + (long long)(r0 + r) * ld + c * 8 : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += 128) {
+      const int r = i / D, c = i % D;
+      __nv_bfloat16 x = __float2bfloat16(0.f);
+      if (r0 + r < n && c < d) x = src[(long long)(r0 + r) * ld + c];
+      *reinterpret_cast<__nv_bfloat16*>(dst + sw_off(r, c >> 3) +
+                                        (c & 7) * 2) = x;
+    }
+  }
+}
+
+// the tile's elements times `scale`, rounded back to bf16, written to dst
+// (dst may be src). Called by all 128 threads.
+template <int D>
+__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src,
+                                           float scale) {
+#pragma unroll
+  for (int j = 0; j < ROWS * D / 8 / 128; ++j) {
+    const int i = threadIdx.x + 128 * j;
+    uint4 x = reinterpret_cast<const uint4*>(src)[i];
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    reinterpret_cast<uint4*>(dst)[i] = x;
+  }
+}
+
+// wgmma shared-memory descriptor of a swizzled tile at `p` (plus a byte
+// offset inside it): 128-byte swizzle; both byte offsets 1024, the stride
+// of 8 rows, which is what a K-major operand reads and, for one 64-wide
+// MN block, all an MN-major operand reads
+__device__ __forceinline__ uint64_t desc(const void* p, int offset) {
+  const uint64_t a = (smem_u32(p) + offset) & 0x3FFFF;
+  return (a >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// descriptor offset of reduction step kk (16 columns) of a K-major tile
+__device__ __forceinline__ int k_major_step(int kk) {
+  return (kk >> 2) * TILE_BYTES + (kk & 3) * 32;
+}
+
+// descriptor offset of reduction step kk (16 rows) and 64-column block
+// nb of an MN-major tile
+__device__ __forceinline__ int mn_major_step(int kk, int nb) {
+  return nb * TILE_BYTES + kk * 16 * 128;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this warp's wgmma groups are pending (groups
+// complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin the accumulator registers at this point of the program, so the
+// compiler neither reads them before a wgmma wait nor moves them between
+// the asynchronous instructions
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64] = A[64 x 16] . B[16 x 64], both from shared memory, both
+// K-major: the first reduction step of a product. D is written only, so
+// no register of it has to be set before the product starts
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory, both
+// K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the product D = A . B over KS reduction steps of 16, both operands
+// K-major tiles in shared memory
+template <int KS>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[32], const void* a,
+                                           const void* b) {
+  wgmma_ss_first(d, desc(a, k_major_step(0)), desc(b, k_major_step(0)));
+#pragma unroll
+  for (int kk = 1; kk < KS; ++kk)
+    wgmma_ss(d, desc(a, k_major_step(kk)), desc(b, k_major_step(kk)));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A from registers (the
+// accumulator layout, two bf16 a register), B from shared memory,
+// MN-major; scale_d 0 overwrites D (the first step of a product, so D
+// needs no zeros written before it)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The accumulator layout of a 64 x 64 wgmma tile: thread t of the
+// warpgroup holds 32 values, element i at row frag_row(i) and column
+// frag_col(i). The masks, bias, lse / delta, dropout bits and stores all
+// go through these two.
+__device__ __forceinline__ int frag_row(int i) {
+  const int t = threadIdx.x;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// The A operand of reduction step kk (16 columns) from a 64 x 64 tile of
+// values in the accumulator layout, rounded to bf16: the accumulator's
+// columns 16kk .. 16kk + 15 are exactly the A fragment's.
+__device__ __forceinline__ void to_a(const float (&x)[32], int kk,
+                                     uint32_t (&a)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    __nv_bfloat162 h =
+        __floats2bfloat162_rn(x[8 * kk + 2 * m], x[8 * kk + 2 * m + 1]);
+    a[m] = *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// Host side. Whether every row of the four [B, H, s, d] views (q, k, v, dO)
+// starts on 16 bytes, so whole rows go by 16-byte cp.async: d a multiple
+// of 8 elements, every base pointer 16-byte aligned, every batch, head and
+// row stride a multiple of 8 elements. The wrapper asks the same question
+// through `pt_flash_bwd_vector_loads` (flash_bwd_dq.cu).
+inline int vector_loads(const void* const* ptrs, const long long* strides,
+                        int d) {
+  if (d % 8 != 0) return 0;
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return 0;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return 0;
+  return 1;
+}
+
+// whether round(x * scale) == x * scale for every bf16 x: scale is a
+// power of two
+inline int power_of_two(float scale) {
+  int e;
+  return frexpf(fabsf(scale), &e) == 0.5f;
+}
+
+}  // namespace mma
+}  // namespace flash

@@ -2,9 +2,11 @@
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): operand-type conversions, the
 // attention-dropout bits and the segment-id bounds of packed rows.
 //
-// Every kernel stages its tiles in shared memory as float32 with a padded
-// row stride (D + 1), so column reads are free of bank conflicts, and
-// accumulates in float32 on the CUDA cores.
+// The SIMT kernels (the forward, and the backward in float32) stage their
+// tiles in shared memory as float32 with a padded row stride (D + 1), so
+// column reads are free of bank conflicts, and accumulate in float32 on
+// the CUDA cores. The bf16 backward runs on the tensor cores
+// (flash_bwd_mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,12 +61,17 @@ __device__ __forceinline__ unsigned int drop_row_key(const Dropout& dr,
          (r * 0x165667B1u);
 }
 
-// keep bit of (row, col) given the row's drop_row_key
-__device__ __forceinline__ bool drop_keep(const Dropout& dr,
-                                          unsigned int row_key, int col) {
+// the column part of the hash's first xor
+__device__ __forceinline__ unsigned int drop_col_key(const Dropout& dr,
+                                                     int col) {
   const unsigned int ki = (unsigned int)(col / dr.block_k);
   const unsigned int c = (unsigned int)(col % dr.block_k);
-  unsigned int x = row_key ^ (ki * 0x27D4EB2Fu) ^ (c * 0x9E3779B9u);
+  return (ki * 0x27D4EB2Fu) ^ (c * 0x9E3779B9u);
+}
+
+// keep bit of the logit whose row and column keys xor to x
+__device__ __forceinline__ bool drop_keep_mixed(const Dropout& dr,
+                                                unsigned int x) {
   // murmur3 fmix32 finaliser
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
@@ -72,6 +79,12 @@ __device__ __forceinline__ bool drop_keep(const Dropout& dr,
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x >= dr.thresh;
+}
+
+// keep bit of (row, col) given the row's drop_row_key
+__device__ __forceinline__ bool drop_keep(const Dropout& dr,
+                                          unsigned int row_key, int col) {
+  return drop_keep_mixed(dr, row_key ^ drop_col_key(dr, col));
 }
 
 // Packed rows (the segment-id branch): per-token int32 ids, [B, sq] for

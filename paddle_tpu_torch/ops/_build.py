@@ -69,6 +69,12 @@ _SIGNATURES = {
     "fused_conv_bwd": ("pt_fused_conv_bwd", [_I, _I, *[_P] * 14, *[_I] * 8,
                                              _P]),
 }
+#: other C functions of a library, bound beside its entry point as an
+#: attribute named without the `pt_` prefix
+_HELPERS = {
+    "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
+                      [_P, _P, _P, _P, _STRIDES, _I])],
+}
 
 #: the launch counters of the kernel wrappers, one dict per ops module
 _COUNTERS = []
@@ -180,18 +186,20 @@ def build():
 
 
 class _Kernels:
-    """The loaded C entry points, one attribute per library stem."""
+    """The loaded C entry points, one attribute per library stem, and
+    the `_HELPERS` beside them."""
 
     def __init__(self, paths):
         self._libs = {}
         for stem, path in paths.items():
             lib = ctypes.CDLL(path)
             self._libs[stem] = lib   # keep the handle alive
-            name, argtypes = _SIGNATURES[stem]
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            setattr(self, stem, fn)
+            for attr, (name, argtypes) in [(stem, _SIGNATURES[stem])] + [
+                    (n[3:], (n, a)) for n, a in _HELPERS.get(stem, [])]:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, attr, fn)
 
 
 def kernels():

@@ -13,7 +13,8 @@ package's `ops/attention.py`.
     key tiles) and `csrc/flash_bwd_dkv.cu` (dK, dV and the key-bias
     gradient, looping over query tiles). Both recompute the
     probabilities from the saved lse; delta = rowsum(dO * O) is one
-    torch op here, as it is one XLA op in the JAX package.
+    torch op here, as it is one XLA op in the JAX package. bf16 runs on
+    the tensor cores (wgmma), float32 on the CUDA cores.
   * `flash_attention`: the differentiable entry (`_FlashAttention`, a
     `torch.autograd.Function` over the three kernels).
   * Packed sequences (`core/lod.pack_padded`): `segment_ids` [b, sq]
@@ -48,7 +49,8 @@ Each wrapper runs its kernel's plain PyTorch version when its tensors
 lie on the CPU, and launches the kernel when they lie on a CUDA card;
 there is no fallback from a failed launch. `LAUNCHES` counts kernel
 launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
-among them. The dispatchers `sdpa` and `decode_attention` mirror the
+among them, `ELEMENT_LOAD_LAUNCHES` the bf16 backward launches on views
+that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
 JAX ones: a mask that reduces to a per-key bias, and packed segment
 ids, ride the flash kernels. A richer (per-query or per-head) mask goes
 to the `sdpa_reference` composition on the CPU only and without
@@ -74,7 +76,7 @@ from . import _build
 
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
-           "SEG_LAUNCHES",
+           "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -101,6 +103,12 @@ LAUNCHES = _build.counter(["flash_fwd", "flash_decode", "flash_bwd_dq",
 #: also counted in LAUNCHES)
 SEG_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
                               branch=True)
+#: bf16 launches of the two backward kernels on views whose rows do not
+#: all start on 16 bytes (`pt_flash_bwd_vector_loads`): the same tensor-core
+#: kernels, with their tiles copied element by element instead of by
+#: 16-byte cp.async (each also counted in LAUNCHES)
+ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_bwd_dq", "flash_bwd_dkv"],
+                                       branch=True)
 reset_launches = _build.reset_launches
 
 
@@ -559,6 +567,17 @@ def _check_bwd(name, q, k, v, bias, g, lse, delta, segs):
                              f"with {b * h * sq} elements")
 
 
+def _count_bwd(name, q, k, v, g, strides, segs):
+    """Count a backward launch; a bf16 one whose views the kernels copy
+    element by element (`pt_flash_bwd_vector_loads`, the C entry points'
+    own rule) also in ELEMENT_LOAD_LAUNCHES."""
+    _count(name, segs)
+    if q.dtype == torch.bfloat16 and not _build.kernels() \
+            .flash_bwd_vector_loads(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    g.data_ptr(), strides, q.shape[-1]):
+        ELEMENT_LOAD_LAUNCHES[name] += 1
+
+
 def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
                        dropout=None, segs=None):
     _check_bwd("flash_bwd_dq", q, k, v, bias, g, lse, delta, segs)
@@ -568,16 +587,17 @@ def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
     if sq == 0 or b * h == 0:
         return dq
     fn = _build.kernels().flash_bwd_dq
+    strides = _row_strides(q, k, v, g)
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             b, h, sq, sk, d, _row_strides(q, k, v, g),
+             b, h, sq, sk, d, strides,
              float(_scale(d, scale)), int(bool(is_causal)),
              *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dq", err)
-    _count("flash_bwd_dq", segs)
+    _count_bwd("flash_bwd_dq", q, k, v, g, strides, segs)
     return dq
 
 
@@ -595,16 +615,17 @@ def _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
     if sk == 0 or b * h == 0:
         return dk, dv, db
     fn = _build.kernels().flash_bwd_dkv
+    strides = _row_strides(q, k, v, g)
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), None if db is None else db.data_ptr(), b, h, sq,
-             sk, d, _row_strides(q, k, v, g), float(_scale(d, scale)),
+             sk, d, strides, float(_scale(d, scale)),
              int(bool(is_causal)), *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dkv", err)
-    _count("flash_bwd_dkv", segs)
+    _count_bwd("flash_bwd_dkv", q, k, v, g, strides, segs)
     return dk, dv, db
 
 

@@ -11,11 +11,16 @@ attention dropout, packed segment ids). Tolerances: fp32 rtol 1e-5 /
 atol 2e-5 (reordered sums); bf16 rtol / atol 1e-2 (the two sides may round an output to
 neighbouring bf16 values, 2^-7 apart at magnitude 1). The backward
 kernels' fp32 gradients: rtol 1e-4 / atol 1e-4 (sums of up to sk
-products of O(1) terms in another order); bf16 gradients: the largest
-|kernel - plain| at most 1e-3 of the plain version's largest entry (both
-round ds and p to bf16 at the same points and accumulate in float32, so
-they differ only by the order of the float32 sums; a fault such as a
-missing 1/keep factor moves the largest entries by several percent).
+products of O(1) terms in another order); bf16 dq, dk and dv:
+`paddle_tpu_torch.testing.judge_bf16_grad` (every element within one bf16 ulp of the
+plain version's largest entry, at most 1% of the elements differing,
+relative L2 error at most 1e-3: both sides round ds and p to bf16 at
+the same points and accumulate in float32, the kernels on the tensor
+cores in another order and from a p that differs in its last bits, so
+a sum near a rounding midpoint, or a large p or ds near one, lands on
+the neighbouring bf16; a kernel that skipped a rounding moves a large
+share of the elements), bf16 dbias (float32) 1e-3 of its largest
+entry.
 The int8 matmul and gathered-LoRA kernels: the largest |kernel - plain|
 at most 1e-5 of the plain version's largest entry in float32 (sums of up
 to d products in another order) and 1e-2 of it for a bf16 x (the result
@@ -30,16 +35,22 @@ only a sum within its reordering error of a rounding midpoint may land
 on the neighbouring bf16; a kernel that skipped that rounding would
 move a large share of the elements).
 """
+import os
+import sys
+
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import attention as TA
-from paddle_tpu_torch.ops import fused_conv as TFC
-from paddle_tpu_torch.ops import quant as TQ
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from paddle_tpu_torch.ops import attention as TA  # noqa: E402
+from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
+from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
+from paddle_tpu_torch.testing import judge_bf16_grad  # noqa: E402
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 GRAD_TOL = {torch.float32: (1e-4, 1e-4)}
-REL_BF16_GRAD = 1e-3     # of the plain gradient's largest entry
+REL_BF16_DBIAS = 1e-3    # of the plain dbias's largest entry
 
 
 @pytest.fixture
@@ -53,6 +64,27 @@ def cuda():
 def _rand(shape, seed, dev, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
     return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+def _check_grads(got, want, dt):
+    """The backward kernels' (dq, dk, dv, dbias) against the plain
+    version's under the module's limits."""
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            assert a is None
+            continue
+        if dt == torch.float32:
+            rtol, atol = GRAD_TOL[dt]
+            torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                       atol=atol,
+                                       msg=lambda m: f"{name}: {m}")
+        elif name == "dbias":
+            err = (a - w).abs().max().item()
+            limit = REL_BF16_DBIAS * w.abs().max().item()
+            assert err <= limit, f"dbias: max_abs_err {err} > {limit}"
+        else:
+            nums, misses = judge_bf16_grad(a, w)
+            assert not misses, f"{name}: {misses} ({nums})"
 
 
 def _pad_bias(lens, sk, dev, neg=-1e30):
@@ -303,57 +335,120 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         TA.flash_attention_fwd(q, q.cpu(), q)
 
 
-# b, h, sq, sk, d, causal, key lengths (None = no bias), dropout_p, dtype
+# b, h, sq, sk, d, causal, key lengths (None = no bias), dropout_p, dtype,
+# scale (None = 1/sqrt(d)). bf16 runs the tensor-core kernels: a scale
+# that is a power of two (d 64, 0.125) multiplies their float32 results,
+# any other (d 32 and 128, an explicit 0.1) stages round(q * scale) and
+# round(k * scale) tiles
 _BWD = {
     "ernie_like_bias_dropout": (2, 3, 256, 256, 64, False, [256, 150],
-                                0.1, torch.float32),
+                                0.1, torch.float32, None),
     "causal_bias_dropout": (1, 2, 200, 200, 64, True, [130], 0.1,
-                            torch.float32),
+                            torch.float32, None),
     "end_aligned_sq_lt_sk": (1, 2, 77, 131, 32, True, None, 0.0,
-                             torch.float32),
+                             torch.float32, None),
     "d128_ragged": (2, 2, 130, 130, 128, False, [60, 130], 0.2,
-                    torch.float32),
+                    torch.float32, None),
     "bf16_bias_dropout": (2, 2, 192, 192, 64, False, [192, 100], 0.1,
-                          torch.bfloat16),
+                          torch.bfloat16, None),
+    "bf16_causal_end_aligned_sq_lt_sk": (1, 2, 77, 131, 64, True, [100],
+                                         0.0, torch.bfloat16, None),
+    "bf16_d32_ragged": (2, 2, 130, 130, 32, False, [60, 130], 0.1,
+                        torch.bfloat16, None),
+    "bf16_d128_ragged_causal": (2, 2, 130, 130, 128, True, [60, 130], 0.2,
+                                torch.bfloat16, None),
+    "bf16_scale_not_a_power_of_two": (2, 2, 192, 160, 64, False, [160, 90],
+                                      0.1, torch.bfloat16, 0.1),
+    "bf16_dropout_half": (2, 2, 192, 192, 64, False, [192, 100], 0.5,
+                          torch.bfloat16, None),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(_BWD))
 def test_flash_backward_kernels_match_plain(cuda, case):
-    b, h, sq, sk, d, causal, lens, p, dt = _BWD[case]
+    b, h, sq, sk, d, causal, lens, p, dt, scale = _BWD[case]
     q = _rand((b, sq, h, d), 21, cuda, dt).transpose(1, 2)    # strided
     k = _rand((b, sk, h, d), 22, cuda, dt).transpose(1, 2)
     v = _rand((b, h, sk, d), 23, cuda, dt)
     g = _rand((b, sq, h, d), 24, cuda, dt).transpose(1, 2)
     bias = None if lens is None else _pad_bias(lens, sk, cuda, -1e4)
     drop = TA.drop_spec(p, -7, sq, sk, 64, 32)
-    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, None, drop)
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, scale, drop)
     want_out, want_lse = TA.flash_attention_fwd_plain(q, k, v, bias, causal,
-                                                      None, drop)
+                                                      scale, drop)
     rtol, atol = TOL[dt]
     torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
                                atol=atol)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
     before = dict(TA.LAUNCHES)
+    elem = dict(TA.ELEMENT_LOAD_LAUNCHES)
     got = TA.flash_attention_bwd(q, k, v, bias, want_out, want_lse, g,
-                                 causal, None, drop)
+                                 causal, scale, drop)
     assert TA.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert TA.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert TA.ELEMENT_LOAD_LAUNCHES == elem     # 16-byte rows throughout
     want = TA.flash_attention_bwd_plain(q, k, v, bias, want_out, want_lse,
-                                        g, causal, None, drop)
-    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-        if w is None:
-            assert a is None
-            continue
-        if dt == torch.bfloat16:
-            err = (a.float() - w.float()).abs().max().item()
-            limit = REL_BF16_GRAD * w.float().abs().max().item()
-            assert err <= limit, f"{name}: max_abs_err {err} > {limit}"
-            continue
-        rtol, atol = GRAD_TOL[dt]
-        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
-                                   atol=atol, msg=lambda m: f"{name}: {m}")
+                                        g, causal, scale, drop)
+    _check_grads(got, want, dt)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_is_bitwise_repeatable(cuda):
+    """Two runs of the bf16 backward kernels on the same inputs (bias,
+    dropout, packed segment ids) give the same bits: no atomics, a fixed
+    order of every sum."""
+    b, h, s, d = 2, 3, 320, 64
+    seg = _segment_ids([[100, 60, 160], [200, 120]], cuda)
+    q, k, v, g = (_rand((b, s, h, d), 90 + i, cuda, torch.bfloat16)
+                  .transpose(1, 2) for i in range(4))
+    bias = (_rand((b, s), 94, cuda) * 0.5).contiguous()
+    drop = TA.drop_spec(0.1, 3, s, s)
+    for ids in ({}, dict(segment_ids=seg)):
+        out, lse = TA.flash_attention_fwd(q, k, v, bias, False, None, drop,
+                                          **ids)
+        runs = [TA.flash_attention_bwd(q, k, v, bias, out, lse, g, False,
+                                       None, drop, **ids) for _ in range(2)]
+        for a, w in zip(*runs):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_copies_unaligned_views_by_element(cuda):
+    """Views whose rows do not all start on 16 bytes (a head dim of 36; a
+    row stride of 132 elements; a base 8 bytes past 16) run the same
+    tensor-core kernels with element-by-element tile copies, counted in
+    ELEMENT_LOAD_LAUNCHES (the C entry points' own rule,
+    `pt_flash_bwd_vector_loads`), and match the plain version; aligned
+    views (d 64 strided, d 32 contiguous) are not counted."""
+    b, h, s = 2, 2, 150
+    bf = torch.bfloat16
+    odd_d = [_rand((b, h, s, 36), 100 + i, cuda, bf) for i in range(4)]
+    wide = [_rand((b, s, 132), 110 + i, cuda, bf)[..., :128]
+            .view(b, s, h, 64).transpose(1, 2) for i in range(4)]
+    aligned = [_rand((b, s, h, 64), 120 + i, cuda, bf).transpose(1, 2)
+               for i in range(4)]
+    numel = b * h * s * 64
+    shifted = aligned[:2] + [_rand((numel + 8,), 124, cuda, bf)
+                             [4:4 + numel].view(b, h, s, 64), aligned[3]]
+    assert shifted[2].data_ptr() % 16 == 8
+    d32 = [_rand((b, h, s, 32), 130 + i, cuda, bf) for i in range(4)]
+    bias = _pad_bias([150, 99], s, cuda, -1e4)
+    drop = TA.drop_spec(0.1, 9, s, s)
+    for views, counted in ((odd_d, 1), (wide, 1), (shifted, 1),
+                           (aligned, 0), (d32, 0)):
+        q, k, v, g = views
+        out, lse = TA.flash_attention_fwd_plain(q, k, v, bias, True, None,
+                                                drop)
+        before = dict(TA.ELEMENT_LOAD_LAUNCHES)
+        got = TA.flash_attention_bwd(q, k, v, bias, out, lse, g, True, None,
+                                     drop)
+        assert {n: TA.ELEMENT_LOAD_LAUNCHES[n] - before[n]
+                for n in before} == {"flash_bwd_dq": counted,
+                                     "flash_bwd_dkv": counted}
+        want = TA.flash_attention_bwd_plain(q, k, v, bias, out, lse, g,
+                                            True, None, drop)
+        _check_grads(got, want, bf)
 
 
 def _segment_ids(lens_rows, dev):
@@ -380,6 +475,9 @@ _SEG = {
                                  torch.bfloat16,
                                  [[300, 200, 400, 124], [700, 250, 74]],
                                  None),
+    "bf16_kv_ids_differ_causal": (2, 2, 64, True, True, 0.1, torch.bfloat16,
+                                  [[50, 40, 38], [70, 58]],
+                                  [[60, 100, 32], [90, 102]]),
 }
 
 
@@ -417,18 +515,7 @@ def test_flash_segment_branch_matches_plain(cuda, case):
                                         g, causal, None, drop, **ids)
     assert {n: TA.SEG_LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
-    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-        if w is None:
-            assert a is None
-            continue
-        if dt == torch.bfloat16:
-            err = (a.float() - w.float()).abs().max().item()
-            limit = REL_BF16_GRAD * w.float().abs().max().item()
-            assert err <= limit, f"{name}: max_abs_err {err} > {limit}"
-            continue
-        rtol, atol = GRAD_TOL[dt]
-        torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
-                                   atol=atol, msg=lambda m: f"{name}: {m}")
+    _check_grads(got, want, dt)
 
 
 @pytest.mark.cuda
