@@ -7,9 +7,9 @@ H100.
 Phases; any failure exits nonzero before the result lines:
  1. Device: the card's name and power limit (nvidia-smi) and the build
     time of the hand-written CUDA kernels (paddle_tpu_torch/csrc); the
-    HGMMA (wgmma) instructions in the SASS of flash_bwd_dq and
-    flash_bwd_dkv (`cuobjdump -sass`; none fails the phase) and ptxas's
-    registers and spills of their bf16 kernels.
+    HGMMA (wgmma) instructions in the SASS of flash_fwd, flash_bwd_dq,
+    flash_bwd_dkv and fused_conv_bwd (`cuobjdump -sass`; none fails the
+    phase) and ptxas's registers and spills of their bf16 kernels.
  2. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving paths give it: flash_fwd and flash_decode (fp32,
     atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
@@ -70,11 +70,13 @@ Phases; any failure exits nonzero before the result lines:
     flash_bwd_dkv against their plain versions on the same inputs, fp32
     (atol 2e-5 for the forward, 1e-4 for the gradients, 1e-3 for dbias)
     and bf16 (the output and lse within 1e-2 of the plain output's
-    largest entry, about one bf16 rounding step; dbias 1e-3 of its
-    largest entry; dq, dk and dv every element within one bf16 ulp of the
-    plain version's largest entry, at most 1% of the elements differing,
-    relative L2 error at most 1e-3: the bf16 kernels sum on the tensor
-    cores in another order).
+    largest entry, about one bf16 rounding step; the output also against
+    `testing.flash_fwd_tiled`, the plain version rounding p where the
+    kernel does, and dq, dk and dv against the plain backward: every
+    element within one bf16 ulp of the largest entry, at most 1% of the
+    elements differing, relative L2 error at most 1e-3, since the bf16
+    kernels sum on the tensor cores in another order; dbias 1e-3 of its
+    largest entry).
 10. Train ERNIE-base (hidden 768, 12 layers, 12 heads, FFN 3072, GELU,
     vocab 30522, max_position 1026, 2 classes; hidden and attention
     dropout 0.1; bf16 compute on fp32 masters; AdamW lr 5e-5, weight
@@ -82,7 +84,8 @@ Phases; any failure exits nonzero before the result lines:
     steps on one batch of 8 x 1024 tokens with a ragged 1/0 attention
     mask. The launch counters are zeroed just before and read just
     after: each training kernel must have run 12 layers x 12 steps
-    times, and every loss must be finite. Reports seq/s over the last 10
+    times, every flash_fwd launch on the tensor cores (the bf16 route),
+    and every loss must be finite. Reports seq/s over the last 10
     steps, peak device memory, and (two more steps under torch.profiler)
     the device's busy share and device time by kernel.
 11. One fp32 step of a 2-layer full-width model (attention dropout 0.1,
@@ -138,11 +141,16 @@ Phases; any failure exits nonzero before the result lines:
     and conv3 of each stage: (Ci, Co, HW) = (256, 64, 3136), (64, 256,
     3136), (512, 128, 784), (128, 512, 784), (1024, 256, 196), (256,
     1024, 196), (2048, 512, 49), (512, 2048, 49); bf16 at batch 128 with
-    norm and ReLU, float32 at batch 8, one float32 identity case; stats
-    cotangents nonzero. Limits, of the plain version's largest entry:
-    float32 z and dx 1e-5, the stats, dW, dscale and dshift 1e-4 (sums
-    over up to 401,408 positions in another order; float32 outputs in
-    the bf16 runs too); bf16 z and dx one bf16 ulp of each element.
+    norm and ReLU, float32 at batch 8, one float32 identity case, one
+    bf16 x with a float32 W at (256, 64, 3136); stats cotangents nonzero.
+    Limits, of the plain version's largest entry: float32 z and dx 1e-5,
+    the stats, dW, dscale and dshift 1e-4 (sums over up to 401,408
+    positions in another order; float32 outputs in the bf16 runs too);
+    bf16 z and dx one bf16 ulp of each element, with at most 1% of the
+    elements differing. The C route rule equals
+    `ops.fused_conv.bwd_route` for both types (bf16 x: dW on wgmma; dx
+    on the SIMT kernel for every type), and each launch counts the route
+    the rule gives.
 18. The BN chain of each stage at batch 128, bf16: x -> fused(conv1 W)
     -> bn_scale_shift -> fused(conv3 W, norm + ReLU) -> bn_scale_shift ->
     a loss over z and both stats, forward and backward through the
@@ -150,7 +158,8 @@ Phases; any failure exits nonzero before the result lines:
     gradients of x, both W and every gamma, beta within 1e-2 of their
     largest entry, and within 1e-3 (bf16 x, W) or 1e-5 (float32 gamma,
     beta) relative L2. The launch counters are zeroed just before the kernel
-    run and read just after: two of each kernel a chain.
+    run and read just after: two of each kernel a chain, the dW product of
+    every fused_conv_bwd launch on the tensor cores.
 19. Train ResNet-50 at the bench configuration (`bench.py` `_resnet50`):
     resnet50(num_classes=1000), batch 128 x 3 x 224 x 224 from --seed,
     compute_dtype="bfloat16", momentum(0.1, 0.9), float32 log-softmax
@@ -176,9 +185,10 @@ Phases; any failure exits nonzero before the result lines:
     segments' output, dq, dk and dv bitwise unchanged.
 22. ERNIE-base 12 steps on `bench.py`'s 16 varlen sequences, padded (16
     rows with a mask) and packed (`pack_padded`, 12 rows): every loss
-    finite, segment-branch launches 144 packed and 0 padded, no bf16
-    backward launch copying by element; seq/s, peak memory, and two
-    profiled steps each (busy share, device ms by group).
+    finite, segment-branch launches 144 packed and 0 padded, every
+    flash_fwd launch on the tensor cores, no bf16 forward or backward
+    launch copying by element; seq/s, peak memory, and two profiled
+    steps each (busy share, device ms by group).
 23. A 2-layer full-width ERNIE at dropout 0 in float32: each sequence's
     logits from the packed rows within 1e-4 of the largest |logit| of
     its padded logits.
@@ -1030,7 +1040,7 @@ def judge_train_kernels(A, case, causal, label, errs, errs16, **ids):
     1e-3 of the largest entry for dbias (float32). Every output is
     measured and printed before a miss raises. Folds each kernel's
     largest error into errs (fp32) or errs16 (bf16)."""
-    from paddle_tpu_torch.testing import judge_bf16_grad
+    from paddle_tpu_torch.testing import flash_fwd_tiled, judge_bf16_grad
 
     q, k, v, bias, do, drop = case
     out, lse = A.flash_attention_fwd(q, k, v, bias, causal, None, drop,
@@ -1070,6 +1080,13 @@ def judge_train_kernels(A, case, causal, label, errs, errs16, **ids):
         shown.append(f"{name} {e:.2e}/{limit:.2e}")
         if not e <= limit:
             missed.append(f"{kname} {name}: {e} > {limit}")
+        if not fp32 and name == "out":
+            nums, miss = judge_bf16_grad(a, flash_fwd_tiled(
+                q, k, v, bias, causal, None, drop, **ids))
+            shown.append(f"out vs tiled ({nums['ulps_of_largest']:.2f} ulp "
+                         f"of the largest, {nums['share']:.2e} differ, L2 "
+                         f"{nums['rel_l2']:.2e})")
+            missed += [f"{kname} out vs tiled: {x}" for x in miss]
     log(f"  {str(q.dtype)[6:]} {label}: " + ", ".join(shown))
     if missed:
         raise AssertionError(f"disagreement with the plain versions in "
@@ -1148,9 +1165,13 @@ def train(A, seed, batch=None):
     wall = time.perf_counter() - t0
     launches, seg = dict(A.LAUNCHES), dict(A.SEG_LAUNCHES)
     if any(A.ELEMENT_LOAD_LAUNCHES.values()):
-        raise AssertionError(f"the bf16 backward copied ERNIE's views "
+        raise AssertionError(f"a bf16 kernel copied ERNIE's views "
                              f"element by element: "
                              f"{A.ELEMENT_LOAD_LAUNCHES}")
+    if A.ROUTE_LAUNCHES["flash_fwd:wgmma"] != launches["flash_fwd"]:
+        raise AssertionError(f"bf16 flash_fwd launches off the tensor "
+                             f"cores: {A.ROUTE_LAUNCHES} of "
+                             f"{launches['flash_fwd']}")
     losses = [float(x) for x in losses]
     peak = torch.cuda.max_memory_allocated() - before
     if not all(np.isfinite(losses)):
@@ -1186,7 +1207,8 @@ def profile_training(tr, batch, steps=2):
               "gemm": 0.0, "other": 0.0}
     for ms, _, key in rows:
         low = key.lower()
-        grp = ("flash_fwd" if "flash_fwd_kernel" in key else
+        grp = ("flash_fwd" if "flash_fwd_kernel" in key
+               or "flash_fwd_mma" in key else
                "flash_bwd_dq" if "flash_bwd_dq_" in key else
                "flash_bwd_dkv" if "flash_bwd_dkv_" in key else
                "gemm" if "gemm" in low or "cutlass" in low
@@ -1598,15 +1620,16 @@ def quant_numbers(Q, kname, args):
 
 # -------------------------------- the fused 1x1-conv + BN op (17, 18, 20)
 
-def fc_case(g, B, ci, co, hw, dtype, norm=True):
+def fc_case(g, B, ci, co, hw, dtype, norm=True, wdtype=None):
     """Inputs of one fused op at a ResNet-50 bottleneck shape: x as a BN'd
-    activation, a folded scale / shift, He-scaled W, and cotangents of z
-    and of both stats (nonzero: the BN-chain path)."""
+    activation, a folded scale / shift, He-scaled W (in x's type, or
+    wdtype), and cotangents of z and of both stats (nonzero: the
+    BN-chain path)."""
     x = torch.randn(B, ci, hw, generator=g, device="cuda").to(dtype)
     sc = torch.rand(ci, generator=g, device="cuda") + 0.5 if norm else None
     sh = torch.randn(ci, generator=g, device="cuda") * 0.1 if norm else None
     w = (torch.randn(co, ci, generator=g, device="cuda")
-         * (2.0 / ci) ** 0.5).to(dtype)
+         * (2.0 / ci) ** 0.5).to(wdtype or dtype)
     dz = torch.randn(B, co, hw, generator=g, device="cuda").to(dtype)
     ds = torch.randn(co, generator=g, device="cuda")
     dss = torch.randn(co, generator=g, device="cuda") * 0.01
@@ -1626,24 +1649,47 @@ def bf16_ulps(a, b):
 def check_fused_kernels(FC, g):
     """Phase 17: fused_conv_fwd / fused_conv_bwd against their plain
     versions at the eight bottleneck shapes: bf16 at batch 128 (norm and
-    ReLU), float32 at batch 8, and one identity case (no norm, no ReLU).
-    Every output of a case is measured and printed before a miss raises.
-    Returns ({kernel: max_abs_err f32}, {kernel: max_abs_err bf16})."""
+    ReLU), float32 at batch 8, one identity case (no norm, no ReLU) and
+    one bf16 x with a float32 W. Every output of a case is measured and
+    printed before a miss raises. The C route rule must equal
+    `FC.bwd_route`, and each launch must count the route it gives.
+    Returns ({kernel: max_abs_err f32}, {kernel: max_abs_err bf16},
+    {route: launches})."""
+    from paddle_tpu_torch.ops import _build
+
+    lib = _build.kernels()
+    for xdt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        c_rule = "wgmma" if lib.fused_conv_bwd_tensor_cores(code) else "simt"
+        if c_rule != FC.bwd_route(xdt):
+            raise AssertionError(f"route rules differ for x {xdt}: C "
+                                 f"{c_rule}, Python {FC.bwd_route(xdt)}")
     errs, errs16 = {}, {}
-    runs = [(shape, torch.bfloat16, FC_BATCH, True) for shape in FC_SHAPES]
-    runs += [(shape, torch.float32, FC_BATCH_F32, True)
+    runs = [(shape, torch.bfloat16, FC_BATCH, True, None)
+            for shape in FC_SHAPES]
+    runs += [(shape, torch.float32, FC_BATCH_F32, True, None)
              for shape in FC_SHAPES]
-    runs.append((FC_SHAPES[0], torch.float32, FC_BATCH_F32, False))
-    for (ci, co, hw), dtype, B, norm in runs:
-        args = fc_case(g, B, ci, co, hw, dtype, norm)
+    runs.append((FC_SHAPES[0], torch.float32, FC_BATCH_F32, False, None))
+    runs.append((FC_SHAPES[0], torch.bfloat16, FC_BATCH, True,
+                 torch.float32))
+    FC.reset_launches()
+    for (ci, co, hw), dtype, B, norm, wdtype in runs:
+        args = fc_case(g, B, ci, co, hw, dtype, norm, wdtype)
         x, sc, sh, w, dz, ds, dss = args
         relu = norm
         got = FC._fwd_cuda(x, sc, sh, w, relu)
         want = FC.fused_fwd_reference(x, sc, sh, w, relu)
         z = want[0]
+        before = dict(FC.ROUTE_LAUNCHES)
         gotb = FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss, relu)
         wantb = FC.fused_bwd_reference(x, sc, sh, w, z, dz, ds, dss, relu)
         torch.cuda.synchronize()
+        route = FC.bwd_route(x.dtype)
+        moved = {k: FC.ROUTE_LAUNCHES[k] - before[k] for k in before}
+        want_moved = {f"fused_conv_bwd:{r}": int(route == r)
+                      for r in ("wgmma", "simt")}
+        if moved != want_moved:
+            raise AssertionError(f"route counts {moved}, expected "
+                                 f"{want_moved}")
         f32 = dtype == torch.float32
         parts = [("fused_conv_fwd", n, a, b, near) for n, a, b, near in
                  zip(("z", "sum", "sumsq"), got, want, (True, False, False))]
@@ -1673,14 +1719,16 @@ def check_fused_kernels(FC, g):
         into = errs if f32 else errs16
         for kname in ("fused_conv_fwd", "fused_conv_bwd"):
             into[kname] = max(into.get(kname, 0.0), worst[kname])
-        tag = "norm relu" if norm else "identity"
-        log(f"  B{B} Ci {ci} Co {co} HW {hw} {str(dtype)[6:]} {tag}: " +
-            ", ".join(shown))
+        tag = ("norm relu" if norm else "identity") + (
+            f", W {str(w.dtype)[6:]}" if w.dtype != x.dtype else "")
+        log(f"  B{B} Ci {ci} Co {co} HW {hw} {str(dtype)[6:]} {tag} (dW "
+            f"{route}, dx simt): " + ", ".join(shown))
         if missed:
             raise AssertionError(
                 f"disagreement with the plain versions at B{B} "
                 f"{(ci, co, hw)} {dtype}: {'; '.join(missed)}")
-    return errs, errs16
+        del args, x, z, dz, got, want, gotb, wantb
+    return errs, errs16, dict(FC.ROUTE_LAUNCHES)
 
 
 def bn_chain(fused, bnss, x, w1, w3, g1, b1, g3, b3, cot):
@@ -1736,6 +1784,10 @@ def run_bn_chains(FC, g):
         if n != 2 * len(stages):
             raise AssertionError(f"{k} launched {n} times over "
                                  f"{len(stages)} two-op chains")
+    if FC.ROUTE_LAUNCHES["fused_conv_bwd:wgmma"] != \
+            launches["fused_conv_bwd"]:
+        raise AssertionError(f"bf16 fused_conv_bwd dW off the tensor cores: "
+                             f"{FC.ROUTE_LAUNCHES}")
     errs = {}
     names = ("x", "W1", "W3", "gamma1", "beta1", "gamma3", "beta3")
     for (ci, co, hw), inp, mine in zip(stages, inputs, got):
@@ -2255,16 +2307,17 @@ def visited_tiles(segs, tile=64):
 
 
 def tensor_core_report():
-    """Phase 1b: the HGMMA (wgmma) instructions in the SASS of the two
-    backward libraries (`cuobjdump -sass`), each of which must have some,
-    and ptxas's registers and spills of their bf16 kernels. Returns
-    {library: HGMMA count}."""
+    """Phase 1b: the HGMMA (wgmma) instructions in the SASS of the four
+    libraries with tensor-core kernels (`cuobjdump -sass`), each of which
+    must have some, and ptxas's registers and spills of their bf16
+    kernels. Returns {library: HGMMA count}."""
     from paddle_tpu_torch.ops import _build
 
     info = _build.build_info()
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     counts = {}
-    for stem in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "fused_conv_bwd"):
         sass = subprocess.run(
             [tool, "-sass", os.path.join(info["dir"], f"lib{stem}.so")],
             capture_output=True, text=True, check=True, timeout=120).stdout
@@ -2276,7 +2329,7 @@ def tensor_core_report():
             elif mma and ("registers" in ln or "spill" in ln):
                 usage.append(ln.split(" : ")[-1].strip())
         log(f"  {stem}: {counts[stem]} HGMMA instructions in the SASS; "
-            f"bf16 kernels (D 64, 128): {'; '.join(usage) or 'cached'}")
+            f"bf16 kernels: {'; '.join(usage) or 'cached'}")
         if counts[stem] == 0:
             raise AssertionError(f"{stem}: no HGMMA in its SASS")
     return counts
@@ -2441,6 +2494,7 @@ def main():
     log(f"phase 10: train ERNIE-base, {E_STEPS} steps of {E_BATCH} x "
         f"{E_SEQ} tokens, bf16 compute, dropout {E_DROPOUT}")
     t_launches, _, losses, seq_s, peak, tr, batch = train(A, args.seed)
+    t_routes = dict(A.ROUTE_LAUNCHES)
     log(f"  losses {[round(x, 4) for x in losses]}")
     log(f"  {seq_s:.2f} seq/s over the last {E_STEPS - 2} steps; peak "
         f"device memory {peak / 2 ** 30:.2f} GiB; launches {t_launches}; "
@@ -2468,6 +2522,11 @@ def main():
     kernels["flash_fwd"]["launches"] = sum(by_path.values())
     kernels["flash_fwd"]["max_abs_err"] = max(errs["flash_fwd"],
                                               t_errs["flash_fwd"])
+    kernels["flash_fwd"].update(
+        max_abs_err_bf16=t_errs16["flash_fwd"], hgmma=hgmma["flash_fwd"],
+        route_by_dtype={"bfloat16": "wgmma (tensor cores)",
+                        "float32": "SIMT (CUDA cores)"},
+        train_launches_by_route=t_routes)
     for kname, line in (("flash_bwd_dq", 591), ("flash_bwd_dkv", 721)):
         kernels[kname] = {
             "name": kname, "route": "cuda",
@@ -2554,7 +2613,8 @@ def main():
         f"{REL_FC_NEAR}, stats / dW / dscale / dshift {REL_FC_FAR} of the "
         f"largest plain entry; bf16 z / dx {ULP_FC_BF16:.0f} bf16 ulp of "
         f"each element; error/limit)")
-    fc_errs, fc_errs16 = check_fused_kernels(FC, g)
+    fc_errs, fc_errs16, fc_routes = check_fused_kernels(FC, g)
+    log(f"  launches by route {fc_routes}")
 
     log(f"phase 18: the BN chain of each stage (bf16, batch {FC_BATCH}): "
         "kernels against the plain versions, forward and backward")
@@ -2603,6 +2663,11 @@ def main():
             "launches_by_path": {"bn_chain": fc_launches[kname]},
             "max_abs_err": fc_errs[kname],
             "max_abs_err_bf16": fc_errs16[kname],
+            **({"hgmma": hgmma[kname], "route_by_dtype": {
+                "bfloat16 x": "dW on wgmma, dx SIMT",
+                "float32 x": "dx and dW SIMT"},
+                "phase17_launches_by_route": fc_routes}
+               if kname == "fused_conv_bwd" else {}),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],

@@ -48,7 +48,7 @@
 
 #include <math.h>
 
-#include "flash_bwd_mma.cuh"
+#include "flash_mma.cuh"
 #include "flash_common.cuh"
 
 namespace {

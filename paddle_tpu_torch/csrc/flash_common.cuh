@@ -6,7 +6,7 @@
 // tiles in shared memory as float32 with a padded row stride (D + 1), so
 // column reads are free of bank conflicts, and accumulate in float32 on
 // the CUDA cores. The bf16 backward runs on the tensor cores
-// (flash_bwd_mma.cuh).
+// (flash_mma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

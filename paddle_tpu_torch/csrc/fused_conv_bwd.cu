@@ -28,12 +28,39 @@
 // in the same order on every run.
 //
 // What bounds it: twice the forward's 2 * B * Co * Ci * HW operations
-// against reading x, z, dz and writing dx once. Like the forward, this
-// first kernel runs float32 FMAs on the CUDA cores (register-tiled 64 x 64
-// tiles, 16-deep slices), so it is operation-bound on them; tensor-core
-// products are later work.
+// against reading x, z, dz and writing dx once. On the tensor cores one
+// product's operations take 0.013 ms at every ResNet-50 shape (batch
+// 128), the bytes of its stream 0.02-0.15 ms; on the CUDA cores (67
+// TFLOP/s of float32 FMAs) a product takes at least 0.2 ms.
+//
+// bfloat16 x (the ResNet path): dW runs on the tensor cores (bf16 wgmma
+// m64n64k16, float32 accumulators; `hopper_mma.cuh`): both of its
+// operands, dzb and xn, are bf16 whatever W's type, so its products are
+// exact, and its sums are split into k-ranges anyway (fixed-order second
+// pass). dx stays on the CUDA cores for either type: it adds the
+// products of each element one by one in the output channels' order, and
+// its bf16 dx is held to one bf16 ulp of each element of the plain
+// version's; a tensor-core sum of the same products, in another order,
+// moves an element whose terms cancel by hundreds of its own ulps (on an
+// H100 at ResNet-50's shapes). `pt_fused_conv_bwd_tensor_cores`
+// is the route rule; the wrapper asks it to count the launches of each
+// route. Raw tiles of z, dz and x stream into 128-byte-swizzled shared
+// memory by cp.async (16 bytes a thread when HW is a multiple of 8, 8
+// when of 4, else element loads), each thread then turns the chunks it
+// copied into dzb and xn in place (the products' bf16 operands), and the
+// tile goes to wgmma while the next stages land: dW[o, c] = sum_n dzb[o, n]
+// xn[c, n], both operands K-major (n is the reduction axis); a block
+// (four warpgroups, three stages in the ring) owns 128 output x 256
+// input channels and one k-range of the B * HW columns, 64 a stage, and
+// writes its float32 partial; the k-range partials are added by the same
+// fixed-order second pass as the SIMT kernel's.
+//
+// float32 x keeps the SIMT kernels below: float32 FMAs on the CUDA cores
+// (register-tiled 64 x 64 tiles, 16-deep slices), operation-bound on them
+// (an fp32 input must: the port's contract has no TF32).
 
 #include "fused_conv.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -47,8 +74,10 @@ __device__ __forceinline__ float dz_eff(T dzv, T zv, float ds, float dss) {
   return round_to<T>(__fadd_rn(__fadd_rn(to_f(dzv), ds), t));
 }
 
-// Block (column tile blockIdx.x, input-channel tile blockIdx.y): dx, and
-// the partials of dscale / dshift over the tile's columns.
+// Block (column tile blockIdx.x / nct, input-channel tile blockIdx.x %
+// nct of nct): dx, and the partials of dscale / dshift over the tile's
+// columns. The input-channel tiles of a column tile are adjacent blocks,
+// so they run together and all but the first read its z and dz from L2.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fused_conv_bwd_dx(const T* __restrict__ x, const float* __restrict__ scale,
@@ -57,11 +86,12 @@ fused_conv_bwd_dx(const T* __restrict__ x, const float* __restrict__ scale,
                   const float* __restrict__ ds, const float* __restrict__ dss,
                   T* __restrict__ dx, float* __restrict__ part, int B, int Ci,
                   int Co, int HW, int P, int has_norm, int relu) {
+  const int nct = (Ci + TM - 1) / TM, tile = blockIdx.x / nct;
   __shared__ __align__(16) float ws[TK][TM + 4];   // W slice: ws[o][c]
   __shared__ __align__(16) float gs[TK][TN + 4];   // dzb slice: gs[o][col]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int N = B * HW;
-  const int n0 = blockIdx.x * TN, c0 = blockIdx.y * TM;
+  const int n0 = tile * TN, c0 = (blockIdx.x - tile * nct) * TM;
   const int lc = tid & (TN - 1), lk = tid >> 6;
   const bool col_ok = n0 + lc < N;
   const long long zoff = col_ok ? col_offset(n0 + lc, Co, HW) : 0;
@@ -121,8 +151,8 @@ fused_conv_bwd_dx(const T* __restrict__ x, const float* __restrict__ scale,
       const float a = half_warp_sum(dsc[i]), b = half_warp_sum(dsh[i]);
       const int c = c0 + ty * 4 + i;
       if (tx == 0 && c < Ci) {
-        part[(long long)c * P + blockIdx.x] = a;
-        part[(long long)(Ci + c) * P + blockIdx.x] = b;
+        part[(long long)c * P + tile] = a;
+        part[(long long)(Ci + c) * P + tile] = b;
       }
     }
   }
@@ -203,26 +233,435 @@ dw_reduce(const float* __restrict__ work, float* __restrict__ dw,
   dw[o] = s;
 }
 
-template <typename T>
-int launch(const void* x, const void* scale, const void* shift, const void* w,
-           const void* z, const void* dz, const void* ds, const void* dss,
-           void* dx, void* dw, void* dscale, void* dshift, void* part,
-           void* work, int B, int Ci, int Co, int HW, int P, int splits,
-           int has_norm, int relu, cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
+// ---------------------------------------------------- bf16 on wgmma
+
+using bf16 = __nv_bfloat16;
+constexpr int MMA_ROWS = 128;     // output rows of a block (64 a warpgroup)
+constexpr int DW_THREADS = 512;   // dW: four warpgroups, 2 x 2 over its tile
+constexpr int DW_NS = 3;          // dW: stages of the tile ring
+constexpr int DW_NW = 4;          // dW: 64-column blocks of input channels
+constexpr int EB = 16;            // element loads a thread has in flight
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
+}
+
+// Columns n .. n + 7 of the flattened (image, position) axis as (image,
+// position) pairs (`cols8`: one division, then steps across an image's
+// end), and the element offset of column e in channel ch of a [B, C, HW]
+// tensor (`col_at`).
+struct Cols8 {
+  int b[8], p[8];
+};
+
+__device__ __forceinline__ Cols8 cols8(int n, int HW) {
+  Cols8 c;
+  int bb = n / HW, pp = n - bb * HW;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    c.b[e] = bb;
+    c.p[e] = pp;
+    const bool wrap = pp + 1 == HW;
+    pp = wrap ? 0 : pp + 1;
+    bb = wrap ? bb + 1 : bb;
+  }
+  return c;
+}
+
+__device__ __forceinline__ long long col_at(const Cols8& c, int e, int C,
+                                            int HW, int ch) {
+  return ((long long)c.b[e] * C + ch) * HW + c.p[e];
+}
+
+// Copy the 8 columns `cols` (the first n) of channel ch of a [B, C, HW]
+// tensor into the 16 bytes at dst: vec 8, one 16-byte cp.async (HW a
+// multiple of 8, so the eight columns are one run); vec 4, two 8-byte
+// ones. Columns >= end and channels that are not `ok` read as zeros.
+__device__ __forceinline__ void copy8(uint8_t* dst, const bf16* src,
+                                      const Cols8& cols, int n, int end,
+                                      int C, int HW, int ch, bool ok,
+                                      int vec) {
+  using namespace hopper;
+  if (vec == 8) {
+    const bool in = ok && n < end;
+    cp_async16(dst, in ? src + col_at(cols, 0, C, HW, ch) : src, in ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = ok && n + 4 * h < end;
+      cp_async8(dst + 8 * h, in ? src + col_at(cols, 4 * h, C, HW, ch) : src,
+                in ? 8 : 0);
+    }
+  }
+}
+
+// dz_eff of one element in float32: ((dz + ds) + (2 z) dss), each op
+// rounded on its own (dz_eff's order)
+__device__ __forceinline__ float dz_eff_f(float dzv, float zv, float ds,
+                                          float dss) {
+  return __fadd_rn(__fadd_rn(dzv, ds), __fmul_rn(__fmul_rn(2.f, zv), dss));
+}
+
+// xn of one element in float32, before its rounding (act_in's math)
+__device__ __forceinline__ float xn_f(float xv, float sc, float sh,
+                                      int has_norm, int relu) {
+  const float v = has_norm ? affine(xv, sc, sh) : xv;
+  return relu ? relu_f(v) : v;
+}
+
+// bf16 element `raw` (as loaded) widened
+__device__ __forceinline__ float bf_f(uint32_t raw) {
+  return __uint_as_float(raw << 16);
+}
+
+// The chunk of 8 z values at zc becomes its dzb = round(dz_eff) (dz from
+// the chunk at dzc) in place, two values a conversion; columns n + e >=
+// end become zeros.
+__device__ __forceinline__ void dzb8(uint8_t* zc, const uint8_t* dzc,
+                                     float ds, float dss, int n, int end) {
+  uint4 zv = *reinterpret_cast<const uint4*>(zc);
+  const uint4 dv = *reinterpret_cast<const uint4*>(dzc);
+  __nv_bfloat162* z2 = reinterpret_cast<__nv_bfloat162*>(&zv);
+  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+  const bool full = n + 8 <= end;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const float2 a = __bfloat1622float2(z2[h]), b = __bfloat1622float2(d2[h]);
+    float lo = dz_eff_f(b.x, a.x, ds, dss), hi = dz_eff_f(b.y, a.y, ds, dss);
+    if (!full) {
+      lo = n + 2 * h < end ? lo : 0.f;
+      hi = n + 2 * h + 1 < end ? hi : 0.f;
+    }
+    z2[h] = __floats2bfloat162_rn(lo, hi);
+  }
+  *reinterpret_cast<uint4*>(zc) = zv;
+}
+
+// The chunk of 8 x values at xc becomes its xn (act_in) in place, two
+// values a conversion; columns n + e >= end become zeros.
+__device__ __forceinline__ void xn8(uint8_t* xc, float sc, float sh,
+                                    int has_norm, int relu, int n, int end) {
+  uint4 xv = *reinterpret_cast<const uint4*>(xc);
+  __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&xv);
+  const bool full = n + 8 <= end;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    float2 v = __bfloat1622float2(x2[h]);
+    v.x = xn_f(v.x, sc, sh, has_norm, relu);
+    v.y = xn_f(v.y, sc, sh, has_norm, relu);
+    if (!full) {
+      v.x = n + 2 * h < end ? v.x : 0.f;
+      v.y = n + 2 * h + 1 < end ? v.y : 0.f;
+    }
+    x2[h] = __floats2bfloat162_rn(v.x, v.y);
+  }
+  *reinterpret_cast<uint4*>(xc) = xv;
+}
+
+// dW on the tensor cores. Block (input-channel tile blockIdx.x of 256,
+// output-channel tile blockIdx.y of 128, k-range blockIdx.z of
+// k_per_split columns, a multiple of 64): the partial dW of its tile over
+// its k-range into out[blockIdx.z]. A stage holds 64 columns: the z and dz
+// rows of the tile's output channels (128 x 64, dz then dzb in place of z)
+// and the x rows of its input channels (256 x 64, then xn in place); rows
+// past Co or Ci are zeros, written once. Warpgroup w owns rows
+// 64 (w % 2) and the two column blocks from 2 (w / 2) of the tile (one
+// column block a warpgroup, 128 input channels a tile, is a shape ptxas
+// of CUDA 12.8 crashes on).
+__global__ void __launch_bounds__(DW_THREADS, 1)
+fused_conv_bwd_dw_mma(const bf16* __restrict__ x,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift,
+                      const bf16* __restrict__ z, const bf16* __restrict__ dz,
+                      const float* __restrict__ ds,
+                      const float* __restrict__ dss, float* __restrict__ out,
+                      int B, int Ci, int Co, int HW, int k_per_split,
+                      int has_norm, int relu, int vec) {
+  using namespace hopper;
+  constexpr int NW = DW_NW;
+  constexpr int ZB = MMA_ROWS * 128;         // one z (or dz) tile
+  constexpr int STAGE = 2 * ZB + NW * TILE_BYTES;
+  constexpr int NWG = NW / 2;                // column blocks a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  float* rv = reinterpret_cast<float*>(ring + DW_NS * STAGE);
+  float* s_ds = rv;                          // [128] per output channel
+  float* s_dss = rv + MMA_ROWS;
+  float* s_sc = rv + 2 * MMA_ROWS;           // [64 NW] per input channel
+  float* s_sh = s_sc + 64 * NW;
+
+  const int tid = threadIdx.x;
+  const int N = B * HW;
+  const int c0 = blockIdx.x * 64 * NW, o0 = blockIdx.y * MMA_ROWS;
+  const int kb = blockIdx.z * k_per_split;
+  const int ke = min(N, kb + k_per_split);
+  const int nt = (ke - kb + 63) / 64;
+
+  // rows past Co or Ci are zeros for the whole block: written once here,
+  // never copied or transformed
+  if (o0 + MMA_ROWS > Co || c0 + 64 * NW > Ci)
+    for (int i = tid; i < DW_NS * STAGE / 16; i += DW_THREADS)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < MMA_ROWS; i += DW_THREADS) {
+    const bool ok = o0 + i < Co;
+    s_ds[i] = ok ? ds[o0 + i] : 0.f;
+    s_dss[i] = ok ? dss[o0 + i] : 0.f;
+  }
+  for (int i = tid; i < 64 * NW; i += DW_THREADS) {
+    const bool ok = has_norm && c0 + i < Ci;
+    s_sc[i] = ok ? scale[c0 + i] : 1.f;
+    s_sh[i] = ok ? shift[c0 + i] : 0.f;
+  }
+  __syncthreads();
+
+  // this thread's chunks of a stage: rows tid / 8 + 64 j of the z, dz and
+  // x tiles, 16-byte column chunk tid % 8 of the stage's 64 columns; it
+  // copies them and turns them into operands. With element loads (vec 1)
+  // the thread takes column tid % 64 of rows tid / 64 + 8 k instead, so a
+  // warp reads 32 adjacent columns of a row, and stores the operands
+  // themselves.
+  const int cr = tid >> 3, cc = tid & 7;
+  auto issue = [&](int t, int slot) {
+    uint8_t* st = ring + slot * STAGE;
+    if (vec == 1) {
+      // rows rg + 8 k share their swizzle (r % 8 == rg % 8): row rg + 8 k
+      // of a tile sits 1 KiB k past row rg
+      const int col = tid & 63, rg = tid >> 6;
+      const int n = kb + t * 64 + col;
+      const bool in = n < ke;
+      const int b = in ? n / HW : 0, p = in ? n - b * HW : 0;
+      const int at = rg * 128 + (((col >> 3) ^ (rg & 7)) << 4) + 2 * (col & 7);
+      const unsigned short* zs = reinterpret_cast<const unsigned short*>(z) +
+          ((long long)b * Co + o0 + rg) * HW + p;
+      const unsigned short* dzs = reinterpret_cast<const unsigned short*>(dz) +
+          ((long long)b * Co + o0 + rg) * HW + p;
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(x) +
+          ((long long)b * Ci + c0 + rg) * HW + p;
+      const long long step = 8LL * HW;
+#pragma unroll
+      for (int k0 = 0; k0 < MMA_ROWS / 8; k0 += EB) {
+        uint32_t zv[EB], dv[EB];
+#pragma unroll
+        for (int k = 0; k < EB; ++k) {
+          const bool ok = in && o0 + rg + 8 * (k0 + k) < Co;
+          zv[k] = ok ? __ldg(zs + (k0 + k) * step) : 0u;
+          dv[k] = ok ? __ldg(dzs + (k0 + k) * step) : 0u;
+        }
+#pragma unroll
+        for (int k = 0; k < EB; ++k) {
+          const int r = rg + 8 * (k0 + k);
+          if (o0 + r < Co)
+            *reinterpret_cast<bf16*>(st + at + 1024 * (k0 + k)) =
+                __float2bfloat16_rn(
+                    in ? dz_eff_f(bf_f(dv[k]), bf_f(zv[k]), s_ds[r],
+                                  s_dss[r])
+                       : 0.f);
+        }
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < 64 * NW / 8; k0 += EB) {
+        uint32_t xv[EB];
+#pragma unroll
+        for (int k = 0; k < EB; ++k)
+          xv[k] = in && c0 + rg + 8 * (k0 + k) < Ci
+              ? __ldg(xs + (k0 + k) * step) : 0u;
+#pragma unroll
+        for (int k = 0; k < EB; ++k) {
+          const int r = rg + 8 * (k0 + k);
+          if (c0 + r < Ci)
+            *reinterpret_cast<bf16*>(st + 2 * ZB + at + 1024 * (k0 + k)) =
+                __float2bfloat16_rn(
+                    in ? xn_f(bf_f(xv[k]), s_sc[r], s_sh[r], has_norm, relu)
+                       : 0.f);
+        }
+      }
+      return;
+    }
+    const int n = kb + t * 64 + 8 * cc;
+    const Cols8 cols = cols8(n, HW);
+#pragma unroll
+    for (int j = 0; j < MMA_ROWS / 64; ++j) {
+      const int r = cr + 64 * j, o = o0 + r;
+      const int at = r * 128 + ((cc ^ (r & 7)) << 4);
+      if (o >= Co) continue;
+      copy8(st + at, z, cols, n, ke, Co, HW, o, true, vec);
+      copy8(st + ZB + at, dz, cols, n, ke, Co, HW, o, true, vec);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int r = cr + 64 * j, c = c0 + r;
+      if (c >= Ci) continue;
+      copy8(st + 2 * ZB + r * 128 + ((cc ^ (r & 7)) << 4), x, cols, n, ke,
+            Ci, HW, c, true, vec);
+    }
+  };
+  auto transform = [&](int t, int slot) {
+    const int n = kb + t * 64 + 8 * cc;
+    uint8_t* st = ring + slot * STAGE;
+#pragma unroll
+    for (int j = 0; j < MMA_ROWS / 64; ++j) {
+      const int r = cr + 64 * j;
+      const int at = r * 128 + ((cc ^ (r & 7)) << 4);
+      if (o0 + r < Co) dzb8(st + at, st + ZB + at, s_ds[r], s_dss[r], n, ke);
+    }
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int r = cr + 64 * j;
+      if (c0 + r < Ci)
+        xn8(st + 2 * ZB + r * 128 + ((cc ^ (r & 7)) << 4), s_sc[r],
+            s_sh[r], has_norm, relu, n, ke);
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < DW_NS - 1; ++t) {
+    if (t < nt) issue(t, t);
+    cp_async_commit();
+  }
+  const int wg = tid >> 7, rh = wg & 1, cb = (wg >> 1) * NWG;
+  float acc[NWG][32];
+  // Per stage t: its chunks land (this thread's own copies) and become
+  // operands (element loads stored operands already); after the barrier
+  // the warpgroups start the products, and stage t + 2 is copied into the
+  // slot of stage t - 1, whose products every warpgroup has waited for
+  // before the barrier.
+  for (int t = 0; t < nt; ++t) {
+    const int slot = t % DW_NS;
+    cp_async_wait<DW_NS - 2>();
+    if (vec != 1) transform(t, slot);
+    fence_async_smem();
+    wgmma_wait<0>();
+    __syncthreads();
+    const uint8_t* a = ring + slot * STAGE + rh * TILE_BYTES;
+    const uint8_t* b = ring + slot * STAGE + 2 * ZB + cb * TILE_BYTES;
+#pragma unroll
+    for (int n = 0; n < NWG; ++n) fence_regs(acc[n]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < NWG; ++n)
+        wgmma_ss(acc[n], desc(a, k_major_step(kk)),
+                 desc(b + n * TILE_BYTES, k_major_step(kk)), t > 0 || kk > 0);
+    wgmma_commit();
+    if (t + DW_NS - 1 < nt) issue(t + DW_NS - 1, (t + DW_NS - 1) % DW_NS);
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NWG; ++n) fence_regs(acc[n]);
+  cp_async_wait<0>();
+
+  float* dst = out + (long long)blockIdx.z * Co * Ci;
+#pragma unroll
+  for (int n = 0; n < NWG; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int o = o0 + 64 * rh + frag_row(i) - 64 * wg;
+      const int c = c0 + 64 * (cb + n) + frag_col(i);
+      if (o < Co && c < Ci)
+        dst[(long long)o * Ci + c] = nt > 0 ? acc[n][i] : 0.f;
+    }
+}
+
+constexpr int dw_mma_smem() {
+  return DW_NS * (2 * MMA_ROWS * 128 + DW_NW * hopper::TILE_BYTES) +
+         4 * (2 * MMA_ROWS + 2 * 64 * DW_NW) + 1024;
+}
+
+// Widest copy that every [B, C, HW] row run of these pointers takes: 8
+// elements (16 bytes) when HW is a multiple of 8, 4 when of 4, else 1;
+// narrower when a base pointer is not aligned to it.
+int copy_width(int HW, const void* const* ptrs, int n) {
+  int vec = HW % 8 == 0 ? 8 : HW % 4 == 0 ? 4 : 1;
+  for (int i = 0; i < n; ++i) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(ptrs[i]);
+    while (vec > 1 && a % (2 * vec) != 0) vec = vec == 8 ? 4 : 1;
+  }
+  return vec;
+}
+
+// dW (into dw, or the k-range partials in work and their sum) on the
+// route the rule picks
+int launch_dw(int tc, int dtype, const void* x, const void* scale,
+              const void* shift, const void* z, const void* dz,
+              const void* ds, const void* dss, void* dw, void* work, int B,
+              int Ci, int Co, int HW, int splits, int has_norm, int relu,
+              cudaStream_t st) {
+  const int N = B * HW;
+  // whole k-steps a k-range; splits shrinks to the ranges needed
+  const int step = tc ? 64 : TK;
+  int k_per_split = (N + splits - 1) / splits;
+  k_per_split = (k_per_split + step - 1) / step * step;
+  splits = (N + k_per_split - 1) / k_per_split;
+  float* out = splits > 1 ? static_cast<float*>(work) : static_cast<float*>(dw);
   const float* scp = static_cast<const float*>(scale);
   const float* shp = static_cast<const float*>(shift);
-  const T* zp = static_cast<const T*>(z);
-  const T* dzp = static_cast<const T*>(dz);
+  const float* dsp = static_cast<const float*>(ds);
+  const float* dssp = static_cast<const float*>(dss);
+  cudaError_t err = cudaSuccess;
+  if (tc) {
+    const dim3 g((Ci + 64 * DW_NW - 1) / (64 * DW_NW),
+                 (Co + MMA_ROWS - 1) / MMA_ROWS, splits);
+    if (g.y > 65535 || g.z > 65535) return (int)cudaErrorInvalidValue;
+    const void* ptrs[3] = {x, z, dz};
+    const int vec = copy_width(HW, ptrs, 3);
+    const int smem = dw_mma_smem();
+    err = cudaFuncSetAttribute(fused_conv_bwd_dw_mma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    fused_conv_bwd_dw_mma<<<g, DW_THREADS, smem, st>>>(
+        static_cast<const bf16*>(x), scp, shp, static_cast<const bf16*>(z),
+        static_cast<const bf16*>(dz), dsp, dssp, out, B, Ci, Co, HW,
+        k_per_split, has_norm, relu, vec);
+  } else {
+    const dim3 g((Ci + TN - 1) / TN, (Co + TM - 1) / TM, splits);
+    if (g.y > 65535 || g.z > 65535) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      fused_conv_bwd_dw<float><<<g, THREADS, 0, st>>>(
+          static_cast<const float*>(x), scp, shp,
+          static_cast<const float*>(z), static_cast<const float*>(dz), dsp,
+          dssp, out, B, Ci, Co, HW, k_per_split, has_norm, relu);
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long total = (long long)Co * Ci;
+  dw_reduce<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0,
+              st>>>(static_cast<const float*>(work),
+                    static_cast<float*>(dw), total, splits);
+  return (int)cudaGetLastError();
+}
+
+// dx and the dscale / dshift partials (the SIMT kernel on either type),
+// then their fixed-order sum (zeros without a norm)
+int launch_dx(int dtype, const void* x, const void* scale, const void* shift,
+              const void* w, const void* z, const void* dz, const void* ds,
+              const void* dss, void* dx, void* dscale, void* dshift,
+              void* part, int B, int Ci, int Co, int HW, int P, int has_norm,
+              int relu, cudaStream_t st) {
+  const float* scp = static_cast<const float*>(scale);
+  const float* shp = static_cast<const float*>(shift);
+  const float* wp = static_cast<const float*>(w);
   const float* dsp = static_cast<const float*>(ds);
   const float* dssp = static_cast<const float*>(dss);
   float* partp = static_cast<float*>(part);
-  const int N = B * HW;
-  const dim3 gdx(P, (Ci + TM - 1) / TM);
-  if (gdx.y > 65535) return (int)cudaErrorInvalidValue;
-  fused_conv_bwd_dx<T><<<gdx, THREADS, 0, st>>>(
-      xp, scp, shp, static_cast<const float*>(w), zp, dzp, dsp, dssp,
-      static_cast<T*>(dx), partp, B, Ci, Co, HW, P, has_norm, relu);
+  const long long blocks = (long long)P * ((Ci + TM - 1) / TM);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 g((unsigned)blocks);
+  if (dtype == 0)
+    fused_conv_bwd_dx<float><<<g, THREADS, 0, st>>>(
+        static_cast<const float*>(x), scp, shp, wp,
+        static_cast<const float*>(z), static_cast<const float*>(dz), dsp,
+        dssp, static_cast<float*>(dx), partp, B, Ci, Co, HW, P, has_norm,
+        relu);
+  else
+    fused_conv_bwd_dx<bf16><<<g, THREADS, 0, st>>>(
+        static_cast<const bf16*>(x), scp, shp, wp,
+        static_cast<const bf16*>(z), static_cast<const bf16*>(dz), dsp, dssp,
+        static_cast<bf16*>(dx), partp, B, Ci, Co, HW, P, has_norm, relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (has_norm) {
@@ -230,49 +669,47 @@ int launch(const void* x, const void* scale, const void* shift, const void* w,
                                             static_cast<float*>(dscale),
                                             static_cast<float*>(dshift), Ci,
                                             P);
-  } else {
-    err = cudaMemsetAsync(dscale, 0, sizeof(float) * Ci, st);
-    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  }
+  err = cudaMemsetAsync(dscale, 0, sizeof(float) * Ci, st);
+  if (err == cudaSuccess)
     err = cudaMemsetAsync(dshift, 0, sizeof(float) * Ci, st);
-  }
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (Co == 0) return 0;
-  // whole 16-column slices a k-range; splits shrinks to the ranges needed
-  int k_per_split = (N + splits - 1) / splits;
-  k_per_split = (k_per_split + TK - 1) / TK * TK;
-  splits = (N + k_per_split - 1) / k_per_split;
-  float* out = splits > 1 ? static_cast<float*>(work) : static_cast<float*>(dw);
-  const dim3 gdw((Ci + TN - 1) / TN, (Co + TM - 1) / TM, splits);
-  if (gdw.y > 65535 || gdw.z > 65535) return (int)cudaErrorInvalidValue;
-  fused_conv_bwd_dw<T><<<gdw, THREADS, 0, st>>>(xp, scp, shp, zp, dzp, dsp,
-                                                dssp, out, B, Ci, Co, HW,
-                                                k_per_split, has_norm, relu);
-  if (splits > 1) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)Co * Ci;
-    dw_reduce<<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0,
-                st>>>(static_cast<const float*>(work),
-                      static_cast<float*>(dw), total, splits);
-  }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 float32, 1 bf16 (x, z, dz and
-// dx). x [B, Ci, HW], z and dz [B, Co, HW], W [Co, Ci] float32, scale /
-// shift [Ci] float32 (null without a norm), ds / dss [Co] float32, all
-// contiguous. Outputs: dx [B, Ci, HW]; dw [Co, Ci], dscale, dshift [Ci]
-// float32 (zeros without a norm). Scratch: part, float32 of 2 * Ci * P
-// with P = ceil(B * HW / 64); with splits > 1, work, float32 of splits *
-// Co * Ci (the k-range partials of dW). Up to four launches: dx with the
-// dscale / dshift partials, their fixed-order sum, the split dW product,
-// and its fixed-order sum. Returns the first failing cudaError_t.
+// 1 when pt_fused_conv_bwd runs dW on the tensor cores for an x of type
+// dtype (0 float32, 1 bf16): a bf16 x, whose dW operands (dz_eff and the
+// normalized activation) are bf16; 0 for the SIMT kernel. dx runs the
+// SIMT kernel on either type. The one rule of the entry point, asked by
+// the wrapper to count the launches of each route.
+extern "C" int pt_fused_conv_bwd_tensor_cores(int dtype) {
+  return dtype == 1;
+}
+
+// How many k-ranges of the B * HW columns pt_fused_conv_bwd's dW blocks
+// take for an x of type dtype (the `splits` the caller passes, and sizes
+// `work` by): on the CUDA cores enough for ~528 blocks of a 64 x 64 tile
+// (four an SM on the H100's 132), on the tensor cores as many as fit in
+// 264 blocks of a 128 x 256 tile (two waves of one block an SM); each
+// k-range at least 512 columns.
+extern "C" int pt_fused_conv_bwd_splits(int dtype, int B, int Ci, int Co,
+                                        int HW) {
+  const long long N = (long long)B * HW;
+  const bool tc = pt_fused_conv_bwd_tensor_cores(dtype);
+  const long long rows = tc ? MMA_ROWS : TM, cols = tc ? 64 * DW_NW : TN;
+  const long long tiles = ((Co + rows - 1) / rows) * ((Ci + cols - 1) / cols);
+  if (tiles == 0) return 1;
+  const long long per_tile = tc ? 264 / tiles : (528 + tiles - 1) / tiles;
+  const long long s = per_tile < N / 512 ? per_tile : N / 512;
+  return s > 1 ? (int)s : 1;
+}
+
 extern "C" int pt_fused_conv_bwd(int device, int dtype, const void* x,
                                  const void* scale, const void* shift,
-                                 const void* w, const void* z, const void* dz,
+                                 const void* w,
+                                 const void* z, const void* dz,
                                  const void* ds, const void* dss, void* dx,
                                  void* dw, void* dscale, void* dshift,
                                  void* part, void* work, int B, int Ci,
@@ -282,8 +719,9 @@ extern "C" int pt_fused_conv_bwd(int device, int dtype, const void* x,
   if (err != cudaSuccess) return (int)err;
   const long long N = (long long)B * HW;
   if (B < 0 || Ci < 0 || Co < 0 || HW < 0 || N > 0x7fffffffLL ||
-      P != (int)((N + TN - 1) / TN) || splits < 1 ||
-      (splits > 1 && work == nullptr) || (has_norm && (!scale || !shift)))
+      (dtype != 0 && dtype != 1) || P != (int)((N + TN - 1) / TN) ||
+      splits < 1 || (splits > 1 && work == nullptr) ||
+      (has_norm && (!scale || !shift)))
     return (int)cudaErrorInvalidValue;
   if (Ci == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -297,13 +735,11 @@ extern "C" int pt_fused_conv_bwd(int device, int dtype, const void* x,
     }
     return 0;
   }
-  if (dtype == 0)
-    return launch<float>(x, scale, shift, w, z, dz, ds, dss, dx, dw, dscale,
-                         dshift, part, work, B, Ci, Co, HW, P, splits,
-                         has_norm, relu, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, scale, shift, w, z, dz, ds, dss, dx, dw,
-                                 dscale, dshift, part, work, B, Ci, Co, HW,
-                                 P, splits, has_norm, relu, st);
-  return (int)cudaErrorInvalidValue;
+  const int e = launch_dx(dtype, x, scale, shift, w, z, dz, ds, dss, dx,
+                          dscale, dshift, part, B, Ci, Co, HW, P, has_norm,
+                          relu, st);
+  if (e != 0 || Co == 0) return e;
+  return launch_dw(pt_fused_conv_bwd_tensor_cores(dtype), dtype, x, scale,
+                   shift, z, dz, ds, dss, dw, work, B, Ci, Co, HW, splits,
+                   has_norm, relu, st);
 }

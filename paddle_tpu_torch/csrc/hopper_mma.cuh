@@ -1,28 +1,30 @@
-// The tensor-core pieces of the bf16 flash-attention backward
-// (flash_bwd_dq.cu and flash_bwd_dkv.cu), for Hopper (sm_90a).
+// Tensor-core pieces shared by the bf16 kernels for Hopper (sm_90a): the
+// flash-attention forward and backward (flash_fwd.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu, through flash_mma.cuh) and the fused 1x1-conv +
+// BN backward (fused_conv_bwd.cu).
 //
 // Tiles are 64 rows of bf16 in shared memory, 128 bytes (64 columns) a
 // row, in the 128-byte swizzle that wgmma reads: the 16-byte chunk c of
-// row r sits at chunk c ^ (r % 8) of its row, and a head dim of 128 is
-// two such 64-column tiles 8 KiB apart. One layout serves both roles of
-// a tile: read K-major (its columns are the reduction dim: Q.K^T) and
-// read MN-major (its rows are the reduction dim: dS.K), by the transpose
-// bit of the B descriptor.
+// row r sits at chunk c ^ (r % 8) of its row. A wider operand is several
+// such 64-column tiles TILE_BYTES apart; a taller one continues the rows
+// (row r at byte r * 128, the swizzle repeating every 8 rows). One layout
+// serves both roles of a tile: read K-major (its columns are the
+// reduction dim: Q.K^T) and read MN-major (its rows are the reduction
+// dim: P.V), by the transpose bits of the descriptors.
 //
-// Copies are cp.async (16 bytes a thread) when every row of a view starts
-// on 16 bytes, else element by element (`vec`, decided by the C entry
-// point and mirrored by the wrapper's counter).
+// The products are wgmma m64n64k16 with bf16 operands and float32
+// accumulators: A from shared memory or from registers (the accumulator
+// layout of an earlier product, `to_a`), B from shared memory. Copies into
+// the tiles are cp.async, 16, 8 or 4 bytes a thread with zero fill.
 #pragma once
 
-#include <math.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
+namespace hopper {
 
-namespace flash {
-namespace mma {
-
-constexpr int ROWS = 64;              // rows of a tile, and of a warpgroup
+constexpr int ROWS = 64;                // rows of a tile, and of a warpgroup
 constexpr int TILE_BYTES = ROWS * 128;  // one 64-column swizzled tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -37,6 +39,14 @@ __device__ __forceinline__ int sw_off(int r, int c) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
@@ -62,56 +72,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // make this thread's shared-memory writes visible to wgmma's reads
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + 64) of a [n, d] bf16 matrix (row stride ld elements)
-// into a swizzled tile of D columns (64 or 128); rows >= n and columns
-// >= d read as zeros. Called by all 128 threads; cp.async copies join the
-// caller's next commit group.
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int r0, int n, int d,
-                                          bool vec) {
-  constexpr int CH = D / 8;
-  if (vec) {
-#pragma unroll
-    for (int j = 0; j < ROWS * CH / 128; ++j) {
-      const int i = threadIdx.x + 128 * j;
-      const int r = i / CH, c = i % CH;
-      const bool ok = r0 + r < n && c * 8 < d;
-      cp_async16(dst + sw_off(r, c),
-                 ok ? src + (long long)(r0 + r) * ld + c * 8 : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * D; i += 128) {
-      const int r = i / D, c = i % D;
-      __nv_bfloat16 x = __float2bfloat16(0.f);
-      if (r0 + r < n && c < d) x = src[(long long)(r0 + r) * ld + c];
-      *reinterpret_cast<__nv_bfloat16*>(dst + sw_off(r, c >> 3) +
-                                        (c & 7) * 2) = x;
-    }
-  }
-}
-
-// the tile's elements times `scale`, rounded back to bf16, written to dst
-// (dst may be src). Called by all 128 threads.
-template <int D>
-__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src,
-                                           float scale) {
-#pragma unroll
-  for (int j = 0; j < ROWS * D / 8 / 128; ++j) {
-    const int i = threadIdx.x + 128 * j;
-    uint4 x = reinterpret_cast<const uint4*>(src)[i];
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    reinterpret_cast<uint4*>(dst)[i] = x;
-  }
 }
 
 // wgmma shared-memory descriptor of a swizzled tile at `p` (plus a byte
@@ -180,9 +140,10 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory, both
-// K-major
+// K-major; scale_d 0 overwrites D instead (the first step of a product,
+// so D needs no zeros written before it)
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
+                                         uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -198,7 +159,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // the product D = A . B over KS reduction steps of 16, both operands
@@ -238,8 +199,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 // The accumulator layout of a 64 x 64 wgmma tile: thread t of the
 // warpgroup holds 32 values, element i at row frag_row(i) and column
-// frag_col(i). The masks, bias, lse / delta, dropout bits and stores all
-// go through these two.
+// frag_col(i). Masks, biases, per-row values and stores all go through
+// these two. With several warpgroups in a block, frag_row counts on
+// across them: warpgroup w's rows are 64w .. 64w + 63.
 __device__ __forceinline__ int frag_row(int i) {
   const int t = threadIdx.x;
   return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
@@ -261,27 +223,4 @@ __device__ __forceinline__ void to_a(const float (&x)[32], int kk,
   }
 }
 
-// Host side. Whether every row of the four [B, H, s, d] views (q, k, v, dO)
-// starts on 16 bytes, so whole rows go by 16-byte cp.async: d a multiple
-// of 8 elements, every base pointer 16-byte aligned, every batch, head and
-// row stride a multiple of 8 elements. The wrapper asks the same question
-// through `pt_flash_bwd_vector_loads` (flash_bwd_dq.cu).
-inline int vector_loads(const void* const* ptrs, const long long* strides,
-                        int d) {
-  if (d % 8 != 0) return 0;
-  for (int i = 0; i < 4; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return 0;
-  for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8 != 0) return 0;
-  return 1;
-}
-
-// whether round(x * scale) == x * scale for every bf16 x: scale is a
-// power of two
-inline int power_of_two(float scale) {
-  int e;
-  return frexpf(fabsf(scale), &e) == 0.5f;
-}
-
-}  // namespace mma
-}  // namespace flash
+}  // namespace hopper

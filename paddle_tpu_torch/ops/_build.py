@@ -72,8 +72,12 @@ _SIGNATURES = {
 #: other C functions of a library, bound beside its entry point as an
 #: attribute named without the `pt_` prefix
 _HELPERS = {
+    "flash_fwd": [("pt_flash_fwd_tensor_cores", [_I]),
+                  ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],
+    "fused_conv_bwd": [("pt_fused_conv_bwd_tensor_cores", [_I]),
+                       ("pt_fused_conv_bwd_splits", [_I] * 5)],
 }
 
 #: the launch counters of the kernel wrappers, one dict per ops module

@@ -8,7 +8,9 @@ package's `ops/attention.py`.
     attention with an optional [b, sk] key bias, causal masking,
     in-kernel attention dropout and packed segment ids, returning (out,
     lse). Carries prompt prefill, encoder self-attention, every
-    cross-attention over the memory, and the training forward.
+    cross-attention over the memory, and the training forward. bf16
+    runs on the tensor cores (wgmma), float32 on the CUDA cores
+    (`fwd_route`).
   * `flash_attention_bwd` -> `csrc/flash_bwd_dq.cu` (dQ, looping over
     key tiles) and `csrc/flash_bwd_dkv.cu` (dK, dV and the key-bias
     gradient, looping over query tiles). Both recompute the
@@ -49,8 +51,9 @@ Each wrapper runs its kernel's plain PyTorch version when its tensors
 lie on the CPU, and launches the kernel when they lie on a CUDA card;
 there is no fallback from a failed launch. `LAUNCHES` counts kernel
 launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
-among them, `ELEMENT_LOAD_LAUNCHES` the bf16 backward launches on views
-that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
+among them, `ROUTE_LAUNCHES` the forward's by route (tensor cores or
+CUDA cores), `ELEMENT_LOAD_LAUNCHES` the bf16 forward and backward
+launches on views that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
 JAX ones: a mask that reduces to a per-key bias, and packed segment
 ids, ride the flash kernels. A richer (per-query or per-head) mask goes
 to the `sdpa_reference` composition on the CPU only and without
@@ -76,7 +79,8 @@ from . import _build
 
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
-           "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES",
+           "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "ROUTE_LAUNCHES",
+           "fwd_route",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -103,12 +107,19 @@ LAUNCHES = _build.counter(["flash_fwd", "flash_decode", "flash_bwd_dq",
 #: also counted in LAUNCHES)
 SEG_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
                               branch=True)
-#: bf16 launches of the two backward kernels on views whose rows do not
-#: all start on 16 bytes (`pt_flash_bwd_vector_loads`): the same tensor-core
-#: kernels, with their tiles copied element by element instead of by
-#: 16-byte cp.async (each also counted in LAUNCHES)
-ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_bwd_dq", "flash_bwd_dkv"],
-                                       branch=True)
+#: bf16 launches of the forward and the two backward kernels on views
+#: whose rows do not all start on 16 bytes (`pt_flash_fwd_vector_loads`,
+#: `pt_flash_bwd_vector_loads`): the same tensor-core kernels, with their
+#: tiles copied element by element instead of by 16-byte cp.async (each
+#: also counted in LAUNCHES)
+ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv"], branch=True)
+#: launches of the forward by route (`fwd_route`, asked of the C entry
+#: point's own rule `pt_flash_fwd_tensor_cores`): "flash_fwd:wgmma" the bf16
+#: tensor-core kernel, "flash_fwd:simt" the float32 kernel on the CUDA
+#: cores (each also counted in LAUNCHES)
+ROUTE_LAUNCHES = _build.counter(["flash_fwd:wgmma", "flash_fwd:simt"],
+                                branch=True)
 reset_launches = _build.reset_launches
 
 
@@ -458,6 +469,30 @@ def _count(name, segs):
         SEG_LAUNCHES[name] += 1
 
 
+def fwd_route(dtype):
+    """The forward kernel's route for q/k/v of this dtype: "wgmma" (bf16,
+    the tensor cores) or "simt" (float32 on the CUDA cores, which keeps
+    the plain version's float32 parity). The C entry point's rule
+    (`pt_flash_fwd_tensor_cores`); the wrapper counts by the C rule."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_fwd: no kernel for {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def _count_fwd(q, k, v, strides, segs):
+    """Count a forward launch by its route (the C rule); a bf16 one whose
+    views the kernel copies element by element also in
+    ELEMENT_LOAD_LAUNCHES."""
+    _count("flash_fwd", segs)
+    lib = _build.kernels()
+    tc = lib.flash_fwd_tensor_cores(_DTYPES[q.dtype])
+    ROUTE_LAUNCHES["flash_fwd:wgmma" if tc else "flash_fwd:simt"] += 1
+    if tc and not lib.flash_fwd_vector_loads(q.data_ptr(), k.data_ptr(),
+                                             v.data_ptr(), strides,
+                                             q.shape[-1]):
+        ELEMENT_LOAD_LAUNCHES["flash_fwd"] += 1
+
+
 def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
                     segs=None):
     _check_operands("flash_fwd", q, k, v,
@@ -470,15 +505,16 @@ def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
     if sq == 0 or b * h == 0:
         return out, lse
     fn = _build.kernels().flash_fwd
+    strides = _row_strides(q, k, v)
     err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
-             out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d,
-             _row_strides(q, k, v), float(_scale(d, scale)),
-             int(bool(is_causal)), *_drop_args(dropout),
+             out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides,
+             float(_scale(d, scale)), int(bool(is_causal)),
+             *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
-    _count("flash_fwd", segs)
+    _count_fwd(q, k, v, strides, segs)
     return out, lse
 
 

@@ -10,14 +10,17 @@ port's hand-written Hopper kernels.
   * backward -> `csrc/fused_conv_bwd.cu`: from (x, z, dz) and the stats
     cotangents (ds, dss) it forms ``dz_eff = dz + ds + 2 z dss`` and
     writes dx, dW, dscale and dshift, recomputing the normalized
-    activation and dz_eff on chip.
+    activation and dz_eff on chip. With a bf16 x the dW product runs on
+    the tensor cores (wgmma); dx runs on the CUDA cores on either type,
+    and so does a float32 x's dW (`bwd_route`).
 
 The stats outputs are differentiable, so a BN chain (``bn_scale_shift``
 folding one op's stats into the next op's scale and shift) trains end
 to end. `fused_scale_act_mm_stats` runs the plain versions when its
 tensors lie on the CPU and launches the kernels when they lie on a CUDA
 card; there is no fallback from a failed launch. `LAUNCHES` counts
-kernel launches per wrapper.
+kernel launches per wrapper, `ROUTE_LAUNCHES` the backward's by the
+route of its dW product.
 
 Numerics follow the JAX kernels: the affine normalize and ReLU in
 float32, the activation rounded to x's type before the product, the
@@ -32,21 +35,25 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "reset_launches", "fused_fwd_reference",
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "bwd_route", "reset_launches",
+           "fused_fwd_reference",
            "fused_bwd_reference", "fused_scale_act_mm_stats",
            "fused_scale_act_mm_stats_plain", "bn_scale_shift"]
 
 #: kernel launches per wrapper (`reset_launches` zeroes every kernel's)
 LAUNCHES = _build.counter(["fused_conv_fwd", "fused_conv_bwd"])
+#: the backward's launches by the route of its dW product (`bwd_route`,
+#: asked of the C entry point's own rule `pt_fused_conv_bwd_tensor_cores`):
+#: "fused_conv_bwd:wgmma" (bf16 x), "fused_conv_bwd:simt" (float32 x);
+#: dx runs the SIMT kernel in both
+ROUTE_LAUNCHES = _build.counter(["fused_conv_bwd:wgmma",
+                                 "fused_conv_bwd:simt"], branch=True)
 reset_launches = _build.reset_launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels' column tile (positions of the flattened (B, HW) axis a
 #: block owns): the forward's stats and the backward's dscale / dshift
 #: come as one partial per tile, added by a second pass in a fixed order
 _TILE_N = 64
-#: the dW product splits B * HW across blocks for about this many blocks
-#: (four per SM on the H100's 132), each k-range at least 512 positions
-_TARGET_BLOCKS, _MIN_SPLIT_K = 528, 512
 
 
 def _bcol(v):
@@ -149,6 +156,21 @@ def _tiles(x):
     return -(-(B * HW) // _TILE_N)
 
 
+def bwd_route(x_dtype):
+    """The route of the backward kernel's dW product for an x of this
+    dtype: "wgmma" for bf16 (its operands dz_eff and the normalized
+    activation are x's type, so bf16 products on the tensor cores) or
+    "simt" for float32 (float32 FMAs on the CUDA cores). dx runs on the
+    CUDA cores for either type: a bf16 dx is held to one ulp of each
+    element of the plain version's, which a tensor-core sum of its
+    products, in another order, does not meet. The C entry point's rule
+    (`pt_fused_conv_bwd_tensor_cores`); the wrapper counts by the C
+    rule."""
+    if x_dtype not in _DTYPES:
+        raise TypeError(f"fused_conv backward: no kernel for {x_dtype}")
+    return "wgmma" if x_dtype == torch.bfloat16 else "simt"
+
+
 def _fwd_cuda(x, scale, shift, w, relu=True):
     """Launch `csrc/fused_conv_fwd.cu`: (z, s, ss) as the reference."""
     _check(x, scale, shift, w)
@@ -171,15 +193,6 @@ def _fwd_cuda(x, scale, shift, w, relu=True):
     return z, stats[0], stats[1]
 
 
-def _dw_splits(B, Ci, Co, HW):
-    """How many blocks share the B * HW reduction of each 64 x 64 tile of
-    dW: enough for `_TARGET_BLOCKS` blocks, each over at least
-    `_MIN_SPLIT_K` positions."""
-    tiles = -(-Co // 64) * -(-Ci // 64)
-    return max(1, min(-(-_TARGET_BLOCKS // tiles),
-                      (B * HW) // _MIN_SPLIT_K))
-
-
 def _bwd_cuda(x, scale, shift, w, z, dz, ds, dss, relu=True):
     """Launch `csrc/fused_conv_bwd.cu`: (dx, dW float32, dscale, dshift)
     as the reference."""
@@ -198,25 +211,29 @@ def _bwd_cuda(x, scale, shift, w, z, dz, ds, dss, relu=True):
     if dsv.numel() != Co or dssv.numel() != Co:
         raise ValueError(f"fused_conv backward: ds / dss must have {Co} "
                          "entries")
+    lib = _build.kernels()
+    dt = _DTYPES[x.dtype]
     dx = torch.empty_like(x)
     dw = torch.empty((Co, Ci), dtype=torch.float32, device=x.device)
     dvec = torch.empty((2, Ci), dtype=torch.float32, device=x.device)
     P = _tiles(x)
     part = torch.empty((2, Ci, max(P, 1)), dtype=torch.float32,
                        device=x.device)
-    splits = _dw_splits(B, Ci, Co, HW)
+    splits = lib.fused_conv_bwd_splits(dt, B, Ci, Co, HW)
     work = (torch.empty((splits, Co, Ci), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     sc, sh, wf = _vec(scale), _vec(shift), w.float().contiguous()
-    err = _build.kernels().fused_conv_bwd(
-        x.device.index or 0, _DTYPES[x.dtype], x.data_ptr(), _ptr(sc),
-        _ptr(sh), wf.data_ptr(), z.data_ptr(), dz.data_ptr(),
+    err = lib.fused_conv_bwd(
+        x.device.index or 0, dt, x.data_ptr(), _ptr(sc), _ptr(sh),
+        wf.data_ptr(), z.data_ptr(), dz.data_ptr(),
         dsv.data_ptr(), dssv.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         dvec[0].data_ptr(), dvec[1].data_ptr(), part.data_ptr(), _ptr(work),
         B, Ci, Co, HW, P, splits, int(scale is not None), int(bool(relu)),
         _stream(x))
     _build.raise_on("fused_conv_bwd", err)
     LAUNCHES["fused_conv_bwd"] += 1
+    route = "wgmma" if lib.fused_conv_bwd_tensor_cores(dt) else "simt"
+    ROUTE_LAUNCHES[f"fused_conv_bwd:{route}"] += 1
     return dx, dw, dvec[0], dvec[1]
 
 

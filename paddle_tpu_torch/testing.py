@@ -1,10 +1,22 @@
 """Limits that hold the port's kernels to their plain versions.
 
 `judge_bf16_grad` is the limit for the bf16 gradients (dq, dk, dv) of
-the flash backward kernels against `flash_attention_bwd_plain`: the
+the flash backward kernels against `flash_attention_bwd_plain`, and for
+the bf16 output of the flash forward against `flash_fwd_tiled`: the
 end-to-end script's phases 9 and 21, the card tests in
 tests/test_torch_kernels.py, and tools/check_bwd_limit.py, which
 prints the evidence behind it on the card.
+
+The forward's own rounding points: the kernels (as the TPU kernel) run
+the online softmax key tile by key tile, so p is rounded to the operand
+type at the running max of its tile and scaled by exp(m_old - m_new)
+later, where `flash_attention_fwd_plain` rounds it at the row's final
+max. Wherever a row's max moves after its first tile the two round p
+differently, and a third of the bf16 outputs differ by a few ulps (on an
+H100 at the ERNIE shape): no limit on the share of differing elements
+can hold a forward to the plain version. `flash_fwd_tiled` is the plain
+version computed as the kernel computes it, 64 keys a tile; against it a
+correct kernel differs only by the float32 order of its sums.
 
 The tensor-core kernels sum the same bf16-rounded operands (round(ds),
 round(pd), the scaled q and k) in float32 in another order, so a sum
@@ -24,12 +36,15 @@ from __future__ import annotations
 import torch
 
 __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
-           "bf16_ulp", "per_element_error", "judge_bf16_grad"]
+           "FWD_KEY_TILE", "bf16_ulp", "per_element_error",
+           "judge_bf16_grad", "flash_fwd_tiled"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
 #: the elements differing at all, a relative L2 error of at most 1e-3
 ULP_BF16_GRAD, SHARE_BF16_GRAD, L2_BF16_GRAD = 1.0, 1e-2, 1e-3
+#: keys a tile of the flash forward kernel (`BK`, csrc/flash_common.cuh)
+FWD_KEY_TILE = 64
 
 
 def bf16_ulp(x):
@@ -75,3 +90,48 @@ def judge_bf16_grad(got, want):
         misses.append(f"relative L2 {nums['rel_l2']:.3g} (limit "
                       f"{L2_BF16_GRAD})")
     return nums, misses
+
+
+def flash_fwd_tiled(q, k, v, bias=None, is_causal=False, scale=None,
+                    dropout=None, segment_ids=None, kv_segment_ids=None,
+                    tile=FWD_KEY_TILE, acc_dtype=None, round_p=True):
+    """The flash forward's output as the kernels compute it: the logits
+    of `flash_attention_fwd_plain`, then the online softmax over key
+    tiles of `tile` (running max from -1e30, normaliser of the unrounded
+    p, p dropped and rounded to the operand type at its tile's running
+    max, the accumulator rescaled by exp(m_old - m_new)), divided by
+    max(l, 1e-30). acc_dtype: the type of the softmax and the sums
+    (default the logits'); round_p=False skips the rounding of p (the
+    fault the limit must refuse). Tiles the kernel skips (past the causal
+    or segment range) hold only -1e30 logits: before a row's first
+    visible key they add exp(0) terms that its first visible key wipes
+    (alpha = 0), after it they add nothing, so visiting them changes
+    nothing."""
+    from .ops import attention as A
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    segs = A._segments(segment_ids, kv_segment_ids, q, k)
+    logits = A._logits(q, k, bias, is_causal, A._scale(d, scale), segs)
+    acc = acc_dtype or logits.dtype
+    logits = logits.to(acc)
+    keep = None if dropout is None else A._keep4(dropout, b, h, sq, sk,
+                                                 q.device)
+    inv_keep = None if dropout is None else A._drop_consts(dropout.p)[1]
+    vv = v.to(acc)
+    m = torch.full((b, h, sq, 1), A.NEG, dtype=acc, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, h, sq, d), dtype=acc, device=q.device)
+    for j in range(0, sk, tile):
+        lg = logits[..., j:j + tile]
+        m_new = torch.maximum(m, lg.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(lg - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., j:j + tile], p * inv_keep, 0.0)
+        if round_p:
+            p = p.to(q.dtype).to(acc)
+        o = o * alpha + torch.matmul(p, vv[:, :, j:j + tile])
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(q.dtype)

@@ -33,7 +33,9 @@ one bf16 ulp of each element, at most 1% of them differing (both sides
 round float32 sums of the same bf16-rounded activation and dz_eff, so
 only a sum within its reordering error of a rounding midpoint may land
 on the neighbouring bf16; a kernel that skipped that rounding would
-move a large share of the elements).
+move a large share of the elements). The bf16 flash forward's output is also held to `testing.flash_fwd_tiled`
+(the plain version rounding p at each 64-key tile's running max, as the
+kernel does) by `judge_bf16_grad`.
 """
 import os
 import sys
@@ -46,7 +48,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from paddle_tpu_torch.ops import attention as TA  # noqa: E402
 from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
 from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
-from paddle_tpu_torch.testing import judge_bf16_grad  # noqa: E402
+from paddle_tpu_torch.testing import (flash_fwd_tiled,  # noqa: E402
+                                      judge_bf16_grad)
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 GRAD_TOL = {torch.float32: (1e-4, 1e-4)}
@@ -121,6 +124,58 @@ def test_flash_fwd_kernel_matches_plain(cuda, case):
     rtol, atol = TOL[dt]
     torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
                                atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
+
+
+# b, h, sq, sk, d, causal, key lengths (None = no bias), scale (None =
+# 1/sqrt(d)), dropout p, segment lengths per row (None = no ids),
+# unaligned views: the bf16 forward on the tensor cores
+_FWD_TC = {
+    "d64_bias_dropout": (2, 3, 300, 300, 64, False, [300, 170], None, 0.1,
+                         None, False),
+    "d128_causal_sq_lt_sk": (2, 2, 130, 200, 128, True, [200, 120], None,
+                             0.1, None, False),
+    "d40_scale_not_a_power_of_two": (1, 2, 70, 90, 40, False, None, 0.1,
+                                     0.0, None, False),
+    "d36_unaligned": (2, 2, 150, 150, 36, True, [150, 99], None, 0.1, None,
+                      True),
+    "one_row_cross": (4, 2, 1, 300, 64, False, None, None, 0.0, None,
+                      False),
+    "segments_dropout": (2, 2, 320, 320, 64, False, None, None, 0.1,
+                         [[100, 60, 160], [200, 120]], False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_FWD_TC))
+def test_bf16_forward_on_tensor_cores_matches_the_tiled_reference(cuda,
+                                                                  case):
+    """The bf16 forward runs the wgmma kernel (ROUTE_LAUNCHES), copies by
+    element exactly where the views' rows do not start on 16 bytes, and
+    its output is held to `testing.flash_fwd_tiled` (p rounded where the
+    kernel rounds it) by `judge_bf16_grad`; its lse to the plain
+    version's in float32."""
+    b, h, sq, sk, d, causal, lens, scale, p, segl, odd = _FWD_TC[case]
+    bf = torch.bfloat16
+    q = _rand((b, sq, h, d), 41, cuda, bf).transpose(1, 2)   # strided
+    k = _rand((b, h, sk, d), 42, cuda, bf)
+    v = _rand((b, h, sk, d), 43, cuda, bf)
+    bias = None if lens is None else _pad_bias(lens, sk, cuda, -1e4)
+    drop = TA.drop_spec(p, 11, sq, sk, 64, 32) if p else None
+    ids = {} if segl is None else dict(segment_ids=_segment_ids(segl, cuda))
+    before = dict(TA.ROUTE_LAUNCHES)
+    elem = TA.ELEMENT_LOAD_LAUNCHES["flash_fwd"]
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, scale, drop,
+                                      **ids)
+    assert TA.ROUTE_LAUNCHES == {
+        "flash_fwd:wgmma": before["flash_fwd:wgmma"] + 1,
+        "flash_fwd:simt": before["flash_fwd:simt"]}
+    assert TA.ELEMENT_LOAD_LAUNCHES["flash_fwd"] == elem + int(odd)
+    want = flash_fwd_tiled(q, k, v, bias, causal, scale, drop, **ids)
+    nums, misses = judge_bf16_grad(out, want)
+    assert not misses, f"{misses} ({nums})"
+    _, want_lse = TA.flash_attention_fwd_plain(q, k, v, bias, causal, scale,
+                                               drop, **ids)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
 
 
@@ -444,7 +499,8 @@ def test_bf16_backward_copies_unaligned_views_by_element(cuda):
         got = TA.flash_attention_bwd(q, k, v, bias, out, lse, g, True, None,
                                      drop)
         assert {n: TA.ELEMENT_LOAD_LAUNCHES[n] - before[n]
-                for n in before} == {"flash_bwd_dq": counted,
+                for n in before} == {"flash_fwd": 0,
+                                     "flash_bwd_dq": counted,
                                      "flash_bwd_dkv": counted}
         want = TA.flash_attention_bwd_plain(q, k, v, bias, out, lse, g,
                                             True, None, drop)
@@ -821,9 +877,13 @@ def test_fused_conv_kernels_match_plain(cuda, case):
     _rel_close(got[1], want[1], far)
     _rel_close(got[2], want[2], far)
     z = want[0]                  # both backward versions read one stored z
+    routes = dict(TFC.ROUTE_LAUNCHES)
     got = TFC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss, relu)
     want = TFC.fused_bwd_reference(x, sc, sh, w, z, dz, ds, dss, relu)
     assert TFC.LAUNCHES["fused_conv_bwd"] == before["fused_conv_bwd"] + 1
+    route = TFC.bwd_route(xdt)
+    assert {k: TFC.ROUTE_LAUNCHES[k] - routes[k] for k in routes} == {
+        f"fused_conv_bwd:{r}": int(r == route) for r in ("wgmma", "simt")}
     assert got[0].dtype == xdt and got[1].dtype == torch.float32
     _fc_close(got[0], want[0], near)
     for g, wv in zip(got[1:], want[1:]):

@@ -1,8 +1,11 @@
-"""Time the port's three training attention kernels (flash_fwd,
-flash_bwd_dq, flash_bwd_dkv) of two or more checkouts on one card, in
-turns, at `chip_smoke.py` phase 12's shapes (ERNIE-base b8 h12 s1024
-d64, bf16, a -1e4 pad bias, attention dropout 0.1; the padded path, no
-segment ids).
+"""Time the port's training kernels of two or more checkouts on one card,
+in turns: the three attention kernels (flash_fwd, flash_bwd_dq,
+flash_bwd_dkv) at `chip_smoke.py` phase 12's shapes (ERNIE-base b8 h12
+s1024 d64, bf16, a -1e4 pad bias, attention dropout 0.1; the padded
+path, no segment ids), the float32 flash_fwd at phase 4's prefill shape
+(b1 h8 s1024 d64, causal, pad bias), and fused_conv_fwd and
+fused_conv_bwd at phase 20's eight ResNet-50 shapes (bf16, batch 128,
+norm and ReLU).
 
 Each ROOT is a directory holding a `paddle_tpu_torch/` package (a
 checkout, or `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`).
@@ -32,6 +35,7 @@ def time_root(root):
 
     import chip_smoke as cs
     from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.ops import fused_conv as FC
 
     if not os.path.abspath(A.__file__).startswith(root):
         raise RuntimeError(f"imported {A.__file__}, not the package under "
@@ -43,7 +47,7 @@ def time_root(root):
     out, lse = A.flash_attention_fwd(q, k, v, bias, False, None, drop)
     delta = A._delta(do, out)
     lse2 = lse.reshape(b * h, s)
-    return {
+    res = {
         "root": root, "card": cs.card_line(),
         "flash_fwd": cs.device_ms(lambda: A._flash_fwd_cuda(
             q, k, v, bias, False, None, drop)),
@@ -51,6 +55,23 @@ def time_root(root):
             q, k, v, bias, do, lse2, delta, False, None, drop)),
         "flash_bwd_dkv": cs.device_ms(lambda: A._flash_bwd_dkv_cuda(
             q, k, v, bias, do, lse2, delta, False, None, drop, False))}
+    del q, k, v, bias, do, out, lse, delta, lse2
+    fq, fk, fv, fb, causal = cs.fwd_case(g, 1, cs.HEADS, 1024, 1024, 64,
+                                         True, [700])
+    res["flash_fwd_fp32_prefill"] = cs.device_ms(lambda: A._flash_fwd_cuda(
+        fq, fk, fv, fb, causal, None))
+    res["fused_conv_fwd"], res["fused_conv_bwd"] = [], []
+    g20 = torch.Generator(device="cuda").manual_seed(20)
+    for ci, co, hw in cs.FC_SHAPES:
+        x, sc, sh, w, dz, ds, dss = cs.fc_case(g20, cs.FC_BATCH, ci, co, hw,
+                                               torch.bfloat16)
+        z = FC._fwd_cuda(x, sc, sh, w)[0]
+        res["fused_conv_fwd"].append(cs.device_ms(
+            lambda: FC._fwd_cuda(x, sc, sh, w)))
+        res["fused_conv_bwd"].append(cs.device_ms(
+            lambda: FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss)))
+        del x, z, dz
+    return res
 
 
 def main(argv):

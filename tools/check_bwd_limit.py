@@ -1,17 +1,20 @@
-"""The evidence behind the bf16 gradient limit of the flash backward
-kernels (`paddle_tpu_torch.testing.judge_bf16_grad`), on one card.
+"""The evidence behind the bf16 limits of the flash kernels
+(`paddle_tpu_torch.testing.judge_bf16_grad`), on one card: the backward's
+gradients and the forward's output.
 
     python tools/check_bwd_limit.py [--against ROOT] [--mutate]
 
 For three bf16 cases (`chip_smoke.train_case`, phase 9's ERNIE-base
 shape with its pad bias and dropout, from two seeds; phase 21's packed
-12-row case) it runs `flash_attention_bwd` on the card and its plain
-version, and prints, for dq, dk and dv, the judge's numbers (the largest
-error, in bf16 ulps of the largest plain entry too, the share of
-differing elements, the relative L2 error) and the readings of the
-alternative per-element limits "one ulp of the element, or 1e-4 / 1e-3
-of the largest entry, whichever is larger" (above 1 breaks them).
-Exits nonzero if the judge refuses an output.
+12-row case) it runs `flash_attention_bwd` and `flash_attention_fwd` on
+the card and their plain versions (for the forward's output
+`testing.flash_fwd_tiled`, which rounds p where the kernel does), and
+prints, for dq, dk, dv and out, the judge's numbers (the largest error,
+in bf16 ulps of the largest plain entry too, the share of differing
+elements, the relative L2 error) and the readings of the alternative
+per-element limits "one ulp of the element, or 1e-4 / 1e-3 of the
+largest entry, whichever is larger" (above 1 breaks them). Exits
+nonzero if the judge refuses an output.
 
 --against ROOT: also run the kernels of the package under ROOT (a
 checkout, or `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`) on
@@ -19,11 +22,12 @@ the same inputs, print the same numbers for them and whether each output
 is bitwise equal.
 
 --mutate: copy the package into a temporary directory, add the bf16
-rounding residue of ds (to the dq and dk products) and of pd (to the dv
-product) as a second tensor-core product, so none of them is rounded to
-bf16 any more (`MUTATIONS`), and hold that copy to the limit on the
-first case: each of dq, dk and dv must be refused. Exits nonzero if one
-is not.
+rounding residue of ds (to the dq and dk products), of pd (to the dv
+product) and of the forward's p (to its P.V product) as a second
+tensor-core product, so none of them is rounded to bf16 any more
+(`MUTATIONS`, `FWD_MUTATIONS`), and hold that copy to the limit on the
+first case: each of dq, dk, dv and out must be refused. Exits nonzero if
+one is not.
 
 Prints the card's name and power limit first. Each package runs in a
 process of its own (each builds its kernels).
@@ -42,6 +46,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: judge's numbers ("one ulp of the element, or this much of the largest
 #: entry, whichever is larger")
 ALTERNATIVE_FLOORS = (1e-4, 1e-3)
+#: the outputs judged: the backward's gradients and the forward's output
+OUTPUTS = ("dq", "dk", "dv", "out")
 
 
 
@@ -92,11 +98,31 @@ MUTATIONS = {
 }
 
 
-def mutated_sources(csrc):
-    """{file name: the mutated text} of the `MUTATIONS` files under the
+# the same for the forward: the rounding residue of p as a second P.V
+# product, so p is not rounded to bf16 any more
+FWD_MUTATIONS = {
+    "flash_fwd.cu": [
+        ("    uint32_t a[4][4];\n#pragma unroll\n"
+         "    for (int kk = 0; kk < 4; ++kk) to_a(s, kk, a[kk]);",
+         _residue("s", "lo_") +
+         "    uint32_t a[4][4], alo[4][4];\n#pragma unroll\n"
+         "    for (int kk = 0; kk < 4; ++kk) {\n"
+         "      to_a(s, kk, a[kk]);\n      to_a(lo_, kk, alo[kk]);\n    }"),
+        ("        wgmma_rs(acc[n], a[kk], desc(vs + buf * TB, "
+         "mn_major_step(kk, n)),\n                 t > 0 || kk > 0);\n",
+         "      {\n"
+         "        wgmma_rs(acc[n], a[kk], desc(vs + buf * TB, "
+         "mn_major_step(kk, n)),\n                 t > 0 || kk > 0);\n"
+         "        wgmma_rs(acc[n], alo[kk], desc(vs + buf * TB, "
+         "mn_major_step(kk, n)), 1);\n      }\n")],
+}
+
+
+def mutated_sources(csrc, mutations=MUTATIONS):
+    """{file name: the mutated text} of the `mutations` files under the
     directory `csrc`; raises if an anchor is not found exactly once."""
     out = {}
-    for name, edits in MUTATIONS.items():
+    for name, edits in mutations.items():
         with open(os.path.join(csrc, name)) as f:
             src = f.read()
         for old, new in edits:
@@ -146,12 +172,18 @@ def _run(root, path, plain, first_only=False):
         out, lse = A.flash_attention_fwd_plain(q, k, v, bias, False, None,
                                                drop, **ids)
         res[name] = [t.cpu() for t in A.flash_attention_bwd(
-            q, k, v, bias, out, lse, do, False, None, drop, **ids)[:3]]
+            q, k, v, bias, out, lse, do, False, None, drop, **ids)[:3]] + [
+            A.flash_attention_fwd(q, k, v, bias, False, None, drop,
+                                  **ids)[0].cpu()]
         if plain:
+            from paddle_tpu_torch.testing import flash_fwd_tiled
+
             res[name + " plain"] = [t.cpu() for t in
                                     A.flash_attention_bwd_plain(
                                         q, k, v, bias, out, lse, do, False,
-                                        None, drop, **ids)[:3]]
+                                        None, drop, **ids)[:3]] + [
+                flash_fwd_tiled(q, k, v, bias, False, None, drop,
+                                **ids).cpu()]
         if first_only:
             break
     torch.save(res, path)
@@ -184,7 +216,8 @@ def _mutant(tmp):
                     os.path.join(root, "paddle_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     csrc = os.path.join(root, "paddle_tpu_torch", "csrc")
-    for name, src in mutated_sources(csrc).items():
+    for name, src in {**mutated_sources(csrc),
+                      **mutated_sources(csrc, FWD_MUTATIONS)}.items():
         with open(os.path.join(csrc, name), "w") as f:
             f.write(src)
     return root
@@ -219,7 +252,7 @@ def main(argv):
             _child(os.path.abspath(args.against), tmp, "other", False))
         for name in [n for n in res if not n.endswith(" plain")]:
             print(name)
-            for i, out in enumerate(("dq", "dk", "dv")):
+            for i, out in enumerate(OUTPUTS):
                 want = res[name + " plain"][i]
                 for tag, got in [("", res[name][i])] + (
                         [] if other is None else
@@ -237,8 +270,9 @@ def main(argv):
             mut = torch.load(_child(_mutant(tmp), tmp, "mutant", False,
                                     True))
             name = next(iter(mut))
-            print(f"mutant (ds and pd left unrounded), {name}")
-            for i, out in enumerate(("dq", "dk", "dv")):
+            print(f"mutant (ds, pd and the forward's p left unrounded), "
+                  f"{name}")
+            for i, out in enumerate(OUTPUTS):
                 nums, misses = _numbers(mut[name][i],
                                         res[name + " plain"][i])
                 print(f"  {out}: " + "  ".join(
