@@ -4,8 +4,9 @@
 // geometry, and the fixed-order second pass that adds per-tile partials.
 //
 // Layout (the JAX package's, NCHW with HW flattened): x [B, Ci, HW],
-// z and dz [B, Co, HW], W [Co, Ci] (float32: the wrapper widens a bf16
-// weight, which is exact). The column axis of every product is the
+// z and dz [B, Co, HW], W [Co, Ci] (float32 for the SIMT kernels here:
+// the wrapper widens a bf16 weight, which is exact; bf16 on the tensor
+// cores, fused_conv_mma.cuh). The column axis of every product is the
 // flattened (image, position) axis n = b * HW + p, so a 64-column tile
 // may span two images and no tile is wasted on a ragged HW (3136, 784,
 // 196 and 49 at ResNet-50's stages are no multiples of 64); only the

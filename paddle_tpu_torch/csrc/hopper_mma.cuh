@@ -1,7 +1,8 @@
 // Tensor-core pieces shared by the bf16 kernels for Hopper (sm_90a): the
 // flash-attention forward and backward (flash_fwd.cu, flash_bwd_dq.cu,
 // flash_bwd_dkv.cu, through flash_mma.cuh) and the fused 1x1-conv +
-// BN backward (fused_conv_bwd.cu).
+// BN forward and backward (fused_conv_fwd.cu, fused_conv_bwd.cu, through
+// fused_conv_mma.cuh).
 //
 // Tiles are 64 rows of bf16 in shared memory, 128 bytes (64 columns) a
 // row, in the 128-byte swizzle that wgmma reads: the 16-byte chunk c of
@@ -139,11 +140,13 @@ __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
-// D[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory, both
-// K-major; scale_d 0 overwrites D instead (the first step of a product,
-// so D needs no zeros written before it)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d = 1) {
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory; TA
+// (TB) 1 reads A (B) MN-major, its rows the reduction dim, 0 K-major, its
+// columns the reduction dim; scale_d 0 overwrites D instead (the first
+// step of a product, so D needs no zeros written before it)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -151,7 +154,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -159,7 +162,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// the same with both operands K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d = 1) {
+  wgmma_ss_t<0, 0>(d, da, db, scale_d);
 }
 
 // the product D = A . B over KS reduction steps of 16, both operands

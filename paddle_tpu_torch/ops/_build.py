@@ -64,10 +64,10 @@ _SIGNATURES = {
                     [_I, *[_P] * 5, _I, _I, _I, _I, _P]),
     "lora_gather": ("pt_lora_gather",
                     [_I, *[_P] * 5, _I, _I, _I, _I, _I, _I, _P]),
-    "fused_conv_fwd": ("pt_fused_conv_fwd", [_I, _I, *[_P] * 8, *[_I] * 7,
-                                             _P]),
-    "fused_conv_bwd": ("pt_fused_conv_bwd", [_I, _I, *[_P] * 14, *[_I] * 8,
-                                             _P]),
+    "fused_conv_fwd": ("pt_fused_conv_fwd", [_I, _I, _I, *[_P] * 8,
+                                             *[_I] * 7, _P]),
+    "fused_conv_bwd": ("pt_fused_conv_bwd", [_I, _I, _I, *[_P] * 14,
+                                             *[_I] * 8, _P]),
 }
 #: other C functions of a library, bound beside its entry point as an
 #: attribute named without the `pt_` prefix
@@ -76,7 +76,8 @@ _HELPERS = {
                   ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],
-    "fused_conv_bwd": [("pt_fused_conv_bwd_tensor_cores", [_I]),
+    "fused_conv_fwd": [("pt_fused_conv_fwd_tensor_cores", [_I, _I])],
+    "fused_conv_bwd": [("pt_fused_conv_bwd_tensor_cores", [_I, _I, _I]),
                        ("pt_fused_conv_bwd_splits", [_I] * 5)],
 }
 

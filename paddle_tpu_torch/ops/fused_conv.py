@@ -10,17 +10,20 @@ port's hand-written Hopper kernels.
   * backward -> `csrc/fused_conv_bwd.cu`: from (x, z, dz) and the stats
     cotangents (ds, dss) it forms ``dz_eff = dz + ds + 2 z dss`` and
     writes dx, dW, dscale and dshift, recomputing the normalized
-    activation and dz_eff on chip. With a bf16 x the dW product runs on
-    the tensor cores (wgmma); dx runs on the CUDA cores on either type,
-    and so does a float32 x's dW (`bwd_route`).
+    activation and dz_eff on chip.
+
+With a bf16 x and a bf16 W the forward's product and the backward's dx
+run on the tensor cores (wgmma), and with a bf16 x the backward's dW
+does; every other product runs float32 FMAs on the CUDA cores
+(`fwd_route`, `bwd_routes`).
 
 The stats outputs are differentiable, so a BN chain (``bn_scale_shift``
 folding one op's stats into the next op's scale and shift) trains end
 to end. `fused_scale_act_mm_stats` runs the plain versions when its
 tensors lie on the CPU and launches the kernels when they lie on a CUDA
 card; there is no fallback from a failed launch. `LAUNCHES` counts
-kernel launches per wrapper, `ROUTE_LAUNCHES` the backward's by the
-route of its dW product.
+kernel launches per wrapper, `ROUTE_LAUNCHES` each product's launches by
+its route.
 
 Numerics follow the JAX kernels: the affine normalize and ReLU in
 float32, the activation rounded to x's type before the product, the
@@ -35,19 +38,21 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "bwd_route", "reset_launches",
-           "fused_fwd_reference",
-           "fused_bwd_reference", "fused_scale_act_mm_stats",
-           "fused_scale_act_mm_stats_plain", "bn_scale_shift"]
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "fwd_route", "bwd_routes",
+           "reset_launches", "fused_fwd_reference", "fused_bwd_reference",
+           "fused_scale_act_mm_stats", "fused_scale_act_mm_stats_plain",
+           "bn_scale_shift"]
 
 #: kernel launches per wrapper (`reset_launches` zeroes every kernel's)
 LAUNCHES = _build.counter(["fused_conv_fwd", "fused_conv_bwd"])
-#: the backward's launches by the route of its dW product (`bwd_route`,
-#: asked of the C entry point's own rule `pt_fused_conv_bwd_tensor_cores`):
-#: "fused_conv_bwd:wgmma" (bf16 x), "fused_conv_bwd:simt" (float32 x);
-#: dx runs the SIMT kernel in both
-ROUTE_LAUNCHES = _build.counter(["fused_conv_bwd:wgmma",
-                                 "fused_conv_bwd:simt"], branch=True)
+#: each product's launches by its route ("wgmma" or "simt"), counted by
+#: the C entry points' own rules (`pt_fused_conv_fwd_tensor_cores`,
+#: `pt_fused_conv_bwd_tensor_cores`, asked through `fwd_route` /
+#: `bwd_routes`): the forward's product, the backward's dx and its dW
+ROUTE_LAUNCHES = _build.counter(
+    [f"{k}:{r}" for k in ("fused_conv_fwd", "fused_conv_bwd_dx",
+                          "fused_conv_bwd_dw") for r in ("wgmma", "simt")],
+    branch=True)
 reset_launches = _build.reset_launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels' column tile (positions of the flattened (B, HW) axis a
@@ -61,39 +66,45 @@ def _bcol(v):
     return v.float().reshape(-1, 1)
 
 
-def _act_in(x, scale, shift, relu):
-    """(xn in x's type, ReLU mask or None): the kernels' normalized
-    activation. With a norm, ``f32(x) * scale + shift`` (then ReLU) is
-    rounded to x's type; without, ReLU runs in x's own type."""
+def _act_in(x, scale, shift, relu, rounded=True):
+    """(xn, ReLU mask or None): the kernels' normalized activation. With a
+    norm, ``f32(x) * scale + shift`` (then ReLU) rounded to x's type (left
+    in float32 with rounded=False); without, ReLU in x's own type."""
     if scale is not None:
         pre = x.float() * _bcol(scale) + _bcol(shift)
         mask = pre > 0 if relu else None
-        return (torch.clamp_min(pre, 0.0) if relu else pre).to(x.dtype), mask
+        xn = torch.clamp_min(pre, 0.0) if relu else pre
+        return (xn.to(x.dtype) if rounded else xn), mask
     if relu:
         return torch.relu(x), x > 0
     return x, None
 
 
-def fused_fwd_reference(x, scale, shift, w, relu=True):
+def fused_fwd_reference(x, scale, shift, w, relu=True, *, rounded=True):
     """The forward kernel's function in plain PyTorch, on any device:
     x [B, Ci, HW], scale / shift [Ci] (None for the identity), w [Co, Ci]
     -> (z [B, Co, HW] in x's type, sum z [Co] float32, sum z^2 [Co]
-    float32), the sums over (B, HW) of the float32 z."""
-    xn, _ = _act_in(x, scale, shift, relu)
+    float32), the sums over (B, HW) of the float32 z. rounded=False
+    leaves the product's operand xn in float32: the fault of a kernel
+    that skips its rounding, for the checks that show a limit refuses
+    it (`testing.fused_conv_mutants`)."""
+    xn, _ = _act_in(x, scale, shift, relu, rounded)
     z = torch.matmul(w.float(), xn.float())
     return z.to(x.dtype), z.sum((0, 2)), (z * z).sum((0, 2))
 
 
-def fused_bwd_reference(x, scale, shift, w, z, dz, ds, dss, relu=True):
+def fused_bwd_reference(x, scale, shift, w, z, dz, ds, dss, relu=True, *,
+                        rounded=True):
     """The backward kernel's function in plain PyTorch, on any device:
     (dx in x's type, dW [Co, Ci] float32, dscale [Ci] float32, dshift
     [Ci] float32) from the forward's inputs, its stored z and the
     cotangents of (z, sum z, sum z^2). dscale and dshift are zeros
-    without a norm."""
+    without a norm. rounded=False leaves the products' operands dz_eff
+    and xn in float32 (as `fused_fwd_reference`'s)."""
     dt = x.dtype
     dz_eff = dz.float() + _bcol(ds) + 2.0 * z.float() * _bcol(dss)
-    dzb = dz_eff.to(dt)
-    xn, mask = _act_in(x, scale, shift, relu)
+    dzb = dz_eff.to(dt) if rounded else dz_eff
+    xn, mask = _act_in(x, scale, shift, relu, rounded)
     dxn = torch.matmul(w.float().t(), dzb.float())
     dpre = torch.where(mask, dxn, 0.0) if relu else dxn
     B, Co, HW = z.shape
@@ -156,19 +167,41 @@ def _tiles(x):
     return -(-(B * HW) // _TILE_N)
 
 
-def bwd_route(x_dtype):
-    """The route of the backward kernel's dW product for an x of this
-    dtype: "wgmma" for bf16 (its operands dz_eff and the normalized
-    activation are x's type, so bf16 products on the tensor cores) or
-    "simt" for float32 (float32 FMAs on the CUDA cores). dx runs on the
-    CUDA cores for either type: a bf16 dx is held to one ulp of each
-    element of the plain version's, which a tensor-core sum of its
-    products, in another order, does not meet. The C entry point's rule
-    (`pt_fused_conv_bwd_tensor_cores`); the wrapper counts by the C
-    rule."""
+def _type_codes(x_dtype, w_dtype):
     if x_dtype not in _DTYPES:
-        raise TypeError(f"fused_conv backward: no kernel for {x_dtype}")
-    return "wgmma" if x_dtype == torch.bfloat16 else "simt"
+        raise TypeError(f"fused_conv: no kernel for an x of {x_dtype}")
+    return _DTYPES[x_dtype], int(w_dtype == torch.bfloat16)
+
+
+def _route(tc):
+    return "wgmma" if tc else "simt"
+
+
+def fwd_route(x_dtype, w_dtype):
+    """The route of the forward kernel's product, as the C entry point's
+    rule `pt_fused_conv_fwd_tensor_cores` gives it (so it builds the
+    kernels on first use): "wgmma" (bf16 products, exact in float32, on
+    the tensor cores) or "simt" (float32 FMAs on the CUDA cores)."""
+    codes = _type_codes(x_dtype, w_dtype)
+    return _route(_build.kernels().fused_conv_fwd_tensor_cores(*codes))
+
+
+def bwd_routes(x_dtype, w_dtype):
+    """(the route of the backward's dx product, that of its dW product),
+    as the C entry point's rule `pt_fused_conv_bwd_tensor_cores` gives
+    them."""
+    dt, wbf = _type_codes(x_dtype, w_dtype)
+    lib = _build.kernels()
+    return tuple(_route(lib.fused_conv_bwd_tensor_cores(dt, wbf, product))
+                 for product in (0, 1))
+
+
+def _w_arg(w, tc):
+    """W as the route takes it (bf16 on the tensor cores, else float32,
+    which widens a bf16 W exactly) and its type code."""
+    if tc:
+        return w.contiguous(), 1
+    return w.float().contiguous(), 0
 
 
 def _fwd_cuda(x, scale, shift, w, relu=True):
@@ -182,14 +215,19 @@ def _fwd_cuda(x, scale, shift, w, relu=True):
     P = _tiles(x)
     part = torch.empty((2, Co, max(P, 1)), dtype=torch.float32,
                        device=x.device)
-    sc, sh, wf = _vec(scale), _vec(shift), w.float().contiguous()
-    err = _build.kernels().fused_conv_fwd(
-        x.device.index or 0, _DTYPES[x.dtype], x.data_ptr(), _ptr(sc),
-        _ptr(sh), wf.data_ptr(), z.data_ptr(), stats[0].data_ptr(),
+    lib = _build.kernels()
+    dt = _DTYPES[x.dtype]
+    route = fwd_route(x.dtype, w.dtype)
+    sc, sh = _vec(scale), _vec(shift)
+    wk, wdt = _w_arg(w, route == "wgmma")
+    err = lib.fused_conv_fwd(
+        x.device.index or 0, dt, wdt, x.data_ptr(), _ptr(sc), _ptr(sh),
+        wk.data_ptr(), z.data_ptr(), stats[0].data_ptr(),
         stats[1].data_ptr(), part.data_ptr(), B, Ci, Co, HW, P,
         int(scale is not None), int(bool(relu)), _stream(x))
     _build.raise_on("fused_conv_fwd", err)
     LAUNCHES["fused_conv_fwd"] += 1
+    ROUTE_LAUNCHES[f"fused_conv_fwd:{route}"] += 1
     return z, stats[0], stats[1]
 
 
@@ -222,18 +260,20 @@ def _bwd_cuda(x, scale, shift, w, z, dz, ds, dss, relu=True):
     splits = lib.fused_conv_bwd_splits(dt, B, Ci, Co, HW)
     work = (torch.empty((splits, Co, Ci), dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
-    sc, sh, wf = _vec(scale), _vec(shift), w.float().contiguous()
+    r_dx, r_dw = bwd_routes(x.dtype, w.dtype)
+    sc, sh = _vec(scale), _vec(shift)
+    wk, wdt = _w_arg(w, r_dx == "wgmma")
     err = lib.fused_conv_bwd(
-        x.device.index or 0, dt, x.data_ptr(), _ptr(sc), _ptr(sh),
-        wf.data_ptr(), z.data_ptr(), dz.data_ptr(),
+        x.device.index or 0, dt, wdt, x.data_ptr(), _ptr(sc), _ptr(sh),
+        wk.data_ptr(), z.data_ptr(), dz.data_ptr(),
         dsv.data_ptr(), dssv.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         dvec[0].data_ptr(), dvec[1].data_ptr(), part.data_ptr(), _ptr(work),
         B, Ci, Co, HW, P, splits, int(scale is not None), int(bool(relu)),
         _stream(x))
     _build.raise_on("fused_conv_bwd", err)
     LAUNCHES["fused_conv_bwd"] += 1
-    route = "wgmma" if lib.fused_conv_bwd_tensor_cores(dt) else "simt"
-    ROUTE_LAUNCHES[f"fused_conv_bwd:{route}"] += 1
+    ROUTE_LAUNCHES[f"fused_conv_bwd_dx:{r_dx}"] += 1
+    ROUTE_LAUNCHES[f"fused_conv_bwd_dw:{r_dw}"] += 1
     return dx, dw, dvec[0], dvec[1]
 
 

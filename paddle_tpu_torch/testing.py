@@ -30,14 +30,33 @@ per-element limit of one ulp of each element, or 1e-3 of the largest
 entry if that is larger, reads up to 1.19 (above 1 breaks it). A kernel
 that skipped the rounding of ds or pd moves 30-40% of the elements
 (relative L2 ~2.6e-3).
+
+`judge_bf16_sum` is the limit for the bf16 z of the fused 1x1-conv + BN
+forward and the bf16 dx of its backward against their plain versions
+(`ops.fused_conv.fused_fwd_reference` / `fused_bwd_reference`): the
+end-to-end script's phase 17 and the card tests. Both sides round a
+float32 sum of the same products (exact products of bf16 operands) to
+bf16; the plain version on the card is a float32 GEMM that adds them in
+one order, the tensor-core kernels add them in another. Where the
+products cancel, a float32 sum in another order moves the element by
+many of its own ulps (up to 270 on an H100 at ResNet-50's shapes), so a
+per-element limit of one ulp of each element holds a kernel to one
+order, not to the function. Any two float32 orders of n products differ
+by at most 2 (n - 1) u sum |products| (u = 2^-24; Higham), 2^-17 of the
+sum of |products| at n = 64; the limit's term 2^-20 of it is 8x inside
+that and 6.8x above the worst a tensor-core dx read (2^-22.8). A kernel
+that skips the bf16 rounding of an operand moves each product by up to
+2^-9 of itself, which the term and the share refuse.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
-           "FWD_KEY_TILE", "bf16_ulp", "per_element_error",
-           "judge_bf16_grad", "flash_fwd_tiled"]
+           "FWD_KEY_TILE", "ULP_FC_BF16", "SUM_FC_BF16", "SHARE_FC_BF16",
+           "bf16_ulp", "per_element_error", "judge_bf16_grad",
+           "judge_bf16_sum", "fused_conv_abs_sums", "fused_conv_mutants",
+           "flash_fwd_tiled"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -45,6 +64,10 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
 ULP_BF16_GRAD, SHARE_BF16_GRAD, L2_BF16_GRAD = 1.0, 1e-2, 1e-3
 #: keys a tile of the flash forward kernel (`BK`, csrc/flash_common.cuh)
 FWD_KEY_TILE = 64
+#: bf16 z and dx of the fused 1x1-conv + BN kernels: every element within
+#: one bf16 ulp (at the larger of the two values) plus 2^-20 of its sum of
+#: |products|, at most 1% of the elements differing at all
+ULP_FC_BF16, SUM_FC_BF16, SHARE_FC_BF16 = 1.0, 2.0 ** -20, 1e-2
 
 
 def bf16_ulp(x):
@@ -90,6 +113,76 @@ def judge_bf16_grad(got, want):
         misses.append(f"relative L2 {nums['rel_l2']:.3g} (limit "
                       f"{L2_BF16_GRAD})")
     return nums, misses
+
+
+def judge_bf16_sum(got, want, abs_sum):
+    """A bf16 z or dx of the fused 1x1-conv + BN kernels against its plain
+    version, with each element's sum of |products| (`fused_conv_abs_sums`):
+    (numbers, misses). Numbers: the largest |got - want|, the largest in
+    bf16 ulps of the element (at max(|got|, |want|)), the largest
+    (|got - want| - ulp) / abs_sum in units of 2^-20 (0 when every element
+    is within its ulp; inf when an element with abs_sum 0 is not), and
+    the share of elements that differ; misses lists each limit the output
+    breaks (none: it passes)."""
+    a, w = got.double(), want.double()
+    s = abs_sum.double()
+    err = (a - w).abs()
+    ulp = bf16_ulp(torch.maximum(a.abs(), w.abs()))
+    over = (err - ULP_FC_BF16 * ulp).clamp_min(0.0)
+    term = torch.where(over > 0, over / s, 0.0)     # inf where s is 0
+    nums = {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "ulps": float(torch.where(ulp > 0, err / ulp, 0.0).max())
+            if err.numel() else 0.0,
+            "sum_units": float(term.max()) / SUM_FC_BF16
+            if err.numel() else 0.0,
+            "share": float((a != w).double().mean()) if err.numel() else 0.0}
+    misses = []
+    bad = int((err > ULP_FC_BF16 * ulp + SUM_FC_BF16 * s).sum())
+    if bad:
+        misses.append(f"{bad} elements off by more than {ULP_FC_BF16:g} ulp "
+                      f"+ 2^-20 of their sum of |products| (worst "
+                      f"{nums['sum_units']:.3g} units of 2^-20)")
+    if not nums["share"] <= SHARE_FC_BF16:
+        misses.append(f"{nums['share']:.3g} of the elements differ "
+                      f"(limit {SHARE_FC_BF16})")
+    return nums, misses
+
+
+def fused_conv_abs_sums(x, scale, shift, w, z, dz, ds, dss, relu=True):
+    """Each element's sum of |products| for the fused op's z and dx, in
+    float64 from the plain versions' operands: (abs_z [B, Co, HW],
+    abs_dx [B, Ci, HW]).
+
+    abs_z[b, o, p] = sum_c |W[o, c]| |xn[b, c, p]|, with xn the plain
+    version's normalized activation (rounded to x's type);
+    abs_dx[b, c, p] = |scale[c]| sum_o |W[o, c]| |dzb[b, o, p]|, with dzb
+    dz_eff rounded as `fused_bwd_reference` rounds it (from the stored
+    z), scale 1 without a norm, and 0 where the ReLU masks the element
+    (its dx is 0 on both sides)."""
+    from .ops.fused_conv import _act_in, _bcol
+
+    xn, mask = _act_in(x, scale, shift, relu)
+    wa = w.double().abs()
+    abs_z = torch.matmul(wa, xn.double().abs())
+    dzb = (dz.float() + _bcol(ds) + 2.0 * z.float() * _bcol(dss)).to(x.dtype)
+    abs_dx = torch.matmul(wa.t(), dzb.double().abs())
+    if scale is not None:
+        abs_dx = abs_dx * scale.double().abs().reshape(-1, 1)
+    if mask is not None:
+        abs_dx = torch.where(mask, abs_dx, 0.0)
+    return abs_z, abs_dx
+
+
+def fused_conv_mutants(x, scale, shift, w, z, dz, ds, dss, relu=True):
+    """The faults `judge_bf16_sum` exists to refuse: (the plain z with xn
+    left in float32, the plain dx with dz_eff left in float32), what a
+    kernel that skipped either bf16 rounding computes (the plain versions
+    with rounded=False)."""
+    from .ops.fused_conv import fused_bwd_reference, fused_fwd_reference
+
+    return (fused_fwd_reference(x, scale, shift, w, relu, rounded=False)[0],
+            fused_bwd_reference(x, scale, shift, w, z, dz, ds, dss, relu,
+                                rounded=False)[0])
 
 
 def flash_fwd_tiled(q, k, v, bias=None, is_causal=False, scale=None,

@@ -5,7 +5,8 @@ s1024 d64, bf16, a -1e4 pad bias, attention dropout 0.1; the padded
 path, no segment ids), the float32 flash_fwd at phase 4's prefill shape
 (b1 h8 s1024 d64, causal, pad bias), and fused_conv_fwd and
 fused_conv_bwd at phase 20's eight ResNet-50 shapes (bf16, batch 128,
-norm and ReLU).
+norm and ReLU), with the backward's profiled split into its dx and dW
+halves (`chip_smoke.bwd_split_ms`).
 
 Each ROOT is a directory holding a `paddle_tpu_torch/` package (a
 checkout, or `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`).
@@ -28,7 +29,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def time_root(root):
-    """The three kernels' device ms with the package under `root`."""
+    """The kernels' device ms with the package under `root`."""
     sys.path.insert(0, root)
     sys.path.insert(1, HERE)
     import torch
@@ -61,6 +62,7 @@ def time_root(root):
     res["flash_fwd_fp32_prefill"] = cs.device_ms(lambda: A._flash_fwd_cuda(
         fq, fk, fv, fb, causal, None))
     res["fused_conv_fwd"], res["fused_conv_bwd"] = [], []
+    res["fused_conv_bwd_split"] = []
     g20 = torch.Generator(device="cuda").manual_seed(20)
     for ci, co, hw in cs.FC_SHAPES:
         x, sc, sh, w, dz, ds, dss = cs.fc_case(g20, cs.FC_BATCH, ci, co, hw,
@@ -69,6 +71,8 @@ def time_root(root):
         res["fused_conv_fwd"].append(cs.device_ms(
             lambda: FC._fwd_cuda(x, sc, sh, w)))
         res["fused_conv_bwd"].append(cs.device_ms(
+            lambda: FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss)))
+        res["fused_conv_bwd_split"].append(cs.bwd_split_ms(
             lambda: FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss)))
         del x, z, dz
     return res
