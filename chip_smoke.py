@@ -16,9 +16,13 @@ Phases; any failure exits nonzero before the result lines:
     atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
     verify step), fp32 and bf16, ragged lengths, a key-bias hole;
     paged_flash_decode (T 1) and paged_flash_verify (T 4, the paged
-    speculative step, and T 256, a prefix hit's tail prefill) at S8 h8
-    page 16 mp67 over a shuffled page table with trash and unmapped
-    entries, pages fp32, bf16 and int8 with scales. Limits: fp32 output
+    speculative step on the split route, and T 256, a prefix hit's tail
+    prefill on the tiled route) at S8 h8 page 16 mp67 over a shuffled
+    page table with trash and unmapped entries, pages fp32, bf16 and int8
+    with scales; the tiled route also at the tail prefills phase 6 gives
+    it (S1 h8 T64, T256, T512 over the width-clipped row of W = 32 + T/16
+    pages; int8 and bf16 pages at T256), a slot with n_valid == T, and a
+    -1e30 bias over the first two key tiles. Limits: fp32 output
     (fp32, bf16 or int8 pages under an fp32 query: the dequant is the
     same arithmetic on both sides) atol 2e-5; bf16 output 1e-2 of the
     plain version's largest entry.
@@ -57,14 +61,20 @@ Phases; any failure exits nonzero before the result lines:
     prefill through paged_flash_verify at T up to 512); the allocator
     clean after the drain and every page free after a prefix flush.
     Then the same with spec_k=4. Both paged kernels must have launched;
-    a profiled pass of 8 more requests gives the device's busy share.
+    every tail prefill (one a partial hit and decoder layer, T > 4) on
+    paged_flash_verify's tiled route and every speculative step (one a
+    round and layer, T 4) on its split route, counted by route; a
+    profiled pass of 8 more requests gives the device's busy share.
  7. int8 pages: kv_dtype="int8", 4 of the phase-6 requests; token
     agreement with the fp32 pages is printed, not asserted.
  8. Timing of flash_verify, paged_flash_decode and paged_flash_verify at
-    the phase-5/6 shapes: kernel (partials only) and with the combine,
-    the bytes / operations bound, the plain version, and SDPA on the
-    pre-gathered dense K/V with the equivalent mask (a yardstick; the
-    gather is not timed).
+    the phase-5/6 shapes: kernel (partials only; the tiled route's
+    kernel writes the output) and with the combine, the bytes /
+    operations bound, the plain version, and SDPA on the pre-gathered
+    dense K/V with the equivalent mask (a yardstick; the gather is not
+    timed), with the device kernels SDPA runs (torch.profiler). The
+    paged verify also at the tail prefills of phase 6 (S1 h8 T64, T256
+    and T512 over W = 32 + T/16 pages).
  9. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
     pad bias over ragged lengths, attention dropout 0.1 on the logical
     512 x 512 blocks): flash_fwd with dropout, flash_bwd_dq and
@@ -130,12 +140,14 @@ Phases; any failure exits nonzero before the result lines:
     tie under the tenant's adapter). The prefix trie must hold exactly
     three scopes (two tenants and the base), each entered by a miss, so
     no hit crossed tenants; allocator clean, AdapterPool.check() passes
-    and no row pinned after the drain.
+    and no row pinned after the drain; the paged verify's routes as in
+    phase 6.
 16. Timing of int8_matmul and lora_gather at the phase-13 shapes: kernel,
     bound (published H100 SXM peaks: fp32 67 TFLOP/s, 3.35 TB/s), plain
     version, and the library yardstick (torch.matmul on the dequantized
     weight; torch.bmm twice on the gathered banks; the port never calls
-    either). Then a profiled pass of 8 requests through the int8 + LoRA
+    either); lora_gather's plan (rows a tile, CTAs a cluster, CTAs in
+    all). Then a profiled pass of 8 requests through the int8 + LoRA
     engine: the device's busy share and device time by kernel.
 17. fused_conv_fwd and fused_conv_bwd (the fused 1x1-conv + BN op)
     against their plain versions at ResNet-50's bottleneck shapes, conv1
@@ -660,11 +672,12 @@ def ver_case(g, b, h, T, L, d, lens, dtype):
     return q, k, v, length, bias
 
 
-def paged_case(g, S, h, psz, mp, d, T, lens, q_dtype, kv_dtype):
+def paged_case(g, S, h, psz, mp, d, T, lens, q_dtype, kv_dtype,
+               hole=(20, 40)):
     """A paged read's operands: pages of a shuffled pool (unused pages
     too), each slot's table entries past its written pages pointing at
     the trash row or unmapped (-1), int8 pages with per-(page, head)
-    scales, a key-bias hole."""
+    scales, a -1e30 key-bias hole over `hole`."""
     N = S * mp + 8
     table = torch.randperm(N, generator=g, device="cuda")[:S * mp] \
         .reshape(S, mp).to(torch.int32)
@@ -683,8 +696,18 @@ def paged_case(g, S, h, psz, mp, d, T, lens, q_dtype, kv_dtype):
         .view(S, T, h, d).transpose(1, 2)
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
     bias = torch.zeros(S, mp * psz, device="cuda")
-    bias[:, 20:40] = -1e30
+    bias[:, hole[0]:hole[1]] = -1e30
     return q, kp, vp, scales[0], scales[1], table, length, bias
+
+
+def pattach_case(g, T, kv_dtype=torch.float32, q_dtype=torch.float32):
+    """The tail prefill `_pattach_join` gives `PagedLayout.pattach`
+    (serving/engine.py:893-897) after a hit on the 512-token preamble: S 1,
+    h 8, T = the tail's bucket, the width-clipped table row of W = 32 +
+    T / 16 pages, all mapped, and n_valid = 512 + T = W * 16."""
+    W = PREAMBLE // PAGE + T // PAGE
+    return paged_case(g, 1, HEADS, PAGE, W, 64, T, [W * PAGE], q_dtype,
+                      kv_dtype)
 
 
 def new_kernel_cases(g):
@@ -713,7 +736,26 @@ def new_kernel_cases(g):
             **{f"tail prefill S8 h8 T256 mp67 pages {n}": paged_case(
                 g, SLOTS, HEADS, PAGE, 67, 64, 256,
                 [max(256, x) for x in plens], qd, kd)
-               for n, qd, kd in (("fp32", f32, f32), ("int8", f32, i8))}},
+               for n, qd, kd in (("fp32", f32, f32), ("int8", f32, i8),
+                                 ("bf16 q bf16", bf16, bf16))},
+            # the tiled route at the tail prefills of phase 6's partial
+            # hits (pattach: S1 h8, W = 32 + T/16 pages)
+            **{f"tail prefill S1 h8 T{T} W{32 + T // 16} pages {n}":
+               pattach_case(g, T, kd)
+               for T in (64, 256, 512)
+               for n, kd in (("fp32", f32),) + ((("int8", i8),
+                                                 ("bf16", bf16))
+                                                if T == 256 else ())},
+            "tail prefill S2 h8 T64 mp36 no seed (n_valid == T) fp32":
+                paged_case(g, 2, HEADS, PAGE, 36, 64, 64, [64, 576], f32,
+                           f32),
+            # every row's first two key tiles all in a -1e30 hole: the
+            # splits of 384 keys flush them in the block's online softmax
+            # (every row still sees keys past the hole)
+            "tail prefill S8 h8 T256 mp67 bias hole over keys 0-127 fp32":
+                paged_case(g, SLOTS, HEADS, PAGE, 67, 64, 256,
+                           [max(384, x) for x in plens], f32, f32,
+                           hole=(0, 128))},
     }
 
 
@@ -734,7 +776,10 @@ def check_new_kernels(A, cases):
             else:
                 limit = REL_BF16_ATT * want.float().abs().max().item()
                 into = errs16
-            log(f"  {kname:18s} {cname}: max_abs_err {e:.3e} (limit "
+            route = ""
+            if kname == "paged_flash_verify":
+                route = f" [{A.paged_verify_route(args[0].shape[2], 64)}]"
+            log(f"  {kname:18s} {cname}{route}: max_abs_err {e:.3e} (limit "
                 f"{limit:.3e})")
             if not e <= limit:
                 raise AssertionError(f"{kname} disagrees with its plain "
@@ -768,15 +813,23 @@ def read_numbers(A, kname, args):
         # the table, and the scales of every page a row reads
         extra = table.numel() * 4 + (0 if ks is None else 2 * 4 * q.shape[1]
                                      * sum(-(-int(n) // psz) for n in length))
-        kern = lambda: A._paged_partials_cuda(       # noqa: E731
-            kname, q, kp, vp, ks, vs, table, length, bias, None)
+        if kname == "paged_flash_verify":
+            kern = lambda: A._paged_verify_cuda(     # noqa: E731
+                q, kp, vp, ks, vs, table, length, bias, None)
+        else:
+            kern = lambda: A._paged_partials_cuda(   # noqa: E731
+                kname, q, kp, vp, ks, vs, table, length, bias, None)
         ns = -(-table.shape[1] // A._pages_per_split(psz))
     b, h, T, d = q.shape
     L = kd.shape[2]
     n = sum(int(x) for x in length)             # keys this data needs
     pairs = sum(_visible(x, T) for x in length)
+    # the output: the partials the kernel writes, or (the paged verify,
+    # whose tiled route writes the output itself) the function's output
+    out_bytes = (q.numel() * q.element_size() if kname == "paged_flash_verify"
+                 else 4.0 * b * h * ns * T * (d + 2))
     nbytes = (2.0 * n * h * d * elt + q.numel() * q.element_size()
-              + 4.0 * (bias.numel() + b + b * h * ns * T * (d + 2)) + extra)
+              + 4.0 * (bias.numel() + b) + out_bytes + extra)
     flops = 4.0 * pairs * h * d
     kpos = torch.arange(L, device="cuda")
     qpos = length[:, None].long() - T + torch.arange(T, device="cuda")
@@ -787,9 +840,33 @@ def read_numbers(A, kname, args):
     plain = device_ms(lambda: getattr(A, kname + "_plain")(*args))
     lib = device_ms(lambda: sdpa(q, kd, vd, attn_mask=mask))
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    row = {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_kernels": device_kernel_names(
+               lambda: sdpa(q, kd, vd, attn_mask=mask))}
+    if kname == "paged_flash_verify":
+        row["route"] = A.paged_verify_route(T, d)
+        if row["route"] == "tiled":
+            row["plan"] = dict(zip(("rows", "splits", "keys_per_split"),
+                                   A.paged_verify_plan(q, L)))
+    return row
+
+
+def device_kernel_names(fn, calls=5):
+    """The device kernels fn launches (torch.profiler over a few calls),
+    or "not measured" when the profiler recorded no device row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({key for _, _, key in kernel_rows(prof)}) or \
+        "not measured"
 
 
 # ------------------------------------------- speculative and paged serves
@@ -906,24 +983,74 @@ def paged_requests(seed, n, memory):
     return prompts, [memory] * n
 
 
+def verify_width_log(A):
+    """Wrap `A.paged_flash_verify` (the paged dispatcher looks it up at
+    each call) to log (T, the route its launch counted) per call: a log,
+    not a counter. Returns (log, restore)."""
+    calls = []
+    inner = A.paged_flash_verify
+
+    def logged(q, *args, **kwargs):
+        before = dict(A.PAGED_ROUTE_LAUNCHES)
+        out = inner(q, *args, **kwargs)
+        grew = [k.split(":")[1] for k, v in A.PAGED_ROUTE_LAUNCHES.items()
+                if v != before[k]]
+        calls.append((int(q.shape[2]), grew[0] if len(grew) == 1 else grew))
+        return out
+
+    A.paged_flash_verify = logged
+    return calls, lambda: setattr(A, "paged_flash_verify", inner)
+
+
+def check_verify_routes(A, label, calls, snap, spec_k):
+    """Phases 6 and 15: every tail prefill of a partial prefix hit (T above
+    the speculative step's SPEC_K rows; one a hit and decoder layer) ran
+    the tiled route, every speculative step (T = SPEC_K; one a round and
+    layer) the split route. Returns {route: launches}."""
+    routes = {k.split(":")[1]: v for k, v in A.PAGED_ROUTE_LAUNCHES.items()}
+    tails = [t for t, _ in calls if t > SPEC_K]
+    steps = [t for t, _ in calls if t <= SPEC_K]
+    wrong = [(t, r) for t, r in calls
+             if r != ("tiled" if t > SPEC_K else "split")]
+    want_tails = snap["prefix"]["partial_hits"] * LAYERS
+    want_steps = snap["speculation"]["rounds"] * LAYERS if spec_k else 0
+    log(f"  {label}: paged_flash_verify launches by route {routes}: "
+        f"{len(tails)} tail prefills (T {sorted(set(tails))}; "
+        f"{snap['prefix']['partial_hits']} partial hits x {LAYERS} layers), "
+        f"{len(steps)} speculative steps (T {sorted(set(steps))})")
+    if wrong or len(tails) != want_tails or len(steps) != want_steps \
+            or routes != {"split": len(steps), "tiled": len(tails)}:
+        raise AssertionError(
+            f"{label}: verify routes {routes}, calls on a wrong route "
+            f"{wrong[:5]}, tail prefills {len(tails)} (want {want_tails}), "
+            f"speculative steps {len(steps)} (want {want_steps})")
+    return routes
+
+
 def paged_serve(A, seed, model, embed, project, dense, memory):
     """Phase 6 (and the engine of phase 7). Returns ({path: launches},
-    {path: snapshot}, {path: tokens/s}, fp32 tokens, prompts, memories)."""
+    {path: snapshot}, {path: tokens/s}, fp32 tokens, prompts, memories,
+    {path: paged_flash_verify launches by route})."""
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.text.generation import _StepNet
 
     prompts, mems = paged_requests(seed + 6, REQUESTS, memory)
     want, _ = run_server(dense, prompts, mems)
     net = _StepNet(model.decoder, embed, project).eval()
-    launches, snaps, rates, engines = {}, {}, {}, {}
+    launches, snaps, rates, engines, routes = {}, {}, {}, {}, {}
     for path, spec_k in (("paged", None), ("paged_spec", SPEC_K)):
         engine = ServingEngine(model.decoder, embed, project, paged=True,
                                page_size=PAGE, num_slots=SLOTS,
                                max_len=MAX_LEN, spec_k=spec_k, device="cuda")
+        calls, restore = verify_width_log(A)
         A.reset_launches()
-        got, wall = run_server(engine, prompts, mems)
+        try:
+            got, wall = run_server(engine, prompts, mems)
+        finally:
+            restore()
         launches[path] = dict(A.LAUNCHES)
         snaps[path] = snap = engine.metrics.snapshot()
+        routes[path] = check_verify_routes(A, path, calls, snap, spec_k)
         engine._alloc.check()
         ties = same_tokens(path, want, got, net, prompts, mems)
         if path == "paged":
@@ -956,9 +1083,11 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
     # a profiled pass of SLOTS more requests (new tails: partial hits)
     more, more_mems = paged_requests(seed + 6, REQUESTS + SLOTS, memory)
     # flash_fwd_kernel: prefill of the cold join; split_attn_kernel: the
-    # paged decode and verify kernels (one template)
+    # paged decode and the speculative verify (one template);
+    # paged_tiled_kernel: the tail prefills of the partial hits
     profile_pass(engines["paged"], more[REQUESTS:], more_mems[REQUESTS:],
-                 ("flash_fwd_kernel", "split_attn_kernel"))
+                 ("flash_fwd_kernel", "split_attn_kernel",
+                  "paged_tiled_kernel"))
     for path, engine in engines.items():
         engine.flush_prefix_cache()
         engine._alloc.check()
@@ -966,7 +1095,7 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
             raise AssertionError(f"{path}: pages leaked after the drain")
     log(f"  allocators clean after the drain; all pages free after the "
         f"prefix flush")
-    return launches, snaps, rates, fp32_tokens, prompts, mems
+    return launches, snaps, rates, fp32_tokens, prompts, mems, routes
 
 
 def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
@@ -1563,16 +1692,24 @@ def mt_paged_serve(Q, seed, mt, memory):
     margin = tenant_margin(Q, _StepNet(net.decoder, net.embed,
                                        net.project).eval(),
                            pool, prompts, mems, names)
+    from paddle_tpu_torch.ops import attention as A
+
     launches, snaps = {}, {}
     for path, spec_k in (("mt_paged", None), ("mt_paged_spec", SPEC_K)):
         engine = ServingEngine(net.decoder, net.embed, net.project,
                                paged=True, page_size=PAGE, num_slots=SLOTS,
                                max_len=MAX_LEN, spec_k=spec_k, adapters=pool,
                                device="cuda")
+        calls, restore = verify_width_log(A)
         Q.reset_launches()
-        got, wall = run_server(engine, prompts, mems, adapters=names)
+        try:
+            got, wall = run_server(engine, prompts, mems, adapters=names)
+        finally:
+            restore()
         launches[path] = launch_counts()
         snaps[path] = snap = engine.metrics.snapshot()
+        launches[path]["verify_routes"] = check_verify_routes(
+            A, path, calls, snap, spec_k)
         ties = same_tokens(path, want, got, None, prompts, mems, margin)
         pre = snap["prefix"]
         scopes = sorted(str(k[1]) for k in engine._prefix._roots)
@@ -1630,10 +1767,15 @@ def quant_numbers(Q, kname, args):
         plain = lambda: Q.lora_delta_reference(x, A, B, ids)  # noqa: E731
         lib = lambda: torch.bmm(torch.bmm(x, ag), bg)         # noqa: E731
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"ms": device_ms(kern), "plain_ms": device_ms(plain),
-            "library_ms": device_ms(lib),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    row = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+           "library_ms": device_ms(lib),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if kname == "lora_gather":
+        rows, cluster = Q.lora_gather_plan(b, s, d, "cuda")
+        row["plan"] = {"rows": rows, "cluster": cluster,
+                       "ctas": b * -(-s // rows) * cluster}
+    return row
 
 
 # -------------------------------- the fused 1x1-conv + BN op (17, 18, 20)
@@ -2532,8 +2674,9 @@ def main():
 
     log(f"phase 6: paged serve, page {PAGE}, {REQUESTS} requests with a "
         f"{PREAMBLE}-token shared preamble; then with spec_k {SPEC_K}")
-    p_launches, p_snaps, p_rates, p_tokens, p_prompts, p_mems = paged_serve(
-        A, args.seed, model, embed, project, engine, memory[0])
+    (p_launches, p_snaps, p_rates, p_tokens, p_prompts, p_mems,
+     p_routes) = paged_serve(A, args.seed, model, embed, project, engine,
+                             memory[0])
 
     log("phase 7: int8 pages, 4 requests")
     int8 = int8_serve(A, model, embed, project, p_prompts, p_mems, p_tokens)
@@ -2550,7 +2693,10 @@ def main():
                                     "decode S8 h8 mp67 pages int8"),
              "paged_flash_verify": ("spec step S8 h8 T4 mp67 pages fp32",
                                     "tail prefill S8 h8 T256 mp67 pages "
-                                    "fp32")}
+                                    "fp32",
+                                    *(f"tail prefill S1 h8 T{T} W"
+                                      f"{32 + T // 16} pages fp32"
+                                      for T in (64, 256, 512)))}
     sources = {"flash_verify": ("flash_verify.cu", 1580),
                "paged_flash_decode": ("paged_decode.cu", 1750),
                "paged_flash_verify": ("paged_verify.cu", 1939)}
@@ -2559,10 +2705,13 @@ def main():
         for cname in cnames:
             nums = read_numbers(A, kname, new_cases[kname][cname])
             rows.append(dict(case=cname, **nums))
-            log(f"  {kname} {cname}: kernel {nums['ms']:.4f} (with combine "
-                f"{nums['with_combine_ms']:.4f}) bound {nums['bound_ms']:.4f}"
-                f" ({nums['bound_by']}) plain {nums['plain_ms']:.4f} sdpa "
-                f"{nums['library_ms']:.4f}")
+            route = (f" [{nums['route']} {nums.get('plan', '')}]"
+                     if "route" in nums else "")
+            log(f"  {kname} {cname}{route}: kernel {nums['ms']:.4f} (with "
+                f"combine {nums['with_combine_ms']:.4f}) bound "
+                f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
+                f"{nums['plain_ms']:.4f} sdpa {nums['library_ms']:.4f} "
+                f"(sdpa kernels {nums['library_kernels']})")
         head = rows[0]
         src, line = sources[kname]
         kernels[kname] = {
@@ -2579,6 +2728,10 @@ def main():
     kernels["paged_flash_verify"]["launches_by_path"] = {
         "paged": p_launches["paged"]["paged_flash_verify"],
         "paged_spec": p_launches["paged_spec"]["paged_flash_verify"]}
+    kernels["paged_flash_verify"]["launches_by_route_and_path"] = p_routes
+    kernels["paged_flash_verify"]["route_rule"] = (
+        "split (split_attn_kernel) for T <= 8, tiled (paged_tiled_kernel) "
+        "above: pt_paged_verify_route")
     serving = {"dense_tokens_per_s": n_tok / wall,
                "spec_tokens_per_s": s_rate,
                "spec_acceptance_rate":
@@ -2685,7 +2838,8 @@ def main():
             rows.append(dict(case=cname, **nums))
             log(f"  {kname} {cname}: kernel {nums['ms']:.4f} bound "
                 f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
-                f"{nums['plain_ms']:.4f} library {nums['library_ms']:.4f}")
+                f"{nums['plain_ms']:.4f} library {nums['library_ms']:.4f}"
+                + (f" {nums['plan']}" if "plan" in nums else ""))
         top = next(r for r in rows if r["case"] == head)
         paths = {p: c[kname] for p, c in by_path.items() if c[kname]}
         kernels[kname] = {
@@ -2702,9 +2856,11 @@ def main():
                               if kname == "int8_matmul" else
                               "torch.bmm x2 on the gathered banks"),
             "cases": rows}
+    kernels["paged_flash_verify"]["launches_by_route_and_path"].update(
+        {p: c["verify_routes"] for p, c in mp_launches.items()})
     prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
     profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
-                 ("int8_matmul", "lora_gather", "flash_fwd_kernel",
+                 ("int8_matmul", "lora_cluster_kernel", "flash_fwd_kernel",
                   "flash_decode_kernel"), adapters=names[:SLOTS])
     log("  multi-tenant summary " + json.dumps({
         "fp32_tokens_per_s": mt["fp32_rate"],

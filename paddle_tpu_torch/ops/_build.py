@@ -35,6 +35,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_INTS = ctypes.POINTER(ctypes.c_int)
 #: the dropout arguments of the flash kernels: seed, keep threshold,
 #: 1/keep, logical block_q, block_k
 _DROP = [_U, _U, _F, _I, _I]
@@ -59,7 +60,8 @@ _SIGNATURES = {
                      [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _STRIDES, _F,
                       _P]),
     "paged_decode": ("pt_paged_decode", _PAGED),
-    "paged_verify": ("pt_paged_verify", _PAGED),
+    "paged_verify": ("pt_paged_verify",
+                     [_I, _I, _I, *[_P] * 13, *[_I] * 8, _STRIDES, _F, _P]),
     "int8_matmul": ("pt_int8_matmul",
                     [_I, *[_P] * 5, _I, _I, _I, _I, _P]),
     "lora_gather": ("pt_lora_gather",
@@ -76,6 +78,9 @@ _HELPERS = {
                   ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],
+    "paged_verify": [("pt_paged_verify_route", [_I, _I]),
+                     ("pt_paged_verify_plan", [*[_I] * 5, _INTS])],
+    "lora_gather": [("pt_lora_gather_plan", [*[_I] * 4, _INTS])],
     "fused_conv_fwd": [("pt_fused_conv_fwd_tensor_cores", [_I, _I])],
     "fused_conv_bwd": [("pt_fused_conv_bwd_tensor_cores", [_I, _I, _I]),
                        ("pt_fused_conv_bwd_splits", [_I] * 5)],
@@ -225,3 +230,8 @@ def build_info():
 def strides_arg(values):
     """A C array of element strides for the entry points."""
     return (ctypes.c_longlong * len(values))(*[int(x) for x in values])
+
+
+def ints_out(n):
+    """A C int array of n entries for a helper to fill."""
+    return (ctypes.c_int * n)()

@@ -37,7 +37,11 @@ package's `ops/attention.py`.
     `paged_flash_verify` -> `csrc/paged_verify.cu`: the same two reads
     through a paged pool ([N+1, h, page_size, d] pages, row N the trash
     page, a [S, max_pages] page table, int8 pages dequantized by
-    per-(page, head) scales), without a dense copy of the cache.
+    per-(page, head) scales), without a dense copy of the cache. The
+    verify has two routes (`paged_verify_route`, the C rule): the split-K
+    kernel for T <= 8 (the speculative step; torch combine) and a
+    query-tiled kernel for the wider tail prefills, which writes the
+    output itself.
 
 Attention dropout is the JAX package's counter hash (`_hash_bits`), not
 torch's RNG: the keep bit of logit (row, col) is a murmur3-finalised
@@ -52,7 +56,8 @@ lie on the CPU, and launches the kernel when they lie on a CUDA card;
 there is no fallback from a failed launch. `LAUNCHES` counts kernel
 launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
 among them, `ROUTE_LAUNCHES` the forward's by route (tensor cores or
-CUDA cores), `ELEMENT_LOAD_LAUNCHES` the bf16 forward and backward
+CUDA cores), `PAGED_ROUTE_LAUNCHES` the paged verify's by route (split
+or tiled), `ELEMENT_LOAD_LAUNCHES` the bf16 forward and backward
 launches on views that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
 JAX ones: a mask that reduces to a per-key bias, and packed segment
 ids, ride the flash kernels. A richer (per-query or per-head) mask goes
@@ -80,7 +85,8 @@ from . import _build
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
            "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "ROUTE_LAUNCHES",
-           "fwd_route",
+           "PAGED_ROUTE_LAUNCHES", "fwd_route", "paged_verify_route",
+           "paged_verify_plan",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -120,6 +126,14 @@ ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq",
 #: cores (each also counted in LAUNCHES)
 ROUTE_LAUNCHES = _build.counter(["flash_fwd:wgmma", "flash_fwd:simt"],
                                 branch=True)
+#: launches of the paged verify by route (`paged_verify_route`, asked of
+#: the C entry point's own rule `pt_paged_verify_route`):
+#: "paged_flash_verify:split" split_attn_kernel (T <= 8, the speculative
+#: verify step), "paged_flash_verify:tiled" the query-tiled kernel (the
+#: tail prefill of a partial prefix hit); each also counted in LAUNCHES
+PAGED_ROUTE_LAUNCHES = _build.counter(["paged_flash_verify:split",
+                                       "paged_flash_verify:tiled"],
+                                      branch=True)
 reset_launches = _build.reset_launches
 
 
@@ -1096,31 +1110,104 @@ def _check_paged(name, q, kp, vp, ks, vs, table, length, bias):
     _check_bias(name, bias, S, table.shape[1] * kp.shape[2])
 
 
+def _paged_pointers(q, kp, vp, ks, vs, table, length, bias):
+    """The operand pointers of the paged entry points, in their order."""
+    return (q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(), table.data_ptr(),
+            length.data_ptr(), None if bias is None else bias.data_ptr())
+
+
+def _paged_strides(q, kp, vp):
+    return _build.strides_arg([*q.stride()[:3], *kp.stride()[:3],
+                               *vp.stride()[:3]])
+
+
+def _split_buffers(q, ns):
+    S, h, T, d = q.shape
+    return (torch.empty((S * h, ns, T, d), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device),
+            torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device))
+
+
 def _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length, bias,
                          scale):
+    """Launch `csrc/paged_decode.cu`: the per-split partials (acc, m, l)."""
     _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
     S, h, T, d = q.shape
     mp, psz = table.shape[1], kp.shape[2]
     ppb = _pages_per_split(psz)
-    ns = -(-mp // ppb)
-    acc = torch.empty((S * h, ns, T, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device)
-    l = torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device)
-    strides = _build.strides_arg([*q.stride()[:3], *kp.stride()[:3],
-                                  *vp.stride()[:3]])
-    fn = getattr(_build.kernels(), {"paged_flash_decode": "paged_decode",
-                                    "paged_flash_verify": "paged_verify"}[name])
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
-             q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-             None if ks is None else ks.data_ptr(),
-             None if vs is None else vs.data_ptr(), table.data_ptr(),
-             length.data_ptr(), None if bias is None else bias.data_ptr(),
-             acc.data_ptr(), m.data_ptr(), l.data_ptr(), S, h, T, mp, psz,
-             kp.shape[0], d, ppb, strides, float(_scale(d, scale)),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    acc, m, l = _split_buffers(q, -(-mp // ppb))
+    err = _build.kernels().paged_decode(
+        q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
+        *_paged_pointers(q, kp, vp, ks, vs, table, length, bias),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), S, h, T, mp, psz,
+        kp.shape[0], d, ppb, _paged_strides(q, kp, vp),
+        float(_scale(d, scale)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return acc, m, l
+
+
+def paged_verify_route(T, d):
+    """The paged verify kernel's route for T query rows of head_dim d, as
+    the C entry point's rule `pt_paged_verify_route` gives it (so it builds
+    the kernels on first use): "tiled" (the query-tiled kernel: the tail
+    prefill of a partial prefix hit) or "split" (split_attn_kernel: the
+    speculative verify step)."""
+    T, d = int(T), int(d)
+    if T < 1 or not 1 <= d <= 128:
+        raise ValueError(f"paged_flash_verify: no kernel for T={T} rows of "
+                         f"head_dim {d}")
+    return "tiled" if _build.kernels().paged_verify_route(T, d) else "split"
+
+
+def paged_verify_plan(q, L):
+    """(query rows a block, key splits, keys a split) of the tiled route
+    for q [S, h, T, d] over L = max_pages * page_size keys on q's card, as
+    the C entry point plans it (`pt_paged_verify_plan`)."""
+    S, h, T, _ = q.shape
+    out = _build.ints_out(3)
+    _build.kernels().paged_verify_plan(q.device.index or 0, S, h, T,
+                                       int(L), out)
+    return tuple(out)
+
+
+def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
+    """Launch `csrc/paged_verify.cu` on its route: ("split", (acc, m, l))
+    partials for the torch combine, or ("tiled", out), the final
+    [S, h, T, d] output in q's type."""
+    name = "paged_flash_verify"
+    _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
+    S, h, T, d = q.shape
+    mp, psz = table.shape[1], kp.shape[2]
+    route = paged_verify_route(T, d)
+    ppb = _pages_per_split(psz)
+    out = counters = None
+    if route == "split":
+        parts = _split_buffers(q, -(-mp // ppb))
+    else:
+        bq, ns, _ = paged_verify_plan(q, mp * psz)
+        out = torch.empty((S, h, T, d), dtype=q.dtype, device=q.device)
+        parts = (None, None, None)
+        if ns > 1:
+            parts = _split_buffers(q, ns)
+            counters = torch.empty(S * h * -(-T // bq), dtype=torch.int32,
+                                   device=q.device)
+    ptr = [None if t is None else t.data_ptr()
+           for t in (*parts, out, counters)]
+    err = _build.kernels().paged_verify(
+        q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
+        *_paged_pointers(q, kp, vp, ks, vs, table, length, bias), *ptr, S,
+        h, T, mp, psz, kp.shape[0], d, ppb, _paged_strides(q, kp, vp),
+        float(_scale(d, scale)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    PAGED_ROUTE_LAUNCHES[f"{name}:{route}"] += 1
+    return route, (parts if route == "split" else out)
 
 
 def _paged_lengths(name, q, table, kp, length, single):
@@ -1142,9 +1229,15 @@ def _paged_call(name, single, plain, q, kp, vp, ks, vs, table, length,
     if plain or _device_kind(name, q) == "cpu":
         parts = _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias,
                                       scale)
-    else:
+    elif single:
         parts = _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length,
                                      bias, scale)
+    else:
+        route, res = _paged_verify_cuda(q, kp, vp, ks, vs, table, length,
+                                        bias, scale)
+        if route == "tiled":
+            return res
+        parts = res
     return _combine(*parts, q.dtype).reshape(q.shape)
 
 
@@ -1182,7 +1275,8 @@ def paged_flash_verify(q, k_pages, v_pages, k_scale, v_scale, table,
     """Paged verify: T query tokens per slot, q [S, h, T, d], just
     written through the table at each slot's own offset (length counts
     after the write), against K/V read through the table; the rest as
-    `paged_flash_decode`. CUDA tensors launch `csrc/paged_verify.cu`."""
+    `paged_flash_decode`. CUDA tensors launch `csrc/paged_verify.cu` on
+    the route `paged_verify_route(T, d)` gives."""
     return _paged_call("paged_flash_verify", False, False, q, k_pages,
                        v_pages, k_scale, v_scale, table, length, bias, scale)
 

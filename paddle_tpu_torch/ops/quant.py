@@ -44,7 +44,8 @@ from . import _build
 __all__ = ["LAUNCHES", "reset_launches", "LORA_MAX_RANK",
            "quantize_int8_weight", "int8_matmul_reference", "int8_matmul",
            "int8_gather", "lora_delta_reference", "lora_delta",
-           "merge_lora_weight", "lora_scope", "current_lora"]
+           "merge_lora_weight", "lora_scope", "current_lora",
+           "lora_gather_plan"]
 
 #: kernel launches per wrapper (`reset_launches` zeroes these and
 #: `ops.attention.LAUNCHES` together)
@@ -256,6 +257,17 @@ def _lora_gather_cuda(x, A, B, ids):
     _build.raise_on("lora_gather", err)
     LAUNCHES["lora_gather"] += 1
     return out
+
+
+def lora_gather_plan(b, s, d, device):
+    """(rows of s a row tile, CTAs a cluster) of `csrc/lora_gather.cu`
+    for x [b, s, d] on the card `device`, as the C entry point plans it
+    (`pt_lora_gather_plan`): the grid is b * ceil(s / rows) clusters."""
+    out = _build.ints_out(2)
+    err = _build.kernels().lora_gather_plan(
+        torch.device(device).index or 0, int(b), int(s), int(d), out)
+    _build.raise_on("lora_gather", err)
+    return tuple(out)
 
 
 def lora_delta(x, A, B, ids):

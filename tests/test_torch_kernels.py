@@ -245,10 +245,12 @@ def test_flash_verify_kernel_matches_plain(cuda, case):
                                atol=atol)
 
 
-def _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, dev, seed=60):
+def _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, dev, seed=60,
+                hole=(3, 9)):
     """Pages with a shuffled table: every slot maps pages from one
     permutation of the pool; some entries point at the trash row (N) or
-    are unmapped (-1), past each slot's written length."""
+    are unmapped (-1), past each slot's written length. Keys in `hole`
+    carry a -1e30 bias."""
     N = S * mp + 3
     g = torch.Generator().manual_seed(seed)
     table = torch.randperm(N, generator=g)[:S * mp].reshape(S, mp) \
@@ -268,7 +270,7 @@ def _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, dev, seed=60):
     q = torch.randn(S, T, h, d, generator=g).to(q_dt).to(dev).transpose(1, 2)
     length = torch.tensor(lens, dtype=torch.int32, device=dev)
     bias = (torch.randn(S, mp * psz, generator=g) * 0.1).to(dev)
-    bias[:, 3:9] = -1e30
+    bias[:, hole[0]:hole[1]] = -1e30
     return q, kp, vp, scales[0], scales[1], table.to(dev), length, bias
 
 
@@ -291,18 +293,53 @@ _PAGED = {
                         torch.float32),
     "verify_T7_bf16_q": (3, 2, 16, 12, 40, 7, [7, 192, 60], torch.bfloat16,
                          torch.bfloat16),
+    # the tiled route (T > 8): the tail prefills of `PagedLayout.pattach`
+    # (S 1, h 8, a 512-token seed, the width-clipped row of W = 32 + T/16
+    # pages, n_valid == W * 16), int8 and bf16 pages, a slot with no seed
+    # (n_valid == T), head dims 40 (element loads for int8) and 128
+    "tail_pattach_T64_f32": (1, 8, 16, 36, 64, 64, [576], torch.float32,
+                             torch.float32),
+    "tail_pattach_T512_f32": (1, 8, 16, 64, 64, 512, [1024],
+                              torch.float32, torch.float32),
+    "tail_T64_int8_no_seed": (2, 4, 16, 12, 64, 64, [150, 64],
+                              torch.float32, torch.int8),
+    "tail_T32_bf16_pages": (3, 2, 16, 10, 64, 32, [100, 32, 160],
+                            torch.float32, torch.bfloat16),
+    "tail_T16_bf16_q_d128": (2, 2, 8, 20, 128, 16, [16, 150],
+                             torch.bfloat16, torch.bfloat16),
+    "tail_T24_int8_d40": (3, 2, 16, 12, 40, 24, [124, 24, 190],
+                          torch.float32, torch.int8),
+    "tail_T9_f32_psz8": (2, 3, 8, 40, 64, 9, [9, 300], torch.float32,
+                         torch.float32),
 }
+# a -1e30 bias over whole 64-key tiles, every row seeing keys past it:
+# the hole's keys get zero weight once a finite key arrives, in the merge
+# of one-tile splits (T32) and in a block's online softmax (T256's splits
+# of 384 keys)
+_PAGED_HOLE = {
+    "tail_hole_first_tile_T32": ((2, 2, 16, 16, 64, 32, [200, 256],
+                                  torch.float32, torch.float32), (0, 64)),
+    "tail_hole_two_tiles_T256": ((8, 8, 16, 67, 64, 256,
+                                  [384, 1072, 700, 384, 384, 384, 1000,
+                                   513], torch.float32, torch.float32),
+                                 (0, 128))}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(_PAGED))
+@pytest.mark.parametrize("case", sorted(_PAGED) + sorted(_PAGED_HOLE))
 def test_paged_kernels_match_plain(cuda, case):
-    S, h, psz, mp, d, T, lens, q_dt, kv_dt = _PAGED[case]
-    args = _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, cuda)
+    shape, hole = _PAGED_HOLE.get(case, (_PAGED.get(case), (3, 9)))
+    S, h, psz, mp, d, T, lens, q_dt, kv_dt = shape
+    args = _paged_case(S, h, psz, mp, d, T, lens, q_dt, kv_dt, cuda,
+                       hole=hole)
     name = "paged_flash_decode" if T == 1 else "paged_flash_verify"
     before = TA.LAUNCHES[name]
+    routes = dict(TA.PAGED_ROUTE_LAUNCHES)
     got = getattr(TA, name)(*args)
     assert TA.LAUNCHES[name] == before + 1
+    if T > 1:      # the verify counts its route: tiled past T 8
+        route = f"{name}:{'tiled' if T > 8 else 'split'}"
+        assert TA.PAGED_ROUTE_LAUNCHES[route] == routes[route] + 1
     want = getattr(TA, name + "_plain")(*args)
     rtol, atol = TOL[q_dt]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -769,6 +806,15 @@ _LORA = {
     "rank1": (2, 5, 64, 1, 33, 2, [1, 1], torch.float32),
     "bf16_b8_s4": (8, 4, 512, 8, 512, 5, [0, 1, 2, 3, 4, 4, 3, 2],
                    torch.bfloat16),
+    # the cluster kernel: a ragged last row tile (1000 = 62 x 16 + 8), a d
+    # that is no multiple of the clusters' d slices (1000 over 16 CTAs of
+    # 64: the last gets 40), an odd d and n (element copies), the decode
+    # join of the down projection
+    "join_b1_s1000_ragged": (1, 1000, 512, 8, 2048, 5, [3], torch.float32),
+    "d1000_ragged_slices": (2, 4, 1000, 8, 512, 3, [1, 2], torch.float32),
+    "odd_d1001_n61": (3, 5, 1001, 8, 61, 4, [3, 0, 1], torch.float32),
+    "decode_b8_s1_2048x512": (8, 1, 2048, 8, 512, 5,
+                              [0, 1, 2, 3, 4, 0, 2, 4], torch.float32),
 }
 
 
@@ -794,6 +840,29 @@ def test_lora_gather_kernel_matches_plain(cuda, case):
     for i, row in enumerate(ids):
         if row == 0:                     # the base row: an exact zero
             assert torch.count_nonzero(got[i]).item() == 0
+
+
+@pytest.mark.cuda
+def test_lora_gather_cluster_sum_is_bitwise_repeatable(cuda):
+    """The clusters add their CTAs' partial xa in rank order (no atomics):
+    two launches give the same bits, at a shape split over 16 CTAs."""
+    x = _rand((8, 1, 2048), 63, cuda)
+    A, B = _banks(5, 2048, 8, 512, cuda)
+    ids = [0, 1, 2, 3, 4, 0, 2, 4]
+    assert torch.equal(TQ.lora_delta(x, A, B, ids),
+                       TQ.lora_delta(x, A, B, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tail_pattach_T64_f32",
+                                  "tail_T64_int8_no_seed"])
+def test_tiled_paged_verify_is_bitwise_repeatable(cuda, case):
+    """The last block of a query tile merges the key splits' partials in
+    split order, whichever block arrives last: two launches give the same
+    bits."""
+    args = _paged_case(*_PAGED[case], cuda)
+    assert torch.equal(TA.paged_flash_verify(*args),
+                       TA.paged_flash_verify(*args))
 
 
 @pytest.mark.cuda

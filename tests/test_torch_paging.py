@@ -2,8 +2,9 @@
 
 Kernels: the plain versions of the paged decode and verify kernels match
 the JAX Pallas kernels in interpret mode (fp32 and int8 pages with
-scales, a key bias, trash and unmapped table entries, T in {1, 2, 4, 8};
-rtol / atol 1e-5; grids S*h*mp <= 64), and the CPU dispatch is the
+scales, a key bias, trash and unmapped table entries, T in {1, 2, 4, 8}
+and the tail-prefill widths {16, 32, 64}; rtol / atol 1e-5; grids
+S*h*mp <= 64), and the CPU dispatch is the
 gather + dense plain read bit for bit. Host side, numpy in and out: the
 allocator, the flat prefix cache and both radix-cache policies give the
 JAX answers over scripted sequences of operations, and the page writers (the grow-only
@@ -47,14 +48,22 @@ def _t(x):
 
 
 def _paged_inputs(T, quant, with_bias, seed=0):
-    """S 3, h 2, psz 16, mp 4 (grid 24), a shuffled table whose dead
-    entries point at the trash row N or are unmapped (-1)."""
+    """S 3, h 2, psz 16, d 8; up to T 8 mp 4 (grid 24); at the tail
+    widths (T > 8, the tiled route on the card) mp grows to hold the
+    longest slot, and slot 1 has no seed (n_valid == T). A shuffled table
+    whose dead entries point at the trash row N or are unmapped (-1)."""
     rs = np.random.RandomState(seed + T)
-    S, h, psz, mp, d, N = 3, 2, 16, 4, 8, 14
+    S, h, psz, d = 3, 2, 16, 8
+    if T <= 8:
+        mp, lengths = 4, [T + 20, 33, 64]
+    else:
+        lengths = [T + 20, T, T + 40]
+        mp = -(-(T + 40) // psz) + 1
+    N = S * mp + 2
     table = rs.permutation(N)[:S * mp].reshape(S, mp).astype(np.int32)
-    table[0, 2:] = N
-    table[1, 3] = -1
-    length = np.asarray([T + 20, 33, 64], np.int32)   # after the write
+    table[0, -(-lengths[0] // psz):] = N
+    table[1, -(-lengths[1] // psz):] = -1
+    length = np.asarray(lengths, np.int32)     # after the write
     raw = [rs.randn(N + 1, h, psz, d).astype(np.float32) for _ in range(2)]
     if quant:
         kp, ks = (np.asarray(x) for x in
@@ -70,7 +79,7 @@ def _paged_inputs(T, quant, with_bias, seed=0):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
-@pytest.mark.parametrize("T", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [1, 2, 4, 8, 16, 32, 64])
 def test_paged_plain_versions_match_jax_kernels(T, quant):
     """The paged decode (T = 1) and verify kernels' plain versions against
     the JAX kernels in interpret mode, with and without a key bias."""

@@ -6,7 +6,12 @@ path, no segment ids), the float32 flash_fwd at phase 4's prefill shape
 (b1 h8 s1024 d64, causal, pad bias), and fused_conv_fwd and
 fused_conv_bwd at phase 20's eight ResNet-50 shapes (bf16, batch 128,
 norm and ReLU), with the backward's profiled split into its dx and dW
-halves (`chip_smoke.bwd_split_ms`).
+halves (`chip_smoke.bwd_split_ms`); and two serving kernels:
+paged_flash_verify at phase 8's shapes (the S8 h8 T4 speculative step,
+the S8 h8 T256 tail prefill, the S1 h8 T64 / T256 / T512 tail prefills
+of `PagedLayout.pattach`; fp32 pages), alone (the split route's
+partials, or the tiled route's output) and with the combine, and
+lora_gather at phase 16's nine shapes (rank 8).
 
 Each ROOT is a directory holding a `paddle_tpu_torch/` package (a
 checkout, or `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`).
@@ -75,7 +80,46 @@ def time_root(root):
         res["fused_conv_bwd_split"].append(cs.bwd_split_ms(
             lambda: FC._bwd_cuda(x, sc, sh, w, z, dz, ds, dss)))
         del x, z, dz
+    res.update(serving_ms(cs, A))
     return res
+
+
+#: phase 8's timed paged verify cases (chip_smoke.new_kernel_cases)
+VERIFY_CASES = ("spec step S8 h8 T4 mp67 pages fp32",
+                "tail prefill S8 h8 T256 mp67 pages fp32",
+                "tail prefill S1 h8 T64 W36 pages fp32",
+                "tail prefill S1 h8 T256 W48 pages fp32",
+                "tail prefill S1 h8 T512 W64 pages fp32")
+
+
+def serving_ms(cs, A):
+    """paged_flash_verify [alone, with the combine] and lora_gather ms at
+    phases 8 and 16's shapes, with whichever entry the package has (the
+    split partials before the tiled route existed)."""
+    import torch
+
+    from paddle_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases = cs.new_kernel_cases(g)["paged_flash_verify"]
+    alone = getattr(A, "_paged_verify_cuda", None)
+    out = {"paged_flash_verify": {}, "lora_gather": {}}
+    for name in VERIFY_CASES:
+        args = cases[name]
+        if alone is not None:
+            fn = lambda: alone(*args, None)                  # noqa: E731
+        else:
+            fn = lambda: A._paged_partials_cuda(             # noqa: E731
+                "paged_flash_verify", *args, None)
+        out["paged_flash_verify"][name] = [
+            cs.device_ms(fn), cs.device_ms(lambda: A.paged_flash_verify(
+                *args))]
+    del cases
+    for name, (x, a, b, ids) in cs.lora_cases(g).items():
+        dev = ids.to("cuda")
+        out["lora_gather"][name] = cs.device_ms(
+            lambda: Q._lora_gather_cuda(x, a, b, dev))
+    return out
 
 
 def main(argv):
