@@ -8,12 +8,18 @@ Phases; any failure exits nonzero before the result lines:
  1. Device: the card's name and power limit (nvidia-smi) and the build
     time of the hand-written CUDA kernels (paddle_tpu_torch/csrc); the
     HGMMA (wgmma) instructions in the SASS of flash_fwd, flash_bwd_dq,
-    flash_bwd_dkv, fused_conv_fwd and fused_conv_bwd (`cuobjdump -sass`;
-    none fails the phase) and ptxas's registers and spills of their bf16
-    kernels.
+    flash_bwd_dkv, fused_conv_fwd, fused_conv_bwd and int8_matmul, and
+    the HMMA (TF32 mma.sync) of flash_fwd's float32 kernels
+    (`cuobjdump -sass`; none fails the phase), and ptxas's registers and
+    spills of their tensor-core kernels.
  2. Each kernel against its plain PyTorch version on the card, at the
-    shapes the serving paths give it: flash_fwd and flash_decode (fp32,
-    atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
+    shapes the serving paths give it: flash_fwd (fp32 on the tensor
+    cores as 3xTF32: the four serving shapes on their routes, and the
+    short-query route at 2, 5 and 16 rows over 256 keys, 1 row over 200
+    and 16 causal rows over 1000, each launch counted on the route the C
+    rule gives; its one-TF32-pass mutant, `testing.flash_fwd_split` with
+    pieces=1 computed on the card, must be refused by the same limit at
+    every case) and flash_decode (fp32, atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
     verify step), fp32 and bf16, ragged lengths, a key-bias hole;
     paged_flash_decode (T 1) and paged_flash_verify (T 4, the paged
     speculative step on the split route, and T 256, a prefix hit's tail
@@ -31,14 +37,19 @@ Phases; any failure exits nonzero before the result lines:
     requests over 8 slots, source memories of 256 tokens encoded on the
     card by the port's TransformerEncoder, prompts of 300-1000 tokens,
     32 new tokens each. The kernels' launch counters are zeroed just
-    before and read just after; both must have grown. Two requests are
+    before and read just after; both must have grown, every flash_fwd
+    launch on a float32 tensor-core route (counted by the C rule
+    `pt_flash_fwd_route`; phases 5, 6, 14 and 15 check the same). Two requests are
     re-run on the CPU through the plain versions: prefill logits agree
     within atol 1e-3, and greedy tokens agree up to the first position
     where the CPU's top-2 logit gap is below 1e-3.
  4. Timing at the phase-3 shapes (CUDA events, median of 25 runs, each
     queued behind a device sleep so host overhead is not timed): the
     kernel, its bound on the card (published H100 SXM peaks: 3.35 TB/s,
-    67 TFLOP/s fp32), the plain version, and
+    67 TFLOP/s fp32; for flash_fwd both the tensor-core bound of its 3
+    TF32 products at 495 TFLOP/s, its bound_ms, and the CUDA-core bound
+    of the same function, with the share of the tensor-core bound the
+    kernel reaches), the plain version, and
     torch.nn.functional.scaled_dot_product_attention as a yardstick only
     (the port never calls it). Decode is timed twice: the kernel alone
     ("ms") and with its torch combine ("with_combine_ms", the scope of
@@ -118,10 +129,14 @@ Phases; any failure exits nonzero before the result lines:
     int8_matmul at m 8, 32 and 1024 (a decode step, a 4-token verify
     step, a prompt bucket) on every (d, n) of the decoder and the
     vocabulary projection (512x512, 512x2048, 2048x512, 512x37000),
-    plus a bf16 x; lora_gather at b 8 s 1, b 8 s 4 and b 1 s 1024 on
-    512x512, 512x2048 and 2048x512, rank 8, capacity 5, ids mixing the
-    base row 0 and every tenant. Limits: fp32 1e-5 of the plain version's
-    largest entry (sums over d <= 2048 in another order), bf16 1e-2.
+    plus a bf16 x at m 8 and 1024; lora_gather at b 8 s 1, b 8 s 4 and b
+    1 s 1024 on 512x512, 512x2048 and 2048x512, rank 8, capacity 5, ids
+    mixing the base row 0 and every tenant. Limits: fp32 1e-5 of the
+    plain version's largest entry (sums over d <= 2048 in another
+    order), bf16 1e-2. At every float32 m 1024 case (the tiled path on
+    the tensor cores, x in three bf16 pieces) the one-piece mutant (a
+    bf16 x, `testing.int8_matmul_split` with pieces=1, computed on the
+    card) must be refused by the same limit.
 14. Multi-tenant dense serve at the phase-3 width and weights: an
     AdapterPool of 4 tenants (`register_random(seed=100+i, scale=0.05)`,
     rank 8, capacity 5; `bench.py` `_serving_multitenant`), 8 slots, 16
@@ -143,8 +158,10 @@ Phases; any failure exits nonzero before the result lines:
     and no row pinned after the drain; the paged verify's routes as in
     phase 6.
 16. Timing of int8_matmul and lora_gather at the phase-13 shapes: kernel,
-    bound (published H100 SXM peaks: fp32 67 TFLOP/s, 3.35 TB/s), plain
-    version, and the library yardstick (torch.matmul on the dequantized
+    bound (published H100 SXM peaks: fp32 67 TFLOP/s, 3.35 TB/s; for the
+    tiled int8 path the tensor-core bound of its 3 bf16 passes at 989
+    TFLOP/s beside the CUDA-core bound, the share and its k-splits),
+    plain version, and the library yardstick (torch.matmul on the dequantized
     weight; torch.bmm twice on the gathered banks; the port never calls
     either); lora_gather's plan (rows a tile, CTAs a cluster, CTAs in
     all). Then a profiled pass of 8 requests through the int8 + LoRA
@@ -246,6 +263,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12      # H100 SXM, CUDA cores, published
 BF16_FLOPS_PER_S = 989e12     # H100 SXM, dense tensor cores, published
+TF32_FLOPS_PER_S = 495e12     # H100 SXM, dense tensor cores, published
+# the float32 kernels on the tensor cores take each product in 3 pieces
+# (flash_fwd: 3xTF32; int8_matmul's tiled path: x in 3 bf16 pieces)
+SPLIT_PIECES = 3
 ATOL_KERNEL = 2e-5
 ATOL_LOGITS = 1e-3
 GAP = 1e-3
@@ -312,6 +333,11 @@ REL_PACKED = 1e-4
 # spanning tiles; key ids for the kv case (every query id has keys)
 SEG_GRID = ([1, 129, 70, 56, 128], [64, 64, 128, 100, 28])
 SEG_KV = ([10, 300, 100, 90, 20], [100, 50, 150, 150, 70])
+
+
+#: flash_fwd launches by route on each serving path, and int8_matmul's
+#: by path (skinny or tiled), for the kernels line
+FWD_ROUTES, INT8_ROUTES = {}, {}
 
 
 def log(*a):
@@ -415,10 +441,25 @@ def fwd_numbers(A, args):
     plain = device_ms(lambda: A.flash_attention_fwd_plain(q, k, v, bias,
                                                           causal))
     lib = device_ms(lambda: sdpa(q, k, v, attn_mask=mask))
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            **split_bounds(flops, nbytes, TF32_FLOPS_PER_S, ms)}
+
+
+def split_bounds(flops, nbytes, peak, ms):
+    """The bounds of a float32 kernel on the tensor cores: bound_ms the
+    least time for the work it does (SPLIT_PIECES products at the
+    pieces' tensor-core peak, or the bytes), beside the CUDA-core bound of
+    the same function (float32 FMAs at 67 TFLOP/s, or the bytes), and the
+    share of the tensor-core bound the kernel reaches."""
+    t_tc, t_fma = SPLIT_PIECES * flops / peak, flops / FP32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bound = max(t_tc, t_bytes) * 1e3
+    return {"bound_ms": bound,
+            "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+            "cuda_core_bound_ms": max(t_fma, t_bytes) * 1e3,
+            "cuda_core_bound_by": "operations" if t_fma >= t_bytes
+            else "bytes",
+            "bound_share": bound / ms}
 
 
 def dec_case(g, b, h, L, d, lens, hole):
@@ -462,6 +503,8 @@ def dec_numbers(A, args):
 def check_kernels(A, g):
     """Phase 2: every kernel against its plain version at the serving
     shapes. Returns ({name: max_abs_err}, {case: inputs})."""
+    from paddle_tpu_torch.testing import flash_fwd_split
+
     fwd = {
         "prefill b1 h8 s1024 d64 causal+pad bias":
             fwd_case(g, 1, HEADS, 1024, 1024, 64, True, [700]),
@@ -473,6 +516,14 @@ def check_kernels(A, g):
             fwd_case(g, REQUESTS, HEADS, SRC_LEN, SRC_LEN, 64, False,
                      [SRC_LEN - 9 * i for i in range(REQUESTS)]),
     }
+    # the short-query route at every width it takes, keys off the tiles
+    short = {f"short q{sq} b8 h8 1x256": fwd_case(g, SLOTS, HEADS, sq,
+                                                  SRC_LEN, 64, False, None)
+             for sq in (2, 5, 16)}
+    short["short q1 b8 h8 sk200 pad bias"] = fwd_case(
+        g, SLOTS, HEADS, 1, 200, 64, False, [200 - 17 * i for i in range(8)])
+    short["short q16 b2 h8 sk1000 causal pad bias"] = fwd_case(
+        g, 2, HEADS, 16, 1000, 64, True, [1000, 700])
     dec = {
         # row 0's length ends inside the first 128-key split
         "decode b8 h8 L1056 d64 ragged":
@@ -480,16 +531,32 @@ def check_kernels(A, g):
                      [60, 1056, 700, 300, 129, 128, 1000, 513], (20, 40)),
     }
     errs = {"flash_fwd": 0.0, "flash_decode": 0.0}
-    for name, (q, k, v, bias, causal) in fwd.items():
+    for name, (q, k, v, bias, causal) in {**fwd, **short}.items():
+        route = A.fwd_route(q.dtype, q.shape[2])
+        before = dict(A.ROUTE_LAUNCHES)
         out, lse = A.flash_attention_fwd(q, k, v, bias, causal)
+        moved = {r: n - before[r] for r, n in A.ROUTE_LAUNCHES.items()
+                 if n != before[r]}
         pout, plse = A.flash_attention_fwd_plain(q, k, v, bias, causal)
+        mout, mlse = flash_fwd_split(q, k, v, bias, causal, None, 1)
         torch.cuda.synchronize()
         e = max((out - pout).abs().max().item(),
                 (lse - plse).abs().max().item())
-        log(f"  flash_fwd   {name}: max_abs_err {e:.3e}")
+        em = max((mout - pout).abs().max().item(),
+                 (mlse - plse).abs().max().item())
+        log(f"  flash_fwd   {name} [{route}, cluster "
+            f"{A.fwd_cluster(q, k.shape[2])}]: max_abs_err {e:.3e}; "
+            f"one-TF32-pass mutant {em:.3e}")
+        if moved != {f"flash_fwd:{route}": 1}:
+            raise AssertionError(f"flash_fwd {name}: launched {moved}, not "
+                                 f"the {route} route")
         if not e <= ATOL_KERNEL:
             raise AssertionError(f"flash_fwd disagrees with its plain "
                                  f"version on {name}: {e}")
+        if not em > ATOL_KERNEL:
+            raise AssertionError(f"flash_fwd {name}: the limit "
+                                 f"{ATOL_KERNEL} passes one TF32 pass "
+                                 f"({em})")
         errs["flash_fwd"] = max(errs["flash_fwd"], e)
     for name, (q, k, v, length, bias) in dec.items():
         out = A.flash_decode(q, k, v, length, bias)
@@ -502,6 +569,37 @@ def check_kernels(A, g):
                                  f"version on {name}: {e}")
         errs["flash_decode"] = max(errs["flash_decode"], e)
     return errs, fwd, dec
+
+
+def check_fwd_routes(A, label, launches):
+    """Phases 3, 5, 6, 14 and 15: every flash_fwd launch of a serve
+    (float32, no dropout, no segment ids) ran on the tensor cores, counted
+    by the C rule (`pt_flash_fwd_route`): query-tiled 3xTF32 or
+    short-query 3xTF32, none on the SIMT kernel. Returns {route:
+    launches}."""
+    routes = {k.split(":")[1]: v for k, v in A.ROUTE_LAUNCHES.items()}
+    log(f"  {label}: flash_fwd launches by route {routes}")
+    tc = routes["tf32x3"] + routes["tf32x3_short"]
+    if launches["flash_fwd"] < 1 or tc != launches["flash_fwd"] \
+            or routes["simt"] or routes["wgmma"]:
+        raise AssertionError(f"{label}: flash_fwd launches {routes}, not "
+                             f"all {launches['flash_fwd']} on the float32 "
+                             f"tensor-core routes")
+    return routes
+
+
+def int8_routes(Q, label, launches):
+    """Phase 14 (b): int8_matmul launches by path (`Q.ROUTE_LAUNCHES`):
+    skinny for decode and verify steps, tiled on the tensor cores for a
+    prompt bucket (m > 32); both must have run. Returns {path:
+    launches}."""
+    routes = {k.split(":")[1]: v for k, v in Q.ROUTE_LAUNCHES.items()}
+    log(f"  {label}: int8_matmul launches by path {routes}")
+    if sum(routes.values()) != launches["int8_matmul"] or not all(
+            routes.values()):
+        raise AssertionError(f"{label}: int8_matmul launches {routes} of "
+                             f"{launches['int8_matmul']}")
+    return routes
 
 
 # ------------------------------------------------------------ the model
@@ -552,6 +650,7 @@ def serve(A, seed):
     results = [r.result(timeout=600) for r in reqs]
     wall = time.perf_counter() - t0
     launches = dict(A.LAUNCHES)
+    FWD_ROUTES["serve"] = check_fwd_routes(A, "serve", launches)
     server.shutdown(drain=True, timeout=60)
 
     for i, res in enumerate(results):
@@ -597,7 +696,7 @@ def profile_serving(engine, prompts, memory):
               "other": 0.0}
     for ms, _, key in rows:
         low = key.lower()
-        g = ("flash_fwd" if "flash_fwd_kernel" in key else
+        g = ("flash_fwd" if "flash_fwd" in key else
              "flash_decode" if "flash_decode_kernel" in key else
              "gemm" if "gemm" in low or "cutlass" in low or "nvjet" in low
              else "other")
@@ -957,6 +1056,7 @@ def spec_serve(A, seed, model, embed, project, dense, memory):
     A.reset_launches()
     got, wall = run_server(engine, prompts, mems)
     launches = dict(A.LAUNCHES)
+    FWD_ROUTES["spec"] = check_fwd_routes(A, "spec", launches)
     snap = engine.metrics.snapshot()
     net = _StepNet(model.decoder, embed, project).eval()
     ties = same_tokens("spec", want, got, net, prompts, mems)
@@ -1049,6 +1149,7 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
         finally:
             restore()
         launches[path] = dict(A.LAUNCHES)
+        FWD_ROUTES[path] = check_fwd_routes(A, path, launches[path])
         snaps[path] = snap = engine.metrics.snapshot()
         routes[path] = check_verify_routes(A, path, calls, snap, spec_k)
         engine._alloc.check()
@@ -1082,12 +1183,12 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
         engines[path] = engine
     # a profiled pass of SLOTS more requests (new tails: partial hits)
     more, more_mems = paged_requests(seed + 6, REQUESTS + SLOTS, memory)
-    # flash_fwd_kernel: prefill of the cold join; split_attn_kernel: the
-    # paged decode and the speculative verify (one template);
+    # flash_fwd (the float32 tensor-core kernels): the encoder, the
+    # prefill of a cold join and the cross-attention; split_attn_kernel:
+    # the paged decode and the speculative verify (one template);
     # paged_tiled_kernel: the tail prefills of the partial hits
     profile_pass(engines["paged"], more[REQUESTS:], more_mems[REQUESTS:],
-                 ("flash_fwd_kernel", "split_attn_kernel",
-                  "paged_tiled_kernel"))
+                 ("flash_fwd", "split_attn_kernel", "paged_tiled_kernel"))
     for path, engine in engines.items():
         engine.flush_prefix_cache()
         engine._alloc.check()
@@ -1497,8 +1598,9 @@ def int8_cases(Q, g):
         for m in (8, 32, 1024):
             cases[f"m{m} {d}x{n}"] = (
                 torch.randn(m, d, generator=g, device="cuda"), q, scale)
-    x, q, scale = cases["m8 512x2048"]
-    cases["m8 512x2048 bf16 x"] = (x.bfloat16(), q, scale)
+    for m in (8, 1024):
+        x, q, scale = cases[f"m{m} 512x2048"]
+        cases[f"m{m} 512x2048 bf16 x"] = (x.bfloat16(), q, scale)
     return cases
 
 
@@ -1526,6 +1628,8 @@ def check_quant_kernels(Q, g):
     """Phase 13: int8_matmul and lora_gather against their plain versions.
     Returns ({kernel: max_abs_err fp32}, {kernel: max_abs_err bf16},
     int8 cases, lora cases)."""
+    from paddle_tpu_torch.testing import int8_matmul_split
+
     i8, lo = int8_cases(Q, g), lora_cases(g)
     errs, errs16 = {}, {}
     for kname, cases, fn, plain in (
@@ -1538,8 +1642,19 @@ def check_quant_kernels(Q, g):
             fp32 = got.dtype == torch.float32
             limit = (REL_F32_QUANT if fp32 else REL_BF16_ATT) * \
                 want.float().abs().max().item()
+            # the tiled path (m > 32) on the tensor cores: its one-piece
+            # mutant (a bf16 x) must be refused by the same limit
+            tiled = kname == "int8_matmul" and args[0].shape[0] > 32
+            mutant = ""
+            if tiled and fp32:
+                em = (int8_matmul_split(*args, pieces=1) - want).abs() \
+                    .max().item()
+                mutant = f"; one-bf16-piece mutant {em:.3e}"
+                if not em > limit:
+                    raise AssertionError(f"int8_matmul {cname}: the limit "
+                                         f"{limit} passes a bf16 x ({em})")
             log(f"  {kname:12s} {cname}: max_abs_err {e:.3e} (limit "
-                f"{limit:.3e})")
+                f"{limit:.3e}){mutant}")
             if not e <= limit:
                 raise AssertionError(f"{kname} disagrees with its plain "
                                      f"version on {cname}: {e}")
@@ -1586,6 +1701,7 @@ def mt_dense_serve(Q, seed, memory):
     """Phase 14. (a) float32 base with adapters, against solo engines on
     the merged weights; (b) quantize="int8" with adapters. Returns a dict
     of results (engines included)."""
+    from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving.adapters import decoder_lora_targets
     from paddle_tpu_torch.text.generation import _StepNet
@@ -1603,6 +1719,7 @@ def mt_dense_serve(Q, seed, memory):
     Q.reset_launches()
     got, wall = run_server(engine, prompts, mems, adapters=names)
     launches = launch_counts()
+    FWD_ROUTES["mt_fp32"] = check_fwd_routes(A, "(a) fp32", launches)
     snap = engine.metrics.snapshot()
     pool.check()
     if launches["lora_gather"] < 1:
@@ -1644,6 +1761,8 @@ def mt_dense_serve(Q, seed, memory):
     Q.reset_launches()
     got8, wall8 = run_server(engine8, prompts, mems, adapters=names)
     launches8 = launch_counts()
+    FWD_ROUTES["mt_int8"] = check_fwd_routes(A, "(b) int8", launches8)
+    INT8_ROUTES["mt_int8"] = int8_routes(Q, "(b) int8", launches8)
     snap8 = engine8.metrics.snapshot()
     pool8.check()
     for name in ("int8_matmul", "lora_gather"):
@@ -1707,6 +1826,7 @@ def mt_paged_serve(Q, seed, mt, memory):
         finally:
             restore()
         launches[path] = launch_counts()
+        FWD_ROUTES[path] = check_fwd_routes(A, path, launches[path])
         snaps[path] = snap = engine.metrics.snapshot()
         launches[path]["verify_routes"] = check_verify_routes(
             A, path, calls, snap, spec_k)
@@ -1771,6 +1891,10 @@ def quant_numbers(Q, kname, args):
            "library_ms": device_ms(lib),
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if kname == "int8_matmul" and m > 32:
+        # the tiled path: x in bf16 pieces on the tensor cores
+        row.update(split_bounds(flops, nbytes, BF16_FLOPS_PER_S, row["ms"]),
+                   splits=Q._int8_splits(m, d, n))
     if kname == "lora_gather":
         rows, cluster = Q.lora_gather_plan(b, s, d, "cuda")
         row["plan"] = {"rows": rows, "cluster": cluster,
@@ -2558,31 +2682,38 @@ def visited_tiles(segs, tile=64):
 
 
 def tensor_core_report():
-    """Phase 1b: the HGMMA (wgmma) instructions in the SASS of the five
-    libraries with tensor-core kernels (`cuobjdump -sass`), each of which
-    must have some, and ptxas's registers and spills of their bf16
-    kernels. Returns {library: HGMMA count}."""
+    """Phase 1b: the tensor-core instructions in the SASS of the six
+    libraries with tensor-core kernels (`cuobjdump -sass`): HGMMA (wgmma)
+    in each, which must have some, and in flash_fwd also HMMA (its float32
+    kernels' TF32 mma.sync), which must have some; and ptxas's registers
+    and spills of their tensor-core kernels. Returns {library: HGMMA
+    count}."""
     from paddle_tpu_torch.ops import _build
 
     info = _build.build_info()
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     counts = {}
     for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "fused_conv_fwd", "fused_conv_bwd"):
+                 "fused_conv_fwd", "fused_conv_bwd", "int8_matmul"):
         sass = subprocess.run(
             [tool, "-sass", os.path.join(info["dir"], f"lib{stem}.so")],
             capture_output=True, text=True, check=True, timeout=120).stdout
-        counts[stem] = sum("HGMMA" in line for line in sass.splitlines())
+        lines = sass.splitlines()
+        counts[stem] = sum("HGMMA" in line for line in lines)
+        hmma = sum("HMMA" in line and "HGMMA" not in line for line in lines)
         usage, mma = [], False
         for ln in (info.get("logs") or {}).get(stem, "").splitlines():
             if "Compiling entry" in ln:
-                mma = "_mma" in ln
+                mma = any(k in ln for k in ("_mma", "tf32", "wgmma"))
             elif mma and ("registers" in ln or "spill" in ln):
                 usage.append(ln.split(" : ")[-1].strip())
-        log(f"  {stem}: {counts[stem]} HGMMA instructions in the SASS; "
-            f"bf16 kernels: {'; '.join(usage) or 'cached'}")
-        if counts[stem] == 0:
-            raise AssertionError(f"{stem}: no HGMMA in its SASS")
+        log(f"  {stem}: {counts[stem]} HGMMA"
+            + (f", {hmma} HMMA" if stem == "flash_fwd" else "")
+            + f" instructions in the SASS; tensor-core kernels: "
+            f"{'; '.join(usage) or 'cached'}")
+        if counts[stem] == 0 or (stem == "flash_fwd" and hmma == 0):
+            raise AssertionError(f"{stem}: no tensor-core instructions of "
+                                 f"its kernels in its SASS")
     return counts
 
 
@@ -2649,8 +2780,12 @@ def main():
             rows.append(dict(case=cname, **nums))
             whole = (f" (with combine {nums['with_combine_ms']:.4f})"
                      if "with_combine_ms" in nums else "")
+            both = (f"; CUDA-core bound {nums['cuda_core_bound_ms']:.4f} "
+                    f"({nums['cuda_core_bound_by']}), "
+                    f"{100 * nums['bound_share']:.1f}% of the tensor-core "
+                    f"bound" if "cuda_core_bound_ms" in nums else "")
             log(f"  {kname} {cname}: kernel {nums['ms']:.4f}{whole} bound "
-                f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
+                f"{nums['bound_ms']:.4f} ({nums['bound_by']}){both} plain "
                 f"{nums['plain_ms']:.4f} sdpa {nums['library_ms']:.4f}; "
                 f"{launches[kname] / n_tok:.2f} launches per served token")
         head = rows[0]
@@ -2787,7 +2922,12 @@ def main():
     kernels["flash_fwd"].update(
         max_abs_err_bf16=t_errs16["flash_fwd"], hgmma=hgmma["flash_fwd"],
         route_by_dtype={"bfloat16": "wgmma (tensor cores)",
-                        "float32": "SIMT (CUDA cores)"},
+                        "float32": "3xTF32 mma.sync (tensor cores): "
+                        "query-tiled above 16 rows, short-query at or "
+                        "below; SIMT (CUDA cores) under dropout or segment "
+                        "ids"},
+        route_rule="pt_flash_fwd_route",
+        serve_launches_by_route=dict(FWD_ROUTES),
         train_launches_by_route=t_routes)
     for kname, line in (("flash_bwd_dq", 591), ("flash_bwd_dkv", 721)):
         kernels[kname] = {
@@ -2836,8 +2976,13 @@ def main():
                 continue
             nums = quant_numbers(Q, kname, inputs)
             rows.append(dict(case=cname, **nums))
+            both = (f"; CUDA-core bound {nums['cuda_core_bound_ms']:.4f} "
+                    f"({nums['cuda_core_bound_by']}), "
+                    f"{100 * nums['bound_share']:.1f}% of the tensor-core "
+                    f"bound, {nums['splits']} k-splits"
+                    if "cuda_core_bound_ms" in nums else "")
             log(f"  {kname} {cname}: kernel {nums['ms']:.4f} bound "
-                f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
+                f"{nums['bound_ms']:.4f} ({nums['bound_by']}){both} plain "
                 f"{nums['plain_ms']:.4f} library {nums['library_ms']:.4f}"
                 + (f" {nums['plan']}" if "plan" in nums else ""))
         top = next(r for r in rows if r["case"] == head)
@@ -2856,11 +3001,13 @@ def main():
                               if kname == "int8_matmul" else
                               "torch.bmm x2 on the gathered banks"),
             "cases": rows}
+    kernels["int8_matmul"]["launches_by_route"] = dict(INT8_ROUTES)
+    kernels["int8_matmul"]["hgmma"] = hgmma["int8_matmul"]
     kernels["paged_flash_verify"]["launches_by_route_and_path"].update(
         {p: c["verify_routes"] for p, c in mp_launches.items()})
     prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
     profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
-                 ("int8_matmul", "lora_cluster_kernel", "flash_fwd_kernel",
+                 ("int8_matmul", "lora_cluster_kernel", "flash_fwd",
                   "flash_decode_kernel"), adapters=names[:SLOTS])
     log("  multi-tenant summary " + json.dumps({
         "fp32_tokens_per_s": mt["fp32_rate"],

@@ -55,25 +55,51 @@
 // do not all start on 16 bytes copy their tiles element by element
 // (`pt_flash_fwd_vector_loads`, mirrored by the wrapper's counter).
 //
-// float32 (serving's prefill, encoder and cross-attention) keeps the SIMT
-// kernel below: the logits and p.v products run on the CUDA cores (67
-// TFLOP/s fp32; TF32 tensor cores would lose the 2e-5 parity with the
-// plain version). At the serving shapes (s <= 1024, d = 64) the work per
-// block is small and the kernel is bound by shared-memory traffic and
-// latency rather than by device memory. One 128-thread block per (query
-// tile of 64 rows, b*h); K, V and the key bias are staged tile by tile (64
-// keys) in shared memory with a padded row stride so the column reads are
-// free of bank conflicts; each thread owns 4 rows x 8 key columns of the
-// logits and 4 rows x d/8 columns of the accumulator, the row max / row
-// sum reduce over the 8 lanes of a row with warp shuffles, and p goes
-// through shared memory to the p.v product.
+// float32 (serving's prefill, encoder and cross-attention) runs both
+// products on the tensor cores as 3xTF32 (tf32_mma.cuh): each operand
+// splits into a TF32 big part and a TF32 remainder, and three mma.sync
+// m16n8k8 TF32 products (small.big, big.small, big.big) drop only about
+// 2^-21 of each product, within the float32 limit of the plain version
+// (atol 2e-5), where one TF32 pass (2^-11) is not. TF32 wgmma reads both
+// operands K-major from shared memory only, which P.V (v's rows are the
+// reduction) would need transposed; mma.sync takes p's fragments from
+// registers, with each 8-key step's keys permuted so that the logits'
+// C fragment is P's A fragment (tf32_mma.cuh), and v's B fragments from
+// rows padded to D + 4 floats (conflict-free). Bound on an H100: 4 b h sq
+// sk d operations three times at 495 TFLOP/s (TF32), or the bytes at the
+// decode step.
+//  * Query-tiled (`flash_fwd_tf32_kernel`, sq > 16): four warps a (64
+//    query rows, b*h), each warp 16 rows against all 64 keys of each key
+//    tile; q * scale split from its shared tile at each reduction step,
+//    k, v and the bias through a two-tile cp.async ring (16 bytes a
+//    thread where the views allow, else 4), the next tile's copy under
+//    this tile's products. The scale, masks, online
+//    softmax and -1e30 conventions are those above, in the C fragments.
+//  * Short-query (`flash_fwd_tf32_short_kernel`, sq <= 16: the decode
+//    step's cross-attention, one query row over the 256-token memory): a
+//    16-row query tile, the keys split across the block's four warps (16
+//    keys of each tile each); the warps merge in warp order.
+//  * Both split the key tiles of a (query tile, b*h) over a thread-block
+//    cluster of up to 8 blocks until about two blocks an SM run (`plan`):
+//    the ranks' partials merge through distributed shared memory in rank
+//    order (`cluster_merge`), the same bits on every run, with no partials
+//    in device memory and no combine pass.
+// Attention dropout and segment ids (training only, no serving path) keep
+// the float32 SIMT kernel (`flash_fwd_kernel`): float32 FMAs on the CUDA
+// cores, 4 rows x 8 keys a thread, p through shared memory. `pt_flash_fwd_route` is the
+// rule, and the wrapper counts launches by it.
 
 #include <math.h>
 
 #include "flash_mma.cuh"
 #include "flash_common.cuh"
+#include "tf32_mma.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using namespace flash;
 
@@ -280,6 +306,565 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       dr);
   return (int)cudaGetLastError();
 }
+
+// ----------------------------------------------- float32, tensor cores
+
+namespace f32tc {
+
+constexpr int LD_PAD = 4;       // row pad of the float32 tiles (words)
+constexpr int NSF = 2;          // key-tile buffers (the cp.async ring)
+constexpr int SHORT_ROWS = 16;  // query rows of the short-query route
+constexpr int MAX_CLUSTER = 8;  // blocks a cluster (key splits), portable
+constexpr int WARPS = THREADS / 32;
+
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;
+  float* out;
+  float* lse;
+  int H, sq, sk, d;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
+  float scale;
+  int causal, vec;
+};
+
+// Shared memory of one block: the q tile (qrows rows), NSF k and NSF v
+// tiles of BK keys, NSF bias tiles. Rows are D + 4 floats, so the
+// fragment reads of mma.sync (8 rows x 4 columns a warp, rows 4 banks
+// apart) hit 32 banks.
+template <int D>
+struct Layout {
+  static constexpr int LD = D + LD_PAD;
+  static constexpr int TILE = BK * LD;
+  static constexpr int bytes(int qrows) {
+    return 4 * (qrows * LD + 2 * NSF * TILE + NSF * BK);
+  }
+};
+
+// Rows [r0, r0 + ROWS) of a [n, d] float32 matrix (row stride ld) into a
+// tile of D columns with row stride D + LD_PAD; rows >= n and columns >=
+// d land as zeros. By cp.async: 16 bytes a thread when `vec` (every row of
+// the views starts on 16 bytes and d % 4 == 0), else 4. Called by all
+// threads; the copies join the caller's next commit group.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long ld, int r0, int n,
+                                          int d, int vec) {
+  constexpr int LD = D + LD_PAD;
+  if (vec) {
+    constexpr int CH = D / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = r0 + r < n && 4 * c < d;
+      hopper::cp_async16(dst + r * LD + 4 * c,
+                         ok ? src + (long long)(r0 + r) * ld + 4 * c : src,
+                         ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const bool ok = r0 + r < n && c < d;
+      hopper::cp_async4(dst + r * LD + c,
+                        ok ? src + (long long)(r0 + r) * ld + c : src,
+                        ok ? 4 : 0);
+    }
+  }
+}
+
+// The A fragments (big, small) of reduction step kk of q * scale, rows
+// qr0 .. qr0 + 15 of the q tile. The product is rounded to float32 before
+// the split (no contraction into the subtraction), as the plain version
+// rounds round(q * scale).
+template <int D>
+__device__ __forceinline__ void q_frag(const float* qt, int qr0, int kk,
+                                       float scale, uint32_t (&ab)[4],
+                                       uint32_t (&as)[4]) {
+  constexpr int LD = D + LD_PAD;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* r = qt + (qr0 + g) * LD + 8 * kk + t;
+  tf32::split(__fmul_rn(r[0], scale), ab[0], as[0]);
+  tf32::split(__fmul_rn(r[8 * LD], scale), ab[1], as[1]);
+  tf32::split(__fmul_rn(r[4], scale), ab[2], as[2]);
+  tf32::split(__fmul_rn(r[8 * LD + 4], scale), ab[3], as[3]);
+}
+
+// One warp's online softmax over 16 query rows: the running max and
+// normaliser of rows g and g + 8 (the C fragment's), and out [D / 8
+// column tiles of 8][the C fragment].
+template <int D>
+struct Rows {
+  float m[2], l[2];
+  float o[D / 8][4];
+};
+
+// One key tile for one warp: S = (q * scale) . K^T over NT column tiles
+// of 8 keys from tile column kc0; the bias, causal keys set to -1e30 and
+// keys at or past klim to -inf; the online softmax; O += P . V. Both
+// products 3xTF32 on the tensor cores, each reduction step's fragments
+// split first and its three passes (small.big, big.small, big.big) issued
+// across all column tiles, so neighbouring mma.sync write different
+// accumulators (one after another on one accumulator they wait out each
+// other's latency).
+template <int D, int NT>
+__device__ __forceinline__ void tile_step(
+    Rows<D>& st, const float* qt, int qr0, const float* kt, const float* vt,
+    const float* bt, int kc0, int k0, const int (&rows)[2], int off,
+    int klim, int causal, float scale) {
+  constexpr int LD = D + LD_PAD;
+  constexpr int CB = D / 8 < 8 ? D / 8 : 8;   // output column tiles a pass
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ab[4], as[4], bb[NT][2], bs[NT][2];
+    q_frag<D>(qt, qr0, kk, scale, ab, as);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* kr = kt + (kc0 + 8 * j + g) * LD + 8 * kk + t;
+      tf32::split(kr[0], bb[j][0], bs[j][0]);
+      tf32::split(kr[4], bb[j][1], bs[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tf32::mma(s[j], as, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tf32::mma(s[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) tf32::mma(s[j], ab, bb[j][0], bb[j][1]);
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = e >> 1;
+      const int lc = kc0 + 8 * j + 2 * t + (e & 1);
+      const int col = k0 + lc;
+      float lg = s[j][e] + bt[lc];
+      if (causal && col > rows[x] + off) lg = NEG;
+      if (col >= klim) lg = -INFINITY;
+      s[j][e] = lg;
+      mx[x] = fmaxf(mx[x], lg);
+    }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+    mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+    const float m_new = fmaxf(st.m[x], mx[x]);
+    alpha[x] = expf(st.m[x] - m_new);
+    st.m[x] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[j][e] - st.m[e >> 1]);
+      rs[e >> 1] += p;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 1);
+    rs[x] += __shfl_xor_sync(0xffffffffu, rs[x], 2);
+    st.l[x] = st.l[x] * alpha[x] + rs[x];
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[c][e] *= alpha[e >> 1];
+
+  // P . V: p's C fragment read as A with the keys of each 8-wide step
+  // permuted (A's k t = key 2t, k t + 4 = key 2t + 1), v's rows read in
+  // the same order (tf32_mma.cuh)
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t pb[4], ps[4];
+    tf32::split(s[j][0], pb[0], ps[0]);
+    tf32::split(s[j][2], pb[1], ps[1]);
+    tf32::split(s[j][1], pb[2], ps[2]);
+    tf32::split(s[j][3], pb[3], ps[3]);
+    const float* vr = vt + (kc0 + 8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int c0 = 0; c0 < D / 8; c0 += CB) {
+      uint32_t vb[CB][2], vs[CB][2];
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        tf32::split(vr[8 * (c0 + c)], vb[c][0], vs[c][0]);
+        tf32::split(vr[LD + 8 * (c0 + c)], vb[c][1], vs[c][1]);
+      }
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tf32::mma(st.o[c0 + c], ps, vb[c][0], vb[c][1]);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tf32::mma(st.o[c0 + c], pb, vs[c][0], vs[c][1]);
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        tf32::mma(st.o[c0 + c], pb, vb[c][0], vb[c][1]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rows_init(Rows<D>& st) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    st.m[x] = NEG;
+    st.l[x] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[c][e] = 0.f;
+}
+
+// The bias tile of keys [k0, k0 + BK) below `klim` (zeros without a bias
+// or past it): 4-byte cp.async, the caller's next commit group.
+__device__ __forceinline__ void copy_bias(float* dst, const float* bp,
+                                          int k0, int klim) {
+  const int tid = threadIdx.x;
+  if (tid >= BK) return;
+  if (bp == nullptr) {
+    dst[tid] = 0.f;
+    return;
+  }
+  const bool ok = k0 + tid < klim;
+  hopper::cp_async4(dst + tid, ok ? bp + k0 + tid : bp, ok ? 4 : 0);
+}
+
+// The key tiles of a cluster's ranks, and the merge of their partials.
+// A (query tile, b*h) is one thread-block cluster of C blocks (`plan`);
+// rank r runs key tiles r, r + C, r + 2C, ... (interleaved, so a causal
+// row's visible tiles spread evenly). With C > 1 each rank leaves its
+// rows' partial (max, normaliser, unnormalised out) in its shared memory
+// and, after a cluster barrier, rank r finishes a slice of the rows,
+// reading every rank's partial through distributed shared memory in rank
+// order: the same bits on every run, no partials in device memory and no
+// second launch.
+template <int D, int ROWS>
+__device__ __forceinline__ void cluster_merge(
+    cg::cluster_group& cl, float* po, float* pm, float* pl, int valid,
+    int d, float* op, float* lp) {
+  __shared__ float c_w[ROWS][MAX_CLUSTER];   // exp(m_k - m*)
+  __shared__ float c_ms[ROWS], c_den[ROWS];
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int per = (valid + C - 1) / C;
+  const int r0 = min(valid, rank * per), nr = min(valid, r0 + per) - r0;
+  const int tid = threadIdx.x;
+  if (tid < nr) {
+    const int r = r0 + tid;
+    float ms = -INFINITY;
+    for (int k = 0; k < C; ++k) ms = fmaxf(ms, cl.map_shared_rank(pm, k)[r]);
+    float den = 0.f;
+    for (int k = 0; k < C; ++k) {
+      const float w = expf(cl.map_shared_rank(pm, k)[r] - ms);
+      c_w[tid][k] = w;
+      den += cl.map_shared_rank(pl, k)[r] * w;
+    }
+    c_ms[tid] = ms;
+    c_den[tid] = den;
+  }
+  __syncthreads();
+  for (int i = tid; i < nr * d; i += THREADS) {
+    const int rr = i / d, c = i - rr * d;
+    float num = 0.f;
+    for (int k = 0; k < C; ++k)
+      num += cl.map_shared_rank(po, k)[(r0 + rr) * D + c] * c_w[rr][k];
+    op[(long long)(r0 + rr) * d + c] = num / fmaxf(c_den[rr], 1e-30f);
+  }
+  if (tid < nr) lp[r0 + tid] = c_ms[tid] + logf(fmaxf(c_den[tid], 1e-30f));
+}
+
+// The query-tiled route (sq > 16): a block of four warps for 64 query
+// rows of one (batch, head), each warp 16 rows against every key of its
+// rank's 64-key tiles; k, v and the bias stream through a two-tile
+// cp.async ring, the next tile's copy under this tile's products.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_tf32_kernel(const Args a) {
+  using L = Layout<D>;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* qt = smem_tc;
+  float* kt = qt + BQ * L::LD;
+  float* vt = kt + NSF * L::TILE;
+  float* bt = vt + NSF * L::TILE;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int bh = blockIdx.z, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.y * BQ, qr0 = 16 * warp;
+  const int off = a.sk - a.sq;
+  const float* qp = a.q + b * a.qsb + h * a.qsh;
+  const float* kp = a.k + b * a.ksb + h * a.ksh;
+  const float* vp = a.v + b * a.vsb + h * a.vsh;
+  const float* bp = a.bias ? a.bias + (long long)b * a.sk : nullptr;
+
+  int kend = a.sk;
+  if (a.causal) {
+    const int last_row = min(q0 + BQ, a.sq) - 1;
+    kend = max(0, min(a.sk, last_row + off + 1));
+  }
+  const int ntiles = (kend + BK - 1) / BK;
+  const int nt = ntiles > rank ? (ntiles - rank + C - 1) / C : 0;
+  auto fetch = [&](int i, int buf) {
+    const int k0 = (rank + i * C) * BK;
+    copy_rows<D, BK>(kt + buf * L::TILE, kp, a.kss, k0, a.sk, a.d, a.vec);
+    copy_rows<D, BK>(vt + buf * L::TILE, vp, a.vss, k0, a.sk, a.d, a.vec);
+    copy_bias(bt + buf * BK, bp, k0, a.sk);
+  };
+  copy_rows<D, BQ>(qt, qp, a.qss, q0, a.sq, a.d, a.vec);
+  if (nt > 0) fetch(0, 0);
+  hopper::cp_async_commit();
+
+  Rows<D> st;
+  rows_init(st);
+  const int rows[2] = {q0 + qr0 + g, q0 + qr0 + g + 8};
+  for (int i = 0; i < nt; ++i) {
+    const int buf = i % NSF;
+    hopper::cp_async_wait<0>();   // tile i (and q) have landed
+    __syncthreads();              // ... for every thread; tile i - 1 is done
+    if (i + 1 < nt) fetch(i + 1, (i + 1) % NSF);
+    hopper::cp_async_commit();
+    tile_step<D, BK / 8>(st, qt, qr0, kt + buf * L::TILE,
+                               vt + buf * L::TILE, bt + buf * BK, 0,
+                               (rank + i * C) * BK, rows, off, a.sk,
+                               a.causal, a.scale);
+  }
+  hopper::cp_async_wait<0>();
+
+  if (C == 1) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int row = rows[x];
+      if (row >= a.sq) continue;
+      const float ls = fmaxf(st.l[x], 1e-30f);
+      float* op = a.out + ((long long)bh * a.sq + row) * a.d;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = 8 * c + 2 * t + u;
+          if (col < a.d) op[col] = st.o[c][2 * x + u] / ls;
+        }
+      if (t == 0) a.lse[(long long)bh * a.sq + row] = st.m[x] + logf(ls);
+    }
+    return;
+  }
+  __syncthreads();                // the ring is free for the partials
+  float* po = smem_tc;            // [BQ][D]
+  float* pm = po + BQ * D;        // [BQ]
+  float* pl = pm + BQ;            // [BQ]
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      po[(qr0 + g + 8 * (e >> 1)) * D + 8 * c + 2 * t + (e & 1)] =
+          st.o[c][e];
+  if (t == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      pm[qr0 + g + 8 * x] = st.m[x];
+      pl[qr0 + g + 8 * x] = st.l[x];
+    }
+  }
+  cl.sync();
+  cluster_merge<D, BQ>(cl, po, pm, pl, min(BQ, a.sq - q0), a.d,
+                       a.out + ((long long)bh * a.sq + q0) * a.d,
+                       a.lse + (long long)bh * a.sq + q0);
+  cl.sync();                      // no rank leaves while others read it
+}
+
+// The short-query route (sq <= 16, the decode step's cross-attention): a
+// block of four warps for all rows of one (batch, head) against its
+// rank's 64-key tiles, each warp 16 keys of every tile. The warps'
+// partials merge in warp order in the block, the ranks' in the cluster.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_tf32_short_kernel(const Args a) {
+  constexpr int R = SHORT_ROWS;
+  using L = Layout<D>;
+  extern __shared__ __align__(16) float smem_tc[];
+  float* qt = smem_tc;
+  float* kt = qt + R * L::LD;
+  float* vt = kt + NSF * L::TILE;
+  float* bt = vt + NSF * L::TILE;
+  __shared__ float s_w[R][WARPS];     // the warps' weights exp(m - m*)
+  __shared__ float s_m[R], s_l[R];    // the block's row max, normaliser
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int off = a.sk - a.sq;
+  const int ntiles = (a.sk + BK - 1) / BK;
+  const int nt = ntiles > rank ? (ntiles - rank + C - 1) / C : 0;
+  const float* qp = a.q + b * a.qsb + h * a.qsh;
+  const float* kp = a.k + b * a.ksb + h * a.ksh;
+  const float* vp = a.v + b * a.vsb + h * a.vsh;
+  const float* bp = a.bias ? a.bias + (long long)b * a.sk : nullptr;
+
+  auto fetch = [&](int i, int buf) {
+    const int k0 = (rank + i * C) * BK;
+    copy_rows<D, BK>(kt + buf * L::TILE, kp, a.kss, k0, a.sk, a.d, a.vec);
+    copy_rows<D, BK>(vt + buf * L::TILE, vp, a.vss, k0, a.sk, a.d, a.vec);
+    copy_bias(bt + buf * BK, bp, k0, a.sk);
+  };
+  copy_rows<D, R>(qt, qp, a.qss, 0, a.sq, a.d, a.vec);
+  if (nt > 0) fetch(0, 0);
+  hopper::cp_async_commit();
+
+  Rows<D> st;
+  rows_init(st);
+  const int rows[2] = {g, g + 8};
+  for (int i = 0; i < nt; ++i) {
+    const int buf = i % NSF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < nt) fetch(i + 1, (i + 1) % NSF);
+    hopper::cp_async_commit();
+    tile_step<D, 2>(st, qt, 0, kt + buf * L::TILE,
+                          vt + buf * L::TILE, bt + buf * BK, 16 * warp,
+                          (rank + i * C) * BK, rows, off, a.sk, a.causal,
+                          a.scale);
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();                // the tiles are free for the merge
+
+  // the warps' partials: out [WARPS][R][D], max and sum [WARPS][R]; the
+  // block's merged out [R][D] after them
+  float* wo = smem_tc;
+  float* wm = wo + WARPS * R * D;
+  float* wl = wm + WARPS * R;
+  float* bo = wl + WARPS * R;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      wo[(warp * R + g + 8 * (e >> 1)) * D + 8 * c + 2 * t + (e & 1)] =
+          st.o[c][e];
+  if (t == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      wm[warp * R + rows[x]] = st.m[x];
+      wl[warp * R + rows[x]] = st.l[x];
+    }
+  }
+  __syncthreads();
+  if (tid < R) {
+    float ms = -INFINITY;
+    for (int w = 0; w < WARPS; ++w) ms = fmaxf(ms, wm[w * R + tid]);
+    float den = 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = expf(wm[w * R + tid] - ms);
+      s_w[tid][w] = wt;
+      den += wl[w * R + tid] * wt;
+    }
+    s_m[tid] = ms;
+    s_l[tid] = den;
+  }
+  __syncthreads();
+  const int d = a.d;
+  for (int i = tid; i < R * d; i += THREADS) {
+    const int r = i / d, c = i - r * d;
+    float num = 0.f;
+    for (int w = 0; w < WARPS; ++w) num += wo[(w * R + r) * D + c] * s_w[r][w];
+    if (C > 1)
+      bo[r * D + c] = num;
+    else if (r < a.sq)
+      a.out[((long long)bh * a.sq + r) * d + c] = num / fmaxf(s_l[r], 1e-30f);
+  }
+  if (C == 1) {
+    if (tid < a.sq)
+      a.lse[(long long)bh * a.sq + tid] =
+          s_m[tid] + logf(fmaxf(s_l[tid], 1e-30f));
+    return;
+  }
+  cl.sync();
+  cluster_merge<D, R>(cl, bo, s_m, s_l, a.sq, d,
+                      a.out + (long long)bh * a.sq * d,
+                      a.lse + (long long)bh * a.sq);
+  cl.sync();
+}
+
+inline int sm_count(int device) {
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess || n < 1)
+    n = 132;
+  return n;
+}
+
+// Blocks a cluster (key splits) for `pairs` (query tile, b*h) pairs over
+// sk keys: enough for about two blocks an SM, at most one a 64-key tile
+// and MAX_CLUSTER (the portable cluster size). The short-query route
+// rounds up (its blocks are few and light: more bytes in flight), the
+// query-tiled route down (its blocks are full: no second wave).
+inline int plan(int sms, long long pairs, int sk, bool short_q) {
+  const long long tiles = max(1, (sk + BK - 1) / BK);
+  const long long target = 2LL * sms;
+  const long long p = max(pairs, 1LL);
+  long long c = short_q ? (target + p - 1) / p : target / p;
+  c = min(c, min(tiles, (long long)MAX_CLUSTER));
+  return (int)max(c, 1LL);
+}
+
+// whether every row of the q, k and v views starts on 16 bytes and d is
+// a multiple of 4 floats: tiles then copy by 16-byte cp.async, else by
+// 4-byte cp.async
+inline int vector_loads(const void* q, const void* k, const void* v,
+                        const long long* strides, int d) {
+  if (d % 4 != 0) return 0;
+  const void* views[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (reinterpret_cast<uintptr_t>(views[i]) % 16 != 0) return 0;
+  for (int i = 0; i < 9; ++i)
+    if (strides[i] % 4 != 0) return 0;
+  return 1;
+}
+
+template <int D>
+int launch(const Args& a, int B, int C, bool short_q, cudaStream_t stream) {
+  using L = Layout<D>;
+  auto run = [&](auto kernel, dim3 grid, int bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+  };
+  if (!short_q)
+    return run(flash_fwd_tf32_kernel<D>,
+               dim3(C, (a.sq + BQ - 1) / BQ, B * a.H), L::bytes(BQ));
+  const int merge = 4 * ((WARPS + 1) * SHORT_ROWS * D + 2 * WARPS *
+                         SHORT_ROWS);
+  return run(flash_fwd_tf32_short_kernel<D>, dim3(C, B * a.H),
+             max(L::bytes(SHORT_ROWS), merge));
+}
+
+}  // namespace f32tc
 
 // ---------------------------------------------------------------- bf16
 
@@ -546,10 +1131,26 @@ Strides4 views_of(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The tensor-core route of pt_flash_fwd for this dtype (1: the bf16
-// wgmma kernel; 0: the float32 SIMT kernel): the one rule of the entry
-// point, asked by the wrapper to count the launches of each route.
-extern "C" int pt_flash_fwd_tensor_cores(int dtype) { return dtype == 1; }
+// The route of pt_flash_fwd (the one rule of the entry point, asked by
+// the wrapper to count the launches of each route): 1 the bf16 wgmma
+// kernel; for float32, 0 the SIMT kernel (attention dropout or segment
+// ids, which no serving path uses), else the 3xTF32 tensor-core kernels,
+// 2 query-tiled (sq > 16), 3 short-query (sq <= 16).
+extern "C" int pt_flash_fwd_route(int dtype, int sq, int segs,
+                                  int dropout) {
+  if (dtype == 1) return 1;
+  if (segs || dropout) return 0;
+  return sq <= f32tc::SHORT_ROWS ? 3 : 2;
+}
+
+// Blocks a cluster (key splits) of the float32 tensor-core routes for
+// B*H = bh and sq query rows over sk keys on `device` (`f32tc::plan`).
+extern "C" int pt_flash_fwd_cluster(int device, int bh, int sq, int sk) {
+  const bool short_q = sq <= f32tc::SHORT_ROWS;
+  const long long pairs =
+      (long long)bh * (short_q ? 1 : (sq + BQ - 1) / BQ);
+  return f32tc::plan(f32tc::sm_count(device), pairs, sk, short_q);
+}
 
 // Whether the bf16 kernel copies the tiles of these views (q, k, v;
 // strides as in pt_flash_fwd) by 16-byte cp.async (1) or element by
@@ -563,14 +1164,15 @@ extern "C" int pt_flash_fwd_vector_loads(const void* q, const void* k,
   return mma::vector_loads(views, st.v, d);
 }
 
-// C entry point, bound with ctypes. dtype: 0 = float32 (the SIMT kernel),
-// 1 = bfloat16 (the wgmma kernel). q [B, H, sq, d], k/v [B, H, sk, d] with
-// unit stride on d and element strides (batch, head, row) given in
+// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; the
+// kernel is `pt_flash_fwd_route`'s. q [B, H, sq, d], k/v [B, H, sk, d]
+// with unit stride on d and element strides (batch, head, row) given in
 // `strides` (q, k, v: 9 values); bias: [B, sk] float32 or null; qseg /
 // kseg: [B, sq] / [B, sk] int32 segment ids, non-decreasing along each
 // row, or both null; out [B, H, sq, d] contiguous; lse [B * H, sq]
 // float32. Dropout: seed, uint32 keep threshold, 1/keep and the logical
-// blocks (block_q = 0: no dropout). Returns the cudaError_t of the launch.
+// blocks (block_q = 0: no dropout). Returns the cudaError_t of the
+// launch.
 extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* bias,
                             const void* qseg, const void* kseg, void* out,
@@ -587,13 +1189,27 @@ extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pt_flash_fwd_tensor_cores(dtype)) {
+  const int route = pt_flash_fwd_route(dtype, sq, qseg != nullptr,
+                                       block_q > 0);
+  if (route == 1) {
     const void* views[4];
     const Strides4 st = views_of(q, k, v, strides, views);
     return launch_mma(q, k, v, bias, qseg, kseg, out, lse, B, H, sq, sk, d,
                       st, scale, causal, dr,
                       mma::vector_loads(views, st.v, d),
                       mma::power_of_two(scale), s);
+  }
+  if (route >= 2) {
+    const f32tc::Args a{
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(bias),
+        static_cast<float*>(out), static_cast<float*>(lse), H, sq, sk, d,
+        strides[0], strides[1], strides[2], strides[3], strides[4],
+        strides[5], strides[6], strides[7], strides[8], scale, causal,
+        f32tc::vector_loads(q, k, v, strides, d)};
+    const int C = pt_flash_fwd_cluster(device, B * H, sq, sk);
+    return d <= 64 ? f32tc::launch<64>(a, B, C, route == 3, s)
+                   : f32tc::launch<128>(a, B, C, route == 3, s);
   }
   return d <= 64
       ? launch<float, 64>(q, k, v, bias, qseg, kseg, out, lse, B, H, sq, sk,

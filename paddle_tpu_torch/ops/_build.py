@@ -74,7 +74,8 @@ _SIGNATURES = {
 #: other C functions of a library, bound beside its entry point as an
 #: attribute named without the `pt_` prefix
 _HELPERS = {
-    "flash_fwd": [("pt_flash_fwd_tensor_cores", [_I]),
+    "flash_fwd": [("pt_flash_fwd_route", [_I] * 4),
+                  ("pt_flash_fwd_cluster", [_I] * 4),
                   ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],

@@ -9,8 +9,11 @@ package's `ops/attention.py`.
     in-kernel attention dropout and packed segment ids, returning (out,
     lse). Carries prompt prefill, encoder self-attention, every
     cross-attention over the memory, and the training forward. bf16
-    runs on the tensor cores (wgmma), float32 on the CUDA cores
-    (`fwd_route`).
+    runs on the tensor cores (wgmma); float32 runs on them too as
+    3xTF32 (each operand split into two TF32 pieces, three products),
+    query-tiled or, for sq <= 16, split over the keys, except with
+    attention dropout or segment ids, which keep float32 FMAs on the
+    CUDA cores (`fwd_route`).
   * `flash_attention_bwd` -> `csrc/flash_bwd_dq.cu` (dQ, looping over
     key tiles) and `csrc/flash_bwd_dkv.cu` (dK, dV and the key-bias
     gradient, looping over query tiles). Both recompute the
@@ -55,8 +58,8 @@ Each wrapper runs its kernel's plain PyTorch version when its tensors
 lie on the CPU, and launches the kernel when they lie on a CUDA card;
 there is no fallback from a failed launch. `LAUNCHES` counts kernel
 launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
-among them, `ROUTE_LAUNCHES` the forward's by route (tensor cores or
-CUDA cores), `PAGED_ROUTE_LAUNCHES` the paged verify's by route (split
+among them, `ROUTE_LAUNCHES` the forward's by route (`fwd_route`),
+`PAGED_ROUTE_LAUNCHES` the paged verify's by route (split
 or tiled), `ELEMENT_LOAD_LAUNCHES` the bf16 forward and backward
 launches on views that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
 JAX ones: a mask that reduces to a per-key bias, and packed segment
@@ -85,7 +88,8 @@ from . import _build
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
            "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "ROUTE_LAUNCHES",
-           "PAGED_ROUTE_LAUNCHES", "fwd_route", "paged_verify_route",
+           "PAGED_ROUTE_LAUNCHES", "fwd_route", "fwd_cluster",
+           "paged_verify_route",
            "paged_verify_plan",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -120,12 +124,18 @@ SEG_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
 #: also counted in LAUNCHES)
 ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq",
                                         "flash_bwd_dkv"], branch=True)
-#: launches of the forward by route (`fwd_route`, asked of the C entry
-#: point's own rule `pt_flash_fwd_tensor_cores`): "flash_fwd:wgmma" the bf16
-#: tensor-core kernel, "flash_fwd:simt" the float32 kernel on the CUDA
-#: cores (each also counted in LAUNCHES)
-ROUTE_LAUNCHES = _build.counter(["flash_fwd:wgmma", "flash_fwd:simt"],
+#: launches of the forward by route (`fwd_route`, counted by the C entry
+#: point's own rule `pt_flash_fwd_route`): "flash_fwd:wgmma" the bf16
+#: tensor-core kernel, "flash_fwd:tf32x3" and "flash_fwd:tf32x3_short" the
+#: float32 kernels on the tensor cores (query-tiled, and split over the
+#: keys for sq <= 16), "flash_fwd:simt" the float32 kernel on the CUDA
+#: cores (attention dropout or segment ids); each also counted in LAUNCHES
+FWD_ROUTES = ("wgmma", "tf32x3", "tf32x3_short", "simt")
+ROUTE_LAUNCHES = _build.counter([f"flash_fwd:{r}" for r in FWD_ROUTES],
                                 branch=True)
+#: query rows up to which the float32 forward takes the short-query route
+#: (`SHORT_ROWS`, csrc/flash_fwd.cu)
+FWD_SHORT_ROWS = 16
 #: launches of the paged verify by route (`paged_verify_route`, asked of
 #: the C entry point's own rule `pt_paged_verify_route`):
 #: "paged_flash_verify:split" split_attn_kernel (T <= 8, the speculative
@@ -371,12 +381,13 @@ def _lengths(length, b, device):
 # flash forward: plain version + kernel wrapper
 # --------------------------------------------------------------------------
 
-def _logits(q, k, bias, is_causal, s, segs=None):
+def _logits(q, k, bias, is_causal, s, segs=None, mm=torch.matmul):
     """The kernels' logits as float32: round(q * s) . k + bias, then
     pairs of different segments (segs: the `_segments` pair) and causal
-    keys (end-aligned) set to -1e30, in the JAX kernel's order."""
+    keys (end-aligned) set to -1e30, in the JAX kernel's order. mm: the
+    product (`testing.split_matmul` takes it as the tensor cores do)."""
     sq, sk = q.shape[2], k.shape[2]
-    logits = torch.matmul(_scaled_q(q, s), _up(k, q).transpose(-1, -2))
+    logits = mm(_scaled_q(q, s), _up(k, q).transpose(-1, -2))
     if bias is not None:
         logits = logits + _up(bias, q)[:, None, None, :]
     if segs is not None:
@@ -483,27 +494,48 @@ def _count(name, segs):
         SEG_LAUNCHES[name] += 1
 
 
-def fwd_route(dtype):
-    """The forward kernel's route for q/k/v of this dtype: "wgmma" (bf16,
-    the tensor cores) or "simt" (float32 on the CUDA cores, which keeps
-    the plain version's float32 parity). The C entry point's rule
-    (`pt_flash_fwd_tensor_cores`); the wrapper counts by the C rule."""
+def fwd_route(dtype, sq=None, segments=False, dropout=False):
+    """The forward kernel's route for q/k/v of this dtype and sq query
+    rows, with or without segment ids and attention dropout: "wgmma"
+    (bf16 on the tensor cores); for float32 "simt" (float32 FMAs on the
+    CUDA cores) under dropout or segment ids, which no serving path
+    passes, else 3xTF32 on the tensor cores, "tf32x3_short" for sq <= 16
+    (the decode step's cross-attention) and "tf32x3" above. The C entry
+    point's rule (`pt_flash_fwd_route`), written out here for the CPU;
+    the wrapper counts by the C rule."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_fwd: no kernel for {dtype}")
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if segments or dropout:
+        return "simt"
+    if sq is None:
+        raise ValueError("flash_fwd: the float32 route depends on sq")
+    return "tf32x3_short" if sq <= FWD_SHORT_ROWS else "tf32x3"
 
 
-def _count_fwd(q, k, v, strides, segs):
+def fwd_cluster(q, sk):
+    """Blocks a thread-block cluster (key splits) of the float32
+    tensor-core forward for q [b, h, sq, d] over sk keys on q's card, as
+    the C entry point plans it (`pt_flash_fwd_cluster`): about two blocks
+    an SM, at most one a 64-key tile and 8."""
+    b, h, sq = q.shape[:3]
+    return _build.kernels().flash_fwd_cluster(q.device.index or 0, b * h,
+                                              sq, sk)
+
+
+def _count_fwd(q, k, v, strides, segs, dropout):
     """Count a forward launch by its route (the C rule); a bf16 one whose
     views the kernel copies element by element also in
     ELEMENT_LOAD_LAUNCHES."""
     _count("flash_fwd", segs)
     lib = _build.kernels()
-    tc = lib.flash_fwd_tensor_cores(_DTYPES[q.dtype])
-    ROUTE_LAUNCHES["flash_fwd:wgmma" if tc else "flash_fwd:simt"] += 1
-    if tc and not lib.flash_fwd_vector_loads(q.data_ptr(), k.data_ptr(),
-                                             v.data_ptr(), strides,
-                                             q.shape[-1]):
+    code = lib.flash_fwd_route(_DTYPES[q.dtype], q.shape[2],
+                               int(segs is not None), int(dropout is not None))
+    route = {0: "simt", 1: "wgmma", 2: "tf32x3", 3: "tf32x3_short"}[code]
+    ROUTE_LAUNCHES[f"flash_fwd:{route}"] += 1
+    if route == "wgmma" and not lib.flash_fwd_vector_loads(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, q.shape[-1]):
         ELEMENT_LOAD_LAUNCHES["flash_fwd"] += 1
 
 
@@ -528,7 +560,7 @@ def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
              *_drop_args(dropout),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
-    _count_fwd(q, k, v, strides, segs)
+    _count_fwd(q, k, v, strides, segs, dropout)
     return out, lse
 
 

@@ -7,7 +7,9 @@ JAX package's `ops/quant.py`).
     ``y = (f32(x) @ f32(q)) * scale [+ bias]`` with a float32 accumulate,
     cast back to x's type. The large dense weights of a serving stack
     (attention projections, FFN, the logits projection) take this path
-    after `quantize="int8"`.
+    after `quantize="int8"`. Decode and verify steps (m <= 32) run float32
+    FMAs; a prompt bucket runs on the tensor cores with x in three bf16
+    pieces, each exact against the int8 weight (`ROUTE_LAUNCHES`).
   * `lora_delta` -> `csrc/lora_gather.cu`: the per-row low-rank adapter
     delta of the multi-tenant pool, ``(f32(x[i]) @ A[ids[i]]) @
     B[ids[i]]`` over stacked ``A [cap, d_in, r]`` / ``B [cap, r, d_out]``
@@ -41,7 +43,7 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "reset_launches", "LORA_MAX_RANK",
+__all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "reset_launches", "LORA_MAX_RANK",
            "quantize_int8_weight", "int8_matmul_reference", "int8_matmul",
            "int8_gather", "lora_delta_reference", "lora_delta",
            "merge_lora_weight", "lora_scope", "current_lora",
@@ -50,6 +52,12 @@ __all__ = ["LAUNCHES", "reset_launches", "LORA_MAX_RANK",
 #: kernel launches per wrapper (`reset_launches` zeroes these and
 #: `ops.attention.LAUNCHES` together)
 LAUNCHES = _build.counter(["int8_matmul", "lora_gather"])
+#: int8_matmul launches by path, the C entry point's rule (m <= 32):
+#: "int8_matmul:skinny" (decode and verify steps, float32 FMAs),
+#: "int8_matmul:tiled" (a prompt bucket, on the tensor cores); each also
+#: counted in LAUNCHES
+ROUTE_LAUNCHES = _build.counter(["int8_matmul:skinny", "int8_matmul:tiled"],
+                                branch=True)
 reset_launches = _build.reset_launches
 _QMAX = 127.0
 #: the largest adapter rank `csrc/lora_gather.cu` takes
@@ -58,6 +66,10 @@ LORA_MAX_RANK = 32
 #: block, the k-chunk a block reduces at a time, and the blocks to aim for
 #: (two an SM on the H100's 132) when d is split across blocks
 _SKINNY_M, _SKINNY_COLS, _SKINNY_KC, _TARGET_BLOCKS = 32, 32, 256, 264
+#: the tiled path (m > 32): output tile rows and columns, the blocks to
+#: aim for (one an SM) when a grid of fewer than half as many tiles splits
+#: d, and the least k a split keeps (4 of the kernel's 32-deep chunks)
+_TILE_M, _TILE_N, _TILED_TARGET, _TILED_MIN_K = 128, 128, 132, 128
 
 
 # --------------------------------------------------------------------------
@@ -106,10 +118,17 @@ def _check_device(name, *ts):
 
 
 def _int8_splits(m, d, n):
-    """How many blocks split the d of a skinny (m <= 32) product's column
-    strip: enough for `_TARGET_BLOCKS` blocks, at most one a k-chunk."""
+    """How many blocks split the d of an output tile: on the skinny path
+    (m <= 32) enough for `_TARGET_BLOCKS` blocks, at most one a k-chunk;
+    on the tiled path only where fewer than half of `_TILED_TARGET` tiles
+    would run (n = 512 at a prompt bucket), up to that target and at
+    least `_TILED_MIN_K` of d a split. The partials are added in k order
+    by a second pass."""
     if m > _SKINNY_M:
-        return 1
+        tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
+        if 2 * tiles > _TILED_TARGET:
+            return 1
+        return max(1, min(-(-_TILED_TARGET // tiles), -(-d // _TILED_MIN_K)))
     strips = -(-n // _SKINNY_COLS)
     chunks = -(-d // _SKINNY_KC)
     return max(1, min(chunks, -(-_TARGET_BLOCKS // strips)))
@@ -147,6 +166,8 @@ def _int8_matmul_cuda(x, q, scale):
         splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.raise_on("int8_matmul", err)
     LAUNCHES["int8_matmul"] += 1
+    ROUTE_LAUNCHES["int8_matmul:skinny" if m <= _SKINNY_M
+                   else "int8_matmul:tiled"] += 1
     return out
 
 

@@ -47,6 +47,20 @@ sum of |products| at n = 64; the limit's term 2^-20 of it is 8x inside
 that and 6.8x above the worst a tensor-core dx read (2^-22.8). A kernel
 that skips the bf16 rounding of an operand moves each product by up to
 2^-9 of itself, which the term and the share refuse.
+
+`tf32_round`, `split_matmul`, `flash_fwd_split`, `bf16_pieces` and
+`int8_matmul_split` are the float32 kernels' tensor-core arithmetic in
+plain PyTorch, with the number of pieces as an argument. The float32
+flash forward splits each operand into a TF32 big part and a TF32
+remainder and takes three TF32 products (3xTF32, `csrc/tf32_mma.cuh`):
+its output stays within the float32 limit of the plain version (atol
+2e-5), one TF32 pass (pieces=1) does not. The tiled int8 matmul splits x
+into three bf16 pieces, each exact against an int8 weight, so its only
+error is the float32 order of the sum (1e-5 of the largest entry); one
+bf16 piece is a bf16 x, which that limit refuses.
+tests/test_torch_split_limit.py holds both limits to both readings on
+the CPU; `chip_smoke.py` phases 2 and 13 compute the one-piece mutants on
+the card beside the kernels.
 """
 from __future__ import annotations
 
@@ -56,7 +70,8 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "FWD_KEY_TILE", "ULP_FC_BF16", "SUM_FC_BF16", "SHARE_FC_BF16",
            "bf16_ulp", "per_element_error", "judge_bf16_grad",
            "judge_bf16_sum", "fused_conv_abs_sums", "fused_conv_mutants",
-           "flash_fwd_tiled"]
+           "flash_fwd_tiled", "tf32_round", "split_matmul",
+           "flash_fwd_split", "bf16_pieces", "int8_matmul_split"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -228,3 +243,79 @@ def flash_fwd_tiled(q, k, v, bias=None, is_causal=False, scale=None,
         o = o * alpha + torch.matmul(p, vv[:, :, j:j + tile])
         m = m_new
     return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def tf32_round(x):
+    """float32 x rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to
+    nearest on the top 10 stored mantissa bits, ties away from zero, the
+    low 13 bits cleared. Done on the bit pattern (a carry out of the
+    mantissa moves the exponent, as rounding up does)."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64) \
+        & 0xFFFFFFFF
+    r = (b + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def split_matmul(a, b, pieces=3):
+    """a @ b in float32 as the float32 flash kernels take it on the tensor
+    cores: each operand split into a TF32 big part and a TF32 remainder,
+    and `pieces` TF32 products, each exact in float32: 3 adds small_a.big_b
+    and big_a.small_b to big_a.big_b (3xTF32, the kernels), 1 takes
+    big_a.big_b alone (one TF32 pass: the mutant)."""
+    if pieces not in (1, 3):
+        raise ValueError(f"split_matmul: pieces must be 1 or 3, got "
+                         f"{pieces}")
+    ab, bb = tf32_round(a), tf32_round(b)
+    out = torch.matmul(ab, bb)
+    if pieces == 3:
+        a_s = tf32_round(a.float() - ab)
+        b_s = tf32_round(b.float() - bb)
+        out = torch.matmul(a_s, bb) + torch.matmul(ab, b_s) + out
+    return out
+
+
+def flash_fwd_split(q, k, v, bias=None, is_causal=False, scale=None,
+                    pieces=3):
+    """The float32 flash forward's function with both products taken as
+    the tensor-core kernels take them (`split_matmul` with `pieces`), the
+    softmax as `flash_attention_fwd_plain` takes it: (out [b, h, sq, d],
+    lse [b*h, sq, 1]). No dropout or segment ids: those keep the float32
+    forward on the CUDA cores."""
+    from .ops import attention as A
+
+    b, h, sq, d = q.shape
+    mm = lambda x, y: split_matmul(x, y, pieces)      # noqa: E731
+    logits = A._logits(q, k, bias, is_causal, A._scale(d, scale), mm=mm)
+    m = logits.amax(-1, keepdim=True).clamp_min(A.NEG)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = mm(p, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l)).reshape(b * h, sq, 1)
+
+
+def bf16_pieces(x, pieces=3):
+    """float32 x as `pieces` bf16 values, largest first: bf16(x), then the
+    bf16 of each float32 remainder (exact in float32). Three pieces sum to
+    x exactly for |x| >= 2^-110 (below, the last remainder's low bits
+    fall under bf16's smallest step, 2^-133), and each is exact times an
+    int8 weight in float32 (8 x 7 significant bits)."""
+    out, r = [], x.float()
+    for _ in range(pieces):
+        p = r.to(torch.bfloat16)
+        out.append(p)
+        r = r - p.float()
+    return out
+
+
+def int8_matmul_split(x, q, scale, pieces=3):
+    """The tiled int8 kernel's function: ``sum_pieces(piece @ f32(q)) *
+    scale`` in float32 over x's `bf16_pieces`, the smallest first as the
+    kernel adds them. pieces=3 is the kernel (x exactly); pieces=1 is a
+    bf16 x (the mutant)."""
+    w = q.float()
+    acc = None
+    for p in reversed(bf16_pieces(x, pieces)):
+        t = torch.matmul(p.float(), w)
+        acc = t if acc is None else acc + t
+    return acc * scale.float()

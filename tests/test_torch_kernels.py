@@ -132,6 +132,104 @@ def test_flash_fwd_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
 
 
+# b, h, sq, sk, d, causal, key lengths (None = no bias), unaligned views:
+# the float32 forward's short-query route (sq <= 16, 3xTF32 on the tensor
+# cores, keys split over warps and a cluster's blocks): the decode step's
+# 1 x 256 cross-attention and every query width to 16 rows, key counts
+# off the 64-key tiles, one tile in all, clusters of 8, causal
+# (end-aligned), a -1e30 hole over whole blocks' tiles, head dims 40 and
+# 128, views whose rows do not start on 16 bytes (4-byte copies)
+_FWD_SHORT = {
+    "decode_cross_b8_h8_1x256": (8, 8, 1, 256, 64, False, None, False),
+    "q2_sk256": (2, 4, 2, 256, 64, False, [256, 100], False),
+    "q7_sk200_causal": (3, 2, 7, 200, 64, True, [200, 150, 64], False),
+    "q16_sk1000_many_splits": (1, 2, 16, 1000, 64, False, [1000], False),
+    "q16_sk37_one_tile": (4, 2, 16, 37, 64, True, None, False),
+    "q1_hole_over_splits": (1, 1, 1, 1000, 64, False, [130], False),
+    "q3_d40_unaligned": (2, 2, 3, 150, 40, False, [150, 99], True),
+    "q1_d128": (2, 3, 1, 300, 128, False, [200, 300], False),
+}
+
+
+def _short_inputs(case, dev):
+    b, h, sq, sk, d, causal, lens, odd = _FWD_SHORT[case]
+    q = _rand((b, sq, h, d), 91, dev).transpose(1, 2)     # strided
+    k = _rand((b, h, sk, d), 92, dev)
+    v = _rand((b, h, sk, d), 93, dev)
+    if odd:           # rows 4 bytes off 16 (a sliced head dim)
+        k = _rand((b, h, sk, d + 1), 92, dev)[..., 1:]
+        v = _rand((b, h, sk, d + 1), 93, dev)[..., 1:]
+    bias = None if lens is None else _pad_bias(lens, sk, dev)
+    return q, k, v, bias, causal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_FWD_SHORT))
+def test_fp32_short_query_route_matches_plain(cuda, case):
+    q, k, v, bias, causal = _short_inputs(case, cuda)
+    before = dict(TA.ROUTE_LAUNCHES)
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal)
+    assert TA.ROUTE_LAUNCHES == {
+        **before, "flash_fwd:tf32x3_short":
+        before["flash_fwd:tf32x3_short"] + 1}
+    want, want_lse = TA.flash_attention_fwd_plain(q, k, v, bias, causal)
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode_cross_b8_h8_1x256",
+                                  "q16_sk1000_many_splits"])
+def test_fp32_short_query_split_merge_is_bitwise_repeatable(cuda, case):
+    """The warps' partials merge in warp order and a cluster's blocks'
+    partials in rank order: repeated launches give the same bits, at
+    clusters of 4 and 8 blocks."""
+    q, k, v, bias, causal = _short_inputs(case, cuda)
+    assert TA.fwd_cluster(q, k.shape[2]) > 1
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, causal)
+    for _ in range(3):
+        out2, lse2 = TA.flash_attention_fwd(q, k, v, bias, causal)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_fp32_query_tiled_cluster_merge_is_bitwise_repeatable(cuda):
+    """The serving prefill's shape splits its key tiles over clusters of
+    2 (causal: a query tile's visible tiles interleaved over the ranks):
+    repeated launches give the same bits, within the limit of the plain
+    version."""
+    q = _rand((1, 1024, 8, 64), 95, cuda).transpose(1, 2)
+    k = _rand((1, 8, 1024, 64), 96, cuda)
+    v = _rand((1, 8, 1024, 64), 97, cuda)
+    bias = _pad_bias([700], 1024, cuda)
+    assert TA.fwd_cluster(q, 1024) == 2
+    out, lse = TA.flash_attention_fwd(q, k, v, bias, True)
+    for _ in range(3):
+        out2, lse2 = TA.flash_attention_fwd(q, k, v, bias, True)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want, want_lse = TA.flash_attention_fwd_plain(q, k, v, bias, True)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_fp32_forward_counts_launches_by_the_c_rule(cuda):
+    """Query-tiled 3xTF32 above 16 rows, short-query at or below,
+    float32 FMAs (SIMT) under dropout or segment ids."""
+    q = _rand((2, 2, 100, 64), 94, cuda)
+    TA.reset_launches()
+    TA.flash_attention_fwd(q, q, q)
+    TA.flash_attention_fwd(q[:, :, :16], q, q)
+    TA.flash_attention_fwd(q, q, q, dropout=TA.drop_spec(0.1, 3, 100, 100))
+    TA.flash_attention_fwd(q, q, q, segment_ids=_segment_ids(
+        [[60, 40], [100]], cuda))
+    assert TA.ROUTE_LAUNCHES == {"flash_fwd:wgmma": 0, "flash_fwd:tf32x3": 1,
+                                 "flash_fwd:tf32x3_short": 1,
+                                 "flash_fwd:simt": 2}
+    assert TA.LAUNCHES["flash_fwd"] == 4
+
+
 # b, h, sq, sk, d, causal, key lengths (None = no bias), scale (None =
 # 1/sqrt(d)), dropout p, segment lengths per row (None = no ids),
 # unaligned views: the bf16 forward on the tensor cores
@@ -173,8 +271,7 @@ def test_bf16_forward_on_tensor_cores_matches_the_tiled_reference(cuda,
     out, lse = TA.flash_attention_fwd(q, k, v, bias, causal, scale, drop,
                                       **ids)
     assert TA.ROUTE_LAUNCHES == {
-        "flash_fwd:wgmma": before["flash_fwd:wgmma"] + 1,
-        "flash_fwd:simt": before["flash_fwd:simt"]}
+        **before, "flash_fwd:wgmma": before["flash_fwd:wgmma"] + 1}
     assert TA.ELEMENT_LOAD_LAUNCHES["flash_fwd"] == elem + int(odd)
     want = flash_fwd_tiled(q, k, v, bias, causal, scale, drop, **ids)
     nums, misses = judge_bf16_grad(out, want)
@@ -767,6 +864,15 @@ _I8 = {
     "verify_m32_vocab": (32, 512, 37000, torch.float32),
     "m33_tiled_edges": (33, 70, 130, torch.float32),
     "prefill_m1024_2048x512": (1024, 2048, 512, torch.float32),
+    # the tiled path on the tensor cores: the vocabulary projection's
+    # weight rows on 8 bytes (8-byte copies), n = 2048 (16-byte), n a
+    # multiple of 4 only (4-byte), an odd n and d (byte and 4-byte
+    # copies), a bf16 x at a prompt bucket
+    "prefill_m1024_512x37000": (1024, 512, 37000, torch.float32),
+    "prefill_m1024_512x2048": (1024, 512, 2048, torch.float32),
+    "m130_n36_4byte_rows": (130, 256, 36, torch.float32),
+    "m77_odd_d301_n1001": (77, 301, 1001, torch.float32),
+    "bf16_m1024_512x2048": (1024, 512, 2048, torch.bfloat16),
     "d3_tiny_depth": (40, 3, 65, torch.float32),
     "bf16_m8": (8, 512, 512, torch.bfloat16),
     "bf16_m200": (200, 512, 512, torch.bfloat16),

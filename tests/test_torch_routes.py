@@ -1,8 +1,8 @@
 """The route rules of the flash forward and the fused 1x1-conv + BN
 forward and backward: which products run on the tensor cores (bf16
-wgmma) and which on the CUDA cores (SIMT, float32 FMAs), and the launch
-counters the wrappers keep by route. The wrappers count by the C entry
-points' own rules (`pt_flash_fwd_tensor_cores`,
+wgmma; float32 as 3xTF32 mma.sync) and which on the CUDA cores (SIMT,
+float32 FMAs), and the launch counters the wrappers keep by route. The
+wrappers count by the C entry points' own rules (`pt_flash_fwd_route`,
 `pt_fused_conv_fwd_tensor_cores`, `pt_fused_conv_bwd_tensor_cores`).
 The conv rules are asked of the built library (`fused_conv.fwd_route`,
 `bwd_routes`), so their values are checked on the card; the counters,
@@ -38,7 +38,30 @@ def cuda():
 
 @pytest.mark.parametrize("dtype,route", [(BF, "wgmma"), (F32, "simt")])
 def test_forward_route_is_the_tensor_cores_for_bf16_only(dtype, route):
-    assert TA.fwd_route(dtype) == route
+    """Under attention dropout or segment ids (the training paths) only
+    bf16 runs on the tensor cores: float32 keeps its FMAs on the CUDA
+    cores, at any sq."""
+    for sq in (1, 16, 17, 1024):
+        assert TA.fwd_route(dtype, sq, dropout=True) == route
+        assert TA.fwd_route(dtype, sq, segments=True) == route
+
+
+@pytest.mark.parametrize("sq,route", [(1, "tf32x3_short"),
+                                      (16, "tf32x3_short"),
+                                      (17, "tf32x3"), (256, "tf32x3"),
+                                      (1024, "tf32x3")])
+def test_float32_forward_route_is_3xtf32_on_the_serving_paths(sq, route):
+    """Without dropout and segment ids (every serving call: prefill,
+    encoder, cross-attention) float32 runs on the tensor cores as
+    3xTF32, split over the keys up to 16 query rows (the decode step's
+    cross-attention); bf16 stays on wgmma."""
+    assert TA.fwd_route(F32, sq) == route
+    assert TA.fwd_route(BF, sq) == "wgmma"
+
+
+def test_float32_forward_route_needs_sq():
+    with pytest.raises(ValueError):
+        TA.fwd_route(F32)
 
 
 def test_forward_route_refuses_other_types():
@@ -93,7 +116,11 @@ def test_route_counters_count_no_cpu_run():
     w = torch.randn(8, 16).to(BF).requires_grad_()
     z, s, ss = TFC.fused_scale_act_mm_stats(x, None, None, w, relu=False)
     (z.float().sum() + s.sum() + ss.sum()).backward()
-    assert TA.ROUTE_LAUNCHES == {"flash_fwd:wgmma": 0, "flash_fwd:simt": 0}
+    TA.flash_attention_fwd(q.float(), q.float(), q.float())
+    TA.flash_attention_fwd(q[:, :, :3].float(), q.float(), q.float())
+    assert TA.ROUTE_LAUNCHES == {"flash_fwd:wgmma": 0, "flash_fwd:tf32x3": 0,
+                                 "flash_fwd:tf32x3_short": 0,
+                                 "flash_fwd:simt": 0}
     assert TFC.ROUTE_LAUNCHES == {
         f"{k}:{r}": 0 for k in ("fused_conv_fwd", "fused_conv_bwd_dx",
                                 "fused_conv_bwd_dw")
@@ -105,6 +132,7 @@ def test_route_counters_are_branches_of_the_kernel_counts():
     """The route counters are zeroed with every kernel's count and stay
     out of `_build.launches()` (which counts each kernel once)."""
     TA.ROUTE_LAUNCHES["flash_fwd:wgmma"] = 3
+    TA.ROUTE_LAUNCHES["flash_fwd:tf32x3_short"] = 2
     TFC.ROUTE_LAUNCHES["fused_conv_bwd_dw:simt"] = 2
     TFC.ROUTE_LAUNCHES["fused_conv_fwd:wgmma"] = 1
     TFC.ROUTE_LAUNCHES["fused_conv_bwd_dx:wgmma"] = 1
@@ -120,7 +148,8 @@ def test_c_rules_are_bound_beside_the_entry_points():
     the dW split rule of the conv backward."""
     csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
     helpers = {n for lib in _build._HELPERS.values() for n, _ in lib}
-    for src, name in (("flash_fwd.cu", "pt_flash_fwd_tensor_cores"),
+    for src, name in (("flash_fwd.cu", "pt_flash_fwd_route"),
+                      ("flash_fwd.cu", "pt_flash_fwd_cluster"),
                       ("flash_fwd.cu", "pt_flash_fwd_vector_loads"),
                       ("fused_conv_fwd.cu",
                        "pt_fused_conv_fwd_tensor_cores"),
@@ -132,8 +161,69 @@ def test_c_rules_are_bound_beside_the_entry_points():
         assert name in helpers
     # the conv rules take the types of x and W (and the backward's product)
     argc = {n: len(a) for lib in _build._HELPERS.values() for n, a in lib}
+    assert argc["pt_flash_fwd_route"] == 4
+    assert argc["pt_flash_fwd_cluster"] == 4
     assert argc["pt_fused_conv_fwd_tensor_cores"] == 2
     assert argc["pt_fused_conv_bwd_tensor_cores"] == 3
+
+
+@pytest.mark.cuda
+def test_forward_route_mirror_is_the_c_rule(cuda):
+    """`fwd_route` writes out `pt_flash_fwd_route`, by which the wrapper
+    counts: the two agree on every type, sq and flag."""
+    lib = _build.kernels()
+    names = {0: "simt", 1: "wgmma", 2: "tf32x3", 3: "tf32x3_short"}
+    for dt, code in ((F32, 0), (BF, 1)):
+        for sq in (1, 2, 15, 16, 17, 64, 1024):
+            for segs in (0, 1):
+                for drop in (0, 1):
+                    assert names[lib.flash_fwd_route(code, sq, segs, drop)] \
+                        == TA.fwd_route(dt, sq, bool(segs), bool(drop))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,want", [
+    (8, 8, 1, 256, 4), (1, 8, 1, 256, 4), (3, 2, 1, 1000, 8),
+    (16, 8, 1, 77, 2), (1, 1, 1, 64, 1), (1, 8, 1024, 1024, 2),
+    (1, 8, 1024, 256, 2), (16, 8, 256, 256, 1)])
+def test_forward_cluster_splits_keys_to_fill_the_card(cuda, b, h, sq, sk,
+                                                      want):
+    """The float32 tensor-core routes split a (query tile, b*h) pair's key
+    tiles over a cluster of up to 8 blocks, about two blocks an SM: the
+    decode step's b8 h8 1 x 256 over 4 (one tile a block), the serving
+    prefill and cross-attention (128 pairs) over 2, the encoder's 512
+    pairs not at all; never more blocks than key tiles."""
+    q = torch.empty(b, h, sq, 64, device=cuda)
+    got = TA.fwd_cluster(q, sk)
+    tiles = -(-sk // 64)
+    assert 1 <= got <= min(8, tiles)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pairs = b * h * (1 if sq <= 16 else -(-sq // 64))
+    rule = -(-2 * sms // pairs) if sq <= 16 else 2 * sms // pairs
+    assert got == max(1, min(8, tiles, rule))
+    if sms == 132:                 # the H100 SXM's count
+        assert got == want
+@pytest.mark.parametrize("m,d,n,want", [
+    (1024, 2048, 512, 5), (1024, 512, 512, 4), (1024, 512, 2048, 1),
+    (1024, 512, 37000, 1), (33, 70, 130, 1), (200, 512, 512, 4),
+    (8, 2048, 512, 8), (8, 512, 37000, 1)])
+def test_int8_splits_split_d_only_where_few_tiles_run(m, d, n, want):
+    """The tiled path (m > 32) splits d across blocks only where its grid
+    has fewer than 66 of the 128 x 128 tiles (n = 512 at a prompt
+    bucket), at least 128 of d a split; the skinny path (m <= 32) aims at
+    two blocks an SM, at most one a 256-wide chunk."""
+    assert TQ._int8_splits(m, d, n) == want
+
+
+def test_int8_route_counters_count_no_cpu_run():
+    TQ.reset_launches()
+    for m in (8, 64):
+        x = torch.randn(m, 32)
+        q, scale = TQ.quantize_int8_weight(torch.randn(32, 16))
+        TQ.int8_matmul(x, q, scale)
+    assert TQ.ROUTE_LAUNCHES == {"int8_matmul:skinny": 0,
+                                 "int8_matmul:tiled": 0}
+    assert "int8_matmul:tiled" not in _build.launches()
 
 
 # ---------------------------------------------------- the paged verify
