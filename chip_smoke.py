@@ -21,7 +21,9 @@ Phases; any failure exits nonzero before the result lines:
     pieces=1 computed on the card, must be refused by the same limit at
     every case) and flash_decode (fp32, atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
     verify step), fp32 and bf16, ragged lengths, a key-bias hole;
-    paged_flash_decode (T 1) and paged_flash_verify (T 4, the paged
+    paged_flash_decode (T 1: one launch, its key splits merged in the
+    kernel; also a slot with no written key and a -1e30 hole over every
+    slot's first split) and paged_flash_verify (T 4, the paged
     speculative step on the split route, and T 256, a prefix hit's tail
     prefill on the tiled route) at S8 h8 page 16 mp67 over a shuffled
     page table with trash and unmapped entries, pages fp32, bf16 and int8
@@ -85,7 +87,10 @@ Phases; any failure exits nonzero before the result lines:
     dense K/V with the equivalent mask (a yardstick; the gather is not
     timed), with the device kernels SDPA runs (torch.profiler). The
     paged verify also at the tail prefills of phase 6 (S1 h8 T64, T256
-    and T512 over W = 32 + T/16 pages).
+    and T512 over W = 32 + T/16 pages). The paged decode is one call (its
+    key splits merged in the kernel): "ms" is the kernel's entry,
+    "with_combine_ms" the public wrapper, and the device kernels of a
+    call (torch.profiler, 5 calls) must be the decode kernel alone.
  9. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
     pad bias over ragged lengths, attention dropout 0.1 on the logical
     512 x 512 blocks): flash_fwd with dropout, flash_bwd_dq and
@@ -133,10 +138,11 @@ Phases; any failure exits nonzero before the result lines:
     1 s 1024 on 512x512, 512x2048 and 2048x512, rank 8, capacity 5, ids
     mixing the base row 0 and every tenant. Limits: fp32 1e-5 of the
     plain version's largest entry (sums over d <= 2048 in another
-    order), bf16 1e-2. At every float32 m 1024 case (the tiled path on
-    the tensor cores, x in three bf16 pieces) the one-piece mutant (a
-    bf16 x, `testing.int8_matmul_split` with pieces=1, computed on the
-    card) must be refused by the same limit.
+    order), bf16 1e-2. At every float32 case (both routes run on the
+    tensor cores with x in three bf16 pieces: the skinny route at m 8
+    and 32, the tiled route at m 1024) the one-piece mutant (a bf16 x,
+    `testing.int8_matmul_split` with pieces=1, computed on the card) must
+    be refused by the same limit.
 14. Multi-tenant dense serve at the phase-3 width and weights: an
     AdapterPool of 4 tenants (`register_random(seed=100+i, scale=0.05)`,
     rank 8, capacity 5; `bench.py` `_serving_multitenant`), 8 slots, 16
@@ -146,9 +152,13 @@ Phases; any failure exits nonzero before the result lines:
     hold the tenant's `merged_weights` (a divergence passes only with a
     top-2 margin below 1e-4 there, as in phase 5). (b) quantize="int8":
     token agreement with (a) at least 0.8 and weights at least 1.9x
-    smaller. The launch counters are zeroed before each serve; lora_gather
-    (a, b) and int8_matmul (b) must have grown. Prints the tenancy
-    section, tokens/s and the p50 TTFT.
+    smaller. (c) quantize="int8" with spec_k=4 on the dense pool, 8 of
+    the (b) requests: tokens equal (b)'s (or a sub-1e-4 top-2 tie under
+    the tenant's adapter); the verify step runs the skinny int8 route at
+    m 32. The launch counters are zeroed before each serve; lora_gather
+    (a, b, c) and int8_matmul (b, c) must have grown. Prints the tenancy
+    section, tokens/s and the p50 TTFT, and for (c) int8_matmul's
+    launches by path and the skinny launches by (m, d, n).
 15. Multi-tenant paged serve: the phase-6 preamble requests split across
     two tenants and the base, paged=True, page 16, fp32 pages, then with
     spec_k=4; tokens equal the dense multi-tenant engine's (or a sub-1e-4
@@ -164,8 +174,13 @@ Phases; any failure exits nonzero before the result lines:
     plain version, and the library yardstick (torch.matmul on the dequantized
     weight; torch.bmm twice on the gathered banks; the port never calls
     either); lora_gather's plan (rows a tile, CTAs a cluster, CTAs in
-    all). Then a profiled pass of 8 requests through the int8 + LoRA
-    engine: the device's busy share and device time by kernel.
+    all); the skinny route's plan (8-row tiles, k-splits a cluster,
+    warps a block) and the device kernels of a call (the skinny kernel
+    alone). Then
+    a profiled pass of 8 requests through the int8 + LoRA engine: the
+    device's busy share, device time by kernel, and int8_matmul's skinny,
+    tiled and reduce kernels apart (no more reduce launches than tiled
+    ones: the skinny route has no second pass).
 17. fused_conv_fwd and fused_conv_bwd (the fused 1x1-conv + BN op)
     against their plain versions at ResNet-50's bottleneck shapes, conv1
     and conv3 of each stage: (Ci, Co, HW) = (256, 64, 3136), (64, 256,
@@ -691,7 +706,7 @@ def profile_serving(engine, prompts, memory):
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log("  profiler recorded no device time: breakdown not measured")
-        return
+        return None
     groups = {"flash_fwd": 0.0, "flash_decode": 0.0, "gemm": 0.0,
               "other": 0.0}
     for ms, _, key in rows:
@@ -813,6 +828,7 @@ def new_kernel_cases(g):
     """{kernel: {case: (inputs)}} at the shapes of the phase-5/6 paths."""
     lens8 = [60, 1060, 700, 300, 129, 128, 1000, 513]
     plens = [60, 1072, 700, 300, 129, 128, 1000, 513]
+    hlens = [0, 1072, 700, 300, 160, 145, 1000, 513]
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     return {
         "flash_verify": {
@@ -821,11 +837,18 @@ def new_kernel_cases(g):
             "spec step b8 h8 T4 L1060 bf16": ver_case(
                 g, SLOTS, HEADS, SPEC_K, MAX_LEN + SPEC_K, 64, lens8, bf16)},
         "paged_flash_decode": {
-            f"decode S8 h8 mp67 pages {n}": paged_case(
+            **{f"decode S8 h8 mp67 pages {n}": paged_case(
                 g, SLOTS, HEADS, PAGE, 67, 64, 1, plens, qd, kd)
-            for n, qd, kd in (("fp32", f32, f32), ("bf16", f32, bf16),
-                              ("int8", f32, i8), ("bf16 q bf16", bf16,
-                                                  bf16))},
+               for n, qd, kd in (("fp32", f32, f32), ("bf16", f32, bf16),
+                                 ("int8", f32, i8),
+                                 ("bf16 q bf16", bf16, bf16))},
+            # a slot with no written key (output 0) and a -1e30 hole over
+            # the first split's 144 keys of every slot, each of which
+            # sees keys past it: that split's partial weighs nothing
+            **{f"decode S8 h8 mp67 length-0 slot, hole over split 0 "
+               f"pages {n}": paged_case(g, SLOTS, HEADS, PAGE, 67, 64, 1,
+                                        hlens, f32, kd, hole=(0, 144))
+               for n, kd in (("fp32", f32), ("int8", i8))}},
         "paged_flash_verify": {
             **{f"spec step S8 h8 T4 mp67 pages {n}": paged_case(
                 g, SLOTS, HEADS, PAGE, 67, 64, SPEC_K, plens, qd, kd)
@@ -878,6 +901,10 @@ def check_new_kernels(A, cases):
             route = ""
             if kname == "paged_flash_verify":
                 route = f" [{A.paged_verify_route(args[0].shape[2], 64)}]"
+            elif kname == "paged_flash_decode":
+                plan = A.paged_decode_plan_on_card(
+                    *args[0].shape[:2], args[5].shape[1], args[0].device)
+                route = f" [splits, pages a split {plan}]"
             log(f"  {kname:18s} {cname}{route}: max_abs_err {e:.3e} (limit "
                 f"{limit:.3e})")
             if not e <= limit:
@@ -893,9 +920,10 @@ def _visible(length, T):
 
 
 def read_numbers(A, kname, args):
-    """Phase 8: kernel (partials only) and with the combine, bound, plain
-    version, and SDPA on the pre-gathered dense K/V with the equivalent
-    [b, 1, T, L] mask."""
+    """Phase 8: kernel (the partials of the split routes; the paged
+    decode's and the tiled verify's output) and with the combine (the
+    whole call), bound, plain version, and SDPA on the pre-gathered dense
+    K/V with the equivalent [b, 1, T, L] mask."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kname == "flash_verify":
         q, k, v, length, bias = args
@@ -916,17 +944,18 @@ def read_numbers(A, kname, args):
             kern = lambda: A._paged_verify_cuda(     # noqa: E731
                 q, kp, vp, ks, vs, table, length, bias, None)
         else:
-            kern = lambda: A._paged_partials_cuda(   # noqa: E731
-                kname, q, kp, vp, ks, vs, table, length, bias, None)
+            kern = lambda: A._paged_decode_cuda(     # noqa: E731
+                q, kp, vp, ks, vs, table, length, bias, None)
         ns = -(-table.shape[1] // A._pages_per_split(psz))
     b, h, T, d = q.shape
     L = kd.shape[2]
     n = sum(int(x) for x in length)             # keys this data needs
     pairs = sum(_visible(x, T) for x in length)
-    # the output: the partials the kernel writes, or (the paged verify,
-    # whose tiled route writes the output itself) the function's output
-    out_bytes = (q.numel() * q.element_size() if kname == "paged_flash_verify"
-                 else 4.0 * b * h * ns * T * (d + 2))
+    # the output: the partials the kernel writes (flash_verify), or the
+    # function's output (the paged decode, and the paged verify's tiled
+    # route, write it themselves)
+    out_bytes = (4.0 * b * h * ns * T * (d + 2) if kname == "flash_verify"
+                 else q.numel() * q.element_size())
     nbytes = (2.0 * n * h * d * elt + q.numel() * q.element_size()
               + 4.0 * (bias.numel() + b) + out_bytes + extra)
     flops = 4.0 * pairs * h * d
@@ -939,22 +968,43 @@ def read_numbers(A, kname, args):
     plain = device_ms(lambda: getattr(A, kname + "_plain")(*args))
     lib = device_ms(lambda: sdpa(q, kd, vd, attn_mask=mask))
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    lib_kernels = kernels_per_call(lambda: sdpa(q, kd, vd, attn_mask=mask))
     row = {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
            "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_kernels": device_kernel_names(
-               lambda: sdpa(q, kd, vd, attn_mask=mask))}
+           "library_kernels": sorted(lib_kernels)
+           if isinstance(lib_kernels, dict) else lib_kernels}
     if kname == "paged_flash_verify":
         row["route"] = A.paged_verify_route(T, d)
         if row["route"] == "tiled":
             row["plan"] = dict(zip(("rows", "splits", "keys_per_split"),
                                    A.paged_verify_plan(q, L)))
+    if kname == "paged_flash_decode":
+        # one call is one launch of the decode kernel: no combine after it
+        row["plan"] = dict(zip(("splits", "pages_per_split"),
+                               A.paged_decode_plan_on_card(
+                                   b, h, table.shape[1], q.device)))
+        row["kernels_per_call"] = kernels_per_call(
+            lambda: getattr(A, kname)(*args))
+        only_kernel("paged_flash_decode", row["kernels_per_call"],
+                    "paged_decode_kernel")
     return row
 
 
-def device_kernel_names(fn, calls=5):
-    """The device kernels fn launches (torch.profiler over a few calls),
-    or "not measured" when the profiler recorded no device row."""
+def only_kernel(label, per_call, name):
+    """Fail unless the one device kernel a call launched is `name` (no
+    second pass, no combine after it); the profiler's count a call is
+    printed, not held (in a long process its activity records have come
+    short of the launches, while a fresh process counts one a call)."""
+    if per_call != "not measured" and (
+            len(per_call) != 1 or name not in next(iter(per_call))):
+        raise AssertionError(f"{label}: one call launched {per_call}")
+
+
+def kernels_per_call(fn, calls=5):
+    """{device kernel: launches per call} of fn (torch.profiler over a
+    few calls), or "not measured" when the profiler recorded no device
+    row."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -964,8 +1014,14 @@ def device_kernel_names(fn, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sorted({key for _, _, key in kernel_rows(prof)}) or \
-        "not measured"
+    rows = kernel_rows(prof)
+    if not rows:
+        return "not measured"
+    out = {}
+    for _, n, key in rows:
+        name = key.replace("(anonymous namespace)::", "").split("(")[0]
+        out[name[-60:]] = out.get(name[-60:], 0.0) + n / calls
+    return out
 
 
 # ------------------------------------------- speculative and paged serves
@@ -1184,11 +1240,26 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
     # a profiled pass of SLOTS more requests (new tails: partial hits)
     more, more_mems = paged_requests(seed + 6, REQUESTS + SLOTS, memory)
     # flash_fwd (the float32 tensor-core kernels): the encoder, the
-    # prefill of a cold join and the cross-attention; split_attn_kernel:
-    # the paged decode and the speculative verify (one template);
+    # prefill of a cold join and the cross-attention; paged_decode_kernel:
+    # the paged decode, its key splits merged in the kernel;
     # paged_tiled_kernel: the tail prefills of the partial hits
-    profile_pass(engines["paged"], more[REQUESTS:], more_mems[REQUESTS:],
-                 ("flash_fwd", "split_attn_kernel", "paged_tiled_kernel"))
+    calls, restore = call_log(A, "paged_flash_decode")
+    try:
+        rows = profile_pass(engines["paged"], more[REQUESTS:],
+                            more_mems[REQUESTS:],
+                            ("flash_fwd", "paged_decode_kernel",
+                             "paged_tiled_kernel"))
+    finally:
+        restore()
+    if rows is not None:
+        ms, n = rows_matching(rows, "paged_decode_kernel")
+        n_calls = calls[None]
+        log(f"  paged_flash_decode: {n_calls} calls, {n} launches of "
+            f"paged_decode_kernel ({ms:.2f} ms): one launch a call, no "
+            f"combine after it")
+        if n != n_calls or n_calls < 1:
+            raise AssertionError(f"paged_flash_decode: {n_calls} calls "
+                                 f"launched the decode kernel {n} times")
     for path, engine in engines.items():
         engine.flush_prefix_cache()
         engine._alloc.check()
@@ -1236,7 +1307,7 @@ def profile_pass(engine, prompts, memories, kernel_names, adapters=None):
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log("  profiler recorded no device time: breakdown not measured")
-        return
+        return None
     groups = {k: 0.0 for k in (*kernel_names, "gemm", "other")}
     for ms, _, key in rows:
         low = key.lower()
@@ -1252,6 +1323,30 @@ def profile_pass(engine, prompts, memories, kernel_names, adapters=None):
         f"{k} {v:.2f} ({100 * v / busy:.1f}%)" for k, v in groups.items()))
     for ms, n, key in sorted(rows, reverse=True)[:6]:
         log(f"    {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    return rows
+
+
+def rows_matching(rows, name):
+    """(device ms, launches) of the profile rows whose kernel name holds
+    `name`."""
+    hit = [(ms, n) for ms, n, key in rows if name in key]
+    return sum(ms for ms, _ in hit), sum(n for _, n in hit)
+
+
+def call_log(mod, name, key=lambda *args: None):
+    """Wrap `mod.<name>` (its callers look it up at each call) to count
+    its calls by key(*args). Returns (a Counter, restore)."""
+    import collections
+
+    calls = collections.Counter()
+    inner = getattr(mod, name)
+
+    def counted(*args, **kwargs):
+        calls[key(*args)] += 1
+        return inner(*args, **kwargs)
+
+    setattr(mod, name, counted)
+    return calls, lambda: setattr(mod, name, inner)
 
 
 # ------------------------------------------------------------- training
@@ -1642,14 +1737,20 @@ def check_quant_kernels(Q, g):
             fp32 = got.dtype == torch.float32
             limit = (REL_F32_QUANT if fp32 else REL_BF16_ATT) * \
                 want.float().abs().max().item()
-            # the tiled path (m > 32) on the tensor cores: its one-piece
-            # mutant (a bf16 x) must be refused by the same limit
-            tiled = kname == "int8_matmul" and args[0].shape[0] > 32
+            # both int8 routes split x into three bf16 pieces on the
+            # tensor cores: the one-piece mutant (a bf16 x) must be
+            # refused by the same limit at every float32 case
             mutant = ""
-            if tiled and fp32:
+            if kname == "int8_matmul" and fp32:
+                m = args[0].shape[0]
                 em = (int8_matmul_split(*args, pieces=1) - want).abs() \
                     .max().item()
-                mutant = f"; one-bf16-piece mutant {em:.3e}"
+                route = "skinny" if m <= 32 else "tiled"
+                if route == "skinny":
+                    plan = Q.skinny_plan_on_card(m, *args[1].shape, "cuda")
+                    route += (f" {plan[0]} m-tiles, {plan[1]} k-splits of "
+                              f"{plan[2]}, {plan[3]} warps")
+                mutant = f" [{route}]; one-bf16-piece mutant {em:.3e}"
                 if not em > limit:
                     raise AssertionError(f"int8_matmul {cname}: the limit "
                                          f"{limit} passes a bf16 x ({em})")
@@ -1757,6 +1858,7 @@ def mt_dense_serve(Q, seed, memory):
     pool8 = adapter_pool(stack8[0])
     engine8 = ServingEngine(*stack8, num_slots=SLOTS, max_len=MAX_LEN,
                             adapters=pool8, quantize="int8", device="cuda")
+    stack8s = copy.deepcopy(base)        # (c)'s own stack (quantized there)
     del base
     Q.reset_launches()
     got8, wall8 = run_server(engine8, prompts, mems, adapters=names)
@@ -1792,7 +1894,64 @@ def mt_dense_serve(Q, seed, memory):
     out.update(int8_engine=engine8, int8_tokens=got8, int8_launches=launches8,
                int8_snap=snap8, int8_rate=n8 / wall8, agreement=agreement,
                shrink=shrink)
+    out.update(int8_spec_serve(Q, stack8s, prompts[:SLOTS], mems[:SLOTS],
+                               names[:SLOTS], got8[:SLOTS]))
     return out
+
+
+def int8_spec_serve(Q, stack, prompts, mems, names, want):
+    """Phase 14 (c): the int8 + LoRA stack with spec_k=4 on the dense pool
+    (8 requests): tokens equal the int8 serve without speculation (or a
+    sub-1e-4 tie under the tenant's adapter); the verify step (m = 8 slots
+    x 4 tokens) runs the skinny route at m 32. Returns its results."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    pool = adapter_pool(stack[0])
+    engine = ServingEngine(*stack, num_slots=SLOTS, max_len=MAX_LEN,
+                           adapters=pool, quantize="int8", spec_k=SPEC_K,
+                           device="cuda")
+    # the skinny launches by (m, d, n) (int8_matmul looks the launcher up
+    # at each call)
+    shapes, restore = call_log(
+        Q, "_int8_matmul_cuda", lambda x, q, scale: (
+            (x.shape[0], *q.shape) if x.shape[0] <= 32 else None))
+    Q.reset_launches()
+    try:
+        got, wall = run_server(engine, prompts, mems, adapters=names)
+    finally:
+        restore()
+    shapes.pop(None, None)
+    launches = launch_counts()
+    FWD_ROUTES["mt_int8_spec"] = check_fwd_routes(A, "(c) int8 spec",
+                                                  launches)
+    INT8_ROUTES["mt_int8_spec"] = int8_routes(Q, "(c) int8 spec", launches)
+    snap = engine.metrics.snapshot()
+    pool.check()
+    net = _StepNet(*stack).eval()
+    ties = same_tokens("(c) int8 spec", want, got, None, prompts, mems,
+                       tenant_margin(Q, net, pool, prompts, mems, names))
+    by_shape = {f"m{m} {d}x{n}": c for (m, d, n), c in sorted(shapes.items())}
+    m32 = sum(c for (m, _, _), c in shapes.items() if m > 8)
+    sp = snap["speculation"]
+    n_tok = sum(len(t) for t in got)
+    log(f"  (c) int8 + adapters, spec_k {SPEC_K}: {len(prompts)} requests, "
+        f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tokens/s; "
+        f"acceptance rate {sp['acceptance_rate']}, {sp['rounds']} rounds; "
+        f"tokens equal (b)'s ({ties} ties); launches {launches}")
+    log(f"      skinny int8_matmul launches by shape {json.dumps(by_shape)}")
+    for name in ("int8_matmul", "lora_gather"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was never launched on the int8 "
+                                 f"spec serve")
+    if m32 < 1 or sum(shapes.values()) != \
+            INT8_ROUTES["mt_int8_spec"]["skinny"]:
+        raise AssertionError(f"(c): skinny launches by shape {by_shape}, "
+                             f"none above m 8 or not the route's count")
+    return {"int8_spec_launches": launches, "int8_spec_rate": n_tok / wall,
+            "int8_spec_ties": ties, "int8_spec_skinny_by_shape": by_shape,
+            "int8_spec_acceptance": sp["acceptance_rate"]}
 
 
 def mt_paged_serve(Q, seed, mt, memory):
@@ -1891,10 +2050,17 @@ def quant_numbers(Q, kname, args):
            "library_ms": device_ms(lib),
            "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    if kname == "int8_matmul" and m > 32:
-        # the tiled path: x in bf16 pieces on the tensor cores
+    if kname == "int8_matmul":
+        # both routes: x in bf16 pieces on the tensor cores
         row.update(split_bounds(flops, nbytes, BF16_FLOPS_PER_S, row["ms"]),
                    splits=Q._int8_splits(m, d, n))
+        if m <= 32:
+            row["plan"] = dict(zip(("m_tiles", "k_splits", "k_per_split",
+                                    "warps"),
+                                   Q.skinny_plan_on_card(m, d, n, "cuda")))
+            row["kernels_per_call"] = kernels_per_call(kern)
+            only_kernel(f"int8_matmul m{m} {d}x{n}", row["kernels_per_call"],
+                        "int8_matmul_skinny_mma")
     if kname == "lora_gather":
         rows, cluster = Q.lora_gather_plan(b, s, d, "cuda")
         row["plan"] = {"rows": rows, "cluster": cluster,
@@ -2841,7 +3007,10 @@ def main():
             nums = read_numbers(A, kname, new_cases[kname][cname])
             rows.append(dict(case=cname, **nums))
             route = (f" [{nums['route']} {nums.get('plan', '')}]"
-                     if "route" in nums else "")
+                     if "route" in nums else
+                     f" [{nums['plan']}; kernels a call "
+                     f"{nums['kernels_per_call']}]" if "plan" in nums
+                     else "")
             log(f"  {kname} {cname}{route}: kernel {nums['ms']:.4f} (with "
                 f"combine {nums['with_combine_ms']:.4f}) bound "
                 f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
@@ -2966,7 +3135,7 @@ def main():
 
     log("phase 16: timing of int8_matmul and lora_gather (median of 25, ms)")
     by_path = {"mt_fp32": mt["fp32_launches"], "mt_int8": mt["int8_launches"],
-               **mp_launches}
+               "mt_int8_spec": mt["int8_spec_launches"], **mp_launches}
     for kname, cases, head, line in (
             ("int8_matmul", i8_cases, "m8 512x37000", 116),
             ("lora_gather", lo_cases, "b8 s1 512x2048", 243)):
@@ -2984,7 +3153,9 @@ def main():
             log(f"  {kname} {cname}: kernel {nums['ms']:.4f} bound "
                 f"{nums['bound_ms']:.4f} ({nums['bound_by']}){both} plain "
                 f"{nums['plain_ms']:.4f} library {nums['library_ms']:.4f}"
-                + (f" {nums['plan']}" if "plan" in nums else ""))
+                + (f" {nums['plan']}" if "plan" in nums else "")
+                + (f"; kernels a call {nums['kernels_per_call']}"
+                   if "kernels_per_call" in nums else ""))
         top = next(r for r in rows if r["case"] == head)
         paths = {p: c[kname] for p, c in by_path.items() if c[kname]}
         kernels[kname] = {
@@ -3002,18 +3173,34 @@ def main():
                               "torch.bmm x2 on the gathered banks"),
             "cases": rows}
     kernels["int8_matmul"]["launches_by_route"] = dict(INT8_ROUTES)
+    kernels["int8_matmul"]["skinny_launches_by_shape_spec"] = \
+        mt["int8_spec_skinny_by_shape"]
     kernels["int8_matmul"]["hgmma"] = hgmma["int8_matmul"]
     kernels["paged_flash_verify"]["launches_by_route_and_path"].update(
         {p: c["verify_routes"] for p, c in mp_launches.items()})
     prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
-    profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
-                 ("int8_matmul", "lora_cluster_kernel", "flash_fwd",
-                  "flash_decode_kernel"), adapters=names[:SLOTS])
+    rows = profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
+                        ("int8_matmul", "lora_cluster_kernel", "flash_fwd",
+                         "flash_decode_kernel"), adapters=names[:SLOTS])
+    if rows is not None:
+        parts = {p: rows_matching(rows, k) for p, k in (
+            ("skinny", "int8_matmul_skinny_mma"),
+            ("tiled", "int8_matmul_wgmma"), ("reduce", "int8_matmul_reduce"))}
+        log("  int8_matmul by kernel: " + ", ".join(
+            f"{p} {ms:.2f} ms in {n} launches" for p, (ms, n) in parts.items()))
+        kernels["int8_matmul"]["profile_by_kernel"] = {
+            p: {"ms": ms, "launches": n} for p, (ms, n) in parts.items()}
+        if parts["reduce"][1] > parts["tiled"][1] or not parts["skinny"][1]:
+            raise AssertionError(f"int8_matmul profile {parts}: the skinny "
+                                 f"route has a second pass")
     log("  multi-tenant summary " + json.dumps({
         "fp32_tokens_per_s": mt["fp32_rate"],
         "int8_tokens_per_s": mt["int8_rate"],
         "int8_token_agreement": mt["agreement"],
         "int8_weight_shrink": mt["shrink"],
+        "int8_spec_tokens_per_s": mt["int8_spec_rate"],
+        "int8_spec_ties": mt["int8_spec_ties"],
+        "int8_spec_acceptance": mt["int8_spec_acceptance"],
         "merged_weight_ties": mt["ties"],
         "paged_prefix": {p: s["prefix"] for p, s in mp_snaps.items()}}))
     del mt, prompts, names, mems, i8_cases, lo_cases

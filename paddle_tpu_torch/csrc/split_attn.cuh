@@ -1,11 +1,13 @@
-// Split-K attention of a block of R query rows against a KV cache, shared by
-// the verify kernel (flash_verify.cu) and the paged decode and verify kernels
-// (paged_decode.cu, paged_verify.cu).
+// Split-K attention of a block of R query rows against a KV cache: the dense
+// verify kernel (flash_verify.cu) and the paged verify's split route (T <= 8,
+// the speculative step: paged_verify.cu). The paged decode (paged_decode.cu)
+// and the paged verify's tiled route have kernels of their own, which merge
+// their key splits in the kernel; this one does not.
 //
 // One 128-thread block owns (key split, batch*head row, tile of R query rows)
-// and emits one partial softmax (acc, m, l) per query row of the tile; the
-// logsumexp combine of the partials runs outside, in torch ops, as the JAX
-// package does it in XLA. Query row t of T sits at position n_valid - T + t
+// and emits one partial softmax (acc, m, l) per query row of the tile; its
+// callers' logsumexp combine of the partials runs outside, in torch ops, as
+// the JAX package does it in XLA. Query row t of T sits at position n_valid - T + t
 // (n_valid = the row's written-key count after the T-token write) and sees
 // key j while j <= that position (T == 1 is the plain decode step). Per key:
 // logits = q_scaled . k, keys past the row's position set to -1e30, then the
@@ -294,7 +296,7 @@ int launch(const void* q, const Keys& keys, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// The arguments of the paged entry points (paged_decode.cu, paged_verify.cu):
+// The arguments of the paged verify's split route (paged_verify.cu):
 // q [S, H, T, d] (strides per slot, head, row), k/v pages [n_rows, H, psz, d]
 // (strides per page, head, row), scales [n_rows, H, 1, 1] or null, table
 // [S, mp] int32, lengths [S] int32, bias [S, mp * psz] f32 or null; outputs

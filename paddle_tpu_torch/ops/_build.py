@@ -30,6 +30,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: the H100 SXM's streaming multiprocessors: the default card of the
+#: kernels' plan rules as the Python mirrors write them out
+H100_SMS = 132
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
@@ -39,9 +43,6 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 #: the dropout arguments of the flash kernels: seed, keep threshold,
 #: 1/keep, logical block_q, block_k
 _DROP = [_U, _U, _F, _I, _I]
-#: the paged kernels: device, q dtype, page dtype, 11 pointers, S, H, T,
-#: mp, psz, n_rows, d, pages_per_split, strides, scale, stream
-_PAGED = [_I, _I, _I, *[_P] * 11, *[_I] * 8, _STRIDES, _F, _P]
 #: argtypes of each library's C entry point (see the .cu sources)
 _SIGNATURES = {
     "flash_fwd": ("pt_flash_fwd",
@@ -59,7 +60,8 @@ _SIGNATURES = {
     "flash_verify": ("pt_flash_verify",
                      [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _STRIDES, _F,
                       _P]),
-    "paged_decode": ("pt_paged_decode", _PAGED),
+    "paged_decode": ("pt_paged_decode",
+                     [_I, _I, _I, *[_P] * 9, *[_I] * 6, _STRIDES, _F, _P]),
     "paged_verify": ("pt_paged_verify",
                      [_I, _I, _I, *[_P] * 13, *[_I] * 8, _STRIDES, _F, _P]),
     "int8_matmul": ("pt_int8_matmul",
@@ -79,9 +81,11 @@ _HELPERS = {
                   ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],
+    "paged_decode": [("pt_paged_decode_plan", [*[_I] * 4, _INTS])],
     "paged_verify": [("pt_paged_verify_route", [_I, _I]),
                      ("pt_paged_verify_plan", [*[_I] * 5, _INTS])],
     "lora_gather": [("pt_lora_gather_plan", [*[_I] * 4, _INTS])],
+    "int8_matmul": [("pt_int8_matmul_skinny_plan", [*[_I] * 4, _INTS])],
     "fused_conv_fwd": [("pt_fused_conv_fwd_tensor_cores", [_I, _I])],
     "fused_conv_bwd": [("pt_fused_conv_bwd_tensor_cores", [_I, _I, _I]),
                        ("pt_fused_conv_bwd_splits", [_I] * 5)],

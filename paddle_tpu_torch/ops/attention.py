@@ -41,10 +41,12 @@ package's `ops/attention.py`.
     through a paged pool ([N+1, h, page_size, d] pages, row N the trash
     page, a [S, max_pages] page table, int8 pages dequantized by
     per-(page, head) scales), without a dense copy of the cache. The
-    verify has two routes (`paged_verify_route`, the C rule): the split-K
-    kernel for T <= 8 (the speculative step; torch combine) and a
-    query-tiled kernel for the wider tail prefills, which writes the
-    output itself.
+    decode splits a row's pages over a thread-block cluster
+    (`paged_decode_plan`) and merges the splits in the kernel, which
+    writes the output: one launch. The verify has two routes
+    (`paged_verify_route`, the C rule): the split-K kernel for T <= 8
+    (the speculative step; torch combine) and a query-tiled kernel for
+    the wider tail prefills, which writes the output itself.
 
 Attention dropout is the JAX package's counter hash (`_hash_bits`), not
 torch's RNG: the keep bit of logit (row, col) is a murmur3-finalised
@@ -90,7 +92,8 @@ __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "ROUTE_LAUNCHES",
            "PAGED_ROUTE_LAUNCHES", "fwd_route", "fwd_cluster",
            "paged_verify_route",
-           "paged_verify_plan",
+           "paged_verify_plan", "paged_decode_plan",
+           "paged_decode_plan_on_card",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -1093,9 +1096,10 @@ def paged_gather_kv(pages, scales, table, compute_dtype):
 
 
 def _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias, scale):
-    """The paged kernels' partials: q, K, V and p in float32 after the
-    dequant (no rounding to the operand type, the TPU kernels' order),
-    one partial per run of `_pages_per_split` logical pages."""
+    """The paged plain version's partials: q, K, V and p in float32 after
+    the dequant (no rounding to the operand type, the TPU kernels' order),
+    one partial per run of `_pages_per_split` logical pages, for the
+    combine (the JAX package's split-and-combine)."""
     acc_t = _acc(q)
     qs = q.to(acc_t) * _scale(q.shape[-1], scale)
     kf = paged_gather_kv(kp, ks, table, acc_t)
@@ -1163,24 +1167,55 @@ def _split_buffers(q, ns):
             torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device))
 
 
-def _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length, bias,
-                         scale):
-    """Launch `csrc/paged_decode.cu`: the per-split partials (acc, m, l)."""
+#: `csrc/paged_decode.cu`'s plan (`pdec::plan`): blocks an SM to aim for,
+#: and the most blocks a cluster (key splits of a row)
+_DECODE_PER_SM, _DECODE_CLUSTER = 3, 8
+
+
+def paged_decode_plan(S, h, mp, sms=_build.H100_SMS):
+    """(blocks a cluster = key splits of a row, pages a split) of the
+    paged decode kernel for S slots x h heads over mp pages on a card of
+    `sms` SMs: the C rule `pt_paged_decode_plan` written out. A row's
+    pages split in whole pages over up to 8 blocks of a thread-block
+    cluster until about three blocks an SM run; the kernel merges the
+    splits in rank order."""
+    if S < 0 or h < 1 or mp < 1:
+        raise ValueError(f"paged_flash_decode: no plan for S={S}, h={h}, "
+                         f"mp={mp}")
+    rows = max(S * h, 1)
+    want = -(-_DECODE_PER_SM * sms // rows)
+    split = max(1, min(_DECODE_CLUSTER, mp, want))
+    pps = -(-mp // split)
+    return -(-mp // pps), pps
+
+
+def paged_decode_plan_on_card(S, h, mp, device):
+    """`paged_decode_plan` as the built library's C rule gives it on
+    `device`'s card (builds the kernels on first use)."""
+    out = _build.ints_out(2)
+    err = _build.kernels().paged_decode_plan(
+        torch.device(device).index or 0, int(S), int(h), int(mp), out)
+    _raise_on("paged_flash_decode", err)
+    return tuple(out)
+
+
+def _paged_decode_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
+    """Launch `csrc/paged_decode.cu`: the [S, h, 1, d] output in q's type,
+    the key splits merged in the kernel (one launch)."""
+    name = "paged_flash_decode"
     _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
-    S, h, T, d = q.shape
+    S, h, _, d = q.shape
     mp, psz = table.shape[1], kp.shape[2]
-    ppb = _pages_per_split(psz)
-    acc, m, l = _split_buffers(q, -(-mp // ppb))
+    out = torch.empty((S, h, 1, d), dtype=q.dtype, device=q.device)
     err = _build.kernels().paged_decode(
         q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
         *_paged_pointers(q, kp, vp, ks, vs, table, length, bias),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), S, h, T, mp, psz,
-        kp.shape[0], d, ppb, _paged_strides(q, kp, vp),
-        float(_scale(d, scale)),
+        out.data_ptr(), S, h, mp, psz, kp.shape[0], d,
+        _paged_strides(q, kp, vp), float(_scale(d, scale)),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
-    return acc, m, l
+    return out
 
 
 def paged_verify_route(T, d):
@@ -1255,15 +1290,17 @@ def _paged_lengths(name, q, table, kp, length, single):
 
 def _paged_call(name, single, plain, q, kp, vp, ks, vs, table, length,
                 bias, scale):
-    """A paged read: its kernel (CUDA tensors) or plain version (CPU
-    tensors, or `plain`), then the combine."""
+    """A paged read: its plain version (CPU tensors, or `plain`: partials,
+    then the combine) or its kernel (CUDA tensors: the decode and the
+    verify's tiled route write the output, the verify's split route
+    leaves partials for the combine)."""
     length = _paged_lengths(name, q, table, kp, length, single)
     if plain or _device_kind(name, q) == "cpu":
         parts = _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias,
                                       scale)
     elif single:
-        parts = _paged_partials_cuda(name, q, kp, vp, ks, vs, table, length,
-                                     bias, scale)
+        return _paged_decode_cuda(q, kp, vp, ks, vs, table, length, bias,
+                                  scale)
     else:
         route, res = _paged_verify_cuda(q, kp, vp, ks, vs, table, length,
                                         bias, scale)
@@ -1276,7 +1313,8 @@ def _paged_call(name, single, plain, q, kp, vp, ks, vs, table, length,
 def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale, table,
                              length, bias=None, scale=None):
     """The paged decode kernel's function in plain PyTorch, on any
-    device: the same per-run partials and the same combine."""
+    device: per-run partials and the logsumexp combine (the kernel merges
+    its own splits in the same arithmetic)."""
     return _paged_call("paged_flash_decode", True, True, q, k_pages, v_pages,
                        k_scale, v_scale, table, length, bias, scale)
 
@@ -1289,7 +1327,8 @@ def paged_flash_decode(q, k_pages, v_pages, k_scale, v_scale, table,
     [S, max_pages] int32 (unmapped entries read the trash row N),
     length [S] written counts, bias an optional [S, max_pages * psz]
     float32 key bias in logical positions. CPU tensors run the plain
-    version; CUDA tensors launch `csrc/paged_decode.cu`."""
+    version; CUDA tensors launch `csrc/paged_decode.cu`, which merges its
+    key splits itself (one launch, no combine)."""
     return _paged_call("paged_flash_decode", True, False, q, k_pages,
                        v_pages, k_scale, v_scale, table, length, bias, scale)
 

@@ -7,9 +7,12 @@ JAX package's `ops/quant.py`).
     ``y = (f32(x) @ f32(q)) * scale [+ bias]`` with a float32 accumulate,
     cast back to x's type. The large dense weights of a serving stack
     (attention projections, FFN, the logits projection) take this path
-    after `quantize="int8"`. Decode and verify steps (m <= 32) run float32
-    FMAs; a prompt bucket runs on the tensor cores with x in three bf16
-    pieces, each exact against the int8 weight (`ROUTE_LAUNCHES`).
+    after `quantize="int8"`. Both routes run on the tensor cores with x
+    in three bf16 pieces, each exact against the int8 weight: decode and
+    verify steps (m <= 32) on the skinny route (`mma.sync`, one launch,
+    d split over a thread-block cluster as `skinny_plan` gives), a prompt
+    bucket on the tiled route (wgmma, d split over blocks only for small
+    grids, `_int8_splits`) (`ROUTE_LAUNCHES`).
   * `lora_delta` -> `csrc/lora_gather.cu`: the per-row low-rank adapter
     delta of the multi-tenant pool, ``(f32(x[i]) @ A[ids[i]]) @
     B[ids[i]]`` over stacked ``A [cap, d_in, r]`` / ``B [cap, r, d_out]``
@@ -47,25 +50,28 @@ __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "reset_launches", "LORA_MAX_RANK",
            "quantize_int8_weight", "int8_matmul_reference", "int8_matmul",
            "int8_gather", "lora_delta_reference", "lora_delta",
            "merge_lora_weight", "lora_scope", "current_lora",
-           "lora_gather_plan"]
+           "lora_gather_plan", "skinny_plan", "skinny_plan_on_card"]
 
 #: kernel launches per wrapper (`reset_launches` zeroes these and
 #: `ops.attention.LAUNCHES` together)
 LAUNCHES = _build.counter(["int8_matmul", "lora_gather"])
 #: int8_matmul launches by path, the C entry point's rule (m <= 32):
-#: "int8_matmul:skinny" (decode and verify steps, float32 FMAs),
-#: "int8_matmul:tiled" (a prompt bucket, on the tensor cores); each also
-#: counted in LAUNCHES
+#: "int8_matmul:skinny" (decode and verify steps, mma.sync, k-splits
+#: merged in the kernel), "int8_matmul:tiled" (a prompt bucket, wgmma);
+#: both on the tensor cores; each also counted in LAUNCHES
 ROUTE_LAUNCHES = _build.counter(["int8_matmul:skinny", "int8_matmul:tiled"],
                                 branch=True)
 reset_launches = _build.reset_launches
 _QMAX = 127.0
 #: the largest adapter rank `csrc/lora_gather.cu` takes
 LORA_MAX_RANK = 32
-#: the skinny path of `csrc/int8_matmul.cu` (m <= 32): output columns a
-#: block, the k-chunk a block reduces at a time, and the blocks to aim for
-#: (two an SM on the H100's 132) when d is split across blocks
-_SKINNY_M, _SKINNY_COLS, _SKINNY_KC, _TARGET_BLOCKS = 32, 32, 256, 264
+#: the skinny route of `csrc/int8_matmul.cu` (m <= 32, `skinny::plan`):
+#: output columns a block, the k-rows a stage of four warps (a split is
+#: whole stages), the most blocks a cluster (k-splits), and blocks an SM
+#: to aim for
+_SKINNY_M, _SKINNY_COLS, _SKINNY_KC = 32, 128, 64
+_SKINNY_CLUSTER, _SKINNY_PER_SM = 8, 2
+
 #: the tiled path (m > 32): output tile rows and columns, the blocks to
 #: aim for (one an SM) when a grid of fewer than half as many tiles splits
 #: d, and the least k a split keeps (4 of the kernel's 32-deep chunks)
@@ -117,27 +123,51 @@ def _check_device(name, *ts):
     return dev.type
 
 
+def skinny_plan(m, d, n, sms=_build.H100_SMS):
+    """(8-row tiles of m, blocks a cluster, k-rows a split, warps a block)
+    of the skinny route (m <= 32) on a card of `sms` SMs: the C rule
+    `pt_int8_matmul_skinny_plan` written out. Output columns come in
+    strips of 128; d is split in whole 64-row stages over up to 8 blocks
+    of a thread-block cluster until about two blocks an SM run, and the
+    kernel adds the splits' partials in rank order. A grid still short of
+    a block an SM whose splits hold whole 128-row stages takes 8 warps a
+    block (128-row stages), else 4."""
+    if not 0 < m <= _SKINNY_M:
+        raise ValueError(f"int8_matmul: the skinny route takes 1 <= m <= "
+                         f"{_SKINNY_M}, got m={m}")
+    mt = 1 if m <= 8 else 2 if m <= 16 else 4
+    strips = max(1, -(-n // _SKINNY_COLS))
+    chunks = -(-d // _SKINNY_KC) if d > 0 else 1
+    want = -(-_SKINNY_PER_SM * sms // strips)
+    split = max(1, min(_SKINNY_CLUSTER, chunks, want))
+    per = -(-chunks // split)
+    c, kps = -(-chunks // per), per * _SKINNY_KC
+    warps = 8 if strips * c < sms and kps % (2 * _SKINNY_KC) == 0 else 4
+    return mt, c, kps, warps
+
+
 def _int8_splits(m, d, n):
-    """How many blocks split the d of an output tile: on the skinny path
-    (m <= 32) enough for `_TARGET_BLOCKS` blocks, at most one a k-chunk;
-    on the tiled path only where fewer than half of `_TILED_TARGET` tiles
-    would run (n = 512 at a prompt bucket), up to that target and at
-    least `_TILED_MIN_K` of d a split. The partials are added in k order
-    by a second pass."""
+    """How many blocks split the d of an output tile. The skinny route (m
+    <= 32): the cluster of `skinny_plan`, merged in the kernel. The tiled
+    route: only where fewer than half of `_TILED_TARGET` tiles would run
+    (n = 512 at a prompt bucket), up to that target and at least
+    `_TILED_MIN_K` of d a split; its partials go to a work buffer that a
+    second pass adds in k order."""
     if m > _SKINNY_M:
         tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
         if 2 * tiles > _TILED_TARGET:
             return 1
         return max(1, min(-(-_TILED_TARGET // tiles), -(-d // _TILED_MIN_K)))
-    strips = -(-n // _SKINNY_COLS)
-    chunks = -(-d // _SKINNY_KC)
-    return max(1, min(chunks, -(-_TARGET_BLOCKS // strips)))
+    return skinny_plan(m, d, n)[1]
 
 
 def _int8_matmul_cuda(x, q, scale):
     """Launch `csrc/int8_matmul.cu` on a contiguous float32 x [m, d], a
     contiguous int8 q [d, n] and float32 scale [n]; returns float32
-    [m, n]."""
+    [m, n]. The skinny route (m <= 32) is one launch that plans its own
+    k-splits (`skinny_plan`) and merges them in the kernel: no work
+    buffer. The tiled route splits d by `_int8_splits` into a work buffer
+    of splits x m x n, added by a second launch."""
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("int8_matmul: x must be a contiguous float32 "
                          f"[m, d] tensor, got {x.dtype} {tuple(x.shape)}")
@@ -157,7 +187,8 @@ def _int8_matmul_cuda(x, q, scale):
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    splits = _int8_splits(m, d, n)
+    skinny = m <= _SKINNY_M
+    splits = 1 if skinny else _int8_splits(m, d, n)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     err = _build.kernels().int8_matmul(
@@ -166,9 +197,19 @@ def _int8_matmul_cuda(x, q, scale):
         splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.raise_on("int8_matmul", err)
     LAUNCHES["int8_matmul"] += 1
-    ROUTE_LAUNCHES["int8_matmul:skinny" if m <= _SKINNY_M
+    ROUTE_LAUNCHES["int8_matmul:skinny" if skinny
                    else "int8_matmul:tiled"] += 1
     return out
+
+
+def skinny_plan_on_card(m, d, n, device):
+    """`skinny_plan` as the built library's C rule gives it on `device`'s
+    card (builds the kernels on first use)."""
+    dev = torch.device(device)
+    out = _build.ints_out(4)
+    _build.kernels().int8_matmul_skinny_plan(dev.index or 0, int(m), int(d),
+                                             int(n), out)
+    return tuple(out)
 
 
 def int8_matmul(x, q, scale, bias=None):

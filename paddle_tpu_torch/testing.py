@@ -58,12 +58,24 @@ its output stays within the float32 limit of the plain version (atol
 into three bf16 pieces, each exact against an int8 weight, so its only
 error is the float32 order of the sum (1e-5 of the largest entry); one
 bf16 piece is a bf16 x, which that limit refuses.
+The skinny int8 route (m <= 32) takes the same three pieces on
+`mma.sync`, so the same limit and the same mutant hold it.
 tests/test_torch_split_limit.py holds both limits to both readings on
 the CPU; `chip_smoke.py` phases 2 and 13 compute the one-piece mutants on
 the card beside the kernels.
+
+`paged_decode_in_kernel` is the paged decode kernel's arithmetic in
+numpy float32, in the kernel's order: a row's pages split as
+`ops.attention.paged_decode_plan` gives, each split's keys in tiles
+whose keys go to 16 groups, an online softmax a group, the groups merged
+in group order and the splits in rank order, with the -1e30 convention
+(a split with no visible key contributes m -1e30, l 0, acc 0; a slot
+with no visible key gives 0). tests/test_torch_routes.py holds it to the
+plain version's split-and-combine.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
@@ -71,7 +83,8 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "bf16_ulp", "per_element_error", "judge_bf16_grad",
            "judge_bf16_sum", "fused_conv_abs_sums", "fused_conv_mutants",
            "flash_fwd_tiled", "tf32_round", "split_matmul",
-           "flash_fwd_split", "bf16_pieces", "int8_matmul_split"]
+           "flash_fwd_split", "bf16_pieces", "int8_matmul_split",
+           "paged_decode_in_kernel"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -319,3 +332,99 @@ def int8_matmul_split(x, q, scale, pieces=3):
         t = torch.matmul(p.float(), w)
         acc = t if acc is None else acc + t
     return acc * scale.float()
+
+
+#: groups of 8 lanes a block of the paged decode kernel (`pdec::GROUPS`)
+DECODE_GROUPS = 16
+
+
+def paged_decode_in_kernel(q, k_pages, v_pages, k_scale, v_scale, table,
+                           length, bias=None, scale=None, plan=None):
+    """The paged decode kernel's function as `csrc/paged_decode.cu`
+    computes it, in numpy float32: q [S, h, 1, d], pages [N+1, h, psz, d]
+    (int8 with [N+1, h, 1, 1] scales), table [S, mp], length [S], bias
+    [S, mp * psz] or None; `plan` (splits, pages a split) defaults to
+    `ops.attention.paged_decode_plan` on an H100. Keys of a split come in
+    tiles of 2048 / D (D = 64 or 128, the kernel's width); key kl of a
+    tile goes to group kl % 16, whose online softmax takes one step for
+    its keys of the tile: x = (q . k) * k_scale (+ bias) for each, m_new
+    the max of m and them, l and acc scaled by exp(m - m_new) once, then
+    p = exp(x - m_new) and (p * v_scale) * v added key by key. Returns
+    [S, h, 1, d] float32."""
+    from .ops import attention as A
+
+    def np32(t):
+        return None if t is None else t.detach().cpu().float().numpy()
+
+    S, h, _, d = q.shape
+    psz, mp = k_pages.shape[2], table.shape[1]
+    L = mp * psz
+    C, pps = plan or A.paged_decode_plan(S, h, mp)
+    D = 64 if d <= 64 else 128
+    KT = 2048 // D
+    sc = np.float32(A._scale(d, scale))
+    qn, kp, vp = np32(q), np32(k_pages), np32(v_pages)
+    ks, vs, bn = np32(k_scale), np32(v_scale), np32(bias)
+    rows = A._table_rows(table.cpu(), k_pages.shape[0]).numpy()
+    lens = np.asarray(length.cpu()).reshape(-1)
+    neg, f32 = np.float32(A.NEG), np.float32
+    out = np.zeros((S, h, 1, d), np.float32)
+    G = DECODE_GROUPS
+    for b in range(S):
+        for hh in range(h):
+            qs = (qn[b, hh, 0] * sc).astype(f32)
+            ranks = []
+            for r in range(C):
+                p0 = r * pps
+                start = p0 * psz
+                end = min(start + min(pps, mp - p0) * psz, L, int(lens[b]))
+                gm = [f32(-np.inf)] * G
+                gl = [f32(0)] * G
+                ga = [np.zeros(d, np.float32) for _ in range(G)]
+                for j0 in range(start, end, KT):
+                    for gi in range(G):
+                        # the group's visible keys of the tile, one step
+                        keys = [j for j in range(j0 + gi, j0 + KT, G)
+                                if j < end]
+                        if not keys:
+                            continue
+                        xs, rows_j = [], []
+                        for j in keys:
+                            p = rows[b, j // psz]
+                            x = f32(np.dot(qs, kp[p, hh, j % psz]))
+                            if ks is not None:
+                                x = f32(x * ks[p, hh, 0, 0])
+                            if bn is not None:
+                                x = f32(x + bn[b, j])
+                            xs.append(x)
+                            rows_j.append((p, j % psz))
+                        m_new = max([gm[gi]] + xs)
+                        alpha = f32(np.exp(f32(gm[gi] - m_new)))
+                        gl[gi] = f32(gl[gi] * alpha)
+                        ga[gi] = (ga[gi] * alpha).astype(f32)
+                        gm[gi] = m_new
+                        for x, (p, row) in zip(xs, rows_j):
+                            pj = f32(np.exp(f32(x - m_new)))
+                            gl[gi] = f32(gl[gi] + pj)
+                            pv = f32(pj * (vs[p, hh, 0, 0] if vs is not None
+                                           else f32(1)))
+                            ga[gi] = (ga[gi] + pv * vp[p, hh, row]) \
+                                .astype(f32)
+                if end > start:
+                    ms = max(gm)
+                    w = [f32(np.exp(f32(m - ms))) for m in gm]
+                    den, num = f32(0), np.zeros(d, np.float32)
+                    for gi in range(G):
+                        den = f32(den + gl[gi] * w[gi])
+                        num = (num + ga[gi] * w[gi]).astype(f32)
+                    ranks.append((ms, den, num))
+                else:
+                    ranks.append((neg, f32(0), np.zeros(d, np.float32)))
+            mstar = max(m for m, _, _ in ranks)
+            den, num = f32(0), np.zeros(d, np.float32)
+            for m, l_, a_ in ranks:
+                w = f32(np.exp(f32(m - mstar)))
+                den = f32(den + l_ * w)
+                num = (num + a_ * w).astype(f32)
+            out[b, hh, 0] = num / max(den, f32(1e-30))
+    return torch.from_numpy(out)

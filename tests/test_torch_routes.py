@@ -11,10 +11,22 @@ verify's routes (`attention.paged_verify_route`, the C rule
 `pt_paged_verify_route`: split-K for T <= 8, query-tiled above), its plan
 (`pt_paged_verify_plan`) and the LoRA kernel's cluster plan
 (`pt_lora_gather_plan`).
+
+The plans of the two kernels that merge their key splits in the kernel
+(the int8 matmul's skinny route, m <= 32: `quant.skinny_plan`, the C rule
+`pt_int8_matmul_skinny_plan`; the paged decode:
+`attention.paged_decode_plan`, the C rule `pt_paged_decode_plan`) are
+written out in Python and checked here over the serving shapes and the
+edges; on the card the mirrors must equal the C rules. The paged decode's
+merge, in the kernel's order (`testing.paged_decode_in_kernel`, numpy),
+must equal the plain version's split-and-combine within 1e-6 of its
+largest entry. The `cuda` tests hold both kernels to their plain
+versions on the card, one launch a call and bitwise repeatable.
 """
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +36,7 @@ from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import attention as TA  # noqa: E402
 from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
 from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
+from paddle_tpu_torch.testing import paged_decode_in_kernel  # noqa: E402
 
 BF, F32 = torch.bfloat16, torch.float32
 
@@ -210,8 +223,9 @@ def test_forward_cluster_splits_keys_to_fill_the_card(cuda, b, h, sq, sk,
 def test_int8_splits_split_d_only_where_few_tiles_run(m, d, n, want):
     """The tiled path (m > 32) splits d across blocks only where its grid
     has fewer than 66 of the 128 x 128 tiles (n = 512 at a prompt
-    bucket), at least 128 of d a split; the skinny path (m <= 32) aims at
-    two blocks an SM, at most one a 256-wide chunk."""
+    bucket), at least 128 of d a split; the skinny path (m <= 32) splits
+    it over a cluster of up to 8 blocks, one a 64-row stage at least, for
+    about two blocks an SM (`skinny_plan`)."""
     assert TQ._int8_splits(m, d, n) == want
 
 
@@ -273,8 +287,10 @@ def test_paged_verify_and_lora_rules_are_bound():
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
         assert len(helpers[name]) == argc
+    # the decode takes the output in place of the partials (one pointer
+    # for three) and plans its own splits (no T, no pages a split)
     assert len(_build._SIGNATURES["paged_verify"][1]) == \
-        len(_build._SIGNATURES["paged_decode"][1]) + 2
+        len(_build._SIGNATURES["paged_decode"][1]) + 6
 
 
 @pytest.mark.cuda
@@ -336,3 +352,261 @@ def test_paged_verify_counts_launches_by_route(cuda):
     assert TA.PAGED_ROUTE_LAUNCHES == {"paged_flash_verify:split": 2,
                                        "paged_flash_verify:tiled": 2}
     assert TA.LAUNCHES["paged_flash_verify"] == 4
+
+
+# ------------------------------- the plans of the in-kernel split merges
+
+#: (m, d, n) -> (8-row tiles of m, k-splits = blocks a cluster, k a split,
+#: warps a block) on an H100 (132 SMs): the decode step (m 8) and the spec
+#: verify step (m 32) over the decoder's and the vocabulary's shapes, and
+#: the edges
+_SKINNY_PLANS = {
+    (8, 512, 512): (1, 8, 64, 4), (8, 512, 2048): (1, 8, 64, 4),
+    (8, 2048, 512): (1, 8, 256, 8), (8, 512, 37000): (1, 1, 512, 4),
+    (32, 512, 512): (4, 8, 64, 4), (32, 512, 2048): (4, 8, 64, 4),
+    (32, 2048, 512): (4, 8, 256, 8), (32, 512, 37000): (4, 1, 512, 4),
+    (1, 100, 37): (1, 2, 64, 4), (16, 2048, 2048): (2, 8, 256, 8),
+    (17, 300, 1001): (4, 5, 64, 4), (32, 4096, 512): (4, 8, 512, 8),
+    (8, 0, 512): (1, 1, 64, 4), (8, 2048, 37000): (1, 1, 2048, 4)}
+
+
+@pytest.mark.parametrize("m,d,n", sorted(_SKINNY_PLANS))
+def test_skinny_plan_at_the_serving_shapes(m, d, n):
+    assert TQ.skinny_plan(m, d, n) == _SKINNY_PLANS[(m, d, n)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_skinny_plan_splits_d_in_whole_stages_over_a_cluster(m, sms):
+    """Every rank of a cluster gets a nonempty run of whole 64-row
+    stages and the ranks cover d; at most 8 ranks, no more than the
+    stages; a split only while the strips alone leave the card short of
+    two blocks an SM; 8 warps a block only where the grid is short of a
+    block an SM and a split holds whole 128-row stages."""
+    for d in (1, 64, 65, 512, 2048, 4096):
+        for n in (1, 37, 512, 2048, 37000):
+            mt, c, kps, warps = TQ.skinny_plan(m, d, n, sms)
+            assert mt == (1 if m <= 8 else 2 if m <= 16 else 4)
+            stages = -(-d // 64)
+            assert kps % 64 == 0 and 1 <= c <= min(8, stages)
+            assert (c - 1) * kps < d <= c * kps
+            strips = -(-n // 128)
+            if c > 1:
+                assert (c - 1) * strips < 2 * sms
+            # 8 warps (128-row stages) only for a grid short of an SM each
+            assert warps == (8 if strips * c < sms and kps % 128 == 0
+                             else 4)
+            assert TQ._int8_splits(m, d, n) == TQ.skinny_plan(m, d, n)[1]
+
+
+@pytest.mark.parametrize("m", [0, 33, 1024])
+def test_skinny_plan_refuses_the_tiled_route(m):
+    with pytest.raises(ValueError, match="skinny"):
+        TQ.skinny_plan(m, 512, 512)
+
+
+#: (S, h, mp) -> (splits = blocks a cluster, pages a split) on an H100: the
+#: paged serve's decode step (S 8, h 8, 67 pages of 16 at max_len 1056 + the
+#: spec overhang) and the edges
+_DECODE_PLANS = {(8, 8, 67): (7, 10), (8, 8, 1): (1, 1), (8, 8, 5): (5, 1),
+                 (1, 8, 67): (8, 9), (16, 8, 67): (4, 17),
+                 (64, 16, 67): (1, 67), (4, 2, 9): (5, 2)}
+
+
+@pytest.mark.parametrize("S,h,mp", sorted(_DECODE_PLANS))
+def test_paged_decode_plan_at_the_serving_shapes(S, h, mp):
+    assert TA.paged_decode_plan(S, h, mp) == _DECODE_PLANS[(S, h, mp)]
+
+
+@pytest.mark.parametrize("rows", [(1, 1), (1, 8), (8, 8), (16, 8),
+                                  (64, 16)])
+def test_paged_decode_plan_splits_whole_pages_over_a_cluster(rows):
+    """For every mp from 1 to 67: every rank gets a nonempty run of whole
+    pages and the ranks cover the row; at most 8 ranks and no more than
+    the pages; a split only while the rows alone leave the card short of
+    three blocks an SM."""
+    S, h = rows
+    for mp in range(1, 68):
+        c, pps = TA.paged_decode_plan(S, h, mp)
+        assert 1 <= c <= min(8, mp)
+        assert (c - 1) * pps < mp <= c * pps
+        if c > 1:
+            assert (c - 1) * S * h < 3 * 132
+
+
+@pytest.mark.parametrize("S,h,mp", [(-1, 8, 4), (2, 0, 4), (2, 8, 0)])
+def test_paged_decode_plan_refuses_empty_rows(S, h, mp):
+    with pytest.raises(ValueError, match="no plan"):
+        TA.paged_decode_plan(S, h, mp)
+
+
+def test_merge_plans_are_bound():
+    """Both C rules exist in the sources and are bound as helpers of their
+    libraries (device, three sizes, the output array)."""
+    csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
+    helpers = {n: a for lib in _build._HELPERS.values() for n, a in lib}
+    for src, name in (("int8_matmul.cu", "pt_int8_matmul_skinny_plan"),
+                      ("paged_decode.cu", "pt_paged_decode_plan")):
+        with open(os.path.join(csrc, src)) as f:
+            assert f'extern "C" int {name}(' in f.read()
+        assert len(helpers[name]) == 5
+
+
+def _paged_decode_case(S, h, psz, mp, d, lens, kv_dt, hole, seed=60,
+                       dev="cpu"):
+    """Pages of a shuffled pool, table entries past each slot's written
+    pages on the trash row or unmapped (-1), int8 pages with per-(page,
+    head) scales, a small random bias with a -1e30 hole over `hole`; from
+    numpy's seeded generator."""
+    rs = np.random.RandomState(seed)
+    N = S * mp + 3
+    table = rs.permutation(N)[:S * mp].reshape(S, mp).astype(np.int32)
+    for s, n in enumerate(lens):
+        table[s, -(-n // psz):] = -1 if s % 2 else N
+    raw = [rs.randn(N + 1, h, psz, d).astype(np.float32) for _ in range(2)]
+    scales = [None, None]
+    if kv_dt == torch.int8:
+        for i, x in enumerate(raw):
+            sc = np.abs(x).max(axis=(2, 3), keepdims=True) / 127.0
+            raw[i] = np.clip(np.round(x / sc), -127, 127)
+            scales[i] = torch.from_numpy(sc.astype(np.float32)).to(dev)
+    kp, vp = (torch.from_numpy(x).to(kv_dt).to(dev) for x in raw)
+    q = torch.from_numpy(rs.randn(S, 1, h, d).astype(np.float32)).to(dev) \
+        .transpose(1, 2)
+    bias = (rs.randn(S, mp * psz) * 0.1).astype(np.float32)
+    bias[:, hole[0]:hole[1]] = -1e30
+    return (q, kp, vp, scales[0], scales[1], torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            torch.from_numpy(bias).to(dev))
+
+
+#: S, h, page size, mp, d, lengths, bias hole; the plan of each (S, h, mp)
+#: splits the row over 5 ranks of 2 pages (32 keys): a slot with no written
+#: key, slots whose last ranks see no key (17, 40), a hole over the first
+#: split's keys of every slot (rows that see keys past it), d 40 and 128
+_DECODE_EMU = {
+    "length0_short_slots": (4, 2, 16, 9, 64, [0, 144, 17, 100], (3, 9)),
+    "hole_over_the_first_split": (4, 2, 16, 9, 64, [0, 144, 40, 100],
+                                  (0, 32)),
+    "page8_d40": (3, 2, 8, 12, 40, [96, 9, 50], (10, 20)),
+    "d128_one_page_splits": (2, 2, 16, 5, 128, [80, 33], (0, 16)),
+}
+
+
+@pytest.mark.parametrize("kv", ["fp32", "int8"])
+@pytest.mark.parametrize("case", sorted(_DECODE_EMU))
+def test_in_kernel_merge_equals_the_combine(case, kv):
+    """The kernel's arithmetic (groups of a split in key order, groups
+    merged in group order, splits in rank order) against the plain
+    version's partials of 128 keys and the logsumexp combine: within 1e-6
+    of the largest entry; the slot with no written key is exactly 0."""
+    S, h, psz, mp, d, lens, hole = _DECODE_EMU[case]
+    kv_dt = torch.int8 if kv == "int8" else torch.float32
+    args = _paged_decode_case(S, h, psz, mp, d, lens, kv_dt, hole)
+    want = TA.paged_flash_decode_plain(*args)
+    got = paged_decode_in_kernel(*args)
+    assert got.shape == want.shape == (S, h, 1, d)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-6 * want.abs().max().item()
+    for s, n in enumerate(lens):
+        if n == 0:
+            assert not got[s].any() and not want[s].any()
+
+
+def test_in_kernel_merge_follows_the_plan():
+    """One rank or eight: the same output within 1e-6 (the plan moves the
+    order of the sums, not the function)."""
+    args = _paged_decode_case(2, 2, 16, 20, 64, [300, 120], torch.float32,
+                              (0, 40))
+    one = paged_decode_in_kernel(*args, plan=(1, 20))
+    eight = paged_decode_in_kernel(*args, plan=(7, 3))
+    assert (one - eight).abs().max().item() <= 1e-6 * one.abs().max().item()
+
+
+# ---------------------------------------------------- the merges on the card
+
+
+@pytest.mark.cuda
+def test_merge_plan_mirrors_are_the_c_rules(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (1, 8, 16, 17, 32):
+        for d in (0, 70, 512, 2048):
+            for n in (5, 130, 512, 2048, 37000):
+                assert TQ.skinny_plan_on_card(m, d, n, cuda) == \
+                    TQ.skinny_plan(m, d, n, sms)
+    for S, h in ((1, 8), (8, 8), (16, 8), (64, 16)):
+        for mp in (1, 2, 9, 36, 67):
+            assert TA.paged_decode_plan_on_card(S, h, mp, cuda) == \
+                TA.paged_decode_plan(S, h, mp, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n", [(8, 512, 512), (8, 2048, 512),
+                                   (8, 512, 37000), (32, 512, 512),
+                                   (32, 2048, 512), (32, 512, 37000),
+                                   (1, 100, 37), (17, 300, 1001)])
+def test_skinny_route_is_one_repeatable_launch(cuda, m, d, n):
+    """Within 1e-5 of the plain version's largest entry; one launch a
+    call on the skinny route (the k-splits merged in the kernel); the
+    same bits on every call (the ranks' partials added in rank order)."""
+    rs = np.random.RandomState(m + d + n)
+    x = torch.from_numpy(rs.randn(m, d).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rs.randn(d, n).astype(np.float32) * 0.05)
+    q, scale = (t.to(cuda) for t in TQ.quantize_int8_weight(w))
+    TQ.reset_launches()
+    got = TQ.int8_matmul(x, q, scale)
+    again = TQ.int8_matmul(x, q, scale)
+    assert TQ.LAUNCHES["int8_matmul"] == 2
+    assert TQ.ROUTE_LAUNCHES == {"int8_matmul:skinny": 2,
+                                 "int8_matmul:tiled": 0}
+    assert torch.equal(got, again)
+    want = TQ.int8_matmul_reference(x, q, scale)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+_DECODE_CARD = {
+    **{f"{k}_{kv}": (*v, kv) for k, v in _DECODE_EMU.items()
+       for kv in ("fp32", "bf16", "int8")},
+    "serving_S8_h8_mp67_fp32": (8, 8, 16, 67, 64,
+                                [60, 1072, 700, 300, 129, 0, 1000, 513],
+                                (20, 40), "fp32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_DECODE_CARD))
+def test_paged_decode_is_one_repeatable_launch(cuda, case):
+    """Against the plain version (atol 2e-5) and the kernel-order
+    emulation; one launch a call, the same bits on every call."""
+    S, h, psz, mp, d, lens, hole, kv = _DECODE_CARD[case]
+    kv_dt = {"fp32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}[kv]
+    args = _paged_decode_case(S, h, psz, mp, d, lens, kv_dt, hole, dev=cuda)
+    TA.reset_launches()
+    got = TA.paged_flash_decode(*args)
+    again = TA.paged_flash_decode(*args)
+    assert TA.LAUNCHES["paged_flash_decode"] == 2
+    assert torch.equal(got, again)
+    want = TA.paged_flash_decode_plain(*args)
+    assert (got - want).abs().max().item() <= 2e-5
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    emu = paged_decode_in_kernel(*args, plan=TA.paged_decode_plan(S, h, mp,
+                                                                  sms))
+    assert (got.cpu() - emu).abs().max().item() <= 2e-5
+
+
+def test_probe_variants_still_apply_to_the_kernels():
+    """tools/probe_decode_merge.py builds each design-step variant from
+    anchored edits of the two kernels' sources: every anchor is still
+    found exactly once, and every edit changes the text."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import probe_decode_merge as probe
+
+    for name in probe.VARIANTS:
+        fname, text = probe.variant_source(name)
+        with open(os.path.join(probe.CSRC, fname)) as f:
+            base = f.read()
+        assert "probe_clusters" in text and "probe_clusters" not in base
+        edited = text.rsplit('\nextern "C" int probe_clusters', 1)[0]
+        assert (edited != base) == bool(probe.VARIANTS[name][1])

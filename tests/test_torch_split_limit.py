@@ -25,7 +25,12 @@ numpy inputs from a seed at narrow widths (the serving shapes' head dim
     limits at every case, so the limits tell the split from plain TF32 or
     bf16;
 (d) the design-step variants of tools/probe_tf32_forward.py still find
-    their anchors in the kernels' sources.
+    their anchors in the kernels' sources;
+(e) the skinny int8 route (m <= 32: decode and verify steps, three bf16
+    pieces on `mma.sync`) at every m 8 and m 32 shape of the serving
+    stack (the decoder's 512x512, 512x2048 and 2048x512, the vocabulary's
+    512x37000) and at the edges m 1, 16, 17: the three pieces within the
+    limit, the one-piece mutant refused at every case.
 """
 import os
 import sys
@@ -247,3 +252,38 @@ def test_probe_variants_still_apply_to_the_kernel(name):
     for fname, text in texts.items():
         with open(os.path.join(probe_tf32_forward.CSRC, fname)) as f:
             assert f.read() != text
+
+
+# --------------------------------------- (e) the skinny int8 route (m <= 32)
+
+#: m, d, n: the decode step (m 8) and the spec verify step (m 32) over the
+#: serving stack's weights, and the route's edges
+_I8_SKINNY = {
+    **{f"m{m}_{d}x{n}": (m, d, n) for m in (8, 32)
+       for d, n in ((512, 512), (512, 2048), (2048, 512), (512, 37000))},
+    "m1_100x37": (1, 100, 37), "m16_300x1001": (16, 300, 1001),
+    "m17_2048x130": (17, 2048, 130),
+}
+
+
+def _skinny_rel(case, pieces, seed=11):
+    m, d, n = _I8_SKINNY[case]
+    x = torch.from_numpy(_rand((m, d), seed))
+    q, scale = TQ.quantize_int8_weight(torch.from_numpy(
+        _rand((d, n), seed + 1) * 0.05))
+    want = TQ.int8_matmul_reference(x, q, scale)
+    got = int8_matmul_split(x, q, scale, pieces)
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+@pytest.mark.parametrize("case", sorted(_I8_SKINNY))
+def test_three_piece_skinny_product_is_within_the_float32_limit(case):
+    assert _skinny_rel(case, 3) <= REL_INT8
+
+
+@pytest.mark.parametrize("case", sorted(_I8_SKINNY))
+def test_one_piece_skinny_product_is_refused(case):
+    """A bf16 x moves every decode and verify shape past 1e-5 of its
+    largest entry: the limit tells the skinny route's split from a bf16
+    x."""
+    assert _skinny_rel(case, 1) > REL_INT8

@@ -17,7 +17,10 @@ turns. Groups (all by default; `--groups a,b` picks some):
             speculative step, the S8 h8 T256 tail prefill, the S1 h8 T64
             / T256 / T512 tail prefills of `PagedLayout.pattach`; fp32
             pages), alone (the split route's partials, or the tiled
-            route's output) and with the combine;
+            route's output) and with the combine; paged_flash_decode at
+            phase 8's S8 h8 mp67 decode step (fp32 and int8 pages), alone
+            (the kernel's entry: partials where a combine follows, else
+            the output) and the whole call;
   lora      lora_gather at phase 16's nine shapes (rank 8);
   int8      int8_matmul at phase 16's float32 shapes (m 8, 32 and 1024
             on 512x512, 512x2048, 2048x512 and 512x37000).
@@ -115,6 +118,8 @@ FWD_FP32_CASES = {
 }
 
 
+#: phase 8's timed paged decode cases (chip_smoke.new_kernel_cases)
+DECODE_CASES = ("decode S8 h8 mp67 pages fp32", "decode S8 h8 mp67 pages int8")
 #: phase 8's timed paged verify cases (chip_smoke.new_kernel_cases)
 VERIFY_CASES = ("spec step S8 h8 T4 mp67 pages fp32",
                 "tail prefill S8 h8 T256 mp67 pages fp32",
@@ -124,10 +129,10 @@ VERIFY_CASES = ("spec step S8 h8 T4 mp67 pages fp32",
 
 
 def serving_ms(cs, A, groups):
-    """paged_flash_verify [alone, with the combine], lora_gather and
-    int8_matmul ms at phases 8 and 16's shapes, for the named groups, with
-    whichever entry the package has (the split partials before the tiled
-    route existed)."""
+    """paged_flash_verify and paged_flash_decode [alone, the whole call],
+    lora_gather and int8_matmul ms at phases 8 and 16's shapes, for the
+    named groups, with whichever entry the package has (the split
+    partials before a kernel wrote its output itself)."""
     import torch
 
     from paddle_tpu_torch.ops import quant as Q
@@ -135,7 +140,20 @@ def serving_ms(cs, A, groups):
     g = torch.Generator(device="cuda").manual_seed(8)
     out = {}
     if "verify" in groups:
-        cases = cs.new_kernel_cases(g)["paged_flash_verify"]
+        new_cases = cs.new_kernel_cases(g)
+        out["paged_flash_decode"] = {}
+        for name in DECODE_CASES:
+            args = new_cases["paged_flash_decode"][name]
+            if hasattr(A, "_paged_decode_cuda"):
+                fn = lambda: A._paged_decode_cuda(*args, None)  # noqa: E731
+            else:
+                fn = lambda: A._paged_partials_cuda(             # noqa: E731
+                    "paged_flash_decode", *args, None)
+            out["paged_flash_decode"][name] = [
+                cs.device_ms(fn), cs.device_ms(lambda: A.paged_flash_decode(
+                    *args))]
+        cases = new_cases["paged_flash_verify"]
+        del new_cases
         alone = getattr(A, "_paged_verify_cuda", None)
         out["paged_flash_verify"] = {}
         for name in VERIFY_CASES:

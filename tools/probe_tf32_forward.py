@@ -23,7 +23,7 @@ unedited kernel:
 
 The diagnostic variants (the last three) compute another function; only
 their times are printed. Then int8_matmul at phase 13's m 1024 shapes
-and the skinny ones, with the wrapper's k-splits and with none: device
+(the tiled route), with the wrapper's k-splits and with none: device
 ms and the largest |kernel - plain| over 4 seeds, of the plain version's
 largest entry. Prints one JSON line per case with the card's name and
 power limit.
@@ -74,8 +74,10 @@ FWD_CASES = {
                                      [256 - 9 * i for i in range(16)]),
     "row b1 h1 64x1024": (1, 1, 64, 1024, 64, False, None),
 }
-INT8_SHAPES = ((8, 2048, 512), (32, 2048, 512), (1024, 512, 512),
-               (1024, 2048, 512), (1024, 512, 2048), (1024, 512, 37000))
+#: the tiled route's shapes (the skinny route, m <= 32, plans its own
+#: k-splits in the kernel: tools/probe_decode_merge.py)
+INT8_SHAPES = ((1024, 512, 512), (1024, 2048, 512), (1024, 512, 2048),
+               (1024, 512, 37000))
 
 
 def variant_sources(name):
