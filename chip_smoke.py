@@ -11,7 +11,8 @@ Phases; any failure exits nonzero before the result lines:
     flash_bwd_dkv, fused_conv_fwd, fused_conv_bwd and int8_matmul, and
     the HMMA (TF32 mma.sync) of flash_fwd's float32 kernels
     (`cuobjdump -sass`; none fails the phase), and ptxas's registers and
-    spills of their tensor-core kernels.
+    spills of their tensor-core kernels and of every instance of the
+    three kernels on attn_merge.cuh.
  2. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving paths give it: flash_fwd (fp32 on the tensor
     cores as 3xTF32: the four serving shapes on their routes, and the
@@ -19,13 +20,14 @@ Phases; any failure exits nonzero before the result lines:
     and 16 causal rows over 1000, each launch counted on the route the C
     rule gives; its one-TF32-pass mutant, `testing.flash_fwd_split` with
     pieces=1 computed on the card, must be refused by the same limit at
-    every case) and flash_decode (fp32, atol 2e-5); flash_verify at b8 h8 T4 L1060 (the speculative pool's
+    every case) and flash_decode (b8 h8 L1056 ragged, fp32 and bf16, and
+    a row with no written key beside a -1e30 hole over the first split);
+    flash_verify at b8 h8 T4 L1060 (the speculative pool's
     verify step), fp32 and bf16, ragged lengths, a key-bias hole;
-    paged_flash_decode (T 1: one launch, its key splits merged in the
-    kernel; also a slot with no written key and a -1e30 hole over every
-    slot's first split) and paged_flash_verify (T 4, the paged
-    speculative step on the split route, and T 256, a prefix hit's tail
-    prefill on the tiled route) at S8 h8 page 16 mp67 over a shuffled
+    paged_flash_decode (T 1; also a slot with no written key and a -1e30
+    hole over every slot's first split) and paged_flash_verify (T 4, the
+    paged speculative step on the split route, and T 256, a prefix hit's
+    tail prefill on the tiled route) at S8 h8 page 16 mp67 over a shuffled
     page table with trash and unmapped entries, pages fp32, bf16 and int8
     with scales; the tiled route also at the tail prefills phase 6 gives
     it (S1 h8 T64, T256, T512 over the width-clipped row of W = 32 + T/16
@@ -33,7 +35,12 @@ Phases; any failure exits nonzero before the result lines:
     -1e30 bias over the first two key tiles. Limits: fp32 output
     (fp32, bf16 or int8 pages under an fp32 query: the dequant is the
     same arithmetic on both sides) atol 2e-5; bf16 output 1e-2 of the
-    plain version's largest entry.
+    plain version's largest entry. The three kernels that merge their key
+    splits in the kernel (flash_decode, paged_flash_decode and the split
+    route) must also launch once a call, give the same bits on every
+    call, and agree with their kernel-order emulation
+    (`testing.flash_decode_in_kernel`, `paged_verify_in_kernel`) within
+    the same limits.
  3. Serve Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
     vocab 37000; random weights from --seed) through ServingServer: 16
     requests over 8 slots, source memories of 256 tokens encoded on the
@@ -53,10 +60,11 @@ Phases; any failure exits nonzero before the result lines:
     of the same function, with the share of the tensor-core bound the
     kernel reaches), the plain version, and
     torch.nn.functional.scaled_dot_product_attention as a yardstick only
-    (the port never calls it). Decode is timed twice: the kernel alone
-    ("ms") and with its torch combine ("with_combine_ms", the scope of
-    the plain and library times). Then a second pass of 8 requests under
-    torch.profiler: device time by kernel and the device's busy share.
+    (the port never calls it). The decode's time is its whole call (one
+    launch: its key splits merge in the kernel), whose device kernels
+    (torch.profiler, 5 calls) must be flash_decode_kernel alone. Then a
+    second pass of 8 requests under torch.profiler: device time by kernel
+    and the device's busy share.
  5. Dense speculative serve: ServingEngine(spec_k=4) with the phase-3
     weights, 8 requests whose prompts repeat a seeded 16-token period
     (300-1000 tokens), 32 new tokens, through ServingServer. Tokens equal
@@ -77,20 +85,23 @@ Phases; any failure exits nonzero before the result lines:
     every tail prefill (one a partial hit and decoder layer, T > 4) on
     paged_flash_verify's tiled route and every speculative step (one a
     round and layer, T 4) on its split route, counted by route; a
-    profiled pass of 8 more requests gives the device's busy share.
+    profiled pass of 8 more requests through each engine gives the
+    device's busy share, and one launch of the decode kernel a decode
+    call (paged) and of the split kernel a split-route call (paged +
+    spec).
  7. int8 pages: kv_dtype="int8", 4 of the phase-6 requests; token
     agreement with the fp32 pages is printed, not asserted.
  8. Timing of flash_verify, paged_flash_decode and paged_flash_verify at
-    the phase-5/6 shapes: kernel (partials only; the tiled route's
-    kernel writes the output) and with the combine, the bytes /
-    operations bound, the plain version, and SDPA on the pre-gathered
-    dense K/V with the equivalent mask (a yardstick; the gather is not
-    timed), with the device kernels SDPA runs (torch.profiler). The
-    paged verify also at the tail prefills of phase 6 (S1 h8 T64, T256
-    and T512 over W = 32 + T/16 pages). The paged decode is one call (its
-    key splits merged in the kernel): "ms" is the kernel's entry,
-    "with_combine_ms" the public wrapper, and the device kernels of a
-    call (torch.profiler, 5 calls) must be the decode kernel alone.
+    the phase-5/6 shapes: kernel (flash_verify's partials; the paged
+    kernels write the output) and the whole call (flash_verify's with
+    the torch combine), the bytes / operations bound, the plain version,
+    and SDPA on the pre-gathered dense K/V with the equivalent mask (a
+    yardstick; the gather is not timed), with the device kernels SDPA
+    runs (torch.profiler). The paged verify also at the tail prefills of
+    phase 6 (S1 h8 T64, T256 and T512 over W = 32 + T/16 pages). The
+    paged decode and the split route are one launch a call (their key
+    splits merged in the kernel): the device kernels of a call
+    (torch.profiler, 5 calls) must be the route's kernel alone.
  9. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
     pad bias over ragged lengths, attention dropout 0.1 on the logical
     512 x 512 blocks): flash_fwd with dropout, flash_bwd_dq and
@@ -256,9 +267,10 @@ Phases; any failure exits nonzero before the result lines:
     the dense boolean mask (forward for flash_fwd, backward alone for the
     backward kernels), and the 64 x 64 tiles that `seg_window`'s rule
     visits, counted on the host from the ids (a log line only).
-25. Output: a {"kernels": [...]} line for all eleven kernels, then the
-    card's name and power limit, then {"ok": true, "device": {...}} as
-    the last line.
+25. Output: a {"kernels": [...]} line for all eleven kernels (the
+    attention kernels' launches summed over every serving path, phases
+    3, 5, 6, 14 and 15), then the card's name and power limit, then
+    {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -488,31 +500,64 @@ def dec_case(g, b, h, L, d, lens, hole):
 
 
 def dec_numbers(A, args):
+    """Phase 4: the decode's whole call (one launch: its key splits merge
+    in the kernel) against its bound, the plain version and SDPA, and the
+    device kernels a call (torch.profiler), which must be the decode
+    kernel alone."""
     q, k, v, length, bias = args
     b, h, _, d = q.shape
     L = k.shape[2]
     n = int(length.sum())                      # keys this data needs
-    ns = -(-L // A.DECODE_SPLIT)
-    nbytes = 4.0 * (2 * n * h * d + b * h * d + n + b
-                    + b * h * ns * (d + 2))
+    # K and V of the visible keys, q, their bias, the lengths, the output
+    nbytes = 4.0 * (2 * n * h * d + b * h * d + n + b + b * h * d)
     flops = 4.0 * n * h * d
     kpos = torch.arange(L, device="cuda")
     mask = torch.where(kpos[None] < length[:, None].long(), 0.0, -1e30) \
         + bias
     mask = mask[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = device_ms(lambda: A._decode_partials_cuda(
-        q, k, v, length, bias, None, A.DECODE_SPLIT))
-    # the whole attention (kernel + torch combine): the scope that the
-    # plain version and the library call time
-    whole = device_ms(lambda: A.flash_decode(q, k, v, length, bias))
+    ms = device_ms(lambda: A.flash_decode(q, k, v, length, bias))
     plain = device_ms(lambda: A.flash_decode_plain(q, k, v, length, bias))
     lib = device_ms(lambda: sdpa(q, k, v, attn_mask=mask))
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
-            "library_ms": lib,
+    per_call = kernels_per_call(lambda: A.flash_decode(q, k, v, length,
+                                                       bias))
+    only_kernel("flash_decode", per_call, "flash_decode_kernel")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "plan": dict(zip(("splits", "keys_per_split"),
+                             A.flash_decode_plan_on_card(b, h, L,
+                                                         q.device))),
+            "kernels_per_call": per_call}
+
+
+#: each merge kernel's largest error against `testing`'s kernel-order
+#: emulation in phase 2 (float32 outputs), for the kernels line
+EMU_ERRS = {}
+
+
+def one_launch_each(A, name, fn, *args):
+    """Two calls of a wrapper: each must add one to its kernel's count and
+    both must give the same bits (the splits merge in rank order).
+    Returns the first call's output."""
+    before = A.LAUNCHES[name]
+    out, again = fn(*args), fn(*args)
+    calls = A.LAUNCHES[name] - before
+    if calls != 2 or not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls launched {calls} kernels, "
+                             f"bitwise equal {torch.equal(out, again)}")
+    return out
+
+
+def emulation_err(label, got, emu, limit):
+    """The largest error of a kernel's output against its kernel-order
+    emulation (numpy, `testing.merge_in_kernel`), held to `limit`."""
+    e = (got.float().cpu() - emu).abs().max().item()
+    if not e <= limit:
+        raise AssertionError(f"{label}: {e} from the kernel-order emulation "
+                             f"(limit {limit})")
+    return e
 
 
 def check_kernels(A, g):
@@ -545,7 +590,16 @@ def check_kernels(A, g):
             dec_case(g, SLOTS, HEADS, MAX_LEN, 64,
                      [60, 1056, 700, 300, 129, 128, 1000, 513], (20, 40)),
     }
+    # the same values in bf16, and a row with no written key beside a
+    # -1e30 hole over the first split that every other row sees keys past
+    q, k, v, length, bias = dec["decode b8 h8 L1056 d64 ragged"]
+    dec_all = {**dec, "decode b8 h8 L1056 d64 ragged bf16": (
+        *(x.to(torch.bfloat16) for x in (q, k, v)), length, bias),
+        "decode b8 h8 L1056 d64 length-0 row, hole over split 0": dec_case(
+            g, SLOTS, HEADS, MAX_LEN, 64,
+            [0, 1056, 700, 300, 200, 161, 1000, 513], (0, 160))}
     errs = {"flash_fwd": 0.0, "flash_decode": 0.0}
+    errs16 = {}
     for name, (q, k, v, bias, causal) in {**fwd, **short}.items():
         route = A.fwd_route(q.dtype, q.shape[2])
         before = dict(A.ROUTE_LAUNCHES)
@@ -573,17 +627,32 @@ def check_kernels(A, g):
                                  f"{ATOL_KERNEL} passes one TF32 pass "
                                  f"({em})")
         errs["flash_fwd"] = max(errs["flash_fwd"], e)
-    for name, (q, k, v, length, bias) in dec.items():
-        out = A.flash_decode(q, k, v, length, bias)
-        pout = A.flash_decode_plain(q, k, v, length, bias)
+    from paddle_tpu_torch.testing import flash_decode_in_kernel
+
+    for name, args in dec_all.items():
+        q, k = args[:2]
+        out = one_launch_each(A, "flash_decode", A.flash_decode, *args)
+        pout = A.flash_decode_plain(*args)
+        plan = A.flash_decode_plan_on_card(*q.shape[:2], k.shape[2],
+                                           q.device)
+        emu = flash_decode_in_kernel(*args, plan=plan)
         torch.cuda.synchronize()
-        e = (out - pout).abs().max().item()
-        log(f"  flash_decode {name}: max_abs_err {e:.3e}")
-        if not e <= ATOL_KERNEL:
+        e = (out.float() - pout.float()).abs().max().item()
+        limit = ATOL_KERNEL if q.dtype == torch.float32 else \
+            REL_BF16_ATT * pout.float().abs().max().item()
+        ee = emulation_err(f"flash_decode {name}", out, emu, limit)
+        log(f"  flash_decode {name} [splits, keys a split {plan}; one launch "
+            f"a call, bitwise repeatable]: max_abs_err {e:.3e}, against the "
+            f"kernel-order emulation {ee:.3e} (limit {limit:.3e})")
+        if not e <= limit:
             raise AssertionError(f"flash_decode disagrees with its plain "
                                  f"version on {name}: {e}")
-        errs["flash_decode"] = max(errs["flash_decode"], e)
-    return errs, fwd, dec
+        into = errs if q.dtype == torch.float32 else errs16
+        into["flash_decode"] = max(into.get("flash_decode", 0.0), e)
+        if q.dtype == torch.float32:
+            EMU_ERRS["flash_decode"] = max(EMU_ERRS.get("flash_decode", 0.0),
+                                           ee)
+    return errs, errs16, fwd, dec
 
 
 def check_fwd_routes(A, label, launches):
@@ -883,14 +952,25 @@ def new_kernel_cases(g):
 
 def check_new_kernels(A, cases):
     """Phase 2, second part: flash_verify, paged_flash_decode and
-    paged_flash_verify against their plain versions. Returns
+    paged_flash_verify against their plain versions; the merge kernels
+    (the paged decode, the split route) also one launch a call, bitwise
+    repeatable, and against the kernel-order emulation. Returns
     ({kernel: max_abs_err of the fp32-output cases}, {kernel: the same
     for the bf16-output cases})."""
+    from paddle_tpu_torch.testing import paged_verify_in_kernel
+
     errs, errs16 = {}, {}
     for kname, group in cases.items():
         wrapper, plain = getattr(A, kname), getattr(A, kname + "_plain")
         for cname, args in group.items():
-            got, want = wrapper(*args), plain(*args)
+            q = args[0]
+            S, h, T, d = q.shape
+            merge = kname == "paged_flash_decode" or (
+                kname == "paged_flash_verify"
+                and A.paged_verify_route(T, d) == "split")
+            got = (one_launch_each(A, kname, wrapper, *args) if merge
+                   else wrapper(*args))
+            want = plain(*args)
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
             if got.dtype == torch.float32:
@@ -900,11 +980,18 @@ def check_new_kernels(A, cases):
                 into = errs16
             route = ""
             if kname == "paged_flash_verify":
-                route = f" [{A.paged_verify_route(args[0].shape[2], 64)}]"
-            elif kname == "paged_flash_decode":
-                plan = A.paged_decode_plan_on_card(
-                    *args[0].shape[:2], args[5].shape[1], args[0].device)
-                route = f" [splits, pages a split {plan}]"
+                route = f" [{A.paged_verify_route(T, d)}]"
+            if merge:
+                plan = A.paged_decode_plan_on_card(S, h, args[5].shape[1],
+                                                   q.device)
+                ee = emulation_err(f"{kname} {cname}", got,
+                                   paged_verify_in_kernel(*args, plan=plan),
+                                   limit)
+                if got.dtype == torch.float32:
+                    EMU_ERRS[kname] = max(EMU_ERRS.get(kname, 0.0), ee)
+                route += (f" [splits, pages a split {plan}; one launch a "
+                          f"call, bitwise repeatable; against the "
+                          f"kernel-order emulation {ee:.3e}]")
             log(f"  {kname:18s} {cname}{route}: max_abs_err {e:.3e} (limit "
                 f"{limit:.3e})")
             if not e <= limit:
@@ -920,10 +1007,12 @@ def _visible(length, T):
 
 
 def read_numbers(A, kname, args):
-    """Phase 8: kernel (the partials of the split routes; the paged
-    decode's and the tiled verify's output) and with the combine (the
-    whole call), bound, plain version, and SDPA on the pre-gathered dense
-    K/V with the equivalent [b, 1, T, L] mask."""
+    """Phase 8: kernel (flash_verify's partials; the paged kernels write
+    the output) and the whole call (flash_verify's with the torch
+    combine), bound, plain version, and SDPA on the pre-gathered dense
+    K/V with the equivalent [b, 1, T, L] mask; the device kernels a call
+    of the paged decode and the split route (torch.profiler), which must
+    be the route's kernel alone."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kname == "flash_verify":
         q, k, v, length, bias = args
@@ -946,14 +1035,12 @@ def read_numbers(A, kname, args):
         else:
             kern = lambda: A._paged_decode_cuda(     # noqa: E731
                 q, kp, vp, ks, vs, table, length, bias, None)
-        ns = -(-table.shape[1] // A._pages_per_split(psz))
     b, h, T, d = q.shape
     L = kd.shape[2]
     n = sum(int(x) for x in length)             # keys this data needs
     pairs = sum(_visible(x, T) for x in length)
     # the output: the partials the kernel writes (flash_verify), or the
-    # function's output (the paged decode, and the paged verify's tiled
-    # route, write it themselves)
+    # function's output (the paged kernels write it themselves)
     out_bytes = (4.0 * b * h * ns * T * (d + 2) if kname == "flash_verify"
                  else q.numel() * q.element_size())
     nbytes = (2.0 * n * h * d * elt + q.numel() * q.element_size()
@@ -969,25 +1056,27 @@ def read_numbers(A, kname, args):
     lib = device_ms(lambda: sdpa(q, kd, vd, attn_mask=mask))
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     lib_kernels = kernels_per_call(lambda: sdpa(q, kd, vd, attn_mask=mask))
-    row = {"ms": ms, "with_combine_ms": whole, "plain_ms": plain,
+    row = {"ms": ms, "whole_call_ms": whole, "plain_ms": plain,
            "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_kernels": sorted(lib_kernels)
            if isinstance(lib_kernels, dict) else lib_kernels}
+    merge = {"paged_flash_decode": "paged_decode_kernel"}
     if kname == "paged_flash_verify":
         row["route"] = A.paged_verify_route(T, d)
         if row["route"] == "tiled":
             row["plan"] = dict(zip(("rows", "splits", "keys_per_split"),
                                    A.paged_verify_plan(q, L)))
-    if kname == "paged_flash_decode":
-        # one call is one launch of the decode kernel: no combine after it
+        else:
+            merge[kname] = "paged_split_kernel"
+    if kname in merge:
+        # one call is one launch of the route's kernel: no combine after it
         row["plan"] = dict(zip(("splits", "pages_per_split"),
                                A.paged_decode_plan_on_card(
                                    b, h, table.shape[1], q.device)))
         row["kernels_per_call"] = kernels_per_call(
             lambda: getattr(A, kname)(*args))
-        only_kernel("paged_flash_decode", row["kernels_per_call"],
-                    "paged_decode_kernel")
+        only_kernel(kname, row["kernels_per_call"], merge[kname])
     return row
 
 
@@ -1260,6 +1349,26 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
         if n != n_calls or n_calls < 1:
             raise AssertionError(f"paged_flash_decode: {n_calls} calls "
                                  f"launched the decode kernel {n} times")
+    # the speculative engine's pass: every speculative step (T = SPEC_K)
+    # one launch of paged_split_kernel, its splits merged in the kernel
+    vcalls, restore = verify_width_log(A)
+    try:
+        rows = profile_pass(engines["paged_spec"], more[REQUESTS:],
+                            more_mems[REQUESTS:],
+                            ("flash_fwd", "paged_split_kernel",
+                             "paged_tiled_kernel", "paged_decode_kernel"))
+    finally:
+        restore()
+    if rows is not None:
+        ms, n = rows_matching(rows, "paged_split_kernel")
+        n_calls = sum(r == "split" for _, r in vcalls)
+        log(f"  paged_flash_verify's split route: {n_calls} calls, {n} "
+            f"launches of paged_split_kernel ({ms:.2f} ms): one launch a "
+            f"call, no combine after it")
+        if n != n_calls or n_calls < 1:
+            raise AssertionError(f"paged_flash_verify: {n_calls} split-route "
+                                 f"calls launched the split kernel {n} "
+                                 f"times")
     for path, engine in engines.items():
         engine.flush_prefix_cache()
         engine._alloc.check()
@@ -2883,6 +2992,38 @@ def tensor_core_report():
     return counts
 
 
+def merge_kernel_report():
+    """Phase 1c: ptxas's registers and spills of each instance of the
+    kernels on `csrc/attn_merge.cuh` (flash_decode_kernel,
+    paged_decode_kernel, paged_split_kernel: R query rows a block hold R
+    x d / 8 q and accumulator values a lane). Returns {kernel: [(mangled
+    name, registers, spill store bytes)]}, empty where an earlier process
+    built the kernels."""
+    import re
+
+    from paddle_tpu_torch.ops import _build
+
+    logs = _build.build_info().get("logs") or {}
+    out = {}
+    for stem, key in (("flash_decode", "flash_decode_kernel"),
+                      ("paged_decode", "paged_decode_kernel"),
+                      ("paged_verify", "paged_split_kernel")):
+        rows, name, spill = [], None, 0
+        for ln in logs.get(stem, "").splitlines():
+            if "Compiling entry" in ln:
+                name = ln.split("'")[1] if key in ln else None
+            elif name and "spill stores" in ln:
+                spill = int(re.search(r"(\d+) bytes spill stores", ln)[1])
+            elif name and "registers" in ln:
+                rows.append((name, int(re.search(r"Used (\d+) registers",
+                                                 ln)[1]), spill))
+                name = None
+        out[key] = rows
+        log(f"  {key}: " + ("; ".join(f"{n[-28:]} {r} regs, {sp} B spilled"
+                                      for n, r, sp in rows) or "cached"))
+    return out
+
+
 def launch_counts():
     from paddle_tpu_torch.ops import _build
 
@@ -2916,11 +3057,12 @@ def main():
         f"(nvcc {_build.build_info().get('seconds', 0.0):.2f} s, compiled "
         f"{_build.build_info().get('compiled', [])})")
     hgmma = tensor_core_report()
+    merge_regs = merge_kernel_report()
 
     log("phase 2: kernels against their plain versions (fp32, atol "
         f"{ATOL_KERNEL}; bf16 {REL_BF16_ATT} of the largest plain entry)")
     g = torch.Generator(device="cuda").manual_seed(args.seed)
-    errs, fwd, dec = check_kernels(A, g)
+    errs, errs16, fwd, dec = check_kernels(A, g)
     new_cases = new_kernel_cases(g)
     new_errs, new_errs16 = check_new_kernels(A, new_cases)
 
@@ -2944,13 +3086,14 @@ def main():
         for cname, inputs in cases.items():
             nums = numbers(A, inputs)
             rows.append(dict(case=cname, **nums))
-            whole = (f" (with combine {nums['with_combine_ms']:.4f})"
-                     if "with_combine_ms" in nums else "")
+            whole = (f" (one launch a call: {nums['plan']}; kernels a "
+                     f"call {nums['kernels_per_call']})"
+                     if "kernels_per_call" in nums else "")
             both = (f"; CUDA-core bound {nums['cuda_core_bound_ms']:.4f} "
                     f"({nums['cuda_core_bound_by']}), "
                     f"{100 * nums['bound_share']:.1f}% of the tensor-core "
                     f"bound" if "cuda_core_bound_ms" in nums else "")
-            log(f"  {kname} {cname}: kernel {nums['ms']:.4f}{whole} bound "
+            log(f"  {kname} {cname}: kernel {nums['ms']:.4f}{whole}; bound "
                 f"{nums['bound_ms']:.4f} ({nums['bound_by']}){both} plain "
                 f"{nums['plain_ms']:.4f} sdpa {nums['library_ms']:.4f}; "
                 f"{launches[kname] / n_tok:.2f} launches per served token")
@@ -2959,7 +3102,9 @@ def main():
             "name": kname, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{kname}.cu",
             "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": errs[kname], "ms": head["ms"],
+            "max_abs_err": errs[kname],
+            "max_abs_err_bf16": errs16.get(kname),
+            "max_abs_err_emulation": EMU_ERRS.get(kname), "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["case"],
@@ -3011,8 +3156,8 @@ def main():
                      f" [{nums['plan']}; kernels a call "
                      f"{nums['kernels_per_call']}]" if "plan" in nums
                      else "")
-            log(f"  {kname} {cname}{route}: kernel {nums['ms']:.4f} (with "
-                f"combine {nums['with_combine_ms']:.4f}) bound "
+            log(f"  {kname} {cname}{route}: kernel {nums['ms']:.4f} (whole "
+                f"call {nums['whole_call_ms']:.4f}) bound "
                 f"{nums['bound_ms']:.4f} ({nums['bound_by']}) plain "
                 f"{nums['plain_ms']:.4f} sdpa {nums['library_ms']:.4f} "
                 f"(sdpa kernels {nums['library_kernels']})")
@@ -3025,6 +3170,7 @@ def main():
             "launches": new_launches[kname],
             "max_abs_err": new_errs[kname],
             "max_abs_err_bf16": new_errs16.get(kname),
+            "max_abs_err_emulation": EMU_ERRS.get(kname),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],
@@ -3034,8 +3180,8 @@ def main():
         "paged_spec": p_launches["paged_spec"]["paged_flash_verify"]}
     kernels["paged_flash_verify"]["launches_by_route_and_path"] = p_routes
     kernels["paged_flash_verify"]["route_rule"] = (
-        "split (split_attn_kernel) for T <= 8, tiled (paged_tiled_kernel) "
-        "above: pt_paged_verify_route")
+        "split (paged_split_kernel, the key splits merged in the kernel) for "
+        "T <= 8, tiled (paged_tiled_kernel) above: pt_paged_verify_route")
     serving = {"dense_tokens_per_s": n_tok / wall,
                "spec_tokens_per_s": s_rate,
                "spec_acceptance_rate":
@@ -3178,6 +3324,23 @@ def main():
     kernels["int8_matmul"]["hgmma"] = hgmma["int8_matmul"]
     kernels["paged_flash_verify"]["launches_by_route_and_path"].update(
         {p: c["verify_routes"] for p, c in mp_launches.items()})
+    # the attention kernels' launches on every serving path
+    serve_paths = {"serve": launches, "spec": s_launches, **p_launches,
+                   **by_path}
+    for kname in ("flash_decode", "flash_verify", "paged_flash_decode",
+                  "paged_flash_verify"):
+        paths = {p: c[kname] for p, c in serve_paths.items()
+                 if c.get(kname)}
+        kernels[kname]["launches_by_path"] = paths
+        kernels[kname]["launches"] = sum(paths.values())
+    for kname, key in (("flash_decode", "flash_decode_kernel"),
+                       ("paged_flash_decode", "paged_decode_kernel"),
+                       ("paged_flash_verify", "paged_split_kernel")):
+        kernels[kname]["merge_kernel_registers"] = merge_regs[key]
+    log("  attention launches by path " + json.dumps(
+        {k: kernels[k]["launches_by_path"] for k in (
+            "flash_decode", "flash_verify", "paged_flash_decode",
+            "paged_flash_verify")}))
     prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
     rows = profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
                         ("int8_matmul", "lora_cluster_kernel", "flash_fwd",

@@ -3,12 +3,15 @@
 // against K/V read through the table, causal within the block, int8 pages
 // dequantized in the kernel. Two routes, chosen by `pt_paged_verify_route`:
 //
-//  * split (T <= 8: the speculative verify step): split_attn_kernel
-//    (split_attn.cuh), one partial softmax (acc, m, l) per run of logical
-//    pages and query row; the logsumexp combine stays in torch ops.
+//  * split (T <= 8: the speculative verify step): paged_split_kernel, the
+//    shared kernel body of attn_merge.cuh over paged keys at R = 4 or 8
+//    query rows a block: whole key tiles through a cp.async ring, 16 keys
+//    in flight a block, R online softmaxes a group, the key splits (runs
+//    of whole pages, the paged decode's plan) merged over a cluster.
 //  * tiled (T > 8: the tail prefill of a radix partial prefix hit,
 //    `PagedLayout.pattach`, T = the tail's bucket, 16 to 512):
-//    paged_tiled_kernel below, which writes the final output itself.
+//    paged_tiled_kernel below.
+// Both write the final [S, H, T, d] output in q's type: one launch a call.
 //
 // Replaces: paddle_tpu/ops/attention.py `_paged_flash_verify_call` (the
 // Pallas block-table verify kernel, called from `paged_flash_verify`). Same
@@ -21,9 +24,8 @@
 // of T rows over n keys does ~4 T n d flops (q.k and p.v) against 2 n d
 // elements of K/V, far above the card's ~20 flop/byte fp32 ridge once T >= 16
 // (phase 8 of chip_smoke.py: 1.75 GFLOP of visible pairs at S8 h8 T256).
-// The split route's warp-per-key design reduces each q.k across 32 lanes
-// with shuffles and fetches every K/V row again for each 8-row query tile,
-// so here:
+// The split route's 8 lanes a key would reduce each q.k with shuffles for
+// every one of up to 512 rows, so here:
 //  * a 256-thread block owns (key split, slot * head, a tile of BQ = 16, 32
 //    or 64 query rows) and walks only the keys its rows can see, in tiles of
 //    BK = 64 keys (four 16-key pages), so each K/V row is fetched once per
@@ -36,7 +38,7 @@
 //  * each thread computes a register micro-tile of S = Q.K^T (BQ/16 rows x 4
 //    keys) with float32 FMAs from padded rows (no bank conflicts on the
 //    16-byte reads), applies the mask and bias, and keeps an online softmax
-//    for its rows (the -1e30 convention of split_attn.cuh: a row whose keys
+//    for its rows (the -1e30 convention of attn_merge.cuh: a row whose keys
 //    so far were all hidden gets zero weight once a visible key arrives);
 //    P goes through shared memory into O += P.V, the same rows per thread;
 //  * where one key split covers the keys (a grid that fills the card), the
@@ -47,13 +49,50 @@
 //    the result does not depend on the order the blocks ran in.
 // No tensor cores: the serving contract keeps these products in float32.
 
-#include "hopper_mma.cuh"
-#include "split_attn.cuh"
+#include "attn_merge.cuh"
+
+namespace split {
+
+using amerge::Args;
+using amerge::PagedKeys;
+
+template <typename TQ, typename TKV, int D, int R>
+__global__ void __launch_bounds__(amerge::THREADS)
+paged_split_kernel(const Args a) {
+  amerge::attend<TQ, TKV, D, R, false, PagedKeys<TKV>>(a);
+}
+
+template <typename TQ, typename TKV, int D, int R>
+int launch(const Args& a, int rows, int C, cudaStream_t s) {
+  return amerge::launch(paged_split_kernel<TQ, TKV, D, R>, a,
+                        amerge::smem_bytes<TKV, D, R, PagedKeys<TKV>>(a),
+                        rows, (a.T + R - 1) / R, C, s);
+}
+
+// Query rows a block: 4 for T <= 4; 8 at d <= 64, else two tiles of 4 (a
+// lane would hold 8 x 16 q and accumulator values at d 128).
+template <typename TQ, typename TKV>
+int by_rows(const Args& a, int rows, int C, cudaStream_t s) {
+  if (a.d > 64) return launch<TQ, TKV, 128, 4>(a, rows, C, s);
+  return a.T <= 4 ? launch<TQ, TKV, 64, 4>(a, rows, C, s)
+                  : launch<TQ, TKV, 64, 8>(a, rows, C, s);
+}
+
+template <typename TQ>
+int by_kv(int kvdtype, const Args& a, int rows, int C, cudaStream_t s) {
+  switch (kvdtype) {
+    case 0: return by_rows<TQ, float>(a, rows, C, s);
+    case 1: return by_rows<TQ, __nv_bfloat16>(a, rows, C, s);
+    default: return by_rows<TQ, signed char>(a, rows, C, s);
+  }
+}
+
+}  // namespace split
 
 namespace tiled {
 
-using split_attn::NEG;
-using split_attn::to_f;
+using amerge::NEG;
+using amerge::to_f;
 
 constexpr int THREADS = 256;
 constexpr int BK = 64;                  // keys per tile
@@ -396,7 +435,7 @@ paged_tiled_kernel(const Args a) {
           const int c = 4 * tx + 64 * e + u;
           if (c >= d) continue;
           if (a.ns == 1)
-            out[base + c] = split_attn::from_f<TQ>(o[r][e][u] / den);
+            out[base + c] = amerge::from_f<TQ>(o[r][e][u] / den);
           else
             a.pacc[base + c] = o[r][e][u];
         }
@@ -410,7 +449,7 @@ paged_tiled_kernel(const Args a) {
   } else if (a.ns == 1) {
     // no key visible to the tile: the combine of exact-zero partials
     for (int i = tid; i < rows * d; i += THREADS)
-      out[((long long)bh * T + t0) * d + i] = split_attn::from_f<TQ>(0.f);
+      out[((long long)bh * T + t0) * d + i] = amerge::from_f<TQ>(0.f);
     return;
   }
 
@@ -448,21 +487,13 @@ paged_tiled_kernel(const Args a) {
       num += __ldcg(a.pacc + (((long long)bh * a.ns + k) * T + t0 + r) * d +
                     c) * al[r * MAX_SPLITS + k];
     out[((long long)bh * T + t0 + r) * d + c] =
-        split_attn::from_f<TQ>(num / dn[r]);
+        amerge::from_f<TQ>(num / dn[r]);
   }
 }
 
 struct Plan {
   int ri, ns, split;
 };
-
-inline int sm_count(int device) {
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess || n < 1)
-    n = 132;
-  return n;
-}
 
 // Query tile and key splits: BQ = 16 RI rows (64 for T > 32, fewer for a
 // short block or a grid too small to fill the card), then enough splits of
@@ -525,10 +556,6 @@ int by_kv(int kvdtype, const Args& a, int S, const Plan& p,
   }
 }
 
-inline bool on16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 }  // namespace tiled
 
 // The route rule: 1 = the tiled kernel (T > 8, tail prefills), 0 = the
@@ -542,7 +569,7 @@ extern "C" int pt_paged_verify_route(int T, int d) {
 // The wrapper sizes the partials (splits > 1) and the counters by it.
 extern "C" int pt_paged_verify_plan(int device, int S, int H, int T, int L,
                                     int* out) {
-  const tiled::Plan p = tiled::plan(tiled::sm_count(device), S, H, T, L);
+  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L);
   out[0] = 16 * p.ri;
   out[1] = p.ns;
   out[2] = p.split;
@@ -556,42 +583,43 @@ extern "C" int pt_paged_verify_plan(int device, int S, int H, int T, int L,
 // row, v page, v head, v row) in elements. scales [n_rows, H, 1, 1]
 // float32; table [S, mp] int32 (entries outside [0, n_rows) read the trash
 // row n_rows - 1); lengths [S] int32 written counts (after the T-token
-// write); bias [S, mp * psz] float32 or null. The route is
-// `pt_paged_verify_route(T, d)`:
-//  * split: acc [S * H, n_splits, T, d], m and l [S * H, n_splits, T],
-//    float32, n_splits = ceil(mp / pages_per_split); out and counters
-//    unused;
-//  * tiled: out [S, H, T, d] of q's type, the final output; with the
-//    plan's splits > 1, acc, m and l hold its partials ([S * H, splits, T,
-//    d] and [S * H, splits, T]) and counters [S * H * ceil(T / rows)] int32
-//    (zeroed here); pages_per_split unused.
+// write); bias [S, mp * psz] float32 or null. out [S, H, T, d] contiguous,
+// q's type: the final output on both routes (`pt_paged_verify_route`).
+// The split route's key splits are `pt_paged_decode_plan`'s (the same
+// rule, `amerge::plan` over S * H rows and mp pages); acc, m, l and
+// counters unused. The tiled route with its plan's splits > 1 keeps its
+// partials in acc [S * H, splits, T, d], m and l [S * H, splits, T]
+// (float32) and counters [S * H * ceil(T / rows)] int32 (zeroed here).
 // Returns the launch's cudaError_t.
 extern "C" int pt_paged_verify(int device, int qdtype, int kvdtype,
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* table,
     const void* lengths, const void* bias, void* acc, void* m, void* l,
     void* out, void* counters, int S, int H, int T, int mp, int psz,
-    int n_rows, int d, int pages_per_split, const long long* strides,
-    float scale, void* stream) {
+    int n_rows, int d, const long long* strides, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!pt_paged_verify_route(T, d)) {
-    split_attn::PagedArgs a{qdtype, kvdtype, q, k_pages, v_pages,
-                            static_cast<const float*>(k_scale),
-                            static_cast<const float*>(v_scale),
-                            static_cast<const int*>(table), lengths, bias,
-                            acc, m, l, S, H, T, mp, psz, n_rows, d,
-                            pages_per_split, strides, scale, st};
-    return T <= 4 ? split_attn::paged_run<4>(device, a)
-                  : split_attn::paged_run<8>(device, a);
-  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (psz < 1 || mp < 1 || n_rows < 1 || (qdtype != 0 && qdtype != 1) ||
-      kvdtype < 0 || kvdtype > 2 || (kvdtype == 2 && !k_scale) || !out)
+  if (d < 1 || d > 128 || T < 1 || psz < 1 || mp < 1 || n_rows < 1 ||
+      H < 1 || S < 0 || (qdtype != 0 && qdtype != 1) || kvdtype < 0 ||
+      kvdtype > 2 || (kvdtype == 2 && (!k_scale || !v_scale)) || !out)
     return (int)cudaErrorInvalidValue;
   if (S == 0) return 0;
+  const int elt = kvdtype == 0 ? 4 : kvdtype == 1 ? 2 : 1;
+  if (!pt_paged_verify_route(T, d)) {
+    if ((long long)S * H > 65535) return (int)cudaErrorInvalidValue;
+    int C = 0, pps = 0;
+    amerge::plan(amerge::sm_count(device), S * H, mp, &C, &pps);
+    const amerge::Args a = amerge::paged_args(
+        q, k_pages, v_pages, k_scale, v_scale, table, lengths, bias, out, H,
+        T, mp, psz, n_rows, d, elt, pps, strides, scale);
+    return qdtype == 0 ? split::by_kv<float>(kvdtype, a, S * H, C, st)
+                       : split::by_kv<__nv_bfloat16>(kvdtype, a, S * H, C,
+                                                     st);
+  }
   const int L = mp * psz;
-  const tiled::Plan p = tiled::plan(tiled::sm_count(device), S, H, T, L);
+  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L);
   const int nqt = (T + 16 * p.ri - 1) / (16 * p.ri);
   if (p.ns > 1) {
     if (!acc || !m || !l || !counters) return (int)cudaErrorInvalidValue;
@@ -599,10 +627,7 @@ extern "C" int pt_paged_verify(int device, int qdtype, int kvdtype,
                           st);
     if (err != cudaSuccess) return (int)err;
   }
-  const int elt = kvdtype == 0 ? 4 : kvdtype == 1 ? 2 : 1;
-  bool vec = (d * elt) % 16 == 0 && tiled::on16(k_pages) &&
-             tiled::on16(v_pages);
-  for (int i = 3; i < 9; ++i) vec = vec && (strides[i] * elt) % 16 == 0;
+  const bool vec = amerge::vector_rows(k_pages, v_pages, d, elt, strides);
   tiled::Args a{q, k_pages, v_pages, static_cast<const float*>(k_scale),
                 static_cast<const float*>(v_scale),
                 static_cast<const int*>(table),

@@ -1,8 +1,8 @@
 // Split-K attention of a block of R query rows against a KV cache: the dense
-// verify kernel (flash_verify.cu) and the paged verify's split route (T <= 8,
-// the speculative step: paged_verify.cu). The paged decode (paged_decode.cu)
-// and the paged verify's tiled route have kernels of their own, which merge
-// their key splits in the kernel; this one does not.
+// verify kernel (flash_verify.cu) alone. The decodes (flash_decode.cu,
+// paged_decode.cu) and both routes of the paged verify (paged_verify.cu)
+// merge their key splits in their kernels (attn_merge.cuh, and the tiled
+// route's own); this one does not.
 //
 // One 128-thread block owns (key split, batch*head row, tile of R query rows)
 // and emits one partial softmax (acc, m, l) per query row of the tile; its
@@ -45,9 +45,6 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ float to_f(signed char x) {
-  return static_cast<float>(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -62,7 +59,7 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 }
 
 // Key rows of a contiguous-per-row cache k/v [B, H, L, d] (element strides
-// per batch, head and row): the dense verify.
+// per batch, head and row).
 template <typename TKV> struct DenseKeys {
   const TKV* k;
   const TKV* v;
@@ -83,40 +80,8 @@ template <typename TKV> struct DenseKeys {
   }
 };
 
-// Key rows read through a page table: pages [n_rows, H, psz, d] (row
-// n_rows - 1 is the trash page), table [B, mp] int32 (an entry outside
-// [0, n_rows) reads the trash page: the kernel never follows a -1), scales
-// [n_rows, H] f32 or null (int8 pages are dequantized by them here).
-template <typename TKV> struct PagedKeys {
-  const TKV* k;
-  const TKV* v;
-  const float* ks;
-  const float* vs;
-  const int* table;
-  long long kps, kph, kss, vps, vph, vss;
-  int H, mp, psz, n_rows;
-  const int* tb;
-  int h;
-
-  __device__ __forceinline__ void bind(int b, int head) {
-    tb = table + (long long)b * mp;
-    h = head;
-  }
-  __device__ __forceinline__ void row(int j, const TKV*& kr, const TKV*& vr,
-                                      float& ksc, float& vsc) const {
-    int p = tb[j / psz];
-    if (p < 0 || p >= n_rows) p = n_rows - 1;
-    const int r = j % psz;
-    kr = k + p * kps + h * kph + (long long)r * kss;
-    vr = v + p * vps + h * vph + (long long)r * vss;
-    ksc = ks ? ks[(long long)p * H + h] : 1.f;
-    vsc = vs ? vs[(long long)p * H + h] : 1.f;
-  }
-};
-
 // ROUND: the dense verify's rounding (the scaled q rounded to q's type, p
-// rounded to it before p . v); without it q, K, V and p stay float32 after
-// the dequant, as in the paged TPU kernels.
+// rounded to it before p . v); without it q, K, V and p stay float32.
 template <typename TQ, typename TKV, int D, int R, bool ROUND, class Keys>
 __global__ void __launch_bounds__(THREADS)
 split_attn_kernel(const TQ* __restrict__ q, Keys keys,
@@ -294,79 +259,6 @@ int launch(const void* q, const Keys& keys, const void* bias,
       static_cast<float*>(m), static_cast<float*>(l), H, T, L, d, split,
       n_splits, qsb, qsh, qst, scale);
   return (int)cudaGetLastError();
-}
-
-// The arguments of the paged verify's split route (paged_verify.cu):
-// q [S, H, T, d] (strides per slot, head, row), k/v pages [n_rows, H, psz, d]
-// (strides per page, head, row), scales [n_rows, H, 1, 1] or null, table
-// [S, mp] int32, lengths [S] int32, bias [S, mp * psz] f32 or null; outputs
-// acc [S * H, n_splits, T, d], m and l [S * H, n_splits, T] f32.
-struct PagedArgs {
-  int qdtype, kvdtype;
-  const void *q, *k, *v;
-  const float *ks, *vs;
-  const int* table;
-  const void *lengths, *bias;
-  void *acc, *m, *l;
-  int S, H, T, mp, psz, n_rows, d, pages_per_split;
-  const long long* st;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <typename TQ, typename TKV, int D, int R>
-int paged_launch(const PagedArgs& a) {
-  PagedKeys<TKV> keys;
-  keys.k = static_cast<const TKV*>(a.k);
-  keys.v = static_cast<const TKV*>(a.v);
-  keys.ks = a.ks;
-  keys.vs = a.vs;
-  keys.table = a.table;
-  keys.kps = a.st[3];
-  keys.kph = a.st[4];
-  keys.kss = a.st[5];
-  keys.vps = a.st[6];
-  keys.vph = a.st[7];
-  keys.vss = a.st[8];
-  keys.H = a.H;
-  keys.mp = a.mp;
-  keys.psz = a.psz;
-  keys.n_rows = a.n_rows;
-  keys.tb = nullptr;
-  keys.h = 0;
-  return launch<TQ, TKV, D, R, false>(
-      a.q, keys, a.bias, a.lengths, a.acc, a.m, a.l, a.S, a.H, a.T,
-      a.mp * a.psz, a.d, a.pages_per_split * a.psz, a.st[0], a.st[1],
-      a.st[2], a.scale, a.stream);
-}
-
-template <typename TQ, typename TKV, int R>
-int paged_by_width(const PagedArgs& a) {
-  return a.d <= 64 ? paged_launch<TQ, TKV, 64, R>(a)
-                   : paged_launch<TQ, TKV, 128, R>(a);
-}
-
-template <typename TQ, int R>
-int paged_by_kv(const PagedArgs& a) {
-  switch (a.kvdtype) {
-    case 0: return paged_by_width<TQ, float, R>(a);
-    case 1: return paged_by_width<TQ, __nv_bfloat16, R>(a);
-    default: return paged_by_width<TQ, signed char, R>(a);
-  }
-}
-
-// Validate the shared arguments, then launch with R query rows per tile.
-template <int R>
-int paged_run(int device, const PagedArgs& a) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (a.d < 1 || a.d > 128 || a.psz < 1 || a.mp < 1 || a.n_rows < 1 ||
-      a.pages_per_split < 1 || a.T < 1 || (a.qdtype != 0 && a.qdtype != 1) ||
-      a.kvdtype < 0 || a.kvdtype > 2 || (a.kvdtype == 2 && !a.ks))
-    return (int)cudaErrorInvalidValue;
-  if (a.S == 0) return 0;
-  return a.qdtype == 0 ? paged_by_kv<float, R>(a)
-                       : paged_by_kv<__nv_bfloat16, R>(a);
 }
 
 }  // namespace split_attn

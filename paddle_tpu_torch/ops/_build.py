@@ -49,8 +49,7 @@ _SIGNATURES = {
                   [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _STRIDES, _F, _I,
                    *_DROP, _P]),
     "flash_decode": ("pt_flash_decode",
-                     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _STRIDES, _F, _P]),
+                     [_I, _I, *[_P] * 6, *[_I] * 4, _STRIDES, _F, _P]),
     "flash_bwd_dq": ("pt_flash_bwd_dq",
                      [_I, _I, *[_P] * 10, _I, _I, _I, _I, _I, _STRIDES, _F,
                       _I, *_DROP, _P]),
@@ -63,7 +62,7 @@ _SIGNATURES = {
     "paged_decode": ("pt_paged_decode",
                      [_I, _I, _I, *[_P] * 9, *[_I] * 6, _STRIDES, _F, _P]),
     "paged_verify": ("pt_paged_verify",
-                     [_I, _I, _I, *[_P] * 13, *[_I] * 8, _STRIDES, _F, _P]),
+                     [_I, _I, _I, *[_P] * 13, *[_I] * 7, _STRIDES, _F, _P]),
     "int8_matmul": ("pt_int8_matmul",
                     [_I, *[_P] * 5, _I, _I, _I, _I, _P]),
     "lora_gather": ("pt_lora_gather",
@@ -81,6 +80,7 @@ _HELPERS = {
                   ("pt_flash_fwd_vector_loads", [_P, _P, _P, _STRIDES, _I])],
     "flash_bwd_dq": [("pt_flash_bwd_vector_loads",
                       [_P, _P, _P, _P, _STRIDES, _I])],
+    "flash_decode": [("pt_flash_decode_plan", [*[_I] * 4, _INTS])],
     "paged_decode": [("pt_paged_decode_plan", [*[_I] * 4, _INTS])],
     "paged_verify": [("pt_paged_verify_route", [_I, _I]),
                      ("pt_paged_verify_plan", [*[_I] * 5, _INTS])],

@@ -29,9 +29,11 @@ package's `ops/attention.py`.
     tile's segment range and mask cross-segment pairs (-1e30) on the
     tiles they visit; `segment_bias` is the dense form of that mask.
   * `flash_decode` -> `csrc/flash_decode.cu`: one query token per row
-    against a preallocated KV cache, split-K over the cache length with
-    per-row written lengths; the logsumexp combine of the per-split
-    partials runs here as torch ops (the JAX package does it in XLA).
+    against a preallocated KV cache with per-row written lengths, split
+    over the cache length on a thread-block cluster (`flash_decode_plan`)
+    and merged in the kernel, which writes the output: one launch (the
+    JAX package combines its per-split partials in XLA; the plain version
+    keeps that split-and-combine).
   * `flash_verify` -> `csrc/flash_verify.cu`: the speculative-decoding
     VERIFY block, T query tokens per row just written at the row's own
     offset, causal within the block (key j visible to row i while
@@ -44,9 +46,10 @@ package's `ops/attention.py`.
     decode splits a row's pages over a thread-block cluster
     (`paged_decode_plan`) and merges the splits in the kernel, which
     writes the output: one launch. The verify has two routes
-    (`paged_verify_route`, the C rule): the split-K kernel for T <= 8
-    (the speculative step; torch combine) and a query-tiled kernel for
-    the wider tail prefills, which writes the output itself.
+    (`paged_verify_route`, the C rule), each one launch that writes the
+    output: for T <= 8 (the speculative step) the decode's kernel body
+    (`csrc/attn_merge.cuh`, shared by both decodes) over T query rows,
+    and a query-tiled kernel for the wider tail prefills.
 
 Attention dropout is the JAX package's counter hash (`_hash_bits`), not
 torch's RNG: the keep bit of logit (row, col) is a murmur3-finalised
@@ -93,7 +96,8 @@ __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "PAGED_ROUTE_LAUNCHES", "fwd_route", "fwd_cluster",
            "paged_verify_route",
            "paged_verify_plan", "paged_decode_plan",
-           "paged_decode_plan_on_card",
+           "paged_decode_plan_on_card", "flash_decode_plan",
+           "flash_decode_plan_on_card",
            "decode_attention_reference", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention", "flash_decode",
@@ -106,9 +110,8 @@ __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "paged_verify_attention"]
 
 NEG = -1e30
-#: keys per split of the decode and verify kernels (dense and paged):
-#: 128 keys keep a [8 x 8 heads] decode batch at ~1k cached tokens above
-#: 500 blocks on 132 SMs
+#: keys per split of the plain versions' split-and-combine (the JAX
+#: kernels' order) and of the dense verify kernel
 DECODE_SPLIT = 128
 #: kernel launches per wrapper; each wrapper adds one where it launches
 #: its kernel and nowhere else (plain CPU runs do not count).
@@ -141,9 +144,10 @@ ROUTE_LAUNCHES = _build.counter([f"flash_fwd:{r}" for r in FWD_ROUTES],
 FWD_SHORT_ROWS = 16
 #: launches of the paged verify by route (`paged_verify_route`, asked of
 #: the C entry point's own rule `pt_paged_verify_route`):
-#: "paged_flash_verify:split" split_attn_kernel (T <= 8, the speculative
-#: verify step), "paged_flash_verify:tiled" the query-tiled kernel (the
-#: tail prefill of a partial prefix hit); each also counted in LAUNCHES
+#: "paged_flash_verify:split" the in-kernel split merge (T <= 8, the
+#: speculative verify step), "paged_flash_verify:tiled" the query-tiled
+#: kernel (the tail prefill of a partial prefix hit); each also counted in
+#: LAUNCHES
 PAGED_ROUTE_LAUNCHES = _build.counter(["paged_flash_verify:split",
                                        "paged_flash_verify:tiled"],
                                       branch=True)
@@ -793,11 +797,11 @@ def flash_attention(q, k, v, bias=None, is_causal=False, scale=None,
 
 
 # --------------------------------------------------------------------------
-# split-K flash decode: plain version + kernel wrapper
+# flash decode: plain version + kernel wrapper
 # --------------------------------------------------------------------------
 
 def _decode_partials_plain(q, k, v, length, bias, scale, split):
-    """Per-split (acc [b*h, ns, d], m, l [b*h, ns]) exactly as the
+    """Per-split (acc [b*h, ns, d], m, l [b*h, ns]) exactly as the JAX
     kernel defines them, including the skip value of a split past the
     row's written length (acc 0, m -1e30, l 0)."""
     b, h, _, d = q.shape
@@ -827,33 +831,6 @@ def _decode_partials_plain(q, k, v, length, bias, scale, split):
             l.reshape(b * h, ns))
 
 
-def _decode_partials_cuda(q, k, v, length, bias, scale, split):
-    _check_operands("flash_decode", q, k, v,
-                    (length,) if bias is None else (length, bias))
-    b, h, _, d = q.shape
-    L = k.shape[2]
-    _check_bias("flash_decode", bias, b, L)
-    if length.dtype != torch.int32 or not length.is_contiguous():
-        raise ValueError("flash_decode: length must be contiguous int32")
-    ns = -(-L // split)
-    acc = torch.empty((b * h, ns, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b * h, ns), dtype=torch.float32, device=q.device)
-    l = torch.empty((b * h, ns), dtype=torch.float32, device=q.device)
-    strides = _build.strides_arg(
-        [q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-         v.stride(0), v.stride(1), v.stride(2)])
-    fn = _build.kernels().flash_decode
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
-             k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), length.data_ptr(),
-             acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, L, d,
-             int(split), strides, float(_scale(d, scale)),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on("flash_decode", err)
-    LAUNCHES["flash_decode"] += 1
-    return acc, m, l
-
-
 def _combine(acc, m, l, dtype):
     """Logsumexp merge of the per-split partials (the JAX
     `flash_decode` combine)."""
@@ -874,9 +851,73 @@ def _decode_lengths(q, k, length):
     return _lengths(length, b, q.device)
 
 
+#: `csrc/attn_merge.cuh`'s plan (`amerge::plan`, the rule of both decodes
+#: and the paged verify's split route): blocks an SM to aim for, the most
+#: blocks a cluster (key splits of a row), and the dense decode's step of
+#: keys (`amerge::UNIT`: whole key tiles at every head width)
+_MERGE_PER_SM, _MERGE_CLUSTER, _DECODE_UNIT = 3, 8, 32
+
+
+def _merge_plan(rows, n, sms):
+    """(splits, units a split) of `rows` rows over n units on `sms` SMs:
+    `amerge::plan` written out."""
+    want = -(-_MERGE_PER_SM * sms // max(rows, 1))
+    split = max(1, min(_MERGE_CLUSTER, n, want))
+    per = -(-n // split)
+    return -(-n // per), per
+
+
+def flash_decode_plan(b, h, L, sms=_build.H100_SMS):
+    """(blocks a cluster = key splits of a row, keys a split) of the
+    decode kernel for b x h rows over a cache of L keys on a card of `sms`
+    SMs: the C rule `pt_flash_decode_plan` written out. A row's keys split
+    in whole 32-key steps over up to 8 blocks of a thread-block cluster
+    until about three blocks an SM run; the kernel merges the splits in
+    rank order. It reads no lengths: a split past a row's length holds no
+    visible key."""
+    if b < 0 or h < 1 or L < 1:
+        raise ValueError(f"flash_decode: no plan for b={b}, h={h}, L={L}")
+    c, units = _merge_plan(b * h, -(-L // _DECODE_UNIT), sms)
+    return c, units * _DECODE_UNIT
+
+
+def flash_decode_plan_on_card(b, h, L, device):
+    """`flash_decode_plan` as the built library's C rule gives it on
+    `device`'s card (builds the kernels on first use)."""
+    out = _build.ints_out(2)
+    err = _build.kernels().flash_decode_plan(
+        torch.device(device).index or 0, int(b), int(h), int(L), out)
+    _raise_on("flash_decode", err)
+    return tuple(out)
+
+
+def _flash_decode_cuda(q, k, v, length, bias, scale):
+    """Launch `csrc/flash_decode.cu`: the [b, h, 1, d] output in q's
+    type, the key splits merged in the kernel (one launch)."""
+    _check_operands("flash_decode", q, k, v,
+                    (length,) if bias is None else (length, bias))
+    b, h, _, d = q.shape
+    L = k.shape[2]
+    _check_bias("flash_decode", bias, b, L)
+    if length.dtype != torch.int32 or not length.is_contiguous():
+        raise ValueError("flash_decode: length must be contiguous int32")
+    out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    err = _build.kernels().flash_decode(
+        q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if bias is None else bias.data_ptr(),
+        length.data_ptr(), out.data_ptr(), b, h, L, d, _row_strides(q, k, v),
+        float(_scale(d, scale)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on("flash_decode", err)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
 def flash_decode_plain(q, k, v, length, bias=None, scale=None):
-    """The decode kernel's function in plain PyTorch, on any device:
-    the same per-split partials and the same combine."""
+    """The decode's function in plain PyTorch, on any device: the JAX
+    kernel's partials of DECODE_SPLIT keys and its combine. The kernel
+    merges its own splits in another order (float32: the same function;
+    bf16: p rounded at another running max)."""
     length = _decode_lengths(q, k, length)
     b, h, _, d = q.shape
     acc, m, l = _decode_partials_plain(q, k, v, length, bias, scale,
@@ -885,23 +926,16 @@ def flash_decode_plain(q, k, v, length, bias=None, scale=None):
 
 
 def flash_decode(q, k, v, length, bias=None, scale=None):
-    """Split-K decode: q [b, h, 1, d] against k/v [b, h, L, d]; `length`
-    (an int or [b] int32) is each row's written-token count; bias an
-    optional [b, L] float32 key bias. Returns [b, h, 1, d]. CPU tensors
-    compute the partials with the plain version; CUDA tensors launch
-    `csrc/flash_decode.cu` (any L, head_dim <= 128)."""
+    """Decode: q [b, h, 1, d] against k/v [b, h, L, d]; `length` (an int
+    or [b] int32) is each row's written-token count; bias an optional
+    [b, L] float32 key bias. Returns [b, h, 1, d]. CPU tensors run the
+    plain version; CUDA tensors launch `csrc/flash_decode.cu`, which
+    merges its key splits itself (one launch, no combine; any L,
+    head_dim <= 128)."""
     length = _decode_lengths(q, k, length)
-    b, h, _, d = q.shape
-    if q.device.type == "cpu":
-        parts = _decode_partials_plain(q, k, v, length, bias, scale,
-                                       DECODE_SPLIT)
-    elif q.device.type == "cuda":
-        parts = _decode_partials_cuda(q, k, v, length, bias, scale,
-                                      DECODE_SPLIT)
-    else:
-        raise ValueError(f"flash_decode: no kernel for {q.device.type} "
-                         f"tensors")
-    return _combine(*parts, q.dtype).reshape(b, h, 1, d)
+    if _device_kind("flash_decode", q) == "cpu":
+        return flash_decode_plain(q, k, v, length, bias, scale)
+    return _flash_decode_cuda(q, k, v, length, bias, scale)
 
 
 # --------------------------------------------------------------------------
@@ -1066,8 +1100,8 @@ _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _pages_per_split(page_size):
-    """Pages per split of the paged kernels: DECODE_SPLIT keys (one page
-    when pages are larger)."""
+    """Pages per split of the paged plain versions' split-and-combine:
+    DECODE_SPLIT keys (one page when pages are larger)."""
     return max(1, DECODE_SPLIT // int(page_size))
 
 
@@ -1167,26 +1201,17 @@ def _split_buffers(q, ns):
             torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device))
 
 
-#: `csrc/paged_decode.cu`'s plan (`pdec::plan`): blocks an SM to aim for,
-#: and the most blocks a cluster (key splits of a row)
-_DECODE_PER_SM, _DECODE_CLUSTER = 3, 8
-
-
 def paged_decode_plan(S, h, mp, sms=_build.H100_SMS):
     """(blocks a cluster = key splits of a row, pages a split) of the
-    paged decode kernel for S slots x h heads over mp pages on a card of
-    `sms` SMs: the C rule `pt_paged_decode_plan` written out. A row's
-    pages split in whole pages over up to 8 blocks of a thread-block
-    cluster until about three blocks an SM run; the kernel merges the
-    splits in rank order."""
+    paged decode kernel, and of the paged verify's split route, for S
+    slots x h heads over mp pages on a card of `sms` SMs: the C rule
+    `pt_paged_decode_plan` written out. A row's pages split in whole pages
+    over up to 8 blocks of a thread-block cluster until about three blocks
+    an SM run; the kernel merges the splits in rank order."""
     if S < 0 or h < 1 or mp < 1:
         raise ValueError(f"paged_flash_decode: no plan for S={S}, h={h}, "
                          f"mp={mp}")
-    rows = max(S * h, 1)
-    want = -(-_DECODE_PER_SM * sms // rows)
-    split = max(1, min(_DECODE_CLUSTER, mp, want))
-    pps = -(-mp // split)
-    return -(-mp // pps), pps
+    return _merge_plan(S * h, mp, sms)
 
 
 def paged_decode_plan_on_card(S, h, mp, device):
@@ -1222,8 +1247,9 @@ def paged_verify_route(T, d):
     """The paged verify kernel's route for T query rows of head_dim d, as
     the C entry point's rule `pt_paged_verify_route` gives it (so it builds
     the kernels on first use): "tiled" (the query-tiled kernel: the tail
-    prefill of a partial prefix hit) or "split" (split_attn_kernel: the
-    speculative verify step)."""
+    prefill of a partial prefix hit) or "split" (the in-kernel split merge
+    of `csrc/attn_merge.cuh` over the T rows: the speculative verify
+    step)."""
     T, d = int(T), int(d)
     if T < 1 or not 1 <= d <= 128:
         raise ValueError(f"paged_flash_verify: no kernel for T={T} rows of "
@@ -1243,22 +1269,17 @@ def paged_verify_plan(q, L):
 
 
 def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
-    """Launch `csrc/paged_verify.cu` on its route: ("split", (acc, m, l))
-    partials for the torch combine, or ("tiled", out), the final
-    [S, h, T, d] output in q's type."""
+    """Launch `csrc/paged_verify.cu` on its route (one launch either way):
+    the final [S, h, T, d] output in q's type."""
     name = "paged_flash_verify"
     _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
     S, h, T, d = q.shape
     mp, psz = table.shape[1], kp.shape[2]
     route = paged_verify_route(T, d)
-    ppb = _pages_per_split(psz)
-    out = counters = None
-    if route == "split":
-        parts = _split_buffers(q, -(-mp // ppb))
-    else:
+    out = torch.empty((S, h, T, d), dtype=q.dtype, device=q.device)
+    parts, counters = (None, None, None), None
+    if route == "tiled":
         bq, ns, _ = paged_verify_plan(q, mp * psz)
-        out = torch.empty((S, h, T, d), dtype=q.dtype, device=q.device)
-        parts = (None, None, None)
         if ns > 1:
             parts = _split_buffers(q, ns)
             counters = torch.empty(S * h * -(-T // bq), dtype=torch.int32,
@@ -1268,13 +1289,13 @@ def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
     err = _build.kernels().paged_verify(
         q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
         *_paged_pointers(q, kp, vp, ks, vs, table, length, bias), *ptr, S,
-        h, T, mp, psz, kp.shape[0], d, ppb, _paged_strides(q, kp, vp),
+        h, T, mp, psz, kp.shape[0], d, _paged_strides(q, kp, vp),
         float(_scale(d, scale)),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
     PAGED_ROUTE_LAUNCHES[f"{name}:{route}"] += 1
-    return route, (parts if route == "split" else out)
+    return out
 
 
 def _paged_lengths(name, q, table, kp, length, single):
@@ -1291,23 +1312,15 @@ def _paged_lengths(name, q, table, kp, length, single):
 def _paged_call(name, single, plain, q, kp, vp, ks, vs, table, length,
                 bias, scale):
     """A paged read: its plain version (CPU tensors, or `plain`: partials,
-    then the combine) or its kernel (CUDA tensors: the decode and the
-    verify's tiled route write the output, the verify's split route
-    leaves partials for the combine)."""
+    then the combine) or its kernel (CUDA tensors: one launch that writes
+    the output)."""
     length = _paged_lengths(name, q, table, kp, length, single)
     if plain or _device_kind(name, q) == "cpu":
         parts = _paged_partials_plain(q, kp, vp, ks, vs, table, length, bias,
                                       scale)
-    elif single:
-        return _paged_decode_cuda(q, kp, vp, ks, vs, table, length, bias,
-                                  scale)
-    else:
-        route, res = _paged_verify_cuda(q, kp, vp, ks, vs, table, length,
-                                        bias, scale)
-        if route == "tiled":
-            return res
-        parts = res
-    return _combine(*parts, q.dtype).reshape(q.shape)
+        return _combine(*parts, q.dtype).reshape(q.shape)
+    cuda = _paged_decode_cuda if single else _paged_verify_cuda
+    return cuda(q, kp, vp, ks, vs, table, length, bias, scale)
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, k_scale, v_scale, table,
@@ -1347,7 +1360,8 @@ def paged_flash_verify(q, k_pages, v_pages, k_scale, v_scale, table,
     written through the table at each slot's own offset (length counts
     after the write), against K/V read through the table; the rest as
     `paged_flash_decode`. CUDA tensors launch `csrc/paged_verify.cu` on
-    the route `paged_verify_route(T, d)` gives."""
+    the route `paged_verify_route(T, d)` gives (one launch either way, no
+    combine)."""
     return _paged_call("paged_flash_verify", False, False, q, k_pages,
                        v_pages, k_scale, v_scale, table, length, bias, scale)
 
@@ -1388,7 +1402,7 @@ def sdpa(q, k, v, mask=None, is_causal=False, scale=None, dropout_p=0.0,
 
 def decode_attention(q, k, v, length, bias=None, scale=None):
     """Single-token decode against a preallocated cache through the
-    split-K flash decode (bias: [b, L] or [b, 1, 1, L])."""
+    flash decode (bias: [b, L] or [b, 1, 1, L])."""
     return flash_decode(q, k, v, length, _flat_bias(bias, q, k.shape[2]),
                         scale)
 

@@ -64,14 +64,20 @@ tests/test_torch_split_limit.py holds both limits to both readings on
 the CPU; `chip_smoke.py` phases 2 and 13 compute the one-piece mutants on
 the card beside the kernels.
 
-`paged_decode_in_kernel` is the paged decode kernel's arithmetic in
-numpy float32, in the kernel's order: a row's pages split as
-`ops.attention.paged_decode_plan` gives, each split's keys in tiles
-whose keys go to 16 groups, an online softmax a group, the groups merged
+`merge_in_kernel` is the arithmetic of the in-kernel split merge
+(`csrc/attn_merge.cuh`: the dense and the paged decode, the paged
+verify's split route) in numpy float32, in the kernels' order: a row's
+keys split as the plan gives, each split's keys in tiles whose keys go
+to 16 groups, an online softmax a group and query row, the groups merged
 in group order and the splits in rank order, with the -1e30 convention
-(a split with no visible key contributes m -1e30, l 0, acc 0; a slot
-with no visible key gives 0). tests/test_torch_routes.py holds it to the
-plain version's split-and-combine.
+(a split with no key visible to a row contributes m -1e30, l 0, acc 0; a
+row with no visible key gives 0). `flash_decode_in_kernel` (q * scale
+and p rounded to a bf16 q's type), `paged_verify_in_kernel` and
+`paged_decode_in_kernel` (the pages read through the table) are its
+callers; `paged_read_case` and `dense_decode_case` make their operands
+from numpy's seeded generator. tests/test_torch_routes.py and
+tests/test_torch_merge.py hold them to the plain versions'
+split-and-combine and to the JAX kernels in interpret mode.
 """
 from __future__ import annotations
 
@@ -84,7 +90,9 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "judge_bf16_sum", "fused_conv_abs_sums", "fused_conv_mutants",
            "flash_fwd_tiled", "tf32_round", "split_matmul",
            "flash_fwd_split", "bf16_pieces", "int8_matmul_split",
-           "paged_decode_in_kernel"]
+           "bf16_round", "merge_in_kernel", "paged_verify_in_kernel",
+           "paged_decode_in_kernel", "flash_decode_in_kernel",
+           "paged_read_case", "dense_decode_case"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -334,97 +342,231 @@ def int8_matmul_split(x, q, scale, pieces=3):
     return acc * scale.float()
 
 
-#: groups of 8 lanes a block of the paged decode kernel (`pdec::GROUPS`)
+#: groups of 8 lanes a block of the in-kernel split merge
+#: (`amerge::GROUPS`, csrc/attn_merge.cuh)
 DECODE_GROUPS = 16
+
+
+def bf16_round(x):
+    """A float32 numpy array rounded to bfloat16 (to nearest, ties to
+    even, as `__float2bfloat16`), as float32."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def _np32(t):
+    return None if t is None else t.detach().cpu().float().numpy()
+
+
+def merge_in_kernel(q, k, v, length, bias=None, scale=None, plan=None,
+                    k_scale=None, v_scale=None, rounded=False):
+    """The in-kernel split merge of `csrc/attn_merge.cuh` in numpy
+    float32, in the kernel's order of arithmetic. q [S, h, T, d]; k, v
+    [S, h, L, d] the logical keys as the kernel reads them (int8 pages as
+    their bytes), k_scale / v_scale [S, h, L] their dequant scales or
+    None; length [S] written keys after the block's write (row t sees key
+    j while j <= length - T + t, j < L); bias [S, L] or None; plan = (C
+    splits, keys a split). rounded: q * scale and p rounded to bf16 (the
+    dense kernels at a bf16 q; a no-op at float32).
+
+    Keys of a split come in tiles of 2048 / D (D = 64 or 128, the
+    kernel's width); key kl of a tile goes to group kl % 16, whose online
+    softmax of a row takes one step for the row's keys of the tile: x =
+    (q . k) * k_scale (+ bias), m_new the max of m and them, l and acc
+    scaled by exp(m - m_new) once, then p = exp(x - m_new), l += p, and
+    (p * v_scale) * v added key by key (p rounded first when `rounded`).
+    The groups merge in group order, the splits in rank order; a row
+    with no visible key gives 0. Returns [S, h, T, d] float32."""
+    from .ops import attention as A
+
+    S, h, T, d = q.shape
+    L = k.shape[2]
+    C, split = plan
+    D = 64 if d <= 64 else 128
+    KT, G = 2048 // D, DECODE_GROUPS
+    kpg = KT // G
+    f32 = np.float32
+    sc = f32(A._scale(d, scale))
+    qn, kn, vn = _np32(q), _np32(k), _np32(v)
+    ksn, vsn, bn = _np32(k_scale), _np32(v_scale), _np32(bias)
+    lens = np.asarray(length.cpu()).reshape(-1)
+    neg = f32(A.NEG)
+    lanes = np.arange(G)[:, None] + G * np.arange(kpg)[None, :]
+    out = np.zeros((S, h, T, d), np.float32)
+    for b in range(S):
+        for hh in range(h):
+            for t in range(T):
+                qs = (qn[b, hh, t] * sc).astype(f32)
+                if rounded:
+                    qs = bf16_round(qs)
+                lim = max(0, min(L, int(lens[b]) - T + t + 1))
+                x = (kn[b, hh, :lim] @ qs).astype(f32)
+                if ksn is not None:
+                    x = (x * ksn[b, hh, :lim]).astype(f32)
+                if bn is not None:
+                    x = (x + bn[b, :lim]).astype(f32)
+                ranks = []
+                for r in range(C):
+                    start = r * split
+                    end = min(start + split, lim)
+                    gm = np.full(G, -np.inf, f32)
+                    gl = np.zeros(G, f32)
+                    ga = np.zeros((G, d), f32)
+                    for j0 in range(start, end, KT):
+                        jj = np.minimum(j0 + lanes, end - 1)
+                        vis = j0 + lanes < end          # [G, kpg]
+                        has = vis[:, 0]
+                        xs = np.where(vis, x[jj], f32(-np.inf))
+                        m_new = np.where(has, np.maximum(gm, xs.max(1)), gm)
+                        with np.errstate(invalid="ignore"):
+                            alpha = np.where(
+                                has, np.exp(np.where(has, gm - m_new, 0)),
+                                1).astype(f32)
+                            p = np.where(vis, np.exp(xs - m_new[:, None]),
+                                         0).astype(f32)
+                        gl = (gl * alpha).astype(f32)
+                        ga = (ga * alpha[:, None]).astype(f32)
+                        gm = m_new.astype(f32)
+                        for kk in range(kpg):
+                            gl = (gl + p[:, kk]).astype(f32)
+                        if rounded:
+                            p = bf16_round(p)
+                        for kk in range(kpg):
+                            pv = p[:, kk]
+                            if vsn is not None:
+                                pv = (pv * vsn[b, hh, jj[:, kk]]).astype(f32)
+                            ga = (ga + pv[:, None] * vn[b, hh, jj[:, kk]]) \
+                                .astype(f32)
+                    ms = gm.max()
+                    if ms == -np.inf:                   # no visible key
+                        ms = neg
+                    w = np.exp(gm - ms).astype(f32)
+                    den, num = f32(0), np.zeros(d, f32)
+                    for g in range(G):
+                        den = f32(den + gl[g] * w[g])
+                        num = (num + ga[g] * w[g]).astype(f32)
+                    ranks.append((f32(ms), den, num))
+                mstar = max(m for m, _, _ in ranks)
+                den, num = f32(0), np.zeros(d, f32)
+                for m, l_, a_ in ranks:
+                    w = f32(np.exp(f32(m - mstar)))
+                    den = f32(den + l_ * w)
+                    num = (num + a_ * w).astype(f32)
+                out[b, hh, t] = num / max(den, f32(1e-30))
+    return torch.from_numpy(out)
+
+
+def _logical(pages, scales, table):
+    """Paged keys as the kernel reads them: the [S, h, mp * psz, d] raw
+    logical rows (int8 bytes as float) through the trash-clipped table,
+    and their [S, h, mp * psz] per-key scales (None without scales)."""
+    from .ops import attention as A
+
+    S, mp = table.shape
+    _, h, psz, d = pages.shape
+    rows = A._table_rows(table.cpu(), pages.shape[0]).numpy()
+    g = _np32(pages)[rows]                          # [S, mp, h, psz, d]
+    keys = g.transpose(0, 2, 1, 3, 4).reshape(S, h, mp * psz, d)
+    if scales is None:
+        return torch.from_numpy(keys), None
+    sg = _np32(scales)[:, :, 0, 0][rows]            # [S, mp, h]
+    per_key = np.repeat(sg.transpose(0, 2, 1), psz, axis=2)
+    return torch.from_numpy(keys), torch.from_numpy(per_key)
+
+
+def paged_verify_in_kernel(q, k_pages, v_pages, k_scale, v_scale, table,
+                           length, bias=None, scale=None, plan=None):
+    """The paged verify's split route (and, at T 1, the paged decode) as
+    the kernel computes it (`merge_in_kernel`, float32 throughout after
+    the dequant): q [S, h, T, d], pages [N+1, h, psz, d] (int8 with
+    [N+1, h, 1, 1] scales), table [S, mp], length [S] after the block's
+    write, bias [S, mp * psz] or None; `plan` (splits, pages a split)
+    defaults to `ops.attention.paged_decode_plan` on an H100. Returns
+    [S, h, T, d] float32."""
+    from .ops import attention as A
+
+    S, h = q.shape[:2]
+    psz, mp = k_pages.shape[2], table.shape[1]
+    C, pps = plan or A.paged_decode_plan(S, h, mp)
+    k, ks = _logical(k_pages, k_scale, table)
+    v, vs = _logical(v_pages, v_scale, table)
+    return merge_in_kernel(q, k, v, length, bias, scale, (C, pps * psz),
+                           ks, vs)
 
 
 def paged_decode_in_kernel(q, k_pages, v_pages, k_scale, v_scale, table,
                            length, bias=None, scale=None, plan=None):
     """The paged decode kernel's function as `csrc/paged_decode.cu`
-    computes it, in numpy float32: q [S, h, 1, d], pages [N+1, h, psz, d]
-    (int8 with [N+1, h, 1, 1] scales), table [S, mp], length [S], bias
-    [S, mp * psz] or None; `plan` (splits, pages a split) defaults to
-    `ops.attention.paged_decode_plan` on an H100. Keys of a split come in
-    tiles of 2048 / D (D = 64 or 128, the kernel's width); key kl of a
-    tile goes to group kl % 16, whose online softmax takes one step for
-    its keys of the tile: x = (q . k) * k_scale (+ bias) for each, m_new
-    the max of m and them, l and acc scaled by exp(m - m_new) once, then
-    p = exp(x - m_new) and (p * v_scale) * v added key by key. Returns
+    computes it: `paged_verify_in_kernel` at q [S, h, 1, d]. Returns
     [S, h, 1, d] float32."""
+    return paged_verify_in_kernel(q, k_pages, v_pages, k_scale, v_scale,
+                                  table, length, bias, scale, plan)
+
+
+def flash_decode_in_kernel(q, k, v, length, bias=None, scale=None,
+                           plan=None):
+    """The dense decode kernel's function as `csrc/flash_decode.cu`
+    computes it (`merge_in_kernel` with q * scale and p rounded to q's
+    type): q [b, h, 1, d], k / v [b, h, L, d], length [b], bias [b, L] or
+    None; `plan` (splits, keys a split) defaults to
+    `ops.attention.flash_decode_plan` on an H100. Returns [b, h, 1, d]
+    float32."""
     from .ops import attention as A
 
-    def np32(t):
-        return None if t is None else t.detach().cpu().float().numpy()
+    b, h = q.shape[:2]
+    L = k.shape[2]
+    return merge_in_kernel(q, k, v, A._lengths(length, b, "cpu"), bias,
+                           scale, plan or A.flash_decode_plan(b, h, L),
+                           rounded=q.dtype == torch.bfloat16)
 
-    S, h, _, d = q.shape
-    psz, mp = k_pages.shape[2], table.shape[1]
-    L = mp * psz
-    C, pps = plan or A.paged_decode_plan(S, h, mp)
-    D = 64 if d <= 64 else 128
-    KT = 2048 // D
-    sc = np.float32(A._scale(d, scale))
-    qn, kp, vp = np32(q), np32(k_pages), np32(v_pages)
-    ks, vs, bn = np32(k_scale), np32(v_scale), np32(bias)
-    rows = A._table_rows(table.cpu(), k_pages.shape[0]).numpy()
-    lens = np.asarray(length.cpu()).reshape(-1)
-    neg, f32 = np.float32(A.NEG), np.float32
-    out = np.zeros((S, h, 1, d), np.float32)
-    G = DECODE_GROUPS
-    for b in range(S):
-        for hh in range(h):
-            qs = (qn[b, hh, 0] * sc).astype(f32)
-            ranks = []
-            for r in range(C):
-                p0 = r * pps
-                start = p0 * psz
-                end = min(start + min(pps, mp - p0) * psz, L, int(lens[b]))
-                gm = [f32(-np.inf)] * G
-                gl = [f32(0)] * G
-                ga = [np.zeros(d, np.float32) for _ in range(G)]
-                for j0 in range(start, end, KT):
-                    for gi in range(G):
-                        # the group's visible keys of the tile, one step
-                        keys = [j for j in range(j0 + gi, j0 + KT, G)
-                                if j < end]
-                        if not keys:
-                            continue
-                        xs, rows_j = [], []
-                        for j in keys:
-                            p = rows[b, j // psz]
-                            x = f32(np.dot(qs, kp[p, hh, j % psz]))
-                            if ks is not None:
-                                x = f32(x * ks[p, hh, 0, 0])
-                            if bn is not None:
-                                x = f32(x + bn[b, j])
-                            xs.append(x)
-                            rows_j.append((p, j % psz))
-                        m_new = max([gm[gi]] + xs)
-                        alpha = f32(np.exp(f32(gm[gi] - m_new)))
-                        gl[gi] = f32(gl[gi] * alpha)
-                        ga[gi] = (ga[gi] * alpha).astype(f32)
-                        gm[gi] = m_new
-                        for x, (p, row) in zip(xs, rows_j):
-                            pj = f32(np.exp(f32(x - m_new)))
-                            gl[gi] = f32(gl[gi] + pj)
-                            pv = f32(pj * (vs[p, hh, 0, 0] if vs is not None
-                                           else f32(1)))
-                            ga[gi] = (ga[gi] + pv * vp[p, hh, row]) \
-                                .astype(f32)
-                if end > start:
-                    ms = max(gm)
-                    w = [f32(np.exp(f32(m - ms))) for m in gm]
-                    den, num = f32(0), np.zeros(d, np.float32)
-                    for gi in range(G):
-                        den = f32(den + gl[gi] * w[gi])
-                        num = (num + ga[gi] * w[gi]).astype(f32)
-                    ranks.append((ms, den, num))
-                else:
-                    ranks.append((neg, f32(0), np.zeros(d, np.float32)))
-            mstar = max(m for m, _, _ in ranks)
-            den, num = f32(0), np.zeros(d, np.float32)
-            for m, l_, a_ in ranks:
-                w = f32(np.exp(f32(m - mstar)))
-                den = f32(den + l_ * w)
-                num = (num + a_ * w).astype(f32)
-            out[b, hh, 0] = num / max(den, f32(1e-30))
-    return torch.from_numpy(out)
+
+def paged_read_case(S, h, psz, mp, d, T, lens, kv_dtype, hole, seed=60,
+                    device="cpu"):
+    """Operands of a paged read (decode at T 1, verify above) from numpy's
+    seeded generator: pages of a shuffled pool, table entries past each
+    slot's written pages on the trash row or unmapped (-1), int8 pages with
+    per-(page, head) scales, q [S, h, T, d] viewed from an [S, T, h, d]
+    projection (strided), a small random bias with a -1e30 hole over
+    `hole`. Returns (q, k_pages, v_pages, k_scale, v_scale, table, length,
+    bias)."""
+    rs = np.random.RandomState(seed)
+    N = S * mp + 3
+    table = rs.permutation(N)[:S * mp].reshape(S, mp).astype(np.int32)
+    for s, n in enumerate(lens):
+        table[s, -(-n // psz):] = -1 if s % 2 else N
+    raw = [rs.randn(N + 1, h, psz, d).astype(np.float32) for _ in range(2)]
+    scales = [None, None]
+    if kv_dtype == torch.int8:
+        for i, x in enumerate(raw):
+            sc = np.abs(x).max(axis=(2, 3), keepdims=True) / 127.0
+            raw[i] = np.clip(np.round(x / sc), -127, 127)
+            scales[i] = torch.from_numpy(sc.astype(np.float32)).to(device)
+    kp, vp = (torch.from_numpy(x).to(kv_dtype).to(device) for x in raw)
+    q = torch.from_numpy(rs.randn(S, T, h, d).astype(np.float32)) \
+        .to(device).transpose(1, 2)
+    bias = (rs.randn(S, mp * psz) * 0.1).astype(np.float32)
+    bias[:, hole[0]:hole[1]] = -1e30
+    return (q, kp, vp, scales[0], scales[1],
+            torch.from_numpy(table).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device),
+            torch.from_numpy(bias).to(device))
+
+
+def dense_decode_case(b, h, L, d, lens, dtype, hole, seed=70, device="cpu"):
+    """Operands of a dense decode from numpy's seeded generator: q
+    [b, h, 1, d] viewed from a [b, 1, h, d] projection (strided), the
+    cache k / v [b, h, L, d] in `dtype`, a small random [b, L] bias with
+    a -1e30 hole over `hole`. Returns (q, k, v, length, bias)."""
+    rs = np.random.RandomState(seed)
+    q = torch.from_numpy(rs.randn(b, 1, h, d).astype(np.float32)) \
+        .transpose(1, 2)
+    k, v = (torch.from_numpy(rs.randn(b, h, L, d).astype(np.float32))
+            for _ in range(2))
+    bias = (rs.randn(b, L) * 0.1).astype(np.float32)
+    bias[:, hole[0]:hole[1]] = -1e30
+    return (q.to(dtype).to(device), k.to(dtype).to(device),
+            v.to(dtype).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device),
+            torch.from_numpy(bias).to(device))

@@ -12,16 +12,20 @@ verify's routes (`attention.paged_verify_route`, the C rule
 (`pt_paged_verify_plan`) and the LoRA kernel's cluster plan
 (`pt_lora_gather_plan`).
 
-The plans of the two kernels that merge their key splits in the kernel
-(the int8 matmul's skinny route, m <= 32: `quant.skinny_plan`, the C rule
-`pt_int8_matmul_skinny_plan`; the paged decode:
-`attention.paged_decode_plan`, the C rule `pt_paged_decode_plan`) are
-written out in Python and checked here over the serving shapes and the
-edges; on the card the mirrors must equal the C rules. The paged decode's
-merge, in the kernel's order (`testing.paged_decode_in_kernel`, numpy),
-must equal the plain version's split-and-combine within 1e-6 of its
-largest entry. The `cuda` tests hold both kernels to their plain
-versions on the card, one launch a call and bitwise repeatable.
+The plans of the kernels that merge their key splits in the kernel (the
+int8 matmul's skinny route, m <= 32: `quant.skinny_plan`, the C rule
+`pt_int8_matmul_skinny_plan`; the paged decode and the paged verify's
+split route: `attention.paged_decode_plan`, the C rule
+`pt_paged_decode_plan`; the dense decode: `attention.flash_decode_plan`,
+the C rule `pt_flash_decode_plan`) are written out in Python and checked
+here over the serving shapes and the edges; on the card the mirrors must
+equal the C rules. The paged decode's merge, in the kernel's order
+(`testing.paged_decode_in_kernel`, numpy), must equal the plain version's
+split-and-combine within 1e-6 of its largest entry (tests/
+test_torch_merge.py holds the dense decode's and the split route's). The
+`cuda` tests hold the kernels to their plain versions and to the
+kernel-order emulation on the card, one launch a call and bitwise
+repeatable.
 """
 import os
 import sys
@@ -36,7 +40,9 @@ from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import attention as TA  # noqa: E402
 from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
 from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
-from paddle_tpu_torch.testing import paged_decode_in_kernel  # noqa: E402
+from paddle_tpu_torch.testing import (  # noqa: E402
+    dense_decode_case, flash_decode_in_kernel, paged_decode_in_kernel,
+    paged_read_case, paged_verify_in_kernel)
 
 BF, F32 = torch.bfloat16, torch.float32
 
@@ -287,10 +293,10 @@ def test_paged_verify_and_lora_rules_are_bound():
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
         assert len(helpers[name]) == argc
-    # the decode takes the output in place of the partials (one pointer
-    # for three) and plans its own splits (no T, no pages a split)
+    # both write the output and plan their own splits; the verify also
+    # takes the tiled route's partials and counters (four pointers) and T
     assert len(_build._SIGNATURES["paged_verify"][1]) == \
-        len(_build._SIGNATURES["paged_decode"][1]) + 6
+        len(_build._SIGNATURES["paged_decode"][1]) + 5
 
 
 @pytest.mark.cuda
@@ -441,12 +447,13 @@ def test_paged_decode_plan_refuses_empty_rows(S, h, mp):
 
 
 def test_merge_plans_are_bound():
-    """Both C rules exist in the sources and are bound as helpers of their
+    """The C rules exist in the sources and are bound as helpers of their
     libraries (device, three sizes, the output array)."""
     csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
     helpers = {n: a for lib in _build._HELPERS.values() for n, a in lib}
     for src, name in (("int8_matmul.cu", "pt_int8_matmul_skinny_plan"),
-                      ("paged_decode.cu", "pt_paged_decode_plan")):
+                      ("paged_decode.cu", "pt_paged_decode_plan"),
+                      ("flash_decode.cu", "pt_flash_decode_plan")):
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
         assert len(helpers[name]) == 5
@@ -454,30 +461,7 @@ def test_merge_plans_are_bound():
 
 def _paged_decode_case(S, h, psz, mp, d, lens, kv_dt, hole, seed=60,
                        dev="cpu"):
-    """Pages of a shuffled pool, table entries past each slot's written
-    pages on the trash row or unmapped (-1), int8 pages with per-(page,
-    head) scales, a small random bias with a -1e30 hole over `hole`; from
-    numpy's seeded generator."""
-    rs = np.random.RandomState(seed)
-    N = S * mp + 3
-    table = rs.permutation(N)[:S * mp].reshape(S, mp).astype(np.int32)
-    for s, n in enumerate(lens):
-        table[s, -(-n // psz):] = -1 if s % 2 else N
-    raw = [rs.randn(N + 1, h, psz, d).astype(np.float32) for _ in range(2)]
-    scales = [None, None]
-    if kv_dt == torch.int8:
-        for i, x in enumerate(raw):
-            sc = np.abs(x).max(axis=(2, 3), keepdims=True) / 127.0
-            raw[i] = np.clip(np.round(x / sc), -127, 127)
-            scales[i] = torch.from_numpy(sc.astype(np.float32)).to(dev)
-    kp, vp = (torch.from_numpy(x).to(kv_dt).to(dev) for x in raw)
-    q = torch.from_numpy(rs.randn(S, 1, h, d).astype(np.float32)).to(dev) \
-        .transpose(1, 2)
-    bias = (rs.randn(S, mp * psz) * 0.1).astype(np.float32)
-    bias[:, hole[0]:hole[1]] = -1e30
-    return (q, kp, vp, scales[0], scales[1], torch.from_numpy(table).to(dev),
-            torch.tensor(lens, dtype=torch.int32, device=dev),
-            torch.from_numpy(bias).to(dev))
+    return paged_read_case(S, h, psz, mp, d, 1, lens, kv_dt, hole, seed, dev)
 
 
 #: S, h, page size, mp, d, lengths, bias hole; the plan of each (S, h, mp)
@@ -538,6 +522,9 @@ def test_merge_plan_mirrors_are_the_c_rules(cuda):
         for mp in (1, 2, 9, 36, 67):
             assert TA.paged_decode_plan_on_card(S, h, mp, cuda) == \
                 TA.paged_decode_plan(S, h, mp, sms)
+        for L in (1, 31, 33, 300, 1056, 1060, 4100):
+            assert TA.flash_decode_plan_on_card(S, h, L, cuda) == \
+                TA.flash_decode_plan(S, h, L, sms)
 
 
 @pytest.mark.cuda
@@ -596,17 +583,101 @@ def test_paged_decode_is_one_repeatable_launch(cuda, case):
     assert (got.cpu() - emu).abs().max().item() <= 2e-5
 
 
+#: b, h, L, d, lengths, bias hole, dtype: the dense decode on the card (the
+#: cases of tests/test_torch_merge.py and the dense pool's decode step)
+_DENSE_CARD = {
+    **{f"{k}_{n}": (*v, dt) for k, v in {
+        "length0_ragged_L_d64": (4, 2, 300, 64, [0, 300, 37, 161], (5, 30)),
+        "hole_over_split0_d64": (3, 2, 256, 64, [256, 200, 129], (0, 128)),
+        "d40_ragged": (3, 2, 200, 40, [1, 199, 77], (50, 60)),
+        "d128_ragged": (2, 2, 150, 128, [150, 17], (3, 9))}.items()
+       for n, dt in (("fp32", F32), ("bf16", BF))},
+    "serving_b8_h8_L1056_fp32": (8, 8, 1056, 64,
+                                 [60, 1056, 700, 300, 129, 128, 1000, 513],
+                                 (20, 40), F32),
+}
+
+
+def _close(got, want, dtype, what):
+    """fp32: atol 2e-5; bf16: 1e-2 of the largest entry."""
+    err = (got.float().cpu() - want.float().cpu()).abs().max().item()
+    limit = 2e-5 if dtype == F32 else 1e-2 * want.float().abs().max().item()
+    assert err <= limit, f"{what}: {err} > {limit}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_DENSE_CARD))
+def test_flash_decode_is_one_repeatable_launch(cuda, case):
+    """Against the plain version and the kernel-order emulation (fp32
+    atol 2e-5, bf16 1e-2 of the largest entry); one launch a call, the
+    same bits on every call."""
+    b, h, L, d, lens, hole, dt = _DENSE_CARD[case]
+    args = dense_decode_case(b, h, L, d, lens, dt, hole, device=cuda)
+    TA.reset_launches()
+    got = TA.flash_decode(*args)
+    again = TA.flash_decode(*args)
+    assert TA.LAUNCHES["flash_decode"] == 2
+    assert got.dtype == dt and torch.equal(got, again)
+    _close(got, TA.flash_decode_plain(*args), dt, "plain")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _close(got, flash_decode_in_kernel(
+        *args, plan=TA.flash_decode_plan(b, h, L, sms)), dt, "emulation")
+
+
+#: S, h, page size, mp, d, T, lengths, bias hole, pages: the split route
+#: (T <= 8) at tests/test_torch_merge.py's cases and the paged speculative
+#: step (S8 h8 T4 mp67)
+_SPLIT_CARD = {
+    **{f"T{T}_{kv}": (4, 2, 8, 12, 64, T, [T + 40, T, 53, 96], (20, 24),
+                      kv) for T in (1, 2, 4, 5, 8)
+       for kv in ("fp32", "bf16", "int8")},
+    "T8_d128_fp32": (3, 2, 16, 6, 128, 8, [90, 8, 41], (20, 24), "fp32"),
+    "T3_d40_int8": (3, 2, 16, 6, 40, 3, [90, 3, 41], (20, 24), "int8"),
+    "serving_S8_h8_T4_mp67_fp32": (8, 8, 16, 67, 64, 4,
+                                   [60, 1072, 700, 300, 129, 4, 1000, 513],
+                                   (20, 40), "fp32"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_SPLIT_CARD))
+def test_split_route_is_one_repeatable_launch(cuda, case):
+    """The paged verify at T <= 8 on the card: one launch a call on the
+    split route, which writes the output; the same bits on every call;
+    atol 2e-5 of the plain version and of the kernel-order emulation."""
+    S, h, psz, mp, d, T, lens, hole, kv = _SPLIT_CARD[case]
+    kv_dt = {"fp32": F32, "bf16": BF, "int8": torch.int8}[kv]
+    args = paged_read_case(S, h, psz, mp, d, T, lens, kv_dt, hole,
+                           seed=80 + T, device=cuda)
+    TA.reset_launches()
+    got = TA.paged_flash_verify(*args)
+    again = TA.paged_flash_verify(*args)
+    assert TA.LAUNCHES["paged_flash_verify"] == 2
+    assert TA.PAGED_ROUTE_LAUNCHES["paged_flash_verify:split"] == 2
+    assert torch.equal(got, again)
+    _close(got, TA.paged_flash_verify_plain(*args), F32, "plain")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _close(got, paged_verify_in_kernel(
+        *args, plan=TA.paged_decode_plan(S, h, mp, sms)), F32, "emulation")
+
+
 def test_probe_variants_still_apply_to_the_kernels():
     """tools/probe_decode_merge.py builds each design-step variant from
-    anchored edits of the two kernels' sources: every anchor is still
-    found exactly once, and every edit changes the text."""
+    anchored edits of the kernels' sources and of attn_merge.cuh: every
+    anchor is still found exactly once, every edit changes its file, and
+    the built source gets the probe functions."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import probe_decode_merge as probe
 
-    for name in probe.VARIANTS:
-        fname, text = probe.variant_source(name)
-        with open(os.path.join(probe.CSRC, fname)) as f:
-            base = f.read()
-        assert "probe_clusters" in text and "probe_clusters" not in base
-        edited = text.rsplit('\nextern "C" int probe_clusters', 1)[0]
-        assert (edited != base) == bool(probe.VARIANTS[name][1])
+    for name, (src, edits) in probe.VARIANTS.items():
+        fname, texts = probe.variant_source(name)
+        assert fname == src and "probe_clusters" in texts[src]
+        for f, text in texts.items():
+            with open(os.path.join(probe.CSRC, f)) as fh:
+                base = fh.read()
+            if f == src:
+                assert "probe_clusters" not in base
+                text = text.rsplit('\nextern "C" int probe_clusters', 1)[0]
+                text = text.rsplit("\ntemplate <class K>\nstatic int "
+                                   "probe_run", 1)[0]
+            assert (text != base) == any(e[0] == f for e in edits)
