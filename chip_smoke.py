@@ -12,7 +12,7 @@ Phases; any failure exits nonzero before the result lines:
     the HMMA (TF32 mma.sync) of flash_fwd's float32 kernels
     (`cuobjdump -sass`; none fails the phase), and ptxas's registers and
     spills of their tensor-core kernels and of every instance of the
-    three kernels on attn_merge.cuh.
+    four kernels on attn_merge.cuh.
  2. Each kernel against its plain PyTorch version on the card, at the
     shapes the serving paths give it: flash_fwd (fp32 on the tensor
     cores as 3xTF32: the four serving shapes on their routes, and the
@@ -23,7 +23,9 @@ Phases; any failure exits nonzero before the result lines:
     every case) and flash_decode (b8 h8 L1056 ragged, fp32 and bf16, and
     a row with no written key beside a -1e30 hole over the first split);
     flash_verify at b8 h8 T4 L1060 (the speculative pool's
-    verify step), fp32 and bf16, ragged lengths, a key-bias hole;
+    verify step), fp32 and bf16, ragged lengths, a key-bias hole, and
+    the same with NaN keys and values past each row's length (a rejected
+    draft's stale block), which must give the same bits;
     paged_flash_decode (T 1; also a slot with no written key and a -1e30
     hole over every slot's first split) and paged_flash_verify (T 4, the
     paged speculative step on the split route, and T 256, a prefix hit's
@@ -35,12 +37,12 @@ Phases; any failure exits nonzero before the result lines:
     -1e30 bias over the first two key tiles. Limits: fp32 output
     (fp32, bf16 or int8 pages under an fp32 query: the dequant is the
     same arithmetic on both sides) atol 2e-5; bf16 output 1e-2 of the
-    plain version's largest entry. The three kernels that merge their key
-    splits in the kernel (flash_decode, paged_flash_decode and the split
-    route) must also launch once a call, give the same bits on every
-    call, and agree with their kernel-order emulation
-    (`testing.flash_decode_in_kernel`, `paged_verify_in_kernel`) within
-    the same limits.
+    plain version's largest entry. The four kernels that merge their key
+    splits in the kernel (flash_decode, flash_verify, paged_flash_decode
+    and the split route) must also launch once a call, give the same bits
+    on every call, and agree with their kernel-order emulation
+    (`testing.flash_decode_in_kernel`, `flash_verify_in_kernel`,
+    `paged_verify_in_kernel`) within the same limits.
  3. Serve Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
     vocab 37000; random weights from --seed) through ServingServer: 16
     requests over 8 slots, source memories of 256 tokens encoded on the
@@ -72,7 +74,19 @@ Phases; any failure exits nonzero before the result lines:
     passes only where the phase prints the first diverging step and a
     top-2 logit margin below 1e-4 there, teacher-forced on the card).
     Prints the acceptance rate, the effective k and tokens/s;
-    flash_verify must have launched.
+    flash_verify must have launched. Then a profiled pass of 8 more such
+    requests through the same engine: the device's busy share, and one
+    launch of flash_verify_kernel a flash_verify call (no combine after
+    it).
+5b. Rollback: the dense and the paged spec engines (spec_k=4,
+    spec_adapt_low=0.9, spec_adapt_patience=1) on 8 requests of random
+    (not periodic) prompts, every other one with `spec = False`, through
+    Scheduler and serve_until_idle. Tokens equal the phase-3 dense
+    engine's (or a sub-1e-4 tie, as in phase 5); each engine must have
+    had a round with a `spec = False` row active and rolled a verify
+    block back (a row kept fewer than spec_k of its block), so later
+    verify steps ran over rejected keys past n_valid. Prints those
+    counts, wasted_draft_tokens and k_shrink_events.
  6. Paged serve: ServingEngine(paged=True, page_size=16, num_slots=8,
     max_len=1056) through ServingServer, fp32 pages, 16 requests of a
     seeded 512-token shared preamble plus a distinct 32-480-token tail
@@ -91,17 +105,17 @@ Phases; any failure exits nonzero before the result lines:
     spec).
  7. int8 pages: kv_dtype="int8", 4 of the phase-6 requests; token
     agreement with the fp32 pages is printed, not asserted.
- 8. Timing of flash_verify, paged_flash_decode and paged_flash_verify at
-    the phase-5/6 shapes: kernel (flash_verify's partials; the paged
-    kernels write the output) and the whole call (flash_verify's with
-    the torch combine), the bytes / operations bound, the plain version,
-    and SDPA on the pre-gathered dense K/V with the equivalent mask (a
-    yardstick; the gather is not timed), with the device kernels SDPA
-    runs (torch.profiler). The paged verify also at the tail prefills of
+ 8. Timing of flash_verify (fp32 and bf16), paged_flash_decode and
+    paged_flash_verify at the phase-5/6 shapes: kernel and whole call
+    (each writes its output, one launch but on the tiled route), the
+    bytes / operations bound (the output counted in q's type), the plain
+    version, and SDPA on the pre-gathered dense K/V with the equivalent
+    mask (a yardstick; the gather is not timed), with the device kernels
+    SDPA runs (torch.profiler). The paged verify also at the tail prefills of
     phase 6 (S1 h8 T64, T256 and T512 over W = 32 + T/16 pages). The
-    paged decode and the split route are one launch a call (their key
-    splits merged in the kernel): the device kernels of a call
-    (torch.profiler, 5 calls) must be the route's kernel alone.
+    dense verify, the paged decode and the split route are one launch a
+    call (their key splits merged in the kernel): the device kernels of a
+    call (torch.profiler, 5 calls) must be the kernel alone.
  9. Training kernels at the ERNIE-base shapes (b8 h12 s1024 d64, a -1e4
     pad bias over ragged lengths, attention dropout 0.1 on the logical
     512 x 512 blocks): flash_fwd with dropout, flash_bwd_dq and
@@ -269,7 +283,7 @@ Phases; any failure exits nonzero before the result lines:
     visits, counted on the host from the ids (a log line only).
 25. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
-    3, 5, 6, 14 and 15), then the card's name and power limit, then
+    3, 5, 5b, 6, 14 and 15), then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
@@ -953,11 +967,15 @@ def new_kernel_cases(g):
 def check_new_kernels(A, cases):
     """Phase 2, second part: flash_verify, paged_flash_decode and
     paged_flash_verify against their plain versions; the merge kernels
-    (the paged decode, the split route) also one launch a call, bitwise
-    repeatable, and against the kernel-order emulation. Returns
-    ({kernel: max_abs_err of the fp32-output cases}, {kernel: the same
-    for the bf16-output cases})."""
-    from paddle_tpu_torch.testing import paged_verify_in_kernel
+    (the dense verify, the paged decode, the split route) also one launch
+    a call, bitwise repeatable, and against the kernel-order emulation;
+    the dense verify also over a cache whose keys and values past each
+    row's length are NaN (a rejected draft's stale block): the same bits.
+    Returns ({kernel: max_abs_err of the fp32-output cases}, {kernel: the
+    same for the bf16-output cases})."""
+    from paddle_tpu_torch.testing import (flash_verify_in_kernel,
+                                          nan_past_lengths,
+                                          paged_verify_in_kernel)
 
     errs, errs16 = {}, {}
     for kname, group in cases.items():
@@ -965,7 +983,7 @@ def check_new_kernels(A, cases):
         for cname, args in group.items():
             q = args[0]
             S, h, T, d = q.shape
-            merge = kname == "paged_flash_decode" or (
+            merge = kname in ("flash_verify", "paged_flash_decode") or (
                 kname == "paged_flash_verify"
                 and A.paged_verify_route(T, d) == "split")
             got = (one_launch_each(A, kname, wrapper, *args) if merge
@@ -981,17 +999,30 @@ def check_new_kernels(A, cases):
             route = ""
             if kname == "paged_flash_verify":
                 route = f" [{A.paged_verify_route(T, d)}]"
-            if merge:
+            if kname == "flash_verify":
+                plan = A.flash_decode_plan_on_card(S, h, args[1].shape[2],
+                                                   q.device)
+                emu = flash_verify_in_kernel(*args, plan=plan)
+                k, v, length, bias = args[1:]
+                stale = wrapper(q, *nan_past_lengths(k, v, length), length,
+                                bias)
+                if not torch.equal(stale, got):
+                    raise AssertionError(
+                        f"{kname} {cname}: NaN keys past n_valid moved the "
+                        f"output by {(stale - got).abs().max().item()}")
+                route = (f" [splits, keys a split {plan}; NaN keys past "
+                         f"n_valid: the same bits]")
+            elif merge:
                 plan = A.paged_decode_plan_on_card(S, h, args[5].shape[1],
                                                    q.device)
-                ee = emulation_err(f"{kname} {cname}", got,
-                                   paged_verify_in_kernel(*args, plan=plan),
-                                   limit)
+                emu = paged_verify_in_kernel(*args, plan=plan)
+                route += f" [splits, pages a split {plan}]"
+            if merge:
+                ee = emulation_err(f"{kname} {cname}", got, emu, limit)
                 if got.dtype == torch.float32:
                     EMU_ERRS[kname] = max(EMU_ERRS.get(kname, 0.0), ee)
-                route += (f" [splits, pages a split {plan}; one launch a "
-                          f"call, bitwise repeatable; against the "
-                          f"kernel-order emulation {ee:.3e}]")
+                route += (f" [one launch a call, bitwise repeatable; "
+                          f"against the kernel-order emulation {ee:.3e}]")
             log(f"  {kname:18s} {cname}{route}: max_abs_err {e:.3e} (limit "
                 f"{limit:.3e})")
             if not e <= limit:
@@ -1007,19 +1038,18 @@ def _visible(length, T):
 
 
 def read_numbers(A, kname, args):
-    """Phase 8: kernel (flash_verify's partials; the paged kernels write
-    the output) and the whole call (flash_verify's with the torch
-    combine), bound, plain version, and SDPA on the pre-gathered dense
-    K/V with the equivalent [b, 1, T, L] mask; the device kernels a call
-    of the paged decode and the split route (torch.profiler), which must
-    be the route's kernel alone."""
+    """Phase 8: kernel and whole call (every one of the three writes its
+    output: a call is one launch, but for the paged verify's tiled route
+    with its own plan), bound, plain version, and SDPA on the
+    pre-gathered dense K/V with the equivalent [b, 1, T, L] mask; the
+    device kernels a call of the dense verify, the paged decode and the
+    split route (torch.profiler), which must be the kernel alone."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kname == "flash_verify":
         q, k, v, length, bias = args
         kd, vd, elt, extra = k, v, k.element_size(), 0
-        kern = lambda: A._verify_partials_cuda(      # noqa: E731
-            q, k, v, length, bias, None, A.DECODE_SPLIT)
-        ns = -(-k.shape[2] // A.DECODE_SPLIT)
+        kern = lambda: A._flash_verify_cuda(         # noqa: E731
+            q, k, v, length, bias, None)
     else:
         q, kp, vp, ks, vs, table, length, bias = args
         kd = A.paged_gather_kv(kp, ks, table, q.dtype)
@@ -1039,12 +1069,10 @@ def read_numbers(A, kname, args):
     L = kd.shape[2]
     n = sum(int(x) for x in length)             # keys this data needs
     pairs = sum(_visible(x, T) for x in length)
-    # the output: the partials the kernel writes (flash_verify), or the
-    # function's output (the paged kernels write it themselves)
-    out_bytes = (4.0 * b * h * ns * T * (d + 2) if kname == "flash_verify"
-                 else q.numel() * q.element_size())
-    nbytes = (2.0 * n * h * d * elt + q.numel() * q.element_size()
-              + 4.0 * (bias.numel() + b) + out_bytes + extra)
+    # K and V of the keys the rows see, q, the bias, the lengths, the
+    # [b, h, T, d] output in q's type, the table and scales
+    nbytes = (2.0 * n * h * d * elt + 2.0 * q.numel() * q.element_size()
+              + 4.0 * (bias.numel() + b) + extra)
     flops = 4.0 * pairs * h * d
     kpos = torch.arange(L, device="cuda")
     qpos = length[:, None].long() - T + torch.arange(T, device="cuda")
@@ -1061,7 +1089,8 @@ def read_numbers(A, kname, args):
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_kernels": sorted(lib_kernels)
            if isinstance(lib_kernels, dict) else lib_kernels}
-    merge = {"paged_flash_decode": "paged_decode_kernel"}
+    merge = {"paged_flash_decode": "paged_decode_kernel",
+             "flash_verify": "flash_verify_kernel"}
     if kname == "paged_flash_verify":
         row["route"] = A.paged_verify_route(T, d)
         if row["route"] == "tiled":
@@ -1071,9 +1100,13 @@ def read_numbers(A, kname, args):
             merge[kname] = "paged_split_kernel"
     if kname in merge:
         # one call is one launch of the route's kernel: no combine after it
-        row["plan"] = dict(zip(("splits", "pages_per_split"),
-                               A.paged_decode_plan_on_card(
-                                   b, h, table.shape[1], q.device)))
+        row["plan"] = (dict(zip(("splits", "keys_per_split"),
+                                A.flash_decode_plan_on_card(b, h, L,
+                                                            q.device)))
+                       if kname == "flash_verify" else
+                       dict(zip(("splits", "pages_per_split"),
+                                A.paged_decode_plan_on_card(
+                                    b, h, table.shape[1], q.device))))
         row["kernels_per_call"] = kernels_per_call(
             lambda: getattr(A, kname)(*args))
         only_kernel(kname, row["kernels_per_call"], merge[kname])
@@ -1183,17 +1216,28 @@ def same_tokens(label, want, got, net, prompts, memories, margin_fn=None):
     return ties
 
 
+def spec_prompts(rs, n):
+    """Phase 5's prompts: a seeded PERIOD-token period repeated over 300 to
+    1000 tokens (the n-gram draft's case)."""
+    prompts = []
+    for _ in range(n):
+        p = np.resize(rs.randint(2, VOCAB, PERIOD), int(rs.randint(300, 1001)))
+        p[0] = 0
+        prompts.append(p)
+    return prompts
+
+
 def spec_serve(A, seed, model, embed, project, dense, memory):
-    """Phase 5. Returns (launches, snapshot, tokens/s)."""
+    """Phase 5, then a profiled pass of SLOTS more requests through the
+    same engine: one launch of flash_verify_kernel a verify call, no
+    combine after it. Returns (launches, snapshot, tokens/s, profile
+    summary)."""
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.text.generation import _StepNet
 
     rs = np.random.RandomState(seed + 5)
-    prompts = []
-    for _ in range(SLOTS):
-        p = np.resize(rs.randint(2, VOCAB, PERIOD), int(rs.randint(300, 1001)))
-        p[0] = 0
-        prompts.append(p)
+    prompts = spec_prompts(rs, SLOTS)
+    more = spec_prompts(rs, SLOTS)
     mems = [memory[i] for i in range(SLOTS)]
     want, _ = run_server(dense, prompts, mems)
     engine = ServingEngine(model.decoder, embed, project, num_slots=SLOTS,
@@ -1215,7 +1259,117 @@ def spec_serve(A, seed, model, embed, project, dense, memory):
         f"dense engine's ({ties} ties); launches {launches}")
     if launches["flash_verify"] < 1:
         raise AssertionError("flash_verify was never launched while serving")
-    return launches, snap, n_tok / wall
+    # the profiled pass: flash_fwd (the joins' prefill, the cross-
+    # attention), flash_verify_kernel (every verify step, its key splits
+    # merged in the kernel)
+    calls, restore = call_log(A, "flash_verify")
+    prof = {}
+    try:
+        rows = profile_pass(engine, more, mems,
+                            ("flash_fwd", "flash_verify_kernel",
+                             "flash_decode_kernel"), summary=prof)
+    finally:
+        restore()
+    if rows is not None:
+        ms, n = rows_matching(rows, "flash_verify_kernel")
+        n_calls = calls[None]
+        prof.update(calls=n_calls, launches=n, kernel_ms=ms)
+        log(f"  flash_verify: {n_calls} calls, {n} launches of "
+            f"flash_verify_kernel ({ms:.2f} ms): one launch a call, no "
+            f"combine after it")
+        if n != n_calls or n_calls < 1:
+            raise AssertionError(f"flash_verify: {n_calls} calls launched "
+                                 f"flash_verify_kernel {n} times")
+    return launches, snap, n_tok / wall, prof
+
+
+def rollback_serve(A, seed, model, embed, project, dense, memory):
+    """Phase 5b: the dense and the paged spec engines (spec_k=SPEC_K) on
+    SLOTS requests of random, non-periodic prompts, every other request
+    with `spec = False`, the adaptive k on a tight band
+    (`spec_adapt_low=0.9, spec_adapt_patience=1`): drafts are rejected and
+    each verify block past a row's accepted tokens is rolled back, so the
+    next block's verify runs over a cache whose keys past n_valid are the
+    rejected ones. Tokens must equal the dense engine's (or a sub-1e-4
+    tie). Fails unless each engine rolled a block back. Returns ({path:
+    launches}, {path: speculation counts})."""
+    from paddle_tpu_torch.serving import Request, Scheduler, ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    rs = np.random.RandomState(seed + 55)
+    prompts = []
+    for _ in range(SLOTS):
+        p = rs.randint(2, VOCAB, int(rs.randint(300, 1001)))
+        p[0] = 0
+        prompts.append(p)
+    mems = [memory[i] for i in range(SLOTS)]
+    want, _ = run_server(dense, prompts, mems)
+    net = _StepNet(model.decoder, embed, project).eval()
+    launches, counts = {}, {}
+    for path, paged in (("rollback", False), ("rollback_paged", True)):
+        kw = dict(paged=True, page_size=PAGE) if paged else {}
+        engine = ServingEngine(model.decoder, embed, project,
+                               num_slots=SLOTS, max_len=MAX_LEN,
+                               spec_k=SPEC_K, spec_adapt_low=0.9,
+                               spec_adapt_patience=1, device="cuda", **kw)
+        # each verify round: its active rows, the rows with speculation
+        # on, and the tokens each row kept (a log, not a counter)
+        rounds = []
+        inner = engine.layout.spec_step
+
+        def logged(drafts, active, spec_on, k_eff, inner=inner,
+                   rounds=rounds):
+            emit, n_emit = inner(drafts, active, spec_on, k_eff)
+            rounds.append((active.cpu().numpy(), spec_on.cpu().numpy(),
+                           n_emit.cpu().numpy()))
+            return emit, n_emit
+
+        engine.layout.spec_step = logged
+        sched = Scheduler(max_queue=SLOTS)
+        reqs = [Request(p, m, max_new_tokens=NEW_TOKENS, eos_id=1)
+                for p, m in zip(prompts, mems)]
+        for r in reqs[1::2]:
+            r.spec = False
+        A.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            sched.submit(r)
+        engine.serve_until_idle(sched)
+        wall = time.perf_counter() - t0
+        launches[path] = dict(A.LAUNCHES)
+        results = [r.result() for r in reqs]
+        for i, res in enumerate(results):
+            if not res.ok:
+                raise AssertionError(f"{path}: request {i} finished "
+                                     f"{res.finish_reason}: {res.error!r}")
+        got = [list(res.tokens) for res in results]
+        ties = same_tokens(path, want, got, net, prompts, mems)
+        sp = engine.metrics.snapshot()["speculation"]
+        off = sum(int((a & ~on).any()) for a, on, _ in rounds)
+        rolled = sum(int((a & (n < SPEC_K)).sum()) for a, _, n in rounds)
+        counts[path] = {
+            "rounds": sp["rounds"], "rounds_with_spec_off_row": off,
+            "blocks_rolled_back": rolled,
+            "wasted_draft_tokens": sp["wasted_draft_tokens"],
+            "k_shrink_events": sp["k_shrink_events"],
+            "effective_k": sp["effective_k"],
+            "acceptance_rate": sp["acceptance_rate"], "ties": ties}
+        name = "paged_flash_verify" if paged else "flash_verify"
+        n_tok = sum(len(t) for t in got)
+        log(f"  {path}: {SLOTS} requests ({SLOTS // 2} with spec = False), "
+            f"{n_tok} tokens in {wall:.3f} s; {json.dumps(counts[path])}; "
+            f"{name} launches {launches[path][name]}; tokens equal the "
+            f"dense engine's ({ties} ties)")
+        if len(rounds) != sp["rounds"] or off < 1 or rolled < 1 \
+                or launches[path][name] < 1:
+            raise AssertionError(f"{path}: {len(rounds)} logged rounds of "
+                                 f"{sp['rounds']}, {off} with a spec = "
+                                 f"False row, {rolled} blocks rolled back, "
+                                 f"{launches[path][name]} {name} launches")
+        if paged:
+            engine._alloc.check()
+    return launches, counts
 
 
 def paged_requests(seed, n, memory):
@@ -1400,9 +1554,12 @@ def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
     return {"agree": agree, "first_difference": first}
 
 
-def profile_pass(engine, prompts, memories, kernel_names, adapters=None):
+def profile_pass(engine, prompts, memories, kernel_names, adapters=None,
+                 summary=None):
     """A pass under torch.profiler: wall, the device's busy share, and
-    device time by kernel group."""
+    device time by kernel group (also into `summary`, a dict, when
+    given). Returns the profile's kernel rows, or None when it recorded
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1430,6 +1587,9 @@ def profile_pass(engine, prompts, memories, kernel_names, adapters=None):
         f"{100 * (1 - busy / (wall * 1e3)):.1f}%")
     log("  device ms by group: " + ", ".join(
         f"{k} {v:.2f} ({100 * v / busy:.1f}%)" for k, v in groups.items()))
+    if summary is not None:
+        summary.update(wall_ms=wall * 1e3, busy_ms=busy,
+                       busy_share=busy / (wall * 1e3), groups_ms=groups)
     for ms, n, key in sorted(rows, reverse=True)[:6]:
         log(f"    {ms:9.3f} ms  {n:6d} x  {key[:90]}")
     return rows
@@ -2995,10 +3155,10 @@ def tensor_core_report():
 def merge_kernel_report():
     """Phase 1c: ptxas's registers and spills of each instance of the
     kernels on `csrc/attn_merge.cuh` (flash_decode_kernel,
-    paged_decode_kernel, paged_split_kernel: R query rows a block hold R
-    x d / 8 q and accumulator values a lane). Returns {kernel: [(mangled
-    name, registers, spill store bytes)]}, empty where an earlier process
-    built the kernels."""
+    flash_verify_kernel, paged_decode_kernel, paged_split_kernel: R query
+    rows a block hold R x d / 8 q and accumulator values a lane).
+    Returns {kernel: [(mangled name, registers, spill store bytes)]},
+    empty where an earlier process built the kernels."""
     import re
 
     from paddle_tpu_torch.ops import _build
@@ -3006,6 +3166,7 @@ def merge_kernel_report():
     logs = _build.build_info().get("logs") or {}
     out = {}
     for stem, key in (("flash_decode", "flash_decode_kernel"),
+                      ("flash_verify", "flash_verify_kernel"),
                       ("paged_decode", "paged_decode_kernel"),
                       ("paged_verify", "paged_split_kernel")):
         rows, name, spill = [], None, 0
@@ -3115,7 +3276,14 @@ def main():
 
     log(f"phase 5: dense speculative serve, spec_k {SPEC_K}, {SLOTS} "
         f"requests with a {PERIOD}-token period")
-    s_launches, s_snap, s_rate = spec_serve(A, args.seed, model, embed,
+    s_launches, s_snap, s_rate, s_prof = spec_serve(A, args.seed, model,
+                                                    embed, project, engine,
+                                                    memory)
+
+    log(f"phase 5b: rollback: the dense and the paged spec engines on "
+        f"{SLOTS} random prompts, every other request with spec = False, "
+        f"spec_adapt_low 0.9, patience 1")
+    rb_launches, rb_counts = rollback_serve(A, args.seed, model, embed,
                                             project, engine, memory)
 
     log(f"phase 6: paged serve, page {PAGE}, {REQUESTS} requests with a "
@@ -3134,7 +3302,8 @@ def main():
         "paged_flash_decode": p_launches["paged"]["paged_flash_decode"],
         "paged_flash_verify": p_launches["paged"]["paged_flash_verify"]
         + p_launches["paged_spec"]["paged_flash_verify"]}
-    timed = {"flash_verify": ("spec step b8 h8 T4 L1060 fp32",),
+    timed = {"flash_verify": ("spec step b8 h8 T4 L1060 fp32",
+                              "spec step b8 h8 T4 L1060 bf16"),
              "paged_flash_decode": ("decode S8 h8 mp67 pages fp32",
                                     "decode S8 h8 mp67 pages int8"),
              "paged_flash_verify": ("spec step S8 h8 T4 mp67 pages fp32",
@@ -3182,10 +3351,14 @@ def main():
     kernels["paged_flash_verify"]["route_rule"] = (
         "split (paged_split_kernel, the key splits merged in the kernel) for "
         "T <= 8, tiled (paged_tiled_kernel) above: pt_paged_verify_route")
+    kernels["flash_verify"]["spec_profile"] = s_prof
+    kernels["flash_verify"]["rollback"] = rb_counts
     serving = {"dense_tokens_per_s": n_tok / wall,
                "spec_tokens_per_s": s_rate,
                "spec_acceptance_rate":
                    s_snap["speculation"]["acceptance_rate"],
+               "spec_busy_share": s_prof.get("busy_share"),
+               "rollback": rb_counts,
                "paged_tokens_per_s": p_rates["paged"],
                "paged_spec_tokens_per_s": p_rates["paged_spec"],
                "paged_prefix": p_snaps["paged"]["prefix"],
@@ -3325,8 +3498,8 @@ def main():
     kernels["paged_flash_verify"]["launches_by_route_and_path"].update(
         {p: c["verify_routes"] for p, c in mp_launches.items()})
     # the attention kernels' launches on every serving path
-    serve_paths = {"serve": launches, "spec": s_launches, **p_launches,
-                   **by_path}
+    serve_paths = {"serve": launches, "spec": s_launches, **rb_launches,
+                   **p_launches, **by_path}
     for kname in ("flash_decode", "flash_verify", "paged_flash_decode",
                   "paged_flash_verify"):
         paths = {p: c[kname] for p, c in serve_paths.items()
@@ -3334,6 +3507,7 @@ def main():
         kernels[kname]["launches_by_path"] = paths
         kernels[kname]["launches"] = sum(paths.values())
     for kname, key in (("flash_decode", "flash_decode_kernel"),
+                       ("flash_verify", "flash_verify_kernel"),
                        ("paged_flash_decode", "paged_decode_kernel"),
                        ("paged_flash_verify", "paged_split_kernel")):
         kernels[kname]["merge_kernel_registers"] = merge_regs[key]

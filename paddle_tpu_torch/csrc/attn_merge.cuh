@@ -1,8 +1,10 @@
 // Split-K attention of a tile of R query rows against a KV cache, the key
 // splits merged in the kernel, for Hopper (sm_90a): one launch writes the
-// output in q's type. Three kernels instantiate it:
+// output in q's type. Four kernels instantiate it:
 //  * flash_decode.cu: the dense decode (R 1, keys by (b, h, j) strides, the
 //    dense kernels' rounding);
+//  * flash_verify.cu: the dense verify (any T in tiles of R 1, 4 or 8 rows,
+//    keys and rounding as the dense decode's);
 //  * paged_decode.cu: the paged decode (R 1, keys through the page table);
 //  * paged_verify.cu: the paged verify's split route (T <= 8, the
 //    speculative step; R 4 or 8, keys through the page table).
@@ -104,6 +106,14 @@ inline void plan(int sms, int rows, int n, int* c, int* per) {
   const int split = max(1, min(min(MAX_CLUSTER, n), want));
   *per = (n + split - 1) / split;
   *c = (n + *per - 1) / *per;
+}
+
+// The dense kernels' plan (flash_decode.cu, flash_verify.cu): `rows` rows
+// over L keys in whole UNIT-key steps; (blocks a cluster, keys a split).
+inline void dense_plan(int sms, int rows, int L, int* c, int* keys) {
+  int per = 0;
+  plan(sms, rows, (L + UNIT - 1) / UNIT, c, &per);
+  *keys = per * UNIT;
 }
 
 inline int sm_count(int device) {

@@ -60,10 +60,7 @@ int by_width(const Args& a, int rows, int C, cudaStream_t s) {
 extern "C" int pt_flash_decode_plan(int device, int B, int H, int L,
                                     int* out) {
   if (B < 0 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  int per = 0;
-  amerge::plan(amerge::sm_count(device), B * H,
-               (L + amerge::UNIT - 1) / amerge::UNIT, out, &per);
-  out[1] = per * amerge::UNIT;
+  amerge::dense_plan(amerge::sm_count(device), B * H, L, out, out + 1);
   return 0;
 }
 

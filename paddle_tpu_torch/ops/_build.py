@@ -57,8 +57,7 @@ _SIGNATURES = {
                       [_I, _I, *[_P] * 12, _I, _I, _I, _I, _I, _STRIDES, _F,
                        _I, *_DROP, _P]),
     "flash_verify": ("pt_flash_verify",
-                     [_I, _I, *[_P] * 8, _I, _I, _I, _I, _I, _I, _STRIDES, _F,
-                      _P]),
+                     [_I, _I, *[_P] * 6, *[_I] * 5, _STRIDES, _F, _P]),
     "paged_decode": ("pt_paged_decode",
                      [_I, _I, _I, *[_P] * 9, *[_I] * 6, _STRIDES, _F, _P]),
     "paged_verify": ("pt_paged_verify",

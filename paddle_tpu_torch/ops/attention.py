@@ -37,7 +37,9 @@ package's `ops/attention.py`.
   * `flash_verify` -> `csrc/flash_verify.cu`: the speculative-decoding
     VERIFY block, T query tokens per row just written at the row's own
     offset, causal within the block (key j visible to row i while
-    j <= length - T + i), split-K like the decode.
+    j <= length - T + i), on the decode's kernel body and plan at T
+    query rows: one launch that writes the output (the plain version
+    keeps the JAX split-and-combine).
   * `paged_flash_decode` -> `csrc/paged_decode.cu` and
     `paged_flash_verify` -> `csrc/paged_verify.cu`: the same two reads
     through a paged pool ([N+1, h, page_size, d] pages, row N the trash
@@ -48,8 +50,9 @@ package's `ops/attention.py`.
     writes the output: one launch. The verify has two routes
     (`paged_verify_route`, the C rule), each one launch that writes the
     output: for T <= 8 (the speculative step) the decode's kernel body
-    (`csrc/attn_merge.cuh`, shared by both decodes) over T query rows,
-    and a query-tiled kernel for the wider tail prefills.
+    (`csrc/attn_merge.cuh`, shared with both decodes and the dense
+    verify) over T query rows, and a query-tiled kernel for the wider
+    tail prefills.
 
 Attention dropout is the JAX package's counter hash (`_hash_bits`), not
 torch's RNG: the keep bit of logit (row, col) is a murmur3-finalised
@@ -851,10 +854,11 @@ def _decode_lengths(q, k, length):
     return _lengths(length, b, q.device)
 
 
-#: `csrc/attn_merge.cuh`'s plan (`amerge::plan`, the rule of both decodes
-#: and the paged verify's split route): blocks an SM to aim for, the most
-#: blocks a cluster (key splits of a row), and the dense decode's step of
-#: keys (`amerge::UNIT`: whole key tiles at every head width)
+#: `csrc/attn_merge.cuh`'s plan (`amerge::plan`, the rule of both decodes,
+#: the dense verify and the paged verify's split route): blocks an SM to
+#: aim for, the most blocks a cluster (key splits of a row), and the dense
+#: kernels' step of keys (`amerge::UNIT`: whole key tiles at every head
+#: width)
 _MERGE_PER_SM, _MERGE_CLUSTER, _DECODE_UNIT = 3, 8, 32
 
 
@@ -869,12 +873,13 @@ def _merge_plan(rows, n, sms):
 
 def flash_decode_plan(b, h, L, sms=_build.H100_SMS):
     """(blocks a cluster = key splits of a row, keys a split) of the
-    decode kernel for b x h rows over a cache of L keys on a card of `sms`
-    SMs: the C rule `pt_flash_decode_plan` written out. A row's keys split
-    in whole 32-key steps over up to 8 blocks of a thread-block cluster
-    until about three blocks an SM run; the kernel merges the splits in
-    rank order. It reads no lengths: a split past a row's length holds no
-    visible key."""
+    dense decode and verify kernels for b x h rows over a cache of L keys
+    on a card of `sms` SMs: the C rule `pt_flash_decode_plan`
+    (`amerge::dense_plan`, which the verify's entry point also follows)
+    written out. A row's keys split in whole 32-key steps over up to 8
+    blocks of a thread-block cluster until about three blocks an SM run;
+    the kernel merges the splits in rank order. It reads no lengths: a
+    split past a row's length holds no visible key."""
     if b < 0 or h < 1 or L < 1:
         raise ValueError(f"flash_decode: no plan for b={b}, h={h}, L={L}")
     c, units = _merge_plan(b * h, -(-L // _DECODE_UNIT), sms)
@@ -1040,7 +1045,10 @@ def _verify_partials_plain(q, k, v, length, bias, scale, split):
                            q.dtype)
 
 
-def _verify_partials_cuda(q, k, v, length, bias, scale, split):
+def _flash_verify_cuda(q, k, v, length, bias, scale):
+    """Launch `csrc/flash_verify.cu`: the [b, h, T, d] output in q's
+    type, the key splits (`flash_decode_plan`) merged in the kernel (one
+    launch)."""
     _check_operands("flash_verify", q, k, v,
                     (length,) if bias is None else (length, bias))
     b, h, T, d = q.shape
@@ -1048,25 +1056,23 @@ def _verify_partials_cuda(q, k, v, length, bias, scale, split):
     _check_bias("flash_verify", bias, b, L)
     if length.dtype != torch.int32 or not length.is_contiguous():
         raise ValueError("flash_verify: length must be contiguous int32")
-    ns = -(-L // split)
-    acc = torch.empty((b * h, ns, T, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b * h, ns, T), dtype=torch.float32, device=q.device)
-    l = torch.empty((b * h, ns, T), dtype=torch.float32, device=q.device)
-    fn = _build.kernels().flash_verify
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
-             k.data_ptr(), v.data_ptr(),
-             None if bias is None else bias.data_ptr(), length.data_ptr(),
-             acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, T, L, d,
-             int(split), _row_strides(q, k, v), float(_scale(d, scale)),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    out = torch.empty((b, h, T, d), dtype=q.dtype, device=q.device)
+    err = _build.kernels().flash_verify(
+        q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if bias is None else bias.data_ptr(),
+        length.data_ptr(), out.data_ptr(), b, h, T, L, d,
+        _row_strides(q, k, v), float(_scale(d, scale)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_verify", err)
     LAUNCHES["flash_verify"] += 1
-    return acc, m, l
+    return out
 
 
 def flash_verify_plain(q, k, v, length, bias=None, scale=None):
-    """The verify kernel's function in plain PyTorch, on any device: the
-    same per-split partials and the same combine."""
+    """The verify's function in plain PyTorch, on any device: the JAX
+    kernel's partials of DECODE_SPLIT keys and its combine. The kernel
+    merges its own splits in another order (float32: the same function;
+    bf16: p rounded at another running max)."""
     length = _verify_lengths("flash_verify", q, k, length)
     b, h, T, d = q.shape
     parts = _verify_partials_plain(q, k, v, length, bias, scale,
@@ -1075,21 +1081,17 @@ def flash_verify_plain(q, k, v, length, bias=None, scale=None):
 
 
 def flash_verify(q, k, v, length, bias=None, scale=None):
-    """Split-K verify: q [b, h, T, d] (T tokens just written at each
-    row's own offset) against k/v [b, h, L, d]; `length` (an int or [b]
-    int32) counts each row's written keys after that write; bias an
-    optional [b, L] float32 key bias. Returns [b, h, T, d]. CPU tensors
-    compute the partials with the plain version; CUDA tensors launch
-    `csrc/flash_verify.cu` (any L and T, head_dim <= 128)."""
+    """Verify: q [b, h, T, d] (T tokens just written at each row's own
+    offset) against k/v [b, h, L, d]; `length` (an int or [b] int32)
+    counts each row's written keys after that write; bias an optional
+    [b, L] float32 key bias. Returns [b, h, T, d]. CPU tensors run the
+    plain version; CUDA tensors launch `csrc/flash_verify.cu`, which
+    merges its key splits itself (one launch, no combine; any L and T,
+    head_dim <= 128; keys at or past `length` are never read)."""
     length = _verify_lengths("flash_verify", q, k, length)
-    b, h, T, d = q.shape
     if _device_kind("flash_verify", q) == "cpu":
-        parts = _verify_partials_plain(q, k, v, length, bias, scale,
-                                       DECODE_SPLIT)
-    else:
-        parts = _verify_partials_cuda(q, k, v, length, bias, scale,
-                                      DECODE_SPLIT)
-    return _combine(*parts, q.dtype).reshape(b, h, T, d)
+        return flash_verify_plain(q, k, v, length, bias, scale)
+    return _flash_verify_cuda(q, k, v, length, bias, scale)
 
 
 # --------------------------------------------------------------------------
@@ -1415,8 +1417,8 @@ def _flat_bias(bias, q, L):
 
 
 def verify_attention(q, k, v, length, bias=None, scale=None):
-    """Verify-block attention against a preallocated cache through the
-    split-K flash verify (bias: [b, L] or [b, 1, 1, L])."""
+    """Verify-block attention against a preallocated cache through
+    `flash_verify` (bias: [b, L] or [b, 1, 1, L])."""
     return flash_verify(q, k, v, length, _flat_bias(bias, q, k.shape[2]),
                         scale)
 

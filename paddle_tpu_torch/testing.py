@@ -92,7 +92,8 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "flash_fwd_split", "bf16_pieces", "int8_matmul_split",
            "bf16_round", "merge_in_kernel", "paged_verify_in_kernel",
            "paged_decode_in_kernel", "flash_decode_in_kernel",
-           "paged_read_case", "dense_decode_case"]
+           "flash_verify_in_kernel", "paged_read_case",
+           "dense_decode_case", "dense_verify_case", "nan_past_lengths"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -505,13 +506,14 @@ def paged_decode_in_kernel(q, k_pages, v_pages, k_scale, v_scale, table,
                                   table, length, bias, scale, plan)
 
 
-def flash_decode_in_kernel(q, k, v, length, bias=None, scale=None,
+def flash_verify_in_kernel(q, k, v, length, bias=None, scale=None,
                            plan=None):
-    """The dense decode kernel's function as `csrc/flash_decode.cu`
-    computes it (`merge_in_kernel` with q * scale and p rounded to q's
-    type): q [b, h, 1, d], k / v [b, h, L, d], length [b], bias [b, L] or
-    None; `plan` (splits, keys a split) defaults to
-    `ops.attention.flash_decode_plan` on an H100. Returns [b, h, 1, d]
+    """The dense verify kernel's function as `csrc/flash_verify.cu`
+    computes it (`merge_in_kernel` at T query rows, with q * scale and p
+    rounded to q's type): q [b, h, T, d], k / v [b, h, L, d], length [b]
+    after the block's write, bias [b, L] or None; `plan` (splits, keys a
+    split) defaults to `ops.attention.flash_decode_plan` on an H100 (the
+    dense decode's plan, which the verify follows). Returns [b, h, T, d]
     float32."""
     from .ops import attention as A
 
@@ -520,6 +522,14 @@ def flash_decode_in_kernel(q, k, v, length, bias=None, scale=None,
     return merge_in_kernel(q, k, v, A._lengths(length, b, "cpu"), bias,
                            scale, plan or A.flash_decode_plan(b, h, L),
                            rounded=q.dtype == torch.bfloat16)
+
+
+def flash_decode_in_kernel(q, k, v, length, bias=None, scale=None,
+                           plan=None):
+    """The dense decode kernel's function as `csrc/flash_decode.cu`
+    computes it: `flash_verify_in_kernel` at q [b, h, 1, d]. Returns
+    [b, h, 1, d] float32."""
+    return flash_verify_in_kernel(q, k, v, length, bias, scale, plan)
 
 
 def paged_read_case(S, h, psz, mp, d, T, lens, kv_dtype, hole, seed=60,
@@ -554,13 +564,15 @@ def paged_read_case(S, h, psz, mp, d, T, lens, kv_dtype, hole, seed=60,
             torch.from_numpy(bias).to(device))
 
 
-def dense_decode_case(b, h, L, d, lens, dtype, hole, seed=70, device="cpu"):
-    """Operands of a dense decode from numpy's seeded generator: q
-    [b, h, 1, d] viewed from a [b, 1, h, d] projection (strided), the
-    cache k / v [b, h, L, d] in `dtype`, a small random [b, L] bias with
-    a -1e30 hole over `hole`. Returns (q, k, v, length, bias)."""
+def dense_verify_case(b, h, T, L, d, lens, dtype, hole, seed=70,
+                      device="cpu"):
+    """Operands of a dense verify block from numpy's seeded generator: q
+    [b, h, T, d] viewed from a [b, T, h, d] projection (strided), the
+    cache k / v [b, h, L, d] in `dtype`, lengths after the block's write,
+    a small random [b, L] bias with a -1e30 hole over `hole`. Returns (q,
+    k, v, length, bias)."""
     rs = np.random.RandomState(seed)
-    q = torch.from_numpy(rs.randn(b, 1, h, d).astype(np.float32)) \
+    q = torch.from_numpy(rs.randn(b, T, h, d).astype(np.float32)) \
         .transpose(1, 2)
     k, v = (torch.from_numpy(rs.randn(b, h, L, d).astype(np.float32))
             for _ in range(2))
@@ -570,3 +582,20 @@ def dense_decode_case(b, h, L, d, lens, dtype, hole, seed=70, device="cpu"):
             v.to(dtype).to(device),
             torch.tensor(lens, dtype=torch.int32, device=device),
             torch.from_numpy(bias).to(device))
+
+
+def dense_decode_case(b, h, L, d, lens, dtype, hole, seed=70, device="cpu"):
+    """`dense_verify_case` at one query token: q [b, h, 1, d] viewed from
+    a [b, 1, h, d] projection. Returns (q, k, v, length, bias)."""
+    return dense_verify_case(b, h, 1, L, d, lens, dtype, hole, seed, device)
+
+
+def nan_past_lengths(k, v, length):
+    """Copies of a dense cache k / v [b, h, L, d] whose keys at or past
+    each row's length are NaN: what a kernel would find there after a
+    rejected draft is stale, and a read of it shows in the output."""
+    kn, vn = k.clone(), v.clone()
+    for i, n in enumerate(length.tolist()):
+        kn[i, :, int(n):] = float("nan")
+        vn[i, :, int(n):] = float("nan")
+    return kn, vn

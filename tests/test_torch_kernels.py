@@ -52,9 +52,10 @@ from paddle_tpu_torch.ops import attention as TA  # noqa: E402
 from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
 from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
 from paddle_tpu_torch.testing import (flash_fwd_tiled,  # noqa: E402
+                                      flash_verify_in_kernel,
                                       fused_conv_abs_sums,
                                       fused_conv_mutants, judge_bf16_grad,
-                                      judge_bf16_sum)
+                                      judge_bf16_sum, nan_past_lengths)
 
 TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 GRAD_TOL = {torch.float32: (1e-4, 1e-4)}
@@ -323,6 +324,11 @@ _VER = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(_VER))
 def test_flash_verify_kernel_matches_plain(cuda, case):
+    """Against the plain version, the reference and the kernel-order
+    emulation; then over a cache whose keys and values past each row's
+    length are NaN (a rejected draft's stale block, rolled back): the
+    output must still equal the plain version's on the clean cache (a
+    kernel that read a key past n_valid would return NaN)."""
     b, h, T, L, d, lens, dt = _VER[case]
     q = _rand((b, T, h, d), 50, cuda, dt).transpose(1, 2)   # strided
     k = _rand((b, h, L, d), 51, cuda, dt)
@@ -339,6 +345,14 @@ def test_flash_verify_kernel_matches_plain(cuda, case):
                                atol=atol)
     ref = TA.verify_attention_reference(q, k, v, length, bias)
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    emu = flash_verify_in_kernel(q, k, v, length, bias,
+                                 plan=TA.flash_decode_plan(b, h, L, sms))
+    torch.testing.assert_close(got.float().cpu(), emu, rtol=rtol, atol=atol)
+    stale = TA.flash_verify(q, *nan_past_lengths(k, v, length), length,
+                            bias)
+    torch.testing.assert_close(stale.float(), want.float(), rtol=rtol,
                                atol=atol)
 
 

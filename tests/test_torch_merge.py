@@ -1,5 +1,5 @@
-"""The in-kernel split merge of the dense decode and of the paged verify's
-split route (`csrc/attn_merge.cuh`), on the CPU.
+"""The in-kernel split merge of the dense decode, the dense verify and the
+paged verify's split route (`csrc/attn_merge.cuh`), on the CPU.
 
 `testing.merge_in_kernel` is the kernels' order of arithmetic in numpy
 (key tiles, 16 groups of keys a block each with its own online softmax a
@@ -8,7 +8,9 @@ order). Here it is held to the plain versions, which keep the JAX
 kernels' split-and-combine (partials of 128 keys): the dense decode
 (`flash_decode_in_kernel` against `flash_decode_plain`: 1e-6 of the
 largest entry in float32, 1e-2 in bf16, where p is rounded at each
-group's running max rather than at a 128-key split's) and the split route
+group's running max rather than at a 128-key split's), the dense verify
+(`flash_verify_in_kernel` against `flash_verify_plain` at T 1 to 12, the
+same limits) and the split route
 (`paged_verify_in_kernel` against `paged_flash_verify_plain` at T 2, 4, 5
 and 8, float32, bf16 and int8 pages: 1e-6); and to the JAX kernels in
 interpret mode (1e-5). The plans: `flash_decode_plan` (the C rule
@@ -24,7 +26,9 @@ import torch
 from paddle_tpu.ops import attention as JA
 from paddle_tpu_torch.ops import attention as TA
 from paddle_tpu_torch.testing import (dense_decode_case,
+                                      dense_verify_case,
                                       flash_decode_in_kernel,
+                                      flash_verify_in_kernel,
                                       paged_read_case,
                                       paged_verify_in_kernel)
 
@@ -78,6 +82,54 @@ def test_dense_decode_emulation_equals_the_jax_kernel(case):
                              (q.contiguous(), k, v, length, bias)),
                            interpret=True)
     got = flash_decode_in_kernel(q, k, v, length, bias)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+#: b, h, L, d, lengths after the block's write (None: the block's own T),
+#: bias hole: a row whose block is all it holds (n_valid == T), L 1060 (the
+#: speculative pool's max_len + spec_k, no multiple of a key tile), a
+#: -1e30 hole that the longer rows see keys past; d 40, 64 and 128; the
+#: plan splits each row over several ranks
+VERIFY = {
+    "L1060_d64": (3, 2, 1060, 64, [None, 1060, 517], (20, 40)),
+    "d40_ragged": (2, 2, 300, 40, [None, 263], (50, 60)),
+    "d128_ragged": (2, 2, 200, 128, [150, None], (3, 9)),
+}
+
+
+def _dense_verify_args(case, T, dtype):
+    b, h, L, d, lens, hole = VERIFY[case]
+    lens = [T if n is None else n for n in lens]
+    return dense_verify_case(b, h, T, L, d, lens, dtype, hole, seed=90 + T)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 2, 4, 5, 8, 12])
+@pytest.mark.parametrize("case", sorted(VERIFY))
+def test_dense_verify_emulation_equals_the_plain_version(case, T, dtype):
+    """The dense verify kernel's order (R query rows a block, each row's
+    own online softmax over the keys it sees, the decode's plan) against
+    the JAX split-and-combine: 1e-6 of the largest entry in float32, 1e-2
+    in bf16 (p rounded at each group's running max)."""
+    args = _dense_verify_args(case, T, dtype)
+    want = TA.flash_verify_plain(*args)
+    got = flash_verify_in_kernel(*args)
+    assert got.shape == want.shape == args[0].shape
+    assert _rel_err(got, want) <= (1e-6 if dtype == F32 else 1e-2)
+
+
+@pytest.mark.parametrize("T", [4, 8])
+def test_dense_verify_emulation_equals_the_jax_kernel(T):
+    """... and against the JAX Pallas verify in interpret mode at T 4 (the
+    speculative step) and 8, float32, within 1e-5."""
+    import jax.numpy as jnp
+
+    q, k, v, length, bias = _dense_verify_args("L1060_d64", T, F32)
+    want = JA.flash_verify(*(jnp.asarray(x.numpy()) for x in
+                             (q.contiguous(), k, v, length, bias)),
+                           interpret=True)
+    got = flash_verify_in_kernel(q, k, v, length, bias)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
 

@@ -17,15 +17,17 @@ int8 matmul's skinny route, m <= 32: `quant.skinny_plan`, the C rule
 `pt_int8_matmul_skinny_plan`; the paged decode and the paged verify's
 split route: `attention.paged_decode_plan`, the C rule
 `pt_paged_decode_plan`; the dense decode: `attention.flash_decode_plan`,
-the C rule `pt_flash_decode_plan`) are written out in Python and checked
-here over the serving shapes and the edges; on the card the mirrors must
-equal the C rules. The paged decode's merge, in the kernel's order
-(`testing.paged_decode_in_kernel`, numpy), must equal the plain version's
-split-and-combine within 1e-6 of its largest entry (tests/
-test_torch_merge.py holds the dense decode's and the split route's). The
+the C rule `pt_flash_decode_plan`, which the dense verify follows) are
+written out in Python and checked here over the serving shapes and the
+edges; on the card the mirrors must equal the C rules. The paged
+decode's merge, in the kernel's order (`testing.paged_decode_in_kernel`,
+numpy), must equal the plain version's split-and-combine within 1e-6 of
+its largest entry (tests/test_torch_merge.py holds the dense decode's,
+the dense verify's and the split route's). The
 `cuda` tests hold the kernels to their plain versions and to the
 kernel-order emulation on the card, one launch a call and bitwise
-repeatable.
+repeatable; the dense verify also to the same bits over a cache whose
+keys past each row's length are NaN (a rejected draft's stale block).
 """
 import os
 import sys
@@ -41,7 +43,8 @@ from paddle_tpu_torch.ops import attention as TA  # noqa: E402
 from paddle_tpu_torch.ops import fused_conv as TFC  # noqa: E402
 from paddle_tpu_torch.ops import quant as TQ  # noqa: E402
 from paddle_tpu_torch.testing import (  # noqa: E402
-    dense_decode_case, flash_decode_in_kernel, paged_decode_in_kernel,
+    dense_decode_case, dense_verify_case, flash_decode_in_kernel,
+    flash_verify_in_kernel, nan_past_lengths, paged_decode_in_kernel,
     paged_read_case, paged_verify_in_kernel)
 
 BF, F32 = torch.bfloat16, torch.float32
@@ -448,7 +451,9 @@ def test_paged_decode_plan_refuses_empty_rows(S, h, mp):
 
 def test_merge_plans_are_bound():
     """The C rules exist in the sources and are bound as helpers of their
-    libraries (device, three sizes, the output array)."""
+    libraries (device, three sizes, the output array); the dense verify
+    follows the dense decode's rule (`amerge::dense_plan`), and its entry
+    takes the decode's arguments and T (both write the output)."""
     csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
     helpers = {n: a for lib in _build._HELPERS.values() for n, a in lib}
     for src, name in (("int8_matmul.cu", "pt_int8_matmul_skinny_plan"),
@@ -457,6 +462,11 @@ def test_merge_plans_are_bound():
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
         assert len(helpers[name]) == 5
+    for src in ("flash_decode.cu", "flash_verify.cu"):
+        with open(os.path.join(csrc, src)) as f:
+            assert "amerge::dense_plan(" in f.read()
+    assert len(_build._SIGNATURES["flash_verify"][1]) == \
+        len(_build._SIGNATURES["flash_decode"][1]) + 1
 
 
 def _paged_decode_case(S, h, psz, mp, d, lens, kv_dt, hole, seed=60,
@@ -622,6 +632,52 @@ def test_flash_decode_is_one_repeatable_launch(cuda, case):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     _close(got, flash_decode_in_kernel(
         *args, plan=TA.flash_decode_plan(b, h, L, sms)), dt, "emulation")
+
+
+#: b, h, L, d, lengths after the block's write (None: the block's own T),
+#: bias hole: the dense verify on the card at tests/test_torch_merge.py's
+#: cases (a row with n_valid == T, L 1060, d 40, 64 and 128)
+_VERIFY_BASE = {
+    "L1060_d64": (3, 2, 1060, 64, [None, 1060, 517], (20, 40)),
+    "d40_ragged": (2, 2, 300, 40, [None, 263], (50, 60)),
+    "d128_ragged": (2, 2, 200, 128, [150, None], (3, 9)),
+}
+#: name -> (b, h, L, d, lengths, hole, T, dtype): those cases at T 1, 4, 5
+#: and 12 (one, one, two and two tiles of rows at d 64) in fp32 and bf16,
+#: and the dense speculative step (b8 h8 T4 L1060, phase 2's lengths)
+_VERIFY_CARD = {
+    **{f"{k}_T{T}_{n}": (*v, T, dt) for k, v in _VERIFY_BASE.items()
+       for T in (1, 4, 5, 12) for n, dt in (("fp32", F32), ("bf16", BF))},
+    "serving_b8_h8_T4_L1060_fp32": (8, 8, 1060, 64,
+                                    [60, 1060, 700, 300, 129, 128, 1000,
+                                     513], (20, 40), 4, F32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_VERIFY_CARD))
+def test_flash_verify_is_one_repeatable_launch(cuda, case):
+    """Against the plain version and the kernel-order emulation (fp32
+    atol 2e-5, bf16 1e-2 of the largest entry); one launch a call, the
+    same bits on every call; and with NaN keys and values past each row's
+    length (the stale block of a rejected draft) the same bits again: the
+    kernel reads no key at or past n_valid."""
+    b, h, L, d, lens, hole, T, dt = _VERIFY_CARD[case]
+    lens = [T if n is None else n for n in lens]
+    args = dense_verify_case(b, h, T, L, d, lens, dt, hole, seed=90 + T,
+                             device=cuda)
+    TA.reset_launches()
+    got = TA.flash_verify(*args)
+    again = TA.flash_verify(*args)
+    assert TA.LAUNCHES["flash_verify"] == 2
+    assert got.dtype == dt and torch.equal(got, again)
+    _close(got, TA.flash_verify_plain(*args), dt, "plain")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _close(got, flash_verify_in_kernel(
+        *args, plan=TA.flash_decode_plan(b, h, L, sms)), dt, "emulation")
+    q, k, v, length, bias = args
+    stale = TA.flash_verify(q, *nan_past_lengths(k, v, length), length, bias)
+    assert torch.equal(stale, got)
 
 
 #: S, h, page size, mp, d, T, lengths, bias hole, pages: the split route

@@ -1,11 +1,11 @@
 """The design steps of the kernels that merge their key splits in the
 kernel, measured on one card: the int8 matmul's skinny route (m <= 32,
-`csrc/int8_matmul.cu`) and the three kernels on `csrc/attn_merge.cuh`
+`csrc/int8_matmul.cu`) and the four kernels on `csrc/attn_merge.cuh`
 (the paged decode, `csrc/paged_decode.cu`; the dense decode,
 `csrc/flash_decode.cu`; the paged verify's split route, T <= 8,
-`csrc/paged_verify.cu`).
+`csrc/paged_verify.cu`; the dense verify, `csrc/flash_verify.cu`).
 
-    python tools/probe_decode_merge.py
+    python tools/probe_decode_merge.py [--only fv,pv]
     python tools/probe_decode_merge.py --ab PARENT . . PARENT
 
 Each variant is one of the sources, with anchored edits of it or of
@@ -18,7 +18,9 @@ at the serving shapes: int8_matmul at m 8 and 32 on 512x512, 512x2048,
 2048x512 and 512x37000 (`chip_smoke.int8_cases`), the paged decode at S8
 h8 page 16 mp67 over fp32 and int8 pages and the split route at the same
 pages, T 4 (`chip_smoke.new_kernel_cases`), the dense decode at b8 h8
-L1056 (`chip_smoke.dec_case`, phase 2's lengths), fp32 and bf16.
+L1056 (`chip_smoke.dec_case`, phase 2's lengths), fp32 and bf16, and the
+dense verify at b8 h8 T4 L1060 (`chip_smoke.new_kernel_cases`), fp32 and
+bf16.
 
   i8_stages8     the skinny ring of 8 stages, not 4
   i8_target8     the skinny plan aims at 8 blocks an SM, not 2 (more
@@ -46,6 +48,10 @@ L1056 (`chip_smoke.dec_case`, phase 2's lengths), fp32 and bf16.
   fd_* and pv_*  the dense decode and the split route: as built, a ring
                  of 3 or 6 tiles, no key splits, no arithmetic (the last
                  a diagnostic)
+  fv_*           the dense verify: as built, a ring of 3 tiles, no key
+                 splits, no arithmetic (a diagnostic), and fv_free_regs:
+                 its T 4 instance without the 4-blocks-an-SM register
+                 budget
 
 A variant that keeps the kernel's function has its output checked
 against the plain version (`EXACT`); the diagnostic ones print only
@@ -55,11 +61,13 @@ function the probe appends, how many clusters of the plan's size the card
 holds at once (`cudaOccupancyMaxActiveClusters`), and an empty kernel
 launched as they launch (blocks, cluster size, or no cluster attribute)
 gives the floor of a launch. Prints one JSON line per case with the
-card's name and power limit.
+card's name and power limit. `--only fv,pv` builds and times only the
+variants of those prefixes (and the empty kernel).
 
 `--ab ROOT ...` times the whole calls of the dense decode (b8 h8 L1056,
-fp32 and bf16) and the paged verify's T 4 step (fp32 and int8 pages) of
-each ROOT's package in a process of its own, in the order given (e.g.
+fp32 and bf16), the dense verify's T 4 step (b8 h8 L1060, fp32 and bf16)
+and the paged verify's T 4 step (fp32 and int8 pages) of each ROOT's
+package in a process of its own, in the order given (e.g.
 parent, change, change, parent; a ROOT holds a `paddle_tpu_torch/`, e.g.
 `git archive <commit> paddle_tpu_torch | tar -x -C ROOT`). Prints one
 JSON line a ROOT.
@@ -94,6 +102,7 @@ _I8_PIECE_MAJOR = "".join(
     f"mma(acc[i][j], a, {p}[i]);\n" for p in ("bl", "bm", "bh"))
 _I8_WARPS = ("  *warps = strips * *c < sms && *kps % (2 * KC4) == 0 ? 8 : "
              "4;")
+_FV_MIN = "(D == 64 && R == 4) ? 4 : 1)"
 _PD_KEY = ("    if (j0 + gi >= end) continue;         // the same for the "
            "whole group")
 
@@ -212,9 +221,28 @@ extern "C" int probe_clusters(int device, int S, int H, int mp, int kv) {
                   C, S * H, 1);
 }
 '''
+# the dense verify at T 4 (R 4 rows, one tile of rows), kv 1 = bf16
+_FV_OCC = _MERGE_RUN + '''
+extern "C" int probe_clusters(int device, int B, int H, int L, int kv) {
+  int C = 0, split = 0;
+  amerge::dense_plan(amerge::sm_count(device), B * H, L, &C, &split);
+  amerge::Args a = {};
+  a.split = split;
+  using amerge::DenseKeys;
+  return kv == 1
+      ? probe_run(flash_verify_kernel<__nv_bfloat16, 64, 4>,
+                  amerge::smem_bytes<__nv_bfloat16, 64, 4,
+                                     DenseKeys<__nv_bfloat16>>(a),
+                  C, B * H, 1)
+      : probe_run(flash_verify_kernel<float, 64, 4>,
+                  amerge::smem_bytes<float, 64, 4, DenseKeys<float>>(a),
+                  C, B * H, 1);
+}
+'''
 #: the probe functions appended to each source
 _OCC = {"int8_matmul.cu": _I8_OCC, "paged_decode.cu": _PD_OCC,
-        "flash_decode.cu": _FD_OCC, "paged_verify.cu": _PV_OCC}
+        "flash_decode.cu": _FD_OCC, "paged_verify.cu": _PV_OCC,
+        "flash_verify.cu": _FV_OCC}
 
 _ATTRS = "  cfg.numAttrs = 1;"
 _NO_ATTR_ALONE = "  cfg.numAttrs = C > 1 ? 1 : 0;"
@@ -285,6 +313,11 @@ VARIANTS = {
     **{f"{pre}_{name}": (src, edits)
        for pre, src in (("fd", "flash_decode.cu"), ("pv", "paged_verify.cu"))
        for name, edits in (("base", []), *_MERGE_EDITS.items())},
+    **{f"fv_{name}": ("flash_verify.cu", edits)
+       for name, edits in (("base", []), *_MERGE_EDITS.items())
+       if name != "stages6"},
+    "fv_free_regs": ("flash_verify.cu", [("flash_verify.cu", _FV_MIN,
+                                          "1)")]),
 }
 #: the variants whose function is the kernel's (their output is checked)
 EXACT = tuple(v for v in VARIANTS if not v.endswith(
@@ -297,6 +330,7 @@ PD_CASES = ("decode S8 h8 mp67 pages fp32", "decode S8 h8 mp67 pages int8")
 PV_CASES = ("spec step S8 h8 T4 mp67 pages fp32",
             "spec step S8 h8 T4 mp67 pages int8")
 FD_CASES = ("decode b8 h8 L1056 fp32", "decode b8 h8 L1056 bf16")
+FV_CASES = ("spec step b8 h8 T4 L1060 fp32", "spec step b8 h8 T4 L1060 bf16")
 #: phase 2's lengths and bias hole of the dense decode
 FD_LENS, FD_HOLE = [60, 1056, 700, 300, 129, 128, 1000, 513], (20, 40)
 
@@ -319,11 +353,11 @@ def variant_source(name):
     return fname, texts
 
 
-def build_variants(nvcc, flags):
-    """Build every variant's library at once; {name: path}."""
+def build_variants(nvcc, flags, names=tuple(VARIANTS)):
+    """Build the named variants' libraries at once; {name: path}."""
     root = os.path.join(HERE, "paddle_tpu_torch", "_build", "probe_dm")
     procs = {}
-    for name in VARIANTS:
+    for name in names:
         d = os.path.join(root, name)
         os.makedirs(d, exist_ok=True)
         fname, texts = variant_source(name)
@@ -372,7 +406,9 @@ def sweep(cs, lib, libs, card, prefix, stem, label, cases, call, plain,
 
     entry, argtypes = _build._SIGNATURES[stem]
     base = getattr(lib, stem)
-    names = [v for v in VARIANTS if v.startswith(prefix + "_")]
+    names = [v for v in libs if v.startswith(prefix + "_")]
+    if not names:
+        return
     try:
         for cname, args in cases.items():
             want = plain(*args).float()
@@ -405,7 +441,9 @@ def sweep(cs, lib, libs, card, prefix, stem, label, cases, call, plain,
         setattr(lib, stem, base)
 
 
-def main():
+def main(only=None):
+    """Build and time the variants (those whose prefix, e.g. "fv", is in
+    `only`, or all)."""
     sys.path.insert(0, HERE)
     import torch
 
@@ -419,9 +457,11 @@ def main():
         return 2
     card = cs.card_line()
     lib = _build.kernels()
+    names = [v for v in VARIANTS
+             if only is None or v.split("_")[0] in only]
     libs = {}
-    for name, path in build_variants(_build._nvcc(),
-                                     _build.NVCC_FLAGS).items():
+    for name, path in build_variants(_build._nvcc(), _build.NVCC_FLAGS,
+                                     names).items():
         libs[name] = ctypes.CDLL(path)
     g = torch.Generator(device="cuda").manual_seed(0)
     i8 = cs.int8_cases(Q, g)
@@ -451,6 +491,13 @@ def main():
           lambda *a: A.paged_decode_plan_on_card(*a[0].shape[:2],
                                                  a[5].shape[1], "cuda"),
           lambda *a: (*a[0].shape[:2], a[5].shape[1], int8_kv(a)))
+    sweep(cs, lib, libs, card, "fv", "flash_verify", "flash_verify",
+          {c: new["flash_verify"][c] for c in FV_CASES},
+          lambda *a: A._flash_verify_cuda(*a, None), A.flash_verify_plain,
+          lambda q, k, *_: A.flash_decode_plan_on_card(*q.shape[:2],
+                                                       k.shape[2], "cuda"),
+          lambda q, k, *_: (*q.shape[:2], k.shape[2],
+                            int(q.dtype == torch.bfloat16)))
     del new
     sweep(cs, lib, libs, card, "fd", "flash_decode", "flash_decode",
           fd_cases(cs, g), lambda *a: A._flash_decode_cuda(*a, None),
@@ -459,7 +506,7 @@ def main():
                                                        k.shape[2], "cuda"),
           lambda q, k, *_: (*q.shape[:2], k.shape[2],
                             int(q.dtype == torch.bfloat16)))
-    empty = libs["i8_base"].probe_empty
+    empty = libs[names[0]].probe_empty
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     row = {"case": "empty kernel (blocks, cluster size; 0 = no attribute)",
            "card": card}
@@ -474,8 +521,9 @@ def main():
 
 
 def ab_root(root):
-    """The whole calls of the dense decode and the split route with the
-    package under `root` ({case: median device ms})."""
+    """The whole calls of the dense decode, the dense verify and the
+    split route with the package under `root` ({case: median device
+    ms})."""
     sys.path.insert(0, root)
     sys.path.insert(1, HERE)
     import torch
@@ -492,10 +540,13 @@ def ab_root(root):
     for cname, args in fd_cases(cs, g).items():
         res[f"flash_decode {cname}"] = cs.device_ms(
             lambda: A.flash_decode(*args))
-    pv = cs.new_kernel_cases(g)["paged_flash_verify"]
+    new = cs.new_kernel_cases(g)
+    for cname in FV_CASES:
+        res[f"flash_verify {cname}"] = cs.device_ms(
+            lambda: A.flash_verify(*new["flash_verify"][cname]))
     for cname in PV_CASES:
         res[f"paged_flash_verify {cname}"] = cs.device_ms(
-            lambda: A.paged_flash_verify(*pv[cname]))
+            lambda: A.paged_flash_verify(*new["paged_flash_verify"][cname]))
     return res
 
 
@@ -518,4 +569,6 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) > 2 and sys.argv[1] == "--ab":
         sys.exit(ab(sys.argv[2:]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        sys.exit(main(sys.argv[2].split(",")))
     sys.exit(main())
