@@ -6,8 +6,10 @@ The module tree and parameter names match the JAX package's
 `convert.from_jax_state` loads a JAX `state_dict()` as it stands.
 Attention runs through the flash kernels with in-kernel attention
 dropout in training, over padded rows (a key bias) or packed rows
-(segment ids, per-sequence CLS indices). `ErnieForPretraining` and the
-MoE feed-forward are not ported.
+(segment ids, per-sequence CLS indices). `ErnieForPretraining` adds the
+masked-LM head (Linear -> gelu -> LayerNorm, decoded against the word
+embeddings: ``h @ W_emb.T``, no bias) and the next-sentence head. The MoE
+feed-forward is not ported.
 """
 from __future__ import annotations
 
@@ -15,11 +17,12 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, LayerNorm, Linear, Tanh
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieModel",
-           "ErnieForSequenceClassification"]
+           "ErnieForSequenceClassification", "ErnieForPretraining"]
 
 
 class ErnieConfig:
@@ -145,3 +148,25 @@ class ErnieForSequenceClassification(nn.Module):
                                attn_segment_ids=attn_segment_ids,
                                cls_flat_index=cls_flat_index)
         return self.classifier(self.dropout(pooled))
+
+
+class ErnieForPretraining(nn.Module):
+    """ERNIE with its pretraining heads: returns (mlm_logits [B, S,
+    vocab], nsp_logits [B, 2]). The masked-LM decoder is tied to the
+    word embeddings (it brings no weight of its own)."""
+
+    def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        kw = dict(device=device, generator=generator)
+        self.ernie = ErnieModel(cfg, **kw)
+        self.mlm_transform = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.mlm_norm = LayerNorm(cfg.hidden_size, device=device)
+        self.nsp = Linear(cfg.hidden_size, 2, **kw)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        seq_out, pooled = self.ernie(input_ids, token_type_ids,
+                                     attention_mask=attention_mask)
+        h = self.mlm_norm(F.gelu(self.mlm_transform(seq_out)))
+        mlm_logits = h @ self.ernie.embeddings.word_embeddings.weight.T
+        return mlm_logits, self.nsp(pooled)
