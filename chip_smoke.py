@@ -308,11 +308,40 @@ Phases; any failure exits nonzero before the result lines:
     float32 on the card and on the CPU: losses rtol 1e-4, gradients and
     the parameters after two updates within 1e-4 relative L2, the two
     updates themselves within 1e-3.
-26. Output: a {"kernels": [...]} line for all eleven kernels (the
+26. DecodeEngine at Transformer-base width (random weights from --seed),
+    b8 with ragged prompts in the 64 bucket, 32 new tokens. (a) Greedy:
+    tokens equal `generate_eager`'s on the card (a divergence passes only
+    at a top-2 logit margin below 1e-4, as in phase 5), flash_decode
+    launches = 6 layers x decode steps; ms a token. (b) Beam 4: tokens/s,
+    and the regather of the 12 cache tensors by beam parent timed alone;
+    then a 2-layer full-width model on the card and on the CPU: the same
+    tokens and lengths, or a tie (the row's scores still agree), scores
+    within 1e-4 relative. (c) spec_k 4 with the n-gram draft, then with a
+    2-layer DraftModel of other weights: tokens equal (a)'s (tie rule),
+    flash_verify launches = 6 x rounds, the draft's flash_decode launches
+    = 2 x 4 x rounds; the DraftModel's acceptance must be below 1.0 (the
+    card rolls back rejected drafts).
+27. Chunked prefill: dense and paged (page 16) engines, 8 slots, 4
+    prompts of 1024 tokens among 12 of 16-200, prefill_chunk 256,
+    through ServingServer: tokens equal the same engines without
+    chunking (tie rule); 16 chunks, and 96 verify launches at T 256
+    (dense flash_verify; paged: the tiled route); decode-step gap p50 /
+    p99 with and without chunking (printed). Then flash_verify at b1 h8
+    T64 and T256, L 1056, fp32 and bf16, against its plain version
+    (phase 2's limits), timed beside SDPA.
+28. Preemption: a paged engine (page 16) under ShapingScheduler, 8
+    batch-class requests of 512 tokens and 64 new tokens fill the slots,
+    then 8 interactive ones arrive; a FIFO twin serves the same arrivals
+    unpreempted; spec_k off and 4. Preemptions == resumes >= 1, replayed
+    tokens > 0, tokens equal the twin's (tie rule), prefills at most the
+    16 cold prompts, the allocator's check passes and every page returns
+    after a prefix flush; interactive TTFT p50 / p99 against the twin
+    (printed). The three phases' wall time is printed.
+29. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
-    3, 5, 5b, 6, 14 and 15, and over the training paths, phases 10, 22
-    and 25), then the card's name and power limit, then {"ok": true,
-    "device": {...}} as the last line.
+    3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
+    10, 22 and 25), then the card's name and power limit, then {"ok":
+    true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -411,6 +440,16 @@ PT_BATCH, PT_SEQ, PT_ACCUM, PT_UPDATES = 8, 512, 4, 12
 PT_MASK, PT_LR, PT_WARMUP, PT_DECAY = 0.15, 1e-4, 4, 100
 # the multi-tensor step against the per-parameter path on the card (25d)
 PT_PATH_UPDATES = 3
+# DecodeEngine (phase 26): a batch of ragged prompts in one bucket, greedy,
+# beam and speculative generation; the draft model's and the card-vs-CPU
+# beam model's depth; the card-vs-CPU beam scores' relative limit
+DE_BATCH, DE_PROMPT, DE_NEW, DE_BEAM, DE_DRAFT_LAYERS = 8, 64, 32, 4, 2
+REL_BEAM = 1e-4
+# chunked prefill (phase 27): long prompts among short ones, the chunk
+CH_CHUNK, CH_LONG, CH_SHORT, CH_LONG_LEN = 256, 4, 12, 1024
+# preemption under the ShapingScheduler (phase 28): batch-class requests
+# fill the slots, then interactive ones arrive
+PR_BATCH, PR_INTER, PR_BATCH_LEN, PR_BATCH_NEW = 8, 8, 512, 64
 
 
 #: flash_fwd launches by route on each serving path, and int8_matmul's
@@ -1138,11 +1177,17 @@ def read_numbers(A, kname, args):
     whole = device_ms(lambda: getattr(A, kname)(*args))
     plain = device_ms(lambda: getattr(A, kname + "_plain")(*args))
     lib = device_ms(lambda: sdpa(q, kd, vd, attn_mask=mask))
-    t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    # the peak of q's type: bf16 at the tensor cores' dense rate, float32
+    # at the CUDA cores' FMA rate
+    bf16 = q.dtype == torch.bfloat16
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     lib_kernels = kernels_per_call(lambda: sdpa(q, kd, vd, attn_mask=mask))
     row = {"ms": ms, "whole_call_ms": whole, "plain_ms": plain,
            "library_ms": lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_peak": "bf16 tensor cores" if bf16
+           else "fp32 CUDA cores",
            "library_kernels": sorted(lib_kernels)
            if isinstance(lib_kernels, dict) else lib_kernels}
     merge = {"paged_flash_decode": "paged_decode_kernel",
@@ -1323,7 +1368,8 @@ def spec_serve(A, seed, model, embed, project, dense, memory):
     def profiled():
         calls, restore = call_log(A, "flash_verify")
         try:
-            rows = profile_pass(engine, more, mems,
+            rows = profile_call(f"{len(more)} requests",
+                                lambda: run_server(engine, more, mems),
                                 ("flash_fwd", "flash_verify_kernel",
                                  "flash_decode_kernel"), summary=prof)
         finally:
@@ -1542,10 +1588,11 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
     def decode_pass():
         calls, restore = call_log(A, "paged_flash_decode")
         try:
-            rows = profile_pass(engines["paged"], more[REQUESTS:],
-                                more_mems[REQUESTS:],
-                                ("flash_fwd", "paged_decode_kernel",
-                                 "paged_tiled_kernel"))
+            rows = profile_call(
+                f"{len(more) - REQUESTS} requests", lambda: run_server(
+                    engines["paged"], more[REQUESTS:],
+                    more_mems[REQUESTS:]),
+                ("flash_fwd", "paged_decode_kernel", "paged_tiled_kernel"))
         finally:
             restore()
         return rows, calls[None]
@@ -1558,11 +1605,12 @@ def paged_serve(A, seed, model, embed, project, dense, memory):
     def split_pass():
         vcalls, restore = verify_width_log(A)
         try:
-            rows = profile_pass(engines["paged_spec"], more[REQUESTS:],
-                                more_mems[REQUESTS:],
-                                ("flash_fwd", "paged_split_kernel",
-                                 "paged_tiled_kernel",
-                                 "paged_decode_kernel"))
+            rows = profile_call(
+                f"{len(more) - REQUESTS} requests", lambda: run_server(
+                    engines["paged_spec"], more[REQUESTS:],
+                    more_mems[REQUESTS:]),
+                ("flash_fwd", "paged_split_kernel", "paged_tiled_kernel",
+                 "paged_decode_kernel"))
         finally:
             restore()
         return rows, sum(r == "split" for _, r in vcalls)
@@ -1600,9 +1648,8 @@ def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
     return {"agree": agree, "first_difference": first}
 
 
-def profile_pass(engine, prompts, memories, kernel_names, adapters=None,
-                 summary=None):
-    """A pass under torch.profiler: wall, the device's busy share, and
+def profile_call(label, fn, kernel_names, summary=None):
+    """fn() under torch.profiler: wall, the device's busy share, and
     device time by kernel group (also into `summary`, a dict, when
     given). Returns the profile's kernel rows, or None when it recorded
     no device time."""
@@ -1612,7 +1659,7 @@ def profile_pass(engine, prompts, memories, kernel_names, adapters=None,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_server(engine, prompts, memories, adapters=adapters)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = kernel_rows(prof)
@@ -1628,7 +1675,7 @@ def profile_pass(engine, prompts, memories, kernel_names, adapters=None,
             grp = ("gemm" if "gemm" in low or "cutlass" in low
                    or "nvjet" in low else "other")
         groups[grp] += ms
-    log(f"  profiled {len(prompts)} requests: wall {wall * 1e3:.1f} ms, "
+    log(f"  profiled {label}: wall {wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
         f"{100 * (1 - busy / (wall * 1e3)):.1f}%")
     log("  device ms by group: " + ", ".join(
@@ -3585,6 +3632,420 @@ def launch_counts():
     return _build.launches()
 
 
+# ------------------------------------------ decoding and shaping (26-28)
+
+def encoded(model, embed, rs, n):
+    """n source memories [n, SRC_LEN, D] encoded on the card from random
+    source tokens (every position real)."""
+    src = torch.as_tensor(rs.randint(2, VOCAB, (n, SRC_LEN)), device="cuda")
+    with torch.inference_mode():
+        return model.encoder(embed(src))
+
+
+def beam_rows_agree(label, card, cpu):
+    """Phase 26 (b): the card's beams against the CPU's, row by row. Equal
+    tokens and lengths need scores within REL_BEAM; a row whose beams
+    differ passes only as a tie, when its best-first scores still agree
+    within REL_BEAM (two beam sets of the same scores). Returns (ties,
+    worst relative score error)."""
+    (ct, cs, cl), (pt, ps, pl) = card, cpu
+    ties, worst = 0, 0.0
+    for b in range(ct.shape[0]):
+        rel = float(np.max(np.abs(cs[b] - ps[b]) /
+                           np.maximum(np.abs(ps[b]), 1e-30)))
+        worst = max(worst, rel)
+        same = np.array_equal(ct[b], pt[b]) and np.array_equal(cl[b], pl[b])
+        if not rel <= REL_BEAM:
+            raise AssertionError(f"{label} row {b}: scores {cs[b]} vs "
+                                 f"{ps[b]} (relative {rel:.3e})")
+        if not same:
+            ties += 1
+            log(f"  {label} row {b}: beams differ with scores within "
+                f"{rel:.3e}: a tie")
+    return ties, worst
+
+
+def decode_engine_phase(A, seed):
+    """Phase 26: DecodeEngine at Transformer-base width. Returns
+    ({path: launches}, summary)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.text.decode import map_state
+    from paddle_tpu_torch.text.generation import (DecodeEngine, _StepNet,
+                                                  generate_eager)
+    from paddle_tpu_torch.text.speculative import DraftModel
+
+    model, embed, project = build_model(seed, "cuda")
+    net = _StepNet(model.decoder, embed, project).eval()
+    rs = np.random.RandomState(seed + 26)
+    memory = encoded(model, embed, rs, DE_BATCH)
+    lens = rs.randint(DE_PROMPT // 2 + 1, DE_PROMPT + 1, DE_BATCH)
+    lens[0] = DE_PROMPT
+    prompt = rs.randint(2, VOCAB, (DE_BATCH, DE_PROMPT))
+    prompt[:, 0] = 0
+    rows = [prompt[i, :lens[i]] for i in range(DE_BATCH)]
+    mems = [memory[i] for i in range(DE_BATCH)]
+    eng = DecodeEngine(model.decoder, embed, project, device="cuda")
+    kw = dict(bos_id=0, eos_id=1, max_new_tokens=DE_NEW)
+    eng.generate(memory, prompt, lens, **dict(kw, max_new_tokens=2))
+    paths, out = {}, {}
+
+    def timed(label, **extra):
+        torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.generate(memory, prompt, lens, **kw, **extra)
+        torch.cuda.synchronize()
+        paths[label] = dict(A.LAUNCHES)
+        return res, time.perf_counter() - t0
+
+    # (a) greedy against the eager oracle on the card
+    (toks, tl), wall = timed("decode_greedy")
+    steps = min(int(tl.max()), DE_NEW) - 1
+    et, el = generate_eager(model.decoder, embed, project, memory, prompt,
+                            lens, **kw)
+    greedy = [list(toks[i][:tl[i]]) for i in range(DE_BATCH)]
+    ties = same_tokens("DecodeEngine greedy",
+                       [list(et[i][:el[i]]) for i in range(DE_BATCH)],
+                       greedy, net, rows, mems)
+    got = paths["decode_greedy"]
+    log(f"  (a) greedy b{DE_BATCH}, prompts {sorted(lens.tolist())} (bucket "
+        f"{DE_PROMPT}), {DE_NEW} new tokens: {1e3 * wall / (steps + 1):.2f} "
+        f"ms a token ({DE_BATCH * (steps + 1) / wall:.1f} tokens/s); tokens "
+        f"equal generate_eager's ({ties} ties); launches {got}")
+    if got["flash_decode"] != LAYERS * steps or got["flash_fwd"] < 1:
+        raise AssertionError(f"greedy: flash_decode launches "
+                             f"{got['flash_decode']} != {LAYERS} layers x "
+                             f"{steps} steps, or no flash_fwd prefill")
+    out["greedy_ms_per_token"] = 1e3 * wall / (steps + 1)
+    split = out["greedy_profile"] = {}
+    profile_call("greedy generate", lambda: eng.generate(
+        memory, prompt, lens, **kw), ("flash_fwd", "flash_decode_kernel"),
+        split)
+
+    # (b) beam 4, then the beam regather's cost and a 2-layer card-vs-CPU
+    (bt, bs, bl), wall = timed("decode_beam", beam_size=DE_BEAM)
+    bsteps = DE_NEW - 1
+    got = paths["decode_beam"]
+    rows_kv = DE_BATCH * DE_BEAM
+    state = [t for layer in model.decoder.layers
+             for t in layer.self_attn.gen_cache(
+                 None, max_length=DE_PROMPT + DE_NEW, batch_size=rows_kv,
+                 dtype=torch.float32)[:2]]
+    flat = torch.randperm(rows_kv, device="cuda")
+    gather_ms = device_ms(lambda: map_state(
+        lambda t: t.index_select(0, flat), state))
+    gather_bytes = 2.0 * sum(t.numel() * t.element_size() for t in state)
+    log(f"  (b) beam {DE_BEAM}: {DE_BATCH * DE_BEAM * DE_NEW / wall:.1f} "
+        f"beam tokens/s ({DE_BATCH * DE_NEW / wall:.1f} best-beam tokens/s, "
+        f"{1e3 * wall / DE_NEW:.2f} ms a step); launches {got}; the "
+        f"regather of {len(state)} cache tensors by parent: {gather_ms:.4f} "
+        f"ms a step (bound {1e3 * gather_bytes / HBM_BYTES_PER_S:.4f}, "
+        f"{gather_bytes / 2 ** 20:.1f} MiB read + written)")
+    if got["flash_decode"] != LAYERS * bsteps:
+        raise AssertionError(f"beam: flash_decode launches "
+                             f"{got['flash_decode']} != {LAYERS} x {bsteps}")
+    out.update(beam_tokens_per_s=DE_BATCH * DE_BEAM * DE_NEW / wall,
+               beam_regather_ms=gather_ms, beam_profile={})
+    profile_call("beam generate", lambda: eng.generate(
+        memory, prompt, lens, beam_size=DE_BEAM, **kw),
+        ("flash_fwd", "flash_decode_kernel", "gather_kernel", "RadixSort"),
+        out["beam_profile"])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(seed + 260)
+        small = nn.TransformerDecoder(nn.TransformerDecoderLayer(
+            D_MODEL, HEADS, FFN, dropout=0.0, device=dev, generator=gen),
+            DE_DRAFT_LAYERS).eval()
+        e2 = nn.Embedding(VOCAB, D_MODEL, device=dev, generator=gen).eval()
+        p2 = nn.Linear(D_MODEL, VOCAB, device=dev, generator=gen).eval()
+        t0 = time.perf_counter()
+        res[dev] = DecodeEngine(small, e2, p2, device=dev).generate(
+            memory.to(dev), prompt, lens, beam_size=DE_BEAM, **kw)
+        log(f"      {DE_DRAFT_LAYERS}-layer beam {DE_BEAM} on the {dev}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    bties, worst = beam_rows_agree("beam card vs CPU", res["cuda"],
+                                   res["cpu"])
+    log(f"      card vs CPU: tokens and lengths equal in "
+        f"{DE_BATCH - bties} of {DE_BATCH} rows ({bties} ties), worst "
+        f"relative score error {worst:.3e} (limit {REL_BEAM})")
+    out.update(beam_card_vs_cpu_worst_rel=worst, beam_ties=bties)
+
+    # (c) speculative: the n-gram draft, then a DraftModel of other weights
+    gen = torch.Generator().manual_seed(seed + 261)
+    dm = DraftModel(
+        nn.TransformerDecoder(nn.TransformerDecoderLayer(
+            D_MODEL, HEADS, FFN, dropout=0.0, device="cuda", generator=gen),
+            DE_DRAFT_LAYERS).eval(),
+        nn.Embedding(VOCAB, D_MODEL, device="cuda", generator=gen).eval(),
+        nn.Linear(D_MODEL, VOCAB, device="cuda", generator=gen).eval())
+    for label, extra in (("decode_spec_ngram", {}),
+                         ("decode_spec_draft", {"draft_model": dm})):
+        (st, sl, stats), wall = timed(label, spec_k=SPEC_K,
+                                      return_spec_stats=True, **extra)
+        spec = [list(st[i][:sl[i]]) for i in range(DE_BATCH)]
+        sties = same_tokens(label, greedy, spec, net, rows, mems)
+        got = paths[label]
+        rate = stats["accepted"] / max(1, stats["proposed"])
+        draft_steps = got["flash_decode"]
+        log(f"  (c) {label[12:]}: spec_k {SPEC_K}, {stats['rounds']} rounds, "
+            f"acceptance {rate:.4f} ({stats['accepted']} of "
+            f"{stats['proposed']} drafts), {1e3 * wall / DE_NEW:.2f} ms a "
+            f"token; flash_verify launches {got['flash_verify']} "
+            f"(= {LAYERS} x rounds), the draft's flash_decode launches "
+            f"{draft_steps}; tokens equal greedy's ({sties} ties)")
+        if got["flash_verify"] != LAYERS * stats["rounds"]:
+            raise AssertionError(f"{label}: flash_verify launches "
+                                 f"{got['flash_verify']} != {LAYERS} x "
+                                 f"{stats['rounds']} rounds")
+        out[f"{label[12:]}_acceptance"] = rate
+        out[f"{label[12:]}_rounds"] = stats["rounds"]
+    out["draft_profile"] = {}
+    profile_call("draft-model spec generate", lambda: eng.generate(
+        memory, prompt, lens, spec_k=SPEC_K, draft_model=dm, **kw),
+        ("flash_fwd", "flash_decode_kernel", "flash_verify_kernel"),
+        out["draft_profile"])
+    if not out["draft_acceptance"] < 1.0:
+        raise AssertionError("the DraftModel's drafts were never rejected")
+    if paths["decode_spec_draft"]["flash_decode"] != \
+            DE_DRAFT_LAYERS * SPEC_K * out["draft_rounds"]:
+        raise AssertionError("the draft model's steps did not run the "
+                             "flash decode k times a round")
+    return paths, out
+
+
+def chunk_requests(seed, memory):
+    """Phase 27's traffic: CH_LONG prompts of CH_LONG_LEN tokens among
+    CH_SHORT short ones (16-200 tokens), spread through the queue."""
+    rs = np.random.RandomState(seed + 27)
+    n = CH_LONG + CH_SHORT
+    prompts = []
+    for i in range(n):
+        p = rs.randint(2, VOCAB, CH_LONG_LEN if i % 4 == 1 else
+                       int(rs.randint(16, 201)))
+        p[0] = 0
+        prompts.append(p)
+    return prompts, [memory[i % memory.shape[0]] for i in range(n)]
+
+
+def chunked_phase(A, seed):
+    """Phase 27: dense and paged engines with and without chunked prefill
+    on the same requests. Returns ({path: launches}, summary)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    model, embed, project = build_model(seed, "cuda")
+    net = _StepNet(model.decoder, embed, project).eval()
+    memory = encoded(model, embed, np.random.RandomState(seed + 270), SLOTS)
+    prompts, mems = chunk_requests(seed, memory)
+    paths, out = {}, {}
+    for pool, kw in (("dense", {}), ("paged", dict(paged=True,
+                                                   page_size=PAGE))):
+        res = {}
+        for chunk in (None, CH_CHUNK):
+            eng = ServingEngine(model.decoder, embed, project,
+                                num_slots=SLOTS, max_len=MAX_LEN,
+                                prefill_chunk=chunk, device="cuda", **kw)
+            calls, restore = call_log(A, "flash_verify",
+                                      key=lambda q, *a: int(q.shape[2]))
+            A.reset_launches()
+            try:
+                toks, wall = run_server(eng, prompts, mems)
+            finally:
+                restore()
+            label = f"chunked_{pool}" if chunk else f"whole_{pool}"
+            paths[label] = dict(A.LAUNCHES)
+            m = eng.metrics
+            gap = m.step_gap_s.summary(1e3)
+            res[chunk] = (toks, gap)
+            tiled = A.PAGED_ROUTE_LAUNCHES["paged_flash_verify:tiled"]
+            log(f"  {pool} prefill_chunk {chunk}: {wall:.3f} s, chunked "
+                f"joins {m.chunked_prefills}, chunks {m.chunks}; "
+                f"flash_verify launches by T {dict(calls)}; paged tiled "
+                f"route {tiled}; decode-step gap p50 "
+                f"{gap.get('p50', 0):.2f} ms, p99 {gap.get('p99', 0):.2f} "
+                f"ms; launches {paths[label]}")
+            if chunk:
+                n_chunks = CH_LONG * (CH_LONG_LEN // CH_CHUNK)
+                want = n_chunks * LAYERS
+                got = calls[CH_CHUNK] if pool == "dense" else tiled
+                if m.chunks != n_chunks or got != want:
+                    raise AssertionError(
+                        f"{pool}: {m.chunks} chunks ({n_chunks} expected), "
+                        f"{got} T{CH_CHUNK} verify launches ({want})")
+                out[f"{pool}_chunks"] = m.chunks
+                out[f"{pool}_t{CH_CHUNK}_verify_launches"] = got
+            if pool == "dense" and chunk:
+                out["dense_chunked_profile"] = {}
+                profile_call(f"{len(prompts)} requests",
+                             lambda: run_server(eng, prompts, mems),
+                             ("flash_fwd", "flash_decode_kernel",
+                              "flash_verify_kernel"),
+                             summary=out["dense_chunked_profile"])
+            if pool == "paged":
+                eng.flush_prefix_cache()
+                eng._alloc.check()
+        ties = same_tokens(f"{pool} chunked", res[None][0], res[CH_CHUNK][0],
+                           net, prompts, mems)
+        out[f"{pool}_step_gap_ms"] = {
+            "whole": {k: res[None][1].get(k) for k in ("p50", "p99")},
+            "chunked": {k: res[CH_CHUNK][1].get(k) for k in ("p50", "p99")}}
+        log(f"  {pool}: chunked tokens equal the whole-prompt engine's "
+            f"({ties} ties)")
+    return paths, out
+
+
+def verify_chunk_cases(A, g):
+    """Phase 27: flash_verify at the dense chunk's shape (b1 h8, T 64 and
+    CH_CHUNK, L MAX_LEN, the chunk ending at key CH_LONG_LEN) against its
+    plain version, and its timing beside SDPA. Returns (rows, worst fp32
+    error, worst bf16 error)."""
+    rows, e32, e16 = [], 0.0, 0.0
+    for T in (64, CH_CHUNK):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ver_case(g, 1, HEADS, T, MAX_LEN, D_MODEL // HEADS,
+                            [CH_LONG_LEN], dtype)
+            got = A.flash_verify(*args)
+            want = A.flash_verify_plain(*args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            limit = ATOL_KERNEL if dtype == torch.float32 else \
+                REL_BF16_ATT * want.float().abs().max().item()
+            name = f"chunk b1 h{HEADS} T{T} L{MAX_LEN} " + \
+                ("fp32" if dtype == torch.float32 else "bf16")
+            if not e <= limit:
+                raise AssertionError(f"flash_verify {name}: {e} > {limit}")
+            if dtype == torch.float32:
+                e32 = max(e32, e)
+            else:
+                e16 = max(e16, e)
+            nums = read_numbers(A, "flash_verify", args)
+            rows.append(dict(case=name, max_abs_err=e, **nums))
+            log(f"  flash_verify {name}: max_abs_err {e:.3e} (limit "
+                f"{limit:.3e}); kernel {nums['ms']:.4f} (whole call "
+                f"{nums['whole_call_ms']:.4f}, {nums['plan']}) bound "
+                f"{nums['bound_ms']:.4f} ({nums['bound_by']}, "
+                f"{nums['bound_peak']}) plain "
+                f"{nums['plain_ms']:.4f} sdpa {nums['library_ms']:.4f}")
+    return rows, e32, e16
+
+
+def preempt_requests(seed, memory):
+    rs = np.random.RandomState(seed + 28)
+    batch = []
+    for _ in range(PR_BATCH):
+        p = rs.randint(2, VOCAB, PR_BATCH_LEN)
+        p[0] = 0
+        batch.append(p)
+    inter = []
+    for _ in range(PR_INTER):
+        p = rs.randint(2, VOCAB, int(rs.randint(16, 129)))
+        p[0] = 0
+        inter.append(p)
+    mems = [memory[i % memory.shape[0]] for i in range(PR_BATCH + PR_INTER)]
+    return batch, inter, mems
+
+
+def shaped_serve(eng, sched, batch, inter, mems):
+    """Fill the slots with batch-class requests, then let the interactive
+    ones arrive. Returns the requests (batch first)."""
+    from paddle_tpu_torch.serving import Request
+
+    reqs = [Request(p, mems[i], max_new_tokens=PR_BATCH_NEW, eos_id=1,
+                    slo="batch") for i, p in enumerate(batch)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(1000):        # every batch request joined
+        if all(r.tokens or r.state == "DONE" for r in reqs):
+            break
+        eng.run_iteration(sched)
+    late = [Request(p, mems[len(batch) + i], max_new_tokens=NEW_TOKENS,
+                    eos_id=1, slo="interactive")
+            for i, p in enumerate(inter)]
+    for r in late:
+        sched.submit(r)
+    eng.serve_until_idle(sched, max_iterations=100000)
+    return reqs + late
+
+
+def preempt_phase(A, seed):
+    """Phase 28: a paged engine under ShapingScheduler against a FIFO twin,
+    spec_k off and SPEC_K. Returns ({path: launches}, summary)."""
+    from paddle_tpu_torch.serving import (Scheduler, ServingEngine,
+                                          ShapingScheduler)
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    model, embed, project = build_model(seed, "cuda")
+    net = _StepNet(model.decoder, embed, project).eval()
+    memory = encoded(model, embed, np.random.RandomState(seed + 280), SLOTS)
+    batch, inter, mems = preempt_requests(seed, memory)
+    prompts = batch + inter
+    paths, out = {}, {}
+    for spec_k in (None, SPEC_K):
+        res = {}
+        for kind in ("fifo", "shaped"):
+            eng = ServingEngine(model.decoder, embed, project,
+                                num_slots=SLOTS, max_len=MAX_LEN, paged=True,
+                                page_size=PAGE, spec_k=spec_k, device="cuda")
+            sched = (ShapingScheduler(max_queue=64, metrics=eng.metrics)
+                     if kind == "shaped" else Scheduler(max_queue=64))
+            A.reset_launches()
+            t0 = time.perf_counter()
+            reqs = shaped_serve(eng, sched, batch, inter, mems)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            label = f"preempt_{kind}{'_spec' if spec_k else ''}"
+            paths[label] = dict(A.LAUNCHES)
+            for r in reqs:
+                if not r.result(timeout=60).ok:
+                    raise AssertionError(f"{label}: request {r.id} "
+                                         f"finished {r.finish_reason}")
+            ttft = np.asarray([1e3 * (r.first_token_at - r.submitted_at)
+                               for r in reqs[PR_BATCH:]])
+            m = eng.metrics
+            res[kind] = ([list(r.tokens) for r in reqs], ttft)
+            log(f"  spec_k {spec_k} {kind}: {wall:.3f} s; interactive TTFT "
+                f"p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+                f"{np.percentile(ttft, 99):.1f} ms; preemptions "
+                f"{m.preemptions}, resumes {m.resumes}, replayed tokens "
+                f"{m.replay_tokens}, prefills {eng.prefill_count}; launches "
+                f"{paths[label]}")
+            if kind == "shaped":
+                if not (m.preemptions == m.resumes >= 1 and
+                        m.replay_tokens > 0):
+                    raise AssertionError(
+                        f"{label}: preemptions {m.preemptions}, resumes "
+                        f"{m.resumes}, replayed tokens {m.replay_tokens}")
+                if eng.prefill_count > len(prompts):
+                    raise AssertionError(
+                        f"{label}: {eng.prefill_count} prefills for "
+                        f"{len(prompts)} cold prompts: a resume prefilled")
+                out[f"{label}_preemptions"] = m.preemptions
+                out[f"{label}_replay_tokens"] = m.replay_tokens
+            eng.flush_prefix_cache()
+            eng._alloc.check()
+            if eng._alloc.pages_free != eng.num_pages:
+                raise AssertionError(f"{label}: {eng._alloc.pages_free} of "
+                                     f"{eng.num_pages} pages free")
+        ties = same_tokens(f"preempt spec_k {spec_k}", res["fifo"][0],
+                           res["shaped"][0], net, prompts, mems)
+        if not spec_k:
+            eng = ServingEngine(model.decoder, embed, project,
+                                num_slots=SLOTS, max_len=MAX_LEN, paged=True,
+                                page_size=PAGE, device="cuda")
+            out["shaped_profile"] = {}
+            profile_call("shaped serve", lambda: shaped_serve(
+                eng, ShapingScheduler(max_queue=64, metrics=eng.metrics),
+                batch, inter, mems), ("flash_fwd", "paged_decode_kernel"),
+                out["shaped_profile"])
+        out[f"spec{spec_k or 0}_ttft_ms"] = {
+            k: {"p50": float(np.percentile(res[k][1], 50)),
+                "p99": float(np.percentile(res[k][1], 99))}
+            for k in ("fifo", "shaped")}
+        log(f"  spec_k {spec_k}: preempted tokens equal the FIFO twin's "
+            f"({ties} ties)")
+    return paths, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3910,9 +4371,12 @@ def main():
             "flash_decode", "flash_verify", "paged_flash_decode",
             "paged_flash_verify")}))
     prompts, names, mems = mt["prompts"], mt["names"], mt["mems"]
-    rows = profile_pass(mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
-                        ("int8_matmul", "lora_cluster_kernel", "flash_fwd",
-                         "flash_decode_kernel"), adapters=names[:SLOTS])
+    rows = profile_call(
+        f"{SLOTS} requests", lambda: run_server(
+            mt["int8_engine"], prompts[:SLOTS], mems[:SLOTS],
+            adapters=names[:SLOTS]),
+        ("int8_matmul", "lora_cluster_kernel", "flash_fwd",
+         "flash_decode_kernel"))
     if rows is not None:
         parts = {p: rows_matching(rows, k) for p, k in (
             ("skinny", "int8_matmul_skinny_mma"),
@@ -4123,7 +4587,52 @@ def main():
         "optimizer_paths": pt_paths, "run_epoch": pt_epoch,
         "card_vs_cpu": pt_cpu}))
 
-    log("phase 26: output")
+    log(f"phase 26: DecodeEngine at Transformer-base width: greedy, beam "
+        f"{DE_BEAM} and spec_k {SPEC_K} (n-gram, then a "
+        f"{DE_DRAFT_LAYERS}-layer DraftModel of other weights), "
+        f"b{DE_BATCH}, prompts in the "
+        f"{DE_PROMPT} bucket, {DE_NEW} new tokens")
+    t_new = time.perf_counter()
+    de_paths, de_out = decode_engine_phase(A, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 27: chunked prefill, dense and paged (page {PAGE}): {CH_LONG} "
+        f"prompts of {CH_LONG_LEN} tokens among {CH_SHORT} short ones, "
+        f"prefill_chunk {CH_CHUNK}, against the same engines without "
+        f"chunking; then flash_verify at the chunk's shape")
+    ch_paths, ch_out = chunked_phase(A, args.seed)
+    ch_rows, ch_e32, ch_e16 = verify_chunk_cases(A, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 28: preemption under ShapingScheduler (paged, page {PAGE}): "
+        f"{PR_BATCH} batch requests of {PR_BATCH_LEN} tokens fill the slots, "
+        f"then {PR_INTER} interactive ones arrive; against a FIFO twin, "
+        f"spec_k off and {SPEC_K}")
+    pr_paths, pr_out = preempt_phase(A, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    new_wall = time.perf_counter() - t_new
+    for label, counts in {**de_paths, **ch_paths, **pr_paths}.items():
+        for kname in ("flash_fwd", "flash_decode", "flash_verify",
+                      "paged_flash_decode", "paged_flash_verify"):
+            if counts.get(kname):
+                kernels[kname]["launches_by_path"][label] = counts[kname]
+    for kname in ("flash_fwd", "flash_decode", "flash_verify",
+                  "paged_flash_decode", "paged_flash_verify"):
+        row = kernels[kname]
+        row["launches"] = sum(row["launches_by_path"].values())
+    kernels["flash_verify"]["cases"].extend(ch_rows)
+    kernels["flash_verify"]["max_abs_err"] = max(
+        kernels["flash_verify"]["max_abs_err"], ch_e32)
+    kernels["flash_verify"]["max_abs_err_bf16"] = max(
+        kernels["flash_verify"]["max_abs_err_bf16"] or 0.0, ch_e16)
+    log("  decoding and shaping summary " + json.dumps({
+        "card": card, "wall_s": new_wall, "decode_engine": de_out,
+        "chunked": ch_out, "preemption": pr_out}))
+
+    log("phase 29: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -402,6 +402,24 @@ class TransformerDecoder(nn.Module):
                                 batch_size=batch_size, dtype=dtype)
                 for layer in self.layers]
 
+    def generate(self, memory, embed, project, *, device=None, **kwargs):
+        """Static-cache generation with this decoder stack between the
+        token embedding `embed` and the logits projection `project`, on
+        `device` (None: the CUDA card): greedy, beam or speculative, as
+        `paddle_tpu_torch.text.generation.DecodeEngine.generate`, which
+        documents the keywords (prompt, lengths, max_new_tokens,
+        beam_size, spec_k, ...). The engine is kept on the layer for the
+        next call with the same embed, project and device."""
+        from ...text.generation import DecodeEngine
+
+        dev = resolve_device(device)
+        eng = getattr(self, "_decode_engine", None)
+        if eng is None or eng.embed_ref is not embed or \
+                eng.project_ref is not project or eng.device != dev:
+            eng = DecodeEngine(self, embed, project, device=dev)
+            self._decode_engine = eng
+        return eng.generate(memory, **kwargs)
+
 
 class Transformer(nn.Module):
     """Encoder-decoder with the reference defaults: Transformer-base

@@ -23,14 +23,23 @@ prompt (bucketed to a power of two) into the slot's cache.
     pinned defers the queue head (`tenancy.adapter_waits`).
   * `quantize="int8"`: the stack's large dense weights become int8 with
     per-output-channel scales (`adapters.quantize_net`), in place.
+  * `prefill_chunk=C` on either: chunked prefill. A prompt longer than C
+    joins as a pending slot. One C-token chunk runs an iteration, between
+    decode steps, the pending slots taking turns, so co-resident decodes
+    wait for one chunk at most, whatever the number of long prompts in
+    flight.
+  * Preemption (paged pools with the prefix cache): under a
+    `ShapingScheduler` a full pool parks a lower-class running request's
+    prompt pages in the radix trie, frees its slot and requeues it; the
+    resume attaches the parked prefix with no prefill and re-decodes the
+    tokens already delivered, which the engine absorbs after checking
+    each against the token it replaces (`ReplayDiverged` otherwise).
 
 Numerics contract: every slot reproduces `generate_eager` for its own
 prompt token for token (under a `lora_scope` of its tenant's bank row),
-speculation included (greedy acceptance). All per-slot operations are
-row-wise, so co-resident requests cannot perturb each other's output.
-
-Chunked prefill (`prefill_chunk`) is a later slice and is refused at
-construction.
+speculation, chunking and preemption included (greedy acceptance). All
+per-slot operations are row-wise, so co-resident requests cannot perturb
+each other's output.
 """
 from __future__ import annotations
 
@@ -41,16 +50,24 @@ import torch
 
 from ..core.bucketing import bucket_size, pad_prompt_row
 from ..core.device import resolve_device
+from ..testing import faults
 from .layers import (DenseLayout, PagedLayout, PlainStepper, SinglePlacement,
                      SpecStepper)
 from .metrics import ServingMetrics
 from .paging import (PageAllocator, RadixPrefixCache, pages_for,
                      resolve_kv_dtype)
 
-__all__ = ["ServingEngine", "PagedServingEngine"]
+__all__ = ["ServingEngine", "PagedServingEngine", "WatchdogTimeout",
+           "ReplayDiverged"]
 
-#: engine options of the JAX package that later slices of the port bring
-_LATER = {"prefill_chunk": "the traffic-shaping slice"}
+#: fault points of the slot lifecycle (armed only by tests and chaos
+#: runs; a disarmed hit reads one boolean)
+_PT_SLOT_JOIN = faults.point("serving.slot_join")
+_PT_PREFILL = faults.point("serving.prefill")
+_PT_PATTACH = faults.point("serving.pattach")
+_PT_DECODE = faults.point("serving.decode_step")
+_PT_CHUNK = faults.point("serving.prefill_chunk")
+_PT_PREEMPT = faults.point("serving.preempt")
 
 
 def _tensor_bytes(x):
@@ -64,17 +81,46 @@ def _tensor_bytes(x):
     return 0
 
 
+class WatchdogTimeout(TimeoutError):
+    """An engine op returned but overran its `watchdog_s` wall budget: it
+    counts as a failed attempt (retried with backoff, then failed
+    cleanly), so one slow or hung dispatch cannot wedge the pool
+    silently."""
+
+
+class ReplayDiverged(RuntimeError):
+    """A resumed request re-decoded a token other than the one its caller
+    already holds (a near-tie resolved the other way beside different
+    slots). The request fails with the tokens it delivered, rather than
+    joining them to a different continuation."""
+
+
 class _EngineBase:
     """Slot lifecycle and the per-iteration orchestration. One
     `run_iteration(scheduler)` is the continuous-batching unit: (1)
     cancelled / past-deadline requests leave their slots with partial
     output; (2) up to `max_joins_per_iter` queued requests prefill into
-    free slots; (3) one batched decode step over the active mask. Not
-    thread-safe: drive it from one thread (the `ServingServer` loop or a
-    synchronous drain)."""
+    free slots (a full pool may first preempt a lower-class slot when the
+    scheduler names one); (3) one prefill chunk, the slots in the middle
+    of a chunked prefill taking turns; (4) one batched decode step over the
+    active mask. Not thread-safe: drive it from one thread (the
+    `ServingServer` loop or a synchronous drain).
+
+    Fault isolation: every join, chunk and decode step runs under
+    `_guarded`, up to `max_attempts` tries with capped exponential
+    backoff (`backoff_base_s`, `backoff_cap_s`, `sleep`) and an optional
+    wall-clock watchdog (`watchdog_s`, `WatchdogTimeout`). A join or
+    chunk that fails every try fails its own request; a decode step that
+    does ends every in-flight request with its partial tokens and
+    rebuilds the pool. The engine's fault points (`testing.faults`) fire
+    on the host before any mutation, so an injected failure leaves the
+    pool as it was. The JAX engine's `PoolCarryLost` has no counterpart:
+    the port writes its pool in place and donates no carry."""
 
     def __init__(self, num_slots, *, max_joins_per_iter=2, metrics=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, max_attempts=3, backoff_base_s=0.01,
+                 backoff_cap_s=0.5, watchdog_s=None, sleep=time.sleep,
+                 hbm_budget_bytes=None, hbm_watermark=0.9):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         self.num_slots = int(num_slots)
@@ -83,6 +129,18 @@ class _EngineBase:
         self.metrics = metrics if metrics is not None else \
             ServingMetrics(clock=clock)
         self.slots = [None] * self.num_slots   # Request | None
+        # slots holding a request whose prompt is still being prefilled
+        # chunk by chunk: occupied for admission, out of the decode step
+        self._pending = set()
+        self._last_step_done = None
+        self.max_attempts = max(1, int(max_attempts))
+        self.backoff_base_s = float(backoff_base_s)
+        self.backoff_cap_s = float(backoff_cap_s)
+        self.watchdog_s = watchdog_s
+        self._sleep = sleep
+        if hbm_budget_bytes is not None:
+            self.metrics.budget_bytes = int(hbm_budget_bytes)
+            self.metrics.watermark_frac = float(hbm_watermark)
 
     def admit_check(self, request):
         """Raise ValueError for requests this pool can never serve."""
@@ -114,6 +172,78 @@ class _EngineBase:
     def _reset_pool(self):
         """Rebuild device pool state after a decode-step failure."""
 
+    def _advance_chunks(self, now):
+        """Run one prefill chunk, the slots in the middle of a chunked
+        prefill taking turns; True when one ran. Default: no chunking."""
+        return False
+
+    def can_preempt(self, s):
+        """True when slot `s` holds a request this engine could park
+        (the mechanics only; class policy lives in the scheduler)."""
+        return False
+
+    def preempt_slot(self, s, now):
+        """Park the running request of slot `s` so that its resume needs
+        no prefill, free the slot, and return the request for requeueing;
+        None when the engine has nowhere to park (dense pools)."""
+        return None
+
+    def _unpark(self, request):
+        """Drop what a preemption holds for `request` (its parked prefix)
+        when the request leaves without resuming."""
+
+    def _preempt_for(self, scheduler, now):
+        """Admission found no free slot: ask the scheduler (only a
+        `ShapingScheduler` has the hook) for a victim, park it and
+        requeue it. Returns the freed slot or None."""
+        pick = getattr(scheduler, "pick_preempt_victim", None)
+        if pick is None:
+            return None
+        s = pick(self, now)
+        if s is None:
+            return None
+        try:
+            r = self.preempt_slot(s, now)
+        except Exception as e:
+            # the preempt fault point fires before any mutation: slot,
+            # pages and queue stay as they were; admission stops here
+            self.metrics.record_error("preempt", e)
+            return None
+        if r is None:
+            return None
+        getattr(scheduler, "requeue_preempted", scheduler.push_front)(r)
+        return s
+
+    def _guarded(self, opname, fn, point, retry_tokens=0):
+        """Run one engine op with up to `max_attempts` tries, capped
+        exponential backoff between them and the wall-clock watchdog: an
+        op that returns after more than `watchdog_s` counts as failed.
+        Each try first fires the op's fault point, before the op mutates
+        anything. The last failure propagates to the caller, which
+        isolates it."""
+        last = None
+        for attempt in range(self.max_attempts):
+            if attempt:
+                self.metrics.record_retry(opname, retry_tokens)
+                self._sleep(min(self.backoff_cap_s,
+                                self.backoff_base_s * (2 ** (attempt - 1))))
+            t0 = time.monotonic()
+            try:
+                point()
+                out = fn()
+            except Exception as e:
+                last = e
+                continue
+            if self.watchdog_s is not None:
+                dt = time.monotonic() - t0
+                if dt > self.watchdog_s:
+                    last = WatchdogTimeout(
+                        f"{opname} took {dt:.3f}s > watchdog budget "
+                        f"{self.watchdog_s}s")
+                    continue
+            return out
+        raise last
+
     def occupancy(self):
         return sum(r is not None for r in self.slots)
 
@@ -121,25 +251,75 @@ class _EngineBase:
         r = self.slots[s]
         self.slots[s] = None
         self._evict(s)
-        self.metrics.record_finish(reason)
+        self.metrics.record_finish(reason, len(r.tokens))
+        slo = getattr(r, "slo", None)
+        if reason in ("eos", "length") and hasattr(slo, "ttft_target_s") \
+                and r.first_token_at is not None \
+                and r.submitted_at is not None:
+            # a class the ShapingScheduler resolved: attainment against
+            # its targets (a bare class name under the FIFO records none)
+            n = len(r.tokens)
+            tpot = (now - r.first_token_at) / (n - 1) if n > 1 else 0.0
+            self.metrics.record_slo_finish(
+                slo.name, r.first_token_at - r.submitted_at, tpot,
+                slo.ttft_target_s, slo.tpot_target_s)
         r.finish(reason, now)
 
+    def _release_failed(self, s, r, where, exc):
+        """A join or chunk failed every attempt: THIS request fails and
+        frees its slot; its writes were slot-local, the pool keeps
+        serving."""
+        self.slots[s] = None
+        self._evict(s)
+        self._unpark(r)
+        r.slot = None
+        self.metrics.record_error(where, exc)
+        r.fail(exc, self.clock())
+        self.metrics.record_finish("error", len(r.tokens))
+
     def _fail_active(self, exc):
-        """A decode step failed: the batched step is all-or-nothing, so
-        every in-flight request ends with its partial tokens and the
-        cause, the pool is rebuilt, and serving continues."""
+        """A decode step failed every attempt: the batched step is
+        all-or-nothing, so every in-flight request ends with its partial
+        tokens and the cause, the pool is rebuilt, and serving
+        continues."""
         now = self.clock()
         for s, r in enumerate(self.slots):
             if r is None:
                 continue
             self.slots[s] = None
             self._evict(s)
-            self.metrics.record_finish("error")
+            self.metrics.record_finish("error", len(r.tokens))
             r.finish("error", now, error=exc)
         self._reset_pool()
 
+    def _replay_diverged(self, r, i, tok, now):
+        """A resumed slot re-decoded `tok` where the caller holds
+        `r.tokens[i]`: the request fails with its delivered tokens."""
+        e = ReplayDiverged(f"resumed request re-decoded token {tok} at "
+                           f"position {i}, where it delivered "
+                           f"{r.tokens[i]}")
+        s = r.slot
+        self.slots[s] = None
+        self._evict(s)
+        self._unpark(r)
+        r.slot = None
+        self.metrics.record_error("replay", e)
+        self.metrics.record_finish("error", len(r.tokens))
+        r.finish("error", now, error=e)
+
     def _deliver(self, r, tok, now):
         if r.state == "DONE":
+            return
+        if r._replay > 0:
+            # a resumed request re-decodes the tokens its caller holds
+            # (greedy decoding repeats them): absorb each after checking
+            # it, with no append, no callback and no second TTFT
+            i = len(r.tokens) - r._replay
+            if tok != r.tokens[i]:
+                self._replay_diverged(r, i, tok, now)
+                return
+            r._replay -= 1
+            self.metrics.record_replay_token()
             return
         r.tokens.append(tok)
         self.metrics.record_token(self._tenant_of(r))
@@ -160,9 +340,11 @@ class _EngineBase:
             self._finish_slot(r.slot, "length", now)
 
     def run_iteration(self, scheduler):
-        """One iteration: harvest, admit, decode. Returns True when any
-        work was done (False = idle). A speculative step delivers up to
-        k tokens per slot, stopping the moment the slot finishes."""
+        """One iteration: harvest, admit (preempting when the scheduler
+        asks), one chunk of one chunked prefill, decode. Returns True
+        when any work was done (False = idle). A speculative step
+        delivers up to k tokens per slot, stopping the moment the slot
+        finishes."""
         now = self.clock()
         progress = False
         for s, r in enumerate(self.slots):
@@ -176,23 +358,29 @@ class _EngineBase:
                 progress = True
 
         def _queue_death(req):   # cancelled / expired while queued
-            self.metrics.record_finish(req.finish_reason)
+            self._unpark(req)
+            self.metrics.record_finish(req.finish_reason, len(req.tokens))
 
         joins = 0
         tok0s = []   # (request, device token 0), synced after the loop
         while joins < self.max_joins_per_iter:
             free = [i for i, r in enumerate(self.slots) if r is None]
             if not free:
-                break
+                s = self._preempt_for(scheduler, now)
+                if s is None:
+                    break
+                free = [s]
+                progress = True
             r = scheduler.pop_ready(now, on_dead=_queue_death)
             if r is None:
                 break
             try:
                 self.admit_check(r)
             except ValueError as e:
+                self._unpark(r)
                 self.metrics.record_error("admit", e)
                 r.fail(e, now)
-                self.metrics.record_finish("error")
+                self.metrics.record_finish("error", len(r.tokens))
                 continue
             if not self._admission_gate(r):
                 # resource backpressure: the request stays queued at the
@@ -203,33 +391,37 @@ class _EngineBase:
             r.state, r.slot = "RUNNING", s
             self.slots[s] = r
             try:
-                tok = self._join(s, r)
+                tok = self._guarded("slot_join", lambda: self._join(s, r),
+                                    _PT_SLOT_JOIN)
             except Exception as e:
-                # per-request isolation: the failed join fails THIS
-                # request and frees its slot; the join's writes were
-                # slot-local, so the pool keeps serving
-                self.slots[s] = None
-                self._evict(s)
-                r.slot = None
-                self.metrics.record_error("slot_join", e)
-                r.fail(e, self.clock())
-                self.metrics.record_finish("error")
+                self._release_failed(s, r, "slot_join", e)
                 progress = True
                 continue
             joins += 1
             progress = True
+            if r._replay > 0:
+                # a preempted request re-joined: its replay count was
+                # armed at the preemption
+                self.metrics.record_resume()
             self.metrics.record_join()
-            tok0s.append((r, tok))
+            if tok is not None:      # None: a chunked prefill's token 0
+                tok0s.append((r, tok))   # comes with its final chunk
         if tok0s:
             # one host sync for the whole admission round's first tokens
             firsts = torch.stack([t for _, t in tok0s]).cpu().tolist()
             for (r, _), tok in zip(tok0s, firsts):
                 self._deliver(r, int(tok), self.clock())
-        active = np.asarray([r is not None for r in self.slots], bool)
+        # one chunk of one chunked prefill, BEFORE the decode step
+        if self._advance_chunks(self.clock()):
+            progress = True
+        active = np.asarray([r is not None and s not in self._pending
+                             for s, r in enumerate(self.slots)], bool)
         if active.any():
             t0 = self.clock()
             try:
-                toks = self._decode_step(active)
+                toks = self._guarded(
+                    "decode_step", lambda: self._decode_step(active),
+                    _PT_DECODE, retry_tokens=int(active.sum()))
             except Exception as e:
                 self.metrics.record_error("decode_step", e)
                 self._fail_active(e)
@@ -250,11 +442,29 @@ class _EngineBase:
                         self._deliver(r, int(emit[s, j]), now2)
                         n += 1
                 self.metrics.record_decode(n, now2 - t0)
+                # the gap co-resident requests see between their tokens:
+                # a long inline prefill widens it, chunking bounds it
+                if self._last_step_done is not None:
+                    self.metrics.record_step_gap(now2 - self._last_step_done)
+                self._last_step_done = now2
                 progress = True
+        else:
+            self._last_step_done = None
         self.metrics.record_iteration(scheduler.depth(),
                                       self.occupancy() / self.num_slots,
                                       **(self._iteration_gauges() or {}))
+        lag_fn = getattr(scheduler, "wfq_lag_by_tenant", None)
+        if lag_fn is not None:
+            self.metrics.set_wfq_lag(lag_fn())
+        if self.metrics.budget_bytes > 0:
+            ledger = self.memory_ledger()
+            if ledger is not None:
+                self.metrics.check_memory_watermark(ledger["in_use_bytes"])
         return progress
+
+    def memory_ledger(self):
+        """The `memory` section's components (None: not tracked)."""
+        return None
 
     def serve_until_idle(self, scheduler, max_iterations=None):
         """Synchronous drive: iterate until queue and pool are empty."""
@@ -286,6 +496,19 @@ class ServingEngine(_EngineBase):
     (`torch.backends.cuda.matmul.allow_tf32 = False`). `paged=True`
     builds a `PagedServingEngine`.
 
+    Chunked prefill: `prefill_chunk` (a power of two >= 2; on a paged
+    pool also a multiple of `page_size`). A prompt longer than it joins
+    as a pending slot. One chunk an iteration, the pending slots taking
+    turns, runs through a batch-1 view of the slot's rows in verify mode
+    (the flash verify at T = the chunk, the paged verify's tiled route on
+    pages), and the final chunk gives token 0. Pending slots sit out the
+    decode step.
+
+    Fault isolation and retries: `max_attempts`, `backoff_base_s`,
+    `backoff_cap_s`, `watchdog_s`, `sleep` (see `_EngineBase`);
+    `hbm_budget_bytes` arms the memory watermark at `hbm_watermark` of
+    it.
+
     Speculative decoding: `spec_k >= 2` turns the batched decode step
     into an n-gram draft (`spec_ngram`) plus one spec_k-token verify,
     delivering up to spec_k tokens per slot per iteration with the same
@@ -312,13 +535,18 @@ class ServingEngine(_EngineBase):
                  spec_k=None, spec_ngram=2, spec_adapt=True,
                  spec_adapt_low=0.15, spec_adapt_high=0.6,
                  spec_adapt_patience=4, spec_adapt_alpha=0.3, adapters=None,
-                 quantize=None, prefill_chunk=None):
-        if prefill_chunk:
-            raise NotImplementedError(
-                f"ServingEngine(prefill_chunk=...) is not ported yet: it "
-                f"comes with {_LATER['prefill_chunk']}")
+                 quantize=None, prefill_chunk=None, **kw):
         super().__init__(num_slots, max_joins_per_iter=max_joins_per_iter,
-                         metrics=metrics, clock=clock)
+                         metrics=metrics, clock=clock, **kw)
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < 2 or prefill_chunk & (prefill_chunk - 1):
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk}: must be a power of two "
+                    f">= 2 (compile-bucket granularity)")
+        self.prefill_chunk = prefill_chunk
+        self._chunking = {}         # slot -> chunked-prefill progress
+        self._chunk_turn = -1       # the pending slot that ran last
         from ..text.generation import _StepNet
 
         self.device = resolve_device(device)
@@ -450,6 +678,8 @@ class ServingEngine(_EngineBase):
         return {"tenant_slots": self._tenant_slot_counts()}
 
     def _evict(self, s):
+        self._chunking.pop(s, None)
+        self._pending.discard(s)
         self._release_slot_adapter(s)
 
     # ---- the memory ledger ----
@@ -521,13 +751,89 @@ class ServingEngine(_EngineBase):
         """Hook once the pool state exists (paged: the page byte size)."""
 
     def _join(self, s, r):
+        _PT_PREFILL()
         pad_id = int(r.eos_id) if r.eos_id is not None else 0
-        prompt_b, P0, _ = pad_prompt_row(r.prompt, pad_id)
+        prompt_b, P0, Pb = pad_prompt_row(r.prompt, pad_id)
         memory = r.memory.to(self.device)
         self._ensure_state(memory)
+        if self.prefill_chunk is not None and P0 > self.prefill_chunk:
+            return self._pinned_join(s, r, lambda row: self._chunk_begin(
+                s, r, prompt_b, P0, Pb, memory[None]))
         prompt = torch.as_tensor(prompt_b, device=self.device)
         return self._pinned_join(s, r, lambda row: self.placement.run(
             self.layout.join, s, prompt, P0, memory[None], row))
+
+    # ---- chunked prefill ----
+    def _chunk_begin(self, s, r, prompt_b, P0, Pb, memory):
+        """Register slot `s` as a pending chunked prefill: no model runs
+        at join time; `_advance_chunks` runs one chunk an iteration. The
+        slot's write index moves to Pb now, so the masked writes the
+        decode steps make for this inactive slot land past the prompt,
+        where its own first decode write replaces them."""
+        with torch.inference_mode():
+            for c in self._state["inc"]:
+                c.index[s] = Pb
+        self._chunk_register(s, r, prompt_b, P0, Pb, memory, 0)
+        return None
+
+    def _chunk_register(self, s, r, prompt_b, P0, Pb, memory, pos):
+        self._chunking[s] = {"r": r, "prompt_b": prompt_b, "P0": P0,
+                             "Pb": Pb, "memory": memory, "pos": pos}
+        self._pending.add(s)
+        self.metrics.record_chunked_join()
+
+    def _chunk_bucket(self, pos, P0):
+        """(Cb, final) for the chunk starting at `pos`: `prefill_chunk`
+        mid-prompt, the tail's power-of-two bucket (>= 2, the verify
+        path) for the final chunk, which never crosses Pb."""
+        if pos + self.prefill_chunk < P0:
+            return self.prefill_chunk, False
+        return max(2, bucket_size(P0 - pos)), True
+
+    def _advance_chunks(self, now):
+        # pending slots take turns: the next one after the last served
+        order = sorted(self._chunking)
+        turn = [s for s in order if s > self._chunk_turn] + \
+            [s for s in order if s <= self._chunk_turn]
+        for s in turn:
+            info = self._chunking[s]
+            r = info["r"]
+            if self.slots[s] is not r or r.state == "DONE":
+                continue   # harvested since it registered
+            self._chunk_turn = s
+            try:
+                tok0 = self._guarded(
+                    "prefill_chunk", lambda: self._chunk_step(s, info),
+                    _PT_CHUNK)
+            except Exception as e:
+                self._release_failed(s, r, "prefill_chunk", e)
+                return True
+            self.metrics.record_chunk()
+            if info["pos"] >= info["P0"]:
+                self._chunking.pop(s, None)
+                self._pending.discard(s)
+                self._chunk_finalize(s, info)
+                self._deliver(r, int(tok0), self.clock())
+            return True
+        return False
+
+    def _chunk_step(self, s, info):
+        """One chunk through the slot's pool rows; `info["pos"]` advances
+        only after the chunk ran, so a retry re-runs the same chunk (its
+        writes are position-idempotent)."""
+        P0, Pb, pos = info["P0"], info["Pb"], info["pos"]
+        Cb, _ = self._chunk_bucket(pos, P0)
+        dev = self.device
+        prompt = torch.as_tensor(info["prompt_b"], device=dev)
+        tok0 = self.placement.run(
+            self.layout.chunk, s, prompt[:, pos:pos + Cb], pos, P0, Pb,
+            info["memory"], prompt, int(self._adapter_rows[s]))
+        info["pos"] = pos + Cb
+        return tok0
+
+    def _chunk_finalize(self, s, info):
+        """Host bookkeeping once the final chunk ran (paged: the prefix
+        trie and the tail copy-on-write)."""
 
     def _decode_step(self, active):
         # plain vs speculative is the stepper axis (layers.py)
@@ -565,7 +871,14 @@ class PagedServingEngine(ServingEngine):
         partial tokens and an `OutOfPages` cause (`paging.oom_evictions`);
       * pages store the compute dtype (default), bf16 or int8 with
         per-(page, head) scales behind `kv_dtype=`, dequantized at read
-        time (in the kernels on the card).
+        time (in the kernels on the card);
+      * chunked prefill writes each chunk straight into the slot's pages
+        through a width-clipped table row (the verify path, as a partial
+        hit's tail), and each finished chunk's full pages enter the trie
+        at once, so a fault later in the sequence loses only its chunk;
+      * preemption parks the victim's prompt pages in the trie, pinned
+        against eviction until the request resumes, so the resume is a
+        whole-prefix attach: `prefill_count` grows by cold prompts only.
 
     Numerics contract: with `kv_dtype=None` every request's tokens equal
     the dense `ServingEngine`'s (bit for bit on the CPU, where the paged
@@ -582,6 +895,13 @@ class PagedServingEngine(ServingEngine):
         super().__init__(decoder, embed, project, num_slots=num_slots,
                          max_len=max_len, **kw)
         self.page_size = page_size
+        if self.prefill_chunk is not None and \
+                self.prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk={self.prefill_chunk} must be a multiple of "
+                f"page_size={page_size}: chunk frontiers must be "
+                f"page-aligned so every finished chunk is a "
+                f"radix-trie-insertable run of full pages")
         # a speculative pool writes up to spec_k tokens past a row's
         # admitted budget before rolling back: page-cover that overhang
         self._pool_len = pages_for(self.max_len + (self.spec_k or 0),
@@ -658,6 +978,12 @@ class PagedServingEngine(ServingEngine):
         if self._alloc.pages_free < n and self._prefix is not None:
             self._prefix.reclaim(n)
         return self._alloc.alloc(n)
+
+    def _parked_key(self, r):
+        pad_id = int(r.eos_id) if r.eos_id is not None else 0
+        prompt_b, P0, Pb = pad_prompt_row(r.prompt, pad_id)
+        return prompt_b[0, :P0], P0, Pb, self._mem_key(r), \
+            self._tenant_key(r)
 
     def _release_slot(self, s):
         mapped = [int(p) for p in self._table[s] if p >= 0]
@@ -833,12 +1159,27 @@ class PagedServingEngine(ServingEngine):
                                        prompt_tokens=P0)
         args = (s, r, prompt_b, P0, Pb, memory[None])
         if res is not None and res[0] == "whole":
-            return self._attach_shared(res[1], *args)
+            tok0 = self._attach_shared(res[1], *args)
+            self._unpark(r)          # the slot holds the pages now
+            return tok0
+        # a parked prefix is pinned until the resume: only a pool reset
+        # (a failed decode step flushes the trie) can make this a miss
+        self._unpark(r)
+        chunk = self.prefill_chunk
         if res is not None:
+            if chunk is not None and \
+                    P0 - len(res[1]["pages"]) * self.page_size > chunk:
+                # a long divergent tail: chunk from the matched full pages
+                # (a mid-page match re-prefills inside the first chunk)
+                return self._chunk_begin(s, r, prompt_b, P0, Pb,
+                                         memory[None], res[1]["pages"])
             return self._pattach_join(res[1], *args, row)
+        if chunk is not None and P0 > chunk:
+            return self._chunk_begin(s, r, prompt_b, P0, Pb, memory[None])
         return self._prefill_join(*args, row)
 
     def _prefill_join(self, s, r, prompt_b, P0, Pb, memory, row):
+        _PT_PREFILL()
         n_pp = pages_for(Pb, self.page_size)
         pages = self._alloc_pages(n_pp)
         try:
@@ -867,6 +1208,7 @@ class PagedServingEngine(ServingEngine):
         `PagedLayout.pattach`: prefill work scales with the missed
         tokens, not the prompt. The extended prompt is inserted back into
         the trie."""
+        _PT_PATTACH()
         psz = self.page_size
         matched = [int(p) for p in match["pages"]]
         m = len(matched)
@@ -959,6 +1301,119 @@ class PagedServingEngine(ServingEngine):
         self._table[s, pi] = dst
         self.metrics.record_cow_copy()
 
+    # ---- chunked prefill through the pages ----
+    def _chunk_begin(self, s, r, prompt_b, P0, Pb, memory, matched=()):
+        """Register a pending chunked prefill. The matched full pages of a
+        radix partial hit map read-only first and seed the frontier. The
+        host index follows the frontier mid-prompt: pending slots sit out
+        the decode step and the page mapper, and their masked writes land
+        on the unmapped (trash) page at the page-aligned frontier."""
+        matched = [int(p) for p in matched]
+        if matched:
+            self._alloc.incref(matched)
+            self._table[s, :len(matched)] = matched
+        pos = len(matched) * self.page_size
+        self._index[s] = pos
+        self._chunk_register(s, r, prompt_b, P0, Pb, memory, pos)
+        return None
+
+    def _chunk_step(self, s, info):
+        r = info["r"]
+        P0, Pb, pos = info["P0"], info["Pb"], info["pos"]
+        psz = self.page_size
+        Cb, final = self._chunk_bucket(pos, P0)
+        end = pos + Cb
+        n_have = pos // psz       # chunk frontiers are page-aligned
+        n_need = pages_for(end, psz) - n_have
+        fresh = self._alloc_pages(n_need) if n_need > 0 else []
+        Mb = bucket_size(n_have, minimum=1)
+        W = min(self.max_pages, Mb + pages_for(Cb, psz))
+        trow = np.full((1, W), self.num_pages, np.int32)
+        pages_now = [int(p) for p in self._table[s, :n_have]] + fresh
+        k = min(W, len(pages_now))
+        trow[0, :k] = pages_now[:k]
+        dev = self.device
+        prompt = torch.as_tensor(info["prompt_b"], device=dev)
+        try:
+            tok0 = self.placement.run(
+                self.layout.pattach, s, torch.as_tensor(trow, device=dev),
+                prompt[:, pos:end], pos, P0, Pb, info["memory"], prompt,
+                int(self._adapter_rows[s]))
+        except Exception:
+            if fresh:
+                self._alloc.decref(fresh)
+            raise
+        if fresh:
+            self._table[s, n_have:n_have + len(fresh)] = fresh
+        # mid-prompt the index sits at the frontier; the final chunk moves
+        # it to Pb, past the pad hole
+        self._index[s] = Pb if final else end
+        info["pos"] = end
+        if final:
+            info["tok0"] = tok0
+        elif self._prefix is not None:
+            # every finished chunk's full pages enter the trie now: the
+            # work survives a later failure of the sequence
+            self._prefix.insert_prefix(
+                info["prompt_b"][0, :end], self._mem_key(r),
+                self._tenant_key(r),
+                [int(p) for p in self._table[s, :end // psz]])
+        return tok0
+
+    def _chunk_finalize(self, s, info):
+        r, P0, Pb = info["r"], info["P0"], info["Pb"]
+        self.prefill_count += 1
+        if self._prefix is not None:
+            pages = [int(p) for p in self._table[s] if p >= 0]
+            self._prefix.insert(info["prompt_b"][0, :P0], P0, Pb,
+                                self._mem_key(r), self._tenant_key(r), pages,
+                                info["tok0"])
+        self._cow_tail(s, Pb)
+
+    # ---- preemption: park the prompt pages in the prefix trie ----
+    def can_preempt(self, s):
+        """A running slot, out of any chunked prefill, with token 0
+        delivered (its prompt pages are complete), on a pool with a prefix
+        cache to park them in."""
+        r = self.slots[s]
+        return (self._prefix is not None and r is not None and
+                s not in self._pending and r.state == "RUNNING" and
+                len(r.tokens) >= 1)
+
+    def preempt_slot(self, s, now):
+        if not self.can_preempt(s):
+            return None
+        r = self.slots[s]
+        _PT_PREEMPT()    # on the host, before any mutation
+        tokens, P0, Pb, mem, tenant = self._parked_key(r)
+        pages = []
+        for p in self._table[s, :pages_for(Pb, self.page_size)]:
+            if p < 0:
+                break
+            pages.append(int(p))
+        # park the prompt K/V in the trie (an existing terminal is only
+        # refreshed) and pin it until the resume, THEN release the slot:
+        # the pages live on through the trie's references
+        self._prefix.insert(tokens, P0, Pb, mem, tenant, pages,
+                            int(r.tokens[0]), pin=True)
+        r._parked = True
+        self.slots[s] = None
+        self._evict(s)
+        r.slot = None
+        r.state = "QUEUED"
+        # greedy decoding repeats the delivered tokens: the resumed slot
+        # re-decodes them and `_deliver` absorbs exactly this many
+        r._replay = len(r.tokens)
+        r._preemptions += 1
+        self.metrics.record_preemption()
+        return r
+
+    def _unpark(self, r):
+        if getattr(r, "_parked", False):
+            r._parked = False
+            if self._prefix is not None:
+                self._prefix.unpin(*self._parked_key(r))
+
     def _evict_oom(self, s, exc, now):
         """The pool ran dry mid-decode: the starved slot ends with its
         partial tokens and the `OutOfPages` cause; the pool keeps
@@ -968,6 +1423,6 @@ class PagedServingEngine(ServingEngine):
         self._evict(s)
         self.metrics.record_oom_eviction()
         self.metrics.record_error("out_of_pages", exc)
-        self.metrics.record_finish("error")
+        self.metrics.record_finish("error", len(r.tokens))
         r.finish("error", now, error=exc)
 

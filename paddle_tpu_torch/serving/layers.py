@@ -212,6 +212,41 @@ class DenseLayout(CacheLayout):
         self._spec_join_rows(slot, prompt, length, Pb)
         return tok0
 
+    def chunk(self, slot, rows, seed, length, Pb, memory, prompt, row=0):
+        """Chunked prefill: one chunk `rows` [1, Cb] of the bucketed prompt
+        `prompt` [1, Pb] (true length `length`) lands at positions [seed,
+        seed + Cb) of pool slot `slot`, under adapter bank row `row`. A
+        batch-1 view of the slot's row runs it in verify mode (the flash
+        verify at T = Cb): the chunk's K/V are written in place and it
+        attends causally over what the earlier chunks wrote. Every row it
+        splices (bias, cross-attention K/V, speculation rows) comes from
+        the true final (length, Pb), so re-running a chunk is idempotent.
+        Returns the token after the last real prompt position, read from
+        the clamped lane: only the final chunk's is meaningful."""
+        from ..nn.layer.transformer import MultiHeadAttention as MHA
+        from ..ops import attention as A
+
+        eng = self.eng
+        st = eng._state
+        Cb = rows.shape[1]
+        static1 = eng._net.cross_kv(memory)
+        bias_row = _neg_hole(length, Pb, eng._pool_len, eng.device)
+        views = [MHA.StaticKVCache(
+            c.k[slot:slot + 1], c.v[slot:slot + 1],
+            torch.full((1,), int(seed), dtype=torch.int32, device=eng.device))
+            for c in st["inc"]]
+        posn = int(seed) + torch.arange(Cb, device=eng.device)[None]
+        with A.kv_verify_scope(), eng._lora_ctx([row]):
+            logits, _ = eng._net(rows, posn, memory, tgt_mask=bias_row,
+                                 inc=views, static_kv=static1)
+        tok0 = logits[0, min(max(int(length) - 1 - int(seed), 0),
+                             Cb - 1)].argmax(-1)
+        self._cross_rows(st, slot, static1)
+        st["bias"][slot] = bias_row[0]
+        st["tok"][slot] = tok0
+        self._spec_join_rows(slot, prompt, length, Pb)
+        return tok0
+
     def step(self, active):
         """One batched decode step over all S slots; `active` [S] bool on
         the device. Returns the next token per slot (inactive slots
@@ -281,8 +316,11 @@ class PagedLayout(CacheLayout):
         # partial tokens (the pool itself keeps serving). A speculative
         # step writes the FULL fixed-k block (force-rejected tail
         # included), so every page the block touches must be mapped.
+        # Pending slots (mid chunked prefill) are skipped: their index
+        # sits mid-prompt, their pages are the chunks' to map, and a dry
+        # pool must not evict a half-prefilled slot for a step it sits out.
         for s, r in enumerate(list(eng.slots)):
-            if r is None:
+            if r is None or s in eng._pending:
                 continue
             i0 = int(eng._index[s])
             for pi in range(i0 // psz, (i0 + width - 1) // psz + 1):
@@ -292,7 +330,8 @@ class PagedLayout(CacheLayout):
                     except OutOfPages as e:
                         eng._evict_oom(s, e, now)
                         break
-        return np.asarray([r is not None for r in eng.slots], bool)
+        return np.asarray([r is not None and s not in eng._pending
+                           for s, r in enumerate(eng.slots)], bool)
 
     def advance_rows(self, n_emit):
         eng = self.eng
@@ -372,8 +411,10 @@ class PagedLayout(CacheLayout):
         at positions [seed_len, seed_len + Tb) through the width-clipped
         table row `trow` [1, W] and the verify read sees the seed K/V
         through the same row (bias clipped to W pages), so the attention
-        reads only the hit, not the whole pool. Returns token 0 as a
-        device scalar."""
+        reads only the hit, not the whole pool. A chunk of a chunked
+        prefill is the same block (seed = the chunk frontier). Returns, as
+        a device scalar, the token after the last real prompt position,
+        read from the clamped lane (a mid-prompt chunk's is discarded)."""
         from ..ops import attention as A
 
         eng = self.eng
@@ -392,7 +433,8 @@ class PagedLayout(CacheLayout):
                                  static_kv=static1)
         # token 0 conditions on the LAST REAL prompt position, which sits
         # at tail lane (length - 1 - seed_len)
-        tok0 = logits[0, int(length) - 1 - int(seed_len)].argmax(-1)
+        lane = min(max(int(length) - 1 - int(seed_len), 0), tail.shape[1] - 1)
+        tok0 = logits[0, lane].argmax(-1)
         self._cross_rows(st, slot, static1)
         st["bias"][slot] = bias_row[0]
         st["tok"][slot] = tok0
@@ -530,8 +572,8 @@ class SpecStepper:
         active = lay.map_step_pages(active, k)
         if not active.any():
             return np.zeros((S, k), np.int64), np.zeros((S,), np.int64)
-        spec_on = np.asarray([r is not None and getattr(r, "spec", True)
-                              for r in eng.slots], bool)
+        spec_on = np.asarray([r is not None and r.spec for r in eng.slots],
+                             bool)
         t0 = time.perf_counter()
         drafts = eng.placement.run(lay.draft)
         if eng.device.type == "cuda":

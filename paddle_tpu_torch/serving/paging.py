@@ -524,13 +524,16 @@ class RadixPrefixCache:
 
     # -- insert ----------------------------------------------------------
 
-    def insert(self, tokens, P0, Pb, memory, tenant, pages, tok0):
+    def insert(self, tokens, P0, Pb, memory, tenant, pages, tok0, pin=False):
         """Extend the trie with a completed prompt's pages (already
         refcounted by their slot; the trie takes its own references).
         Full pages become (or refresh) trie nodes one by one — a
         partial-hit join re-walks its matched prefix and only adopts
         the pages it actually created — and the sub-page tail plus any
-        hole pages up to the prompt bucket land in a terminal."""
+        hole pages up to the prompt bucket land in a terminal. `pin`
+        holds the terminal against eviction until `unpin` (a preempted
+        request's parked prefix), before the capacity bound evicts
+        anything."""
         psz = self.page_size
         tokens = tuple(int(t) for t in tokens)[:int(P0)]
         P0, Pb = int(P0), int(Pb)
@@ -554,6 +557,7 @@ class RadixPrefixCache:
         ent = node.terminals.get(tkey)
         if ent is not None:
             ent["tick"] = t               # hot terminal: refresh LRU
+            ent["pins"] += int(bool(pin))
             return
         tail = [int(p) for p in pages[n_full:]]
         self.allocator.incref(tail)
@@ -561,7 +565,8 @@ class RadixPrefixCache:
         # it raw (the submit path never blocks on it) — the first
         # whole hit canonicalizes it to a host int
         node.terminals[tkey] = {"pages": tail, "tok0": tok0,
-                                "n_prompt": P0, "Pb": Pb, "tick": t}
+                                "n_prompt": P0, "Pb": Pb, "tick": t,
+                                "pins": int(bool(pin))}
         self._n_terminals += 1
         self._n_pages += len(tail)
         while self._n_terminals > self.capacity:
@@ -599,6 +604,26 @@ class RadixPrefixCache:
             child.tick = t
             node = child
 
+    def unpin(self, tokens, P0, Pb, memory=None, tenant=None):
+        """Release one `insert(pin=True)` hold of a whole prompt's
+        terminal (its resume attached it, or the request died queued).
+        `flush` and `drop_tenant` drop pinned terminals too. Returns False
+        when no such terminal exists."""
+        psz = self.page_size
+        tokens = tuple(int(t) for t in tokens)[:int(P0)]
+        P0 = int(P0)
+        root = self._roots.get((self.mem_digest(memory), tenant))
+        if root is None:
+            return False
+        node, path = self._walk(root, tokens, P0)
+        n_full = P0 // psz
+        ent = node.terminals.get((tokens[n_full * psz:P0], P0)) \
+            if len(path) == n_full else None
+        if ent is None or ent["Pb"] != int(Pb):
+            return False
+        ent["pins"] = max(0, ent["pins"] - 1)
+        return True
+
     # -- eviction --------------------------------------------------------
 
     def _iter_nodes(self):
@@ -610,14 +635,17 @@ class RadixPrefixCache:
                 stack.append((key, child))
 
     def _evict_one(self):
-        """Drop the least-recently-used evictable item: a terminal, or
-        a BARE leaf node (no children, no terminals). Interior nodes
-        are never dropped while anything hangs below them — they still
-        serve partial matches — but become bare (and evictable) as
-        their subtrees age out. Returns False when nothing is left."""
+        """Drop the least-recently-used evictable item: an unpinned
+        terminal, or a BARE leaf node (no children, no terminals).
+        Interior nodes are never dropped while anything hangs below
+        them — they still serve partial matches — but become bare (and
+        evictable) as their subtrees age out. Returns False when
+        nothing is left."""
         best = None                   # (tick, kind, ...)
         for key, node in self._iter_nodes():
             for tkey, ent in node.terminals.items():
+                if ent["pins"]:
+                    continue          # a parked prefix awaiting its resume
                 if best is None or ent["tick"] < best[0]:
                     best = (ent["tick"], "terminal", node, tkey)
             if (node.parent is not None and not node.children

@@ -53,13 +53,18 @@ class RequestResult(collections.namedtuple(
 
 class Request:
     """One generation request: a 1-D prompt and a [M, D] cross-attention
-    memory (a tensor on any device, or an array). `adapter` names the
-    registered tenant adapter it decodes under (None: the base model)."""
+    memory (a tensor on any device, or an array). `spec=False` opts the
+    request out of speculative drafts on a spec engine (same tokens, one
+    a round). `adapter` names the registered tenant adapter it decodes
+    under (None: the base model). `slo` is its traffic class: an
+    `SLOClass`, or a class name a `ShapingScheduler` resolves at submit
+    (the FIFO `Scheduler` ignores it)."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt, memory=None, *, max_new_tokens=32, eos_id=1,
-                 deadline=None, stream_cb=None, adapter=None):
+                 deadline=None, stream_cb=None, spec=True, adapter=None,
+                 slo=None):
         prompt = np.asarray(prompt)
         if prompt.ndim != 1:
             raise ValueError(f"prompt must be 1-D [P], got {prompt.shape}")
@@ -72,7 +77,13 @@ class Request:
         self.eos_id = eos_id
         self.deadline = deadline      # absolute engine-clock seconds
         self.stream_cb = stream_cb    # called (request, token) per token
+        self.spec = bool(spec)
         self.adapter = adapter
+        self.slo = slo
+        # preemption (paged pools): the delivered tokens a resumed slot
+        # re-decodes and absorbs silently, and the preemptions so far
+        self._replay = 0
+        self._preemptions = 0
         self.tokens = []
         self.state = "QUEUED"         # QUEUED -> RUNNING -> DONE
         self.finish_reason = None

@@ -31,13 +31,16 @@ class ServingServer:
         server.shutdown(drain=True)
 
     `submit` raises `QueueFull` past the queue's high-water mark and
-    ValueError for requests the pool can never serve."""
+    ValueError for requests the pool can never serve. `scheduler=` takes
+    a caller-built scheduler (a `ShapingScheduler` with SLO classes and
+    tenant weights); the default is the FIFO `Scheduler`."""
 
     def __init__(self, engine, *, max_queue=64, clock=None,
-                 idle_wait_s=0.005, start=True):
+                 idle_wait_s=0.005, start=True, scheduler=None):
         self.engine = engine
         self.clock = clock if clock is not None else engine.clock
-        self.scheduler = Scheduler(max_queue=max_queue, clock=self.clock)
+        self.scheduler = scheduler if scheduler is not None else \
+            Scheduler(max_queue=max_queue, clock=self.clock)
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._dead = False
@@ -57,12 +60,16 @@ class ServingServer:
         return self
 
     def submit(self, prompt, memory=None, *, max_new_tokens=32, eos_id=1,
-               deadline=None, timeout=None, stream_cb=None, adapter=None):
+               deadline=None, timeout=None, stream_cb=None, spec=True,
+               adapter=None, slo=None):
         """Enqueue one generation request; returns the `Request` whose
         `.result()` blocks for a RequestResult. `timeout` (seconds from
         now) is sugar for an absolute `deadline` on the engine clock.
-        `adapter` names the registered tenant adapter to decode under
-        (None: the base model); an unknown name raises ValueError here."""
+        `spec=False` opts out of speculative drafts. `adapter` names the
+        registered tenant adapter to decode under (None: the base model);
+        an unknown name raises ValueError here. `slo` is the traffic
+        class (an `SLOClass` or a name the scheduler resolves; an unknown
+        name raises ValueError from a `ShapingScheduler`)."""
         if self._dead:
             raise ServerCrashed(f"server is dead ({self._crash_cause!r}); "
                                 f"restart it")
@@ -70,7 +77,7 @@ class ServingServer:
             deadline = self.clock() + float(timeout)
         r = Request(prompt, memory, max_new_tokens=max_new_tokens,
                     eos_id=eos_id, deadline=deadline, stream_cb=stream_cb,
-                    adapter=adapter)
+                    spec=spec, adapter=adapter, slo=slo)
         self.engine.admit_check(r)   # fail fast, before queueing
         try:
             self.scheduler.submit(r)
@@ -112,7 +119,7 @@ class ServingServer:
             [r for r in self.engine.slots if r is not None]
         for r in doomed:
             r.fail(exc, now)
-            self.engine.metrics.record_finish("error")
+            self.engine.metrics.record_finish("error", len(r.tokens))
 
     def shutdown(self, drain=True, timeout=None):
         """drain=True: close admission, run accepted work to completion,
@@ -135,6 +142,7 @@ class ServingServer:
             now = self.clock()
             self.scheduler.drain()
             for r in self.scheduler.abort_queued("shutdown", now):
-                self.engine.metrics.record_finish(r.finish_reason)
+                self.engine.metrics.record_finish(r.finish_reason,
+                                                  len(r.tokens))
             self.engine.abort_active("shutdown", now)
         self._started = False

@@ -78,11 +78,16 @@ callers; `paged_read_case` and `dense_decode_case` make their operands
 from numpy's seeded generator. tests/test_torch_routes.py and
 tests/test_torch_merge.py hold them to the plain versions'
 split-and-combine and to the JAX kernels in interpret mode.
+
+`faults` is the deterministic fault-injection harness the serving
+engine's fault points read (`testing/faults.py`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import faults  # noqa: F401
 
 __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "FWD_KEY_TILE", "ULP_FC_BF16", "SUM_FC_BF16", "SHARE_FC_BF16",
@@ -93,7 +98,8 @@ __all__ = ["ULP_BF16_GRAD", "SHARE_BF16_GRAD", "L2_BF16_GRAD",
            "bf16_round", "merge_in_kernel", "paged_verify_in_kernel",
            "paged_decode_in_kernel", "flash_decode_in_kernel",
            "flash_verify_in_kernel", "paged_read_case",
-           "dense_decode_case", "dense_verify_case", "nan_past_lengths"]
+           "dense_decode_case", "dense_verify_case", "nan_past_lengths",
+           "faults"]
 
 #: bf16 dq, dk and dv: every element within one bf16 ulp of the plain
 #: version's largest entry (2^-8 to 2^-7 of that entry), at most 1% of
@@ -196,7 +202,7 @@ def fused_conv_abs_sums(x, scale, shift, w, z, dz, ds, dss, relu=True):
     dz_eff rounded as `fused_bwd_reference` rounds it (from the stored
     z), scale 1 without a norm, and 0 where the ReLU masks the element
     (its dx is 0 on both sides)."""
-    from .ops.fused_conv import _act_in, _bcol
+    from ..ops.fused_conv import _act_in, _bcol
 
     xn, mask = _act_in(x, scale, shift, relu)
     wa = w.double().abs()
@@ -215,7 +221,7 @@ def fused_conv_mutants(x, scale, shift, w, z, dz, ds, dss, relu=True):
     left in float32, the plain dx with dz_eff left in float32), what a
     kernel that skipped either bf16 rounding computes (the plain versions
     with rounded=False)."""
-    from .ops.fused_conv import fused_bwd_reference, fused_fwd_reference
+    from ..ops.fused_conv import fused_bwd_reference, fused_fwd_reference
 
     return (fused_fwd_reference(x, scale, shift, w, relu, rounded=False)[0],
             fused_bwd_reference(x, scale, shift, w, z, dz, ds, dss, relu,
@@ -237,7 +243,7 @@ def flash_fwd_tiled(q, k, v, bias=None, is_causal=False, scale=None,
     visible key they add exp(0) terms that its first visible key wipes
     (alpha = 0), after it they add nothing, so visiting them changes
     nothing."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -304,7 +310,7 @@ def flash_fwd_split(q, k, v, bias=None, is_causal=False, scale=None,
     softmax as `flash_attention_fwd_plain` takes it: (out [b, h, sq, d],
     lse [b*h, sq, 1]). No dropout or segment ids: those keep the float32
     forward on the CUDA cores."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     b, h, sq, d = q.shape
     mm = lambda x, y: split_matmul(x, y, pieces)      # noqa: E731
@@ -380,7 +386,7 @@ def merge_in_kernel(q, k, v, length, bias=None, scale=None, plan=None,
     (p * v_scale) * v added key by key (p rounded first when `rounded`).
     The groups merge in group order, the splits in rank order; a row
     with no visible key gives 0. Returns [S, h, T, d] float32."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     S, h, T, d = q.shape
     L = k.shape[2]
@@ -463,7 +469,7 @@ def _logical(pages, scales, table):
     """Paged keys as the kernel reads them: the [S, h, mp * psz, d] raw
     logical rows (int8 bytes as float) through the trash-clipped table,
     and their [S, h, mp * psz] per-key scales (None without scales)."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     S, mp = table.shape
     _, h, psz, d = pages.shape
@@ -486,7 +492,7 @@ def paged_verify_in_kernel(q, k_pages, v_pages, k_scale, v_scale, table,
     write, bias [S, mp * psz] or None; `plan` (splits, pages a split)
     defaults to `ops.attention.paged_decode_plan` on an H100. Returns
     [S, h, T, d] float32."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     S, h = q.shape[:2]
     psz, mp = k_pages.shape[2], table.shape[1]
@@ -515,7 +521,7 @@ def flash_verify_in_kernel(q, k, v, length, bias=None, scale=None,
     split) defaults to `ops.attention.flash_decode_plan` on an H100 (the
     dense decode's plan, which the verify follows). Returns [b, h, T, d]
     float32."""
-    from .ops import attention as A
+    from ..ops import attention as A
 
     b, h = q.shape[:2]
     L = k.shape[2]

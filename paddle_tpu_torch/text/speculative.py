@@ -1,6 +1,6 @@
-"""Speculative decoding: the n-gram self-draft and the cache-mirror
-arithmetic the serving steppers share (the JAX package's
-`text/speculative.py`; its `DraftModel` is not ported yet).
+"""Speculative decoding: the n-gram self-draft, the draft model and the
+cache-mirror arithmetic the serving steppers and `DecodeEngine` share
+(the JAX package's `text/speculative.py`).
 
 Draft-verify generation: a cheap DRAFT source proposes k - 1
 continuation tokens, ONE k-token VERIFY step runs them through the
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ngram_propose", "write_hist", "rollback_index"]
+__all__ = ["ngram_propose", "write_hist", "rollback_index", "DraftModel"]
 
 
 def ngram_propose(hist, pending, lengths, Pb, n_new, gen_len, ngram=2):
@@ -86,3 +86,20 @@ def rollback_index(index, k, n_match, active):
     accepted drafts on active rows, pin inactive rows."""
     keep = torch.where(active, 1 + n_match.to(torch.int32), 0)
     return (index.to(torch.int32) - int(k) + keep).to(torch.int32)
+
+
+class DraftModel:
+    """A small draft model with its OWN StaticKVCache: a (decoder, embed,
+    project) triple that shares the target's vocabulary and
+    cross-attention memory. `DecodeEngine.generate(spec_k=k,
+    draft_model=...)` prefills it beside the target, steps it k times a
+    round (the pending token, then each draft; the last step only writes,
+    so the draft cache covers the same k positions the verify writes) and
+    rolls its write indices back with the target's acceptance arithmetic
+    (`rollback_index`). Its weights live where the target's do."""
+
+    def __init__(self, decoder, embed, project):
+        from .generation import _StepNet
+
+        self.decoder = decoder
+        self._net = _StepNet(decoder, embed, project).eval()

@@ -148,8 +148,12 @@ def test_prefill_logits_match_jax(stacks):
 
 
 def test_engine_refuses_later_slices_and_unservable_requests(stacks):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(*stacks[1], device="cpu", prefill_chunk=8)
+    # chunked prefill is ported: a power-of-two chunk is taken, any other
+    # is refused
+    assert ServingEngine(*stacks[1], device="cpu",
+                         prefill_chunk=8).prefill_chunk == 8
+    with pytest.raises(ValueError, match="power of two"):
+        ServingEngine(*stacks[1], device="cpu", prefill_chunk=6)
     with pytest.raises(ValueError, match="only 'int8'"):
         ServingEngine(*stacks[1], device="cpu", quantize="int4")
     with pytest.raises(ValueError, match="spec_k"):
