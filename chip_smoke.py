@@ -337,10 +337,39 @@ Phases; any failure exits nonzero before the result lines:
     16 cold prompts, the allocator's check passes and every page returns
     after a prefix flush; interactive TTFT p50 / p99 against the twin
     (printed). The three phases' wall time is printed.
-29. Output: a {"kernels": [...]} line for all eleven kernels (the
+29. The quick start through the high-level API: LeNet on MNIST idx files
+    written from --seed (8192 train, 1024 test images), hapi.Model with
+    Adam, CrossEntropyLoss and Accuracy(topk=(1, 2)), two epochs of fit
+    with 2 loader workers (forkserver), evaluate, predict, save and load
+    into a model of other weights. Every loss finite; the loaded model's
+    predictions bitwise equal; steps/s and fit_stats printed.
+30. Crash-safe resume: fit(resume=) on LeNet, four epochs, under
+    torch.use_deterministic_algorithms(True); a run killed halfway
+    through its third epoch's checkpoint (the checkpoint.write fault
+    point) leaves latest_step() 1; a model of other weights resumes and
+    ends bitwise equal to the uninterrupted run (parameters and
+    optimizer state).
+31. MobileNetV2 at its published configuration (width 1.0, 224², 1000
+    classes) through hapi.Model: a DatasetFolder of 1024 uint8 256² .npy
+    images, ToTensor / RandomResizedCrop / RandomHorizontalFlip /
+    Normalize in 4 workers, DevicePrefetcher, batch 64, float32,
+    Momentum(0.9) under CosineAnnealingDecay through the LRScheduler
+    callback, 16 steps, evaluate on 4 batches. Every loss finite; imgs/s
+    over steps 3-12, the loader wait a step, fit_stats, the peak memory
+    and the busy share of a profiled window printed.
+    31b. One train_batch each of LeNet, vgg16(batch_norm=True),
+    mobilenet_v1() and mobilenet_v2() at the published widths in float64
+    (batch 2, 64² images, 28² for LeNet; dropout 0), card against CPU
+    within phase 19c's float64 limits.
+32. ERNIE-base (ErnieForSequenceClassification) through hapi.Model, 8 x
+    512 ragged, float32, dropout 0.1, AdamW, 3 train_batch steps: the
+    flash_fwd (SIMT route), flash_bwd_dq and flash_bwd_dkv launches (12
+    layers x 3 steps each); the same steps driven by hand give the same
+    losses within rtol 1e-6.
+33. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
-    10, 22 and 25), then the card's name and power limit, then {"ok":
+    10, 22, 25 and 32), then the card's name and power limit, then {"ok":
     true, "device": {...}} as the last line.
 """
 from __future__ import annotations
@@ -450,6 +479,23 @@ CH_CHUNK, CH_LONG, CH_SHORT, CH_LONG_LEN = 256, 4, 12, 1024
 # preemption under the ShapingScheduler (phase 28): batch-class requests
 # fill the slots, then interactive ones arrive
 PR_BATCH, PR_INTER, PR_BATCH_LEN, PR_BATCH_NEW = 8, 8, 512, 64
+# the high-level API and the data pipeline (phases 29-32). LeNet on MNIST
+# idx files (29-30): images, batch, epochs, loader workers; resume: the
+# epochs, and the hit of `checkpoint.write` that kills the third epoch's
+# save halfway (a save writes 4 shards: epoch, model, numpy_rng, opt)
+H_TRAIN, H_TEST, H_BATCH, H_EPOCHS, H_WORKERS = 8192, 1024, 64, 2, 2
+H_RESUME_EPOCHS, H_KILL_HIT = 4, 2 * 4 + 2
+# MobileNetV2 at its published configuration (Sandler et al. 2018: width
+# 1.0, 224 x 224, 1000 classes) on a folder of uint8 256 x 256 x 3 .npy
+# images (31): images, class folders, side, crop, batch, steps, eval
+# batches, loader workers, the cosine schedule's base rate
+M_IMAGES, M_CLASSES, M_SIDE, M_CROP = 1024, 8, 256, 224
+M_BATCH, M_STEPS, M_EVAL, M_WORKERS, M_LR = 64, 16, 4, 4, 0.05
+# steps timed on one device-resident batch, no loader running (31)
+M_ALONE = 6
+# ERNIE-base through hapi.Model (32): batch, sequence, steps, AdamW rate,
+# the hapi-against-hand-driven loss limit (relative)
+HE_BATCH, HE_SEQ, HE_STEPS, HE_LR, REL_HAPI = 8, 512, 3, 5e-5, 1e-6
 
 
 #: flash_fwd launches by route on each serving path, and int8_matmul's
@@ -2881,19 +2927,7 @@ def profile_resnet(tr, batch, steps=2):
     if busy == 0:
         log("  profiler recorded no device time: breakdown not measured")
         return None
-    groups = {"conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
-              "other": 0.0}
-    for ms, _, key in rows:
-        low = key.lower()
-        grp = ("conv" if any(t in low for t in (
-                   "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit"))
-               else "gemm" if any(t in low for t in (
-                   "gemm", "cutlass", "nvjet", "xmma"))
-               else "reduce" if "reduce" in low
-               else "elementwise" if any(t in low for t in (
-                   "elementwise", "vectorized", "unrolled"))
-               else "other")
-        groups[grp] += ms
+    groups = group_rows(rows)
     share = busy / (wall * 1e3)
     log(f"  profiled {steps} steps: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy:.1f} ms ({100 * share:.1f}%), idle {100 * (1 - share):.1f}%")
@@ -4046,6 +4080,550 @@ def preempt_phase(A, seed):
     return paths, out
 
 
+# ---------------------------- the high-level API and data pipeline (29-32)
+
+def write_mnist(root, seed):
+    """MNIST-format idx files (uint8, big-endian headers) of H_TRAIN and
+    H_TEST 28 x 28 images from `seed`: noise plus a bright band of rows
+    2k+4 .. 2k+6 for class k, so the classes can be learned. Returns
+    {(split, "images" | "labels"): path}."""
+    import struct
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    paths = {}
+    for split, n in (("train", H_TRAIN), ("test", H_TEST)):
+        labels = rs.randint(0, 10, n).astype(np.uint8)
+        imgs = rs.randint(0, 96, (n, 28, 28)).astype(np.uint8)
+        for k in range(10):
+            imgs[labels == k, 2 * k + 4:2 * k + 7] += 150
+        for kind, arr, magic in (("images", imgs, 2051),
+                                 ("labels", labels, 2049)):
+            path = os.path.join(root, f"{split}-{kind}-idx")
+            with open(path, "wb") as f:
+                f.write(struct.pack(">I", magic) + b"".join(
+                    struct.pack(">I", d) for d in arr.shape) + arr.tobytes())
+            paths[split, kind] = path
+    return paths
+
+
+def step_clock():
+    """A hapi callback that records the host clock at the end of each
+    training batch (after the loss's float(), so each reading follows a
+    device sync)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ends.append(time.perf_counter())
+
+    return StepClock()
+
+
+def lenet_model(seed):
+    from paddle_tpu_torch import Model, metric, nn, optimizer
+    from paddle_tpu_torch.vision.models import LeNet
+
+    net = LeNet(generator=torch.Generator().manual_seed(seed))
+    model = Model(net)
+    model.prepare(optimizer.Adam(1e-3, parameters=net.named_parameters()),
+                  nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 2)))
+    return model
+
+
+def hapi_lenet(seed, root):
+    """Phase 29: the quick start on the card. LeNet on H_TRAIN MNIST idx
+    images, H_EPOCHS epochs of fit with H_WORKERS loader workers, then
+    evaluate and predict on H_TEST; save, load into a model of other
+    weights, predict again: bitwise equal."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    paths = write_mnist(root, seed)
+    train = MNIST(paths["train", "images"], paths["train", "labels"])
+    test = MNIST(paths["test", "images"], paths["test", "labels"])
+    model = lenet_model(seed)
+    clock = step_clock()
+    _build.reset_launches()
+    hist = model.fit(train, batch_size=H_BATCH, epochs=H_EPOCHS, verbose=0,
+                     num_workers=H_WORKERS, callbacks=[clock])
+    launches = {k: v for k, v in _build.launches().items() if v}
+    losses = [h["loss"][0] for h in hist]
+    stats = model.fit_report()
+    steps = len(clock.ends)
+    per_epoch = steps // H_EPOCHS
+    # steps/s within the last epoch, past its first two steps (its
+    # workers are up by then)
+    first = steps - per_epoch + 1
+    steps_s = (steps - 1 - first) / (clock.ends[-1] - clock.ends[first])
+    # the loader alone over the same set: its first batch (the workers'
+    # start-up) and the rest with the workers' shutdown, two epochs
+    startup = []
+    for _ in range(H_EPOCHS):
+        t0 = time.perf_counter()
+        it = iter(io.DataLoader(train, batch_size=H_BATCH, timeout=300,
+                                num_workers=H_WORKERS))
+        next(it)
+        t1 = time.perf_counter()
+        for _ in it:
+            pass
+        startup.append([t1 - t0, time.perf_counter() - t1])
+    ev = model.evaluate(test, batch_size=H_BATCH, verbose=0,
+                        num_workers=H_WORKERS)
+    pred = model.predict(test, batch_size=H_BATCH, stack_outputs=True)[0]
+    model.save(os.path.join(root, "lenet"))
+    other = lenet_model(seed + 1)
+    other.load(os.path.join(root, "lenet"))
+    again = other.predict(test, batch_size=H_BATCH, stack_outputs=True)[0]
+    log(f"  fit: {steps} steps, epoch losses {[round(x, 4) for x in losses]}; "
+        f"{steps_s:.1f} steps/s in the last epoch past its first 2 steps; "
+        f"fit_stats {json.dumps(stats)}")
+    log("  the loader alone, by epoch: first batch s, the rest and the "
+        "workers' shutdown s: " + "; ".join(
+            f"{a:.3f}, {b:.3f}" for a, b in startup))
+    log(f"  evaluate: {json.dumps(ev)}; predict {pred.shape}; launches of "
+        f"the ported kernels {launches} (LeNet runs none)")
+    if not all(np.isfinite(losses)) or not np.isfinite(ev["loss"][0]):
+        raise AssertionError(f"non-finite LeNet loss: {losses}, {ev}")
+    if not np.array_equal(pred, again):
+        raise AssertionError("predictions after save / load differ: "
+                             f"{np.abs(pred - again).max()}")
+    log("  save / load round trip: predictions bitwise equal")
+    return {"steps_per_s": steps_s, "fit_stats": stats, "epoch_losses":
+            losses, "loader_alone_s": startup, "evaluate": ev,
+            "launches": launches}
+
+
+def train_state(model):
+    """{name: tensor or counter} of a hapi Model's parameters, buffers and
+    optimizer state."""
+    return {**model.network.state_dict(), **{
+        f"opt.{k}": v for k, v in model._optimizer.state_dict().items()}}
+
+
+def hapi_resume(seed, root):
+    """Phase 30: fit(resume=) on LeNet under deterministic algorithms: an
+    uninterrupted run, a run killed halfway through its third epoch's
+    checkpoint (`checkpoint.write`, hit H_KILL_HIT), then a model of other
+    weights resuming from the newest valid step. The resumed run must end
+    bitwise equal to the uninterrupted one: parameters and optimizer
+    slots. torch's guard admits cuBLAS in deterministic mode only under a
+    CUBLAS_WORKSPACE_CONFIG; it is set for this phase (cuBLAS on one
+    stream gives the same bits at every run) and restored after."""
+    from paddle_tpu_torch.io.checkpoint import CheckpointManager
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    paths = write_mnist(root, seed)
+    train = MNIST(paths["train", "images"], paths["train", "labels"])
+    kw = dict(epochs=H_RESUME_EPOCHS, batch_size=H_BATCH, verbose=0)
+    old_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        np.random.seed(seed)
+        ref = lenet_model(seed)
+        t0 = time.perf_counter()
+        ref.fit(train, resume=os.path.join(root, "ref"), **kw)
+        wall = time.perf_counter() - t0
+        np.random.seed(seed)
+        crashed = lenet_model(seed)
+        try:
+            with faults.inject("checkpoint.write", on="nth", n=H_KILL_HIT):
+                crashed.fit(train, resume=os.path.join(root, "run"), **kw)
+        except faults.InjectedFault:
+            pass
+        else:
+            raise AssertionError("the injected kill did not fire")
+        latest = CheckpointManager(os.path.join(root, "run")).latest_step()
+        if latest != 1:
+            raise AssertionError(f"latest valid step {latest}, expected 1")
+        np.random.seed(seed + 99)
+        resumed = lenet_model(seed + 7)
+        resumed.fit(train, resume=os.path.join(root, "run"), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cfg
+    want, got = train_state(ref), train_state(resumed)
+    differ = [k for k in want
+              if not (torch.equal(want[k], got[k]) if isinstance(
+                  want[k], torch.Tensor) else want[k] == got[k])]
+    log(f"  {H_RESUME_EPOCHS} epochs ({wall:.2f} s uninterrupted); the kill "
+        f"at hit {H_KILL_HIT} of checkpoint.write left latest valid step "
+        f"{latest}; resumed from epoch {latest + 1}: {len(want)} tensors "
+        f"and counters compared, {len(differ)} differ (deterministic "
+        f"algorithms on)")
+    if differ or want.keys() != got.keys():
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one: {differ[:5]}")
+    return {"latest_step": latest, "compared": len(want), "differ": 0,
+            "uninterrupted_s": wall}
+
+
+def write_image_folder(root, seed):
+    """M_IMAGES uint8 M_SIDE x M_SIDE x 3 images as .npy files in
+    M_CLASSES class folders (the card machine has no PIL)."""
+    rs = np.random.RandomState(seed)
+    base = os.path.join(root, "images")
+    for i in range(M_IMAGES):
+        cdir = os.path.join(base, f"class_{i % M_CLASSES}")
+        os.makedirs(cdir, exist_ok=True)
+        np.save(os.path.join(cdir, f"{i:05d}.npy"),
+                rs.randint(0, 256, (M_SIDE, M_SIDE, 3), dtype=np.uint8))
+    return base
+
+
+def timed_batches(it, waits):
+    """Yield from `it`, appending the seconds each batch was waited for."""
+    it = iter(it)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        waits.append(time.perf_counter() - t0)
+        yield batch
+
+
+def group_rows(rows):
+    """Device ms by kernel group of `kernel_rows` output."""
+    groups = {"conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
+              "other": 0.0}
+    for ms, _, key in rows:
+        low = key.lower()
+        grp = ("conv" if any(t in low for t in (
+                   "conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit"))
+               else "gemm" if any(t in low for t in (
+                   "gemm", "cutlass", "nvjet", "xmma"))
+               else "reduce" if "reduce" in low
+               else "elementwise" if any(t in low for t in (
+                   "elementwise", "vectorized", "unrolled"))
+               else "other")
+        groups[grp] += ms
+    return groups
+
+
+def hapi_mobilenet(seed, root):
+    """Phase 31: MobileNetV2 (1.0, 224, 1000 classes) through hapi.Model:
+    a DatasetFolder of .npy images, ToTensor / RandomResizedCrop /
+    RandomHorizontalFlip / Normalize in M_WORKERS loader workers,
+    DevicePrefetcher, Momentum(0.9) under CosineAnnealingDecay stepped by
+    the LRScheduler callback, M_STEPS steps of fit, then evaluate on
+    M_EVAL batches. Steps 13-15 run under torch.profiler; then M_ALONE
+    more steps on one batch already on the card (no loader running)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import Model, callbacks, io, metric, nn, optimizer
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    t0 = time.perf_counter()
+    folder = write_image_folder(root, seed)
+    log(f"  wrote {M_IMAGES} images in {time.perf_counter() - t0:.2f} s")
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    train = datasets.DatasetFolder(folder, transform=T.Compose([
+        T.ToTensor(), T.RandomResizedCrop(M_CROP),
+        T.RandomHorizontalFlip(), T.Normalize(mean, std)]))
+    test = datasets.DatasetFolder(folder, transform=T.Compose([
+        T.ToTensor(), T.CenterCrop(M_CROP), T.Normalize(mean, std)]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net = mobilenet_v2(generator=torch.Generator().manual_seed(seed))
+    sched = optimizer.lr.CosineAnnealingDecay(M_LR, T_max=M_STEPS)
+    model = Model(net)
+    model.prepare(optimizer.Momentum(sched, 0.9,
+                                     parameters=net.named_parameters()),
+                  nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+    clock = step_clock()
+    window = {}
+
+    class Profiled(callbacks.Callback):
+        """torch.profiler over steps 13-15."""
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == 11:
+                torch.cuda.synchronize()
+                window["prof"] = profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                window["prof"].start()
+                window["t0"] = time.perf_counter()
+            elif step == 14:
+                torch.cuda.synchronize()
+                window["wall"] = time.perf_counter() - window["t0"]
+                window["prof"].stop()
+
+    loader = io.DataLoader(train, batch_size=M_BATCH, shuffle=True,
+                           drop_last=True, num_workers=M_WORKERS,
+                           timeout=300)
+    waits = []
+    _build.reset_launches()
+    hist = model.fit(timed_batches(io.DevicePrefetcher(iter(loader)),
+                                   waits),
+                     epochs=1, num_iters=M_STEPS, verbose=0,
+                     callbacks=[clock, Profiled(), callbacks.LRScheduler()])
+    launches = {k: v for k, v in _build.launches().items() if v}
+    peak = torch.cuda.max_memory_allocated() - before
+    stats = model.fit_report()
+    ends = clock.ends
+    imgs_s = M_BATCH * 10 / (ends[11] - ends[1])
+    step_ms = 1e3 * (ends[11] - ends[1]) / 10
+    wait_ms = 1e3 * float(np.mean(waits[2:12]))
+    # the same steps on one batch already on the card: the step without
+    # the loader beside it
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xb = torch.randn(M_BATCH, 3, M_CROP, M_CROP, device="cuda", generator=g)
+    yb = torch.randint(0, M_CLASSES, (M_BATCH, 1), device="cuda",
+                       generator=g)
+    model.train_batch([xb], [yb])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(M_ALONE):
+        model.train_batch([xb], [yb])
+    alone_ms = 1e3 * (time.perf_counter() - t1) / M_ALONE
+    ev = model.evaluate(io.DataLoader(test, batch_size=M_BATCH,
+                                      num_workers=M_WORKERS, timeout=300),
+                        verbose=0, num_iters=M_EVAL)
+    rows = kernel_rows(window["prof"])
+    busy = sum(r[0] for r in rows)
+    share = busy / (window["wall"] * 1e3) if busy else None
+    groups = group_rows(rows)
+    losses = hist[0]["loss"] + ev["loss"]
+    log(f"  fit: {len(ends)} steps, last loss {hist[0]['loss'][0]:.4f}, "
+        f"lr now {sched():.5f}; {imgs_s:.1f} imgs/s over steps 3-12 "
+        f"({step_ms:.1f} ms a step), waiting {wait_ms:.2f} ms a step for "
+        f"the loader ({100 * wait_ms / step_ms:.1f}%); first batch after "
+        f"{1e3 * waits[0]:.0f} ms (worker start-up); {alone_ms:.1f} ms a "
+        f"step on one batch already on the card, no loader running")
+    log(f"  fit_stats {json.dumps(stats)}; peak {peak / 2 ** 30:.2f} GiB; "
+        f"evaluate on {M_EVAL} batches {json.dumps(ev)}")
+    if share is None:
+        log("  profiler recorded no device time: busy share not measured")
+    else:
+        log(f"  profiled steps 13-15: wall {window['wall'] * 1e3:.1f} ms, "
+            f"device busy {busy:.1f} ms ({100 * share:.1f}%); device ms a "
+            "step by group: " + ", ".join(f"{k} {v / 3:.2f}"
+                                          for k, v in groups.items()))
+    log(f"  launches of the ported kernels {launches} (MobileNetV2 runs "
+        "none: its convolutions, depthwise ones included, are cuDNN's)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite MobileNetV2 loss: {losses}")
+    return {"imgs_per_s": imgs_s, "step_ms": step_ms,
+            "step_ms_without_loader": alone_ms, "loader_wait_ms": wait_ms, "first_batch_ms": 1e3 * waits[0],
+            "fit_stats": stats, "peak_gib": peak / 2 ** 30,
+            "busy_share": share, "groups_ms_per_step": {
+                k: v / 3 for k, v in groups.items()},
+            "evaluate": ev, "launches": launches}
+
+
+def stats_err(got, want, name):
+    """The error of running-stat buffer `name`: a variance against its own
+    largest entry, a mean against the square root of its layer's largest
+    running variance (the spread the BN divides by). A BN after a linear
+    layer fed by a BN without activation (MobileNetV2's expansion convs)
+    has a batch mean of zero in exact arithmetic, ~1e-17 in float64,
+    where an error relative to the mean itself says nothing."""
+    scale = want[name].abs().max()
+    if name.endswith("_mean"):
+        scale = want[name[:-len("_mean")] + "_variance"].max().sqrt()
+    return float((got[name] - want[name]).abs().max() / scale)
+
+
+def vision_card_vs_cpu(seed):
+    """Phase 31b: one train_batch (update=False, dropout 0) of LeNet,
+    vgg16(batch_norm=True), mobilenet_v1() and mobilenet_v2() at their
+    published widths in float64, batch 2, 64 x 64 images (28 x 28 for
+    LeNet), the same weights and batch on the card and on the CPU: loss
+    rtol F64_LOSS, gradients relative L2 F64_GRAD, running stats F64_STATS
+    (`stats_err`) (phase 19c's limits)."""
+    from paddle_tpu_torch import Model, nn
+    from paddle_tpu_torch.vision import models
+
+    out = {}
+    for name, make, side, classes in (
+            ("lenet", lambda g: models.LeNet(device="cpu", generator=g),
+             28, 10),
+            ("vgg16_bn", lambda g: models.vgg16(batch_norm=True,
+                                                device="cpu", generator=g),
+             64, 1000),
+            ("mobilenet_v1", lambda g: models.mobilenet_v1(
+                device="cpu", generator=g), 64, 1000),
+            ("mobilenet_v2", lambda g: models.mobilenet_v2(
+                device="cpu", generator=g), 64, 1000)):
+        rs = np.random.RandomState(seed + 31)
+        chans = 1 if name == "lenet" else 3
+        x = rs.randn(2, chans, side, side)
+        y = rs.randint(0, classes, (2, 1)).astype(np.int64)
+        base = make(torch.Generator().manual_seed(seed)).double()
+        for m in base.modules():
+            if isinstance(m, nn.Dropout):
+                m.p = 0.0
+        res = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            net = copy.deepcopy(base).to(dev)
+            model = Model(net)
+            model.prepare(None, nn.CrossEntropyLoss())
+            loss = model.train_batch([x], [y], update=False)[0]
+            res[dev] = (loss, {n: p.grad.cpu() for n, p in
+                               net.named_parameters()},
+                        {n: b.cpu() for n, b in net.named_buffers()
+                         if b.is_floating_point()})
+        (lc, gc_, bc), (lh, gh, bh) = res["cuda"], res["cpu"]
+        num = sum(float((gc_[n] - gh[n]).pow(2).sum()) for n in gh)
+        grad = (num / sum(float(gh[n].pow(2).sum()) for n in gh)) ** 0.5
+        stats = max((stats_err(bc, bh, n) for n in bh), default=0.0)
+        out[name] = {"loss_rel": abs(lc - lh) / abs(lh),
+                     "grad_rel_l2": grad, "stats_err": stats}
+        log(f"  {name}: loss {lc:.15f}, card vs CPU loss "
+            f"{out[name]['loss_rel']:.2e} (limit {F64_LOSS}), gradients "
+            f"{grad:.2e} ({F64_GRAD}), running stats {stats:.2e} "
+            f"({F64_STATS}) in {time.perf_counter() - t0:.2f} s")
+        for key, limit in (("loss_rel", F64_LOSS), ("grad_rel_l2", F64_GRAD),
+                           ("stats_err", F64_STATS)):
+            if not out[name][key] <= limit:
+                raise AssertionError(f"{name} card step: {key} "
+                                     f"{out[name][key]} > {limit}")
+        del base, res, net, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ernie_hapi_model(seed):
+    from paddle_tpu_torch import Model, nn, optimizer
+
+    net = ernie("cuda", E_LAYERS, (E_DROPOUT, E_DROPOUT), seed)
+    model = Model(net, inputs=["input_ids", "token_type_ids", "mask"])
+    model.prepare(optimizer.AdamW(HE_LR, parameters=net.named_parameters(),
+                                  weight_decay=0.01),
+                  nn.CrossEntropyLoss())
+    return model
+
+
+def hapi_ernie(A, seed):
+    """Phase 32: ErnieForSequenceClassification at ERNIE-base width through
+    hapi.Model: HE_STEPS train_batch steps of HE_BATCH x HE_SEQ rows with a
+    ragged mask, float32, dropout E_DROPOUT, AdamW; then the same steps
+    driven by hand (forward, loss.backward(), opt.step()) from the same
+    seeds and batches: the losses agree within REL_HAPI. The kernel
+    counts are zeroed just before the hapi steps and read just after."""
+    from paddle_tpu_torch.ops import _build
+
+    batches = [ernie_batch(seed + i, HE_BATCH, HE_SEQ)
+               for i in range(HE_STEPS)]
+    torch.manual_seed(seed)
+    model = ernie_hapi_model(seed)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hapi_losses = []
+    for inputs, labels in batches:
+        hapi_losses.append(model.train_batch(list(inputs), [labels])[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.launches().items() if v}
+    routes = {k: v for k, v in A.ROUTE_LAUNCHES.items() if v}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(seed)
+    hand = ernie_hapi_model(seed)
+    net, opt, loss_fn = hand.network, hand._optimizer, hand._loss
+    net.train()
+    hand_losses = []
+    for inputs, labels in batches:
+        ids, tt, mask = (torch.as_tensor(a, device="cuda") for a in inputs)
+        loss = loss_fn(net(ids, tt, mask),
+                       torch.as_tensor(labels, device="cuda"))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        hand_losses.append(float(loss.detach()))
+    del hand, net, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hapi_losses, hand_losses))
+    want = E_LAYERS * HE_STEPS
+    log(f"  hapi losses {hapi_losses}; by hand {hand_losses}; largest "
+        f"relative difference {rel:.2e} (limit {REL_HAPI}); "
+        f"{1e3 * wall / HE_STEPS:.1f} ms a step")
+    log(f"  launches {launches} in {HE_STEPS} steps, "
+        f"{ {k: v / HE_STEPS for k, v in launches.items()} } a step "
+        f"({E_LAYERS} layers: {E_LAYERS} a step, {want} in all, each "
+        f"predicted), flash_fwd by route {routes}")
+    if not all(np.isfinite(hapi_losses)) or not rel <= REL_HAPI:
+        raise AssertionError(f"hapi ERNIE losses {hapi_losses} against "
+                             f"{hand_losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches.get(name) != want:
+            raise AssertionError(f"{name} launched {launches.get(name)} "
+                                 f"times, expected {want}")
+    return {"losses": hapi_losses, "hand_losses": hand_losses,
+            "loss_rel": rel, "step_ms": 1e3 * wall / HE_STEPS,
+            "launches": launches, "routes": routes}
+
+
+def hapi_phases(A, seed, card):
+    """Phases 29-32 in a scratch directory they remove. Returns ({kernel:
+    launches} of phase 32's hapi path, the phases' wall seconds)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    t0 = time.perf_counter()
+    try:
+        log(f"phase 29: LeNet on MNIST idx files through hapi.Model: "
+            f"{H_TRAIN} train / {H_TEST} test images, batch {H_BATCH}, "
+            f"Adam 1e-3, CrossEntropyLoss, Accuracy(topk=(1, 2)), "
+            f"{H_EPOCHS} epochs with {H_WORKERS} loader workers, evaluate, "
+            f"predict, save / load")
+        lenet = hapi_lenet(seed, os.path.join(root, "lenet"))
+        log(f"phase 30: fit(resume=) on LeNet, {H_RESUME_EPOCHS} epochs, a "
+            f"kill halfway through the epoch-2 checkpoint, under "
+            f"torch.use_deterministic_algorithms(True)")
+        resume = hapi_resume(seed, os.path.join(root, "resume"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 31: MobileNetV2 (1.0, {M_CROP}x{M_CROP}, 1000 classes) "
+            f"through hapi.Model: DatasetFolder of {M_IMAGES} uint8 "
+            f"{M_SIDE}x{M_SIDE}x3 .npy images, {M_WORKERS} workers, "
+            f"DevicePrefetcher, batch {M_BATCH}, float32, Momentum(0.9) "
+            f"under CosineAnnealingDecay({M_LR}), {M_STEPS} steps, evaluate "
+            f"on {M_EVAL} batches")
+        mobile = hapi_mobilenet(seed, os.path.join(root, "mobilenet"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 31b: one train_batch of LeNet, vgg16_bn, mobilenet_v1 "
+            "and mobilenet_v2 at the published widths in float64, batch 2, "
+            "card against CPU")
+        f64 = vision_card_vs_cpu(seed)
+        log(f"phase 32: ErnieForSequenceClassification at ERNIE-base width "
+            f"through hapi.Model, {HE_BATCH} x {HE_SEQ} ragged, float32, "
+            f"dropout {E_DROPOUT}, AdamW, {HE_STEPS} train_batch steps, "
+            f"against the same steps driven by hand")
+        ern = hapi_ernie(A, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log("  hapi summary " + json.dumps({
+        "card": card, "wall_s": wall, "lenet": lenet, "resume": resume,
+        "mobilenet_v2": mobile, "float64_card_vs_cpu": f64,
+        "ernie_hapi": ern}))
+    return ern["launches"], wall
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4632,7 +5210,14 @@ def main():
         "card": card, "wall_s": new_wall, "decode_engine": de_out,
         "chunked": ch_out, "preemption": pr_out}))
 
-    log("phase 29: output")
+    hapi_launches, hapi_wall = hapi_phases(A, args.seed, card)
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        row = kernels[kname]
+        row["launches_by_path"]["hapi_ernie"] = hapi_launches[kname]
+        row["launches"] = sum(row["launches_by_path"].values())
+    log(f"  phases 29-32 took {hapi_wall:.1f} s")
+
+    log("phase 33: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,11 +3,12 @@
 The port's modules mirror the reference's module tree and parameter
 names (`layers.0.self_attn.q_proj.weight`,
 `ernie.embeddings.word_embeddings.weight`, ...) and keep its layouts
-(`Linear.weight` is [in, out], `Embedding.weight` [vocab, dim] and
-`Conv2D.weight` OIHW in both), so a reference `state_dict()` — a
-Transformer's, an ERNIE model's or a ResNet's, buffers such as
-BatchNorm's `_mean` / `_variance` included — turned into numpy arrays,
-maps name for name onto the port's modules:
+(`Linear.weight` is [in, out], `Embedding.weight` [vocab, dim],
+`Conv2D.weight` OIHW and `Conv2DTranspose.weight` [in, out / groups, kh,
+kw] in both), so a reference `state_dict()` — a Transformer's, an ERNIE
+model's, a ResNet's, LeNet's, a VGG's or a MobileNet's, buffers such as
+the batch norms' `_mean` / `_variance` included — turned into numpy
+arrays, maps name for name onto the port's modules:
 
     np_state = {k: np.asarray(v) for k, v in jax_layer.state_dict().items()}
     port_layer.load_state_dict(from_jax_state(np_state))

@@ -1,7 +1,8 @@
 """Functional entries the layers call (the JAX package's
 `nn/functional`): activations, dropout, attention, the int8 and LoRA
-matmuls of multi-tenant serving, and the convolution, pooling and batch
-normalisation of the vision models."""
+matmuls of multi-tenant serving, the convolution, pooling and batch
+normalisation of the vision models, and the losses `hapi.Model`
+prepares."""
 from __future__ import annotations
 
 import torch
@@ -10,14 +11,20 @@ from ..ops import attention as A
 from ..ops import kernels as K
 from ..ops import quant as Q
 
-__all__ = ["relu", "gelu", "tanh", "dropout", "draw_seed",
-           "scaled_dot_product_attention", "linear_int8", "embedding_int8",
-           "lora_delta", "conv2d", "max_pool2d", "adaptive_avg_pool2d",
-           "batch_norm"]
+__all__ = ["relu", "relu6", "gelu", "tanh", "flatten", "dropout",
+           "draw_seed", "scaled_dot_product_attention", "linear_int8",
+           "embedding_int8", "lora_delta", "conv2d", "conv2d_transpose",
+           "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+           "adaptive_max_pool2d", "max_pool1d", "avg_pool1d", "batch_norm",
+           "cross_entropy", "softmax_with_cross_entropy", "mse_loss"]
 
 
 def relu(x):
     return torch.relu(x)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
 
 
 def gelu(x):
@@ -27,6 +34,10 @@ def gelu(x):
 
 def tanh(x):
     return torch.tanh(x)
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    return torch.flatten(x, start_axis, stop_axis)
 
 
 def dropout(x, p=0.5, training=True, generator=None):
@@ -100,33 +111,118 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
     return out
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0):
-    return K.max_pool2d(x, kernel_size, stride, padding)
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1):
+    """Transposed convolution of an NCHW x by a [in, out / groups, kh, kw]
+    weight (`ops.kernels.conv2d_transpose`), plus a per-channel bias."""
+    out = K.conv2d_transpose(x, weight, stride, padding, output_padding,
+                             dilation, groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
+    """`ceil_mode=True` raises (the JAX package ignores it)."""
+    return K.max_pool2d(x, kernel_size, stride, padding, ceil_mode)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True):
+    """`exclusive`: padded cells are left out of a window's count."""
+    return K.avg_pool2d(x, kernel_size, stride, padding, ceil_mode,
+                        exclusive)
 
 
 def adaptive_avg_pool2d(x, output_size):
     return K.adaptive_avg_pool2d(x, output_size)
 
 
+def adaptive_max_pool2d(x, output_size):
+    return K.adaptive_max_pool2d(x, output_size)
+
+
+def _pool1d_args(kernel_size, stride, padding):
+    """The 2-D pool's (kernel, stride, padding) of a 1-D pool over [N, C,
+    L] as [N, C, 1, L]."""
+    k = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+    s = stride if stride is None or isinstance(stride, int) else stride[0]
+    p = padding if isinstance(padding, int) else padding[0]
+    return (1, k), (1, s if s else k), (0, p)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
+    k, s, p = _pool1d_args(kernel_size, stride, padding)
+    return K.max_pool2d(x[:, :, None], k, s, p, ceil_mode)[:, :, 0]
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True):
+    k, s, p = _pool1d_args(kernel_size, stride, padding)
+    return K.avg_pool2d(x[:, :, None], k, s, p, ceil_mode,
+                        exclusive)[:, :, 0]
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
-               training=False, momentum=0.9, epsilon=1e-5):
-    """Batch normalisation over the channels of an NCHW x with the
-    reference's semantics (`ops.kernels`). In training it normalizes
-    with the batch stats and updates `running_mean` / `running_var` in
-    place, outside autograd (``momentum * running + (1 - momentum) *
-    batch``, biased variance); otherwise it normalizes with the running
-    stats. A missing weight / bias is 1 / 0."""
-    c = x.shape[1]
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Batch normalisation over the channels of x with the reference's
+    semantics (`ops.kernels`); the channel axis is 1 for a `data_format`
+    starting "NC" (NCHW, NCL, NC, NCDHW) and the last one otherwise
+    (NHWC, NLC, NDHWC). In training, unless `use_global_stats`, it
+    normalizes with the batch stats and updates `running_mean` /
+    `running_var` in place, outside autograd (``momentum * running + (1 -
+    momentum) * batch``, biased variance); otherwise it normalizes with
+    the running stats. A missing weight / bias is 1 / 0."""
+    c_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+    c = x.shape[c_axis]
     if weight is None:
         weight = torch.ones(c, dtype=x.dtype, device=x.device)
     if bias is None:
         bias = torch.zeros(c, dtype=x.dtype, device=x.device)
-    if training:
+    if training and not use_global_stats:
         y, new_mean, new_var, _, _ = K.batch_norm_train(
-            x, weight, bias, running_mean, running_var, momentum, epsilon)
+            x, weight, bias, running_mean, running_var, momentum, epsilon,
+            c_axis)
         with torch.no_grad():
             running_mean.copy_(new_mean)
             running_var.copy_(new_var)
         return y
     return K.batch_norm_infer(x, weight, bias, running_mean, running_var,
-                              epsilon)
+                              epsilon, c_axis)
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    """The reference's cross entropy (`ops.kernels.cross_entropy_loss`):
+    hard labels of [N] or [N, 1] (any integer type), `soft_label`
+    distributions, per-class `weight`, a non-negative `ignore_index`,
+    the class `axis`, and `use_softmax=False` for probabilities. A hard
+    label carries no gradient."""
+    if not soft_label:
+        label = label.detach()
+    return K.cross_entropy_loss(input, label, soft_label, reduction,
+                                ignore_index, weight, axis, use_softmax)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """The unreduced loss with its class axis kept at size 1 (and the
+    softmax when `return_softmax`)."""
+    loss = K.softmax_with_cross_entropy(
+        logits, label if soft_label else label.detach(), soft_label, axis,
+        ignore_index)
+    if return_softmax:
+        return loss, torch.softmax(logits, axis)
+    return loss
+
+
+def mse_loss(input, label, reduction="mean"):
+    out = (input - label) ** 2
+    if reduction == "mean":
+        return out.mean()
+    if reduction == "sum":
+        return out.sum()
+    return out

@@ -1,6 +1,7 @@
-"""Linear, Embedding, LayerNorm, Dropout, Tanh, ReLU and the vision
-layers (Sequential, Conv2D, MaxPool2D, AdaptiveAvgPool2D, BatchNorm2D)
-with the JAX package's parameter layouts, names and initialisers.
+"""Linear, Embedding, LayerNorm, Dropout, the activations, the vision
+layers (Sequential, Conv2D, Conv2DTranspose, the pools, the batch norms)
+and the losses `hapi.Model` prepares, with the JAX package's parameter
+layouts, names and initialisers.
 
 `Linear.weight` keeps the reference's [in_features, out_features]
 layout (y = x @ W + b), so a JAX `state_dict()` loads without any
@@ -27,8 +28,11 @@ from ...core.device import resolve_device
 from .. import functional as F
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
-           "Sequential", "Conv2D", "MaxPool2D", "AdaptiveAvgPool2D",
-           "BatchNorm2D"]
+           "ReLU6", "Identity", "Flatten", "Sequential", "Conv2D",
+           "Conv2DTranspose", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
+           "AdaptiveMaxPool2D", "MaxPool1D", "AvgPool1D", "BatchNorm",
+           "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "CrossEntropyLoss",
+           "MSELoss"]
 
 
 class Dropout(nn.Module):
@@ -57,6 +61,25 @@ class Tanh(nn.Module):
 class ReLU(nn.Module):
     def forward(self, x):
         return F.relu(x)
+
+
+class ReLU6(nn.Module):
+    def forward(self, x):
+        return F.relu6(x)
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)
 
 
 #: children named "0", "1", ... in order, as the reference's Sequential
@@ -222,15 +245,66 @@ class Conv2D(nn.Module):
                         self._padding, self._dilation, self._groups)
 
 
-class MaxPool2D(nn.Module):
-    """Max pooling with -inf padding."""
+class Conv2DTranspose(nn.Module):
+    """Transposed 2-D convolution over NCHW, weight [in, out / groups, kh,
+    kw] Xavier-uniform (fans from that layout: fan_in = out / groups *
+    kh * kw, fan_out = in * kh * kw, as the JAX initializer reads them),
+    bias [out] zeros; `bias_attr=False` builds no bias."""
 
-    def __init__(self, kernel_size, stride=None, padding=0):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 bias_attr=None, *, device=None, generator=None):
         super().__init__()
-        self._args = (kernel_size, stride, padding)
+        dev = resolve_device(device)
+        k = _pair(kernel_size)
+        self._args = (stride, padding, output_padding, dilation, groups)
+        shape = (in_channels, out_channels // groups, k[0], k[1])
+        lim = math.sqrt(6.0 / ((shape[0] + shape[1]) * k[0] * k[1]))
+        self.weight = _param(
+            shape, dev, lambda t: t.uniform_(-lim, lim, generator=generator))
+        self.bias = None if bias_attr is False else _param((out_channels,),
+                                                           dev)
+
+    def forward(self, x):
+        return F.conv2d_transpose(x, self.weight, self.bias, *self._args)
+
+
+class MaxPool2D(nn.Module):
+    """Max pooling with -inf padding; `ceil_mode=True` raises."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, ceil_mode)
 
     def forward(self, x):
         return F.max_pool2d(x, *self._args)
+
+
+class AvgPool2D(nn.Module):
+    """Average pooling; `exclusive` leaves padded cells out of a window's
+    count; `ceil_mode=True` raises."""
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, ceil_mode, exclusive)
+
+    def forward(self, x):
+        return F.avg_pool2d(x, *self._args)
+
+
+class MaxPool1D(MaxPool2D):
+    """Max pooling over the last axis of [N, C, L]."""
+
+    def forward(self, x):
+        return F.max_pool1d(x, *self._args)
+
+
+class AvgPool1D(AvgPool2D):
+    """Average pooling over the last axis of [N, C, L]."""
+
+    def forward(self, x):
+        return F.avg_pool1d(x, *self._args)
 
 
 class AdaptiveAvgPool2D(nn.Module):
@@ -242,17 +316,32 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self._output_size)
 
 
-class BatchNorm2D(nn.Module):
-    """Batch normalisation over NCHW channels with the reference's
-    semantics (`nn.functional.batch_norm`): weight 1, bias 0, float32
-    buffers `_mean` (0) and `_variance` (1) that training updates in
-    place with ``momentum * running + (1 - momentum) * batch``."""
+class AdaptiveMaxPool2D(AdaptiveAvgPool2D):
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self._output_size)
 
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5, *,
-                 device=None):
+
+class _BatchNormBase(nn.Module):
+    """Batch normalisation with the reference's semantics
+    (`nn.functional.batch_norm`): weight 1, bias 0, float32 buffers
+    `_mean` (0) and `_variance` (1) that training updates in place with
+    ``momentum * running + (1 - momentum) * batch``. `data_format` "NCHW",
+    "NCL", "NC" or "NCDHW" puts the channels on axis 1, any other (NHWC,
+    NLC, NDHWC) last; `use_global_stats` normalizes with the running stats
+    in training too. The port has no ParamAttr: `weight_attr` and
+    `bias_attr` take None only."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, *, device=None):
         super().__init__()
+        if weight_attr is not None or bias_attr is not None:
+            raise NotImplementedError(
+                "weight_attr / bias_attr: the port has no ParamAttr")
         dev = resolve_device(device)
         self._momentum, self._epsilon = momentum, epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
         self.weight = _param((num_features,), dev, lambda t: t.fill_(1))
         self.bias = _param((num_features,), dev)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
@@ -262,4 +351,60 @@ class BatchNorm2D(nn.Module):
     def forward(self, x):
         return F.batch_norm(x, self._mean, self._variance, self.weight,
                             self.bias, training=self.training,
-                            momentum=self._momentum, epsilon=self._epsilon)
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+
+class BatchNorm1D(_BatchNormBase):
+    """Over [N, C] or [N, C, L] (NCL), or [N, L, C] (NLC)."""
+
+
+class BatchNorm2D(_BatchNormBase):
+    """Over [N, C, H, W] (NCHW) or [N, H, W, C] (NHWC)."""
+
+
+class BatchNorm3D(_BatchNormBase):
+    """Over [N, C, D, H, W] (NCDHW) or [N, D, H, W, C] (NDHWC)."""
+
+
+class BatchNorm(_BatchNormBase):
+    """The fluid form: `act` (a name in `nn.functional`, such as "relu")
+    follows the normalisation; `use_global_stats=True` normalizes with
+    the running stats in training too."""
+
+    def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, dtype="float32",
+                 data_layout="NCHW", in_place=False, use_global_stats=False,
+                 *, device=None):
+        super().__init__(num_channels, momentum, epsilon, param_attr,
+                         bias_attr, data_layout, use_global_stats or None,
+                         device=device)
+        self._act = act
+
+    def forward(self, x):
+        y = super().forward(x)
+        return getattr(F, self._act)(y) if self._act else y
+
+
+class CrossEntropyLoss(nn.Module):
+    """`nn.functional.cross_entropy` with fixed arguments."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True, name=None):
+        super().__init__()
+        self._args = dict(weight=weight, ignore_index=ignore_index,
+                          reduction=reduction, soft_label=soft_label,
+                          axis=axis, use_softmax=use_softmax)
+
+    def forward(self, input, label):
+        return F.cross_entropy(input, label, **self._args)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self._reduction)

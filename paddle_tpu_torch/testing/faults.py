@@ -1,5 +1,6 @@
-"""Deterministic fault injection for the port's serving path (the JAX
-package's `testing/faults.py`, kept as the port's own copy).
+"""Deterministic fault injection for the port's serving path and data
+pipeline (the JAX package's `testing/faults.py`, kept as the port's own
+copy).
 
 Production code holds named fault points, made once at import:
 
@@ -11,7 +12,9 @@ Production code holds named fault points, made once at import:
 The serving engine's points are `serving.slot_join`, `serving.prefill`,
 `serving.pattach`, `serving.decode_step`, `serving.prefill_chunk` and
 `serving.preempt`; each fires on the host before the operation mutates
-anything. A hit may pass a payload through, so that an armed corrupt
+anything. The data pipeline adds `dataloader.next` (each batch a
+DataLoader yields, as its payload) and `checkpoint.write` /
+`checkpoint.read` (each shard's bytes of `io.checkpoint`). A hit may pass a payload through, so that an armed corrupt
 plan can change the bytes in flight (`buf = _PT_WRITE(payload=buf)`).
 
 Tests arm points with injection plans:

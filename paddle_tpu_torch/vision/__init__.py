@@ -1,4 +1,5 @@
-"""Vision models of the port (the JAX package's `vision/`)."""
-from . import models
+"""Vision of the port (the JAX package's `vision/`): the models, the
+transforms and the dataset parsers."""
+from . import datasets, models, transforms
 
-__all__ = ["models"]
+__all__ = ["datasets", "models", "transforms"]
