@@ -366,11 +366,45 @@ Phases; any failure exits nonzero before the result lines:
     flash_fwd (SIMT route), flash_bwd_dq and flash_bwd_dkv launches (12
     layers x 3 steps each); the same steps driven by hand give the same
     losses within rtol 1e-6.
-33. Output: a {"kernels": [...]} line for all eleven kernels (the
+33. MoE ERNIE-base pretraining: `ErnieConfig.base(moe_experts=8,
+    moe_capacity_factor=1.25)` (Switch-Base widths: d_model 768, d_ff
+    3072, 12 layers, 12 heads; an MoELayer in every encoder FFN, as the
+    JAX package builds it), phase 25's recipe and batch (32 x 512 an
+    update in 4 micro-batches, bf16 on float32 masters, dropout 0.1) with
+    `moe_aux_weight=0.01`, 12 updates with remat on, then off. (a) Every
+    loss and aux loss finite; remat's peak over one micro-batch's
+    forward and backward no higher than without it (the whole update's
+    peak, the optimizer's, is printed); every expert of
+    every layer moved and no two experts' updates equal; flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv launch 12 layers x 4 micro-batches x
+    12 updates (flash_fwd twice as often under remat), on wgmma. Printed:
+    seq/s over updates 3-12, each layer's dropped-token share and largest
+    expert load, the peaks, a profiled update's busy share and device ms
+    by group, and one MoE layer's forward + backward at the micro-batch
+    shape timed whole and as its expert products alone (the rest is the
+    routing, dispatch and combine), beside phase 25's dense numbers. (b)
+    A 2-layer full-width MoE model (8 experts) in float32, dropout 0, on
+    the card and on the CPU from the same weights and batch: every
+    token's expert equal in every forward (a token may differ only where
+    its top-2 router probabilities on the CPU lie within 1e-6; printed),
+    losses rtol 1e-4, gradients and the parameters after two updates
+    within 1e-4 relative L2, the updates themselves within 1e-3.
+34. The model-building library on the card. (a) `testing.sweep`: every
+    tensor function, every new `nn.functional` entry and every new layer
+    forward and backward in float64 at small shapes, card against CPU:
+    outputs and gradients within 1e-10 relative (of each tensor's
+    largest CPU entry), integer, index and boolean outputs equal; the
+    count checked and each function left out, with its reason, printed.
+    (b) A 2-layer bidirectional LSTM and GRU (input 128, hidden 512,
+    batch 16, 64 steps) in float64, card against CPU with initial
+    states, outputs, final states and every gradient within 1e-10; then
+    ms a forward + backward pass (and a time step) in float32 on the card
+    (a loop of torch ops; printed, no claim).
+35. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
-    10, 22, 25 and 32), then the card's name and power limit, then {"ok":
-    true, "device": {...}} as the last line.
+    10, 22, 25, 32 and 33), then the card's name and power limit, then
+    {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -496,6 +530,14 @@ M_ALONE = 6
 # ERNIE-base through hapi.Model (32): batch, sequence, steps, AdamW rate,
 # the hapi-against-hand-driven loss limit (relative)
 HE_BATCH, HE_SEQ, HE_STEPS, HE_LR, REL_HAPI = 8, 512, 3, 5e-5, 1e-6
+# MoE ERNIE-base pretraining (33): Switch-Base's 8 experts and capacity
+# factor (Fedus et al. 2021, arXiv:2101.03961) on ERNIE-base widths, the
+# JAX trainer's aux weight; the routing tie margin of the card-vs-CPU step
+MOE_EXPERTS, MOE_CAPACITY, MOE_AUX, MOE_TIE = 8, 1.25, 0.01, 1e-6
+# the library on the card (34): the float64 limit (relative to each
+# tensor's largest CPU entry); the RNN stacks' input, hidden, batch, steps
+LIB_REL = 1e-10
+RNN_IN, RNN_HIDDEN, RNN_BATCH, RNN_STEPS = 128, 512, 16, 64
 
 
 #: flash_fwd launches by route on each serving path, and int8_matmul's
@@ -3346,13 +3388,13 @@ def pretrain_recipe(model):
 
 
 def pretrain_trainer(model, seed, device, remat=False, compute_dtype=None,
-                     accum=PT_ACCUM):
+                     accum=PT_ACCUM, aux=MOE_AUX):
     from paddle_tpu_torch.parallel import SpmdTrainer
 
     return SpmdTrainer(model, pretrain_loss, pretrain_recipe(model),
                        compute_dtype=compute_dtype, device=device,
                        generator=torch.Generator().manual_seed(seed),
-                       remat=remat, grad_accum=accum)
+                       remat=remat, grad_accum=accum, moe_aux_weight=aux)
 
 
 def pretrain(A, seed, remat):
@@ -4624,6 +4666,390 @@ def hapi_phases(A, seed, card):
     return ern["launches"], wall
 
 
+# ------------------------------------ MoE ERNIE-base pretraining (33)
+
+def moe_model(device, layers, dropout, seed):
+    from paddle_tpu_torch.text import ErnieConfig, ErnieForPretraining
+
+    cfg = ErnieConfig.base(num_layers=layers, hidden_dropout=dropout[0],
+                           attn_dropout=dropout[1], moe_experts=MOE_EXPERTS,
+                           moe_capacity_factor=MOE_CAPACITY)
+    return ErnieForPretraining(
+        cfg, device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def moe_layers(model):
+    from paddle_tpu_torch.nn import MoELayer
+
+    return [m for m in model.modules() if isinstance(m, MoELayer)]
+
+
+def experts_moved(model, start):
+    """Every expert of every layer moved, and no two experts' updates in a
+    weight are equal: {weight name: (experts moved, equal pairs)}."""
+    out = {}
+    for n, p in model.named_parameters():
+        if n not in start:
+            continue
+        d = p.detach() - start[n].to(p.device)
+        moved = int((d.flatten(1).abs().sum(1) > 0).sum())
+        same = sum(torch.equal(d[i], d[j]) for i in range(len(d))
+                   for j in range(i + 1, len(d)))
+        out[n] = (moved, same)
+    bad = {n: v for n, v in out.items() if v != (MOE_EXPERTS, 0)}
+    if len(out) != 2 * E_LAYERS or bad:
+        raise AssertionError(f"experts not all updated, or two updates "
+                             f"equal: {bad} ({len(out)} weights)")
+    return out
+
+
+def moe_pretrain(A, seed, remat):
+    """Phase 33 (a): MoE ERNIE-base pretraining, PT_UPDATES updates of
+    phase 25's batch and recipe with the aux loss. Checks every loss and
+    aux loss finite, the attention kernels' launches and routes (as phase
+    25), and, with remat off, that every expert moved and no two moved
+    alike. Returns (numbers, trainer, batch)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = moe_model("cuda", E_LAYERS, (E_DROPOUT, E_DROPOUT), seed)
+    layers = moe_layers(model)
+    start = None if remat else {
+        n: p.detach().to("cpu", copy=True)
+        for n, p in model.named_parameters() if ".moe.experts." in n}
+    tr = pretrain_trainer(model, seed, "cuda", remat, "bfloat16")
+    inputs, labels = pretrain_batch(seed, PT_BATCH * PT_ACCUM, PT_SEQ,
+                                    model.ernie.cfg.vocab_size)
+    inputs = tuple(torch.as_tensor(x, device="cuda") for x in inputs)
+    labels = torch.as_tensor(labels, device="cuda")
+    torch.cuda.synchronize()
+    A.reset_launches()
+    losses, aux = [], []
+    for i in range(PT_UPDATES):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(tr.step(inputs, labels))
+        aux.append(torch.stack([m.aux_loss.detach().float()
+                                for m in layers]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: A.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+    routes, element = dict(A.ROUTE_LAUNCHES), dict(A.ELEMENT_LOAD_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - before
+    losses = [float(x) for x in losses]
+    aux = torch.stack(aux).cpu()
+    tokens = PT_BATCH * PT_SEQ
+    dropped = [int(m.last_dropped) / tokens for m in layers]
+    load = [int(m.last_load.max()) for m in layers]
+    if not (all(np.isfinite(losses)) and bool(torch.isfinite(aux).all())):
+        raise AssertionError(f"non-finite MoE loss or aux loss: {losses}, "
+                             f"{aux.tolist()}")
+    want = E_LAYERS * PT_ACCUM * PT_UPDATES
+    expect = {"flash_fwd": want * (2 if remat else 1),
+              "flash_bwd_dq": want, "flash_bwd_dkv": want}
+    if launches != expect:
+        raise AssertionError(f"MoE pretraining launches {launches}, "
+                             f"expected {expect} (remat {remat})")
+    if routes["flash_fwd:wgmma"] != launches["flash_fwd"] or \
+            any(element.values()):
+        raise AssertionError(f"MoE pretraining attention off the "
+                             f"tensor-core routes: {routes}, {element}")
+    moved = None if remat else experts_moved(model, start)
+    # the forward and backward of one micro-batch alone: the update's
+    # peak is the optimizer's (new parameters and slots beside the old,
+    # 510M parameters), the same with and without remat, which acts on
+    # the activations only
+    micro = tuple(x[:PT_BATCH] for x in inputs), labels[:PT_BATCH]
+    tr.grad_accum = 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fb = tr.loss_and_grads(*micro)
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() - base
+    del fb
+    tr.grad_accum = PT_ACCUM
+    seq_s = PT_BATCH * PT_ACCUM * (PT_UPDATES - 2) / wall
+    return {"losses": losses, "aux_first": aux[0].tolist(),
+            "aux_last": aux[-1].tolist(), "seq_per_s": seq_s,
+            "peak_bytes": peak, "fwd_bwd_peak_bytes": fb_peak,
+            "launches": launches, "remat": remat,
+            "capacity": layers[0].capacity(tokens),
+            "dropped_share": dropped, "max_load": load,
+            "experts_moved": None if moved is None else
+            sum(v[0] for v in moved.values())}, tr, (inputs, labels)
+
+
+def moe_layer_split(model, seed):
+    """Phase 33 (a): one MoE layer's forward + backward at the
+    micro-batch shape (PT_BATCH x PT_SEQ x 768, bf16, the layer's weights
+    cast as the trainer casts them), timed whole and as its expert
+    products alone (the two batched products and the gelu on [E, C, D]
+    inputs, forward and backward); the difference is the routing, the
+    dispatch and the combine. Device ms, median of 10."""
+    layer = copy.deepcopy(moe_layers(model)[0]).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = layer.router.shape[0]
+    x = torch.randn(PT_BATCH, PT_SEQ, d, device="cuda", generator=g,
+                    dtype=torch.bfloat16, requires_grad=True)
+    cot = torch.randn(x.shape, device="cuda", generator=g,
+                      dtype=torch.bfloat16)
+    e, cap = layer.num_experts, layer.capacity(PT_BATCH * PT_SEQ)
+    xin = torch.randn(e, cap, d, device="cuda", generator=g,
+                      dtype=torch.bfloat16, requires_grad=True)
+    cin = torch.randn(xin.shape, device="cuda", generator=g,
+                      dtype=torch.bfloat16)
+    w_in, w_out = layer.experts.weight_in, layer.experts.weight_out
+
+    def whole():
+        torch.autograd.backward(layer(x), cot)
+
+    def experts():
+        h = torch.nn.functional.gelu(torch.bmm(xin, w_in))
+        torch.autograd.backward(torch.bmm(h, w_out), cin)
+
+    out = {"whole_ms": device_ms(whole, runs=10),
+           "experts_ms": device_ms(experts, runs=10)}
+    out["route_dispatch_combine_ms"] = out["whole_ms"] - out["experts_ms"]
+    return out
+
+
+def route_log(layers):
+    """Hooks that log (route, router probabilities) of every forward of
+    each MoE layer, on the CPU; returns (log, remove)."""
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, k=k: seen.append(
+            (k, mod.last_route.cpu(), mod.last_probs.float().cpu())))
+        for k, m in enumerate(layers)]
+    return seen, lambda: [h.remove() for h in hooks]
+
+
+def moe_card_vs_cpu(seed):
+    """Phase 33 (b): a 2-layer full-width MoE model (8 experts) in
+    float32, dropout 0, through the recipe trainer on the card and on the
+    CPU from the same weights, batch 2 x 512 in 2 micro-batches: the
+    loss and gradients of one batch, then two updates. Every forward's
+    routing equal token for token but where the CPU's top-2 router
+    probabilities lie within MOE_TIE; phase 25 (e)'s limits."""
+    inputs, labels = pretrain_batch(seed + 1, 2, PT_SEQ, 18000)
+    res, logs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = moe_model(dev, 2, (0.0, 0.0), seed)
+        start = {n: p.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        tr = pretrain_trainer(model, seed, dev, accum=2)
+        logs[dev], remove = route_log(moe_layers(model))
+        t0 = time.perf_counter()
+        try:
+            loss, grads = tr.loss_and_grads(inputs, labels)
+            losses = [float(loss)] + [float(tr.step(inputs, labels))
+                                      for _ in range(2)]
+        finally:
+            remove()
+        res[dev] = (losses, {n: g.cpu() for n, g in grads.items()},
+                    {n: p.detach().cpu()
+                     for n, p in model.named_parameters()})
+        log(f"  (b) {dev}: losses {losses} in "
+            f"{time.perf_counter() - t0:.2f} s")
+    card, cpu = logs["cuda"], logs["cpu"]
+    if len(card) != len(cpu) or not card:
+        raise AssertionError(f"{len(card)} card forwards of the MoE layers "
+                             f"against {len(cpu)} on the CPU")
+    routed = differ = ties = 0
+    for (k, r_gpu, _), (k2, r_cpu, p_cpu) in zip(card, cpu):
+        top2 = torch.topk(p_cpu, 2, -1)[0]
+        near = (top2[:, 0] - top2[:, 1]) < MOE_TIE
+        off = r_gpu != r_cpu
+        routed += r_cpu.numel()
+        ties += int(near.sum())
+        differ += int(off.sum())
+        if k != k2 or bool((off & ~near).any()):
+            raise AssertionError(f"MoE layer {k}: {int(off.sum())} tokens "
+                                 f"routed apart, "
+                                 f"{int((off & ~near).sum())} of them past "
+                                 f"the {MOE_TIE} tie margin")
+
+    def rel(a, b):
+        num = sum(float((a[n] - b[n]).double().pow(2).sum()) for n in b)
+        den = sum(float(b[n].double().pow(2).sum()) for n in b)
+        return (num / den) ** 0.5
+
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = res["cuda"], res["cpu"]
+    upd = rel({n: p_gpu[n] - start[n] for n in start},
+              {n: p_cpu[n] - start[n] for n in start})
+    out = {"losses_card": l_gpu, "losses_cpu": l_cpu,
+           "grad_rel_l2": rel(g_gpu, g_cpu),
+           "param_rel_l2": rel(p_gpu, p_cpu), "update_rel_l2": upd,
+           "tokens_routed": routed, "tokens_apart": differ,
+           "near_ties": ties}
+    log(f"  (b) routing: {routed} token routings over {len(cpu)} forwards, "
+        f"{differ} apart, {ties} within the {MOE_TIE} tie margin; gradients "
+        f"relative L2 {out['grad_rel_l2']:.3e}, parameters after two "
+        f"updates {out['param_rel_l2']:.3e}, the updates themselves "
+        f"{upd:.3e} (limits 1e-4, 1e-4, 1e-3)")
+    if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(l_gpu, l_cpu)):
+        raise AssertionError(f"card losses {l_gpu} != CPU losses {l_cpu}")
+    if not (out["grad_rel_l2"] <= 1e-4 and out["param_rel_l2"] <= 1e-4
+            and upd <= 1e-3):
+        raise AssertionError(f"MoE card against CPU: {out}")
+    return out
+
+
+def moe_phase(A, seed, pt, pt_prof):
+    """Phase 33. Returns ({remat: numbers}, the summary dict)."""
+    runs = {}
+    for remat in (True, False):
+        runs[remat], tr, batch = moe_pretrain(A, seed, remat)
+        run = runs[remat]
+        log(f"  (a) remat {'on' if remat else 'off'}: losses "
+            f"{[round(x, 4) for x in run['losses']]}; aux (12 layers) first "
+            f"{[round(x, 4) for x in run['aux_first']]}, last "
+            f"{[round(x, 4) for x in run['aux_last']]}; "
+            f"{run['seq_per_s']:.2f} seq/s over updates 3-{PT_UPDATES}; "
+            f"peak {run['peak_bytes'] / 2 ** 30:.2f} GiB; launches "
+            f"{run['launches']}")
+        log(f"  (a) capacity {run['capacity']} a micro-batch; last "
+            f"micro-batch's dropped share a layer "
+            f"{[round(x, 4) for x in run['dropped_share']]}, largest "
+            f"expert load {run['max_load']}"
+            + ("" if remat else f"; {run['experts_moved']} of "
+               f"{2 * E_LAYERS * MOE_EXPERTS} expert weights moved, none "
+               f"alike"))
+        if remat:
+            del tr, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    log(f"  (a) peaks, remat on / off: one micro-batch's forward + backward "
+        f"{on['fwd_bwd_peak_bytes'] / 2 ** 30:.3f} / "
+        f"{off['fwd_bwd_peak_bytes'] / 2 ** 30:.3f} GiB above the trainer's "
+        f"state (judged); the whole update "
+        f"{on['peak_bytes'] / 2 ** 30:.3f} / {off['peak_bytes'] / 2 ** 30:.3f}"
+        f" GiB (the optimizer's, printed: {on['peak_bytes'] - off['peak_bytes']}"
+        f" bytes apart)")
+    if on["fwd_bwd_peak_bytes"] > off["fwd_bwd_peak_bytes"]:
+        raise AssertionError(f"remat raised the MoE forward + backward "
+                             f"peak: {on['fwd_bwd_peak_bytes']} > "
+                             f"{off['fwd_bwd_peak_bytes']} bytes")
+    prof = profile_training(tr, batch, steps=1)
+    split = moe_layer_split(tr.layer, seed)
+    per_update = E_LAYERS * PT_ACCUM * split["whole_ms"]
+    busy = None if prof is None else \
+        sum(prof["groups_ms_per_step"].values())
+    log(f"  (a) one MoE layer fwd + bwd at b{PT_BATCH} s{PT_SEQ} bf16: "
+        f"{split['whole_ms']:.3f} device ms (expert products "
+        f"{split['experts_ms']:.3f}, routing + dispatch + combine "
+        f"{split['route_dispatch_combine_ms']:.3f}); x {E_LAYERS * PT_ACCUM}"
+        f" = {per_update:.1f} ms an update"
+        + ("" if busy is None else
+           f", {100 * per_update / busy:.1f}% of its {busy:.1f} device ms"))
+    dense = pt[False]
+    log(f"  (a) beside phase 25 (dense, remat off): "
+        f"{dense['seq_per_s']:.2f} seq/s, peak "
+        f"{dense['peak_bytes'] / 2 ** 30:.2f} GiB"
+        + ("" if not pt_prof else
+           f", busy {100 * pt_prof['busy_share']:.1f}% of "
+           f"{sum(pt_prof['groups_ms_per_step'].values()):.1f} device ms"))
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp_ = moe_card_vs_cpu(seed)
+    return runs, {"remat_on": runs[True], "remat_off": runs[False],
+                  "profiled_update": prof, "moe_layer": split,
+                  "moe_ms_per_update": per_update, "card_vs_cpu": cmp_,
+                  "dense_phase25": {"seq_per_s": dense["seq_per_s"],
+                                    "peak_bytes": dense["peak_bytes"],
+                                    "profiled_update": pt_prof}}
+
+
+# ------------------------------------- the library on the card (34)
+
+def library_sweep():
+    """Phase 34 (a): `testing.sweep` on the card against the CPU in
+    float64. Returns (cases checked, worst relative error, its case)."""
+    from paddle_tpu_torch.testing import sweep
+
+    worst, where, bad = 0.0, None, []
+    cases = sweep.cases()
+    for case in cases:
+        err, equal = sweep.compare(sweep.run(case, "cuda"),
+                                   sweep.run(case, "cpu"))
+        if err > worst:
+            worst, where = err, case.name
+        if err > LIB_REL or not equal:
+            bad.append((case.name, err, equal))
+    log(f"  (a) {len(cases)} cases (tensor functions, nn.functional, "
+        f"layers) forward and backward in float64: worst relative error "
+        f"{worst:.3e} ({where}; limit {LIB_REL})")
+    reasons = {}
+    for name, why in sweep.EXCLUDED.items():
+        reasons.setdefault(why, []).append(name)
+    for why, names in reasons.items():
+        log(f"  (a) left out, {why}: {', '.join(sorted(names))}")
+    if bad:
+        raise AssertionError(f"library sweep, card against CPU: {bad}")
+    return {"cases": len(cases), "worst_rel": worst, "worst_case": where,
+            "excluded": len(sweep.EXCLUDED)}
+
+
+def rnn_stacks(seed):
+    """Phase 34 (b): a 2-layer bidirectional LSTM and GRU in float64 on
+    the card and the CPU from the same weights, inputs and initial
+    states: outputs, final states and every gradient within LIB_REL;
+    then a forward + backward pass in float32 on the card, median of 5
+    on the host clock."""
+    from paddle_tpu_torch import nn as tnn
+
+    rs = np.random.RandomState(seed)
+    x = rs.randn(RNN_BATCH, RNN_STEPS, RNN_IN)
+    n = 2 * 2
+    h0 = rs.randn(n, RNN_BATCH, RNN_HIDDEN) * 0.5
+    c0 = rs.randn(n, RNN_BATCH, RNN_HIDDEN) * 0.5
+    out = {}
+    for mode in ("LSTM", "GRU"):
+        net = getattr(tnn, mode)(RNN_IN, RNN_HIDDEN, 2, "bidirect",
+                                 device="cpu",
+                                 generator=torch.Generator().manual_seed(seed))
+        res = {}
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(net).double().to(dev)
+            leaves = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                      for a in ((x, h0, c0) if mode == "LSTM" else (x, h0))]
+            init = tuple(leaves[1:]) if mode == "LSTM" else leaves[1]
+            y, st = m(leaves[0], init)
+            flat = [y] + (list(st) if mode == "LSTM" else [st])
+            total = sum((t * (k + 1.0) / t.numel()).sum() for k, t in
+                        enumerate(flat))
+            grads = torch.autograd.grad(total, leaves + list(m.parameters()))
+            res[dev] = [t.detach().cpu() for t in flat + list(grads)]
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(res["cuda"], res["cpu"]))
+        m = copy.deepcopy(net).float().to("cuda")
+        xf = torch.from_numpy(x).float().to("cuda").requires_grad_(True)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, _ = m(xf)
+            y.sum().backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times[1:]))
+        out[mode] = {"worst_rel": worst, "ms_a_pass": ms,
+                     "ms_a_step": ms / RNN_STEPS}
+        log(f"  (b) {mode} 2 layers bidirectional, in {RNN_IN}, hidden "
+            f"{RNN_HIDDEN}, b{RNN_BATCH} x {RNN_STEPS} steps: float64 card "
+            f"against CPU worst relative error {worst:.3e} (limit "
+            f"{LIB_REL}); float32 forward + backward {ms:.2f} ms a pass, "
+            f"{ms / RNN_STEPS:.3f} ms a step (a loop of torch ops)")
+        if not worst <= LIB_REL:
+            raise AssertionError(f"{mode} card against CPU: {worst}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5217,7 +5643,31 @@ def main():
         row["launches"] = sum(row["launches_by_path"].values())
     log(f"  phases 29-32 took {hapi_wall:.1f} s")
 
-    log("phase 33: output")
+    log(f"phase 33: MoE ERNIE-base pretraining ({MOE_EXPERTS} experts, "
+        f"capacity factor {MOE_CAPACITY}, aux weight {MOE_AUX}), "
+        f"{PT_UPDATES} updates of {PT_ACCUM} x {PT_BATCH} x {PT_SEQ} tokens, "
+        f"bf16, dropout {E_DROPOUT}; remat on, then off")
+    t_moe = time.perf_counter()
+    moe_runs, moe_out = moe_phase(A, args.seed, pt, pt_prof)
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        row = kernels[kname]
+        for remat in (False, True):
+            row["launches_by_path"]["moe_pretrain_remat" if remat else
+                                    "moe_pretrain"] = \
+                moe_runs[remat]["launches"][kname]
+        row["launches"] = sum(row["launches_by_path"].values())
+    log("  MoE pretraining summary " + json.dumps({"card": card, **moe_out}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 34: the model-building library on the card (float64 card "
+        "against CPU)")
+    lib = library_sweep()
+    rnn = rnn_stacks(args.seed)
+    log("  library summary " + json.dumps({"card": card, "sweep": lib,
+                                           "rnn": rnn}))
+    log(f"  phases 33-34 took {time.perf_counter() - t_moe:.1f} s")
+
+    log("phase 35: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

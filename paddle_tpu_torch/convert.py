@@ -25,6 +25,15 @@ has run, which has the same buffers:
 `ErnieForPretraining` loads the same way: its masked-LM decoder is tied
 to the word embeddings and brings no weight of its own.
 
+The layers of the model-building library load the same way: the MoE's
+`moe.router`, `moe.experts.weight_in` / `weight_out`, the RNN cells'
+`weight_ih` / `weight_hh` / `bias_ih` / `bias_hh` (`cells.<i>.` in a
+stack), the norms' `weight` / `bias`, `SpectralNorm`'s `weight_u` /
+`weight_v` buffers. A JAX MoE layer also carries `aux_loss_val`, its
+non-persistable aux-loss channel, which the JAX `state_dict()` lets
+through for a nested layer; it is no state (the port keeps the aux loss
+as `MoELayer.aux_loss`), and `from_jax_state` drops it.
+
 An eager JAX optimizer's `state_dict()` (its slots turned into numpy
 arrays) becomes the port optimizer's through `from_jax_optimizer_state`,
 so a run continues from a JAX checkpoint:
@@ -53,9 +62,12 @@ __all__ = ["from_jax_state", "from_jax_optimizer_state"]
 def from_jax_state(np_state):
     """{name: numpy array} -> {name: CPU torch tensor} with the same
     names, dtypes kept: int8 stays int8, float64 arrays from an x64
-    session become float32 (the port's parameters are float32)."""
+    JAX process become float32 (the port's parameters are float32). A MoE
+    layer's `aux_loss_val` channel is dropped."""
     out = {}
     for name, arr in np_state.items():
+        if name.rsplit(".", 1)[-1] == "aux_loss_val":
+            continue
         arr = np.asarray(arr)
         if arr.dtype == np.float64:
             arr = arr.astype(np.float32)

@@ -1,22 +1,56 @@
-"""Layers of the port (PyTorch modules with the reference's layouts)."""
-from . import functional
+"""Layers of the port (Paddle's `nn`, the JAX package's `nn/__init__.py`):
+`Layer` and `ParamAttr`, `initializer`, `functional`, the layers, the
+RNNs, `MoELayer` and the gradient clips. `SyncBatchNorm` waits for the
+multi-card slice (ROADMAP item 5)."""
+from torch.nn import Parameter
+
+from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer.common import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool1D,
-                           AvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
-                           BatchNorm3D, Conv2D, Conv2DTranspose,
-                           CrossEntropyLoss, Dropout, Embedding, Flatten,
-                           Identity, LayerNorm, Linear, MaxPool1D, MaxPool2D,
-                           MSELoss, ReLU, ReLU6, Sequential, Tanh)
+from .layer.common import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AlphaDropout,
+                           AvgPool1D, AvgPool2D, BatchNorm, BatchNorm1D,
+                           BatchNorm2D, BatchNorm3D, BCELoss,
+                           BCEWithLogitsLoss, Bilinear, Conv1D, Conv2D,
+                           Conv2DTranspose, CosineSimilarity,
+                           CrossEntropyLoss, Dropout, Dropout2D, ELU,
+                           Embedding, Flatten, GELU, GroupNorm, Hardshrink,
+                           Hardsigmoid, Hardswish, Hardtanh, Identity,
+                           InstanceNorm2D, KLDivLoss, L1Loss, LayerDict,
+                           LayerList, LayerNorm, LeakyReLU, Linear,
+                           LocalResponseNorm, LogSigmoid, LogSoftmax,
+                           MarginRankingLoss, Maxout, MaxPool1D, MaxPool2D,
+                           Mish, MSELoss, NLLLoss, Pad2D, ParameterList,
+                           PixelShuffle, PReLU, ReLU, ReLU6, RMSNorm, SELU,
+                           Sequential, Sigmoid, Silu, SmoothL1Loss, Softmax,
+                           Softplus, Softshrink, Softsign, SpectralNorm,
+                           Swish, Tanh, Tanhshrink, Unfold, Upsample,
+                           UpsamplingBilinear2D, UpsamplingNearest2D)
+from .layer.layers import HookRemoveHelper, Layer, ParamAttr
+from .layer.moe import MoELayer
+from .layer.rnn import (GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase,
+                        SimpleRNN, SimpleRNNCell)
 from .layer.transformer import (MultiHeadAttention, Transformer,
                                 TransformerDecoder, TransformerDecoderLayer,
                                 TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "AdaptiveAvgPool2D", "AdaptiveMaxPool2D",
-           "AvgPool1D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "Conv2D", "Conv2DTranspose",
-           "CrossEntropyLoss", "Dropout", "Embedding", "Flatten", "Identity",
-           "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D", "MSELoss",
-           "MultiHeadAttention", "ReLU", "ReLU6", "Sequential", "Tanh",
-           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = [
+    "functional", "initializer", "Parameter", "Layer", "ParamAttr",
+    "HookRemoveHelper", "ClipGradByGlobalNorm", "ClipGradByNorm",
+    "ClipGradByValue", "AdaptiveAvgPool2D", "AdaptiveMaxPool2D",
+    "AlphaDropout", "AvgPool1D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
+    "BatchNorm2D", "BatchNorm3D", "BCELoss", "BCEWithLogitsLoss",
+    "Bilinear", "Conv1D", "Conv2D", "Conv2DTranspose", "CosineSimilarity",
+    "CrossEntropyLoss", "Dropout", "Dropout2D", "ELU", "Embedding",
+    "Flatten", "GELU", "GroupNorm", "Hardshrink", "Hardsigmoid",
+    "Hardswish", "Hardtanh", "Identity", "InstanceNorm2D", "KLDivLoss",
+    "L1Loss", "LayerDict", "LayerList", "LayerNorm", "LeakyReLU", "Linear",
+    "LocalResponseNorm", "LogSigmoid", "LogSoftmax", "MarginRankingLoss",
+    "Maxout", "MaxPool1D", "MaxPool2D", "Mish", "MSELoss", "NLLLoss",
+    "Pad2D", "ParameterList", "PixelShuffle", "PReLU", "ReLU", "ReLU6",
+    "RMSNorm", "SELU", "Sequential", "Sigmoid", "Silu", "SmoothL1Loss",
+    "Softmax", "Softplus", "Softshrink", "Softsign", "SpectralNorm",
+    "Swish", "Tanh", "Tanhshrink", "Unfold", "Upsample",
+    "UpsamplingBilinear2D", "UpsamplingNearest2D", "MoELayer", "GRU",
+    "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN",
+    "SimpleRNNCell", "MultiHeadAttention", "Transformer",
+    "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",
+    "TransformerEncoderLayer"]

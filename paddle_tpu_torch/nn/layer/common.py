@@ -16,6 +16,12 @@ the `weight_q` (int8) and `weight_scale` (float32) buffers of the JAX
 package, so a JAX `state_dict()` of a quantized net loads by name.
 A Linear an `AdapterPool` installed `_lora_idx` on adds the per-row
 adapter delta inside a `lora_scope` (`ops.quant`).
+
+The layers of the vision and Transformer slices are plain `nn.Module`s;
+those added with the model-building library (the containers, the rest of
+the activations, `Conv1D`, `GroupNorm`, `InstanceNorm2D`, `RMSNorm`,
+`SpectralNorm`, the rest of the losses, ...) derive from `Layer` and
+take `ParamAttr`s.
 """
 from __future__ import annotations
 
@@ -25,14 +31,27 @@ import torch
 from torch import nn
 
 from ...core.device import resolve_device
+from ...ops import kernels as K
 from .. import functional as F
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Tanh", "ReLU",
            "ReLU6", "Identity", "Flatten", "Sequential", "Conv2D",
            "Conv2DTranspose", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
            "AdaptiveMaxPool2D", "MaxPool1D", "AvgPool1D", "BatchNorm",
            "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "CrossEntropyLoss",
-           "MSELoss"]
+           "MSELoss", "LayerList", "ParameterList", "LayerDict", "Sigmoid",
+           "Softsign", "Mish", "Hardswish", "Hardsigmoid", "Silu", "Swish",
+           "LogSigmoid", "Tanhshrink", "GELU", "LeakyReLU", "ELU", "SELU",
+           "PReLU", "Softmax", "LogSoftmax", "Softplus", "Hardtanh",
+           "Hardshrink", "Softshrink", "Maxout", "Dropout2D", "AlphaDropout",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D",
+           "PixelShuffle", "Pad2D", "Unfold", "CosineSimilarity", "Bilinear",
+           "Conv1D", "GroupNorm", "InstanceNorm2D", "LocalResponseNorm",
+           "SpectralNorm", "RMSNorm", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
+           "MarginRankingLoss"]
 
 
 class Dropout(nn.Module):
@@ -408,3 +427,364 @@ class MSELoss(nn.Module):
 
     def forward(self, input, label):
         return F.mse_loss(input, label, self._reduction)
+
+
+# --------------------------------------------------------------------------
+# the rest of the JAX package's `nn/layer/common.py`, on `Layer`: the
+# containers, the remaining activations, convolutions, norms and losses,
+# and the vision helpers. Parameter names, shapes and initialisers are the
+# JAX ones, so `convert.from_jax_state` carries a JAX state across.
+# --------------------------------------------------------------------------
+
+
+class LayerList(Layer):
+    """Sublayers named "0", "1", ... in order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for layer in sublayers or ():
+            self.append(layer)
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self._modules)), layer)
+        return self
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, m in enumerate(layers):
+            self._modules[str(i)] = m
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._modules.values())[idx])
+        return self._modules[str(idx % len(self._modules))]
+
+    def __setitem__(self, idx, layer):
+        self.add_sublayer(str(idx % len(self._modules)), layer)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class ParameterList(Layer):
+    """Parameters named "0", "1", ... in order."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for p in parameters or ():
+            self.append(p)
+
+    def append(self, p):
+        self.add_parameter(str(len(self._parameters)), p)
+        return self
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx % len(self._parameters))]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+
+class LayerDict(Layer):
+    """Sublayers by name, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers:
+            items = sublayers.items() if isinstance(sublayers, dict) \
+                else sublayers
+            for k, v in items:
+                self.add_sublayer(k, v)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def keys(self):
+        return self._modules.keys()
+
+    def values(self):
+        return self._modules.values()
+
+    def items(self):
+        return self._modules.items()
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+
+class _Fixed(Layer):
+    """A layer that calls one functional entry with the arguments it was
+    built with (Paddle's `name=` is taken and dropped)."""
+
+    fn = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        kwargs.pop("name", None)
+        self._args, self._kwargs = args, kwargs
+
+    def forward(self, *inputs):
+        return type(self).fn(*inputs, *self._args, **self._kwargs)
+
+
+def _fixed(name, fn):
+    return type(name, (_Fixed,), {"fn": staticmethod(fn),
+                                  "__doc__": f"`nn.functional.{fn.__name__}`"
+                                             f" with fixed arguments."})
+
+
+Sigmoid = _fixed("Sigmoid", F.sigmoid)
+Softsign = _fixed("Softsign", F.softsign)
+Mish = _fixed("Mish", F.mish)
+Hardswish = _fixed("Hardswish", F.hardswish)
+Hardsigmoid = _fixed("Hardsigmoid", F.hardsigmoid)
+Silu = _fixed("Silu", F.silu)
+Swish = _fixed("Swish", F.swish)
+LogSigmoid = _fixed("LogSigmoid", F.log_sigmoid)
+Tanhshrink = _fixed("Tanhshrink", F.tanhshrink)
+GELU = _fixed("GELU", F.gelu)
+LeakyReLU = _fixed("LeakyReLU", F.leaky_relu)
+ELU = _fixed("ELU", F.elu)
+SELU = _fixed("SELU", F.selu)
+Softmax = _fixed("Softmax", F.softmax)
+LogSoftmax = _fixed("LogSoftmax", F.log_softmax)
+Softplus = _fixed("Softplus", F.softplus)
+Hardtanh = _fixed("Hardtanh", F.hardtanh)
+Hardshrink = _fixed("Hardshrink", F.hardshrink)
+Softshrink = _fixed("Softshrink", F.softshrink)
+Maxout = _fixed("Maxout", F.maxout)
+PixelShuffle = _fixed("PixelShuffle", F.pixel_shuffle)
+Unfold = _fixed("Unfold", F.unfold)
+CosineSimilarity = _fixed("CosineSimilarity", F.cosine_similarity)
+LocalResponseNorm = _fixed("LocalResponseNorm", F.local_response_norm)
+L1Loss = _fixed("L1Loss", F.l1_loss)
+NLLLoss = _fixed("NLLLoss", F.nll_loss)
+BCELoss = _fixed("BCELoss", F.binary_cross_entropy)
+BCEWithLogitsLoss = _fixed("BCEWithLogitsLoss",
+                           F.binary_cross_entropy_with_logits)
+SmoothL1Loss = _fixed("SmoothL1Loss", F.smooth_l1_loss)
+KLDivLoss = _fixed("KLDivLoss", F.kl_div)
+MarginRankingLoss = _fixed("MarginRankingLoss", F.margin_ranking_loss)
+
+
+class PReLU(Layer):
+    """weight [num_parameters] = `init`: one slope shared, or one per
+    channel."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, *, device=None,
+                 generator=None):
+        super().__init__(device=device, generator=generator)
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight, self._data_format)
+
+
+class Dropout2D(Layer):
+    """Drops whole channels; `generator` as `Dropout`'s."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None, *,
+                 generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, self.training, generator=self.generator)
+
+
+class AlphaDropout(Dropout2D):
+    def __init__(self, p=0.5, name=None, *, generator=None):
+        super().__init__(p, generator=generator)
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, self.training, self.generator)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode = align_mode
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, name=None):
+        super().__init__(size, scale_factor, "bilinear", True)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, name=None):
+        super().__init__(size, scale_factor, "nearest")
+
+
+class Pad2D(Layer):
+    """Pads H and W: `padding` an int, or [left, right, top, bottom]."""
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = list(padding) if isinstance(padding, (list, tuple)) \
+            else [padding] * 4
+        self.mode, self.value = mode, value
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value)
+
+
+class Bilinear(Layer):
+    """out[b, o] = x1[b] . weight[o] . x2[b] + bias[0, o]; weight [out,
+    in1, in2] Xavier-uniform (read as OIHW), bias [1, out] zeros."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *, device=None,
+                 generator=None):
+        super().__init__(device=device, generator=generator)
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter([1, out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return torch.einsum("bi,oij,bj->bo", x1, self.weight, x2) + self.bias
+
+
+class Conv1D(Layer):
+    """1-D convolution over [N, C, L]; weight [out, in / groups, k]
+    Xavier-uniform (read as OIHW), bias [out] zeros."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, generator=None):
+        super().__init__(device=device, generator=generator)
+        k = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+        self._args = (stride, padding, dilation, groups)
+        self.weight = self.create_parameter(
+            [out_channels, in_channels // groups, k], attr=weight_attr,
+            default_initializer=I.XavierUniform())
+        self.bias = self.create_parameter([out_channels], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight, self.bias, *self._args)
+
+
+class _AffineNorm(Layer):
+    """weight [c] ones and bias [c] zeros."""
+
+    def _affine(self, c, weight_attr, bias_attr):
+        self.weight = self.create_parameter(
+            [c], attr=weight_attr, default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter([c], attr=bias_attr, is_bias=True)
+
+
+class GroupNorm(_AffineNorm):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, generator=None):
+        super().__init__(device=device, generator=generator)
+        self._num_groups, self._epsilon = num_groups, epsilon
+        self._affine(num_channels, weight_attr, bias_attr)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon)
+
+
+class InstanceNorm2D(_AffineNorm):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, generator=None):
+        super().__init__(device=device, generator=generator)
+        self._epsilon = epsilon
+        self._affine(num_features, weight_attr, bias_attr)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class SpectralNorm(Layer):
+    """weight / sigma_max(weight), sigma estimated by `power_iters` rounds
+    of power iteration on the persistent buffers `weight_u`
+    [weight_shape[dim]] and `weight_v` [the product of the rest], which
+    each forward updates in place so the estimate converges across
+    calls. They start as the JAX layer's: unit-norm draws of
+    numpy.random.RandomState(0)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32", *, device=None):
+        super().__init__(device=device)
+        import numpy as np
+
+        self._dim, self._power_iters, self._eps = dim, power_iters, eps
+        h = weight_shape[dim]
+        w = int(np.prod([s for i, s in enumerate(weight_shape) if i != dim]))
+        rs = np.random.RandomState(0)
+        dev = resolve_device(device)
+        for name_, n in (("weight_u", h), ("weight_v", w)):
+            a = rs.randn(n).astype(dtype)
+            a = a / (np.linalg.norm(a) + 1e-12)
+            self.register_buffer(name_, torch.from_numpy(a).to(dev))
+
+    def forward(self, weight):
+        # copies: the backward keeps the vectors it read, and the buffers
+        # are written below
+        out, u, v = K.spectral_normalize(weight, self.weight_u.clone(),
+                                         self.weight_v.clone(), self._dim,
+                                         self._power_iters, self._eps)
+        with torch.no_grad():
+            self.weight_u.copy_(u)
+            self.weight_v.copy_(v)
+        return out
+
+
+class RMSNorm(Layer):
+    """x / rms(x) over the last axis, times weight [hidden] ones."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None, *,
+                 device=None, generator=None):
+        super().__init__(device=device, generator=generator)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            [hidden_size], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+
+    def forward(self, x):
+        return K.rms_norm(x, self.weight, self._epsilon)
+
+

@@ -33,14 +33,14 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]
 
-_ACTIVATIONS = {"relu": F.relu, "gelu": F.gelu}
-
-
 def _activation(name):
-    if name not in _ACTIVATIONS:
-        raise ValueError(f"activation {name!r} is not ported yet "
-                         f"({sorted(_ACTIVATIONS)} are)")
-    return _ACTIVATIONS[name]
+    """Any activation of `nn.functional` by name (the JAX layers'
+    ``getattr(F, activation)``)."""
+    fn = getattr(F, name, None)
+    if name.startswith("_") or name not in F.__all__ or fn is None:
+        raise ValueError(f"activation {name!r} is not a function of "
+                         f"nn.functional")
+    return fn
 
 
 class MultiHeadAttention(nn.Module):
@@ -262,19 +262,35 @@ class TransformerEncoderLayer(nn.Module):
     """Encoder layer (the JAX `TransformerEncoderLayer`): post-norm by
     default, pre-norm with `normalize_before`. `attn_dropout` (default
     `dropout`) drops attention probabilities in-kernel; `act_dropout`
-    (default `dropout`) follows the activation."""
+    (default `dropout`) follows the activation. `moe_experts` > 0 puts a
+    top-1 `MoELayer` (`moe_capacity_factor`) in the feed-forward's place,
+    inside the same residual and norm; its `aux_loss` is set each
+    forward."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, device=None, generator=None):
+                 normalize_before=False, moe_experts=0,
+                 moe_capacity_factor=1.25, *, device=None, generator=None):
         super().__init__()
         kw = dict(device=device, generator=generator)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead,
             dropout if attn_dropout is None else attn_dropout, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        if moe_experts:
+            from .moe import MoELayer
+
+            self.moe = MoELayer(d_model, dim_feedforward,
+                                num_experts=moe_experts,
+                                capacity_factor=moe_capacity_factor,
+                                activation=activation,
+                                device=resolve_device(device),
+                                generator=generator)
+            self.linear1 = self.linear2 = None
+        else:
+            self.moe = None
+            self.linear1 = Linear(d_model, dim_feedforward, **kw)
+            self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.dropout1 = Dropout(dropout)
@@ -294,8 +310,11 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
-        src = self.linear2(self.dropout_act(self.activation(
-            self.linear1(src))))
+        if self.moe is not None:
+            src = self.moe(src)
+        else:
+            src = self.linear2(self.dropout_act(self.activation(
+                self.linear1(src))))
         src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)

@@ -36,6 +36,18 @@ JAX trainer's ``x.reshape((N, b // N) + ...)``), runs forward and
 backward on each in order, accumulates ``acc + g.float32 / N`` and the
 loss as ``loss / N``, carries BatchNorm's buffers from one micro-batch
 to the next, then updates once.
+
+`moe_aux_weight` (0.01 by default, the JAX trainer's): every `MoELayer`
+of the layer sets its load-balance `aux_loss` in the forward, and each
+micro-batch's loss becomes ``loss + moe_aux_weight * sum(aux losses)``,
+the objective the gradients are of and the loss the step returns (the
+JAX trainer's). The aux losses are read right after the forward, before
+the backward: under `remat` the recompute runs `forward` again and sets
+them anew, but the loss already holds the first forward's, so each is
+added once and its gradient reaches the router once. The recompute's aux
+losses are kept detached: their graph would hold every recomputed
+activation below them through the backward (on the card it raised
+remat's peak above the plain step's).
 """
 from __future__ import annotations
 
@@ -47,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..nn.layer.common import Dropout
+from ..nn.layer.moe import MoELayer
 from ..nn.layer.transformer import MultiHeadAttention
 from ..optimizer import Optimizer
 from ..optimizer import functional as fopt
@@ -77,7 +90,8 @@ class SpmdTrainer:
     of tensors or numpy arrays, moved to the trainer's device."""
 
     def __init__(self, layer, loss_fn, optimizer, compute_dtype=None,
-                 device=None, generator=None, remat=False, grad_accum=1):
+                 device=None, generator=None, remat=False, grad_accum=1,
+                 moe_aux_weight=0.01):
         if isinstance(optimizer, Optimizer):
             optimizer = fopt.from_eager(optimizer)
         if not isinstance(optimizer, fopt.Transform):
@@ -93,6 +107,9 @@ class SpmdTrainer:
         self.compute_dtype = _dtype(compute_dtype)
         self.remat = bool(remat)
         self.grad_accum = int(grad_accum)
+        self.moe_aux_weight = float(moe_aux_weight)
+        self._moe = [m for m in self.layer.modules()
+                     if isinstance(m, MoELayer)]
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if generator.device.type != "cpu":
@@ -165,12 +182,24 @@ class SpmdTrainer:
             finally:
                 for g, st in zip(gens, now):
                     g.set_state(st)
+                # the recompute set every aux loss anew; its graph reaches
+                # back through every layer below and would keep all the
+                # recomputed activations alive through the backward
+                for m in self._moe:
+                    if m.aux_loss is not None:
+                        m.aux_loss = m.aux_loss.detach()
 
         return checkpoint(forward, *inputs, use_reentrant=False)
 
     def _forward_loss(self, inputs, labels):
         self.layer.train()
-        return self.loss_fn(self._apply(inputs), labels).float().mean()
+        for m in self._moe:
+            m.aux_loss = None
+        loss = self.loss_fn(self._apply(inputs), labels).float().mean()
+        if self.moe_aux_weight and self._moe:
+            loss = loss + self.moe_aux_weight * sum(
+                m.aux_loss.float().reshape(()) for m in self._moe)
+        return loss
 
     def eval_step(self, inputs):
         """The layer's inference forward (BatchNorm on its running stats,

@@ -8,8 +8,16 @@ Attention runs through the flash kernels with in-kernel attention
 dropout in training, over padded rows (a key bias) or packed rows
 (segment ids, per-sequence CLS indices). `ErnieForPretraining` adds the
 masked-LM head (Linear -> gelu -> LayerNorm, decoded against the word
-embeddings: ``h @ W_emb.T``, no bias) and the next-sentence head. The MoE
-feed-forward is not ported.
+embeddings: ``h @ W_emb.T``, no bias) and the next-sentence head.
+
+`ErnieConfig(moe_experts=E, moe_capacity_factor=c)` with E > 0 puts a
+top-1 `MoELayer` (`nn/layer/moe.py`) in place of the feed-forward of
+every encoder layer, as the JAX package does (Switch Transformers puts
+one in every other layer; the port keeps the JAX model). Each MoE layer
+sets its load-balance `aux_loss` every forward; `SpmdTrainer(...,
+moe_aux_weight=0.01)` adds `moe_aux_weight` times their sum to each
+micro-batch's loss. This covers `ErnieForSequenceClassification` and
+`ErnieForPretraining`.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ class ErnieConfig:
     def __init__(self, vocab_size=18000, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=3072, max_position=513,
                  type_vocab_size=2, hidden_dropout=0.1, attn_dropout=0.1,
-                 num_classes=2):
+                 num_classes=2, moe_experts=0, moe_capacity_factor=1.25):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -40,6 +48,9 @@ class ErnieConfig:
         self.hidden_dropout = hidden_dropout
         self.attn_dropout = attn_dropout
         self.num_classes = num_classes
+        # moe_experts > 0: every encoder feed-forward is a top-1 MoELayer
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
 
     @classmethod
     def base(cls, **kw):
@@ -101,7 +112,8 @@ class ErnieModel(nn.Module):
         enc_layer = TransformerEncoderLayer(
             cfg.hidden_size, cfg.num_heads, cfg.intermediate_size,
             dropout=cfg.hidden_dropout, activation="gelu",
-            attn_dropout=cfg.attn_dropout, **kw)
+            attn_dropout=cfg.attn_dropout, moe_experts=cfg.moe_experts,
+            moe_capacity_factor=cfg.moe_capacity_factor, **kw)
         self.encoder = TransformerEncoder(enc_layer, cfg.num_layers)
         self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
         self.pooler_act = Tanh()

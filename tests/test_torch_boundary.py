@@ -42,6 +42,28 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_import_patches_no_torch_tensor_method():
+    """The JAX package attaches its tensor functions to its Tensor class;
+    the port leaves torch.Tensor as it found it."""
+    code = (
+        "import importlib, pkgutil, sys, torch\n"
+        "cls = (torch.Tensor, torch._C.TensorBase)\n"
+        "before = [dict(vars(c)) for c in cls]\n"
+        "import paddle_tpu_torch\n"
+        "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,\n"
+        "                               'paddle_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "after = [dict(vars(c)) for c in cls]\n"
+        "bad = sorted(n for b, a in zip(before, after)\n"
+        "             for n in set(b) | set(a) if b.get(n) is not a.get(n))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_source_imports_neither_jax_nor_the_jax_package(path):
