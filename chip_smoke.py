@@ -400,7 +400,47 @@ Phases; any failure exits nonzero before the result lines:
     states, outputs, final states and every gradient within 1e-10; then
     ms a forward + backward pass (and a time step) in float32 on the card
     (a loop of torch ops; printed, no claim).
-35. Output: a {"kernels": [...]} line for all eleven kernels (the
+35. The op library's sequence, structured-loss and detection ops (no
+    hand kernel; each part prints its wall seconds). (a) LAC's BiGRU-CRF
+    tagger (PaddleNLP lexical_analysis): embedding 128, two bidirectional
+    layers of fc + dynamic_gru (hidden 128), an fc to 57 tags, the CRF;
+    b64 of lengths 1-64. One float64 step card against CPU (-mean
+    crf_log_likelihood and every gradient within 1e-10, crf_decode paths
+    equal), three float32 AdamW steps on the card (the loss falls),
+    crf_decode against viterbi_decode with zero start / stop rows (paths
+    equal on full-length rows), the ChunkEvaluator (IOB, 28 types) on the
+    decoded tags, and ms a step of each loop over T. (b) A CRNN CTC head
+    (T 25, b256, 37 classes, labels 1-12): the recursion in float64 card
+    against CPU within 1e-10 and within 1e-9 of
+    torch.nn.functional.ctc_loss on the card; F.ctc_loss (a float32
+    log-softmax inside) card against CPU within 1e-5; its ms. (c)
+    SSD300 (VOC, 21 classes, six prior_box maps: 8732 priors, b32, 1-8
+    gt boxes an image): ssd_loss card against CPU (float32 inside, as
+    the JAX function: loss and gradients within 1e-5; match indices
+    equal; mined negatives equal but at a float32 tie, printed); then
+    box_coder decode (1e-10) -> multiclass_nms (score 0.01, nms_top_k
+    400, keep_top_k 200, IoU 0.45) -> DetectionMAP, the rows of 8 images
+    equal to the CPU's on the same inputs but where a keep list parts at
+    an IoU within 1e-6 of the threshold (printed). (d) YOLOv3 at 608²
+    (heads 19², 38², 76², the nine COCO anchors, 80 classes: 22743 boxes
+    an image, b8): yolo_box card against CPU within 1e-5, multiclass_nms
+    (score 0.01, nms_top_k 1000, keep_top_k 100, IoU 0.45), images 0
+    and 7 as in (c). (e) Faster R-CNN R50-C4 targets (800 x 1333, C4 at
+    1/16: 50 x 84 x 15 anchors, 81 classes, b2), stage by stage on the
+    same inputs card against CPU: anchors equal; rpn_target_assign (256,
+    fg 0.5) labels and counts equal, targets within 1e-5;
+    generate_proposals (pre 12000, post 2000, NMS 0.7) candidates within
+    1e-5, keep lists as in (c); generate_proposal_labels (512, fg 0.25)
+    equal, targets within 1e-5; roi_align 14x14 over 1024 channels
+    forward + backward, channels 0-15 against the CPU within 1e-5; with
+    a seeded generator, the sampling quotas and candidate masks. The ms
+    and device kernels of one NMS call at the SSD, YOLOv3 and RPN shapes,
+    and at half the candidates at the SSD and YOLOv3 shapes (the count
+    follows the picks, not the boxes; the profiler takes ~10 s to read
+    the RPN call's 56000 kernels, so it reads them once). (f) `testing.sweep.op_cases`, float64 card against
+    CPU within 1e-10 (integer outputs equal); the count and each
+    function left out, with its reason.
+36. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
     10, 22, 25, 32 and 33), then the card's name and power limit, then
@@ -538,6 +578,30 @@ MOE_EXPERTS, MOE_CAPACITY, MOE_AUX, MOE_TIE = 8, 1.25, 0.01, 1e-6
 # tensor's largest CPU entry); the RNN stacks' input, hidden, batch, steps
 LIB_REL = 1e-10
 RNN_IN, RNN_HIDDEN, RNN_BATCH, RNN_STEPS = 128, 512, 16, 64
+#: phase 35: LAC (PaddleNLP lexical_analysis; the vocabulary size and the
+#: batch are ours), CRNN + CTC (PaddleOCR rec_*_ctc on ICDAR15), SSD300
+#: (PaddleDetection ssd_vgg16_300_240e_voc), YOLOv3-DarkNet53 at 608²
+#: (yolov3_darknet53_270e_coco) and Faster R-CNN R50-C4
+#: (faster_rcnn_r50_1x_coco; batch 2 is ours)
+LAC_VOCAB, LAC_EMB, LAC_HIDDEN, LAC_TAGS, LAC_CHUNKS = 20000, 128, 128, 57, 28
+LAC_BATCH, LAC_T = 64, 64
+CTC_T, CTC_B, CTC_C, CTC_L, CTC_ORACLE = 25, 256, 37, 12, 1e-9
+F32_REL = 1e-5
+SSD_IMG, SSD_BATCH, SSD_CLASSES, SSD_GT, SSD_PRIORS = 300, 32, 21, 8, 8732
+SSD_MAPS = ((38, 8, 30, 60, (2.0,)), (19, 16, 60, 111, (2.0, 3.0)),
+            (10, 32, 111, 162, (2.0, 3.0)), (5, 64, 162, 213, (2.0, 3.0)),
+            (3, 100, 213, 264, (2.0,)), (1, 300, 264, 315, (2.0,)))
+SSD_CPU_IMAGES = 8
+YOLO_IMG, YOLO_BATCH, YOLO_CLASSES, YOLO_BOXES = 608, 8, 80, 22743
+YOLO_HEADS = ((19, 32, [116, 90, 156, 198, 373, 326]),
+              (38, 16, [30, 61, 62, 45, 59, 119]),
+              (76, 8, [10, 13, 16, 30, 33, 23]))
+YOLO_CPU_IMAGES = (0, 7)
+FR_IMG, FR_FEAT, FR_STRIDE, FR_CH, FR_CPU_CH = (800, 1333), (50, 84), 16, \
+    1024, 16
+FR_SIZES, FR_RATIOS = [32.0, 64.0, 128.0, 256.0, 512.0], [0.5, 1.0, 2.0]
+FR_BATCH, FR_GT, FR_CLASSES = 2, 8, 81
+FR_PRE, FR_POST, FR_ROIS = 12000, 2000, 512
 
 
 #: flash_fwd launches by route on each serving path, and int8_matmul's
@@ -5050,6 +5114,649 @@ def rnn_stacks(seed):
     return out
 
 
+# ------------------------------- the op library on the card (35)
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (the absolute error where b is all 0)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    if b.numel() == 0:
+        return 0.0
+    scale, err = float(b.abs().max()), float((a - b).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def host_ms(fn, dev, runs=5):
+    """Median wall ms of fn() up to a device sync (the Python loops over
+    T and the NMS picks are launch-bound, so the host clock is the
+    measure)."""
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def launches(fn, dev):
+    """(device kernels, their device ms) of one fn() under torch.profiler
+    with device activity alone (the host-side records of ~50000 ops take
+    the profiler tens of seconds to process); "not measured" off the
+    card, or when the profiler recorded no device row."""
+    if torch.device(dev).type != "cuda":
+        return "not measured", "not measured"
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    if not rows:
+        return "not measured", "not measured"
+    return sum(r[1] for r in rows), sum(r[0] for r in rows)
+
+
+def nms_numbers(label, call, half, dev):
+    """The ms (host wall, device) and device kernels of one NMS call, and
+    the kernels of the call at half the candidates (`half`; None: not
+    measured): the count grows with the picks, not with the boxes."""
+    ms = host_ms(call, dev, runs=2)
+    n, dev_ms = launches(call, dev)
+    n_half = launches(half, dev)[0] if half else "not measured"
+    shown = dev_ms if isinstance(dev_ms, str) else f"{dev_ms:.2f} ms"
+    log(f"  NMS at {label}: {ms:.2f} ms a call (host wall), device busy "
+        f"{shown}; device kernels {n} (at half the candidates: {n_half})")
+    return {"ms": ms, "device_ms": dev_ms, "launches": n,
+            "launches_half_n": n_half}
+
+
+def nms_rows_agree(label, dev, out_dev, out_cpu, boxes, scores, thr,
+                   max_out, score_thr, normalized, background):
+    """multiclass_nms rows of the card against the CPU's on the same
+    inputs (boxes [B, N, 4], scores [B, C, N] on the CPU): equal, or
+    every class whose keep list parts does so at a near-threshold IoU
+    (`testing.nms`, printed). Returns the near-threshold classes."""
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.testing import nms as tnms
+
+    if torch.equal(out_dev.cpu(), out_cpu):
+        return 0
+    cls = [c for c in range(scores.shape[1]) if c != background]
+    ka, _ = D.nms(boxes[:, None].to(dev), scores[:, cls].to(dev), thr,
+                  score_thr, max_out, normalized)
+    kb, _ = D.nms(boxes[:, None], scores[:, cls], thr, score_thr, max_out,
+                  normalized)
+    rows = boxes[:, None].expand(-1, len(cls), -1, -1).reshape(
+        -1, boxes.shape[1], 4)
+    ok, diffs = tnms.agree(rows, ka.reshape(-1, max_out).cpu(),
+                           kb.reshape(-1, max_out), thr, normalized)
+    for d in diffs:
+        log(f"  {label}: NMS keep lists part {d}")
+    if not ok or not diffs:
+        raise AssertionError(f"{label}: card rows differ from the CPU's "
+                             f"({diffs})")
+    return len(diffs)
+
+
+def lac_weights(seed):
+    """LAC's BiGRU-CRF from seed: the embedding, two bidirectional layers
+    of fc + dynamic_gru a direction, the tag fc, the CRF transition."""
+    rs = np.random.RandomState(seed)
+    H, E = LAC_HIDDEN, LAC_EMB
+
+    def w(shape, scale):
+        return torch.from_numpy(rs.randn(*shape) * scale)
+
+    p = {"emb": w((LAC_VOCAB, E), 0.1)}
+    for layer, din in ((0, E), (1, 2 * H)):
+        for d in ("fw", "bw"):
+            p[f"proj{layer}{d}"] = w((din, 3 * H), din ** -0.5)
+            p[f"gru{layer}{d}"] = w((H, 3 * H), H ** -0.5)
+            p[f"bias{layer}{d}"] = w((1, 3 * H), 0.01)
+    p["out"] = w((2 * H, LAC_TAGS), (2 * H) ** -0.5)
+    p["out_b"] = torch.zeros(LAC_TAGS, dtype=torch.float64)
+    p["crf"] = w((LAC_TAGS + 2, LAC_TAGS), 0.1)
+    return p
+
+
+def lac_batch(seed):
+    rs = np.random.RandomState(seed + 1)
+    lens = rs.randint(1, LAC_T + 1, LAC_BATCH)
+    lens[:8] = LAC_T
+    return (torch.from_numpy(rs.randint(0, LAC_VOCAB, (LAC_BATCH, LAC_T))),
+            torch.from_numpy(rs.randint(0, LAC_TAGS, (LAC_BATCH, LAC_T))),
+            torch.from_numpy(lens))
+
+
+def lac_emission(p, words, lens):
+    from paddle_tpu_torch.ops import sequence as S
+
+    x = p["emb"][words]
+    for layer in (0, 1):
+        x = torch.cat([S.dynamic_gru(
+            x @ p[f"proj{layer}{d}"], lens, p[f"gru{layer}{d}"],
+            p[f"bias{layer}{d}"], is_reverse=d == "bw")
+            for d in ("fw", "bw")], -1)
+    return x @ p["out"] + p["out_b"]
+
+
+def lac_tagger(seed, dev):
+    """Phase 35 (a): one float64 step card against CPU, three float32
+    AdamW steps on the card, crf_decode against viterbi_decode, the
+    ChunkEvaluator, and the ms of each loop over T."""
+    from paddle_tpu_torch import metric, optimizer
+    from paddle_tpu_torch.ops import sequence as S
+    from paddle_tpu_torch.ops import sequence_losses as SL
+    from paddle_tpu_torch.text import viterbi_decode
+
+    p = lac_weights(seed)
+    words, tags, lens = lac_batch(seed)
+    res = {}
+    for d in ("cpu", dev):
+        leaves = {k: v.to(d).detach().requires_grad_(True) for k, v in p.items()}
+        em = lac_emission(leaves, words.to(d), lens.to(d))
+        loss = -SL.crf_log_likelihood(em, leaves["crf"], tags.to(d),
+                                      lens.to(d)).mean()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        path, _ = SL.crf_decode(em.detach(), leaves["crf"].detach(),
+                                lens.to(d))
+        res[d] = (loss, grads, path)
+    loss_err = rel_err(res[dev][0], res["cpu"][0])
+    grad_err = max(rel_err(a, b) for a, b in zip(res[dev][1],
+                                                   res["cpu"][1]))
+    same_path = torch.equal(res[dev][2].cpu(), res["cpu"][2])
+    log(f"  (a) float64 step, card against CPU: loss "
+        f"{float(res[dev][0].detach()):.6f} rel {loss_err:.3e}, worst gradient rel "
+        f"{grad_err:.3e} (limit {LIB_REL}); crf_decode paths equal "
+        f"{same_path}")
+    if not (loss_err <= LIB_REL and grad_err <= LIB_REL and same_path):
+        raise AssertionError("LAC float64 step: card differs from CPU")
+
+    names = list(p)
+    params = [torch.nn.Parameter(p[k].float().to(dev)) for k in names]
+    opt = optimizer.AdamW(1e-3, parameters=list(zip(names, params)))
+    w, t, n = words.to(dev), tags.to(dev), lens.to(dev)
+    losses, step_ms = [], []
+    for i in range(4):
+        sync(dev)
+        t0 = time.perf_counter()
+        em = lac_emission(dict(zip(names, params)), w, n)
+        loss = -SL.crf_log_likelihood(em, params[-1], t, n).mean()
+        losses.append(float(loss.detach()))
+        if i == 3:
+            break
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"  (a) float32 AdamW on the card: losses "
+        f"{[round(v, 4) for v in losses]}; {np.median(step_ms):.1f} ms a "
+        f"step (forward, backward, update)")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"LAC loss did not fall: {losses}")
+
+    with torch.no_grad():
+        em = lac_emission(dict(zip(names, params)), w, n)
+        crf = params[-1].detach()
+        zero = torch.cat([torch.zeros_like(crf[:2]), crf[2:]])
+        path, score = SL.crf_decode(em, zero, n)
+        vscore, vpath = viterbi_decode(em, crf[2:])
+        full = n == LAC_T
+        agree = torch.equal(path[full].long(), vpath[full])
+        s_err = rel_err(vscore[full], score[full])
+        log(f"  (a) crf_decode (zero start / stop rows) against "
+            f"viterbi_decode on {int(full.sum())} full-length rows: paths "
+            f"equal {agree}, scores rel {s_err:.2e}")
+        if not agree:
+            raise AssertionError("crf_decode and viterbi_decode disagree")
+        path, _ = SL.crf_decode(em, crf, n)
+    ce = metric.ChunkEvaluator(num_chunk_types=LAC_CHUNKS)
+    ce.update(path.cpu().numpy(), tags.numpy(), lens.numpy())
+    prf = ce.accumulate()
+    log(f"  (a) ChunkEvaluator (IOB, {LAC_CHUNKS} chunk types) on the "
+        f"decoded tags: precision {prf[0]:.4f}, recall {prf[1]:.4f}, F1 "
+        f"{prf[2]:.4f} (random weights)")
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(LAC_BATCH, LAC_T, 3 * LAC_HIDDEN, device=dev,
+                     generator=g) * 0.3).requires_grad_(True)
+    wg = (torch.randn(LAC_HIDDEN, 3 * LAC_HIDDEN, device=dev, generator=g)
+          * 0.1).requires_grad_(True)
+    emf = torch.randn(LAC_BATCH, LAC_T, LAC_TAGS, device=dev,
+                      generator=g).requires_grad_(True)
+    tr = crf.clone().requires_grad_(True)
+
+    def gru():
+        S.dynamic_gru(x, n, wg).sum().backward()
+
+    def crf_ll():
+        SL.crf_log_likelihood(emf, tr, t, n).sum().backward()
+
+    loops = {
+        "dynamic_gru fwd+bwd": host_ms(gru, dev),
+        "crf_log_likelihood fwd+bwd": host_ms(crf_ll, dev),
+        "crf_decode": host_ms(lambda: SL.crf_decode(emf.detach(),
+                                                    tr.detach(), n), dev),
+        "viterbi_decode": host_ms(lambda: viterbi_decode(
+            emf.detach(), tr.detach()[2:]), dev),
+    }
+    log(f"  (a) float32 loops over T = {LAC_T} (b{LAC_BATCH}): " + "; ".join(
+        f"{k} {v:.2f} ms ({v / LAC_T:.3f} a step)" for k, v in loops.items()))
+    return {"float64_loss_rel": loss_err, "float64_grad_rel": grad_err,
+            "losses": losses, "step_ms": float(np.median(step_ms)),
+            "chunk_prf": list(prf), "loop_ms": loops}
+
+
+def crnn_ctc(seed, dev):
+    """Phase 35 (b): the CTC recursion card against CPU in float64, the
+    torch oracle, F.ctc_loss card against CPU, and its ms."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import sequence_losses as SL
+
+    rs = np.random.RandomState(seed + 2)
+    logits = torch.from_numpy(rs.randn(CTC_T, CTC_B, CTC_C))
+    labels = torch.from_numpy(rs.randint(1, CTC_C, (CTC_B, CTC_L)))
+    lab_len = torch.from_numpy(rs.randint(1, CTC_L + 1, CTC_B))
+    in_len = torch.full((CTC_B,), CTC_T, dtype=torch.long)
+    cot = torch.from_numpy(rs.uniform(0.5, 1.5, CTC_B))
+    res = {}
+    for d in ("cpu", dev):
+        lg = logits.to(d).detach().requires_grad_(True)
+        lp = torch.log_softmax(lg, -1)
+        loss = SL.ctc_loss(lp, labels.to(d), in_len.to(d), lab_len.to(d))
+        g, = torch.autograd.grad((loss * cot.to(d)).sum(), lg)
+        fl = F.ctc_loss(lg, labels.to(d), in_len.to(d), lab_len.to(d))
+        fg, = torch.autograd.grad(fl, lg)
+        res[d] = (loss, g, fl, fg, lp.detach())
+    errs = [rel_err(res[dev][i], res["cpu"][i]) for i in range(4)]
+    oracle = torch.nn.functional.ctc_loss(
+        res[dev][4], labels.to(dev), in_len.to(dev), lab_len.to(dev),
+        reduction="none")
+    o_err = float(((res[dev][0].detach() - oracle).abs()
+                   / oracle.abs()).max())
+    log(f"  (b) CTC T{CTC_T} b{CTC_B}, {CTC_C} classes, labels 1-{CTC_L}: "
+        f"the recursion in float64, card against CPU: loss {errs[0]:.3e}, "
+        f"gradient {errs[1]:.3e} (limit {LIB_REL}); against "
+        f"torch.nn.functional.ctc_loss on the card {o_err:.3e} (limit "
+        f"{CTC_ORACLE}); F.ctc_loss (float32 log-softmax inside): loss "
+        f"{errs[2]:.3e}, gradient {errs[3]:.3e} (limit {F32_REL})")
+    if not (errs[0] <= LIB_REL and errs[1] <= LIB_REL
+            and o_err <= CTC_ORACLE and max(errs[2:]) <= F32_REL):
+        raise AssertionError(f"CTC card against CPU / oracle: {errs}, "
+                             f"{o_err}")
+    lg32 = logits.float().to(dev).requires_grad_(True)
+    lab, il, ll = labels.to(dev), in_len.to(dev), lab_len.to(dev)
+    ms = host_ms(lambda: F.ctc_loss(lg32, lab, il, ll).backward(), dev)
+    log(f"  (b) F.ctc_loss float32 forward + backward {ms:.2f} ms "
+        f"({ms / CTC_T:.3f} a step of T)")
+    return {"rel": errs, "oracle_rel": o_err, "ms": ms}
+
+
+def ssd_priors(dev):
+    from paddle_tpu_torch.ops import detection as D
+
+    boxes, var = [], []
+    for fm, step, mn, mx, ars in SSD_MAPS:
+        b, v = D.prior_box((fm, fm), (SSD_IMG, SSD_IMG), [mn], [mx], ars,
+                           flip=True, clip=True, steps=(step, step),
+                           device=dev)
+        boxes.append(b.reshape(-1, 4))
+        var.append(v.reshape(-1, 4))
+    return torch.cat(boxes), torch.cat(var)
+
+
+def gt_boxes(rs, batch, most, classes):
+    """1-`most` boxes an image in [0, 1] coordinates (zero rows past
+    them) and their labels in 1..classes-1."""
+    box = np.zeros((batch, most, 4))
+    lab = np.zeros((batch, most), np.int64)
+    for b in range(batch):
+        for g in range(rs.randint(1, most + 1)):
+            xy = rs.uniform(0.0, 0.7, 2)
+            box[b, g] = np.concatenate(
+                [xy, np.minimum(xy + rs.uniform(0.08, 0.3, 2), 1.0)])
+            lab[b, g] = rs.randint(1, classes)
+    return torch.from_numpy(box), torch.from_numpy(lab)
+
+
+def ssd300(seed, dev):
+    """Phase 35 (c): ssd_loss card against CPU, then box_coder ->
+    multiclass_nms -> DetectionMAP."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.ops import detection_train as DT
+
+    rs = np.random.RandomState(seed + 3)
+    priors, var = ssd_priors("cpu")
+    P = priors.shape[0]
+    if P != SSD_PRIORS or not torch.equal(ssd_priors(dev)[0].cpu(), priors):
+        raise AssertionError(f"SSD priors: {P}, or card != CPU")
+    priors = priors.double()
+    loc = torch.from_numpy(rs.randn(SSD_BATCH, P, 4) * 0.5)
+    conf = torch.from_numpy(rs.randn(SSD_BATCH, P, SSD_CLASSES))
+    gtb, gtl = gt_boxes(rs, SSD_BATCH, SSD_GT, SSD_CLASSES)
+    res = {}
+    for d in ("cpu", dev):
+        lo = loc.to(d).detach().requires_grad_(True)
+        co = conf.to(d).detach().requires_grad_(True)
+        args = (gtb.to(d), gtl.to(d), priors.to(d), var.to(d))
+        loss = DT.ssd_loss(lo, co, *args, overlap_threshold=0.5,
+                           neg_pos_ratio=3.0)
+        g_loc, g_conf = torch.autograd.grad(loss.sum(), [lo, co])
+        match, _, neg, _, _, closs = DT._ssd_targets(
+            co.detach(), *args, 0, 0.5, 3.0, 0.5, "per_prediction")
+        res[d] = (loss, g_loc, g_conf, match, neg, closs)
+    errs = [rel_err(res[dev][i], res["cpu"][i]) for i in range(3)]
+    same_match = torch.equal(res[dev][3].cpu(), res["cpu"][3])
+    apart = (res[dev][4].cpu() != res["cpu"][4]).sum(1)
+    for b in apart.nonzero()[:, 0].tolist():
+        # mined on float32 losses: a reordering at the quota's boundary
+        either = res["cpu"][4][b] | res[dev][4][b].cpu()
+        both = res["cpu"][4][b] & res[dev][4][b].cpu()
+        edge = res["cpu"][5][b].detach()[either & ~both].sort().values
+        gap = float((edge[-1] - edge[0]) / edge[-1])
+        log(f"  (c) image {b}: {int(apart[b])} mined negatives apart, "
+            f"their losses {edge.tolist()} (relative spread {gap:.2e})")
+        if gap > F32_REL:
+            raise AssertionError("SSD mined negatives differ off a tie")
+    log(f"  (c) ssd_loss b{SSD_BATCH}, {P} priors, {SSD_CLASSES} classes, "
+        f"float64 in and float32 inside (the JAX function's), card against "
+        f"CPU: loss {errs[0]:.3e}, gradients {errs[1]:.3e} / {errs[2]:.3e} "
+        f"(limit {F32_REL}); match indices equal {same_match}; images whose "
+        f"mined negatives part at a tie {int((apart > 0).sum())}")
+    if max(errs) > F32_REL or not same_match:
+        raise AssertionError(f"ssd_loss card against CPU: {errs}")
+    boxes = {d: D.box_coder(priors.to(d), var.to(d), loc.to(d),
+                            "decode_center_size") for d in ("cpu", dev)}
+    box_err = rel_err(boxes[dev], boxes["cpu"])
+    if box_err > LIB_REL:
+        raise AssertionError(f"SSD decode card against CPU {box_err}")
+    sc = torch.softmax(conf.to(dev), -1).permute(0, 2, 1).contiguous()
+    bx = boxes[dev]
+    kw = dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+              nms_threshold=0.45)
+    out, num = D.multiclass_nms(bx, sc, **kw)
+    sub = slice(0, SSD_CPU_IMAGES)
+    out_c, _ = D.multiclass_nms(bx[sub].cpu(), sc[sub].cpu(), **kw)
+    near = nms_rows_agree("(c) SSD", dev, out[sub], out_c, bx[sub].cpu(),
+                          sc[sub].cpu(), 0.45, 400, 0.01, True, 0)
+    numbers = nms_numbers(
+        f"SSD300 ({SSD_BATCH} images x {SSD_CLASSES - 1} classes x {P} "
+        f"boxes, 400 picks)", lambda: D.multiclass_nms(bx, sc, **kw),
+        lambda: D.multiclass_nms(bx[:, :P // 2], sc[..., :P // 2], **kw),
+        dev)
+    m = metric.DetectionMAP()
+    for b in range(SSD_BATCH):
+        real = gtb[b, :, 2] > gtb[b, :, 0]
+        m.update(out[b].cpu().numpy(), gtb[b][real].numpy(),
+                 gtl[b][real].numpy())
+    log(f"  (c) box_coder decode card against CPU {box_err:.2e}; "
+        f"multiclass_nms rows of images 0-{SSD_CPU_IMAGES - 1} as the "
+        f"CPU's (near-threshold classes {near}); {int(num.sum())} rows; "
+        f"DetectionMAP {m.accumulate():.4f} (random heads)")
+    return {"rel": errs, "decode_rel": box_err, "near_threshold": near,
+            "nms": numbers, "map": m.accumulate()}
+
+
+def yolov3(seed, dev):
+    """Phase 35 (d): three yolo_box heads card against CPU, then
+    multiclass_nms over 22743 boxes x 80 classes an image."""
+    from paddle_tpu_torch.ops import detection as D
+
+    g = torch.Generator().manual_seed(seed + 4)
+    img = torch.full((YOLO_BATCH, 2), YOLO_IMG, dtype=torch.int32)
+    outs = {"cpu": [], dev: []}
+    for side, down, anchors in YOLO_HEADS:
+        x = torch.randn(YOLO_BATCH, 3 * (5 + YOLO_CLASSES), side, side,
+                        generator=g)
+        for d in outs:
+            outs[d].append(D.yolo_box(x.to(d), img.to(d), anchors,
+                                      YOLO_CLASSES, 0.01, down, True))
+    errs = [max(rel_err(a[i], b[i]) for a, b in zip(outs[dev], outs["cpu"]))
+            for i in (0, 1)]
+    bx = torch.cat([o[0] for o in outs[dev]], 1)
+    sc = torch.cat([o[1] for o in outs[dev]], 1).permute(0, 2, 1).contiguous()
+    N = bx.shape[1]
+    log(f"  (d) yolo_box heads {[h[0] for h in YOLO_HEADS]}, {N} boxes an "
+        f"image, float32 card against CPU: boxes {errs[0]:.2e}, scores "
+        f"{errs[1]:.2e} (limit {F32_REL})")
+    if N != YOLO_BOXES or max(errs) > F32_REL:
+        raise AssertionError(f"yolo_box: {N} boxes, {errs}")
+    kw = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+              nms_threshold=0.45, normalized=False, background_label=-1)
+    out, num = D.multiclass_nms(bx, sc, **kw)
+    idx = list(YOLO_CPU_IMAGES)
+    out_c, _ = D.multiclass_nms(bx[idx].cpu(), sc[idx].cpu(), **kw)
+    near = nms_rows_agree("(d) YOLOv3", dev, out[idx], out_c, bx[idx].cpu(),
+                          sc[idx].cpu(), 0.45, 1000, 0.01, False, -1)
+    numbers = nms_numbers(
+        f"YOLOv3 ({YOLO_BATCH} images x {YOLO_CLASSES} classes x {N} "
+        f"boxes, 1000 picks)", lambda: D.multiclass_nms(bx, sc, **kw),
+        lambda: D.multiclass_nms(bx[:, :N // 2], sc[..., :N // 2], **kw),
+        dev)
+    log(f"  (d) multiclass_nms rows of images {idx} as the CPU's "
+        f"(near-threshold classes {near}); {int(num.sum())} rows")
+    return {"rel": errs, "near_threshold": near, "nms": numbers}
+
+
+def fr_sampling_holds(A, anc, gtb, gtl, crowd, info, prop, seed, dev):
+    """Phase 35 (e), a seeded generator: fg within its quota and inside
+    the candidates (all of them taken by a run with room for every
+    anchor), fg + bg within the batch, bg inside the candidates; the
+    same for the RoI sampling."""
+    from paddle_tpu_torch.ops import detection_train as DT
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = (anc, gtb[0].to(dev), crowd.to(dev), info.to(dev))
+    full = DT.rpn_target_assign(*img, rpn_batch_size_per_im=2 * A)
+    r = DT.rpn_target_assign(*img, rpn_batch_size_per_im=256, generator=g)
+    fg, bg = r["labels"] == 1, r["labels"] == 0
+    cfg, cbg = full["labels"] == 1, full["labels"] == 0
+    roi = (prop[0][0], prop[2][0], gtl[0].to(dev), crowd.to(dev),
+           gtb[0].to(dev), 1.0)
+    pl_full = DT.generate_proposal_labels(
+        *roi, batch_size_per_im=4 * FR_POST, fg_fraction=0.5,
+        class_nums=FR_CLASSES)
+    pl = DT.generate_proposal_labels(
+        *roi, batch_size_per_im=FR_ROIS, fg_fraction=0.25,
+        class_nums=FR_CLASSES, generator=g)
+    fg_rois = {tuple(v) for v, lab in zip(pl_full["rois"].tolist(),
+                                          pl_full["labels_int32"].tolist())
+               if lab > 0}
+    nfg = int(pl["fg_num"])
+    checks = [int(r["fg_num"]) <= 128,
+              int(r["fg_num"]) + int(r["bg_num"]) <= 256,
+              not (fg & ~cfg).any(), not (bg & ~(cbg | cfg)).any(),
+              nfg <= FR_ROIS // 4, int(pl["valid_num"]) <= FR_ROIS,
+              {tuple(v) for v in pl["rois"][:nfg].tolist()} <= fg_rois]
+    log(f"  (e) seeded generator: RPN fg {int(r['fg_num'])} bg "
+        f"{int(r['bg_num'])} of 256, RoI fg {nfg} valid "
+        f"{int(pl['valid_num'])} of {FR_ROIS}; quotas and candidate masks "
+        f"held {all(checks)}")
+    if not all(checks):
+        raise AssertionError(f"seeded sampling: {checks}")
+
+
+def faster_rcnn(seed, dev):
+    """Phase 35 (e): anchors -> rpn_target_assign -> generate_proposals
+    -> generate_proposal_labels -> roi_align 14x14, card against CPU
+    stage by stage on the same inputs; then a seeded generator."""
+    from paddle_tpu_torch.ops import detection as D
+    from paddle_tpu_torch.ops import detection_train as DT
+    from paddle_tpu_torch.testing import nms as tnms
+
+    rs = np.random.RandomState(seed + 5)
+    H, W = FR_FEAT
+    clock = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last lap: each stage's wall in the log."""
+        now = time.perf_counter()
+        dt, clock[0] = now - clock[0], now
+        return f"{dt:.1f} s"
+
+    anc = {d: D.anchor_generator((H, W), FR_SIZES, FR_RATIOS,
+                                 [FR_STRIDE, FR_STRIDE], device=d)[0].reshape(
+        -1, 4) for d in ("cpu", dev)}
+    if not torch.equal(anc[dev].cpu(), anc["cpu"]):
+        raise AssertionError("anchors: card differs from CPU")
+    A = anc["cpu"].shape[0]
+    gtb, gtl = gt_boxes(rs, FR_BATCH, FR_GT, FR_CLASSES)
+    gtb = (gtb * torch.tensor([FR_IMG[1], FR_IMG[0]] * 2,
+                              dtype=torch.float64)).float()
+    crowd = torch.zeros(FR_GT, dtype=torch.long)
+    info = torch.tensor([float(FR_IMG[0]), float(FR_IMG[1]), 1.0])
+    scores = torch.from_numpy(rs.randn(FR_BATCH, A)).float()
+    deltas = torch.from_numpy(rs.randn(FR_BATCH, A, 4) * 0.2).float()
+    for b in range(FR_BATCH):
+        r = {d: DT.rpn_target_assign(
+            anc[d], gtb[b].to(d), crowd.to(d), info.to(d),
+            rpn_batch_size_per_im=256, rpn_fg_fraction=0.5,
+            rpn_positive_overlap=0.7, rpn_negative_overlap=0.3)
+            for d in ("cpu", dev)}
+        if not all(torch.equal(r[dev][k].cpu(), r["cpu"][k])
+                   for k in ("labels", "fg_num", "bg_num")) or rel_err(
+                r[dev]["bbox_targets"], r["cpu"]["bbox_targets"]) > F32_REL:
+            raise AssertionError(f"rpn_target_assign image {b}")
+    log(f"  (e) {A} anchors ({H}x{W} x {len(FR_SIZES) * len(FR_RATIOS)}) "
+        f"equal; rpn_target_assign labels and counts equal, targets within "
+        f"{F32_REL} (fg {int(r[dev]['fg_num'])}, bg {int(r[dev]['bg_num'])} "
+        f"on image {FR_BATCH - 1}; {lap()})")
+
+    kw = dict(pre_nms_top_n=FR_PRE, post_nms_top_n=FR_POST, nms_thresh=0.7,
+              min_size=0.0)
+    inputs = {d: (scores.to(d), deltas.to(d), info.expand(FR_BATCH, 3).to(d),
+                  anc[d], None) for d in ("cpu", dev)}
+    cand = {d: DT._proposal_candidates(*inputs[d], FR_PRE, 0.0)
+            for d in inputs}
+    prop_err = rel_err(cand[dev][0], cand["cpu"][0])
+    keep = {d: D.nms(cand[d][0], cand[d][1], 0.7, max_out=FR_POST,
+                     normalized=False)[0] for d in inputs}
+    ok, diffs = tnms.agree(cand[dev][0].cpu(), keep[dev].cpu(), keep["cpu"],
+                           0.7, normalized=False)
+    for d_ in diffs:
+        log(f"  (e) proposal NMS keep lists part {d_}")
+    prop = {d: DT.generate_proposals(*inputs[d], **kw) for d in inputs}
+    same = [b for b in range(FR_BATCH) if b not in {x["row"] for x in diffs}]
+    roi_err = max([rel_err(prop[dev][0][b], prop["cpu"][0][b])
+                   for b in same] or [0.0])
+    if not ok or prop_err > F32_REL or roi_err > F32_REL or not all(
+            torch.equal(prop[dev][i][b].cpu(), prop["cpu"][i][b])
+            for i in (1, 2) for b in same):
+        raise AssertionError(f"generate_proposals: {prop_err}, {roi_err}, "
+                             f"{diffs}")
+    log(f"  (e) the card and CPU proposals took {lap()}")
+    numbers = nms_numbers(
+        f"RPN ({FR_BATCH} images x {FR_PRE} candidates, {FR_POST} picks)",
+        lambda: DT.generate_proposals(*inputs[dev], **kw), None, dev)
+    log(f"  (e) generate_proposals: candidates within {prop_err:.2e}, keep "
+        f"lists equal or near-threshold ({len(diffs)} apart), rois within "
+        f"{roi_err:.2e}; {prop[dev][2].tolist()} proposals; {lap()}")
+
+    sampled, labels = [], []
+    for b in range(FR_BATCH):
+        o = {d: DT.generate_proposal_labels(
+            prop[dev][0][b].to(d), prop[dev][2][b].to(d), gtl[b].to(d),
+            crowd.to(d), gtb[b].to(d), 1.0, batch_size_per_im=FR_ROIS,
+            fg_fraction=0.25, fg_thresh=0.5, bg_thresh_hi=0.5,
+            bg_thresh_lo=0.0, class_nums=FR_CLASSES) for d in ("cpu", dev)}
+        if not all(torch.equal(o[dev][k].cpu(), o["cpu"][k]) for k in (
+                "labels_int32", "fg_num", "valid_num", "gt_index", "rois")) \
+                or rel_err(o[dev]["bbox_targets"],
+                           o["cpu"]["bbox_targets"]) > F32_REL:
+            raise AssertionError(f"generate_proposal_labels image {b}")
+        sampled.append(o[dev]["rois"])
+        labels.append(o[dev]["labels_int32"])
+    log(f"  (e) generate_proposal_labels ({FR_ROIS} an image, fg 0.25) "
+        f"equal: fg {[int((v > 0).sum()) for v in labels]}, valid "
+        f"{[int((v >= 0).sum()) for v in labels]}; {lap()}")
+
+    rois = torch.cat(sampled)
+    bid = torch.arange(FR_BATCH, device=dev).repeat_interleave(FR_ROIS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(FR_BATCH, FR_CH, H, W, device=dev,
+                    generator=gen).requires_grad_(True)
+    cot = torch.randn(rois.shape[0], FR_CH, 14, 14, device=dev,
+                      generator=gen)
+
+    def align():
+        out = D.roi_align(x, rois, bid, 14, 1.0 / FR_STRIDE, 0, True)
+        return out, torch.autograd.grad((out * cot).sum(), x)[0]
+
+    out, grad = align()
+    ms = host_ms(align, dev, runs=3)
+    c = slice(0, FR_CPU_CH)
+    xc = x.detach()[:, c].cpu().requires_grad_(True)
+    out_c = D.roi_align(xc, rois.cpu(), bid.cpu(), 14, 1.0 / FR_STRIDE, 0,
+                        True)
+    g_c, = torch.autograd.grad((out_c * cot[:, c].cpu()).sum(), xc)
+    errs = (rel_err(out[:, c], out_c), rel_err(grad[:, c], g_c))
+    log(f"  (e) roi_align 14x14 of {rois.shape[0]} RoIs over a {FR_CH}-"
+        f"channel {H}x{W} map at 1/{FR_STRIDE}: forward + backward "
+        f"{ms:.1f} ms; channels 0-{FR_CPU_CH - 1} card against CPU "
+        f"{errs[0]:.2e} / {errs[1]:.2e} (limit {F32_REL}; {lap()})")
+    if max(errs) > F32_REL:
+        raise AssertionError(f"roi_align card against CPU {errs}")
+    del x, cot, out, grad
+    fr_sampling_holds(A, anc[dev], gtb, gtl, crowd, info, prop[dev], seed,
+                      dev)
+    log(f"  (e) the seeded run took {lap()}")
+    return {"proposal_rel": prop_err, "near_threshold": len(diffs),
+            "nms": numbers, "roi_align_ms": ms, "roi_align_rel": errs,
+            "proposals": prop[dev][2].tolist()}
+
+
+def op_sweep(dev):
+    """Phase 35 (f): `testing.sweep.op_cases` card against CPU in
+    float64."""
+    from paddle_tpu_torch.testing import sweep
+
+    worst, where, bad = 0.0, None, []
+    cases = sweep.op_cases()
+    for case in cases:
+        err, equal = sweep.compare(sweep.run(case, dev),
+                                   sweep.run(case, "cpu"))
+        if err > worst:
+            worst, where = err, case.name
+        if err > LIB_REL or not equal:
+            bad.append((case.name, err, equal))
+    left = {**sweep.OP_EXCLUDED, "F.ctc_loss": sweep.EXCLUDED["ctc_loss"]}
+    log(f"  (f) {len(cases)} cases of the op library forward and backward "
+        f"in float64: worst relative error {worst:.3e} ({where}; limit "
+        f"{LIB_REL}); left out: " + "; ".join(f"{k} ({v})"
+                                              for k, v in left.items()))
+    if bad:
+        raise AssertionError(f"op sweep, card against CPU: {bad}")
+    return {"cases": len(cases), "worst_rel": worst, "worst_case": where,
+            "left_out": sorted(left)}
+
+
+def op_library_phase(seed, dev="cuda"):
+    """Phase 35 (a)-(f): the summary; each part's wall seconds printed."""
+    out = {}
+    for key, fn in (("lac", lac_tagger), ("crnn_ctc", crnn_ctc),
+                    ("ssd300", ssd300), ("yolov3", yolov3),
+                    ("faster_rcnn", faster_rcnn),
+                    ("sweep", lambda s, d: op_sweep(d))):
+        t0 = time.perf_counter()
+        out[key] = fn(seed, dev)
+        out[key]["wall_s"] = time.perf_counter() - t0
+        log(f"  ({key} took {out[key]['wall_s']:.1f} s)")
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5666,8 +6373,15 @@ def main():
     log("  library summary " + json.dumps({"card": card, "sweep": lib,
                                            "rnn": rnn}))
     log(f"  phases 33-34 took {time.perf_counter() - t_moe:.1f} s")
+    log("phase 35: the op library's sequence, structured-loss and "
+        "detection ops: LAC, CRNN + CTC, SSD300, YOLOv3, Faster R-CNN "
+        "R50-C4, the op sweep")
+    t_ops = time.perf_counter()
+    ops = op_library_phase(args.seed)
+    log("  op library summary " + json.dumps({"card": card, **ops}))
+    log(f"  phase 35 took {time.perf_counter() - t_ops:.1f} s")
 
-    log("phase 35: output")
+    log("phase 36: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,8 +7,9 @@ Randomness (dropout, alpha dropout, Gumbel noise) comes from
 `generator`, a torch.Generator on the input's device (None: that
 device's default generator). `embedding(sparse=True)` raises: a sparse
 gradient needs the port's `sparse/` package (ROADMAP item 7), and the
-port's optimizers refuse one. `ctc_loss` is not ported yet (it waits for
-`ops/sequence_losses.py`, ROADMAP item 3).
+port's optimizers refuse one. `ctc_loss` runs the alpha recursion of
+`ops/sequence_losses.py` over a float32 log-softmax, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from ..ops import attention as A
 from ..ops import kernels as K
 from ..ops import quant as Q
+from ..ops import sequence_losses as SL
 
 __all__ = ["relu", "relu6", "relu_", "gelu", "tanh", "sigmoid", "silu",
            "swish", "leaky_relu", "elu", "selu", "prelu", "hardswish",
@@ -37,7 +39,7 @@ __all__ = ["relu", "relu6", "relu_", "gelu", "tanh", "sigmoid", "silu",
            "cosine_similarity", "square_error_cost", "log_loss",
            "sigmoid_focal_loss", "label_smooth", "interpolate", "upsample",
            "pixel_shuffle", "unfold", "grid_sample", "affine_grid", "pad",
-           "temporal_shift", "npair_loss"]
+           "temporal_shift", "npair_loss", "ctc_loss"]
 
 
 def relu(x):
@@ -534,6 +536,23 @@ def square_error_cost(input, label):
 def log_loss(input, label, epsilon=1e-4):
     return -label * torch.log(input + epsilon) - (1.0 - label) * torch.log(
         1.0 - input + epsilon)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """Paddle's `ctc_loss` (warpctc): log_probs [T, B, C] are raw logits,
+    log-softmaxed inside in float32 whatever their type, as the JAX
+    package does; the recursion then runs in float32 or, for float64
+    logits, float64. `reduction="mean"` is the plain mean over the batch
+    (the JAX function's; Paddle's own divides by the label lengths
+    first)."""
+    dt = torch.promote_types(log_probs.dtype, torch.float32)
+    lp = torch.log_softmax(log_probs.float(), -1).to(dt)
+    loss = SL.ctc_loss(lp, labels, input_lengths, label_lengths, blank)
+    if norm_by_times:
+        n = torch.as_tensor(input_lengths, device=loss.device).reshape(-1)
+        loss = loss / n.to(loss.dtype).clamp(min=1.0)
+    return _reduce_loss(loss, reduction)
 
 
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,

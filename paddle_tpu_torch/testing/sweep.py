@@ -34,6 +34,15 @@ EXCLUDED = {
     "linear_int8": "a hand kernel's wrapper (phase 13)",
     "embedding_int8": "a hand kernel's wrapper (phase 13)",
     "lora_delta": "a hand kernel's wrapper (phase 13)",
+    "ctc_loss": "log-softmaxes in float32 whatever its input, as the JAX "
+                "function does (phase 35 b); its recursion is in op_cases",
+}
+
+#: functions of the op library's modules that `op_cases` leaves out
+OP_EXCLUDED = {
+    "sequence_losses.NEG": "a constant",
+    "detection_train.ssd_loss": "computes in float32 whatever its input, "
+                                "as the JAX function does (phase 35 c)",
 }
 
 
@@ -423,6 +432,209 @@ class _LSTMStep(torch.nn.Module):
 
     def forward(self, x, h, c):
         return self.cell(x, (h, c))
+
+
+def _boxes(n, seed, size=20.0):
+    r = np.random.RandomState(seed)
+    xy = r.rand(n, 2) * size
+    return np.concatenate([xy, xy + r.rand(n, 2) * size * 0.4 + 1.0], 1)
+
+
+def op_cases():
+    """The op library's sweep (`ops/sequence.py`, `sequence_losses.py`,
+    `detection.py`, `detection_train.py`, `text/viterbi.py`,
+    `vision/ops.py`; chip_smoke phase 35 f), in a fixed order; a case's
+    name is "module.function" with its variant in brackets. Gradients
+    where the JAX function is differentiable."""
+    from ..ops import detection as D
+    from ..ops import detection_train as DT
+    from ..ops import sequence as S
+    from ..ops import sequence_losses as SL
+    from ..text.viterbi import viterbi_decode
+    from ..vision import ops as VO
+
+    out = []
+
+    def c(name, fn, args, wrt=(0,)):
+        out.append(Case(name, fn, args, wrt, False, None))
+
+    def new(name, fn):
+        out.append(Case(name, fn, [], (), True, None))
+
+    def tup(d):
+        return tuple(d[k] for k in sorted(d))
+
+    lens = np.array([3, 1, 4, 0])
+    x = _s((4, 5, 3), 200)
+    c("sequence.seq_mask", lambda n: S.seq_mask(n, 5), [lens], ())
+    for pt in ("sum", "average", "sqrt", "max", "min", "last", "first"):
+        c(f"sequence.sequence_pool[{pt}]",
+          lambda a, n, _p=pt: S.sequence_pool(a, n, _p, -1.0), [x, lens])
+    c("sequence.sequence_softmax", S.sequence_softmax, [x, lens])
+    c("sequence.sequence_expand_as", S.sequence_expand_as,
+      [_s((4, 3), 201), x, lens], (0,))
+    c("sequence.sequence_conv",
+      lambda a, n, w, b: S.sequence_conv(a, n, w, 3, None, b),
+      [x, lens, _s((9, 2), 202), _s((2,), 203)], (0, 2, 3))
+    c("sequence.sequence_reverse", S.sequence_reverse, [x, lens])
+    c("sequence.sequence_slice", S.sequence_slice,
+      [x, lens, np.array([1, 0, 2, 0]), np.array([5, 1, 1, 2])])
+    c("sequence.sequence_concat",
+      lambda a, b, n, m: S.sequence_concat([a, b], [n, m]),
+      [x, _s((4, 2, 3), 204), lens, np.array([2, 0, 1, 2])], (0, 1))
+    c("sequence.sequence_reshape", lambda a, n: S.sequence_reshape(a, n, 1),
+      [x, lens])
+    c("sequence.sequence_enumerate",
+      lambda a, n: S.sequence_enumerate(a, n, 3, -1),
+      [np.random.RandomState(205).randint(1, 9, (4, 5)), lens], ())
+    c("sequence.sequence_pad", lambda a, n: S.sequence_pad(a, n, -1.0, 7),
+      [x, lens])
+    c("sequence.sequence_unpad", S.sequence_unpad, [x, lens])
+    c("sequence.sequence_scatter", S.sequence_scatter,
+      [_s((4, 5), 206), np.array([[0, 2, 2], [1, 1, 0], [4, 3, 0],
+                                  [0, 0, 0]]), _s((4, 3), 207),
+       np.array([3, 2, 1, 0])], (0, 2))
+    c("sequence.dynamic_lstm",
+      lambda a, n, w, b: S.dynamic_lstm(a, n, w, b, is_reverse=True),
+      [_s((4, 5, 8), 208) * 0.3, lens, _s((2, 8), 209) * 0.3,
+       _s((1, 14), 210) * 0.1], (0, 2, 3))
+    c("sequence.dynamic_gru",
+      lambda a, n, w, b: S.dynamic_gru(a, n, w, b, origin_mode=True),
+      [_s((4, 5, 6), 211) * 0.3, lens, _s((2, 6), 212) * 0.3,
+       _s((1, 6), 213) * 0.1], (0, 2, 3))
+
+    r = np.random.RandomState(214)
+    logits = r.randn(6, 3, 5)
+    logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    c("sequence_losses.ctc_loss", SL.ctc_loss,
+      [logp, np.array([[1, 2], [3, 3], [4, 0]]), np.array([6, 5, 4]),
+       np.array([2, 2, 1])])
+    em, tr = r.randn(3, 4, 3), r.randn(5, 3) * 0.5
+    crf_lens = np.array([4, 2, 1])
+    c("sequence_losses.crf_log_likelihood", SL.crf_log_likelihood,
+      [em, tr, r.randint(0, 3, (3, 4)), crf_lens], (0, 1))
+    c("sequence_losses.crf_decode", SL.crf_decode, [em, tr, crf_lens], ())
+    c("viterbi.viterbi_decode", viterbi_decode, [em, r.randn(3, 3)], ())
+
+    b8, b5 = _boxes(8, 215), _boxes(5, 216)
+    sc8 = np.random.RandomState(217).rand(8)
+    c("detection.box_area", D.box_area, [b8])
+    c("detection.iou_matrix", D.iou_matrix, [b8, b5], (0, 1))
+    c("detection.nms", lambda b, s: D.nms(b, s, 0.3, 0.1, 6), [b8, sc8], ())
+    c("detection.multiclass_nms",
+      lambda b, s: D.multiclass_nms(b, s, 0.1, 4, 6, 0.3),
+      [np.stack([b8, _boxes(8, 218)]),
+       np.random.RandomState(219).rand(2, 3, 8)], ())
+    c("detection.box_clip", D.box_clip, [b8 - 5.0, np.array([12.0, 15.0])])
+    c("detection.box_coder[encode]",
+      lambda p, t: D.box_coder(p, [0.1, 0.1, 0.2, 0.2], t), [b8, b5],
+      (0, 1))
+    c("detection.box_coder[decode]",
+      lambda p, v, t: D.box_coder(p, v, t, "decode_center_size"),
+      [b8, np.random.RandomState(220).uniform(0.1, 0.3, (8, 4)),
+       _s((2, 8, 4), 221) * 0.3], (0, 2))
+    new("detection.prior_box", lambda d: D.prior_box(
+        (3, 4), (48, 64), [8.0], [16.0], (2.0,), flip=True, clip=True,
+        device=d))
+    new("detection.anchor_generator", lambda d: D.anchor_generator(
+        (3, 4), [16.0, 32.0], [0.5, 1.0], [16.0, 16.0], device=d))
+    new("detection.density_prior_box", lambda d: D.density_prior_box(
+        (2, 3), (32, 48), [8.0], [1.0, 2.0], [2], device=d))
+    c("detection.yolo_box",
+      lambda a, s: D.yolo_box(a, s, [10, 14, 23, 27], 3, 0.2),
+      [_s((2, 16, 3, 4), 222), np.array([[96, 128], [64, 64]])], (0,))
+    feat = _s((2, 3, 9, 10), 223)
+    rois = np.array([[0.0, 0.0, 4.0, 4.0], [2.5, 1.0, 8.5, 7.0],
+                     [-2.0, 3.0, 12.0, 14.0]])
+    bid = np.array([0, 1, 1])
+    c("detection.roi_align",
+      lambda a, q, i: D.roi_align(a, q, i, (2, 3), 0.8, -1, True),
+      [feat, rois, bid])
+    c("detection.roi_pool", lambda a, q, i: D.roi_pool(a, q, i, 3),
+      [np.random.RandomState(224).permutation(540).reshape(2, 3, 9, 10)
+       / 50.0, rois, bid])
+    c("detection.bipartite_match", D.bipartite_match,
+      [np.random.RandomState(225).rand(3, 5)], ())
+
+    anc = _boxes(16, 226, 40.0)
+    gt = np.array([[5.0, 5.0, 25.0, 25.0], [20.0, 20.0, 40.0, 40.0],
+                   [0.0, 0.0, 0.0, 0.0]])
+    info = np.array([48.0, 48.0, 1.0])
+    c("detection_train.decode_proposals", DT.decode_proposals,
+      [anc, _s((16, 4), 227) * 0.3], (0, 1))
+    c("detection_train.generate_proposals",
+      lambda s, d, i, a: DT.generate_proposals(s, d, i, a, None, 12, 6,
+                                               0.6, 2.0),
+      [np.random.RandomState(228).rand(2, 16), _s((2, 16, 4), 229) * 0.1,
+       np.stack([info, info]), anc], ())
+    c("detection_train.rpn_target_assign",
+      lambda a, g, z, i: tup(DT.rpn_target_assign(
+          a, g, z, i, gt_count=2, rpn_batch_size_per_im=8,
+          rpn_positive_overlap=0.4)),
+      [anc, gt, np.zeros(3, np.int64), info], (0, 1))
+    c("detection_train.retinanet_target_assign",
+      lambda a, g, lab, z, i: tup(DT.retinanet_target_assign(
+          a, g, lab, z, i, gt_count=2)),
+      [anc, gt, np.array([3, 7, 0]), np.zeros(3, np.int64), info], (0, 1))
+    c("detection_train.generate_proposal_labels",
+      lambda q, g, k, z: tup(DT.generate_proposal_labels(
+          q, 14, k, z, g, 1.5, batch_size_per_im=8, fg_fraction=0.5,
+          class_nums=4)),
+      [anc, gt, np.array([1, 3, 0]), np.zeros(3, np.int64)], (0, 1))
+    c("detection_train.generate_mask_labels",
+      lambda m, q, lab, gi: DT.generate_mask_labels(m, q, lab, gi, 5),
+      [(np.random.RandomState(230).rand(2, 20, 24) > 0.5).astype(np.int64),
+       _boxes(4, 231, 14.0), np.array([1, 0, 2, 1]), np.array([0, 1, 1, 0])],
+      ())
+    c("detection_train.distribute_fpn_proposals",
+      lambda q: [t for lvl in DT.distribute_fpn_proposals(q, 4, 2, 5)[0]
+                 for t in lvl] + [DT.distribute_fpn_proposals(q, 4)[1]],
+      [np.array([[0, 0, 56, 56], [0, 0, 448, 448], [0, 0, 112, 112],
+                 [0, 0, 9, 9], [0, 0, 224, 224]], np.float64)])
+    c("detection_train.collect_fpn_proposals",
+      lambda a, b, s, t: DT.collect_fpn_proposals([a, b], [s, t], [2, 1],
+                                                  3),
+      [b8[:3], b5[:2], sc8[:3], sc8[3:5]], (0, 1, 2, 3))
+    c("detection_train.target_assign",
+      lambda a, m: DT.target_assign(a, m, 7.0),
+      [_s((2, 3, 4), 232), np.array([[2, -1, 0, 1], [1, 1, -1, 2]])])
+    c("detection_train.mine_hard_examples",
+      lambda cl, m, d: DT.mine_hard_examples(cl, m, d, neg_pos_ratio=2.0),
+      [np.random.RandomState(233).rand(2, 8),
+       np.array([[0, -1, -1, -1, 1, -1, -1, -1],
+                 [-1, -1, -1, -1, -1, -1, -1, 0]]),
+       np.random.RandomState(234).rand(2, 8)], ())
+    c("detection_train.matrix_nms",
+      lambda b, s: DT.matrix_nms(b, s, 0.1, 0.0, 5, 8, True, 0.5),
+      [b8, np.random.RandomState(235).rand(3, 8)], ())
+
+    c("vision.ops.nms",
+      lambda b, s, k: VO.nms(b, 0.3, s, None, k, top_k=6),
+      [b8, sc8, np.array([0, 1, 1, 0, 2, 2, 1, 0])], ())
+    c("vision.ops.multiclass_nms",
+      lambda b, s: VO.multiclass_nms(b, s, 0.1, 4, 6, 0.3),
+      [b8, np.random.RandomState(236).rand(3, 8)], ())
+    c("vision.ops.roi_align",
+      lambda a, q, n: VO.roi_align(a, q, n, 2), [feat, rois,
+                                                 np.array([1, 2])])
+    c("vision.ops.roi_pool", lambda a, q, n: VO.roi_pool(a, q, n, 2),
+      [np.random.RandomState(237).permutation(540).reshape(2, 3, 9, 10)
+       / 50.0, rois, np.array([2, 1])])
+    c("vision.ops.yolo_box",
+      lambda a, s: VO.yolo_box(a, s, [10, 14, 23, 27], 3),
+      [_s((1, 16, 2, 2), 238), np.array([[64, 64]])])
+    c("vision.ops.prior_box",
+      lambda f, i: VO.prior_box(f, i, [12.0], [20.0], [2.0],
+                                steps=[16.0, 12.0]),
+      [np.zeros((1, 2, 3, 4)), np.zeros((1, 3, 48, 64))], ())
+    c("vision.ops.box_coder",
+      lambda p, t: VO.box_coder(p, [0.1, 0.1, 0.2, 0.2], t), [b8, b5],
+      (0, 1))
+    c("vision.ops.iou_similarity", VO.iou_similarity, [b8, b5], (0, 1))
+    c("vision.ops.bipartite_match", VO.bipartite_match,
+      [np.random.RandomState(239).rand(3, 5)], ())
+    c("vision.ops.box_clip", VO.box_clip, [b8 - 5.0, np.array([12.0, 15.0])])
+    return out
 
 
 def _flat(out):

@@ -1,5 +1,5 @@
 """Vision of the port (the JAX package's `vision/`): the models, the
-transforms and the dataset parsers."""
-from . import datasets, models, transforms
+transforms, the dataset parsers and the detection operators (`ops`)."""
+from . import datasets, models, ops, transforms
 
-__all__ = ["datasets", "models", "transforms"]
+__all__ = ["datasets", "models", "ops", "transforms"]

@@ -270,4 +270,4 @@ def test_every_jax_functional_is_ported_or_listed():
                  if inspect.isfunction(v) and not n.startswith("_")
                  and v.__module__ == JF.__name__}
     missing = sorted(jax_names - set(TF.__all__))
-    assert missing == ["ctc_loss"], missing
+    assert missing == [], missing
