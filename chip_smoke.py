@@ -440,11 +440,47 @@ Phases; any failure exits nonzero before the result lines:
     the RPN call's 56000 kernels, so it reads them once). (f) `testing.sweep.op_cases`, float64 card against
     CPU within 1e-10 (integer outputs equal); the count and each
     function left out, with its reason.
-36. Output: a {"kernels": [...]} line for all eleven kernels (the
+36. Mixed precision and observability (`amp`, `profiler`,
+    `serving.tracing`). (a) Eager ERNIE-base (ErnieConfig.base() width,
+    8 x 1024, float32 parameters, AdamW, dropout 0.1) 12 steps under
+    `amp.auto_cast(level="O1")` (bf16) with a GradScaler: every loss
+    finite, the last below the first; flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv launched in bf16 12 times a step (the wrappers'
+    counters over the run, and torch.profiler's kernel names over one
+    more step); seq/s over steps 3-12 and the peak memory. (b) The same
+    model under auto_cast(dtype="float16") for 16 steps from
+    init_loss_scaling 2^24, which overflows the f16 backward: at least
+    one skipped step, the parameters bitwise unchanged on each skipped
+    step and moved on each other one, the scale after every step equal
+    to the GradScaler rule replayed on the observed found-inf sequence,
+    finite steps after the last skip, the f16 instances launched 12 a
+    step; then the f16 kernels against their plain versions at phase 9's
+    shapes under phase 9's bf16 judge with float16's ulp and 8x its
+    share (`testing.judge_bf16_grad`), and their times, bounds (the
+    16-bit tensor-core peak), plain and SDPA f16 times. (c) One O1 step
+    of a 2-layer ERNIE at base width (b2 x 128, dropout 0), card
+    against CPU, bf16 and f16: loss within AMP_LOSS_REL, the gradients
+    within AMP_GRAD_L2 relative L2 over all parameters (16-bit products
+    summed in another order, p rounded per key tile in the kernels and
+    at the row's final max in the plain version). (d) Transformer-base
+    serving, 16 requests over a 512-token shared preamble, dense and
+    paged with spec_k 4, untraced and then under a tracer session with
+    cost accounting (the H100 spec): tokens equal, every waterfall
+    complete, the trace_counts keys and compile spans printed, the mfu
+    section read; tokens/s with and without printed, not judged. (e)
+    `profiler.start_profiler` / `stop_profiler` around four serving
+    iterations, each in a `RecordEvent` with its trace id: the device
+    trace and host_trace.json written, the RecordEvent's span ids in the
+    device trace's annotation, and a flash_decode launch inside that
+    annotation's window. (f) `Model.fit_report(flops_per_step=...)` over
+    phase 32's ERNIE run through `fit`, against the H100 spec.
+37. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
-    10, 22, 25, 32 and 33), then the card's name and power limit, then
-    {"ok": true, "device": {...}} as the last line.
+    10, 22, 25, 32, 33 and 36 (a); the three training kernels' float16
+    instances in rows of their own, their launches from 36 (b)), then
+    the card's name and power limit, then {"ok": true, "device": {...}}
+    as the last line.
 """
 from __future__ import annotations
 
@@ -2005,6 +2041,25 @@ def check_train_kernels(A, g):
     return errs, errs16, case
 
 
+def check_f16_kernels(A):
+    """Phase 36 (b): the float16 instances of the three training kernels
+    against their plain versions at phase 9's shapes (fine-tuning's b8
+    s1024 with padded rows and pretraining's b8 s512), under phase 9's
+    bf16 judge with float16's ulp. Returns ({kernel: max_abs_err}, the
+    printed judge numbers by case)."""
+    errs16 = {}
+    g = torch.Generator(device="cuda").manual_seed(16)
+    g25 = torch.Generator(device="cuda").manual_seed(16 + 25)
+    judge_train_kernels(A, train_case(g, torch.float16), False,
+                        "b8 h12 s1024 d64 bias dropout 0.1", {}, errs16)
+    judge_train_kernels(
+        A, train_case(g25, torch.float16, b=PT_BATCH, s=PT_SEQ,
+                      lens=(PT_SEQ,) * PT_BATCH), False,
+        f"pretraining b{PT_BATCH} h{E_HEADS} s{PT_SEQ} d64 zero bias "
+        f"dropout {E_DROPOUT}", {}, errs16)
+    return errs16
+
+
 def ernie(device, layers, dropout, seed):
     from paddle_tpu_torch.text import (ErnieConfig,
                                        ErnieForSequenceClassification)
@@ -2187,8 +2242,8 @@ def train_numbers(A, case):
         o.backward(do)
 
     def bound(flops, nbytes):
-        t_ops = flops / (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
-                         else FP32_FLOPS_PER_S)
+        t_ops = flops / (FP32_FLOPS_PER_S if q.dtype == torch.float32
+                         else BF16_FLOPS_PER_S)
         t_bytes = nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
@@ -2218,7 +2273,7 @@ def train_numbers(A, case):
         ms = device_ms(fn)
         rows[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                       "bound_ms": bms, "bound_by": by}
-        log(f"  {name} bf16 b8 h12 s1024 d64 bias dropout: kernel "
+        log(f"  {name} {str(q.dtype)[6:]} b8 h12 s1024 d64 bias dropout: kernel "
             f"{ms:.4f} bound {bms:.4f} ({by}) plain {plain:.4f} sdpa "
             f"{lib:.4f}")
     pair = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
@@ -5757,6 +5812,439 @@ def op_library_phase(seed, dev="cuda"):
     return out
 
 
+# ------------------------------ mixed precision and observability (36)
+
+#: phase 36 (b): f16 steps, and a first loss scale whose scaled logits'
+#: gradient (~0.06 x scale) overflows float16's 65504 at the classifier
+AMP_F16_STEPS, AMP_F16_SCALE = 16, 2.0 ** 24
+#: phase 36 (c): one O1 step of a 2-layer ERNIE at base width, card
+#: against CPU. Both sides round the same inputs to the amp type; the
+#: card sums each 16-bit product in another order (tensor cores, p rounded
+#: per key tile in the flash kernels, at the row's final max in the plain
+#: version), so outputs move by about an ulp of their type and the
+#: gradients through two layers by a few: the loss's relative error and
+#: the relative L2 error over all gradients, bf16 / f16 (the CPU parity
+#: test against JAX reads 5.8e-4 / 5.9e-5 and a median 1.5e-2 / 2.0e-3 a
+#: parameter, tests/test_torch_amp.py)
+AMP_CPU_LAYERS, AMP_CPU_BATCH, AMP_CPU_SEQ = 2, 2, 128
+AMP_LOSS_REL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+AMP_GRAD_L2 = {torch.bfloat16: 5e-2, torch.float16: 1e-2}
+#: phase 36 (e): serving iterations under the lockstep profile
+AMP_PROF_ITERS = 4
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def profiled_kernel_counts(fn):
+    """{(kernel, "bf16" | "f16"): launches} of the three training kernels'
+    wgmma instances in one fn() under torch.profiler (device activity
+    alone), by the kernels' demangled names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for _, n, key in kernel_rows(prof):
+        for kname in TRAIN_KERNELS:
+            if f"{kname}_mma<" in key:
+                dt = "f16" if "__half" in key else "bf16"
+                out[(kname, dt)] = out.get((kname, dt), 0) + n
+    return out
+
+
+def scaler_rule(init, found, incr_every=1000, decr_every=1, incr=2.0,
+                decr=0.5):
+    """The GradScaler rule replayed on a found-inf sequence: the scale
+    after each step (the JAX package's `_update`)."""
+    scale, good, bad, out = init, 0, 0, []
+    for f in found:
+        if f:
+            bad, good = bad + 1, 0
+            if bad >= decr_every:
+                scale, bad = max(scale * decr, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * incr, 0
+        out.append(scale)
+    return out
+
+
+def amp_train(A, seed, amp_dtype, steps, init_scale):
+    """Phase 36 (a) and (b): eager ERNIE-base under O1 in `amp_dtype` with
+    a GradScaler from `init_scale`, `steps` steps on one batch. Returns
+    the run's numbers; raises on a broken contract."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp, optimizer
+
+    model = ernie("cuda", E_LAYERS, (E_DROPOUT, E_DROPOUT), seed)
+    model.train()
+    params = list(model.parameters())
+    opt = optimizer.AdamW(E_LR, parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    scaler = amp.GradScaler(init_loss_scaling=init_scale)
+    (ids, tt, mask), labels = ernie_batch(seed, E_BATCH, E_SEQ)
+    ins = [torch.as_tensor(a, device="cuda") for a in (ids, tt, mask)]
+    lab = torch.as_tensor(labels, device="cuda")
+    f16 = amp_dtype == torch.float16
+
+    def step():
+        with amp.auto_cast(dtype=amp_dtype):
+            loss = F.cross_entropy(model(*ins), lab)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss
+
+    losses, found, scales, kept, times = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    for _ in range(steps):
+        before = [p.detach().clone() for p in params] if f16 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.detach()))
+        found.append(bool(scaler._found_inf))
+        scales.append(scaler.get_loss_scaling())
+        if f16:
+            kept.append(all(torch.equal(a, p.detach())
+                            for a, p in zip(before, params)))
+            del before
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: A.LAUNCHES[k] for k in TRAIN_KERNELS}
+    f16_launches = {k: A.F16_LAUNCHES[k] for k in TRAIN_KERNELS}
+    profiled = profiled_kernel_counts(step)
+    seq_s = E_BATCH * (steps - 2) / sum(times[2:])
+    tag = "f16" if f16 else "bf16"
+    log(f"  ({'b' if f16 else 'a'}) {tag} O1: losses "
+        f"{[round(x, 4) for x in losses]}; scale after each step {scales}; "
+        f"found inf {found}; {seq_s:.2f} seq/s over steps 3-{steps}; peak "
+        f"{peak / 2**30:.2f} GiB"
+        + (" (with a copy of the parameters for the skip check)" if f16
+           else ""))
+    log(f"      launches {launches} (f16 {f16_launches}); one more step "
+        f"profiled: {dict((f'{k}:{d}', n) for (k, d), n in profiled.items())}")
+    want = E_LAYERS * steps
+    miss = []
+    if not all(np.isfinite(losses)):
+        miss.append(f"a loss is not finite: {losses}")
+    for k in TRAIN_KERNELS:
+        if launches[k] != want or f16_launches[k] != (want if f16 else 0):
+            miss.append(f"{k}: {launches[k]} launches ({f16_launches[k]} "
+                        f"f16), expected {want}")
+        if profiled.get((k, tag)) != E_LAYERS or \
+                profiled.get((k, "bf16" if f16 else "f16")):
+            miss.append(f"{k}: profiled {profiled}, expected {E_LAYERS} "
+                        f"{tag} launches a step")
+    if f16:
+        skips = [i for i, f in enumerate(found) if f]
+        if not skips:
+            miss.append("no step overflowed: nothing skipped")
+        if kept != found:
+            miss.append(f"parameters unchanged {kept} against found inf "
+                        f"{found}")
+        if scales != scaler_rule(init_scale, found):
+            miss.append(f"scales {scales} against the rule "
+                        f"{scaler_rule(init_scale, found)}")
+        if not skips or skips[-1] >= steps - 2:
+            miss.append(f"fewer than two finite steps after the last skip "
+                        f"({found})")
+    elif not losses[-1] < losses[0]:
+        miss.append(f"the loss did not fall: {losses}")
+    del model, opt, params, ins
+    gc.collect()
+    torch.cuda.empty_cache()
+    if miss:
+        raise AssertionError(f"amp {tag}: " + "; ".join(miss))
+    return {"losses": losses, "found_inf": found, "scales": scales,
+            "seq_per_s": seq_s, "peak_bytes": peak, "launches": launches,
+            "f16_launches": f16_launches,
+            "profiled": {f"{k}:{d}": n for (k, d), n in profiled.items()}}
+
+
+def amp_card_vs_cpu(seed):
+    """Phase 36 (c): one O1 step of a 2-layer ERNIE at base width on the
+    CPU and on the card from the same weights and batch, bf16 and f16.
+    Returns {dtype: (loss rel, gradient rel L2)}."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+
+    (ids, tt, mask), labels = ernie_batch(seed + 36, AMP_CPU_BATCH,
+                                          AMP_CPU_SEQ)
+    cpu = ernie("cpu", AMP_CPU_LAYERS, (0.0, 0.0), seed)
+    card = copy.deepcopy(cpu).to("cuda")
+    out = {}
+    for dt in (torch.bfloat16, torch.float16):
+        res = []
+        for m, dev in ((cpu, "cpu"), (card, "cuda")):
+            m.train()
+            m.zero_grad(set_to_none=True)
+            ins = [torch.as_tensor(a, device=dev) for a in (ids, tt, mask)]
+            with amp.auto_cast(dtype=dt):
+                loss = F.cross_entropy(m(*ins), torch.as_tensor(
+                    labels, device=dev))
+            loss.backward()
+            res.append((float(loss.detach()), torch.cat(
+                [p.grad.detach().float().cpu().reshape(-1)
+                 for p in m.parameters()])))
+        (lc, gc_), (lg, gg) = res
+        rel = abs(lg - lc) / abs(lc)
+        l2 = float((gg - gc_).norm() / gc_.norm())
+        out[str(dt)[6:]] = {"loss_cpu": lc, "loss_card": lg, "loss_rel": rel,
+                            "grad_rel_l2": l2}
+        log(f"  (c) {str(dt)[6:]} 2-layer O1 step, card against CPU: loss "
+            f"{lg:.6f} / {lc:.6f}, relative {rel:.2e} (limit "
+            f"{AMP_LOSS_REL[dt]}); gradients relative L2 {l2:.2e} (limit "
+            f"{AMP_GRAD_L2[dt]})")
+        if not (rel <= AMP_LOSS_REL[dt] and l2 <= AMP_GRAD_L2[dt]):
+            raise AssertionError(f"amp card against CPU ({dt}): loss "
+                                 f"{rel}, gradients {l2}")
+    del card
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_serving(A, seed):
+    """Phase 36 (d): Transformer-base serving of REQUESTS requests over a
+    shared preamble, dense and paged with spec_k SPEC_K, untraced and then
+    under a tracer session and cost accounting. Returns {path: numbers}."""
+    from paddle_tpu_torch.profiler import costs, trace
+    from paddle_tpu_torch.serving import (Request, Scheduler, ServingEngine,
+                                          tracing)
+
+    model, embed, project = build_model(seed + 36, "cuda")
+    rs = np.random.RandomState(seed + 36)
+    src = torch.as_tensor(rs.randint(2, VOCAB, (1, SRC_LEN)), device="cuda")
+    with torch.inference_mode():
+        memory = model.encoder(embed(src), None)[0]
+    prompts, mems = paged_requests(seed + 36, REQUESTS, memory)
+    spec = costs.detect_spec()
+    out = {}
+    for path, kw in (("dense", {}), ("paged_spec", dict(
+            paged=True, page_size=PAGE, spec_k=SPEC_K))):
+        runs = {}
+        for traced in (False, True):
+            eng = ServingEngine(model.decoder, embed, project,
+                                num_slots=SLOTS, max_len=MAX_LEN,
+                                device="cuda", **kw)
+            sched = Scheduler(max_queue=REQUESTS)
+            tr = trace.start_session() if traced else None
+            bk = costs.start_accounting(spec=spec) if traced else None
+            try:
+                reqs = [Request(p, m, max_new_tokens=NEW_TOKENS, eos_id=1)
+                        for p, m in zip(prompts, mems)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for r in reqs:
+                    sched.submit(r)
+                eng.serve_until_idle(sched)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                snap = eng.metrics.snapshot()
+            finally:
+                if traced:
+                    costs.end_accounting()
+                    trace.end_session()
+            toks = [list(map(int, r.result().tokens)) for r in reqs]
+            runs[traced] = dict(tokens=toks, wall=wall, snap=snap, tr=tr,
+                                bk=bk, eng=eng, ids=[r.id for r in reqs])
+        plain, traced = runs[False], runs[True]
+        n_tok = sum(len(t) for t in plain["tokens"])
+        events = traced["tr"].chrome_trace_events()
+        wf = tracing.waterfalls(events)
+        complete = sum(1 for i in traced["ids"] if wf.get(i, {}).get(
+            "complete"))
+        compiles = [e for e in events if e["name"] == "compile"]
+        keys = sorted(map(str, traced["eng"].trace_counts))
+        mfu = traced["snap"].get("mfu", {})
+        sources = sorted({c.source for c in traced["bk"].costs()})
+        rep = tracing.waterfall_report(events)
+        num = {"tokens_equal": traced["tokens"] == plain["tokens"],
+               "tok_per_s_untraced": n_tok / plain["wall"],
+               "tok_per_s_traced": n_tok / traced["wall"],
+               "waterfalls_complete": complete, "trace_counts_keys": keys,
+               "compile_spans": len(compiles),
+               "compile_ms": sum(e["dur"] for e in compiles) / 1e3,
+               "cost_sources": sources, "mfu": mfu,
+               "compile_temp_peak_bytes":
+                   traced["snap"]["memory"]["compile_temp_peak_bytes"],
+               "spans": len(events), "dropped": traced["tr"].dropped}
+        log(f"  (d) {path}: tokens traced = untraced "
+            f"{num['tokens_equal']}; {complete}/{REQUESTS} complete "
+            f"waterfalls; {num['tok_per_s_untraced']:.1f} tokens/s "
+            f"untraced, {num['tok_per_s_traced']:.1f} traced; "
+            f"{len(compiles)} compile spans ({num['compile_ms']:.1f} ms); "
+            f"first-run temp high-water "
+            f"{num['compile_temp_peak_bytes'] / 2**20:.1f} MiB; cost "
+            f"sources {sources}")
+        log(f"      trace_counts keys {keys}")
+        log(f"      mfu {json.dumps(mfu)}")
+        log("      " + rep.replace("\n", "\n      "))
+        if not (num["tokens_equal"] and complete == REQUESTS
+                and sources == ["analytic"] and mfu.get("device", {})
+                .get("name") == "NVIDIA H100"
+                and mfu["model_flops_util"]["n"] > 0
+                and len(compiles) == len(keys)):
+            raise AssertionError(f"traced serving ({path}): {num}")
+        out[path] = num
+        del runs
+    del model, embed, project, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lockstep_profile(A, seed, trace_dir):
+    """Phase 36 (e): start_profiler / stop_profiler around AMP_PROF_ITERS
+    serving iterations (dense, after the joins), each in a RecordEvent
+    with trace id i + 1. Returns the links found."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving import (Request, Scheduler, ServingEngine,
+                                          tracing)
+
+    model, embed, project = build_model(seed + 37, "cuda")
+    memory = torch.randn(SRC_LEN, D_MODEL, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed))
+    rs = np.random.RandomState(seed + 37)
+    eng = ServingEngine(model.decoder, embed, project, num_slots=SLOTS,
+                        max_len=MAX_LEN, device="cuda")
+    sched = Scheduler(max_queue=SLOTS)
+    for _ in range(SLOTS):
+        sched.submit(Request(rs.randint(2, VOCAB, 64), memory,
+                             max_new_tokens=NEW_TOKENS, eos_id=None))
+    while sched.depth() or eng.occupancy() < SLOTS:
+        eng.run_iteration(sched)
+    torch.cuda.synchronize()
+    profiler.start_profiler(trace_dir=trace_dir)
+    try:
+        for i in range(AMP_PROF_ITERS):
+            with profiler.RecordEvent("serve.iteration", event_type="step",
+                                      trace_id=i + 1):
+                eng.run_iteration(sched)
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop_profiler()
+    eng.abort_active("shutdown")
+    host = tracing.load_chrome_trace(profiler.last_host_trace)
+    dev = tracing.load_chrome_trace(profiler.last_device_trace)
+    spans = [e for e in host if e.get("name") == "serve.iteration"
+             and e.get("ph") == "X"]
+    kernels = [e for e in dev if e.get("cat") == "kernel"
+               and "flash_decode_kernel" in e.get("name", "")]
+    launches = {e["args"].get("correlation"): e for e in dev
+                if e.get("cat") == "cuda_runtime"
+                and "Launch" in e.get("name", "")}
+    links = []
+    for sp in spans:
+        label = (f"serve.iteration#trace_id={sp['args']['trace_id']},"
+                 f"span_id={sp['args']['span_id']}")
+        ann = [e for e in dev if e.get("name") == label
+               and e.get("ph") == "X"]
+        gpu = [e for e in ann if e.get("cat") == "gpu_user_annotation"]
+        cpu = [e for e in ann if e.get("cat") == "user_annotation"]
+
+        def inside(t, w):
+            return w["ts"] <= t <= w["ts"] + w["dur"]
+
+        how = None
+        if gpu and any(inside(k["ts"], gpu[0]) for k in kernels):
+            how = "device annotation window"
+        elif cpu and any(
+                inside(launches[k["args"]["correlation"]]["ts"], cpu[0])
+                for k in kernels
+                if k["args"].get("correlation") in launches):
+            how = "host annotation window (the launch)"
+        links.append({"label": label, "annotations": len(ann),
+                      "decode_kernel_inside": how})
+    log(f"  (e) lockstep profile: host spans {len(spans)}, device trace "
+        f"{len(dev)} events, flash_decode_kernel {len(kernels)}; "
+        f"{json.dumps(links)}")
+    if len(spans) != AMP_PROF_ITERS or not all(
+            l["annotations"] and l["decode_kernel_inside"] for l in links):
+        raise AssertionError(f"lockstep profile: spans {len(spans)}, "
+                             f"links {links}")
+    del eng, model, embed, project
+    torch.cuda.empty_cache()
+    return links
+
+
+def ernie_train_flops(net, b, s):
+    """Model flops of one ERNIE-base training step of b x s tokens: 3x the
+    forward's 2 flops per (parameter, token) over every parameter but the
+    embedding tables (gathers, no products), plus the attention products
+    (4 b s^2 d a layer: Q.K^T and P.V over all keys)."""
+    emb = sum(p.numel() for n, p in net.named_parameters()
+              if "embeddings" in n and p.dim() == 2)
+    dense = sum(p.numel() for p in net.parameters()) - emb
+    return 3.0 * (2.0 * dense * b * s + 4.0 * E_LAYERS * b * s * s *
+                  E_HIDDEN)
+
+
+def ernie_fit_mfu(seed):
+    """Phase 36 (f): phase 32's ERNIE (HE_STEPS batches of HE_BATCH x
+    HE_SEQ, float32, AdamW) through Model.fit, then fit_report's MFU
+    against the H100 spec."""
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.profiler import costs
+
+    batches = [ernie_batch(seed + i, HE_BATCH, HE_SEQ)
+               for i in range(HE_STEPS)]
+    cols = [np.concatenate([b[0][j] for b in batches]) for j in range(3)]
+    labels = np.concatenate([b[1] for b in batches])
+    torch.manual_seed(seed)
+    model = ernie_hapi_model(seed)
+    model.fit(TensorDataset(cols + [labels]), batch_size=HE_BATCH,
+              shuffle=False, verbose=0)
+    flops = ernie_train_flops(model.network, HE_BATCH, HE_SEQ)
+    rep = model.fit_report(flops_per_step=flops, spec=costs.detect_spec())
+    log(f"  (f) phase 32's ERNIE through fit: {rep['steps']} steps, "
+        f"{1e3 * rep['train_s'] / rep['steps']:.1f} ms a step, "
+        f"{flops / 1e12:.3f} TFLOP a step: MFU {rep['mfu']} against "
+        f"{rep['device']}")
+    if rep["device"]["name"] != "NVIDIA H100" or not rep["mfu"] > 0:
+        raise AssertionError(f"fit_report {rep}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: rep[k] for k in ("steps", "train_s", "mfu", "device")} | {
+        "flops_per_step": flops}
+
+
+def amp_observability_phase(A, seed):
+    """Phase 36: (a)-(f) above. Returns (numbers, {kernel: f16 row})."""
+    import shutil
+    import tempfile
+
+    out = {"bf16": amp_train(A, seed, torch.bfloat16, E_STEPS,
+                             2.0 ** 15)}
+    out["f16"] = amp_train(A, seed, torch.float16, AMP_F16_STEPS,
+                           AMP_F16_SCALE)
+    log("  (b) the f16 kernels against their plain versions at phase 9's "
+        "shapes (float16's ulp, 8x the bf16 share)")
+    f16_errs = check_f16_kernels(A)
+    g = torch.Generator(device="cuda").manual_seed(seed + 16)
+    f16_rows = train_numbers(A, train_case(g, torch.float16))
+    out["card_vs_cpu"] = amp_card_vs_cpu(seed)
+    out["serving"] = traced_serving(A, seed)
+    tmp = tempfile.mkdtemp(prefix="phase36_")
+    try:
+        out["lockstep"] = lockstep_profile(A, seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fit_mfu"] = ernie_fit_mfu(seed)
+    rows = {}
+    for kname in TRAIN_KERNELS:
+        rows[kname] = dict(f16_rows[kname], max_abs_err=f16_errs[kname],
+                           launches=out["f16"]["f16_launches"][kname])
+    return out, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6381,7 +6869,31 @@ def main():
     log("  op library summary " + json.dumps({"card": card, **ops}))
     log(f"  phase 35 took {time.perf_counter() - t_ops:.1f} s")
 
-    log("phase 36: output")
+    log("phase 36: mixed precision and observability: ERNIE-base under "
+        "amp.auto_cast O1 (bf16, then f16 with a GradScaler that overflows "
+        "first), the f16 kernels, a 2-layer card-vs-CPU O1 step, traced and "
+        "costed serving, the lockstep profile, fit_report's MFU")
+    t_amp = time.perf_counter()
+    amp_out, f16_rows = amp_observability_phase(A, args.seed)
+    for kname in TRAIN_KERNELS:
+        row = kernels[kname]
+        row["launches_by_path"]["amp_bf16"] = \
+            amp_out["bf16"]["launches"][kname]
+        row["launches"] = sum(row["launches_by_path"].values())
+        r16 = f16_rows[kname]
+        kernels[f"{kname}:float16"] = {
+            "name": f"{kname} (float16)", "route": "cuda",
+            "source": row["source"], "replaces": row["replaces"],
+            "launches": r16["launches"], "max_abs_err": r16["max_abs_err"],
+            "ms": r16["ms"], "plain_ms": r16["plain_ms"],
+            "bound_ms": r16["bound_ms"], "bound_by": r16["bound_by"],
+            "library_ms": r16["library_ms"],
+            "shape": "b8 h12 s1024 d64 bias dropout 0.1 (float16)"}
+    log("  amp and observability summary " + json.dumps(
+        {"card": card, **amp_out}))
+    log(f"  phase 36 took {time.perf_counter() - t_amp:.1f} s")
+
+    log("phase 37: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

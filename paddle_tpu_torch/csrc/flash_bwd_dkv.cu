@@ -29,7 +29,10 @@
 // products, dv and dk), against reading k, v, bias once and q, dO, lse,
 // delta once per key tile.
 //
-// bfloat16 (the training path): the four products run on the tensor cores
+// bfloat16 (the training path) and float16 (the same body over __half,
+// for amp.auto_cast(dtype="float16"): f16 wgmma, pd and ds rounded to f16
+// where the bf16 instance rounds them to bf16, float32 accumulators and
+// dbias): the four products run on the tensor cores
 // (bf16 wgmma). One warpgroup per (key tile of 64, b*h); its k and v stay
 // in swizzled shared memory, its bias, ids and dropout column keys in
 // registers; q, dO and the rows' lse, delta, ids and dropout row keys
@@ -266,7 +269,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
   }
 }
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- bf16 and f16
 
 // dynamic shared memory of the wgmma kernel: k, v, NS q and NS dO tiles;
 // per query tile (NS buffers) lse, delta, ids and the dropout row keys;
@@ -279,18 +282,18 @@ constexpr int mma_smem_bytes() {
          1024;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(128)
-flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+flash_bwd_dkv_mma(const T* __restrict__ q,
+                  const T* __restrict__ k,
+                  const T* __restrict__ v,
                   const float* __restrict__ bias,
                   const int* __restrict__ qseg, const int* __restrict__ kseg,
-                  const __nv_bfloat16* __restrict__ g,
+                  const T* __restrict__ g,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, float* __restrict__ db,
+                  T* __restrict__ dk,
+                  T* __restrict__ dv, float* __restrict__ db,
                   int H, int sq, int sk, int d, Strides4 st, float scale,
                   int causal, Dropout dr, int vec, int pow2) {
   using namespace mma;
@@ -318,10 +321,10 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   const bool drop = dr.block_q > 0;
   const float s_scale = pow2 ? scale : 1.f;
 
-  const __nv_bfloat16* qp = q + b * st.v[0] + h * st.v[1];
-  const __nv_bfloat16* kp = k + b * st.v[3] + h * st.v[4];
-  const __nv_bfloat16* vp = v + b * st.v[6] + h * st.v[7];
-  const __nv_bfloat16* gp = g + b * st.v[9] + h * st.v[10];
+  const T* qp = q + b * st.v[0] + h * st.v[1];
+  const T* kp = k + b * st.v[3] + h * st.v[4];
+  const T* vp = v + b * st.v[6] + h * st.v[7];
+  const T* gp = g + b * st.v[9] + h * st.v[10];
   const float* lp = lse + (long long)bh * sq;
   const float* dp_ = delta + (long long)bh * sq;
   const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
@@ -342,8 +345,8 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   // computed here
   auto fetch = [&](int t, int buf) {
     const int q0 = q_lo + t * BQ;
-    load_tile<D>(qs + buf * TB, qp, st.v[2], q0, sq, d, vec);
-    load_tile<D>(gs + buf * TB, gp, st.v[11], q0, sq, d, vec);
+    load_tile<D, T>(qs + buf * TB, qp, st.v[2], q0, sq, d, vec);
+    load_tile<D, T>(gs + buf * TB, gp, st.v[11], q0, sq, d, vec);
     if (tid < BQ) {
       const int row = q0 + tid;
       const bool ok = row < sq;
@@ -356,8 +359,8 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_tile<D>(ks, kp, st.v[5], k0, sk, d, vec);
-  load_tile<D>(vs, vp, st.v[8], k0, sk, d, vec);
+  load_tile<D, T>(ks, kp, st.v[5], k0, sk, d, vec);
+  load_tile<D, T>(vs, vp, st.v[8], k0, sk, d, vec);
   if (nt > 0) fetch(0, 0);
   cp_async_commit();
 
@@ -397,15 +400,15 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     uint8_t* qb = qs + buf * TB;
     uint8_t* gb = gs + buf * TB;
     if (!pow2) {
-      scale_tile<D>(qb, qb, scale);
+      scale_tile<D, T>(qb, qb, scale);
       fence_async_smem();
       __syncthreads();
     }
 
     float s[32], dp[32];           // S^T and dP^T: rows keys, cols rows
     wgmma_fence();
-    wgmma_ss_k<KS>(s, ks, qb);
-    wgmma_ss_k<KS>(dp, vs, gb);
+    wgmma_ss_k<KS, T>(s, ks, qb);
+    wgmma_ss_k<KS, T>(dp, vs, gb);
     wgmma_commit();
     wgmma_wait<0>();              // dV, dK(t - 1), S^T(t), dP^T(t) done
     fence_regs(s);
@@ -439,8 +442,8 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     uint32_t apd[4][4], adl[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      to_a(s, kk, apd[kk]);
-      to_a(dp, kk, adl[kk]);
+      to_a<T>(s, kk, apd[kk]);
+      to_a<T>(dp, kk, adl[kk]);
     }
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
@@ -452,8 +455,10 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
-        wgmma_rs(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)), 1);
-        wgmma_rs(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)), 1);
+        wgmma_rs<T>(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)),
+                    1);
+        wgmma_rs<T>(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)),
+                    1);
       }
     wgmma_commit();
   }
@@ -474,11 +479,11 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
       const int col = 64 * n + frag_col(i);
       if (key >= sk || col >= d) continue;
       const long long o = ((long long)bh * sk + key) * d + col;
-      dk[o] = __float2bfloat16(dk_acc[n][i] * o_scale);
-      dv[o] = __float2bfloat16(dv_acc[n][i]);
+      dk[o] = Half16<T>::from(dk_acc[n][i] * o_scale);
+      dv[o] = Half16<T>::from(dv_acc[n][i]);
       if (col + 1 < d) {
-        dk[o + 1] = __float2bfloat16(dk_acc[n][i + 1] * o_scale);
-        dv[o + 1] = __float2bfloat16(dv_acc[n][i + 1]);
+        dk[o + 1] = Half16<T>::from(dk_acc[n][i + 1] * o_scale);
+        dv[o + 1] = Half16<T>::from(dv_acc[n][i + 1]);
       }
     }
   // dbias: each key's sum lies across the four threads of its row
@@ -492,6 +497,7 @@ flash_bwd_dkv_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <typename T>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* bias, const void* qseg, const void* kseg,
                const void* g, const void* lse, const void* delta, void* dk,
@@ -504,19 +510,19 @@ int launch_mma(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, 128, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const T*>(q),
+        static_cast<const T*>(k),
+        static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<const int*>(qseg),
-        static_cast<const int*>(kseg), static_cast<const __nv_bfloat16*>(g),
+        static_cast<const int*>(kseg), static_cast<const T*>(g),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        static_cast<T*>(dk), static_cast<T*>(dv),
         static_cast<float*>(db), H, sq, sk, d, st, scale, causal, dr, vec,
         pow2);
     return (int)cudaGetLastError();
   };
-  return d <= 64 ? run(flash_bwd_dkv_mma<64>, mma_smem_bytes<64>())
-                 : run(flash_bwd_dkv_mma<128>, mma_smem_bytes<128>());
+  return d <= 64 ? run(flash_bwd_dkv_mma<64, T>, mma_smem_bytes<64>())
+                 : run(flash_bwd_dkv_mma<128, T>, mma_smem_bytes<128>());
 }
 
 template <int D>
@@ -546,7 +552,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32 (the SIMT kernel),
-// 1 = bfloat16 (the wgmma kernel). Operands (segment ids included) as in
+// 1 = bfloat16, 2 = float16 (the wgmma kernel's two instances). Operands (segment ids included) as in
 // pt_flash_bwd_dq; dk / dv [B, H, sk, d] contiguous; db [B * H, sk]
 // float32, or null when the key bias needs no gradient (or there is
 // none). Returns the cudaError_t of the launch.
@@ -562,19 +568,24 @@ extern "C" int pt_flash_bwd_dkv(int device, int dtype, const void* q,
                                 int block_q, int block_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
+  if (d < 1 || d > 128 || (dtype < 0 || dtype > 2) || block_q < 0 ||
       block_k < 0 || (block_q > 0) != (block_k > 0) ||
       (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype >= 1) {
     const void* views[4] = {q, k, v, g};
-    return launch_mma(q, k, v, bias, qseg, kseg, g, lse, delta, dk, dv, db,
-                      B, H, sq, sk, d, st, scale, causal, dr,
-                      mma::vector_loads(views, strides, d),
-                      mma::power_of_two(scale), s);
+    const int vec = mma::vector_loads(views, strides, d);
+    const int pow2 = mma::power_of_two(scale);
+    return dtype == 1
+        ? launch_mma<__nv_bfloat16>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                    dk, dv, db, B, H, sq, sk, d, st, scale,
+                                    causal, dr, vec, pow2, s)
+        : launch_mma<__half>(q, k, v, bias, qseg, kseg, g, lse, delta, dk, dv,
+                             db, B, H, sq, sk, d, st, scale, causal, dr, vec,
+                             pow2, s);
   }
   return d <= 64
       ? launch<64>(q, k, v, bias, qseg, kseg, g, lse, delta, dk, dv,

@@ -24,7 +24,11 @@
 // products and the dq product), against reading q, dO, lse, delta once and
 // k, v, bias once per query tile.
 //
-// bfloat16 (the training path): the three products run on the tensor
+// bfloat16 (the training path) and float16 (the same body over __half,
+// for amp.auto_cast(dtype="float16"): f16 wgmma, ds rounded to f16 where
+// the bf16 instance rounds it to bf16, float32 accumulators; an unscaled
+// loss keeps ds far inside f16's range, a GradScaler's scale may not, and
+// the inf it then writes is what the scaler's check is for): the three products run on the tensor
 // cores (bf16 wgmma, 989 TFLOP/s), so the exp, the masks and the dropout
 // hash on the CUDA cores are the other half of the work. One warpgroup
 // (128 threads) per (query tile of 64 rows, b*h). The tile's q and dO stay
@@ -233,7 +237,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- bf16 and f16
 
 // dynamic shared memory of the wgmma kernel: q, dO, NS k and NS v tiles,
 // round(k * scale) unless the scale is a power of two; per key tile (NS
@@ -247,17 +251,17 @@ constexpr int mma_smem_bytes(bool pow2) {
          3 * NS * BK * 4 + 16 + 1024;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(128)
-flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+flash_bwd_dq_mma(const T* __restrict__ q,
+                 const T* __restrict__ k,
+                 const T* __restrict__ v,
                  const float* __restrict__ bias, const int* __restrict__ qseg,
                  const int* __restrict__ kseg,
-                 const __nv_bfloat16* __restrict__ g,
+                 const T* __restrict__ g,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int H, int sq, int sk, int d,
+                 T* __restrict__ dq, int H, int sq, int sk, int d,
                  Strides4 st, float scale, int causal, Dropout dr, int vec,
                  int pow2) {
   using namespace mma;
@@ -285,10 +289,10 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   const bool drop = dr.block_q > 0;
   const float s_scale = pow2 ? scale : 1.f;
 
-  const __nv_bfloat16* qp = q + b * st.v[0] + h * st.v[1];
-  const __nv_bfloat16* kp = k + b * st.v[3] + h * st.v[4];
-  const __nv_bfloat16* vp = v + b * st.v[6] + h * st.v[7];
-  const __nv_bfloat16* gp = g + b * st.v[9] + h * st.v[10];
+  const T* qp = q + b * st.v[0] + h * st.v[1];
+  const T* kp = k + b * st.v[3] + h * st.v[4];
+  const T* vp = v + b * st.v[6] + h * st.v[7];
+  const T* gp = g + b * st.v[9] + h * st.v[10];
   const float* bp = bias ? bias + (long long)b * sk : nullptr;
   const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
   const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
@@ -310,8 +314,8 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
   // computed here
   auto fetch = [&](int t, int buf) {
     const int k0 = kbeg + t * BK;
-    load_tile<D>(ks + buf * TB, kp, st.v[5], k0, sk, d, vec);
-    load_tile<D>(vs + buf * TB, vp, st.v[8], k0, sk, d, vec);
+    load_tile<D, T>(ks + buf * TB, kp, st.v[5], k0, sk, d, vec);
+    load_tile<D, T>(vs + buf * TB, vp, st.v[8], k0, sk, d, vec);
     if (tid < BK) {
       const int col = k0 + tid;
       const bool ok = col < sk;
@@ -325,8 +329,8 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_tile<D>(qs, qp, st.v[2], q0, sq, d, vec);
-  load_tile<D>(gs, gp, st.v[11], q0, sq, d, vec);
+  load_tile<D, T>(qs, qp, st.v[2], q0, sq, d, vec);
+  load_tile<D, T>(gs, gp, st.v[11], q0, sq, d, vec);
   if (nt > 0) fetch(0, 0);
   cp_async_commit();
 
@@ -368,8 +372,8 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
     if (!pow2) {                  // kt is read by dQ(t - 1): retire it
       wgmma_wait<0>();
       __syncthreads();
-      if (t == 0) scale_tile<D>(qs, qs, scale);
-      scale_tile<D>(kt, kb, scale);
+      if (t == 0) scale_tile<D, T>(qs, qs, scale);
+      scale_tile<D, T>(kt, kb, scale);
       kdq = kt;
       fence_async_smem();
       __syncthreads();
@@ -377,9 +381,9 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 
     float s[32], dp[32];
     wgmma_fence();
-    wgmma_ss_k<KS>(s, qs, kb);
+    wgmma_ss_k<KS, T>(s, qs, kb);
     wgmma_commit();
-    wgmma_ss_k<KS>(dp, gs, vs + buf * TB);
+    wgmma_ss_k<KS, T>(dp, gs, vs + buf * TB);
     wgmma_commit();
     wgmma_wait<1>();              // dQ(t - 1) and S(t) are done
     fence_regs(s);
@@ -412,7 +416,7 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
 
     uint32_t a[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) to_a(p, kk, a[kk]);
+    for (int kk = 0; kk < 4; ++kk) to_a<T>(p, kk, a[kk]);
 #pragma unroll
     for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
     wgmma_fence();
@@ -420,8 +424,8 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        wgmma_rs(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),
-                 t > 0 || kk > 0);
+        wgmma_rs<T>(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),
+                    t > 0 || kk > 0);
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -437,13 +441,14 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
       const int row = rows[(i >> 1) & 1];
       const int col = 64 * n + frag_col(i);
       if (row >= sq || col >= d) continue;
-      __nv_bfloat16* op = dq + ((long long)bh * sq + row) * d + col;
-      op[0] = __float2bfloat16(nt > 0 ? acc[n][i] * o_scale : 0.f);
+      T* op = dq + ((long long)bh * sq + row) * d + col;
+      op[0] = Half16<T>::from(nt > 0 ? acc[n][i] * o_scale : 0.f);
       if (col + 1 < d)
-        op[1] = __float2bfloat16(nt > 0 ? acc[n][i + 1] * o_scale : 0.f);
+        op[1] = Half16<T>::from(nt > 0 ? acc[n][i + 1] * o_scale : 0.f);
     }
 }
 
+template <typename T>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* bias, const void* qseg, const void* kseg,
                const void* g, const void* lse, const void* delta, void* dq,
@@ -456,18 +461,18 @@ int launch_mma(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, 128, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const T*>(q),
+        static_cast<const T*>(k),
+        static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<const int*>(qseg),
-        static_cast<const int*>(kseg), static_cast<const __nv_bfloat16*>(g),
+        static_cast<const int*>(kseg), static_cast<const T*>(g),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<__nv_bfloat16*>(dq), H, sq, sk, d, st, scale, causal, dr,
+        static_cast<T*>(dq), H, sq, sk, d, st, scale, causal, dr,
         vec, pow2);
     return (int)cudaGetLastError();
   };
-  return d <= 64 ? run(flash_bwd_dq_mma<64>, mma_smem_bytes<64>(pow2))
-                 : run(flash_bwd_dq_mma<128>, mma_smem_bytes<128>(pow2));
+  return d <= 64 ? run(flash_bwd_dq_mma<64, T>, mma_smem_bytes<64>(pow2))
+                 : run(flash_bwd_dq_mma<128, T>, mma_smem_bytes<128>(pow2));
 }
 
 template <int D>
@@ -507,7 +512,7 @@ extern "C" int pt_flash_bwd_vector_loads(const void* q, const void* k,
 }
 
 // C entry point, bound with ctypes. dtype: 0 = float32 (the SIMT kernel),
-// 1 = bfloat16 (the wgmma kernel). q / dO [B, H, sq, d], k / v
+// 1 = bfloat16, 2 = float16 (the wgmma kernel's two instances). q / dO [B, H, sq, d], k / v
 // [B, H, sk, d] with unit stride on d and element strides (batch, head,
 // row) in `strides` (q, k, v, dO: 12 values, host memory); bias [B, sk]
 // float32 or null; qseg / kseg as in pt_flash_fwd; lse and delta
@@ -525,19 +530,24 @@ extern "C" int pt_flash_bwd_dq(int device, int dtype, const void* q,
                                int block_q, int block_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
+  if (d < 1 || d > 128 || (dtype < 0 || dtype > 2) || block_q < 0 ||
       block_k < 0 || (block_q > 0) != (block_k > 0) ||
       (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype >= 1) {
     const void* views[4] = {q, k, v, g};
-    return launch_mma(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H, sq,
-                      sk, d, st, scale, causal, dr,
-                      mma::vector_loads(views, strides, d),
-                      mma::power_of_two(scale), s);
+    const int vec = mma::vector_loads(views, strides, d);
+    const int pow2 = mma::power_of_two(scale);
+    return dtype == 1
+        ? launch_mma<__nv_bfloat16>(q, k, v, bias, qseg, kseg, g, lse, delta,
+                                    dq, B, H, sq, sk, d, st, scale, causal,
+                                    dr, vec, pow2, s)
+        : launch_mma<__half>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B,
+                             H, sq, sk, d, st, scale, causal, dr, vec, pow2,
+                             s);
   }
   return d <= 64
       ? launch<64>(q, k, v, bias, qseg, kseg, g, lse, delta, dq, B, H,

@@ -34,7 +34,11 @@
 // the p.v product) against reading q once and k, v and the bias once per
 // query tile.
 //
-// bfloat16 (the training path): both products run on the tensor cores
+// bfloat16 (the training path) and float16 (the same body, instantiated
+// over __half for training under amp.auto_cast(dtype="float16"): f16
+// wgmma, p rounded to f16 where the bf16 instance rounds it to bf16; the
+// softmax state and every accumulator stay float32, so f16's narrow range
+// meets only the rounded p in [0, 1] and the output): both products run on the tensor cores
 // (bf16 wgmma, 989 TFLOP/s), so the exp, the masks and the dropout hash
 // on the CUDA cores are the other half of the work. One warpgroup (128
 // threads) per (query tile of 64 rows, b*h). The tile's q stays in
@@ -866,7 +870,7 @@ int launch(const Args& a, int B, int C, bool short_q, cudaStream_t stream) {
 
 }  // namespace f32tc
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- bf16 and f16
 
 // dynamic shared memory of the wgmma kernel: the q tile, NS k and NS v
 // tiles; per key tile (NS buffers) the bias, the ids and the dropout
@@ -880,13 +884,13 @@ constexpr int mma_smem_bytes() {
          1024;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(128)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
+flash_fwd_mma(const T* __restrict__ q,
+              const T* __restrict__ k,
+              const T* __restrict__ v,
               const float* __restrict__ bias, const int* __restrict__ qseg,
-              const int* __restrict__ kseg, __nv_bfloat16* __restrict__ out,
+              const int* __restrict__ kseg, T* __restrict__ out,
               float* __restrict__ lse, int H, int sq, int sk, int d,
               Strides4 st, float scale, int causal, Dropout dr, int vec,
               int pow2) {
@@ -913,9 +917,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   const bool drop = dr.block_q > 0;
   const float s_scale = pow2 ? scale : 1.f;
 
-  const __nv_bfloat16* qp = q + b * st.v[0] + h * st.v[1];
-  const __nv_bfloat16* kp = k + b * st.v[3] + h * st.v[4];
-  const __nv_bfloat16* vp = v + b * st.v[6] + h * st.v[7];
+  const T* qp = q + b * st.v[0] + h * st.v[1];
+  const T* kp = k + b * st.v[3] + h * st.v[4];
+  const T* vp = v + b * st.v[6] + h * st.v[7];
   const float* bp = bias ? bias + (long long)b * sk : nullptr;
   const int* qsp = qseg ? qseg + (long long)b * sq : nullptr;
   const int* ksp = kseg ? kseg + (long long)b * sk : nullptr;
@@ -937,8 +941,8 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   // computed here
   auto fetch = [&](int t, int buf) {
     const int k0 = kbeg + t * BK;
-    load_tile<D>(ks + buf * TB, kp, st.v[5], k0, sk, d, vec);
-    load_tile<D>(vs + buf * TB, vp, st.v[8], k0, sk, d, vec);
+    load_tile<D, T>(ks + buf * TB, kp, st.v[5], k0, sk, d, vec);
+    load_tile<D, T>(vs + buf * TB, vp, st.v[8], k0, sk, d, vec);
     if (tid < BK) {
       const int col = k0 + tid;
       const bool ok = col < sk;
@@ -952,7 +956,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  load_tile<D>(qs, qp, st.v[2], q0, sq, d, vec);
+  load_tile<D, T>(qs, qp, st.v[2], q0, sq, d, vec);
   if (nt > 0) fetch(0, 0);
   cp_async_commit();
 
@@ -988,14 +992,14 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     if (t + 1 < nt) fetch(t + 1, (t + 1) % NS);
     cp_async_commit();
     if (!pow2 && t == 0) {        // round(q * scale), in place, once
-      scale_tile<D>(qs, qs, scale);
+      scale_tile<D, T>(qs, qs, scale);
       fence_async_smem();
       __syncthreads();
     }
 
     float s[32];
     wgmma_fence();
-    wgmma_ss_k<KS>(s, qs, ks + buf * TB);
+    wgmma_ss_k<KS, T>(s, qs, ks + buf * TB);
     wgmma_commit();
     wgmma_wait<0>();              // S(t) and P.V(t - 1) are done
     fence_regs(s);
@@ -1052,7 +1056,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
     uint32_t a[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) to_a(s, kk, a[kk]);
+    for (int kk = 0; kk < 4; ++kk) to_a<T>(s, kk, a[kk]);
 #pragma unroll
     for (int n = 0; n < NB; ++n) fence_regs(acc[n]);
     wgmma_fence();
@@ -1060,8 +1064,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int n = 0; n < NB; ++n)
-        wgmma_rs(acc[n], a[kk], desc(vs + buf * TB, mn_major_step(kk, n)),
-                 t > 0 || kk > 0);
+        wgmma_rs<T>(acc[n], a[kk],
+                    desc(vs + buf * TB, mn_major_step(kk, n)),
+                    t > 0 || kk > 0);
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -1080,10 +1085,10 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       const int row = rows[x];
       const int col = 64 * n + frag_col(i);
       if (row >= sq || col >= d) continue;
-      __nv_bfloat16* op = out + ((long long)bh * sq + row) * d + col;
-      op[0] = __float2bfloat16(nt > 0 ? acc[n][i] / ls[x] : 0.f);
+      T* op = out + ((long long)bh * sq + row) * d + col;
+      op[0] = Half16<T>::from(nt > 0 ? acc[n][i] / ls[x] : 0.f);
       if (col + 1 < d)
-        op[1] = __float2bfloat16(nt > 0 ? acc[n][i + 1] / ls[x] : 0.f);
+        op[1] = Half16<T>::from(nt > 0 ? acc[n][i + 1] / ls[x] : 0.f);
     }
   if ((tid & 3) == 0) {
 #pragma unroll
@@ -1092,6 +1097,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <typename T>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* bias, const void* qseg, const void* kseg,
                void* out, void* lse, int B, int H, int sq, int sk, int d,
@@ -1103,17 +1109,17 @@ int launch_mma(const void* q, const void* k, const void* v,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, 128, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const T*>(q),
+        static_cast<const T*>(k),
+        static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<const int*>(qseg),
-        static_cast<const int*>(kseg), static_cast<__nv_bfloat16*>(out),
+        static_cast<const int*>(kseg), static_cast<T*>(out),
         static_cast<float*>(lse), H, sq, sk, d, st, scale, causal, dr, vec,
         pow2);
     return (int)cudaGetLastError();
   };
-  return d <= 64 ? run(flash_fwd_mma<64>, mma_smem_bytes<64>())
-                 : run(flash_fwd_mma<128>, mma_smem_bytes<128>());
+  return d <= 64 ? run(flash_fwd_mma<64, T>, mma_smem_bytes<64>())
+                 : run(flash_fwd_mma<128, T>, mma_smem_bytes<128>());
 }
 
 // the four views of the vector-loads rule: q, k, v, and q again
@@ -1132,13 +1138,13 @@ Strides4 views_of(const void* q, const void* k, const void* v,
 }  // namespace
 
 // The route of pt_flash_fwd (the one rule of the entry point, asked by
-// the wrapper to count the launches of each route): 1 the bf16 wgmma
-// kernel; for float32, 0 the SIMT kernel (attention dropout or segment
+// the wrapper to count the launches of each route): 1 the wgmma kernel
+// (bf16 or f16); for float32, 0 the SIMT kernel (attention dropout or segment
 // ids, which no serving path uses), else the 3xTF32 tensor-core kernels,
 // 2 query-tiled (sq > 16), 3 short-query (sq <= 16).
 extern "C" int pt_flash_fwd_route(int dtype, int sq, int segs,
                                   int dropout) {
-  if (dtype == 1) return 1;
+  if (dtype >= 1) return 1;
   if (segs || dropout) return 0;
   return sq <= f32tc::SHORT_ROWS ? 3 : 2;
 }
@@ -1164,7 +1170,8 @@ extern "C" int pt_flash_fwd_vector_loads(const void* q, const void* k,
   return mma::vector_loads(views, st.v, d);
 }
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; the
+// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16; the
 // kernel is `pt_flash_fwd_route`'s. q [B, H, sq, d], k/v [B, H, sk, d]
 // with unit stride on d and element strides (batch, head, row) given in
 // `strides` (q, k, v: 9 values); bias: [B, sk] float32 or null; qseg /
@@ -1183,7 +1190,7 @@ extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             int block_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d < 1 || d > 128 || (dtype != 0 && dtype != 1) || block_q < 0 ||
+  if (d < 1 || d > 128 || (dtype < 0 || dtype > 2) || block_q < 0 ||
       block_k < 0 || (block_q > 0) != (block_k > 0) ||
       (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1194,10 +1201,14 @@ extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
   if (route == 1) {
     const void* views[4];
     const Strides4 st = views_of(q, k, v, strides, views);
-    return launch_mma(q, k, v, bias, qseg, kseg, out, lse, B, H, sq, sk, d,
-                      st, scale, causal, dr,
-                      mma::vector_loads(views, st.v, d),
-                      mma::power_of_two(scale), s);
+    const int vec = mma::vector_loads(views, st.v, d);
+    const int pow2 = mma::power_of_two(scale);
+    return dtype == 1
+        ? launch_mma<__nv_bfloat16>(q, k, v, bias, qseg, kseg, out, lse, B,
+                                    H, sq, sk, d, st, scale, causal, dr,
+                                    vec, pow2, s)
+        : launch_mma<__half>(q, k, v, bias, qseg, kseg, out, lse, B, H, sq,
+                             sk, d, st, scale, causal, dr, vec, pow2, s);
   }
   if (route >= 2) {
     const f32tc::Args a{

@@ -1,5 +1,5 @@
-// The attention pieces of the bf16 flash-attention kernels on the tensor
-// cores (flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu), for Hopper
+// The attention pieces of the 16-bit (bf16 and f16) flash-attention
+// kernels on the tensor cores (flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu), for Hopper
 // (sm_90a), over the generic ones of hopper_mma.cuh: the tile copies of
 // q, k, v and dO, the scaling of a tile, and the host rules.
 //
@@ -21,13 +21,12 @@ namespace mma {
 
 using namespace hopper;
 
-// Rows [r0, r0 + 64) of a [n, d] bf16 matrix (row stride ld elements)
-// into a swizzled tile of D columns (64 or 128); rows >= n and columns
-// >= d read as zeros. Called by all 128 threads; cp.async copies join the
-// caller's next commit group.
-template <int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst,
-                                          const __nv_bfloat16* src,
+// Rows [r0, r0 + 64) of a [n, d] matrix of T (bf16 or f16; row stride ld
+// elements) into a swizzled tile of D columns (64 or 128); rows >= n and
+// columns >= d read as zeros. Called by all 128 threads; cp.async copies
+// join the caller's next commit group.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
                                           long long ld, int r0, int n, int d,
                                           bool vec) {
   constexpr int CH = D / 8;
@@ -44,28 +43,27 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
   } else {
     for (int i = threadIdx.x; i < ROWS * D; i += 128) {
       const int r = i / D, c = i % D;
-      __nv_bfloat16 x = __float2bfloat16(0.f);
+      T x = Half16<T>::from(0.f);
       if (r0 + r < n && c < d) x = src[(long long)(r0 + r) * ld + c];
-      *reinterpret_cast<__nv_bfloat16*>(dst + sw_off(r, c >> 3) +
-                                        (c & 7) * 2) = x;
+      *reinterpret_cast<T*>(dst + sw_off(r, c >> 3) + (c & 7) * 2) = x;
     }
   }
 }
 
-// the tile's elements times `scale`, rounded back to bf16, written to dst
+// the tile's elements times `scale`, rounded back to T, written to dst
 // (dst may be src). Called by all 128 threads.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src,
                                            float scale) {
 #pragma unroll
   for (int j = 0; j < ROWS * D / 8 / 128; ++j) {
     const int i = threadIdx.x + 128 * j;
     uint4 x = reinterpret_cast<const uint4*>(src)[i];
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+    uint32_t* h = reinterpret_cast<uint32_t*>(&x);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      h[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      const float2 f = Half16<T>::unpack(h[j]);
+      h[j] = Half16<T>::pack(f.x * scale, f.y * scale);
     }
     reinterpret_cast<uint4*>(dst)[i] = x;
   }
@@ -89,7 +87,8 @@ inline int vector_loads(const void* const* ptrs, const long long* strides,
 }
 
 // whether round(x * scale) == x * scale for every bf16 x: scale is a
-// power of two
+// power of two (and for every f16 x whose product stays in f16's normal
+// range; below it the kernel's unrounded product is the closer one)
 inline int power_of_two(float scale) {
   int e;
   return frexpf(fabsf(scale), &e) == 0.5f;

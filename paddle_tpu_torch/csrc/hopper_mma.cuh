@@ -1,4 +1,4 @@
-// Tensor-core pieces shared by the bf16 kernels for Hopper (sm_90a): the
+// Tensor-core pieces shared by the 16-bit kernels for Hopper (sm_90a): the
 // flash-attention forward and backward (flash_fwd.cu, flash_bwd_dq.cu,
 // flash_bwd_dkv.cu, through flash_mma.cuh) and the fused 1x1-conv +
 // BN forward and backward (fused_conv_fwd.cu, fused_conv_bwd.cu, through
@@ -13,20 +13,58 @@
 // reduction dim: Q.K^T) and read MN-major (its rows are the reduction
 // dim: P.V), by the transpose bits of the descriptors.
 //
-// The products are wgmma m64n64k16 with bf16 operands and float32
-// accumulators: A from shared memory or from registers (the accumulator
-// layout of an earlier product, `to_a`), B from shared memory. Copies into
+// The products are wgmma m64n64k16 with bf16 (or, for the flash kernels'
+// float16 instances, f16) operands and float32 accumulators: A from shared
+// memory or from registers (the accumulator layout of an earlier product,
+// `to_a`), B from shared memory. The operand type T is a template argument,
+// __nv_bfloat16 by default; `Half16<T>` holds its conversions. Copies into
 // the tiles are cp.async, 16, 8 or 4 bytes a thread with zero fill.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
 constexpr int ROWS = 64;                // rows of a tile, and of a warpgroup
 constexpr int TILE_BYTES = ROWS * 128;  // one 64-column swizzled tile
+
+// The conversions of a 16-bit operand type: one value from float (round to
+// nearest even), two packed into a 32-bit register, and back.
+template <typename T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  __device__ __forceinline__ static __nv_bfloat16 from(float x) {
+    return __float2bfloat16(x);
+  }
+  __device__ __forceinline__ static uint32_t pack(float x, float y) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  }
+};
+
+template <>
+struct Half16<__half> {
+  __device__ __forceinline__ static __half from(float x) {
+    return __float2half_rn(x);
+  }
+  __device__ __forceinline__ static uint32_t pack(float x, float y) {
+    __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<__half2*>(&u));
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -120,90 +158,111 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 // D[64 x 64] = A[64 x 16] . B[16 x 64], both from shared memory, both
 // K-major: the first reduction step of a product. D is written only, so
 // no register of it has to be set before the product starts
+#define HOPPER_WGMMA_SS_FIRST(TY)                                           \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),         \
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),         \
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),    \
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),    \
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),    \
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),    \
+        "=f"(d[30]), "=f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(0))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_SS_FIRST("f16");
+  else
+    HOPPER_WGMMA_SS_FIRST("bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], both from shared memory; TA
 // (TB) 1 reads A (B) MN-major, its rows the reduction dim, 0 K-major, its
 // columns the reduction dim; scale_d 0 overwrites D instead (the first
 // step of a product, so D needs no zeros written before it)
-template <int TA, int TB>
+#define HOPPER_WGMMA_SS(TY)                                                 \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da,
                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_SS("f16");
+  else
+    HOPPER_WGMMA_SS("bf16");
 }
 
 // the same with both operands K-major
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d = 1) {
-  wgmma_ss_t<0, 0>(d, da, db, scale_d);
+  wgmma_ss_t<0, 0, T>(d, da, db, scale_d);
 }
 
 // the product D = A . B over KS reduction steps of 16, both operands
 // K-major tiles in shared memory
-template <int KS>
+template <int KS, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_k(float (&d)[32], const void* a,
                                            const void* b) {
-  wgmma_ss_first(d, desc(a, k_major_step(0)), desc(b, k_major_step(0)));
+  wgmma_ss_first<T>(d, desc(a, k_major_step(0)), desc(b, k_major_step(0)));
 #pragma unroll
   for (int kk = 1; kk < KS; ++kk)
-    wgmma_ss(d, desc(a, k_major_step(kk)), desc(b, k_major_step(kk)));
+    wgmma_ss<T>(d, desc(a, k_major_step(kk)), desc(b, k_major_step(kk)));
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A from registers (the
-// accumulator layout, two bf16 a register), B from shared memory,
+// accumulator layout, two 16-bit values a register), B from shared memory,
 // MN-major; scale_d 0 overwrites D (the first step of a product, so D
 // needs no zeros written before it)
+#define HOPPER_WGMMA_RS(TY)                                                 \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                    \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                              \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same<T, __half>::value)
+    HOPPER_WGMMA_RS("f16");
+  else
+    HOPPER_WGMMA_RS("bf16");
 }
 
 // The accumulator layout of a 64 x 64 wgmma tile: thread t of the
@@ -220,16 +279,14 @@ __device__ __forceinline__ int frag_col(int i) {
 }
 
 // The A operand of reduction step kk (16 columns) from a 64 x 64 tile of
-// values in the accumulator layout, rounded to bf16: the accumulator's
+// values in the accumulator layout, rounded to T: the accumulator's
 // columns 16kk .. 16kk + 15 are exactly the A fragment's.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void to_a(const float (&x)[32], int kk,
                                      uint32_t (&a)[4]) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    __nv_bfloat162 h =
-        __floats2bfloat162_rn(x[8 * kk + 2 * m], x[8 * kk + 2 * m + 1]);
-    a[m] = *reinterpret_cast<uint32_t*>(&h);
-  }
+  for (int m = 0; m < 4; ++m)
+    a[m] = Half16<T>::pack(x[8 * kk + 2 * m], x[8 * kk + 2 * m + 1]);
 }
 
 }  // namespace hopper

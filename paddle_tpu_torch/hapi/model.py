@@ -17,8 +17,8 @@ is no CPU fallback. A step syncs with the card once for the loss's
 `train_batch` steps the eager optimizer, which runs its multi-tensor
 update (`optimizer/fused.py`).
 
-Waiting: `prepare(amp_configs=...)` (with the port's `amp/`) and the
-MFU of `fit_report(flops_per_step=...)` (with its `profiler/`).
+`prepare(amp_configs=...)` is refused: the JAX package takes it and
+applies nothing; mixed precision is `amp.auto_cast` around the steps.
 """
 from __future__ import annotations
 
@@ -62,8 +62,9 @@ class Model:
                 amp_configs=None):
         if amp_configs is not None:
             raise NotImplementedError(
-                "prepare(amp_configs=...) comes with the port's amp/ "
-                "(ROADMAP.md item 4)")
+                "prepare(amp_configs=...): the reference takes it and "
+                "applies nothing; run the steps under "
+                "paddle_tpu_torch.amp.auto_cast(...) instead")
         self._optimizer = optimizer
         self._loss = loss
         if metrics is None:
@@ -239,15 +240,22 @@ class Model:
         return history
 
     def fit_report(self, flops_per_step=None, spec=None):
-        """The last fit()'s step timing (`fit_stats`). The training MFU
-        from `flops_per_step` comes with the port's `profiler/`."""
+        """The last fit()'s step timing (`fit_stats`), and with
+        `flops_per_step` the training MFU: the mean achieved flop rate
+        over the steps against `spec`'s peak (`profiler.costs`; default
+        `detect_spec()`, the card's)."""
         if self.fit_stats is None:
             raise RuntimeError("fit() has not run yet")
-        if flops_per_step is not None:
-            raise NotImplementedError(
-                "fit_report(flops_per_step=...) needs profiler.costs, which "
-                "comes with the port's profiler/ (ROADMAP.md item 4)")
-        return dict(self.fit_stats)
+        out = dict(self.fit_stats)
+        if flops_per_step is not None and out["steps"]:
+            from ..profiler import costs as _costs
+
+            spec = spec if spec is not None else _costs.detect_spec()
+            mean_dt = out["train_s"] / out["steps"]
+            out["device"] = spec.as_dict()
+            out["mfu"] = round(
+                _costs.mfu(float(flops_per_step), mean_dt, spec), 6)
+        return out
 
     def _train_state(self, epoch):
         """Everything fit(resume=...) needs to continue bit for bit: the

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import amp as _amp
 from ..ops import attention as A
 from ..ops import kernels as K
 from ..ops import quant as Q
@@ -706,3 +707,7 @@ def temporal_shift(x, seg_num, shift_ratio=0.25):
                        a[:, :-1, fold:2 * fold]], 1)
     return torch.cat([left, right, a[:, :, 2 * fold:]], 2).reshape(
         nt, c, h, w)
+
+
+# the JAX package's amp policy at the functions it dispatches by name
+_amp.register(globals(), _amp._FUNCTIONAL_OPS)

@@ -30,6 +30,7 @@ import math
 import torch
 from torch import nn
 
+from ... import amp as _amp
 from ...core.device import resolve_device
 from ...ops import kernels as K
 from .. import functional as F
@@ -105,6 +106,18 @@ class Flatten(nn.Module):
 Sequential = nn.Sequential
 
 
+def _addmm(x, weight, bias):
+    y = torch.addmm(bias, x.reshape(-1, weight.shape[0]), weight)
+    return y.reshape(*x.shape[:-1], weight.shape[1])
+
+
+# the layers' computations under the amp policy, by the names of the JAX
+# functions its layers call (amp.op)
+_dense = _amp.op("linear", _addmm)
+_embedding = _amp.op("embedding", torch.nn.functional.embedding)
+_layer_norm = _amp.op("layer_norm", torch.nn.functional.layer_norm)
+
+
 def _param(shape, device, init=None):
     t = torch.zeros(shape)
     if init is not None:
@@ -171,9 +184,7 @@ class Linear(nn.Module):
         if self.weight is None:
             y = F.linear_int8(x, self.weight_q, self.weight_scale, self.bias)
         else:
-            y = torch.addmm(self.bias, x.reshape(-1, self.in_features),
-                            self.weight)
-            y = y.reshape(*x.shape[:-1], self.out_features)
+            y = _dense(x, self.weight, self.bias)
         # batched-LoRA hook: an AdapterPool installs `_lora_idx` on its
         # target layers; inside a `lora_scope` the per-row adapter delta
         # joins the output
@@ -212,7 +223,7 @@ class Embedding(nn.Module):
         if self.weight is None:
             return F.embedding_int8(x, self.weight_q, self.weight_scale,
                                     self._weight_dtype)
-        return torch.nn.functional.embedding(x, self.weight)
+        return _embedding(x, self.weight)
 
 
 class LayerNorm(nn.Module):
@@ -230,9 +241,8 @@ class LayerNorm(nn.Module):
         self.bias = _param(self._normalized_shape, dev)
 
     def forward(self, x):
-        return torch.nn.functional.layer_norm(
-            x, self._normalized_shape, self.weight, self.bias,
-            self._epsilon)
+        return _layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                           self._epsilon)
 
 
 def _pair(v):

@@ -68,8 +68,9 @@ there is no fallback from a failed launch. `LAUNCHES` counts kernel
 launches per wrapper, `SEG_LAUNCHES` those of the segment-id branch
 among them, `ROUTE_LAUNCHES` the forward's by route (`fwd_route`),
 `PAGED_ROUTE_LAUNCHES` the paged verify's by route (split
-or tiled), `ELEMENT_LOAD_LAUNCHES` the bf16 forward and backward
-launches on views that 16-byte copies cannot address. The dispatchers `sdpa` and `decode_attention` mirror the
+or tiled), `ELEMENT_LOAD_LAUNCHES` the 16-bit forward and backward
+launches on views that 16-byte copies cannot address, `F16_LAUNCHES`
+their float16 launches. The dispatchers `sdpa` and `decode_attention` mirror the
 JAX ones: a mask that reduces to a per-key bias, and packed segment
 ids, ride the flash kernels. A richer (per-query or per-head) mask goes
 to the `sdpa_reference` composition on the CPU only and without
@@ -95,7 +96,8 @@ from . import _build
 
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
-           "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "ROUTE_LAUNCHES",
+           "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "F16_LAUNCHES",
+           "ROUTE_LAUNCHES",
            "PAGED_ROUTE_LAUNCHES", "fwd_route", "fwd_cluster",
            "paged_verify_route",
            "paged_verify_plan", "paged_decode_plan",
@@ -133,6 +135,10 @@ SEG_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
 #: also counted in LAUNCHES)
 ELEMENT_LOAD_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq",
                                         "flash_bwd_dkv"], branch=True)
+#: float16 launches of the forward and the two backward kernels (the f16
+#: instances of their wgmma body; each also counted in LAUNCHES)
+F16_LAUNCHES = _build.counter(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"],
+                              branch=True)
 #: launches of the forward by route (`fwd_route`, counted by the C entry
 #: point's own rule `pt_flash_fwd_route`): "flash_fwd:wgmma" the bf16
 #: tensor-core kernel, "flash_fwd:tf32x3" and "flash_fwd:tf32x3_short" the
@@ -439,18 +445,23 @@ def flash_attention_fwd_plain(q, k, v, bias=None, is_causal=False,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the dtypes of the three training kernels (flash forward, dQ, dK / dV):
+#: float16 runs the bf16 wgmma body's f16 instance (`amp.auto_cast(
+#: dtype="float16")` hands them f16 q, k, v)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def _check_operands(name, q, k, v, extra=()):
+def _check_operands(name, q, k, v, extra=(), dtypes=_DTYPES):
     """Device / dtype / layout checks of a kernel wrapper: everything on
-    one CUDA device, q/k/v one supported dtype with unit stride on the
+    one CUDA device, q/k/v one dtype of `dtypes` with unit stride on the
     head dim, head_dim <= 128."""
     for t in (q, k, v, *extra):
         if t.device != q.device:
             raise ValueError(f"{name}: operands on different devices "
                              f"({t.device} vs {q.device})")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, "
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        names = ", ".join(str(t).replace("torch.", "") for t in dtypes)
+        raise TypeError(f"{name}: q/k/v must share one of {names}, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q/k/v must be [b, h, s, d]")
@@ -504,18 +515,23 @@ def _count(name, segs):
         SEG_LAUNCHES[name] += 1
 
 
+def _count_f16(name, q):
+    if q.dtype == torch.float16:
+        F16_LAUNCHES[name] += 1
+
+
 def fwd_route(dtype, sq=None, segments=False, dropout=False):
     """The forward kernel's route for q/k/v of this dtype and sq query
     rows, with or without segment ids and attention dropout: "wgmma"
-    (bf16 on the tensor cores); for float32 "simt" (float32 FMAs on the
+    (bf16 or float16 on the tensor cores); for float32 "simt" (float32 FMAs on the
     CUDA cores) under dropout or segment ids, which no serving path
     passes, else 3xTF32 on the tensor cores, "tf32x3_short" for sq <= 16
     (the decode step's cross-attention) and "tf32x3" above. The C entry
     point's rule (`pt_flash_fwd_route`), written out here for the CPU;
     the wrapper counts by the C rule."""
-    if dtype not in _DTYPES:
+    if dtype not in _FLASH_DTYPES:
         raise TypeError(f"flash_fwd: no kernel for {dtype}")
-    if dtype == torch.bfloat16:
+    if dtype in (torch.bfloat16, torch.float16):
         return "wgmma"
     if segments or dropout:
         return "simt"
@@ -535,12 +551,13 @@ def fwd_cluster(q, sk):
 
 
 def _count_fwd(q, k, v, strides, segs, dropout):
-    """Count a forward launch by its route (the C rule); a bf16 one whose
-    views the kernel copies element by element also in
-    ELEMENT_LOAD_LAUNCHES."""
+    """Count a forward launch by its route (the C rule); a 16-bit one
+    whose views the kernel copies element by element also in
+    ELEMENT_LOAD_LAUNCHES; a float16 one also in F16_LAUNCHES."""
     _count("flash_fwd", segs)
+    _count_f16("flash_fwd", q)
     lib = _build.kernels()
-    code = lib.flash_fwd_route(_DTYPES[q.dtype], q.shape[2],
+    code = lib.flash_fwd_route(_FLASH_DTYPES[q.dtype], q.shape[2],
                                int(segs is not None), int(dropout is not None))
     route = {0: "simt", 1: "wgmma", 2: "tf32x3", 3: "tf32x3_short"}[code]
     ROUTE_LAUNCHES[f"flash_fwd:{route}"] += 1
@@ -552,7 +569,8 @@ def _count_fwd(q, k, v, strides, segs, dropout):
 def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
                     segs=None):
     _check_operands("flash_fwd", q, k, v,
-                    (() if bias is None else (bias,)) + (segs or ()))
+                    (() if bias is None else (bias,)) + (segs or ()),
+                    _FLASH_DTYPES)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     _check_bias("flash_fwd", bias, b, sk)
@@ -562,7 +580,7 @@ def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
         return out, lse
     fn = _build.kernels().flash_fwd
     strides = _row_strides(q, k, v)
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
+    err = fn(q.device.index or 0, _FLASH_DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides,
@@ -646,7 +664,8 @@ def flash_attention_bwd_plain(q, k, v, bias, out, lse, g, is_causal=False,
 
 def _check_bwd(name, q, k, v, bias, g, lse, delta, segs):
     _check_operands(name, q, k, v, tuple(
-        t for t in (bias, g, lse, delta) if t is not None) + (segs or ()))
+        t for t in (bias, g, lse, delta) if t is not None) + (segs or ()),
+        _FLASH_DTYPES)
     b, h, sq, _ = q.shape
     _check_bias(name, bias, b, k.shape[2])
     if g.shape != q.shape or g.dtype != q.dtype or g.stride(-1) != 1:
@@ -660,11 +679,13 @@ def _check_bwd(name, q, k, v, bias, g, lse, delta, segs):
 
 
 def _count_bwd(name, q, k, v, g, strides, segs):
-    """Count a backward launch; a bf16 one whose views the kernels copy
+    """Count a backward launch; a 16-bit one whose views the kernels copy
     element by element (`pt_flash_bwd_vector_loads`, the C entry points'
-    own rule) also in ELEMENT_LOAD_LAUNCHES."""
+    own rule) also in ELEMENT_LOAD_LAUNCHES; a float16 one also in
+    F16_LAUNCHES."""
     _count(name, segs)
-    if q.dtype == torch.bfloat16 and not _build.kernels() \
+    _count_f16(name, q)
+    if q.dtype != torch.float32 and not _build.kernels() \
             .flash_bwd_vector_loads(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                     g.data_ptr(), strides, q.shape[-1]):
         ELEMENT_LOAD_LAUNCHES[name] += 1
@@ -680,7 +701,7 @@ def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
         return dq
     fn = _build.kernels().flash_bwd_dq
     strides = _row_strides(q, k, v, g)
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
+    err = fn(q.device.index or 0, _FLASH_DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -708,7 +729,7 @@ def _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
         return dk, dv, db
     fn = _build.kernels().flash_bwd_dkv
     strides = _row_strides(q, k, v, g)
-    err = fn(q.device.index or 0, _DTYPES[q.dtype], q.data_ptr(),
+    err = fn(q.device.index or 0, _FLASH_DTYPES[q.dtype], q.data_ptr(),
              k.data_ptr(), v.data_ptr(),
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),

@@ -50,7 +50,10 @@ import torch
 
 from ..core.bucketing import bucket_size, pad_prompt_row
 from ..core.device import resolve_device
+from ..profiler import costs as _costs
+from ..profiler import trace as _trace
 from ..testing import faults
+from . import tracing as _rt
 from .layers import (DenseLayout, PagedLayout, PlainStepper, SinglePlacement,
                      SpecStepper)
 from .metrics import ServingMetrics
@@ -138,6 +141,11 @@ class _EngineBase:
         self.backoff_cap_s = float(backoff_cap_s)
         self.watchdog_s = watchdog_s
         self._sleep = sleep
+        # observable: the retrace sentinel / tracer see every increment
+        # (one per program shape, on its first run) as it happens
+        self.trace_counts = _trace.ObservedCounter(
+            owner=type(self).__name__)
+        self._step_cost_cache = None  # (book, key, ProgramCost)
         if hbm_budget_bytes is not None:
             self.metrics.budget_bytes = int(hbm_budget_bytes)
             self.metrics.watermark_frac = float(hbm_watermark)
@@ -171,6 +179,39 @@ class _EngineBase:
 
     def _reset_pool(self):
         """Rebuild device pool state after a decode-step failure."""
+
+    # ---- cost accounting (profiler.costs) ----
+    def _step_cost_key(self):
+        """The program-cache key of this engine's batched decode step
+        (the identity the MFU gauges, the compile observer and the
+        retrace sentinel share). None: no step program yet."""
+        return None
+
+    def cost_hint(self, key):
+        """Analytic {flops, bytes_accessed, ...} for `key`; None: no
+        estimate for this key."""
+        return None
+
+    def _record_step_cost(self, dt_s):
+        """Armed only (the caller guards on the costs session): one
+        decode step's roofline position into the MFU / bandwidth gauges.
+        The ProgramCost lookup is cached per (book, key)."""
+        key = self._step_cost_key()
+        if key is None:
+            return
+        bk = _costs._BOOK
+        if bk is None:
+            return
+        cached = self._step_cost_cache
+        if cached is not None and cached[0] is bk and cached[1] == key:
+            c = cached[2]
+        else:
+            c = _costs.cost_for(self, key)
+            if c is None:
+                return
+            self._step_cost_cache = (bk, key, c)
+        self.metrics.record_step_utilization(
+            c.flops, c.bytes_accessed, dt_s, bk.spec, c.source)
 
     def _advance_chunks(self, now):
         """Run one prefill chunk, the slots in the middle of a chunked
@@ -325,6 +366,8 @@ class _EngineBase:
         self.metrics.record_token(self._tenant_of(r))
         if r.first_token_at is None:
             r.first_token_at = now
+            if r._trace is not None:
+                _rt.on_first_token(r)
             if r.submitted_at is not None:
                 self.metrics.record_first_token(now - r.submitted_at)
         if r.stream_cb is not None:
@@ -390,15 +433,21 @@ class _EngineBase:
             s = free[0]
             r.state, r.slot = "RUNNING", s
             self.slots[s] = r
+            if _trace._SESSION is not None:
+                _rt.on_join_begin(r, s)
             try:
                 tok = self._guarded("slot_join", lambda: self._join(s, r),
                                     _PT_SLOT_JOIN)
             except Exception as e:
+                if r._trace is not None:
+                    _rt.on_join_end(r, ok=False, error=e)
                 self._release_failed(s, r, "slot_join", e)
                 progress = True
                 continue
             joins += 1
             progress = True
+            if r._trace is not None:
+                _rt.on_join_end(r, pending=s in self._pending)
             if r._replay > 0:
                 # a preempted request re-joined: its replay count was
                 # armed at the preemption
@@ -418,6 +467,8 @@ class _EngineBase:
                              for s, r in enumerate(self.slots)], bool)
         if active.any():
             t0 = self.clock()
+            _ts0 = (time.perf_counter()
+                    if _trace._SESSION is not None else 0.0)
             try:
                 toks = self._guarded(
                     "decode_step", lambda: self._decode_step(active),
@@ -428,6 +479,9 @@ class _EngineBase:
                 progress = True
             else:
                 now2 = self.clock()
+                if _trace._SESSION is not None:
+                    _rt.on_decode_step(self, _ts0, time.perf_counter(),
+                                       active, scheduler)
                 n = 0
                 if isinstance(toks, tuple):
                     emit, n_emit = toks      # speculative: [S, k], [S]
@@ -442,6 +496,11 @@ class _EngineBase:
                         self._deliver(r, int(emit[s, j]), now2)
                         n += 1
                 self.metrics.record_decode(n, now2 - t0)
+                # roofline gauges: one global read disarmed; armed, the
+                # step's analytic flops and bytes land in the MFU and
+                # bandwidth reservoirs
+                if _costs._BOOK is not None:
+                    self._record_step_cost(now2 - t0)
                 # the gap co-resident requests see between their tokens:
                 # a long inline prefill widens it, chunking bounds it
                 if self._last_step_done is not None:
@@ -598,8 +657,41 @@ class ServingEngine(_EngineBase):
         self._state = None          # built on the first join
         self._mem_shape = None
         self._dtype = None
+        self._pool_key = None
         self._weights_bytes = None
+        self._n_params = None       # cached for cost_hint
+        # the program cache the compile observer wraps: a program's first
+        # run (one per key) surfaces as a "compile" span
+        self._compiled = _trace.JitCache(self)
         self.metrics.set_memory_provider(self.memory_ledger)
+
+    def _program(self, key, body):
+        """`body` as the cached program at `key`: its first run bumps
+        `trace_counts[key]` (the port's counterpart of a jit compile: the
+        kernels build, the libraries plan, the allocator grows), and
+        under an armed session the observer records that run as a
+        ``compile`` span. The keys are the JAX engines' program keys."""
+        fn = self._compiled.get(key)
+        if fn is None:
+            self._compiled[key] = _costs.first_run(self, key, body)
+            fn = self._compiled[key]
+        return fn
+
+    def _pool_key_of(self, memory):
+        """The pool component of the step-program keys, as the JAX
+        engine spells it: (slots, pool length, M, D, memory dtype) +
+        (paged: page size, pages, kv_dtype) + speculation + adapters."""
+        M, Dm = memory.shape
+        key = (self.num_slots, self._pool_len, M, Dm,
+               str(memory.dtype).replace("torch.", ""))
+        if isinstance(self, PagedServingEngine):
+            key += (self.page_size, self.num_pages, str(self.kv_dtype))
+        if self.spec_k:
+            key += (("spec", self.spec_k, self.spec_ngram),)
+        if self._apool is not None:
+            p = self._apool
+            key += (("lora", p.capacity, p.rank, len(p.targets)),)
+        return key
 
     def _pool_variant(self):
         """Label of the pool for per-variant metric splits."""
@@ -705,12 +797,68 @@ class ServingEngine(_EngineBase):
         return 0 if self._apool is None else self._apool.bytes()
 
     def memory_ledger(self):
-        """The `memory` section's components: weights, pool, adapter banks
-        and the bytes in use."""
+        """The `memory` section's components: weights, pool, adapter banks,
+        the bytes in use, and the first-run temp high-water of the armed
+        cost book (0 when accounting is off)."""
         w, a = self.weights_bytes(), self.adapter_bytes()
         return {"weights_bytes": w, "pool_bytes": self.pool_bytes(),
                 "adapter_bytes": a,
-                "in_use_bytes": w + a + self.pool_in_use_bytes()}
+                "in_use_bytes": w + a + self.pool_in_use_bytes(),
+                "compile_temp_peak_bytes": _costs.temp_high_water()}
+
+    # ---- analytic cost hints (profiler.costs) ----
+    def _model_dims(self):
+        """(n_params, n_layers, heads, head_dim, mem_len) for the
+        analytic flop formulas."""
+        if self._n_params is None:
+            self._n_params = sum(
+                t.numel() for t in [*self._net.parameters(),
+                                    *self._net.buffers()])
+        decoder = self._net.decoder
+        h0 = decoder.layers[0].self_attn
+        M = self._mem_shape[0] if self._mem_shape else 0
+        return (self._n_params, len(decoder.layers), h0.num_heads,
+                h0.head_dim, M)
+
+    def _step_cost_key(self):
+        if self._pool_key is None:
+            return None
+        return (self.layout.spec_step_key() if self.spec_k
+                else self.layout.step_key())
+
+    def cost_hint(self, key):
+        """The JAX engine's analytic costs, key kind by key kind: the
+        step computes all S rows over the full (masked) max_len window;
+        the k-token verify feeds spec_k query rows through the same net;
+        a join, chunk or tail prefill its bucket's query rows; the draft,
+        attaches and page copies move bytes only."""
+        kind = key[0] if isinstance(key, tuple) and key else key
+        n_params, n_layers, heads, hd, M = self._model_dims()
+        pool = self.pool_bytes()
+        w = self.weights_bytes()
+        if kind in ("step", "pstep", "sstep", "pverify"):
+            flops = _costs.transformer_decode_flops(
+                n_params, self.num_slots, self.max_len, n_layers,
+                heads, hd, mem_len=M)
+            if kind in ("sstep", "pverify"):
+                flops *= (self.spec_k or 1)
+            return {"flops": flops, "bytes_accessed": w + pool,
+                    "argument_bytes": w + pool}
+        if kind == "draft":
+            return {"flops": 0.0, "bytes_accessed": pool,
+                    "argument_bytes": pool}
+        rows = {"join": 1, "pjoin": 1, "prefill": 1, "cjoin": 1,
+                "pattach": 2, "pcjoin": 2}.get(kind)
+        if rows is not None and len(key) > rows:
+            flops = _costs.transformer_prefill_flops(
+                n_params, 1, int(key[rows]), n_layers, heads, hd,
+                mem_len=M)
+            return {"flops": flops, "bytes_accessed": w + pool,
+                    "argument_bytes": w + pool}
+        if kind in ("attach", "cow", "splice"):
+            return {"flops": 0.0, "bytes_accessed": pool,
+                    "argument_bytes": pool}
+        return None
 
     def admit_check(self, r):
         name = getattr(r, "adapter", None)
@@ -745,6 +893,7 @@ class ServingEngine(_EngineBase):
                                              memory)
             self._mem_shape = tuple(memory.shape)
             self._dtype = memory.dtype
+            self._pool_key = self._pool_key_of(memory)
             self._post_state_build()
 
     def _post_state_build(self):
@@ -756,12 +905,15 @@ class ServingEngine(_EngineBase):
         prompt_b, P0, Pb = pad_prompt_row(r.prompt, pad_id)
         memory = r.memory.to(self.device)
         self._ensure_state(memory)
+        if r._trace is not None:
+            _rt.on_join_attr(r, prompt_bucket=Pb)
         if self.prefill_chunk is not None and P0 > self.prefill_chunk:
             return self._pinned_join(s, r, lambda row: self._chunk_begin(
                 s, r, prompt_b, P0, Pb, memory[None]))
         prompt = torch.as_tensor(prompt_b, device=self.device)
+        join = self._program(("join", Pb), self.layout.join)
         return self._pinned_join(s, r, lambda row: self.placement.run(
-            self.layout.join, s, prompt, P0, memory[None], row))
+            join, s, prompt, P0, memory[None], row))
 
     # ---- chunked prefill ----
     def _chunk_begin(self, s, r, prompt_b, P0, Pb, memory):
@@ -801,6 +953,8 @@ class ServingEngine(_EngineBase):
             if self.slots[s] is not r or r.state == "DONE":
                 continue   # harvested since it registered
             self._chunk_turn = s
+            _ts0 = (time.perf_counter()
+                    if _trace._SESSION is not None else 0.0)
             try:
                 tok0 = self._guarded(
                     "prefill_chunk", lambda: self._chunk_step(s, info),
@@ -809,6 +963,9 @@ class ServingEngine(_EngineBase):
                 self._release_failed(s, r, "prefill_chunk", e)
                 return True
             self.metrics.record_chunk()
+            if r._trace is not None:
+                _rt.on_chunk(r, _ts0, time.perf_counter(), info["pos"],
+                             info["pos"] >= info["P0"])
             if info["pos"] >= info["P0"]:
                 self._chunking.pop(s, None)
                 self._pending.discard(s)
@@ -826,8 +983,9 @@ class ServingEngine(_EngineBase):
         dev = self.device
         prompt = torch.as_tensor(info["prompt_b"], device=dev)
         tok0 = self.placement.run(
-            self.layout.chunk, s, prompt[:, pos:pos + Cb], pos, P0, Pb,
-            info["memory"], prompt, int(self._adapter_rows[s]))
+            self._program(("cjoin", Cb), self.layout.chunk), s,
+            prompt[:, pos:pos + Cb], pos, P0, Pb, info["memory"], prompt,
+            int(self._adapter_rows[s]))
         info["pos"] = pos + Cb
         return tok0
 
@@ -997,6 +1155,16 @@ class PagedServingEngine(ServingEngine):
         super()._evict(s)          # the adapter row
         self._release_slot(s)
 
+    def table_bytes(self):
+        """The int32 page table shipped to the card every step."""
+        return self.num_slots * self.max_pages * 4
+
+    def pool_bytes(self):
+        """The pages, the per-slot rows and the page table (as the JAX
+        engine counts them; 0 before the first join)."""
+        b = _tensor_bytes(self._state)
+        return b + self.table_bytes() if b else 0
+
     def pool_in_use_bytes(self):
         """The pool less its free pages."""
         return self.pool_bytes() - \
@@ -1157,6 +1325,14 @@ class PagedServingEngine(ServingEngine):
                        res[1]["seed_len"] if kind == "partial" else 0)
             self.metrics.record_prefix(kind, matched_tokens=matched,
                                        prompt_tokens=P0)
+        if r._trace is not None:
+            _rt.on_join_attr(r, prompt_bucket=Pb,
+                             prefix_hit=res is not None and
+                             res[0] == "whole")
+            if self._prefix is not None:
+                _rt.on_prefix_match(
+                    r, kind, matched_pages=pages_for(matched, self.page_size)
+                    if matched else 0, matched_tokens=matched)
         args = (s, r, prompt_b, P0, Pb, memory[None])
         if res is not None and res[0] == "whole":
             tok0 = self._attach_shared(res[1], *args)
@@ -1184,9 +1360,9 @@ class PagedServingEngine(ServingEngine):
         pages = self._alloc_pages(n_pp)
         try:
             tok0 = self.placement.run(
-                self.layout.join, s, torch.as_tensor(prompt_b,
-                                                     device=self.device),
-                P0, memory, pages, row)
+                self._program(("pjoin", Pb), self.layout.join), s,
+                torch.as_tensor(prompt_b, device=self.device), P0, memory,
+                pages, row)
         except Exception:
             self._alloc.decref(pages)
             raise
@@ -1221,8 +1397,8 @@ class PagedServingEngine(ServingEngine):
             if j:
                 dst = self._alloc_pages(1)[0]
                 owned.append(dst)
-                self.placement.run(self.layout.cow, int(match["cow_src"]),
-                                   dst)
+                self.placement.run(self._program(("cow",), self.layout.cow),
+                                   int(match["cow_src"]), dst)
                 self.metrics.record_cow_copy()
                 head = matched + [dst]
             else:
@@ -1245,7 +1421,8 @@ class PagedServingEngine(ServingEngine):
             tail[0, :n_tail] = prompt_b[0, seed_len:P0]
             dev = self.device
             tok0 = self.placement.run(
-                self.layout.pattach, s, torch.as_tensor(trow, device=dev),
+                self._program(("pattach", Mb, Tb), self.layout.pattach), s,
+                torch.as_tensor(trow, device=dev),
                 torch.as_tensor(tail, device=dev), seed_len, P0, Pb, memory,
                 torch.as_tensor(prompt_b, device=dev), row)
         except Exception:
@@ -1269,7 +1446,8 @@ class PagedServingEngine(ServingEngine):
         self._alloc.incref(pages)
         try:
             tok0 = self.placement.run(
-                self.layout.attach, s, int(hit["tok0"]), P0, Pb, memory,
+                self._program(("attach",), self.layout.attach), s,
+                int(hit["tok0"]), P0, Pb, memory,
                 torch.as_tensor(prompt_b, device=self.device))
         except Exception:
             self._alloc.decref(pages)
@@ -1293,7 +1471,8 @@ class PagedServingEngine(ServingEngine):
             return
         dst = self._alloc_pages(1)[0]
         try:
-            self.placement.run(self.layout.cow, src, dst)
+            self.placement.run(self._program(("cow",), self.layout.cow),
+                               src, dst)
         except Exception:
             self._alloc.decref([dst])
             raise
@@ -1336,9 +1515,9 @@ class PagedServingEngine(ServingEngine):
         prompt = torch.as_tensor(info["prompt_b"], device=dev)
         try:
             tok0 = self.placement.run(
-                self.layout.pattach, s, torch.as_tensor(trow, device=dev),
-                prompt[:, pos:end], pos, P0, Pb, info["memory"], prompt,
-                int(self._adapter_rows[s]))
+                self._program(("pcjoin", Mb, Cb), self.layout.pattach), s,
+                torch.as_tensor(trow, device=dev), prompt[:, pos:end], pos,
+                P0, Pb, info["memory"], prompt, int(self._adapter_rows[s]))
         except Exception:
             if fresh:
                 self._alloc.decref(fresh)
@@ -1396,6 +1575,8 @@ class PagedServingEngine(ServingEngine):
         # the pages live on through the trie's references
         self._prefix.insert(tokens, P0, Pb, mem, tenant, pages,
                             int(r.tokens[0]), pin=True)
+        if r._trace is not None:
+            _rt.on_preempt(r, s, len(r.tokens))
         r._parked = True
         self.slots[s] = None
         self._evict(s)

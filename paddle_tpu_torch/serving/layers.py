@@ -36,6 +36,9 @@ import time
 import numpy as np
 import torch
 
+from ..profiler import trace as _trace
+from . import tracing as _rt
+
 __all__ = ["CacheLayout", "DenseLayout", "PagedLayout", "SinglePlacement",
            "PlainStepper", "SpecStepper"]
 
@@ -62,6 +65,16 @@ class CacheLayout:
 
     def __init__(self, eng):
         self.eng = eng
+
+    # ---- program keys (the JAX engine's, `ServingEngine._program`) ----
+    def step_key(self):
+        raise NotImplementedError
+
+    def spec_step_key(self):
+        raise NotImplementedError
+
+    def draft_key(self):
+        return ("draft",) + self.eng._pool_key
 
     # ---- host hooks the steppers drive ----
     def map_step_pages(self, active, width):
@@ -169,6 +182,12 @@ class CacheLayout:
 class DenseLayout(CacheLayout):
     """The contiguous [S, H, pool_len, D] StaticKVCache pool: every slot
     owns its worst-case rows, write indices live on the device."""
+
+    def step_key(self):
+        return ("step",) + self.eng._pool_key
+
+    def spec_step_key(self):
+        return ("sstep",) + self.eng._pool_key
 
     def row_index(self):
         return self.eng._state["inc"][0].index
@@ -300,6 +319,12 @@ class PagedLayout(CacheLayout):
     """The global fixed-size page pool with host-owned indirection: write
     indices and the page table ride in as device tensors every step, so
     mapping and rollback are host index arithmetic."""
+
+    def step_key(self):
+        return ("pstep",) + self.eng._pool_key
+
+    def spec_step_key(self):
+        return ("pverify",) + self.eng._pool_key
 
     def row_index(self):
         eng = self.eng
@@ -511,7 +536,8 @@ class PlainStepper:
         if not active.any():
             return np.zeros((eng.num_slots,), np.int64)
         mask = torch.as_tensor(active, device=eng.device)
-        toks = eng.placement.run(lay.step, mask).cpu().numpy()
+        toks = eng.placement.run(eng._program(lay.step_key(), lay.step),
+                                 mask).cpu().numpy()
         lay.advance_rows(active.astype(np.int64))
         return toks
 
@@ -575,12 +601,13 @@ class SpecStepper:
         spec_on = np.asarray([r is not None and r.spec for r in eng.slots],
                              bool)
         t0 = time.perf_counter()
-        drafts = eng.placement.run(lay.draft)
+        drafts = eng.placement.run(eng._program(lay.draft_key(), lay.draft))
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)   # the draft's own time
         t1 = time.perf_counter()
         emit, n_emit = eng.placement.run(
-            lay.spec_step, drafts, torch.as_tensor(active, device=eng.device),
+            eng._program(lay.spec_step_key(), lay.spec_step), drafts,
+            torch.as_tensor(active, device=eng.device),
             torch.as_tensor(spec_on, device=eng.device), self.k_eff)
         emit = emit.cpu().numpy()
         n_emit = n_emit.cpu().numpy()
@@ -596,4 +623,7 @@ class SpecStepper:
             int(active.sum()), proposed, accepted, t1 - t0, t2 - t1,
             k_eff=self.k_eff, variant=eng._pool_variant(),
             k_shrinks=self.k_shrink_events, k_grows=self.k_grow_events)
+        if _trace._SESSION is not None:
+            _rt.on_spec_step(t0, t1, t2, int(active.sum()), proposed,
+                             accepted)
         return emit, n_emit

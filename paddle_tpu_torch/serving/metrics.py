@@ -68,6 +68,21 @@ SNAPSHOT_DOCS = {
                                      "(0: none)"),
     "memory.watermark_warnings": ("counter", "crossings of the budget "
                                              "watermark"),
+    "memory.compile_temp_peak_bytes": (
+        "gauge", "the armed cost book's largest first-run transient: the "
+                 "allocator's peak above the live bytes (0 disarmed)"),
+    # MFU / bandwidth gauges: the section appears while a profiler.costs
+    # accounting session records per-step utilization
+    "mfu.device": ("info",
+                   "roofline spec {name, peak_tflops, peak_gbps, ...}"),
+    "mfu.cost_source": ("info", "'analytic': the engine's cost_hint"),
+    "mfu.flops_per_step": ("gauge", "decode-step flops (analytic)"),
+    "mfu.bytes_per_step": ("gauge", "decode-step bytes accessed "
+                                    "(analytic)"),
+    "mfu.model_flops_util": (
+        "summary", "per-step achieved flops / DeviceSpec peak"),
+    "mfu.bandwidth_util": (
+        "summary", "per-step bytes accessed / DeviceSpec peak bandwidth"),
     "tenancy.tenants": ("gauge", "tenants that received tokens"),
     "tenancy.active_slots_by_tenant": ("info", "last-iteration occupied "
                                                "slots per tenant"),
@@ -125,7 +140,7 @@ SNAPSHOT_DOCS = {
 }
 
 _SUMMARY_KEYS = {"n", "mean", "p50", "p99", "max"}
-_LEAF_DICTS = {"last_error", "speculation.step_ms_by_variant",
+_LEAF_DICTS = {"last_error", "speculation.step_ms_by_variant", "mfu.device",
                "tenancy.active_slots_by_tenant", "tenancy.tokens_by_tenant",
                "slo.ttft_attainment", "slo.tpot_attainment",
                "slo.wfq_lag_by_tenant"}
@@ -271,6 +286,14 @@ class ServingMetrics:
         self.chunks = 0
         self.slo_finishes = {}      # class -> {n, ttft_ok, tpot_ok}
         self.wfq_lag = {}           # tenant -> virtual-time lag
+        # roofline gauges (while a cost-accounting session records)
+        self._mfu = False
+        self._spec = None
+        self.cost_source = None
+        self.flops_per_step = 0.0
+        self.bytes_per_step = 0.0
+        self.mfu_util = _Reservoir(512)
+        self.bw_util = _Reservoir(512)
 
     def reset(self):
         """Start a fresh measurement epoch: every counter, reservoir and
@@ -592,6 +615,22 @@ class ServingMetrics:
                 **self._sections(ledger),
             }
 
+    def record_step_utilization(self, flops, bytes_accessed, dt_s, spec,
+                                source):
+        """One decode step's roofline position: the step program's flops
+        and bytes against the DeviceSpec peaks. Armed only (the engine
+        guards on the costs session)."""
+        with self._lock:
+            self._mfu = True
+            self._spec = spec
+            self.cost_source = source
+            self.flops_per_step = float(flops)
+            self.bytes_per_step = float(bytes_accessed)
+            if dt_s > 0:
+                self.mfu_util.add(flops / dt_s / spec.peak_flops)
+                self.bw_util.add(bytes_accessed / dt_s /
+                                 spec.peak_bytes_per_s)
+
     def _sections(self, ledger):
         """The paging / prefix / speculation / tenancy / memory sections
         recorded so far (called under the lock)."""
@@ -603,7 +642,16 @@ class ServingMetrics:
                              "adapter_bytes": a, "total_bytes": w + p + a,
                              "in_use_bytes": int(ledger["in_use_bytes"]),
                              "budget_bytes": self.budget_bytes,
-                             "watermark_warnings": self.watermark_warnings}
+                             "watermark_warnings": self.watermark_warnings,
+                             "compile_temp_peak_bytes": int(ledger.get(
+                                 "compile_temp_peak_bytes", 0))}
+        if self._mfu:
+            out["mfu"] = {"device": self._spec.as_dict(),
+                          "cost_source": self.cost_source,
+                          "flops_per_step": self.flops_per_step,
+                          "bytes_per_step": self.bytes_per_step,
+                          "model_flops_util": self.mfu_util.summary(),
+                          "bandwidth_util": self.bw_util.summary()}
         if self._tenancy:
             out["tenancy"] = {
                 "tenants": len(self.tokens_by_tenant),

@@ -19,6 +19,9 @@ from concurrent.futures import Future, InvalidStateError
 import numpy as np
 import torch
 
+from ..profiler import trace as _trace
+from . import tracing as _rt
+
 __all__ = ["QueueFull", "Request", "RequestResult", "Scheduler",
            "FINISH_REASONS"]
 
@@ -93,6 +96,7 @@ class Request:
         self.first_token_at = None
         self.finished_at = None
         self._cancelled = threading.Event()
+        self._trace = None            # _ReqTrace under a tracer session
 
     def cancel(self):
         """Queued requests die on the next scheduler pop; in-flight ones
@@ -116,6 +120,8 @@ class Request:
         self.state = "DONE"
         self.finish_reason = reason
         self.finished_at = now
+        if self._trace is not None:
+            _rt.on_finish(self, reason, error)
         ttft = (None if self.first_token_at is None or
                 self.submitted_at is None
                 else self.first_token_at - self.submitted_at)
@@ -135,6 +141,8 @@ class Request:
         self.state = "DONE"
         self.finish_reason = "error"
         self.finished_at = now
+        if self._trace is not None:
+            _rt.on_finish(self, "error", exc)
         try:
             self.future.set_exception(exc)
         except InvalidStateError:
@@ -164,6 +172,8 @@ class Scheduler:
                                 f"({self.max_queue}); shed load or retry")
             request.submitted_at = now
             self._q.append(request)
+        if _trace._SESSION is not None:
+            _rt.on_submit(request)
         return request
 
     def pop_ready(self, now=None, on_dead=None):
@@ -182,6 +192,8 @@ class Scheduler:
                 if on_dead is not None:
                     on_dead(r)
                 continue
+            if r._trace is not None:
+                _rt.on_queue_exit(r)
             return r
 
     def push_front(self, request):
@@ -191,6 +203,8 @@ class Scheduler:
         reservation, so out-of-pages backpressure keeps it queued
         instead of failing it. Bypasses the high-water mark and the
         drain check on purpose: the request was admitted once already."""
+        if request._trace is not None:
+            _rt.on_requeue(request)
         with self._lock:
             self._q.appendleft(request)
 

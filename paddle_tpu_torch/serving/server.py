@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import threading
 
+from ..profiler import trace as _trace
 from .scheduler import Request, Scheduler
 
 __all__ = ["ServingServer", "ServerCrashed"]
@@ -112,6 +113,10 @@ class ServingServer:
         self._stop.set()
         self.scheduler.drain()
         self.engine.metrics.record_error("server_crash", cause)
+        if _trace._SESSION is not None:
+            _trace._SESSION.instant(
+                "server_crash", cat="engine",
+                attrs={"cause": type(cause).__name__})
         exc = ServerCrashed(f"serving loop crashed: {cause!r}")
         exc.__cause__ = cause
         now = self.clock()

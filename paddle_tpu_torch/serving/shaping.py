@@ -45,6 +45,8 @@ import collections
 import threading
 import time
 
+from ..profiler import trace as _trace
+from . import tracing as _rt
 from .scheduler import QueueFull
 
 __all__ = ["SLOClass", "INTERACTIVE", "BATCH", "ShapingScheduler"]
@@ -199,6 +201,8 @@ class ShapingScheduler:
             request._shape_seq = self._seq
             self._seq += 1
             self._insert(request)
+        if _trace._SESSION is not None:
+            _rt.on_submit(request)
         return request
 
     # caller (submit) holds the lock
@@ -266,12 +270,16 @@ class ShapingScheduler:
                 if on_dead is not None:
                     on_dead(r)
                 continue
+            if r._trace is not None:
+                _rt.on_queue_exit(r)
             return r
 
     def push_front(self, request):
         """Return an admitted request to the head (resource
         backpressure deferral): served before any queued work, no
         second WFQ charge. Bypasses the high-water mark on purpose."""
+        if request._trace is not None:
+            _rt.on_requeue(request)
         with self._lock:
             self._front.appendleft(request)
 

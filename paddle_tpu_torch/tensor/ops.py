@@ -38,6 +38,7 @@ import builtins as _b
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from ..core.device import resolve_device
 from ..core.dtypes import convert_dtype, get_default_dtype
 from ..ops import kernels as K
@@ -941,3 +942,7 @@ def multiplex(inputs, index, name=None):
 __all__ = [n for n, v in list(globals().items())
            if not n.startswith("_") and callable(v)
            and getattr(v, "__module__", None) == __name__]
+
+
+# the JAX package's amp policy at the functions it dispatches by name
+_amp.register(globals(), _amp._TENSOR_OPS)

@@ -20,6 +20,8 @@ from torch import nn
 from ..core.bucketing import bucket_size
 from ..core.device import resolve_device
 from ..nn.layer.transformer import MultiHeadAttention
+from ..profiler import costs as _costs
+from ..profiler import trace as _trace
 
 __all__ = ["NEG", "DecodeEngine", "generate_eager", "pad_bias_row"]
 
@@ -124,19 +126,53 @@ class DecodeEngine:
     the whole generation and generated tokens sit at Pb, Pb + 1, ..., the
     layout `generate_eager` and the serving engines use.
 
-    The JAX engine's compile counter (`trace_counts`) and `cost_hint`
-    belong to its profiler, which the port has not yet."""
+    `trace_counts` counts one program per call shape, keyed as the JAX
+    engine keys its compiled (prefill + scan) programs and bumped on the
+    shape's first run (`profiler.costs.first_run`), so the compile
+    observer and the retrace sentinel of `profiler.trace` see the port's
+    counterpart of each compile; `cost_hint` is the JAX engine's
+    analytic cost of a key."""
 
     def __init__(self, decoder, embed, project, *, device=None):
         self.embed_ref = embed
         self.project_ref = project
         self.device = resolve_device(device)
         self._net = _StepNet(decoder, embed, project)
+        self._compiled = _trace.JitCache(self)
+        self.trace_counts = _trace.ObservedCounter(owner="DecodeEngine")
+        self._n_params = None      # cached for cost_hint
         for name, p in [*self._net.named_parameters(),
                         *self._net.named_buffers()]:
             if p.device != self.device:
                 raise ValueError(f"parameter {name} lives on {p.device}, "
                                  f"the engine runs on {self.device}")
+
+    def cost_hint(self, key):
+        """The JAX engine's analytic cost of one (prefill + decode loop)
+        program: the prefill of Bb rows of Pb tokens plus max_new decode
+        steps of Bb * K rows, and the parameters read once a step."""
+        if not (isinstance(key, tuple) and len(key) >= 8):
+            return None
+        Bb, Pb, max_new, K = (int(key[0]), int(key[1]), int(key[2]),
+                              int(key[3]))
+        mshape = key[7]
+        M = int(mshape[0]) if mshape else 0
+        if self._n_params is None:
+            self._n_params = sum(t.numel() for t in [
+                *self._net.parameters(), *self._net.buffers()])
+        decoder = self._net.decoder
+        h0 = decoder.layers[0].self_attn
+        n_layers, heads, hd = len(decoder.layers), h0.num_heads, \
+            h0.head_dim
+        flops = _costs.transformer_prefill_flops(
+            self._n_params, Bb, Pb, n_layers, heads, hd, mem_len=M)
+        flops += max_new * _costs.transformer_decode_flops(
+            self._n_params, Bb * K, Pb + max_new, n_layers, heads, hd,
+            mem_len=M)
+        pbytes = sum(t.numel() * t.element_size()
+                     for t in self._net.parameters())
+        return {"flops": flops,
+                "bytes_accessed": float(pbytes) * (max_new + 1)}
 
     def _as_tensor(self, x, dtype=None):
         if not isinstance(x, torch.Tensor):
@@ -169,8 +205,6 @@ class DecodeEngine:
         accepts the matching prefix. The tokens equal spec_k=None's;
         `return_spec_stats=True` appends a {rounds, proposed, accepted}
         dict."""
-        from .decode import beam_search, greedy_search
-
         if spec_k is not None:
             spec_k = int(spec_k)
             if spec_k < 2:
@@ -201,62 +235,84 @@ class DecodeEngine:
         net = self._net
         nets = [net] + ([draft_model._net] if draft_model is not None
                         and spec_k else [])
+        # the JAX engine's program key (memory dtype spelled as numpy's)
+        key = (Bb, Pb, int(max_new_tokens), int(beam_size), int(bos_id),
+               int(eos_id), float(length_penalty),
+               tuple(memory_b.shape[1:]),
+               str(memory_b.dtype).replace("torch.", ""), mm_b is not None,
+               spec_k or 0, int(spec_ngram),
+               0 if draft_model is None else id(draft_model))
+        fn = self._compiled.get(key)
+        if fn is None:
+            self._compiled[key] = _costs.first_run(self, key, self._run)
+            fn = self._compiled[key]
         was = [n.training for n in nets]
         for n in nets:
             n.eval()
         try:
-            L = Pb + int(max_new_tokens) + (spec_k or 0)
-            pad_bias = pad_bias_row(lengths_b, Pb, L, dev)
-            # a one-token prompt prefills through the decode branch, which
-            # reads the key bias of the whole cache row
-            pre_bias = pad_bias if Pb == 1 else pad_bias[:, :Pb]
-            positions = torch.arange(Pb, device=dev)[None].expand(Bb, Pb)
-            logits, inc1, static_kv = net(
-                prompt_b, positions, memory_b, tgt_mask=pre_bias,
-                memory_mask=mm_b, inc=self._caches(net, L, Bb,
-                                                   memory.dtype),
-                prefill=True)
-            # the next token conditions on each row's LAST REAL position
-            last = logits[torch.arange(Bb, device=dev), lengths_b - 1]
-            if spec_k:
-                out = self._speculate(
-                    draft_model, prompt_b, lengths_b, positions, memory_b,
-                    mm_b, pad_bias, pre_bias, inc1, static_kv, last, L, Pb,
-                    Bb, eos_id, int(max_new_tokens), spec_k, spec_ngram)
-                toks, lens, stats = out
-                toks, lens = toks[:B0].cpu().numpy(), lens[:B0].cpu().numpy()
-                if return_spec_stats:
-                    return toks, lens, stats
-                return toks, lens
-            K = int(beam_size)
-
-            def tile(t):
-                return t if K == 1 or t is None else \
-                    t.repeat_interleave(K, dim=0)
-
-            bias_t, mm_t = tile(pad_bias), tile(mm_b)
-            static_t = [(tile(sk), tile(sv)) for sk, sv in static_kv]
-
-            def step_fn(tok, inc):
-                posn = inc[0].index[:, None].long()
-                lg, inc2 = net(tok[:, None], posn, None, tgt_mask=bias_t,
-                               memory_mask=mm_t, inc=inc,
-                               static_kv=static_t)
-                return lg[:, 0], inc2
-
-            if K == 1:
-                toks, lens = greedy_search(step_fn, inc1, Bb, bos_id, eos_id,
-                                           int(max_new_tokens),
-                                           init_logits=last)
-                return toks[:B0].cpu().numpy(), lens[:B0].cpu().numpy()
-            toks, scores, lens = beam_search(
-                step_fn, inc1, Bb, bos_id, eos_id, K, int(max_new_tokens),
-                length_penalty=length_penalty, init_logits=last)
-            return (toks[:B0].cpu().numpy(), scores[:B0].cpu().numpy(),
-                    lens[:B0].cpu().numpy())
+            return fn(draft_model, prompt_b, lengths_b, memory_b, mm_b, Pb,
+                      Bb, B0, bos_id, eos_id, max_new_tokens, beam_size,
+                      length_penalty, spec_k, spec_ngram, return_spec_stats)
         finally:
             for n, w in zip(nets, was):
                 n.train(w)
+
+    def _run(self, draft_model, prompt_b, lengths_b, memory_b, mm_b, Pb, Bb,
+             B0, bos_id, eos_id, max_new_tokens, beam_size, length_penalty,
+             spec_k, spec_ngram, return_spec_stats):
+        """`generate`'s program at one key: the prefill and the decode
+        loop over the padded batch."""
+        from .decode import beam_search, greedy_search
+
+        net, dev = self._net, self.device
+        L = Pb + int(max_new_tokens) + (spec_k or 0)
+        pad_bias = pad_bias_row(lengths_b, Pb, L, dev)
+        # a one-token prompt prefills through the decode branch, which
+        # reads the key bias of the whole cache row
+        pre_bias = pad_bias if Pb == 1 else pad_bias[:, :Pb]
+        positions = torch.arange(Pb, device=dev)[None].expand(Bb, Pb)
+        logits, inc1, static_kv = net(
+            prompt_b, positions, memory_b, tgt_mask=pre_bias,
+            memory_mask=mm_b, inc=self._caches(net, L, Bb, memory_b.dtype),
+            prefill=True)
+        # the next token conditions on each row's LAST REAL position
+        last = logits[torch.arange(Bb, device=dev), lengths_b - 1]
+        if spec_k:
+            out = self._speculate(
+                draft_model, prompt_b, lengths_b, positions, memory_b,
+                mm_b, pad_bias, pre_bias, inc1, static_kv, last, L, Pb,
+                Bb, eos_id, int(max_new_tokens), spec_k, spec_ngram)
+            toks, lens, stats = out
+            toks, lens = toks[:B0].cpu().numpy(), lens[:B0].cpu().numpy()
+            if return_spec_stats:
+                return toks, lens, stats
+            return toks, lens
+        K = int(beam_size)
+
+        def tile(t):
+            return t if K == 1 or t is None else \
+                t.repeat_interleave(K, dim=0)
+
+        bias_t, mm_t = tile(pad_bias), tile(mm_b)
+        static_t = [(tile(sk), tile(sv)) for sk, sv in static_kv]
+
+        def step_fn(tok, inc):
+            posn = inc[0].index[:, None].long()
+            lg, inc2 = net(tok[:, None], posn, None, tgt_mask=bias_t,
+                           memory_mask=mm_t, inc=inc,
+                           static_kv=static_t)
+            return lg[:, 0], inc2
+
+        if K == 1:
+            toks, lens = greedy_search(step_fn, inc1, Bb, bos_id, eos_id,
+                                       int(max_new_tokens),
+                                       init_logits=last)
+            return toks[:B0].cpu().numpy(), lens[:B0].cpu().numpy()
+        toks, scores, lens = beam_search(
+            step_fn, inc1, Bb, bos_id, eos_id, K, int(max_new_tokens),
+            length_penalty=length_penalty, init_logits=last)
+        return (toks[:B0].cpu().numpy(), scores[:B0].cpu().numpy(),
+                lens[:B0].cpu().numpy())
 
     def _speculate(self, draft, prompt_b, lengths_b, positions, memory_b,
                    mm_b, pad_bias, pre_bias, inc1, static_kv, last, L, Pb,

@@ -143,5 +143,7 @@ def test_fwd_limit_mutation_still_applies_to_the_kernel(name):
         src = f.read()
     mutant = check_bwd_limit.mutated_sources(
         csrc, check_bwd_limit.FWD_MUTATIONS)[name]
-    assert mutant.count("wgmma_rs(") == src.count("wgmma_rs(") + 1
-    assert mutant.count("to_a(lo_,") == 1
+    # the wgmma wrappers are templated on the operand type since the
+    # kernel's float16 instance
+    assert mutant.count("wgmma_rs<T>(") == src.count("wgmma_rs<T>(") + 1
+    assert mutant.count("to_a<T>(lo_,") == 1

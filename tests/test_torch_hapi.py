@@ -309,8 +309,14 @@ def test_prepare_amp_and_fit_report_mfu_wait_for_their_slices():
         m.fit_report()
     x, y = _data()
     m.fit(TensorDataset([x, y]), batch_size=8, verbose=0)
-    with pytest.raises(NotImplementedError, match="profiler"):
-        m.fit_report(flops_per_step=1e9)
+    # the MFU came with profiler.costs: the mean step's flop rate against
+    # the spec's peak (exact arithmetic on fit_stats)
+    from paddle_tpu_torch.profiler import costs
+    rep = m.fit_report(flops_per_step=1e9, spec=costs.CPU_SPEC)
+    st = m.fit_stats
+    assert rep["device"] == costs.CPU_SPEC.as_dict()
+    assert rep["mfu"] == round(1e9 / (st["train_s"] / st["steps"]) /
+                               costs.CPU_SPEC.peak_flops, 6)
 
 
 def test_summary_generate_parameters_and_device(capsys):

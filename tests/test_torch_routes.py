@@ -87,8 +87,11 @@ def test_float32_forward_route_needs_sq():
 
 
 def test_forward_route_refuses_other_types():
-    with pytest.raises(TypeError):
-        TA.fwd_route(torch.float16)
+    # float16 has a route since the kernels' f16 instances (wgmma)
+    assert TA.fwd_route(torch.float16) == "wgmma"
+    for dt in (torch.float64, torch.int8):
+        with pytest.raises(TypeError):
+            TA.fwd_route(dt)
 
 
 _TYPES = [(BF, BF), (BF, F32), (F32, BF), (F32, F32)]

@@ -31,6 +31,7 @@ from paddle_tpu.serving import Request as JRequest
 from paddle_tpu.serving import Scheduler as JScheduler
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu_torch.ops import attention as A
+from paddle_tpu_torch.profiler import costs
 from paddle_tpu_torch.serving import (BATCH, INTERACTIVE, QueueFull,
                                       ReplayDiverged, Request, Scheduler,
                                       ServingEngine, ServingMetrics,
@@ -673,8 +674,9 @@ def test_metrics_reset_keeps_identity():
 
 
 def test_snapshot_keys_are_documented():
-    """A snapshot with every section recorded flattens to exactly the
-    keys of SNAPSHOT_DOCS, and the slo section has the JAX keys."""
+    """A snapshot with every section recorded (the mfu one since the
+    cost accounting) flattens to exactly the keys of SNAPSHOT_DOCS, and
+    the slo section has the JAX keys."""
     m = ServingMetrics()
     m.set_memory_provider(_ledger, budget_bytes=64)
     m.record_error("x", ValueError("y"))
@@ -694,6 +696,7 @@ def test_snapshot_keys_are_documented():
     m.record_slo_finish("interactive", 0.1, 0.05, 0.5, 0.1)
     m.record_slo_finish("batch", 5.0, 0.5, 30.0, 1.0)
     m.set_wfq_lag({"base": 12.5})
+    m.record_step_utilization(1e9, 1e6, 0.01, costs.CPU_SPEC, "analytic")
     flat = flatten_snapshot(m.snapshot())
     assert set(flat) == set(SNAPSHOT_DOCS), \
         set(flat) ^ set(SNAPSHOT_DOCS)

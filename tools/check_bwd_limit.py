@@ -52,68 +52,73 @@ OUTPUTS = ("dq", "dk", "dv", "out")
 
 
 def _residue(src, dst):
-    """C lines: dst[i] = the bf16 rounding residue src[i] - round(src[i])
-    of a 32-value accumulator fragment."""
+    """C lines: dst[i] = the rounding residue src[i] - round(src[i]) in the
+    kernel's operand type T (bf16 or f16) of a 32-value accumulator
+    fragment."""
     return (f"\n    float {dst}[32];\n#pragma unroll\n"
             f"    for (int i = 0; i < 32; ++i)\n"
             f"      {dst}[i] = {src}[i] - "
-            f"__bfloat162float(__float2bfloat16({src}[i]));\n")
+            f"Half16<T>::unpack(Half16<T>::pack({src}[i], 0.f)).x;\n")
 
 
 # (anchor, replacement) edits that feed the rounding residue of ds (dq and
 # dk) and of pd (dv) to the same products as a second tensor-core
-# product, so none of them is rounded to bf16 any more
+# product, so none of them is rounded to the operand type any more
 MUTATIONS = {
     "flash_bwd_dq.cu": [
         ("    uint32_t a[4][4];\n#pragma unroll\n"
-         "    for (int kk = 0; kk < 4; ++kk) to_a(p, kk, a[kk]);",
+         "    for (int kk = 0; kk < 4; ++kk) to_a<T>(p, kk, a[kk]);",
          _residue("p", "lo_") +
          "    uint32_t a[4][4], alo[4][4];\n#pragma unroll\n"
          "    for (int kk = 0; kk < 4; ++kk) {\n"
-         "      to_a(p, kk, a[kk]);\n      to_a(lo_, kk, alo[kk]);\n    }"),
-        ("        wgmma_rs(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),\n"
-         "                 t > 0 || kk > 0);\n",
+         "      to_a<T>(p, kk, a[kk]);\n      to_a<T>(lo_, kk, alo[kk]);\n"
+         "    }"),
+        ("        wgmma_rs<T>(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),\n"
+         "                    t > 0 || kk > 0);\n",
          "      {\n"
-         "        wgmma_rs(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),\n"
-         "                 t > 0 || kk > 0);\n"
-         "        wgmma_rs(acc[n], alo[kk], desc(kdq, mn_major_step(kk, n)),"
+         "        wgmma_rs<T>(acc[n], a[kk], desc(kdq, mn_major_step(kk, n)),\n"
+         "                    t > 0 || kk > 0);\n"
+         "        wgmma_rs<T>(acc[n], alo[kk], desc(kdq, mn_major_step(kk, n)),"
          " 1);\n      }\n")],
     "flash_bwd_dkv.cu": [
         ("    uint32_t apd[4][4], adl[4][4];",
          _residue("s", "lo_") + _residue("dp", "lo2_") +
          "    uint32_t apd[4][4], adl[4][4], alo[4][4], alo2[4][4];"),
-        ("      to_a(s, kk, apd[kk]);",
-         "      to_a(s, kk, apd[kk]);\n      to_a(lo_, kk, alo[kk]);\n"
-         "      to_a(lo2_, kk, alo2[kk]);"),
-        ("        wgmma_rs(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)), "
-         "1);",
-         "        wgmma_rs(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)), "
-         "1);\n        wgmma_rs(dv_acc[n], alo[kk], desc(gb, "
-         "mn_major_step(kk, n)), 1);"),
-        ("        wgmma_rs(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)), "
-         "1);",
-         "        wgmma_rs(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)), "
-         "1);\n        wgmma_rs(dk_acc[n], alo2[kk], desc(qb, "
-         "mn_major_step(kk, n)), 1);")],
+        ("      to_a<T>(s, kk, apd[kk]);",
+         "      to_a<T>(s, kk, apd[kk]);\n      to_a<T>(lo_, kk, alo[kk]);\n"
+         "      to_a<T>(lo2_, kk, alo2[kk]);"),
+        ("        wgmma_rs<T>(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)),"
+         "\n                    1);",
+         "        wgmma_rs<T>(dv_acc[n], apd[kk], desc(gb, mn_major_step(kk, n)),"
+         "\n                    1);\n        wgmma_rs<T>(dv_acc[n], alo[kk], "
+         "desc(gb, mn_major_step(kk, n)), 1);"),
+        ("        wgmma_rs<T>(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)),"
+         "\n                    1);",
+         "        wgmma_rs<T>(dk_acc[n], adl[kk], desc(qb, mn_major_step(kk, n)),"
+         "\n                    1);\n        wgmma_rs<T>(dk_acc[n], alo2[kk], "
+         "desc(qb, mn_major_step(kk, n)), 1);")],
 }
 
 
 # the same for the forward: the rounding residue of p as a second P.V
-# product, so p is not rounded to bf16 any more
+# product, so p is not rounded to the operand type any more
 FWD_MUTATIONS = {
     "flash_fwd.cu": [
         ("    uint32_t a[4][4];\n#pragma unroll\n"
-         "    for (int kk = 0; kk < 4; ++kk) to_a(s, kk, a[kk]);",
+         "    for (int kk = 0; kk < 4; ++kk) to_a<T>(s, kk, a[kk]);",
          _residue("s", "lo_") +
          "    uint32_t a[4][4], alo[4][4];\n#pragma unroll\n"
          "    for (int kk = 0; kk < 4; ++kk) {\n"
-         "      to_a(s, kk, a[kk]);\n      to_a(lo_, kk, alo[kk]);\n    }"),
-        ("        wgmma_rs(acc[n], a[kk], desc(vs + buf * TB, "
-         "mn_major_step(kk, n)),\n                 t > 0 || kk > 0);\n",
+         "      to_a<T>(s, kk, a[kk]);\n      to_a<T>(lo_, kk, alo[kk]);\n"
+         "    }"),
+        ("        wgmma_rs<T>(acc[n], a[kk],\n"
+         "                    desc(vs + buf * TB, mn_major_step(kk, n)),\n"
+         "                    t > 0 || kk > 0);\n",
          "      {\n"
-         "        wgmma_rs(acc[n], a[kk], desc(vs + buf * TB, "
-         "mn_major_step(kk, n)),\n                 t > 0 || kk > 0);\n"
-         "        wgmma_rs(acc[n], alo[kk], desc(vs + buf * TB, "
+         "        wgmma_rs<T>(acc[n], a[kk],\n"
+         "                    desc(vs + buf * TB, mn_major_step(kk, n)),\n"
+         "                    t > 0 || kk > 0);\n"
+         "        wgmma_rs<T>(acc[n], alo[kk], desc(vs + buf * TB, "
          "mn_major_step(kk, n)), 1);\n      }\n")],
 }
 
