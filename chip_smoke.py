@@ -474,7 +474,31 @@ Phases; any failure exits nonzero before the result lines:
     device trace's annotation, and a flash_decode launch inside that
     annotation's window. (f) `Model.fit_report(flops_per_step=...)` over
     phase 32's ERNIE run through `fit`, against the H100 spec.
-37. Output: a {"kernels": [...]} line for all eleven kernels (the
+37. The tooling (`tuning/`, `ServingEngine.precompile`, `analysis/`),
+    each part timed. (a) The tunable kernels' plan overrides at their
+    serving shapes (dense decode b8 h8 L1056, spec verify T4, paged S8
+    h8 page 16 mp67 fp32 and int8, the tiled tail prefill S1 h8 T256,
+    int8 m8 and m32 at 512x2048, 2048x512 and 512x37000, LoRA b8 s1 and
+    s4): override 0 gives the bits of the launch with the table off
+    (PT_TUNING=0), every legal override holds against the plain version
+    under phase 2's / 13's limit, illegal overrides and illegal table
+    entries are refused before launch (the rule's bits), and the C plan
+    helpers refuse them too. (b) `tuning.autotune.sweep_key` over its
+    DEFAULT_KEYS, 5 paired repeats a candidate: each candidate's time
+    beside the rule's and the bound, the winner (or "rule kept") beside
+    the committed card tier (printed, not judged: the card tier is
+    written by the sweep CLI and in force for every phase). (c) Cold and
+    warm starts through the AOT cache, each start a fresh process with
+    its own empty build root: Transformer-base dense fp32 (cold, warm,
+    under a corrupting `tuning.cache_load` fault plan, then warm again)
+    and paged with spec_k 4 (cold, warm), the two chains side by side.
+    A cold start builds only libraries the engine launches; a warm one
+    starts no nvcc, reads loaded_from_cache == programs, serves the cold
+    start's tokens and is ready sooner; the corrupt start rebuilds,
+    counts cache_errors and serves the same tokens. (d) The program
+    lints over Transformer-base check engines on the card, printed by
+    rule (not judged; the CPU test gates the small engines).
+38. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
     10, 22, 25, 32, 33 and 36 (a); the three training kernels' float16
@@ -805,8 +829,9 @@ def dec_numbers(A, args):
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "plan": dict(zip(("splits", "keys_per_split"),
-                             A.flash_decode_plan_on_card(b, h, L,
-                                                         q.device))),
+                             A.flash_decode_plan_on_card(
+                                 b, h, L, q.device,
+                                 A.decode_split("flash_decode", q, L)))),
             "kernels_per_call": per_call}
 
 
@@ -930,8 +955,9 @@ def check_kernels(A, g):
         q, k = args[:2]
         out = one_launch_each(A, "flash_decode", A.flash_decode, *args)
         pout = A.flash_decode_plain(*args)
-        plan = A.flash_decode_plan_on_card(*q.shape[:2], k.shape[2],
-                                           q.device)
+        plan = A.flash_decode_plan_on_card(
+            *q.shape[:2], k.shape[2], q.device,
+            A.decode_split("flash_decode", q, k.shape[2]))
         emu = flash_decode_in_kernel(*args, plan=plan)
         torch.cuda.synchronize()
         e = (out.float() - pout.float()).abs().max().item()
@@ -1283,8 +1309,9 @@ def check_new_kernels(A, cases):
             if kname == "paged_flash_verify":
                 route = f" [{A.paged_verify_route(T, d)}]"
             if kname == "flash_verify":
-                plan = A.flash_decode_plan_on_card(S, h, args[1].shape[2],
-                                                   q.device)
+                plan = A.flash_decode_plan_on_card(
+                    S, h, args[1].shape[2], q.device,
+                    A.decode_split("flash_verify", q, args[1].shape[2]))
                 emu = flash_verify_in_kernel(*args, plan=plan)
                 k, v, length, bias = args[1:]
                 stale = wrapper(q, *nan_past_lengths(k, v, length), length,
@@ -1296,8 +1323,10 @@ def check_new_kernels(A, cases):
                 route = (f" [splits, keys a split {plan}; NaN keys past "
                          f"n_valid: the same bits]")
             elif merge:
-                plan = A.paged_decode_plan_on_card(S, h, args[5].shape[1],
-                                                   q.device)
+                plan = A.paged_decode_plan_on_card(
+                    S, h, args[5].shape[1], q.device,
+                    A.paged_overrides(kname, q, args[1],
+                                      args[5].shape[1])[1])
                 emu = paged_verify_in_kernel(*args, plan=plan)
                 route += f" [splits, pages a split {plan}]"
             if merge:
@@ -1384,18 +1413,22 @@ def read_numbers(A, kname, args):
         row["route"] = A.paged_verify_route(T, d)
         if row["route"] == "tiled":
             row["plan"] = dict(zip(("rows", "splits", "keys_per_split"),
-                                   A.paged_verify_plan(q, L)))
+                                   A.paged_verify_plan(q, L, A.paged_overrides(
+                                       kname, q, args[1], table.shape[1])[2])))
         else:
             merge[kname] = "paged_split_kernel"
     if kname in merge:
         # one call is one launch of the route's kernel: no combine after it
         row["plan"] = (dict(zip(("splits", "keys_per_split"),
-                                A.flash_decode_plan_on_card(b, h, L,
-                                                            q.device)))
+                                A.flash_decode_plan_on_card(
+                                    b, h, L, q.device,
+                                    A.decode_split(kname, q, L))))
                        if kname == "flash_verify" else
                        dict(zip(("splits", "pages_per_split"),
                                 A.paged_decode_plan_on_card(
-                                    b, h, table.shape[1], q.device))))
+                                    b, h, table.shape[1], q.device,
+                                    A.paged_overrides(kname, q, args[1],
+                                                      table.shape[1])[1]))))
         row["kernels_per_call"] = kernels_per_call(
             lambda: getattr(A, kname)(*args))
         only_kernel(kname, row["kernels_per_call"], merge[kname])
@@ -2358,7 +2391,9 @@ def check_quant_kernels(Q, g):
                     .max().item()
                 route = "skinny" if m <= 32 else "tiled"
                 if route == "skinny":
-                    plan = Q.skinny_plan_on_card(m, *args[1].shape, "cuda")
+                    plan = Q.skinny_plan_on_card(
+                        m, *args[1].shape, "cuda",
+                        Q.int8_split(m, *args[1].shape))
                     route += (f" {plan[0]} m-tiles, {plan[1]} k-splits of "
                               f"{plan[2]}, {plan[3]} warps")
                 mutant = f" [{route}]; one-bf16-piece mutant {em:.3e}"
@@ -2668,12 +2703,16 @@ def quant_numbers(Q, kname, args):
         if m <= 32:
             row["plan"] = dict(zip(("m_tiles", "k_splits", "k_per_split",
                                     "warps"),
-                                   Q.skinny_plan_on_card(m, d, n, "cuda")))
+                                   Q.skinny_plan_on_card(
+                                       m, d, n, "cuda",
+                                       Q.int8_split(m, d, n))))
             row["kernels_per_call"] = kernels_per_call(kern)
             only_kernel(f"int8_matmul m{m} {d}x{n}", row["kernels_per_call"],
                         "int8_matmul_skinny_mma")
     if kname == "lora_gather":
-        rows, cluster = Q.lora_gather_plan(b, s, d, "cuda")
+        rows, cluster = Q.lora_gather_plan(
+            b, s, d, "cuda", n, Q.lora_overrides(b, s, d, args[1].shape[2],
+                                                 n)[1])
         row["plan"] = {"rows": rows, "cluster": cluster,
                        "ctas": b * -(-s // rows) * cluster}
     return row
@@ -5918,9 +5957,21 @@ def amp_train(A, seed, amp_dtype, steps, init_scale):
     peak = torch.cuda.max_memory_allocated()
     launches = {k: A.LAUNCHES[k] for k in TRAIN_KERNELS}
     f16_launches = {k: A.F16_LAUNCHES[k] for k in TRAIN_KERNELS}
-    profiled = profiled_kernel_counts(step)
-    seq_s = E_BATCH * (steps - 2) / sum(times[2:])
     tag = "f16" if f16 else "bf16"
+    # the profiler drops a kernel record now and then late in this long
+    # process (as phases 5-6 see, `one_launch_a_call`): a step that reads
+    # short of E_LAYERS launches of a kernel, and no more than that of
+    # any, is profiled again, up to three steps; the judge below takes
+    # the last
+    for _ in range(3):
+        profiled = profiled_kernel_counts(step)
+        short = [k for k in TRAIN_KERNELS
+                 if profiled.get((k, tag), 0) < E_LAYERS]
+        if not short or any(n > E_LAYERS for n in profiled.values()):
+            break
+        log(f"      profiled {profiled}: {short} short of {E_LAYERS} a "
+            f"step; the step is profiled again")
+    seq_s = E_BATCH * (steps - 2) / sum(times[2:])
     log(f"  ({'b' if f16 else 'a'}) {tag} O1: losses "
         f"{[round(x, 4) for x in losses]}; scale after each step {scales}; "
         f"found inf {found}; {seq_s:.2f} seq/s over steps 3-{steps}; peak "
@@ -6245,14 +6296,441 @@ def amp_observability_phase(A, seed):
     return out, rows
 
 
+
+# ------------------------------------------------------ the tooling (37)
+
+#: phase 37 (c): requests each start serves, their prompt lengths (one
+#: prompt bucket, which precompile readies), and the starts' time limit
+TL_REQUESTS, TL_PROMPT, TL_NEW, TL_START_S = 4, (300, 500), 16, 900
+
+
+def override_cases(Q, g):
+    """Phase 37 (a): {kernel: [(case, call(override), plain(), limit
+    kind, units)]} at the shapes each tunable kernel's serving phase gives
+    it. `call(0)` launches the rule, `call(c)` the plan override c."""
+    A = sys.modules["paddle_tpu_torch.ops.attention"]
+    f32 = torch.float32
+    lens8 = [60, 1060, 700, 300, 129, 128, 1000, 513]
+    plens = [60, 1072, 700, 300, 129, 128, 1000, 513]
+    dq = dec_case(g, SLOTS, HEADS, MAX_LEN, 64,
+                  [1056, 40, 900, 300, 129, 128, 1000, 513], (20, 40))
+    vq = ver_case(g, SLOTS, HEADS, SPEC_K, MAX_LEN + SPEC_K, 64, lens8, f32)
+    pd = paged_case(g, SLOTS, HEADS, PAGE, 67, 64, 1, plens, f32, f32)
+    pd8 = paged_case(g, SLOTS, HEADS, PAGE, 67, 64, 1, plens, f32,
+                     torch.int8)
+    pv = paged_case(g, SLOTS, HEADS, PAGE, 67, 64, SPEC_K, plens, f32, f32)
+    pt = pattach_case(g, 256)
+    out = {
+        "flash_decode": [(
+            "decode b8 h8 L1056 fp32",
+            lambda c: A._flash_decode_cuda(*dq[:3], dq[3], dq[4], None, c),
+            lambda: A.flash_decode_plain(*dq), "fp32",
+            -(-MAX_LEN // A._DECODE_UNIT))],
+        "flash_verify": [(
+            "spec step b8 h8 T4 L1060 fp32",
+            lambda c: A._flash_verify_cuda(*vq[:3], vq[3], vq[4], None, c),
+            lambda: A.flash_verify_plain(*vq), "fp32",
+            -(-(MAX_LEN + SPEC_K) // A._DECODE_UNIT))],
+        "paged_flash_decode": [
+            (f"decode S8 h8 mp67 pages {n}",
+             lambda c, a=a: A._paged_decode_cuda(*a, None, c),
+             lambda a=a: A.paged_flash_decode_plain(*a), "fp32", 67)
+            for n, a in (("fp32", pd), ("int8", pd8))],
+        "paged_flash_verify": [
+            ("spec step S8 h8 T4 mp67 pages fp32 [split]",
+             lambda c: A._paged_verify_cuda(*pv, None, c, 0),
+             lambda: A.paged_flash_verify_plain(*pv), "fp32", 67),
+            ("tail prefill S1 h8 T256 W48 pages fp32 [tiled]",
+             lambda c: A._paged_verify_cuda(*pt, None, 0, c),
+             lambda: A.paged_flash_verify_plain(*pt), "fp32",
+             A.paged_tiles(pt[5].shape[1] * PAGE))],
+        "int8_matmul": [],
+        "lora_matmul": [],
+    }
+    for m in (8, 32):
+        for d, n in ((512, 2048), (2048, 512), (512, VOCAB)):
+            x = torch.randn(m, d, generator=g, device="cuda")
+            wq, ws = Q.quantize_int8_weight(
+                torch.randn(d, n, generator=g, device="cuda") * 0.05)
+            out["int8_matmul"].append((
+                f"m{m} {d}x{n}",
+                lambda c, a=(x, wq, ws): Q._int8_matmul_cuda(*a, c),
+                lambda a=(x, wq, ws): Q.int8_matmul_reference(*a), "quant",
+                -(-d // 64)))
+    cap = MT_TENANTS + 1
+    for d, n in ((512, 2048), (2048, 512)):
+        Ab = torch.randn(cap, d, MT_RANK, generator=g, device="cuda") * 0.05
+        Bb = torch.randn(cap, MT_RANK, n, generator=g, device="cuda") * 0.05
+        ids = torch.tensor([0, 1, 2, 3, 4, 0, 2, 4], dtype=torch.int32,
+                           device="cuda")
+        for s in (1, 4):
+            x = torch.randn(SLOTS, s, d, generator=g, device="cuda")
+            out["lora_matmul"].append((
+                f"b8 s{s} {d}x{n}",
+                lambda c, a=(x, Ab, Bb, ids): Q._lora_gather_cuda(*a, c),
+                lambda a=(x, Ab, Bb, ids): Q.lora_delta_reference(
+                    *a[:3], a[3].cpu()), "quant", (d, n)))
+    return out
+
+
+def _override_legal(kernel, case, units, c):
+    A = sys.modules["paddle_tpu_torch.ops.attention"]
+    Q = sys.modules["paddle_tpu_torch.ops.quant"]
+    if kernel == "lora_matmul":
+        return Q._legal_lora_cluster(c, *units)
+    if "[tiled]" in case:
+        return A._legal_tiles(c, units)
+    if kernel == "int8_matmul":
+        return Q._legal_cluster(c, units)
+    return A._legal_split(c, units)
+
+
+def check_overrides(Q, g):
+    """Phase 37 (a): at override 0 each tunable kernel gives the bits of a
+    launch with the table off (PT_TUNING=0, the wrapper's own consult);
+    every legal override holds against the plain version under the
+    kernel's existing limit; illegal overrides (0 below, past 8, past the
+    row's units, a float) are refused before launch: the Python check
+    reads them as a miss and the C rule takes over, so the launch is the
+    rule's, bit for bit. Returns ({kernel: max_abs_err}, launches)."""
+    A = sys.modules["paddle_tpu_torch.ops.attention"]
+    errs, n_launch = {}, 0
+    for kernel, cases in override_cases(Q, g).items():
+        for case, call, plain, kind, units in cases:
+            want = plain()
+            rule = call(0)
+            os.environ["PT_TUNING"] = "0"
+            try:
+                off = call(None)
+            finally:
+                os.environ.pop("PT_TUNING", None)
+            torch.cuda.synchronize()
+            if not torch.equal(rule, off):
+                raise AssertionError(f"{kernel} {case}: override 0 and the "
+                                     f"table off give different bits")
+            scale = want.float().abs().max().item()
+            limit = ATOL_KERNEL if kind == "fp32" else REL_F32_QUANT * scale
+            tried = []
+            for c in range(1, 9):
+                if not _override_legal(kernel, case, units, c):
+                    continue
+                got = call(c)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                tried.append(f"{c}:{e:.1e}")
+                n_launch += 1
+                if not e <= limit:
+                    raise AssertionError(f"{kernel} {case}: override {c} "
+                                         f"off by {e} (limit {limit})")
+                errs[kernel] = max(errs.get(kernel, 0.0), e)
+            top = units if "[tiled]" in case else 8
+            refused = [c for c in (-1, 0, top + 1, 2.0, "4")
+                       if _override_legal(kernel, case, units, c)]
+            if refused:
+                raise AssertionError(f"{kernel} {case}: illegal overrides "
+                                     f"{refused} pass the check")
+            log(f"  {kernel:18s} {case}: override 0 == table off (bitwise); "
+                f"legal overrides (value:max_abs_err) {' '.join(tried)} "
+                f"within {limit:.1e}; illegal ones refused")
+    # an illegal table entry reads as a miss at the consult site: the
+    # launch is the rule's, bit for bit
+    from paddle_tpu_torch.tuning import table as TBL
+
+    tier = TBL.current_device_kind()
+    bad = TBL.TuningTable()
+    bad.put("flash_decode", A.decode_key("flash_decode", 64, 64, MAX_LEN,
+                                         torch.float32), {"split_k": 9},
+            device_kind=tier)
+    bad.put("paged_flash_decode", A.paged_key(
+        "paged_flash_decode", 64, 64, PAGE, 67, torch.float32),
+        {"split_k": 68}, device_kind=tier)
+    bad.put("paged_flash_verify", A.paged_key(
+        "paged_flash_verify", 64, 8, PAGE, 48, torch.float32, 256),
+        {"tiles_per_split": 99}, device_kind=tier)
+    bad.put("int8_matmul", Q.int8_key(8, 512, 2048, torch.float32),
+            {"split_k": 2.0}, device_kind=tier)
+    bad.put("lora_matmul", Q.lora_key(8, 1, 512, MT_RANK, torch.float32),
+            {"cluster": 16}, device_kind=tier)
+    cases = override_cases(Q, g)
+    picks = [cases["flash_decode"][0], cases["paged_flash_decode"][0],
+             cases["paged_flash_verify"][1], cases["int8_matmul"][0],
+             cases["lora_matmul"][0]]
+    TBL.set_table(bad)
+    try:
+        for kernel, (case, call, _, _, _) in zip(
+                ("flash_decode", "paged_flash_decode", "paged_flash_verify",
+                 "int8_matmul", "lora_matmul"), picks):
+            if not torch.equal(call(None), call(0)):
+                raise AssertionError(f"{kernel} {case}: an illegal table "
+                                     f"entry changed the launch")
+    finally:
+        TBL.reset()
+    log("  illegal table entries (split_k 9, 68 and 2.0, tiles_per_split "
+        "99, cluster 16) read as misses: the rule's bits")
+    # the C plan helpers refuse what the Python check refuses
+    for got, rule, label in (
+            (A.flash_decode_plan_on_card(8, 8, MAX_LEN, "cuda", 9),
+             A.flash_decode_plan_on_card(8, 8, MAX_LEN, "cuda"),
+             "pt_flash_decode_plan(9)"),
+            (A.paged_decode_plan_on_card(8, 8, 67, "cuda", 68),
+             A.paged_decode_plan_on_card(8, 8, 67, "cuda"),
+             "pt_paged_decode_plan(68)"),
+            (Q.skinny_plan_on_card(8, 512, 2048, "cuda", 9),
+             Q.skinny_plan_on_card(8, 512, 2048, "cuda"),
+             "pt_int8_matmul_skinny_plan(9)"),
+            (Q.lora_gather_plan(8, 1, 512, "cuda", 2048, 16),
+             Q.lora_gather_plan(8, 1, 512, "cuda", 2048),
+             "pt_lora_gather_plan(16)")):
+        if got != rule:
+            raise AssertionError(f"{label} took an illegal override: {got}")
+    for c in (1, 4, 8):
+        want = A.flash_decode_plan(8, 8, MAX_LEN, split_k=c)
+        got = A.flash_decode_plan_on_card(8, 8, MAX_LEN, "cuda", c)
+        if got != want:
+            raise AssertionError(f"the dense plan's mirror and the C rule "
+                                 f"disagree at override {c}: {want} {got}")
+    log(f"  the C plan helpers refuse the illegal overrides; the mirrors "
+        f"match them at overrides 1, 4, 8; {n_launch} override launches")
+    return errs, n_launch
+
+
+def sweep_phase():
+    """Phase 37 (b): the sweep over DEFAULT_KEYS (5 paired repeats), each
+    candidate's time beside the rule's and the bound, against the
+    committed card tier (informational: the tier is written by the sweep
+    CLI, `--merge`)."""
+    from paddle_tpu_torch.tuning import autotune as AT
+    from paddle_tpu_torch.tuning import table as TBL
+
+    measurer = AT.default_measurer(steps=20)
+    tier = TBL.current_device_kind()
+    committed = TBL.TuningTable.load(TBL.committed_table_path())
+    rows = []
+    for kernel, keys in AT.DEFAULT_KEYS.items():
+        for key in keys:
+            rep = AT.sweep_key(kernel, key, measurer=measurer, repeats=5)
+            entry = committed.lookup(kernel, rep["key"], tier)
+            won = rep["winner"] != rep["fallback"]
+            log(f"  {kernel} {TBL.key_str(key)}: rule {rep['fallback']} "
+                f"{rep['fallback_us']:.3f} us, bound {rep['bound_us']:.3f} "
+                f"us; " + ", ".join(
+                    f"{list(r['config'].values())[0]}: {r['us']:.3f}"
+                    f"{'*' if r['beats_rule'] else ''}"
+                    for r in rep["candidates"])
+                + f" -> {rep['winner'] if won else 'rule kept'}; committed "
+                f"{'none' if entry is None else entry}")
+            rows.append({"kernel": kernel, "key": rep["key"],
+                         "rule": rep["fallback"],
+                         "rule_us": rep["fallback_us"],
+                         "bound_us": rep["bound_us"],
+                         "winner": rep["winner"] if won else None,
+                         "committed": entry,
+                         "candidates": rep["candidates"]})
+    return rows
+
+
+def tooling_worker(spec):
+    """One start of phase 37 (c), in its own process: Transformer-base
+    (random weights from the seed), `precompile` through the cache
+    directory (under a corrupting fault plan when asked), then serve
+    TL_REQUESTS requests. Prints one JSON line: the cold_start report,
+    this process's builds, the libraries launched, the tokens."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.testing import faults
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed = spec["seed"]
+    model, embed, project = build_model(seed, "cuda")
+    rs = np.random.RandomState(seed)
+    prompts = []
+    for _ in range(TL_REQUESTS):
+        p = rs.randint(2, VOCAB, int(rs.randint(*TL_PROMPT)))
+        p[0] = 0
+        prompts.append(p)
+    mems = [torch.as_tensor(rs.randn(SRC_LEN, D_MODEL).astype("f4"),
+                            device="cuda") for _ in range(TL_REQUESTS)]
+    engine = ServingEngine(model.decoder, embed, project, num_slots=SLOTS,
+                           max_len=MAX_LEN, device="cuda", **spec["engine"])
+    _build.reset_launches()
+    if spec.get("corrupt"):
+        with faults.inject("tuning.cache_load", action="corrupt"):
+            rep = engine.precompile((SRC_LEN, D_MODEL), dtype="float32",
+                                    prompt_buckets=(512,),
+                                    cache=spec["cache"])
+    else:
+        rep = engine.precompile((SRC_LEN, D_MODEL), dtype="float32",
+                                prompt_buckets=(512,), cache=spec["cache"])
+    traced = sum(engine.trace_counts.values())
+    toks, _ = run_server(engine, prompts, mems, new_tokens=TL_NEW)
+    info = _build.build_info()
+    print(json.dumps({
+        "report": rep, "compiled": info.get("compiled", []),
+        "loaded": info.get("loaded", []),
+        "nvcc_s": info.get("seconds", 0.0),
+        "launched": _build.launched_stems({}, _build.launches()),
+        "bound": _build.loaded_stems(), "precompile_traces": traced,
+        "serve_traces": sum(engine.trace_counts.values()) - traced,
+        "tokens": [[int(t) for t in ts] for ts in toks]}))
+    return 0
+
+
+def _start(spec, root):
+    """Run one tooling_worker start in a fresh process with its own empty
+    build root; returns its JSON line."""
+    env = dict(os.environ, PT_BUILD_ROOT=os.path.join(
+        root, f"build_{spec['name']}"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--tooling-worker", json.dumps(spec)], capture_output=True,
+        text=True, timeout=TL_START_S, env=env, cwd=HERE)
+    if proc.returncode != 0:
+        raise AssertionError(f"start {spec['name']} failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def _start_chain(seed, root, label, kw, corrupt):
+    """One engine's starts of phase 37 (c), in order; returns (summary,
+    log lines)."""
+    cache = os.path.join(root, f"cache_{label}")
+    base = {"seed": seed, "engine": kw, "cache": cache}
+    cold = _start(dict(base, name=f"{label}_cold"), root)
+    warm = _start(dict(base, name=f"{label}_warm"), root)
+    rc, rw = cold["report"], warm["report"]
+    if not cold["compiled"] or set(cold["compiled"]) - set(cold["launched"]):
+        raise AssertionError(f"{label} cold start built {cold['compiled']}, "
+                             f"launched {cold['launched']}")
+    if cold["serve_traces"] or rc["compiled"] != rc["programs"]:
+        raise AssertionError(f"{label} cold start: {rc}, serving added "
+                             f"{cold['serve_traces']} first runs")
+    if warm["compiled"] or rw["loaded_from_cache"] != rw["programs"] or \
+            not rw["warm"] or warm["precompile_traces"] or \
+            warm["serve_traces"]:
+        raise AssertionError(f"{label} warm start: {rw}, compiled "
+                             f"{warm['compiled']}")
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError(f"{label}: the warm start served other tokens "
+                             f"than the cold start")
+    if not rw["time_to_ready_s"] < rc["time_to_ready_s"]:
+        raise AssertionError(f"{label}: warm ready {rw['time_to_ready_s']} "
+                             f"s is not below cold {rc['time_to_ready_s']} s")
+    row = {"cold": rc, "warm": rw, "cold_nvcc_s": cold["nvcc_s"],
+           "cold_built": cold["compiled"], "warm_loaded": warm["loaded"],
+           "process_s": [cold["process_s"], warm["process_s"]]}
+    lines = [f"  {label}: cold time_to_ready_s {rc['time_to_ready_s']} "
+             f"({rc['programs']} programs; nvcc {cold['nvcc_s']:.2f} s "
+             f"building {cold['compiled']}), warm {rw['time_to_ready_s']} "
+             f"(loaded_from_cache {rw['loaded_from_cache']}, no nvcc, "
+             f"libraries copied out {warm['loaded']}); tokens equal"]
+    if corrupt:
+        bad = _start(dict(base, name=f"{label}_corrupt", corrupt=True), root)
+        heal = _start(dict(base, name=f"{label}_healed"), root)
+        rb, rh = bad["report"], heal["report"]
+        if not bad["compiled"] or not rb["cache_errors"] or rb["warm"] or \
+                bad["tokens"] != cold["tokens"]:
+            raise AssertionError(f"{label} corrupt start: {rb}, compiled "
+                                 f"{bad['compiled']}")
+        if heal["compiled"] or not rh["warm"] or \
+                heal["tokens"] != cold["tokens"]:
+            raise AssertionError(f"{label} healed start: {rh}, compiled "
+                                 f"{heal['compiled']}")
+        row.update(corrupt=rb, healed=rh, corrupt_nvcc_s=bad["nvcc_s"],
+                   corrupt_built=bad["compiled"])
+        lines.append(f"  {label}: corrupt start time_to_ready_s "
+                     f"{rb['time_to_ready_s']} (cache_errors "
+                     f"{rb['cache_errors']}, rebuilt {bad['compiled']}), "
+                     f"tokens equal; the next start warm again "
+                     f"({rh['time_to_ready_s']} s)")
+    return row, lines
+
+
+def cold_warm_phase(seed):
+    """Phase 37 (c): Transformer-base dense fp32 serving and paged with
+    spec_k 4, each a cold start (nvcc builds only the libraries the
+    engine launches), then a warm restart (no nvcc process,
+    loaded_from_cache == programs, the cold start's tokens, a shorter
+    time_to_ready_s); the dense one then a start under a corrupting
+    fault plan (it rebuilds, counts cache_errors, serves the same tokens)
+    and a fourth start, warm again. The two engines' chains run side by
+    side (each start a process of its own, with its own build root and
+    the chain's cache directory)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    chains = (("dense", {}, True),
+              ("paged_spec", {"paged": True, "page_size": PAGE,
+                              "spec_k": SPEC_K}, False))
+    with tempfile.TemporaryDirectory() as root:
+        with ThreadPoolExecutor(len(chains)) as ex:
+            futs = [ex.submit(_start_chain, seed, root, *c) for c in chains]
+            done = [f.result() for f in futs]
+    out = {}
+    for (label, _, _), (row, lines) in zip(chains, done):
+        for ln in lines:
+            log(ln)
+        out[label] = row
+    return out
+
+
+def lint_phase():
+    """Phase 37 (d): the program lints over Transformer-base engines on
+    the card, printed by rule (not judged here: the CPU test gates the
+    small engines)."""
+    from paddle_tpu_torch.analysis import Baseline, runner
+
+    findings = runner.program_findings(
+        device="cuda", large_bytes=1 << 20,
+        width=(D_MODEL, HEADS, VOCAB, LAYERS, FFN, SLOTS, MAX_LEN, PAGE),
+        memory=(SRC_LEN, D_MODEL), prompt_buckets=(512,))
+    new, baselined, _ = Baseline.load(runner.BASELINE_PATH).split(findings)
+    by_rule = {}
+    for f in findings:
+        by_rule.setdefault(f.rule, []).append(f.baseline_key)
+    for rule, keys in sorted(by_rule.items()):
+        log(f"  {rule}: {len(keys)} finding(s): {sorted(set(keys))}")
+    log(f"  {len(findings)} finding(s), {len(baselined)} baselined, "
+        f"{len(new)} outside the baseline")
+    return {r: sorted(set(k)) for r, k in by_rule.items()}
+
+
+def tooling_phase(Q, g, seed):
+    """Phase 37 (a)-(d); returns its summary."""
+    t = time.perf_counter()
+    log("  (a) the plan overrides")
+    errs, n = check_overrides(Q, g)
+    ta = time.perf_counter()
+    log(f"  (a) took {ta - t:.1f} s")
+    log("  (b) the sweep (5 paired repeats a candidate)")
+    sweep = sweep_phase()
+    tb = time.perf_counter()
+    log(f"  (b) took {tb - ta:.1f} s")
+    log("  (c) cold, warm and corrupt starts through the AOT cache")
+    starts = cold_warm_phase(seed)
+    tc = time.perf_counter()
+    log(f"  (c) took {tc - tb:.1f} s")
+    log("  (d) the program lints on the card")
+    lints = lint_phase()
+    log(f"  (d) took {time.perf_counter() - tc:.1f} s")
+    return {"override_errs": errs, "override_launches": n, "sweep": sweep,
+            "starts": starts, "lints": lints}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tooling-worker", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.tooling_worker:
+        return tooling_worker(json.loads(args.tooling_worker))
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import attention as A
     from paddle_tpu_torch.ops import fused_conv as FC
@@ -6267,7 +6745,7 @@ def main():
     log(f"phase 1: device {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.kernels()
+    _build.load()
     log(f"  kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_info().get('seconds', 0.0):.2f} s, compiled "
         f"{_build.build_info().get('compiled', [])})")
@@ -6893,7 +7371,17 @@ def main():
         {"card": card, **amp_out}))
     log(f"  phase 36 took {time.perf_counter() - t_amp:.1f} s")
 
-    log("phase 37: output")
+    log("phase 37: the tooling: the kernels' plan overrides, the sweep, "
+        "cold / warm / corrupt starts through the AOT cache, the program "
+        "lints")
+    t_tool = time.perf_counter()
+    tool = tooling_phase(Q, g, args.seed)
+    log("  tooling summary " + json.dumps({"card": card, **tool}))
+    log(f"  phase 37 took {time.perf_counter() - t_tool:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 38: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

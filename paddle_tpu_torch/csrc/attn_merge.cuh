@@ -98,21 +98,32 @@ struct Tile {
   static constexpr int E = D / 32;          // float4 slices a lane
 };
 
+// Whether `split` key splits of n units is a plan the kernels take: a
+// portable cluster (1..MAX_CLUSTER blocks) with at least one unit a split.
+inline bool legal_split(int split, int n) {
+  return split >= 1 && split <= MAX_CLUSTER && split <= n;
+}
+
 // (blocks a cluster = key splits, units a split) of `rows` rows over n
 // units (pages, or UNIT-key steps) on `sms` SMs: about TARGET_PER_SM
-// blocks an SM, at most MAX_CLUSTER splits and one unit a split.
-inline void plan(int sms, int rows, int n, int* c, int* per) {
+// blocks an SM, at most MAX_CLUSTER splits and one unit a split. A legal
+// `tuned` (the tuning table's split_k) replaces the rule's split; 0, or an
+// illegal value, keeps the rule.
+inline void plan(int sms, int rows, int n, int* c, int* per, int tuned) {
   const int want = (TARGET_PER_SM * sms + max(rows, 1) - 1) / max(rows, 1);
-  const int split = max(1, min(min(MAX_CLUSTER, n), want));
+  const int split = legal_split(tuned, n)
+                        ? tuned
+                        : max(1, min(min(MAX_CLUSTER, n), want));
   *per = (n + split - 1) / split;
   *c = (n + *per - 1) / *per;
 }
 
 // The dense kernels' plan (flash_decode.cu, flash_verify.cu): `rows` rows
 // over L keys in whole UNIT-key steps; (blocks a cluster, keys a split).
-inline void dense_plan(int sms, int rows, int L, int* c, int* keys) {
+inline void dense_plan(int sms, int rows, int L, int* c, int* keys,
+                       int tuned) {
   int per = 0;
-  plan(sms, rows, (L + UNIT - 1) / UNIT, c, &per);
+  plan(sms, rows, (L + UNIT - 1) / UNIT, c, &per, tuned);
   *keys = per * UNIT;
 }
 

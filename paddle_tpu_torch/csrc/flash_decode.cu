@@ -55,12 +55,14 @@ int by_width(const Args& a, int rows, int C, cudaStream_t s) {
 // The kernel's plan for B * H rows over L cached keys on `device`: out[0]
 // the blocks a cluster (key splits, merged in the kernel), out[1] the keys
 // a split, a whole number of 32-key steps (whole key tiles at any width).
-// It reads B, H and L only, never the lengths on the device.
+// It reads B, H and L only, never the lengths on the device. A legal
+// split_k (the tuning table's; 0 = the rule) sets the blocks a cluster.
 // `ops.attention.flash_decode_plan` writes the same rule out for the CPU.
 extern "C" int pt_flash_decode_plan(int device, int B, int H, int L,
-                                    int* out) {
+                                    int split_k, int* out) {
   if (B < 0 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
-  amerge::dense_plan(amerge::sm_count(device), B * H, L, out, out + 1);
+  amerge::dense_plan(amerge::sm_count(device), B * H, L, out, out + 1,
+                     split_k);
   return 0;
 }
 
@@ -68,14 +70,15 @@ extern "C" int pt_flash_decode_plan(int device, int B, int H, int L,
 // q [B, H, 1, d], k/v [B, H, L, d], each with unit stride on d; `strides`
 // holds (q batch, q head, q row, k batch, k head, k row, v batch, v head,
 // v row) in elements. lengths: [B] int32 written counts; bias: [B, L]
-// float32 or null. out [B, H, 1, d] contiguous, q's type. Returns the
-// launch's cudaError_t.
+// float32 or null. out [B, H, 1, d] contiguous, q's type. split_k: the
+// plan's override (`pt_flash_decode_plan`). Returns the launch's
+// cudaError_t.
 extern "C" int pt_flash_decode(int device, int dtype, const void* q,
                                const void* k, const void* v,
                                const void* bias, const void* lengths,
                                void* out, int B, int H, int L, int d,
                                const long long* strides, float scale,
-                               void* stream) {
+                               int split_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || L < 1 || H < 1 || B < 0 ||
@@ -84,7 +87,7 @@ extern "C" int pt_flash_decode(int device, int dtype, const void* q,
   if (B == 0) return 0;
   if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
   int plan[2];
-  pt_flash_decode_plan(device, B, H, L, plan);
+  pt_flash_decode_plan(device, B, H, L, split_k, plan);
   const amerge::Args a =
       amerge::dense_args(q, k, v, lengths, bias, out, H, 1, L, d,
                          dtype == 0 ? 4 : 2, plan[1], strides, scale);

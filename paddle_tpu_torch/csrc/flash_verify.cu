@@ -81,14 +81,14 @@ int by_rows(const Args& a, int rows, int C, cudaStream_t s) {
 // v row) in elements. lengths: [B] int32 written counts after the T-token
 // write; bias: [B, L] float32 or null. out [B, H, T, d] contiguous, q's
 // type. The key splits follow the dense decode's plan
-// (`amerge::dense_plan`, `pt_flash_decode_plan`). Returns the launch's
-// cudaError_t.
+// (`amerge::dense_plan`, `pt_flash_decode_plan`), split_k its override.
+// Returns the launch's cudaError_t.
 extern "C" int pt_flash_verify(int device, int dtype, const void* q,
                                const void* k, const void* v,
                                const void* bias, const void* lengths,
                                void* out, int B, int H, int T, int L, int d,
                                const long long* strides, float scale,
-                               void* stream) {
+                               int split_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || L < 1 || H < 1 || B < 0 || T < 1 ||
@@ -97,7 +97,8 @@ extern "C" int pt_flash_verify(int device, int dtype, const void* q,
   if (B == 0) return 0;
   if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
   int C = 0, split = 0;
-  amerge::dense_plan(amerge::sm_count(device), B * H, L, &C, &split);
+  amerge::dense_plan(amerge::sm_count(device), B * H, L, &C, &split,
+                     split_k);
   const amerge::Args a =
       amerge::dense_args(q, k, v, lengths, bias, out, H, T, L, d,
                          dtype == 0 ? 4 : 2, split, strides, scale);

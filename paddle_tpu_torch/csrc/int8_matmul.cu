@@ -352,14 +352,18 @@ struct Layout {
 // split in whole 64-row stages across up to MAX_CLUSTER ranks until about
 // TARGET_PER_SM blocks an SM run. A grid still short of a block an SM
 // whose splits hold whole 128-row stages (d = 2048, n = 512) runs 8 warps
-// a block: each warp then takes half the steps of a split.
+// a block: each warp then takes half the steps of a split. A legal `tuned`
+// (the tuning table's split_k: 1..MAX_CLUSTER, at most one split a stage)
+// replaces the rule's split; 0, or an illegal value, keeps the rule.
 inline void plan(int sms, int m, int d, int n, int* mt, int* c, int* kps,
-                 int* warps) {
+                 int* warps, int tuned) {
   *mt = m <= 8 ? 1 : m <= 16 ? 2 : 4;
   const int strips = max(1, (n + COLS - 1) / COLS);
   const int chunks = d > 0 ? (d + KC4 - 1) / KC4 : 1;
   const int want = (TARGET_PER_SM * sms + strips - 1) / strips;
-  const int split = max(1, min(min(MAX_CLUSTER, chunks), want));
+  const int split = tuned >= 1 && tuned <= MAX_CLUSTER && tuned <= chunks
+                        ? tuned
+                        : max(1, min(min(MAX_CLUSTER, chunks), want));
   const int per = (chunks + split - 1) / split;
   *c = (chunks + per - 1) / per;
   *kps = per * KC4;
@@ -655,8 +659,9 @@ inline int sm_count(int device) {
 // out[3] the warps a block (4 or 8). `ops.quant.skinny_plan` writes the
 // same rule out for the CPU.
 extern "C" int pt_int8_matmul_skinny_plan(int device, int m, int d, int n,
-                                          int* out) {
-  skinny::plan(sm_count(device), m, d, n, out, out + 1, out + 2, out + 3);
+                                          int split_k, int* out) {
+  skinny::plan(sm_count(device), m, d, n, out, out + 1, out + 2, out + 3,
+               split_k);
   return 0;
 }
 
@@ -670,7 +675,7 @@ extern "C" int pt_int8_matmul_skinny_plan(int device, int m, int d, int n,
 // the launch's cudaError_t.
 extern "C" int pt_int8_matmul(int device, const void* x, const void* q,
                               const void* scale, void* out, void* work,
-                              int m, int d, int n, int splits,
+                              int m, int d, int n, int splits, int split_k,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -686,7 +691,7 @@ extern "C" int pt_int8_matmul(int device, const void* x, const void* q,
   const int xvec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (m <= 32) {
     int mt, C, kps, warps;
-    skinny::plan(sm_count(device), m, d, n, &mt, &C, &kps, &warps);
+    skinny::plan(sm_count(device), m, d, n, &mt, &C, &kps, &warps, split_k);
     const int wv = weight_vec(q, n);
     return warps == 8
         ? skinny::launch_by_rows<8>(mt, xp, qp, sp, op, m, d, n, C, kps,

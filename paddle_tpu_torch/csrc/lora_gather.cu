@@ -264,25 +264,32 @@ cudaError_t prepare(int device) {
 // Row tile RT (a power of two up to 16, no more than s needs) and cluster
 // size C (a power of two up to 8): the smallest C whose grid covers every
 // SM once, so a decode step (b 8, s 1) runs 8 clusters of 8 CTAs. Clusters
-// of 16 (non-portable) were slower there on an H100 (PERF.md §6).
-void lora_plan(int sms, int b, int s, int d, int* RT, int* C) {
+// of 16 (non-portable) were slower there on an H100 (PERF.md §6). A legal
+// `tuned` (the tuning table's cluster: 1..CLUSTER_MAX CTAs, each with 4 or
+// more of d and of n) replaces the rule's C; 0, or an illegal value, keeps
+// the rule.
+void lora_plan(int sms, int b, int s, int d, int n, int* RT, int* C,
+               int tuned) {
   int rt = 1;
   while (rt < s && rt < ROWS) rt *= 2;
   const long long tiles = (long long)b * ((s + rt - 1) / rt);
   int c = 1;
   while (c < CLUSTER_MAX && tiles * c < sms && 4 * c < d) c *= 2;
   *RT = rt;
-  *C = c;
+  *C = tuned >= 1 && tuned <= CLUSTER_MAX && 4 * tuned <= d + 3 &&
+               4 * tuned <= n + 3
+           ? tuned
+           : c;
 }
 
 template <int RP>
 int launch(int device, const float* x, const float* A, const float* B,
            const int* ids, float* out, int b, int s, int d, int r, int n,
-           int cap, cudaStream_t stream) {
+           int cap, int cluster, cudaStream_t stream) {
   cudaError_t err = prepare<RP>(device);
   if (err != cudaSuccess) return (int)err;
   int RT, C;
-  lora_plan(sm_count(device), b, s, d, &RT, &C);
+  lora_plan(sm_count(device), b, s, d, n, &RT, &C, cluster);
   const int K = ((d + C - 1) / C + 3) / 4 * 4;
   const int NC = ((n + C - 1) / C + 3) / 4 * 4;
   const bool vec = d % 4 == 0 && n % 4 == 0 &&
@@ -309,23 +316,25 @@ int launch(int device, const float* x, const float* A, const float* B,
 
 }  // namespace
 
-// The plan of a launch on `device`: out = (rows of s a row tile, CTAs a
-// cluster). The grid is b * ceil(s / rows) clusters.
-extern "C" int pt_lora_gather_plan(int device, int b, int s, int d,
-                                   int* out) {
+// The plan of a launch on `device` for x [b, s, d] and n output columns:
+// out = (rows of s a row tile, CTAs a cluster), `cluster` the plan's
+// override (0 = the rule). The grid is b * ceil(s / rows) clusters.
+extern "C" int pt_lora_gather_plan(int device, int b, int s, int d, int n,
+                                   int cluster, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  lora_plan(sm_count(device), b, s, d, out, out + 1);
+  lora_plan(sm_count(device), b, s, d, n, out, out + 1, cluster);
   return 0;
 }
 
 // C entry point, bound with ctypes. x [b, s, d], A [cap, d, r] and
 // B [cap, r, n] float32, ids [b] int32 (each in [0, cap)), all contiguous;
-// out [b, s, n] float32. 1 <= r <= 32. Returns the launch's cudaError_t.
+// out [b, s, n] float32. 1 <= r <= 32. cluster: the plan's override
+// (`pt_lora_gather_plan`). Returns the launch's cudaError_t.
 extern "C" int pt_lora_gather(int device, const void* x, const void* A,
                               const void* B, const void* ids, void* out,
                               int b, int s, int d, int r, int n, int cap,
-                              void* stream) {
+                              int cluster, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (r < 1 || r > RMAX || b < 0 || s < 0 || d < 0 || n < 0 || cap < 1)
@@ -340,8 +349,11 @@ extern "C" int pt_lora_gather(int device, const void* x, const void* A,
   auto op = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (r <= 8)
-    return launch<8>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap, st);
+    return launch<8>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap,
+                     cluster, st);
   if (r <= 16)
-    return launch<16>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap, st);
-  return launch<32>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap, st);
+    return launch<16>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap,
+                     cluster, st);
+  return launch<32>(device, xp, ap, bp, ip, op, b, s, d, r, n, cap,
+                     cluster, st);
 }

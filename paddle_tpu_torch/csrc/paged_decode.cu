@@ -67,12 +67,13 @@ int by_kv(int kvdtype, const Args& a, int rows, int C, cudaStream_t s) {
 
 // The kernel's plan for S * H rows over mp pages on `device`: out[0] the
 // blocks a cluster (key splits, merged in the kernel), out[1] the pages a
-// split. `ops.attention.paged_decode_plan` writes the same rule out for
-// the CPU.
+// split. A legal split_k (the tuning table's; 0 = the rule) sets the
+// blocks a cluster. `ops.attention.paged_decode_plan` writes the same rule
+// out for the CPU.
 extern "C" int pt_paged_decode_plan(int device, int S, int H, int mp,
-                                    int* out) {
+                                    int split_k, int* out) {
   if (S < 0 || H < 1 || mp < 1) return (int)cudaErrorInvalidValue;
-  amerge::plan(amerge::sm_count(device), S * H, mp, out, out + 1);
+  amerge::plan(amerge::sm_count(device), S * H, mp, out, out + 1, split_k);
   return 0;
 }
 
@@ -83,8 +84,9 @@ extern "C" int pt_paged_decode_plan(int device, int S, int H, int mp,
 // row, v page, v head, v row) in elements. scales [n_rows, H, 1, 1]
 // float32; table [S, mp] int32 (entries outside [0, n_rows) read the trash
 // row n_rows - 1); lengths [S] int32 written counts; bias [S, mp * psz]
-// float32 or null. out [S, H, 1, d] contiguous, q's type. Returns the
-// launch's cudaError_t.
+// float32 or null. out [S, H, 1, d] contiguous, q's type. split_k: the
+// plan's override (`pt_paged_decode_plan`). Returns the launch's
+// cudaError_t.
 extern "C" int pt_paged_decode(int device, int qdtype, int kvdtype,
                                const void* q, const void* k_pages,
                                const void* v_pages, const void* k_scale,
@@ -92,7 +94,7 @@ extern "C" int pt_paged_decode(int device, int qdtype, int kvdtype,
                                const void* lengths, const void* bias,
                                void* out, int S, int H, int mp, int psz,
                                int n_rows, int d, const long long* strides,
-                               float scale, void* stream) {
+                               float scale, int split_k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || psz < 1 || mp < 1 || n_rows < 1 || H < 1 ||
@@ -102,7 +104,7 @@ extern "C" int pt_paged_decode(int device, int qdtype, int kvdtype,
   if (S == 0) return 0;
   if ((long long)S * H > 65535) return (int)cudaErrorInvalidValue;
   int plan[2];
-  pt_paged_decode_plan(device, S, H, mp, plan);
+  pt_paged_decode_plan(device, S, H, mp, split_k, plan);
   const int esz = kvdtype == 0 ? 4 : kvdtype == 1 ? 2 : 1;
   const amerge::Args a = amerge::paged_args(
       q, k_pages, v_pages, k_scale, v_scale, table, lengths, bias, out, H, 1,

@@ -501,8 +501,10 @@ struct Plan {
 // longer splits) and at most MAX_TILES_PER_SPLIT tiles a split (the longest
 // rows bound the kernel). The constants were chosen on the card
 // (PERF.md §6): two blocks an SM, or splits of 8 tiles, were slower
-// at the tail prefills.
-inline Plan plan(int sms, int S, int H, int T, int L) {
+// at the tail prefills. A legal `tuned` (the tuning table's
+// tiles_per_split: 1..tiles, at most MAX_SPLITS splits) replaces the
+// rule's tiles a split; 0, or an illegal value, keeps the rule.
+inline Plan plan(int sms, int S, int H, int T, int L, int tuned) {
   const int tiles = max(1, (L + BK - 1) / BK);
   const long long target = (long long)BLOCKS_PER_SM * sms;
   int ri = T <= 16 ? 1 : T <= 32 ? 2 : 4;
@@ -515,7 +517,9 @@ inline Plan plan(int sms, int S, int H, int T, int L) {
                        (long long)(tiles + MAX_TILES_PER_SPLIT - 1) /
                            MAX_TILES_PER_SPLIT);
   want = min(want, (long long)min(tiles, MAX_SPLITS));
-  const int tps = (tiles + (int)want - 1) / (int)want;
+  const bool legal = tuned >= 1 && tuned <= tiles &&
+                     (tiles + tuned - 1) / tuned <= MAX_SPLITS;
+  const int tps = legal ? tuned : (tiles + (int)want - 1) / (int)want;
   return {ri, (tiles + tps - 1) / tps, tps * BK};
 }
 
@@ -565,11 +569,13 @@ extern "C" int pt_paged_verify_route(int T, int d) {
 }
 
 // The tiled route's plan for S slots, H heads, T rows and L = mp * psz
-// keys on `device`: out = (query rows a block, key splits, keys a split).
-// The wrapper sizes the partials (splits > 1) and the counters by it.
+// keys on `device`: out = (query rows a block, key splits, keys a split),
+// tiles_per_split the plan's override (0 = the rule). The wrapper sizes
+// the partials (splits > 1) and the counters by it.
 extern "C" int pt_paged_verify_plan(int device, int S, int H, int T, int L,
-                                    int* out) {
-  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L);
+                                    int tiles_per_split, int* out) {
+  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L,
+                                    tiles_per_split);
   out[0] = 16 * p.ri;
   out[1] = p.ns;
   out[2] = p.split;
@@ -590,14 +596,16 @@ extern "C" int pt_paged_verify_plan(int device, int S, int H, int T, int L,
 // counters unused. The tiled route with its plan's splits > 1 keeps its
 // partials in acc [S * H, splits, T, d], m and l [S * H, splits, T]
 // (float32) and counters [S * H * ceil(T / rows)] int32 (zeroed here).
-// Returns the launch's cudaError_t.
+// split_k overrides the split route's plan, tiles_per_split the tiled
+// route's (0 = the rule; the wrapper sizes the partials by the same
+// override). Returns the launch's cudaError_t.
 extern "C" int pt_paged_verify(int device, int qdtype, int kvdtype,
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* table,
     const void* lengths, const void* bias, void* acc, void* m, void* l,
     void* out, void* counters, int S, int H, int T, int mp, int psz,
-    int n_rows, int d, const long long* strides, float scale,
-    void* stream) {
+    int n_rows, int d, const long long* strides, float scale, int split_k,
+    int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -610,7 +618,7 @@ extern "C" int pt_paged_verify(int device, int qdtype, int kvdtype,
   if (!pt_paged_verify_route(T, d)) {
     if ((long long)S * H > 65535) return (int)cudaErrorInvalidValue;
     int C = 0, pps = 0;
-    amerge::plan(amerge::sm_count(device), S * H, mp, &C, &pps);
+    amerge::plan(amerge::sm_count(device), S * H, mp, &C, &pps, split_k);
     const amerge::Args a = amerge::paged_args(
         q, k_pages, v_pages, k_scale, v_scale, table, lengths, bias, out, H,
         T, mp, psz, n_rows, d, elt, pps, strides, scale);
@@ -619,7 +627,8 @@ extern "C" int pt_paged_verify(int device, int qdtype, int kvdtype,
                                                      st);
   }
   const int L = mp * psz;
-  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L);
+  const tiled::Plan p = tiled::plan(amerge::sm_count(device), S, H, T, L,
+                                    tiles_per_split);
   const int nqt = (T + 16 * p.ri - 1) / (16 * p.ri);
   if (p.ns > 1) {
     if (!acc || !m || !l || !counters) return (int)cudaErrorInvalidValue;

@@ -883,16 +883,26 @@ def _decode_lengths(q, k, length):
 _MERGE_PER_SM, _MERGE_CLUSTER, _DECODE_UNIT = 3, 8, 32
 
 
-def _merge_plan(rows, n, sms):
+def _legal_split(split, n):
+    """`amerge::legal_split`: a tuned split of n units the merge kernels
+    take (a portable cluster, at least one unit a split)."""
+    return type(split) is int and 1 <= split <= min(_MERGE_CLUSTER, n)
+
+
+def _merge_plan(rows, n, sms, split_k=0):
     """(splits, units a split) of `rows` rows over n units on `sms` SMs:
-    `amerge::plan` written out."""
-    want = -(-_MERGE_PER_SM * sms // max(rows, 1))
-    split = max(1, min(_MERGE_CLUSTER, n, want))
+    `amerge::plan` written out. A legal `split_k` (the tuning table's)
+    replaces the rule's split; 0 or an illegal value keeps the rule."""
+    if _legal_split(split_k, n):
+        split = split_k
+    else:
+        want = -(-_MERGE_PER_SM * sms // max(rows, 1))
+        split = max(1, min(_MERGE_CLUSTER, n, want))
     per = -(-n // split)
     return -(-n // per), per
 
 
-def flash_decode_plan(b, h, L, sms=_build.H100_SMS):
+def flash_decode_plan(b, h, L, sms=_build.H100_SMS, split_k=0):
     """(blocks a cluster = key splits of a row, keys a split) of the
     dense decode and verify kernels for b x h rows over a cache of L keys
     on a card of `sms` SMs: the C rule `pt_flash_decode_plan`
@@ -900,26 +910,112 @@ def flash_decode_plan(b, h, L, sms=_build.H100_SMS):
     written out. A row's keys split in whole 32-key steps over up to 8
     blocks of a thread-block cluster until about three blocks an SM run;
     the kernel merges the splits in rank order. It reads no lengths: a
-    split past a row's length holds no visible key."""
+    split past a row's length holds no visible key. `split_k` is the
+    plan's override (0 = the rule; see `_merge_plan`)."""
     if b < 0 or h < 1 or L < 1:
         raise ValueError(f"flash_decode: no plan for b={b}, h={h}, L={L}")
-    c, units = _merge_plan(b * h, -(-L // _DECODE_UNIT), sms)
+    c, units = _merge_plan(b * h, -(-L // _DECODE_UNIT), sms, split_k)
     return c, units * _DECODE_UNIT
 
 
-def flash_decode_plan_on_card(b, h, L, device):
+def flash_decode_plan_on_card(b, h, L, device, split_k=0):
     """`flash_decode_plan` as the built library's C rule gives it on
     `device`'s card (builds the kernels on first use)."""
     out = _build.ints_out(2)
     err = _build.kernels().flash_decode_plan(
-        torch.device(device).index or 0, int(b), int(h), int(L), out)
+        torch.device(device).index or 0, int(b), int(h), int(L),
+        int(split_k), out)
     _raise_on("flash_decode", err)
     return tuple(out)
 
 
-def _flash_decode_cuda(q, k, v, length, bias, scale):
+# --------------------------------------------------------------------------
+# the tuning table's consult sites (`tuning/table.py`)
+# --------------------------------------------------------------------------
+
+def _tuned(kernel, key):
+    """The tuning table's config for (kernel, key), or None: a miss, and
+    any failure of the tuning layer, run the rule (the JAX `_tuned`)."""
+    from ..tuning import table as _tbl
+
+    return _tbl.tuned(kernel, key)
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def decode_key(kernel, d, rows, L, dtype, T=None):
+    """The table key of a dense decode ("flash_decode") or verify
+    ("flash_verify", T query rows) launch: every input of its plan rule,
+    sizes bucketed: (head_dim, rows b*h, cache length, dtype[, T])."""
+    from ..tuning.table import seq_bucket
+
+    key = (int(d), seq_bucket(rows), seq_bucket(L), _dtype_name(dtype))
+    return key if kernel == "flash_decode" else key + (int(T),)
+
+
+def paged_key(kernel, d, rows, psz, mp, kv_dtype, T=None):
+    """The table key of a paged decode ("paged_flash_decode") or verify
+    ("paged_flash_verify", T query rows) launch: (head_dim, rows S*h, page
+    size, pages a row, the pages' dtype[, T]), sizes bucketed."""
+    from ..tuning.table import seq_bucket
+
+    key = (int(d), seq_bucket(rows), int(psz), seq_bucket(mp),
+           _dtype_name(kv_dtype))
+    return key if kernel == "paged_flash_decode" else key + (int(T),)
+
+
+def _knob(cfg, name, legal):
+    """A tuned config's knob where `legal(value)` holds, else 0 (the
+    rule): an entry that does not fit reads as a miss."""
+    if not cfg:
+        return 0
+    v = cfg.get(name)
+    return v if legal(v) else 0
+
+
+def decode_split(kernel, q, L):
+    """The tuned split_k of a dense decode / verify launch for q [b, h, T,
+    d] over L keys (0 = the rule)."""
+    b, h, T, d = q.shape
+    cfg = _tuned(kernel, decode_key(kernel, d, b * h, L, q.dtype, T))
+    units = -(-int(L) // _DECODE_UNIT)
+    return _knob(cfg, "split_k", lambda v: _legal_split(v, units))
+
+
+def paged_tiles(L):
+    """Key tiles of L keys on the tiled route (its 64-key tiles)."""
+    return max(1, -(-int(L) // _PAGED_TILE))
+
+
+def _legal_tiles(tps, tiles):
+    """`tiled::plan`'s check of a tuned tiles_per_split."""
+    return type(tps) is int and 1 <= tps <= tiles and \
+        -(-tiles // tps) <= _PAGED_MAX_SPLITS
+
+
+def paged_overrides(kernel, q, kp, mp):
+    """(kernel, split_k, tiles_per_split) the tuning table gives a paged
+    read of q [S, h, T, d] over mp pages of kp: kernel False is the gather
+    route, the rest the plan overrides (0 = the rule)."""
+    S, h, T, d = q.shape
+    psz = kp.shape[2]
+    cfg = _tuned(kernel, paged_key(kernel, d, S * h, psz, mp, kp.dtype, T))
+    if not cfg:
+        return True, 0, 0
+    use_kernel = cfg.get("kernel", True) is not False
+    tiles = paged_tiles(mp * psz)
+    return (use_kernel,
+            _knob(cfg, "split_k", lambda v: _legal_split(v, mp)),
+            _knob(cfg, "tiles_per_split", lambda v: _legal_tiles(v, tiles)))
+
+
+def _flash_decode_cuda(q, k, v, length, bias, scale, split_k=None):
     """Launch `csrc/flash_decode.cu`: the [b, h, 1, d] output in q's
-    type, the key splits merged in the kernel (one launch)."""
+    type, the key splits (`flash_decode_plan`, its override the tuning
+    table's unless `split_k` is given) merged in the kernel (one
+    launch)."""
     _check_operands("flash_decode", q, k, v,
                     (length,) if bias is None else (length, bias))
     b, h, _, d = q.shape
@@ -933,6 +1029,7 @@ def _flash_decode_cuda(q, k, v, length, bias, scale):
         v.data_ptr(), None if bias is None else bias.data_ptr(),
         length.data_ptr(), out.data_ptr(), b, h, L, d, _row_strides(q, k, v),
         float(_scale(d, scale)),
+        decode_split("flash_decode", q, L) if split_k is None else split_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_decode", err)
     LAUNCHES["flash_decode"] += 1
@@ -1066,9 +1163,10 @@ def _verify_partials_plain(q, k, v, length, bias, scale, split):
                            q.dtype)
 
 
-def _flash_verify_cuda(q, k, v, length, bias, scale):
+def _flash_verify_cuda(q, k, v, length, bias, scale, split_k=None):
     """Launch `csrc/flash_verify.cu`: the [b, h, T, d] output in q's
-    type, the key splits (`flash_decode_plan`) merged in the kernel (one
+    type, the key splits (`flash_decode_plan`, its override the tuning
+    table's unless `split_k` is given) merged in the kernel (one
     launch)."""
     _check_operands("flash_verify", q, k, v,
                     (length,) if bias is None else (length, bias))
@@ -1083,6 +1181,7 @@ def _flash_verify_cuda(q, k, v, length, bias, scale):
         v.data_ptr(), None if bias is None else bias.data_ptr(),
         length.data_ptr(), out.data_ptr(), b, h, T, L, d,
         _row_strides(q, k, v), float(_scale(d, scale)),
+        decode_split("flash_verify", q, L) if split_k is None else split_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_verify", err)
     LAUNCHES["flash_verify"] += 1
@@ -1224,42 +1323,83 @@ def _split_buffers(q, ns):
             torch.empty((S * h, ns, T), dtype=torch.float32, device=q.device))
 
 
-def paged_decode_plan(S, h, mp, sms=_build.H100_SMS):
+def paged_decode_plan(S, h, mp, sms=_build.H100_SMS, split_k=0):
     """(blocks a cluster = key splits of a row, pages a split) of the
     paged decode kernel, and of the paged verify's split route, for S
     slots x h heads over mp pages on a card of `sms` SMs: the C rule
     `pt_paged_decode_plan` written out. A row's pages split in whole pages
     over up to 8 blocks of a thread-block cluster until about three blocks
-    an SM run; the kernel merges the splits in rank order."""
+    an SM run; the kernel merges the splits in rank order. `split_k` is
+    the plan's override (0 = the rule; see `_merge_plan`)."""
     if S < 0 or h < 1 or mp < 1:
         raise ValueError(f"paged_flash_decode: no plan for S={S}, h={h}, "
                          f"mp={mp}")
-    return _merge_plan(S * h, mp, sms)
+    return _merge_plan(S * h, mp, sms, split_k)
 
 
-def paged_decode_plan_on_card(S, h, mp, device):
+def paged_decode_plan_on_card(S, h, mp, device, split_k=0):
     """`paged_decode_plan` as the built library's C rule gives it on
     `device`'s card (builds the kernels on first use)."""
     out = _build.ints_out(2)
     err = _build.kernels().paged_decode_plan(
-        torch.device(device).index or 0, int(S), int(h), int(mp), out)
+        torch.device(device).index or 0, int(S), int(h), int(mp),
+        int(split_k), out)
     _raise_on("paged_flash_decode", err)
     return tuple(out)
 
 
-def _paged_decode_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
+#: `csrc/paged_verify.cu`'s tiled plan (`tiled::plan`): keys a tile, the
+#: blocks an SM it aims for, the most tiles a split, the most splits
+_PAGED_TILE, _PAGED_PER_SM, _PAGED_TILES_PER_SPLIT = 64, 1, 4
+_PAGED_MAX_SPLITS = 64
+#: query rows up to which the paged verify takes the split route
+#: (`tiled::SPLIT_MAX_T`; `paged_verify_route` asks the C rule)
+PAGED_SPLIT_MAX_T = 8
+
+
+def paged_tiled_plan(S, h, T, L, sms=_build.H100_SMS, tiles_per_split=0):
+    """(query rows a block, key splits, keys a split) of the paged
+    verify's tiled route for S slots x h heads, T rows over L keys on a
+    card of `sms` SMs: the C rule `pt_paged_verify_plan` (`tiled::plan`)
+    written out. Query tiles of 16 RI rows (RI 1, 2 or 4 by T, halved while
+    the grid would not fill the card), then enough splits of whole 64-key
+    tiles for about a block an SM and at most 4 tiles a split. A legal
+    `tiles_per_split` (the tuning table's) replaces the rule's; 0 or an
+    illegal value keeps the rule."""
+    tiles = max(1, -(-int(L) // _PAGED_TILE))
+    target = _PAGED_PER_SM * sms
+    ri = 1 if T <= 16 else 2 if T <= 32 else 4
+
+    def base(r):
+        return S * h * -(-T // (16 * r))
+
+    while ri > 1 and base(ri) * min(tiles, _PAGED_MAX_SPLITS) < target:
+        ri //= 2
+    bq = max(1, base(ri))
+    want = max(-(-target // bq), -(-tiles // _PAGED_TILES_PER_SPLIT))
+    want = min(want, tiles, _PAGED_MAX_SPLITS)
+    tps = tiles_per_split if _legal_tiles(tiles_per_split, tiles) \
+        else -(-tiles // want)
+    return 16 * ri, -(-tiles // tps), tps * _PAGED_TILE
+
+
+def _paged_decode_cuda(q, kp, vp, ks, vs, table, length, bias, scale,
+                      split_k=None):
     """Launch `csrc/paged_decode.cu`: the [S, h, 1, d] output in q's type,
-    the key splits merged in the kernel (one launch)."""
+    the key splits (`paged_decode_plan`, its override the tuning table's
+    unless `split_k` is given) merged in the kernel (one launch)."""
     name = "paged_flash_decode"
     _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
     S, h, _, d = q.shape
     mp, psz = table.shape[1], kp.shape[2]
     out = torch.empty((S, h, 1, d), dtype=q.dtype, device=q.device)
+    if split_k is None:
+        _, split_k, _ = paged_overrides(name, q, kp, mp)
     err = _build.kernels().paged_decode(
         q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
         *_paged_pointers(q, kp, vp, ks, vs, table, length, bias),
         out.data_ptr(), S, h, mp, psz, kp.shape[0], d,
-        _paged_strides(q, kp, vp), float(_scale(d, scale)),
+        _paged_strides(q, kp, vp), float(_scale(d, scale)), split_k,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -1280,20 +1420,23 @@ def paged_verify_route(T, d):
     return "tiled" if _build.kernels().paged_verify_route(T, d) else "split"
 
 
-def paged_verify_plan(q, L):
+def paged_verify_plan(q, L, tiles_per_split=0):
     """(query rows a block, key splits, keys a split) of the tiled route
     for q [S, h, T, d] over L = max_pages * page_size keys on q's card, as
-    the C entry point plans it (`pt_paged_verify_plan`)."""
+    the C entry point plans it (`pt_paged_verify_plan`; `paged_tiled_plan`
+    writes it out), `tiles_per_split` its override (0 = the rule)."""
     S, h, T, _ = q.shape
     out = _build.ints_out(3)
     _build.kernels().paged_verify_plan(q.device.index or 0, S, h, T,
-                                       int(L), out)
+                                       int(L), int(tiles_per_split), out)
     return tuple(out)
 
 
-def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
+def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale,
+                      split_k=None, tiles_per_split=None):
     """Launch `csrc/paged_verify.cu` on its route (one launch either way):
-    the final [S, h, T, d] output in q's type."""
+    the final [S, h, T, d] output in q's type. The plans' overrides are
+    the tuning table's unless given."""
     name = "paged_flash_verify"
     _check_paged(name, q, kp, vp, ks, vs, table, length, bias)
     S, h, T, d = q.shape
@@ -1301,8 +1444,11 @@ def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
     route = paged_verify_route(T, d)
     out = torch.empty((S, h, T, d), dtype=q.dtype, device=q.device)
     parts, counters = (None, None, None), None
+    _, tuned_split, tuned_tps = paged_overrides(name, q, kp, mp)
+    split_k = tuned_split if split_k is None else split_k
+    tps = tuned_tps if tiles_per_split is None else tiles_per_split
     if route == "tiled":
-        bq, ns, _ = paged_verify_plan(q, mp * psz)
+        bq, ns, _ = paged_verify_plan(q, mp * psz, tps)
         if ns > 1:
             parts = _split_buffers(q, ns)
             counters = torch.empty(S * h * -(-T // bq), dtype=torch.int32,
@@ -1313,7 +1459,7 @@ def _paged_verify_cuda(q, kp, vp, ks, vs, table, length, bias, scale):
         q.device.index or 0, _DTYPES[q.dtype], _KV_DTYPES[kp.dtype],
         *_paged_pointers(q, kp, vp, ks, vs, table, length, bias), *ptr, S,
         h, T, mp, psz, kp.shape[0], d, _paged_strides(q, kp, vp),
-        float(_scale(d, scale)),
+        float(_scale(d, scale)), split_k, tps,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
@@ -1447,9 +1593,27 @@ def verify_attention(q, k, v, length, bias=None, scale=None):
 def _paged_dispatch(paged_fn, dense_fn, q, k_pages, v_pages, k_scale,
                     v_scale, table, length, bias, scale):
     bias = _flat_bias(bias, q, table.shape[1] * k_pages.shape[2])
-    if q.device.type == "cpu":
+    gather = q.device.type == "cpu"
+    split_k = None
+    if not gather:
+        # a tuned `kernel: False` takes the JAX gather route on the card:
+        # the dense logical view, then the dense kernel at the entry's
+        # split_k
+        name = "paged_flash_decode" if paged_fn is paged_flash_decode \
+            else "paged_flash_verify"
+        use_kernel, split_k, _ = paged_overrides(name, q, k_pages,
+                                                 table.shape[1])
+        gather = not use_kernel
+    if gather:
         kd = paged_gather_kv(k_pages, k_scale, table, q.dtype)
         vd = paged_gather_kv(v_pages, v_scale, table, q.dtype)
+        L = kd.shape[2]
+        if q.device.type == "cuda" and \
+                _legal_split(split_k, -(-L // _DECODE_UNIT)):
+            dense = _flash_verify_cuda if dense_fn is flash_verify else \
+                _flash_decode_cuda
+            return dense(q, kd, vd, _lengths(length, q.shape[0], q.device),
+                         bias, scale, split_k)
         return dense_fn(q, kd, vd, length, bias, scale)
     return paged_fn(q, k_pages, v_pages, k_scale, v_scale, table, length,
                     bias, scale)

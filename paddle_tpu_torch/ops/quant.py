@@ -50,7 +50,8 @@ __all__ = ["LAUNCHES", "ROUTE_LAUNCHES", "reset_launches", "LORA_MAX_RANK",
            "quantize_int8_weight", "int8_matmul_reference", "int8_matmul",
            "int8_gather", "lora_delta_reference", "lora_delta",
            "merge_lora_weight", "lora_scope", "current_lora",
-           "lora_gather_plan", "skinny_plan", "skinny_plan_on_card"]
+           "lora_gather_plan", "lora_plan", "skinny_plan",
+           "skinny_plan_on_card", "int8_key", "lora_key"]
 
 #: kernel launches per wrapper (`reset_launches` zeroes these and
 #: `ops.attention.LAUNCHES` together)
@@ -65,6 +66,8 @@ reset_launches = _build.reset_launches
 _QMAX = 127.0
 #: the largest adapter rank `csrc/lora_gather.cu` takes
 LORA_MAX_RANK = 32
+#: `lora_plan`'s largest row tile and cluster (`csrc/lora_gather.cu`)
+_LORA_ROWS, _LORA_CLUSTER = 16, 8
 #: the skinny route of `csrc/int8_matmul.cu` (m <= 32, `skinny::plan`):
 #: output columns a block, the k-rows a stage of four warps (a split is
 #: whole stages), the most blocks a cluster (k-splits), and blocks an SM
@@ -123,7 +126,7 @@ def _check_device(name, *ts):
     return dev.type
 
 
-def skinny_plan(m, d, n, sms=_build.H100_SMS):
+def skinny_plan(m, d, n, sms=_build.H100_SMS, split_k=0):
     """(8-row tiles of m, blocks a cluster, k-rows a split, warps a block)
     of the skinny route (m <= 32) on a card of `sms` SMs: the C rule
     `pt_int8_matmul_skinny_plan` written out. Output columns come in
@@ -131,7 +134,9 @@ def skinny_plan(m, d, n, sms=_build.H100_SMS):
     of a thread-block cluster until about two blocks an SM run, and the
     kernel adds the splits' partials in rank order. A grid still short of
     a block an SM whose splits hold whole 128-row stages takes 8 warps a
-    block (128-row stages), else 4."""
+    block (128-row stages), else 4. A legal `split_k` (the tuning table's:
+    1..8 blocks, at most one a 64-row stage) replaces the rule's split; 0
+    or an illegal value keeps the rule."""
     if not 0 < m <= _SKINNY_M:
         raise ValueError(f"int8_matmul: the skinny route takes 1 <= m <= "
                          f"{_SKINNY_M}, got m={m}")
@@ -139,11 +144,79 @@ def skinny_plan(m, d, n, sms=_build.H100_SMS):
     strips = max(1, -(-n // _SKINNY_COLS))
     chunks = -(-d // _SKINNY_KC) if d > 0 else 1
     want = -(-_SKINNY_PER_SM * sms // strips)
-    split = max(1, min(_SKINNY_CLUSTER, chunks, want))
+    split = split_k if _legal_cluster(split_k, chunks) else \
+        max(1, min(_SKINNY_CLUSTER, chunks, want))
     per = -(-chunks // split)
     c, kps = -(-chunks // per), per * _SKINNY_KC
     warps = 8 if strips * c < sms and kps % (2 * _SKINNY_KC) == 0 else 4
     return mt, c, kps, warps
+
+
+def _legal_cluster(c, units):
+    """A tuned cluster the kernels take: 1..8 blocks (portable), at most
+    one a unit of work."""
+    return type(c) is int and 1 <= c <= min(_SKINNY_CLUSTER, units)
+
+
+# --------------------------------------------------------------------------
+# the tuning table's consult sites (`tuning/table.py`)
+# --------------------------------------------------------------------------
+
+def _tuned(kernel, key):
+    """The tuning table's config for (kernel, key), or None: a miss, and
+    any failure of the tuning layer, run the rule (the JAX `_tuned`)."""
+    from ..tuning import table as _tbl
+
+    return _tbl.tuned(kernel, key)
+
+
+def int8_key(m, d, n, dtype):
+    """The table key of an int8 matmul launch: (contraction d, output
+    columns n, x's dtype, rows m), sizes bucketed (the JAX key with m
+    added: the skinny rule reads it)."""
+    from ..tuning.table import seq_bucket
+
+    return (seq_bucket(d), seq_bucket(n), str(dtype).replace("torch.", ""),
+            seq_bucket(m))
+
+
+def int8_split(m, d, n, dtype=torch.float32):
+    """The tuned split_k of a skinny-route launch (0 = the rule)."""
+    cfg = _tuned("int8_matmul", int8_key(m, d, n, dtype))
+    v = cfg.get("split_k") if cfg else None
+    chunks = -(-d // _SKINNY_KC) if d > 0 else 1
+    return v if _legal_cluster(v, chunks) else 0
+
+
+def lora_key(b, s, d, r, dtype):
+    """The table key of a gathered-LoRA launch: (d bucket, rank, dtype,
+    batch rows b, tokens a row s), sizes bucketed (the JAX key with the
+    plan's b and s added)."""
+    from ..tuning.table import seq_bucket
+
+    return (seq_bucket(d), int(r), str(dtype).replace("torch.", ""),
+            seq_bucket(b), seq_bucket(s))
+
+
+def _legal_lora_cluster(c, d, n):
+    """`lora_plan`'s check of a tuned cluster: 1..8 CTAs, each with 4 or
+    more of d and of n."""
+    return type(c) is int and 1 <= c <= _LORA_CLUSTER and \
+        4 * c <= d + 3 and 4 * c <= n + 3
+
+
+def lora_overrides(b, s, d, r, n, dtype=torch.float32):
+    """(kernel, cluster) the tuning table gives a LoRA delta launch. A
+    tuned `kernel: False` is the JAX XLA-einsum route: the port takes it
+    only where the plain version runs anyway (CPU tensors), so the knob
+    loads as JAX tables carry it and puts no library product on the
+    card's path. cluster is the plan's override (0 = the rule)."""
+    cfg = _tuned("lora_matmul", lora_key(b, s, d, r, dtype))
+    if not cfg:
+        return True, 0
+    c = cfg.get("cluster")
+    return (cfg.get("kernel", True) is not False,
+            c if _legal_lora_cluster(c, d, n) else 0)
 
 
 def _int8_splits(m, d, n):
@@ -161,12 +234,13 @@ def _int8_splits(m, d, n):
     return skinny_plan(m, d, n)[1]
 
 
-def _int8_matmul_cuda(x, q, scale):
+def _int8_matmul_cuda(x, q, scale, split_k=None):
     """Launch `csrc/int8_matmul.cu` on a contiguous float32 x [m, d], a
     contiguous int8 q [d, n] and float32 scale [n]; returns float32
     [m, n]. The skinny route (m <= 32) is one launch that plans its own
     k-splits (`skinny_plan`) and merges them in the kernel: no work
-    buffer. The tiled route splits d by `_int8_splits` into a work buffer
+    buffer; its override is the tuning table's unless `split_k` is
+    given. The tiled route splits d by `_int8_splits` into a work buffer
     of splits x m x n, added by a second launch."""
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("int8_matmul: x must be a contiguous float32 "
@@ -194,7 +268,9 @@ def _int8_matmul_cuda(x, q, scale):
     err = _build.kernels().int8_matmul(
         x.device.index or 0, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
         out.data_ptr(), None if work is None else work.data_ptr(), m, d, n,
-        splits, torch.cuda.current_stream(x.device).cuda_stream)
+        splits, (0 if not skinny else int8_split(m, d, n, x.dtype)
+                 if split_k is None else split_k),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.raise_on("int8_matmul", err)
     LAUNCHES["int8_matmul"] += 1
     ROUTE_LAUNCHES["int8_matmul:skinny" if skinny
@@ -202,13 +278,13 @@ def _int8_matmul_cuda(x, q, scale):
     return out
 
 
-def skinny_plan_on_card(m, d, n, device):
+def skinny_plan_on_card(m, d, n, device, split_k=0):
     """`skinny_plan` as the built library's C rule gives it on `device`'s
     card (builds the kernels on first use)."""
     dev = torch.device(device)
     out = _build.ints_out(4)
     _build.kernels().int8_matmul_skinny_plan(dev.index or 0, int(m), int(d),
-                                             int(n), out)
+                                             int(n), int(split_k), out)
     return tuple(out)
 
 
@@ -284,10 +360,11 @@ def _device_ids(ids, cap, b, device):
     return t
 
 
-def _lora_gather_cuda(x, A, B, ids):
+def _lora_gather_cuda(x, A, B, ids, cluster=None):
     """Launch `csrc/lora_gather.cu` on a contiguous float32 x [b, s, d],
     float32 banks A [cap, d, r] / B [cap, r, n] and int32 ids [b] on the
-    card (validated by the caller); returns float32 [b, s, n]."""
+    card (validated by the caller); returns float32 [b, s, n]. The plan's
+    override is the tuning table's unless `cluster` is given."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("lora_delta: x must be a contiguous float32 "
                          f"[b, s, d] tensor, got {x.dtype} "
@@ -315,19 +392,43 @@ def _lora_gather_cuda(x, A, B, ids):
     err = _build.kernels().lora_gather(
         x.device.index or 0, x.data_ptr(), A.data_ptr(), B.data_ptr(),
         ids.data_ptr(), out.data_ptr(), b, s, d, r, n, cap,
+        lora_overrides(b, s, d, r, n, x.dtype)[1] if cluster is None
+        else cluster,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.raise_on("lora_gather", err)
     LAUNCHES["lora_gather"] += 1
     return out
 
 
-def lora_gather_plan(b, s, d, device):
+def lora_plan(b, s, d, n=None, sms=_build.H100_SMS, cluster=0):
     """(rows of s a row tile, CTAs a cluster) of `csrc/lora_gather.cu`
-    for x [b, s, d] on the card `device`, as the C entry point plans it
-    (`pt_lora_gather_plan`): the grid is b * ceil(s / rows) clusters."""
+    for x [b, s, d] and n output columns (default d) on a card of `sms`
+    SMs: the C rule `lora_plan` written out. The row tile is the least
+    power of two up to 16 covering s; the cluster the least power of two
+    up to 8 whose grid covers every SM (while each CTA keeps more than 4
+    of d). A legal `cluster` (the tuning table's) replaces the rule's; 0
+    or an illegal value keeps the rule."""
+    n = d if n is None else n
+    rt = 1
+    while rt < s and rt < _LORA_ROWS:
+        rt *= 2
+    tiles = b * -(-s // rt)
+    c = 1
+    while c < _LORA_CLUSTER and tiles * c < sms and 4 * c < d:
+        c *= 2
+    return rt, cluster if _legal_lora_cluster(cluster, d, n) else c
+
+
+def lora_gather_plan(b, s, d, device, n=None, cluster=0):
+    """(rows of s a row tile, CTAs a cluster) of `csrc/lora_gather.cu`
+    for x [b, s, d] and n output columns (default d) on the card
+    `device`, as the C entry point plans it (`pt_lora_gather_plan`;
+    `lora_plan` writes it out), `cluster` its override (0 = the rule):
+    the grid is b * ceil(s / rows) clusters."""
     out = _build.ints_out(2)
     err = _build.kernels().lora_gather_plan(
-        torch.device(device).index or 0, int(b), int(s), int(d), out)
+        torch.device(device).index or 0, int(b), int(s), int(d),
+        int(d if n is None else n), int(cluster), out)
     _build.raise_on("lora_gather", err)
     return tuple(out)
 
@@ -340,6 +441,8 @@ def lora_delta(x, A, B, ids):
     `lora_delta_reference`; CUDA tensors launch `csrc/lora_gather.cu`."""
     b = x.shape[0]
     if _check_device("lora_delta", x, A, B) == "cpu":
+        # the plain version: the kernel's function and the JAX
+        # `kernel: False` route alike (`lora_overrides`)
         return lora_delta_reference(x, A, B, _host_ids(ids, A.shape[0], b))
     dev_ids = _device_ids(ids, A.shape[0], b, x.device)
     out = _lora_gather_cuda(x.float().contiguous(), A, B, dev_ids)

@@ -44,7 +44,7 @@ __all__ = [
     "DEVICE_SPECS", "detect_spec", "start_accounting", "end_accounting",
     "accounting_scope", "book", "mfu", "bw_util", "temp_high_water",
     "transformer_decode_flops", "transformer_prefill_flops", "cost_for",
-    "analytic_cost", "first_run",
+    "analytic_cost", "first_run", "capture_compiled",
 ]
 
 
@@ -293,6 +293,27 @@ def _on_compile(owner, key, fn, args, kw, t0, t1):
     cost = analytic_cost(owner, key, compile_s=t1 - t0)
     if cost is not None:
         bk.put(cost)
+
+
+def capture_compiled(owner, key, compiled=None, compile_s=0.0):
+    """Record one program that `ServingEngine.precompile()` readied into
+    the armed book (no-op when accounting is disarmed), the ones readied
+    from the AOT cache included, which never pass through a first run:
+    a warm start still arrives with a fully populated cost book. The port
+    compiles no program that could report its own cost, so `compiled` is
+    unused and the record is the owner's analytic hint (source
+    "analytic")."""
+    bk = _BOOK
+    if bk is None:
+        return None
+    name = type(owner).__name__
+    cost = bk.get(name, key)
+    if cost is not None:
+        return cost
+    cost = analytic_cost(owner, key, compile_s=compile_s)
+    if cost is not None:
+        bk.put(cost)
+    return cost
 
 
 def cost_for(owner, key):

@@ -48,7 +48,7 @@ __all__ = [
     "Span", "Tracer", "start_session", "end_session", "session",
     "session_scope", "ObservedCounter", "JitCache", "RetraceError",
     "RetraceSentinel", "retrace_sentinel", "add_compile_hook",
-    "remove_compile_hook", "suppress_observation",
+    "remove_compile_hook", "suppress_observation", "record_precompile",
 ]
 
 _LOG = logging.getLogger("paddle_tpu_torch.trace")
@@ -407,6 +407,26 @@ class JitCache(dict):
         if e is None:
             return default
         return e.observed if _WATCH else e.raw
+
+
+def record_precompile(owner, key, t0, t1, source):
+    """Startup-precompile observability: one ``precompile`` span per
+    program the engine readied before serving (cat "compile", on the
+    track of the warm path's compiles), with `source` = "cache" (its
+    record and libraries came from the AOT cache: no build, no first run)
+    or "compile" (readied by a first run at startup). The warm-start
+    proof reads the session's counters: a warm start shows only
+    ``precompile_cache_hits``, and the ``compiles`` counter stays 0
+    through the first token."""
+    tr = _SESSION
+    if tr is None:
+        return
+    tr.add_complete("precompile", t0, t1, cat="compile",
+                    attrs={"engine": type(owner).__name__,
+                           "key": _key_str(key), "source": source})
+    tr.count("precompiles")
+    if source == "cache":
+        tr.count("precompile_cache_hits")
 
 
 def _observed_compiled(owner, key, fn):

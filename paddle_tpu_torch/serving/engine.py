@@ -28,6 +28,11 @@ prompt (bucketed to a power of two) into the slot's cache.
     decode steps, the pending slots taking turns, so co-resident decodes
     wait for one chunk at most, whatever the number of long prompts in
     flight.
+  * `precompile(memory, prompt_buckets=, cache=)`: every serving program
+    of the pool config readied before the first request (one run each on
+    a scratch pool); with an AOT cache directory, a restart copies the
+    kernel libraries out of it and runs no program until it serves
+    (`tuning/aot_cache.py`, the `cold_start` metrics).
   * Preemption (paged pools with the prefix cache): under a
     `ShapingScheduler` a full pool parks a lower-class running request's
     prompt pages in the radix trie, frees its slot and requeues it; the
@@ -660,6 +665,8 @@ class ServingEngine(_EngineBase):
         self._pool_key = None
         self._weights_bytes = None
         self._n_params = None       # cached for cost_hint
+        self._fingerprint = None    # the model part of the cache keys
+        self._precompile_mem = None
         # the program cache the compile observer wraps: a program's first
         # run (one per key) surfaces as a "compile" span
         self._compiled = _trace.JitCache(self)
@@ -676,6 +683,216 @@ class ServingEngine(_EngineBase):
             self._compiled[key] = _costs.first_run(self, key, body)
             fn = self._compiled[key]
         return fn
+
+    # ---- zero-warmup startup: precompile + the AOT cache ----
+    def precompile(self, memory, *, dtype="float32",
+                   prompt_buckets=(8, 16, 32, 64), cache=None, persist=True):
+        """Ready EVERY serving program of this pool config before the
+        first request: one join program per prompt bucket plus the
+        batched decode step (or the spec draft / verify pair; the paged
+        pool adds attach / cow / pattach; chunked prefill its chunk
+        program). A program comes out of the persistent `cache` (an
+        `AotCompileCache` or a directory path) when its record and every
+        kernel library it launches are valid there: the warm start, no
+        nvcc process and no first run. Otherwise it is readied by one run
+        on scratch state (the pool and its counters stay as they were),
+        which builds the libraries it launches (through the cache, which
+        keeps them and the program's record for the NEXT start when
+        `persist`). `memory` is the cross-attention memory: an example [M,
+        D] tensor or its shape tuple (+ `dtype`); it pins the pool config
+        as the first join would. Returns the cold_start report (also in
+        `metrics.snapshot()["cold_start"]`)."""
+        if torch.is_tensor(memory) or isinstance(memory, np.ndarray):
+            mem = torch.as_tensor(memory).to(self.device)
+        else:
+            M, Dm = memory
+            mem = torch.zeros((int(M), int(Dm)),
+                              dtype=getattr(torch, str(dtype)),
+                              device=self.device)
+        self._ensure_state(mem)
+        self._precompile_mem = mem
+        progs = self._startup_programs(prompt_buckets)
+        return self._precompile_run(progs, cache, persist)
+
+    def _program_fingerprint(self):
+        """Identity folded into every persistent-cache key, so two engines
+        with different models or pool configs never collide in one cache
+        directory."""
+        if self._fingerprint is None:
+            from ..tuning.aot_cache import model_fingerprint
+
+            self._fingerprint = model_fingerprint(
+                [*self._net.named_parameters(), *self._net.named_buffers()])
+        return (f"{type(self).__name__}|{self._fingerprint}|"
+                f"{self._pool_key}")
+
+    def _program_cache_key(self, key):
+        return f"{self._program_fingerprint()}|{key!r}"
+
+    def _startup_example(self):
+        """(mem1 [1, M, D], active [S] bool, zero drafts [S, k - 1]) for the
+        startup programs' example arguments."""
+        S, dev = self.num_slots, self.device
+        mem1 = self._precompile_mem[None]
+        active = torch.zeros((S,), dtype=torch.bool, device=dev)
+        drafts = torch.zeros((S, max(1, (self.spec_k or 2) - 1)),
+                             dtype=torch.int32, device=dev)
+        return mem1, active, drafts
+
+    def _step_programs(self, step_key, spec_key):
+        """The per-iteration programs: the n-gram draft and the verify
+        step under spec_k, else the batched step."""
+        lay = self.layout
+        mem1, active, drafts = self._startup_example()
+        if self.spec_k:
+            return [(lay.draft_key(), lay.draft, ()),
+                    (spec_key, lay.spec_step,
+                     (drafts, active, active, self.spec_k))]
+        return [(step_key, lay.step, (active,))]
+
+    def _startup_programs(self, prompt_buckets):
+        """[(key, body, example_args)] for every program this pool config
+        serves with: the program-cache key (the JAX engine's), the layout
+        body `_program` caches under it, and arguments shaped like the
+        runtime calls."""
+        lay, dev = self.layout, self.device
+        mem1, _, _ = self._startup_example()
+        progs = []
+        for Pb in sorted({bucket_size(int(p)) for p in prompt_buckets}):
+            progs.append((("join", Pb), lay.join,
+                          (0, torch.zeros((1, Pb), dtype=torch.long,
+                                          device=dev), 1, mem1, 0)))
+        progs += self._step_programs(lay.step_key(), lay.spec_step_key())
+        if self.prefill_chunk:
+            # bucket-length prompts chunk in full-size chunks only, so ONE
+            # cjoin program covers the precompile surface; ragged final
+            # chunks first-run their smaller bucket on demand
+            Cb = self.prefill_chunk
+            progs.append((("cjoin", Cb), lay.chunk,
+                          (0, torch.zeros((1, Cb), dtype=torch.long,
+                                          device=dev), 0, 1, 2 * Cb, mem1,
+                           torch.zeros((1, 2 * Cb), dtype=torch.long,
+                                       device=dev), 0)))
+        return progs
+
+    def _inplace_state(self):
+        """The pool leaves every program updates in place: all of them
+        (the port writes its pool in place and donates no carry).
+        `analysis.program` audits PTA102 against this set."""
+        from ..analysis.program import _leaves
+
+        return set(_leaves(self._state))
+
+    def _scratch_swap(self):
+        """Point the engine at a zeroed scratch pool (returns what to
+        restore): a startup program's run writes there, never into the
+        pool's live rows."""
+        saved = (self._state,)
+        self._state = self.placement.run(self.layout.build_state,
+                                         self._precompile_mem)
+        return saved
+
+    def _scratch_restore(self, saved):
+        (self._state,) = saved
+
+    def _precompile_run(self, progs, cache, persist):
+        """Ready every (key, body, args) program: from the persistent
+        cache when its record and libraries are valid there, else by one
+        first run on scratch state (the libraries it launches built
+        through the cache), and install the body in the program cache, so
+        serving adds no first run. Returns the cold_start report."""
+        from ..ops import _build
+        from ..tuning.aot_cache import AotCompileCache
+
+        t_start = time.perf_counter()
+        if cache is not None and not isinstance(cache, AotCompileCache):
+            cache = AotCompileCache(cache)
+        err0 = (cache.stats["corrupt"] + cache.stats["stale"]) \
+            if cache is not None else 0
+        cuda = self.device.type == "cuda"
+        n_loaded = n_compiled = n_ready = n_failed = 0
+        with _build.use_cache(cache):
+            for key, body, args in progs:
+                if key in self._compiled:
+                    n_ready += 1
+                    continue
+                t0 = time.perf_counter()
+                ck = self._program_cache_key(key)
+                source = "cache" if self._program_from_cache(
+                    ck, cache, cuda) else "compile"
+                if source == "compile":
+                    before = _build.launches()
+                    try:
+                        self._scratch_run(key, body, args)
+                    except Exception as e:
+                        # a program that cannot be readied here still runs
+                        # lazily at first use: precompile must never take
+                        # the pool down
+                        self.metrics.record_error("precompile", e)
+                        n_failed += 1
+                        continue
+                    stems = _build.launched_stems(before, _build.launches())
+                    n_compiled += 1
+                    if cache is not None and persist:
+                        _build.persist(stems, cache)
+                        cache.store_record(ck, {
+                            "key": ck, "stems": stems,
+                            "libraries": [_build.library_key(st)
+                                          for st in stems]})
+                else:
+                    n_loaded += 1
+                t1 = time.perf_counter()
+                self._compiled[key] = body
+                n_ready += 1
+                if _trace._SESSION is not None:
+                    _trace.record_precompile(self, key, t0, t1, source)
+                if _costs._BOOK is not None:
+                    _costs.capture_compiled(self, key, compile_s=t1 - t0)
+        errs = ((cache.stats["corrupt"] + cache.stats["stale"])
+                if cache is not None else 0) - err0
+        report = {
+            "time_to_ready_s": round(time.perf_counter() - t_start, 4),
+            "programs": n_ready,
+            "loaded_from_cache": n_loaded,
+            "compiled": n_compiled,
+            "cache_errors": errs,
+            "build_failures": n_failed,
+            "warm": int(n_compiled == 0 and n_failed == 0),
+        }
+        self.metrics.record_cold_start(report)
+        return report
+
+    def _program_from_cache(self, ck, cache, cuda):
+        """Whether the program record `ck` and every kernel library it
+        names come valid out of `cache` (the libraries are then bound, no
+        nvcc started). A record of other sources or another toolchain
+        (library keys of another build digest) reads as a miss."""
+        if cache is None:
+            return False
+        rec = cache.load_record(ck)
+        if rec is None or rec.get("key") != ck:
+            return False
+        stems = list(rec.get("stems", ()))
+        from ..ops import _build
+
+        if rec.get("libraries") != [_build.library_key(st) for st in stems]:
+            return False
+        if not cuda or not stems:
+            return True
+        n0 = len(_build.build_info().get("compiled", ()))
+        _build.load(stems, cache=cache)
+        return len(_build.build_info().get("compiled", ())) == n0
+
+    def _scratch_run(self, key, body, args):
+        """One first run of `body` (bumping `trace_counts[key]`) on a
+        scratch pool."""
+        saved = self._scratch_swap()
+        try:
+            self.placement.run(_costs.first_run(self, key, body), *args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            self._scratch_restore(saved)
 
     def _pool_key_of(self, memory):
         """The pool component of the step-program keys, as the JAX
@@ -1169,6 +1386,69 @@ class PagedServingEngine(ServingEngine):
         """The pool less its free pages."""
         return self.pool_bytes() - \
             self._alloc.pages_free * (self._page_bytes or 0)
+
+    # ---- zero-warmup startup (the paged program set) ----
+    def _scratch_swap(self):
+        saved = (self._state, self._table, self._index)
+        self._state = self.placement.run(self.layout.build_state,
+                                         self._precompile_mem)
+        self._table = np.full_like(saved[1], -1)
+        self._index = np.zeros_like(saved[2])
+        return saved
+
+    def _scratch_restore(self, saved):
+        self._state, self._table, self._index = saved
+
+    def _startup_programs(self, prompt_buckets):
+        lay, dev = self.layout, self.device
+        mem1, _, _ = self._startup_example()
+        psz, npg = self.page_size, self.num_pages
+        buckets = sorted({bucket_size(int(p)) for p in prompt_buckets})
+
+        def zeros(n):
+            return torch.zeros((1, n), dtype=torch.long, device=dev)
+
+        def trash_row(W):
+            return torch.full((1, W), npg, dtype=torch.int32, device=dev)
+
+        progs = []
+        for Pb in buckets:
+            n_pp = pages_for(Pb, psz)
+            progs.append((("pjoin", Pb), lay.join,
+                          (0, zeros(Pb), 1, mem1,
+                           np.arange(n_pp, dtype=np.int64), 0)))
+        if self._prefix is not None:
+            progs.append((("attach",), lay.attach,
+                          (0, 0, 1, 1, mem1, zeros(1))))
+            progs.append((("cow",), lay.cow, (0, 0)))
+            if self._radix_partial_ok():
+                # the partial-attach pairs the radix cache hits first: a
+                # last-page divergence per admitted prompt bucket (matched
+                # = all but one page, tail = one page)
+                pairs = sorted({(bucket_size(max(1, pages_for(Pb, psz) - 1)),
+                                 max(2, bucket_size(min(psz, Pb))))
+                                for Pb in buckets})
+                for Mb, Tb in pairs:
+                    W = min(self.max_pages, Mb + pages_for(Tb, psz))
+                    progs.append((("pattach", Mb, Tb), lay.pattach,
+                                  (0, trash_row(W), zeros(Tb), 1, 1, Tb,
+                                   mem1, zeros(Tb), 0)))
+        if self.prefill_chunk:
+            # one pcjoin per matched-page bucket the chunk walk of a
+            # bucket-length prompt visits; ragged final chunks first-run
+            # their smaller bucket on demand
+            Cb = self.prefill_chunk
+            mbs = set()
+            for Pb in buckets:
+                for pos in range(0, Pb, Cb) if Pb > Cb else ():
+                    mbs.add(bucket_size(pos // psz, minimum=1))
+            for Mb in sorted(mbs):
+                W = min(self.max_pages, Mb + pages_for(Cb, psz))
+                progs.append((("pcjoin", Mb, Cb), lay.pattach,
+                              (0, trash_row(W), zeros(Cb), 0, 1, 2 * Cb,
+                               mem1, zeros(2 * Cb), 0)))
+        return progs + self._step_programs(lay.step_key(),
+                                           lay.spec_step_key())
 
     def _device_table(self):
         # unmapped entries point at the trash row (num_pages): inactive

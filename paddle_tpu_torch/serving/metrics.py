@@ -137,6 +137,28 @@ SNAPSHOT_DOCS = {
                                     "that met their TPOT target"),
     "slo.wfq_lag_by_tenant": ("info", "per-tenant WFQ virtual-time lag "
                                       "(finish tag - pool virtual time)"),
+    # cold start: the section appears once the engine runs precompile()
+    "cold_start.time_to_ready_s": (
+        "gauge", "precompile() wall seconds until every serving program "
+                 "was ready"),
+    "cold_start.programs": (
+        "gauge", "serving programs readied at startup (join buckets + "
+                 "steps + paged attach/cow)"),
+    "cold_start.loaded_from_cache": (
+        "gauge", "programs whose record and kernel libraries came valid "
+                 "out of the AOT cache: no nvcc, no first run"),
+    "cold_start.compiled": (
+        "gauge", "programs readied by a first run at startup (a cache "
+                 "miss or a cold start; their libraries built or loaded)"),
+    "cold_start.cache_errors": (
+        "counter", "corrupt / stale cache entries that fell back to a "
+                   "fresh build (never a crash)"),
+    "cold_start.warm": (
+        "gauge", "1 when every program came from the cache: the warm "
+                 "start"),
+    "cold_start.first_ttft_ms": (
+        "gauge", "TTFT of the very first request after start (the number "
+                 "warm and cold starts compare)"),
 }
 
 _SUMMARY_KEYS = {"n", "mean", "p50", "p99", "max"}
@@ -212,7 +234,8 @@ class ServingMetrics:
         self.watermark_frac = 0.9
         self._init_counters()
 
-    def _init_counters(self):
+    def _init_counters(self):   # analysis: single-threaded
+        # __init__ (no second thread yet) and reset() (under the lock)
         self.submitted = 0
         self.rejected = 0           # backpressure (QueueFull)
         self.completed = 0          # finished with "eos" / "length"
@@ -286,6 +309,10 @@ class ServingMetrics:
         self.chunks = 0
         self.slo_finishes = {}      # class -> {n, ttft_ok, tpot_ok}
         self.wfq_lag = {}           # tenant -> virtual-time lag
+        # cold start: the engine's precompile() report and the first
+        # request's TTFT (what a restart costs callers)
+        self._cold_start = None
+        self.first_ttft_s = None
         # roofline gauges (while a cost-accounting session records)
         self._mfu = False
         self._spec = None
@@ -317,6 +344,9 @@ class ServingMetrics:
     def record_first_token(self, ttft_s):
         with self._lock:
             self.ttft_s.add(ttft_s)
+            if self.first_ttft_s is None:
+                # the first request ever: the cold-start comparison's number
+                self.first_ttft_s = float(ttft_s)
 
     def record_token(self, tenant=None):
         """One delivered token; `tenant` (the adapter name, "base", or
@@ -631,6 +661,22 @@ class ServingMetrics:
                 self.bw_util.add(bytes_accessed / dt_s /
                                  spec.peak_bytes_per_s)
 
+    def record_cold_start(self, report):
+        """The engine's precompile() report: {time_to_ready_s, programs,
+        loaded_from_cache, compiled, cache_errors, warm}. A second call
+        (another precompile on the same engine) adds its program counts
+        and keeps the first ready time."""
+        with self._lock:
+            if self._cold_start is None:
+                self._cold_start = dict(report)
+            else:
+                c = self._cold_start
+                for k in ("programs", "loaded_from_cache", "compiled",
+                          "cache_errors"):
+                    c[k] = c.get(k, 0) + int(report.get(k, 0))
+                c["warm"] = int(bool(c.get("warm"))
+                                and bool(report.get("warm")))
+
     def _sections(self, ledger):
         """The paging / prefix / speculation / tenancy / memory sections
         recorded so far (called under the lock)."""
@@ -701,6 +747,17 @@ class ServingMetrics:
                     n: round(c["tpot_ok"] / max(1, c["n"]), 4)
                     for n, c in self.slo_finishes.items()},
                 "wfq_lag_by_tenant": dict(self.wfq_lag)}
+        if self._cold_start is not None:
+            c = self._cold_start
+            out["cold_start"] = {
+                "time_to_ready_s": c.get("time_to_ready_s", 0.0),
+                "programs": c.get("programs", 0),
+                "loaded_from_cache": c.get("loaded_from_cache", 0),
+                "compiled": c.get("compiled", 0),
+                "cache_errors": c.get("cache_errors", 0),
+                "warm": int(bool(c.get("warm"))),
+                "first_ttft_ms": None if self.first_ttft_s is None else
+                round(self.first_ttft_s * 1e3, 3)}
         if self._spec_recorded:
             out["speculation"] = {
                 "rounds": self.spec_rounds,

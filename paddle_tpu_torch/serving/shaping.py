@@ -206,7 +206,7 @@ class ShapingScheduler:
         return request
 
     # caller (submit) holds the lock
-    def _insert(self, r):
+    def _insert(self, r):       # analysis: single-threaded
         q = self._q.setdefault(_tenant(r), [])
         key = self._prio(r)
         lo, hi = 0, len(q)
@@ -237,7 +237,7 @@ class ShapingScheduler:
 
     # callers (pop_ready / drain) hold the lock — the _locked suffix
     # is the contract
-    def _pop_locked(self):
+    def _pop_locked(self):      # analysis: single-threaded
         """Next request under the lock: the return lane first (no WFQ
         charge — it was charged on its first pop), then the WFQ pick,
         charging its tenant's virtual time."""

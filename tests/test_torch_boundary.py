@@ -96,3 +96,27 @@ def test_entry_points_without_device_raise_on_a_box_with_no_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(dec, emb, proj)
     ServingEngine(dec, emb, proj, device="cpu")   # asked for: fine
+
+
+def test_tooling_slice_is_scanned_and_imports_alone():
+    """tuning/ and analysis/ (the tooling slice) are among the scanned
+    sources, and importing them, their CLIs included, loads no JAX."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("tuning/__init__.py", "tuning/table.py",
+                 "tuning/autotune.py", "tuning/aot_cache.py",
+                 "analysis/__init__.py", "analysis/__main__.py",
+                 "analysis/findings.py", "analysis/hoststate.py",
+                 "analysis/program.py", "analysis/repo_rules.py",
+                 "analysis/runner.py"):
+        assert name in rel, name
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.tuning.autotune\n"
+        "import paddle_tpu_torch.analysis.__main__\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -294,15 +294,16 @@ def test_paged_verify_and_lora_rules_are_bound():
     csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
     helpers = {n: a for lib in _build._HELPERS.values() for n, a in lib}
     for src, name, argc in (("paged_verify.cu", "pt_paged_verify_route", 2),
-                            ("paged_verify.cu", "pt_paged_verify_plan", 6),
-                            ("lora_gather.cu", "pt_lora_gather_plan", 5)):
+                            ("paged_verify.cu", "pt_paged_verify_plan", 7),
+                            ("lora_gather.cu", "pt_lora_gather_plan", 7)):
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
         assert len(helpers[name]) == argc
     # both write the output and plan their own splits; the verify also
-    # takes the tiled route's partials and counters (four pointers) and T
+    # takes the tiled route's partials and counters (four pointers), T and
+    # the tiled plan's override beside the split route's
     assert len(_build._SIGNATURES["paged_verify"][1]) == \
-        len(_build._SIGNATURES["paged_decode"][1]) + 5
+        len(_build._SIGNATURES["paged_decode"][1]) + 6
 
 
 @pytest.mark.cuda
@@ -454,7 +455,8 @@ def test_paged_decode_plan_refuses_empty_rows(S, h, mp):
 
 def test_merge_plans_are_bound():
     """The C rules exist in the sources and are bound as helpers of their
-    libraries (device, three sizes, the output array); the dense verify
+    libraries (device, three sizes, the plan's override, the output
+    array); the dense verify
     follows the dense decode's rule (`amerge::dense_plan`), and its entry
     takes the decode's arguments and T (both write the output)."""
     csrc = os.path.join(ROOT, "paddle_tpu_torch", "csrc")
@@ -464,7 +466,7 @@ def test_merge_plans_are_bound():
                       ("flash_decode.cu", "pt_flash_decode_plan")):
         with open(os.path.join(csrc, src)) as f:
             assert f'extern "C" int {name}(' in f.read()
-        assert len(helpers[name]) == 5
+        assert len(helpers[name]) == 6
     for src in ("flash_decode.cu", "flash_verify.cu"):
         with open(os.path.join(csrc, src)) as f:
             assert "amerge::dense_plan(" in f.read()

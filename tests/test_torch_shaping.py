@@ -675,8 +675,9 @@ def test_metrics_reset_keeps_identity():
 
 def test_snapshot_keys_are_documented():
     """A snapshot with every section recorded (the mfu one since the
-    cost accounting) flattens to exactly the keys of SNAPSHOT_DOCS, and
-    the slo section has the JAX keys."""
+    cost accounting, the cold_start one since precompile) flattens to
+    exactly the keys of SNAPSHOT_DOCS, and the slo section has the JAX
+    keys."""
     m = ServingMetrics()
     m.set_memory_provider(_ledger, budget_bytes=64)
     m.record_error("x", ValueError("y"))
@@ -697,6 +698,9 @@ def test_snapshot_keys_are_documented():
     m.record_slo_finish("batch", 5.0, 0.5, 30.0, 1.0)
     m.set_wfq_lag({"base": 12.5})
     m.record_step_utilization(1e9, 1e6, 0.01, costs.CPU_SPEC, "analytic")
+    m.record_cold_start({"time_to_ready_s": 0.5, "programs": 2,
+                         "loaded_from_cache": 2, "compiled": 0,
+                         "cache_errors": 0, "warm": 1})
     flat = flatten_snapshot(m.snapshot())
     assert set(flat) == set(SNAPSHOT_DOCS), \
         set(flat) ^ set(SNAPSHOT_DOCS)

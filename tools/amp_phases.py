@@ -38,7 +38,7 @@ if __name__ == "__main__":
     card = cs.card_line()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     t0 = time.perf_counter()
-    _build.kernels()
+    _build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     out, rows = cs.amp_observability_phase(A, args.seed)

@@ -33,7 +33,7 @@ if __name__ == "__main__":
     card = cs.card_line()
     print(card, torch.__version__, torch.version.cuda, flush=True)
     t0 = time.perf_counter()
-    _build.kernels()
+    _build.load()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     dense, tr, batch = cs.pretrain(A, 0, False)

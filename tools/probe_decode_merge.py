@@ -92,7 +92,10 @@ _I8_MERGE = "  if (C == 1) return;\n  // rank `rank` finishes a slice"
 _PD_STAGES = ("constexpr int STAGES = 2;                   // the cp.async "
               "ring")
 _PD_KT = "  static constexpr int KT = 2048 / D;"
-_PD_PLAN = "  const int split = max(1, min(min(MAX_CLUSTER, n), want));"
+_PD_PLAN = ("  const int split = legal_split(tuned, n)\n"
+            "                        ? tuned\n"
+            "                        : max(1, min(min(MAX_CLUSTER, n), "
+            "want));")
 _PD_TARGET = ("constexpr int TARGET_PER_SM = 3;            // blocks an SM "
               "the plan aims for")
 _I8_LOOP = ("#pragma unroll\n      for (int i = 0; i < MT; ++i) {\n" + _I8_MMA
@@ -110,7 +113,7 @@ _PD_KEY = ("    if (j0 + gi >= end) continue;         // the same for the "
 _I8_OCC = '''
 extern "C" int probe_clusters(int device, int m, int d, int n) {
   int mt, c, kps, w;
-  skinny::plan(sm_count(device), m, d, n, &mt, &c, &kps, &w);
+  skinny::plan(sm_count(device), m, d, n, &mt, &c, &kps, &w, 0);
   auto run = [&](auto kernel, int bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          bytes);
@@ -171,7 +174,7 @@ static int probe_run(K kernel, int bytes, int C, int rows, int tiles) {
 _PD_OCC = _MERGE_RUN + '''
 extern "C" int probe_clusters(int device, int S, int H, int mp, int kv) {
   int plan[2];
-  pt_paged_decode_plan(device, S, H, mp, plan);
+  pt_paged_decode_plan(device, S, H, mp, 0, plan);
   amerge::Args a = {};
   a.psz = 16;
   a.split = plan[1] * 16;
@@ -189,7 +192,7 @@ extern "C" int probe_clusters(int device, int S, int H, int mp, int kv) {
 _FD_OCC = _MERGE_RUN + '''
 extern "C" int probe_clusters(int device, int B, int H, int L, int kv) {
   int plan[2];
-  pt_flash_decode_plan(device, B, H, L, plan);
+  pt_flash_decode_plan(device, B, H, L, 0, plan);
   amerge::Args a = {};
   a.split = plan[1];
   using amerge::DenseKeys;
@@ -206,7 +209,7 @@ extern "C" int probe_clusters(int device, int B, int H, int L, int kv) {
 _PV_OCC = _MERGE_RUN + '''
 extern "C" int probe_clusters(int device, int S, int H, int mp, int kv) {
   int C = 0, pps = 0;
-  amerge::plan(amerge::sm_count(device), S * H, mp, &C, &pps);
+  amerge::plan(amerge::sm_count(device), S * H, mp, &C, &pps, 0);
   amerge::Args a = {};
   a.psz = 16;
   a.split = pps * 16;
@@ -225,7 +228,7 @@ extern "C" int probe_clusters(int device, int S, int H, int mp, int kv) {
 _FV_OCC = _MERGE_RUN + '''
 extern "C" int probe_clusters(int device, int B, int H, int L, int kv) {
   int C = 0, split = 0;
-  amerge::dense_plan(amerge::sm_count(device), B * H, L, &C, &split);
+  amerge::dense_plan(amerge::sm_count(device), B * H, L, &C, &split, 0);
   amerge::Args a = {};
   a.split = split;
   using amerge::DenseKeys;

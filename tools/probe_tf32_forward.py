@@ -176,7 +176,7 @@ def main():
                 else None)
         _build.raise_on("int8_matmul", lib.int8_matmul(
             0, x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), m, d, n, splits,
+            None if work is None else work.data_ptr(), m, d, n, splits, 0,
             torch.cuda.current_stream().cuda_stream))
         return out
 

@@ -97,7 +97,7 @@ def stress(iters):
     from paddle_tpu_torch.ops import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.kernels()
+    _build.load()
     lib = fill_library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sink = torch.zeros(sms * 4, dtype=torch.int32, device="cuda")
@@ -170,7 +170,7 @@ def main():
         sys.path.insert(0, ROOT)
         from paddle_tpu_torch.ops import _build
 
-        _build.kernels()
+        _build.load()
         fill_library()
         return 0
     if args.worker == "stress":
