@@ -498,11 +498,39 @@ Phases; any failure exits nonzero before the result lines:
     counts cache_errors and serves the same tokens. (d) The program
     lints over Transformer-base check engines on the card, printed by
     rule (not judged; the CPU test gates the small engines).
-38. Output: a {"kernels": [...]} line for all eleven kernels (the
+38. Multi-GPU training (`parallel/`, `distributed/`), each part timed.
+    (a) `distributed.init_parallel_env()` on cuda:0 over NCCL at world
+    size 1 with a dp=1 mesh: three steps of `SpmdTrainer(mesh=...)` on
+    ERNIE-base at phase 10's shape (bf16 on float32 masters, 8 x 1024,
+    dropout 0.1) give the one-device trainer's losses and parameters bit
+    for bit, and a `DataParallel` eager step (2 layers, float32) the
+    plain step's (deterministic algorithms on, as phase 30); the
+    launches of kernels #1-3 in those steps. Then whether NCCL takes two
+    ranks on one device (two processes; its refusal printed). (b) Four
+    ranks sharing the card over gloo (a fresh world a part, `file://`
+    rendezvous, the kernels built once by phase 1): ERNIE-base at full
+    width, float32, dropout 0, 8 x 512, one SGD step at dp=2, tp=2 and
+    dp=2 x tp=2 against the one-rank step (loss and the parameter vector
+    within 1e-5 relative L2, each parameter within 1e-5 of max(its norm,
+    1); the gradients' errors printed); one bf16 step at dropout 0.1 on
+    dp=2 x tp=2 (finite; kernels #1-3 launched on every rank, the main
+    path's counts); MoE ERNIE-base (8 experts) at ep=2 against one rank;
+    SyncBatchNorm at dp=2 on the ResNet-50 stem's 32 x 64 x 112 x 112
+    against BatchNorm on the whole batch; causal ring_attention at sp=4,
+    b2 h16 s4096 d64, output and gradients against sdpa_reference; a
+    2-stage GPipe ERNIE-base (4 microbatches of 2 x 512) against the
+    serial model; each group's backend and size, and the host-staged
+    gloo calls. Ranks sharing one card measure the code, not multi-GPU
+    speed. (c) Kernels #1-3, bf16 and f16, at b8 h12 s1024 d64 with a pad
+    bias and dropout 0.1: each (batch, head) shard of dp=2 x tp=2,
+    launched with its dropout address, gives the slice of the full
+    call's out, lse, dq, dk and dv bit for bit.
+39. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
-    10, 22, 25, 32, 33 and 36 (a); the three training kernels' float16
-    instances in rows of their own, their launches from 36 (b)), then
+    10, 22, 25, 32, 33, 36 (a) and 38 (a) and (b); the three training
+    kernels' float16 instances in rows of their own, their launches from
+    36 (b)), then
     the card's name and power limit, then {"ok": true, "device": {...}}
     as the last line.
 """
@@ -6719,6 +6747,677 @@ def tooling_phase(Q, g, seed):
             "starts": starts, "lints": lints}
 
 
+# ------------------------------------------------------------------ phase 38
+#: phase 38: ranks sharing the card over gloo; the fp32 parity steps'
+#: ERNIE-base batch (full width, 12 layers) and the bf16 dropout step's
+MESH_RANKS = 4
+MESH_BATCH, MESH_SEQ = 8, 512
+MESH_REL = 1e-5
+MESH_LR = 0.1
+#: MoE ERNIE-base's experts, the ResNet-50 stem's batch-norm input, the
+#: ring's b h s d (bench.py's long-context shape), GPipe's microbatches
+MESH_EXPERTS = 8
+SBN_SHAPE = (32, 64, 112, 112)
+RING_SHAPE = (2, 16, 4096, 64)
+PIPE_M, PIPE_MB = 4, 2
+#: phase 38 (a): NCCL at world size 1, ERNIE-base at phase 10's shape
+MESH_W1_STEPS = 3
+#: seconds a rank task may take before the phase gives up
+MESH_TASK_S = 600
+
+
+def _mesh_ernie(dev, seed, dropout, moe=0, layers=None, attn_dropout=None):
+    from paddle_tpu_torch.text import (ErnieConfig,
+                                       ErnieForSequenceClassification)
+
+    cfg = ErnieConfig.base(num_layers=layers or E_LAYERS,
+                           hidden_dropout=dropout,
+                           attn_dropout=dropout if attn_dropout is None
+                           else attn_dropout,
+                           moe_experts=moe, max_position=E_SEQ + 2)
+    return ErnieForSequenceClassification(
+        cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+
+
+def _mesh_batch(seed, b, s, dev):
+    """ERNIE-base's batch (its vocabulary of 18000; ragged lengths as
+    `ernie_batch`'s) on `dev`."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1, 18000, (b, s)).astype(np.int64)
+    lens = rs.randint(s // 2, s + 1, b)
+    lens[0] = s
+    mask = (np.arange(s)[None] < lens[:, None]).astype(np.float32)
+    labels = rs.randint(0, 2, (b,)).astype(np.int64)
+    return (tuple(torch.as_tensor(x, device=dev)
+                  for x in (ids, np.zeros_like(ids), mask)),
+            torch.as_tensor(labels, device=dev))
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _vec_rel(got, want):
+    """(relative L2 of the whole vector, worst parameter's L2 error over
+    max(its norm, 1)) of two {name: tensor} dicts."""
+    num = den = 0.0
+    worst = 0.0
+    for n, w in want.items():
+        d = (got[n].double() - w.double()).norm()
+        num += float(d) ** 2
+        den += float(w.double().norm()) ** 2
+        worst = max(worst, float(d) / max(float(w.double().norm()), 1.0))
+    return (num / max(den, 1e-300)) ** 0.5, worst
+
+
+#: the rank processes' state across tasks (rank 0 keeps the one-rank
+#: references there)
+_MESH_REF = {}
+
+
+def mesh_rank_serve(rank, conn, dev):
+    """A rank of phase 38: run tasks (name, world, store, args) from the
+    parent, each in a fresh gloo world of that size over the file store
+    the parent names."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev != "cpu":
+        torch.cuda.set_device(0)
+    else:
+        # a rehearsal's ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // MESH_RANKS))
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.parallel import mesh as M
+
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            return
+        fn, world, store, args = msg
+        try:
+            dist.init_process_group(
+                "gloo", init_method=f"file://{store}",
+                world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=MESH_TASK_S))
+            D.init_parallel_env(device="cuda:0" if dev != "cpu" else "cpu")
+            D.STAGED_CALLS.clear()
+            out = globals()[fn](rank, world, dev, *args)
+            conn.send(("ok", (out, dict(D.STAGED_CALLS))))
+        except BaseException:
+            conn.send(("err", f"rank {rank}: {traceback.format_exc()}"))
+        finally:
+            M._reset()
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            gc.collect()
+            if dev != "cpu":
+                torch.cuda.empty_cache()
+
+
+class MeshPool:
+    """MESH_RANKS rank processes (spawned once, kept for the phase)."""
+
+    def __init__(self, n, dev):
+        import collections
+        import multiprocessing as mp
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="phase38_")
+        ctx = mp.get_context("spawn")
+        self.conns, self.procs = [], []
+        for r in range(n):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=mesh_rank_serve, args=(r, child, dev))
+            p.start()
+            child.close()
+            self.conns.append(parent)
+            self.procs.append(p)
+        self.staged = collections.Counter()
+        self.tasks = 0
+
+    def run(self, world, fn, *args):
+        self.tasks += 1
+        store = os.path.join(self.dir, f"store_{self.tasks}")
+        for r in range(world):
+            self.conns[r].send((fn, world, store, args))
+        outs, errs = [], []
+        for r in range(world):
+            if not self.conns[r].poll(MESH_TASK_S):
+                raise AssertionError(f"phase 38: rank {r} of {fn} hung")
+            kind, val = self.conns[r].recv()
+            if kind == "err":
+                errs.append(val)
+            else:
+                outs.append(val[0])
+                self.staged.update(val[1])
+        if errs:
+            raise AssertionError(f"phase 38 {fn} failed:\n" + "\n".join(errs))
+        return outs
+
+    def close(self):
+        for c in self.conns:
+            try:
+                c.send(None)
+            except Exception:
+                pass
+        for p in self.procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _group_facts(mesh):
+    import torch.distributed as dist
+
+    facts = {"world": {"backend": dist.get_backend(),
+                       "size": dist.get_world_size()}}
+    for axis in mesh.axis_names:
+        g = mesh.group_of(axis)
+        if g is not None:
+            facts[axis] = {"backend": dist.get_backend(g),
+                           "size": dist.get_world_size(g)}
+    return facts
+
+
+def mesh_train_task(rank, world, dev, spec):
+    """One step of (MoE) ERNIE-base (`spec`) on the mesh `spec["mesh"]`
+    (None: the one-rank reference, which rank 0 keeps); returns the
+    loss, the launches of the step, the group facts, and against the
+    reference the relative errors of the loss, the parameters after the
+    step and the gradients (`_vec_rel`)."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import (COMMON_TP_RULES, SpmdTrainer,
+                                           init_mesh)
+
+    mesh = init_mesh(**spec["mesh"]) if spec["mesh"] else None
+    model = _mesh_ernie(dev, spec["seed"], spec["dropout"], spec["moe"],
+                        spec.get("layers"), spec.get("attn_dropout"))
+    tr = SpmdTrainer(model, ce_loss, fopt.sgd(MESH_LR), device=dev,
+                     compute_dtype=spec["dtype"], mesh=mesh,
+                     rules=COMMON_TP_RULES,
+                     batch_axes=tuple(spec["batch_axes"]),
+                     generator=torch.Generator().manual_seed(spec["seed"]))
+    inputs, labels = _mesh_batch(spec["seed"], spec["b"], spec["s"], dev)
+    _, grads = tr.loss_and_grads(inputs, labels)
+    full_g = {n: (tr.param_shardings[n].gather(g) if n in
+                  tr.param_shardings and tr.param_shardings[n].is_split
+                  else g) for n, g in grads.items()} if spec["mesh"] \
+        else grads
+    sync(dev)
+    A.reset_launches()
+    loss = tr.step(inputs, labels)
+    sync(dev)
+    launches = {k: A.LAUNCHES[k] for k in TRAIN_KERNELS}
+    params = tr.full_params()
+    out = {"loss": float(loss), "launches": launches,
+           "finite": bool(torch.isfinite(loss)) and all(
+               bool(torch.isfinite(p).all()) for p in params.values()),
+           "groups": _group_facts(mesh) if mesh else None,
+           "local_q": tuple(tr.params[
+               "ernie.encoder.layers.0.self_attn.q_proj.weight"].shape)}
+    key = spec["ref"]
+    if rank == 0 and key is not None:
+        if spec["mesh"] is None:
+            _MESH_REF[key] = (out["loss"], params, full_g)
+        else:
+            ref_loss, ref_p, ref_g = _MESH_REF[key]
+            out["loss_rel"] = abs(out["loss"] - ref_loss) / abs(ref_loss)
+            out["param_rel"], out["param_worst"] = _vec_rel(params, ref_p)
+            out["grad_rel"], out["grad_worst"] = _vec_rel(full_g, ref_g)
+    return out
+
+
+def mesh_sync_bn_task(rank, world, dev, shape, seed):
+    """SyncBatchNorm at dp=world on the ranks' rows of one seeded
+    batch-norm input against BatchNorm2D on the whole batch (rank 0):
+    output, input and weight gradients, running stats."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.parallel.collectives import all_gather_cat
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    n = shape[0] // world
+    sl = slice(rank * n, (rank + 1) * n)
+    sbn = tnn.SyncBatchNorm(shape[1], device=dev)
+    xs = x[sl].clone().requires_grad_(True)
+    ys = sbn(xs)
+    (ys * cot[sl]).sum().backward()
+    g, ranks = dist.group.WORLD, list(range(world))
+    y = all_gather_cat(ys.detach(), g, 0, ranks)
+    dx = all_gather_cat(xs.grad, g, 0, ranks)
+    dw = sbn.weight.grad.clone()
+    dist.all_reduce(dw)
+    if rank:
+        return None
+    bn = tnn.BatchNorm2D(shape[1], device=dev)
+    xf = x.clone().requires_grad_(True)
+    yf = bn(xf)
+    (yf * cot).sum().backward()
+    return {"y": _rel(y, yf.detach()), "dx": _rel(dx, xf.grad),
+            "dw": _rel(dw, bn.weight.grad),
+            "mean": _rel(sbn._mean, bn._mean),
+            "var": _rel(sbn._variance, bn._variance)}
+
+
+def mesh_ring_task(rank, world, dev, shape, seed):
+    """ring_attention over sp=world, causal, on the ranks' shards of one
+    seeded q, k, v: output and gradients of sum(out) gathered on rank 0
+    against sdpa_reference's."""
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.parallel import init_mesh, ring_attention
+
+    m = init_mesh(sp=world)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    s = shape[2] // world
+    ts = [t[:, :, rank * s:(rank + 1) * s].clone().requires_grad_(True)
+          for t in (q, k, v)]
+    sync(dev)
+    t0 = time.perf_counter()
+    out = ring_attention(*ts, axis_name="sp", is_causal=True)
+    out.sum().backward()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    from paddle_tpu_torch.parallel.collectives import all_gather_cat
+
+    g, ranks = m.group_of("sp"), m.ranks_of("sp")
+    got = [all_gather_cat(t.detach(), g, 2, ranks)
+           for t in (out, ts[0].grad, ts[1].grad, ts[2].grad)]
+    if rank:
+        return None
+    rq, rk, rv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    ref = A.sdpa_reference(rq, rk, rv, None, True)
+    ref.sum().backward()
+    want = [ref.detach(), rq.grad, rk.grad, rv.grad]
+    return {"wall_s": wall, **{name: _rel(a, b) for name, a, b in
+                               zip(("out", "dq", "dk", "dv"), got, want)}}
+
+
+def mesh_pipeline_task(rank, world, dev, seed, b, s):
+    """A 2-stage GPipe ERNIE-base over pp=world (stage i: embeddings when
+    i == 0, encoder layers [6i, 6i + 6), the pooler and classifier on the
+    last) against the serial model on the same rank: the microbatch
+    losses and every gradient's relative L2."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.parallel import init_mesh, pipeline_spmd_fn
+
+    m = init_mesh(pp=world)
+    net = _mesh_ernie(dev, seed, 0.0)
+    net.eval()
+    per = E_LAYERS // world
+    layers = net.ernie.encoder.layers
+    template = torch.nn.Sequential(*layers[:per])
+    emb, pooler, cls = net.ernie.embeddings, net.ernie.pooler, \
+        net.classifier
+    (ids, _, _), labels = _mesh_batch(seed, PIPE_M * b, s, dev)
+    ids = ids.reshape(PIPE_M, b, s)
+    labels = labels.reshape(PIPE_M, b)
+    st = m.coord("pp")
+    stage = {f"{i}.{n}": p for i, layer in
+             enumerate(layers[st * per:(st + 1) * per])
+             for n, p in layer.named_parameters()}
+
+    def last_fn(lp, y, mb):
+        pooled = torch.tanh(functional_call(pooler, lp[0], (y[:, 0],)))
+        return ce_loss(functional_call(cls, lp[1], (pooled,)), mb[1])
+
+    fn = pipeline_spmd_fn(
+        lambda sp, x: functional_call(template, sp, (x,)), mesh=m,
+        first_fn=lambda fp, mb: functional_call(emb, fp, (mb[0],)),
+        last_fn=last_fn)
+    sync(dev)
+    t0 = time.perf_counter()
+    losses = fn((stage, dict(emb.named_parameters()),
+                 (dict(pooler.named_parameters()),
+                  dict(cls.named_parameters()))), (ids, labels))
+    losses.mean().backward()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = {n: p.grad.clone() for n, p in net.named_parameters()
+           if p.grad is not None}
+    net.zero_grad()
+    serial = torch.stack([ce_loss(net(ids[j]), labels[j])
+                          for j in range(PIPE_M)])
+    serial.mean().backward()
+    want = {n: p.grad for n, p in net.named_parameters() if n in got}
+    rel, worst = _vec_rel(got, want)
+    return {"stage": st, "wall_s": wall,
+            "loss_rel": _rel(losses.detach(), serial.detach()),
+            "grad_rel": rel, "grad_worst": worst, "n_grads": len(got)}
+
+
+def nccl_refusal_probe(timeout=120):
+    """Two processes, each bringing up NCCL on cuda:0 in one world of two:
+    NCCL refuses two ranks on one device (or accepts them). Returns the
+    first line of the refusal, or "accepted"."""
+    code = (
+        "import os, sys, torch, torch.distributed as dist\n"
+        "r = int(sys.argv[1])\n"
+        "try:\n"
+        "    dist.init_process_group('nccl', init_method='file://' + "
+        "sys.argv[2], world_size=2, rank=r, device_id=torch.device('cuda', "
+        "0))\n"
+        "    t = torch.ones(1, device='cuda:0')\n"
+        "    dist.all_reduce(t)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('accepted', float(t))\n"
+        "except Exception as e:\n"
+        "    print('refused', str(e).splitlines()[0][:300])\n"
+        "    os._exit(3)\n")
+    import tempfile
+
+    store = tempfile.mktemp(prefix="nccl_probe_")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), store],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append("hung: killed after " + str(timeout) + " s\n"
+                        + (p.communicate()[0] or ""))
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    lines = [ln for o in outs for ln in o.splitlines()
+             if ln.startswith(("accepted", "refused", "hung"))]
+    return lines[0] if lines else (outs[0][-300:] or "no output")
+
+
+def nccl_world_one(A, seed, dev="cuda"):
+    """Phase 38 (a): the mesh trainer and DataParallel over a one-rank
+    NCCL world against the one-device trainer and eager step, bit for
+    bit (deterministic algorithms on, as phase 30)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import SpmdTrainer, init_mesh
+
+    def trainer(mesh):
+        model = _mesh_ernie(dev, seed, E_DROPOUT)
+        return SpmdTrainer(model, ce_loss,
+                           fopt.adamw(E_LR, weight_decay=0.01),
+                           compute_dtype="bfloat16", device=dev, mesh=mesh,
+                           generator=torch.Generator().manual_seed(seed))
+
+    inputs, labels = _mesh_batch(seed, E_BATCH, E_SEQ, dev)
+
+    def steps(tr):
+        return torch.stack([tr.step(inputs, labels)
+                            for _ in range(MESH_W1_STEPS)])
+
+    def eager(wrap):
+        model = _mesh_ernie(dev, seed, 0.0, layers=2)
+        opt = AdamW(1e-4, parameters=model.parameters())
+        net = wrap(model)
+        loss = ce_loss(net(*inputs), labels)
+        loss = net.scale_loss(loss) if hasattr(net, "scale_loss") else loss
+        loss.backward()
+        if hasattr(net, "apply_collective_grads"):
+            net.apply_collective_grads()
+        opt.step()
+        return loss.detach(), {n: p.detach().clone()
+                               for n, p in model.named_parameters()}
+
+    old_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = trainer(None)
+        l0 = steps(plain)
+        p0 = {n: p.detach().clone() for n, p in plain.params.items()}
+        del plain
+        e0 = eager(lambda m: m)
+        # (dev "cpu" is the rehearsal's: a one-rank gloo world)
+        bound = D.init_parallel_env(None if dev == "cuda" else dev)
+        mesh = init_mesh(dp=1)
+        facts = {"backend": dist.get_backend(),
+                 "size": dist.get_world_size(), "device": str(bound)}
+        tr = trainer(mesh)
+        sync(dev)
+        A.reset_launches()
+        l1 = steps(tr)
+        sync(dev)
+        launches = {k: A.LAUNCHES[k] for k in TRAIN_KERNELS}
+        same = bool(torch.equal(l0, l1)) and all(
+            torch.equal(p0[n], p.detach()) for n, p in tr.params.items())
+        del tr
+        e1 = eager(lambda m: D.DataParallel(m))
+        dp_same = bool(torch.equal(e0[0], e1[0])) and all(
+            torch.equal(e0[1][n], e1[1][n]) for n in e0[1])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cfg
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        from paddle_tpu_torch.parallel import mesh as M
+
+        M._reset()
+    if not same:
+        raise AssertionError("phase 38 (a): the one-rank NCCL mesh trainer "
+                             "is not the one-device trainer bit for bit")
+    if not dp_same:
+        raise AssertionError("phase 38 (a): DataParallel's eager step at "
+                             "world size 1 is not the plain step bit for "
+                             "bit")
+    want = E_LAYERS * MESH_W1_STEPS
+    if dev != "cpu" and any(launches[k] != want for k in TRAIN_KERNELS):
+        raise AssertionError(f"phase 38 (a): launches {launches}, expected "
+                             f"{want} of each")
+    return {"group": facts, "losses": [float(x) for x in l1],
+            "bitwise": same, "data_parallel_bitwise": dp_same,
+            "launches": launches}
+
+
+def dropout_address_kernels(A, seed, dev="cuda"):
+    """Phase 38 (c): kernels #1-3 (bf16 and f16) at b8 h12 s1024 d64 with a
+    pad bias and dropout 0.1: each (batch, head) shard of dp=2 x tp=2,
+    launched with its address, gives the slice of the full call's out,
+    lse, dq, dk and dv bit for bit."""
+    out = {}
+    b, h, s, d = E_BATCH, E_HEADS, E_SEQ, E_HIDDEN // E_HEADS
+    for dtype in (torch.bfloat16, torch.float16):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+        bias = torch.where(torch.arange(s, device=dev)[None] < lens[:, None],
+                           0.0, -1e4).float().contiguous()
+        full = A.drop_spec(E_DROPOUT, 4321, s, s)
+        fo, fl = A.flash_attention_fwd(q, k, v, bias, False, None, full)
+        fg = A.flash_attention_bwd(q, k, v, bias, fo, fl, g, False, None,
+                                   full, need_dbias=False)[:3]
+        fl = fl.reshape(b, h, s)
+        bad = []
+        for bi in range(2):
+            for hi in range(2):
+                nb, nh = b // 2, h // 2
+                sl = (slice(bi * nb, (bi + 1) * nb),
+                      slice(hi * nh, (hi + 1) * nh))
+                spec = A.drop_spec(E_DROPOUT, 4321, s, s,
+                                   address=(bi * nb, hi * nh, h))
+                ts = [t[sl].contiguous() for t in (q, k, v, g)]
+                bs = bias[bi * nb:(bi + 1) * nb].contiguous()
+                so, sl_ = A.flash_attention_fwd(ts[0], ts[1], ts[2], bs,
+                                                False, None, spec)
+                sg = A.flash_attention_bwd(ts[0], ts[1], ts[2], bs, so, sl_,
+                                           ts[3], False, None, spec,
+                                           need_dbias=False)[:3]
+                pairs = [("out", so, fo[sl]),
+                         ("lse", sl_.reshape(nb, nh, s), fl[sl]),
+                         *[(nm, a, w[sl]) for nm, a, w in
+                           zip(("dq", "dk", "dv"), sg, fg)]]
+                bad += [f"shard ({bi}, {hi}) {nm}" for nm, a, w in pairs
+                        if not torch.equal(a, w)]
+        name = str(dtype).replace("torch.", "")
+        out[name] = {"shards": 4, "not_bitwise": bad}
+        if bad:
+            raise AssertionError(f"phase 38 (c) {name}: {bad}")
+    return out
+
+
+#: the readings of a step against the one-rank step, each held to MESH_REL
+#: (the gradients' too: the parameters after one step at MESH_LR see a
+#: gradient's error shrunk by lr |g| / |W|)
+MESH_JUDGED = ("loss_rel", "param_rel", "param_worst", "grad_rel",
+               "grad_worst")
+
+
+def _mesh_close(r):
+    return all(r[k] <= MESH_REL for k in MESH_JUDGED)
+
+
+def mesh_base(seed, layers=None):
+    """The spec of phase 38 (b)'s float32 steps (dropout 0; `layers`: the
+    encoder's depth, ERNIE-base's by default)."""
+    return dict(seed=seed, dropout=0.0, moe=0, dtype=None, b=MESH_BATCH,
+                s=MESH_SEQ, batch_axes=("dp",), ref="dense", layers=layers)
+
+
+def mesh_parity(pool, base):
+    """Phase 38 (b)'s float32 steps of ERNIE-base (`base`: the spec with
+    the one-rank reference already kept) at dp=2, tp=2 and dp=2 x tp=2,
+    and with attention dropout at dp=2 x tp=2, each against the one-rank
+    step within MESH_REL."""
+    parts = {}
+    # the last: attention dropout alone (hidden dropout draws per rank),
+    # each shard's kernels hashing its global rows and heads
+    drop = dict(base, attn_dropout=E_DROPOUT, ref="attn_dropout")
+    for label, mesh, spec in (
+            ("dp2", {"dp": 2}, base), ("tp2", {"tp": 2}, base),
+            ("dp2xtp2", {"dp": 2, "tp": 2}, base),
+            ("dp2xtp2_attn_dropout", {"dp": 2, "tp": 2}, drop)):
+        world = int(np.prod(list(mesh.values())))
+        t2 = time.perf_counter()
+        if spec is drop:
+            pool.run(1, "mesh_train_task", dict(drop, mesh=None))
+        r0 = pool.run(world, "mesh_train_task", dict(spec, mesh=mesh))[0]
+        parts[label] = {k: r0[k] for k in (
+            "loss", *MESH_JUDGED, "groups", "local_q")}
+        parts[label]["seconds"] = time.perf_counter() - t2
+        if not _mesh_close(r0):
+            raise AssertionError(f"phase 38 (b) {label}: "
+                                 f"{parts[label]} beyond {MESH_REL}")
+        log(f"  (b) ERNIE-base fp32 {base['b']} x {base['s']} one SGD "
+            f"step at {label}: {json.dumps(parts[label])}")
+    return parts
+
+
+def mesh_phase(A, seed, card, dev="cuda", nccl=True):
+    """Phase 38 (a)-(c), each part's seconds printed."""
+    result = {}
+    t0 = time.perf_counter()
+    if nccl:
+        result["a"] = nccl_world_one(A, seed, dev)
+        log(f"  (a) one-rank NCCL world: {json.dumps(result['a'])} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t1 = time.perf_counter()
+        result["nccl_two_ranks_one_card"] = nccl_refusal_probe()
+        log(f"  NCCL, two ranks on cuda:0: "
+            f"{result['nccl_two_ranks_one_card']} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    pool = MeshPool(MESH_RANKS, dev)
+    try:
+        base = mesh_base(seed)
+        ref = pool.run(1, "mesh_train_task", dict(base, mesh=None))[0]
+        parts = mesh_parity(pool, base)
+        parts["one_rank_loss"] = ref["loss"]
+        # the main path: bf16 on float32 masters, dropout 0.1, dp2 x tp2
+        t2 = time.perf_counter()
+        got = pool.run(4, "mesh_train_task", dict(
+            base, dropout=E_DROPOUT, dtype="bfloat16", b=E_BATCH, s=E_SEQ,
+            mesh={"dp": 2, "tp": 2}, ref=None))
+        launches = [r["launches"] for r in got]
+        if not all(r["finite"] for r in got):
+            raise AssertionError("phase 38 (b): the bf16 dropout step is "
+                                 "not finite")
+        for r, lc in enumerate(launches):
+            # (dev "cpu" is the rehearsal's: its plain versions count none)
+            if dev != "cpu" and any(lc[k] == 0 for k in TRAIN_KERNELS):
+                raise AssertionError(f"phase 38 (b): rank {r} launched "
+                                     f"{lc} on the mesh path")
+        parts["bf16_dropout_dp2xtp2"] = {
+            "loss": got[0]["loss"], "launches_by_rank": launches,
+            "seconds": time.perf_counter() - t2,
+            "shape": f"{E_BATCH} x {E_SEQ}, each rank b{E_BATCH // 2} "
+                     f"h{E_HEADS // 2}"}
+        log(f"  (b) bf16 dropout {E_DROPOUT} step at dp2 x tp2: "
+            f"{json.dumps(parts['bf16_dropout_dp2xtp2'])}")
+        t2 = time.perf_counter()
+        moe = dict(base, moe=MESH_EXPERTS, ref="moe")
+        pool.run(1, "mesh_train_task", dict(moe, mesh=None))
+        got = pool.run(2, "mesh_train_task", dict(moe, mesh={"ep": 2}))[0]
+        parts["moe_ep2"] = {k: got[k] for k in (
+            "loss", "loss_rel", "param_rel", "param_worst", "grad_rel",
+            "grad_worst", "groups")}
+        parts["moe_ep2"]["seconds"] = time.perf_counter() - t2
+        if not _mesh_close(got):
+            raise AssertionError(f"phase 38 (b) MoE ep2: {parts['moe_ep2']}")
+        log(f"  (b) MoE ERNIE-base ({MESH_EXPERTS} experts) at ep2: "
+            f"{json.dumps(parts['moe_ep2'])}")
+        t2 = time.perf_counter()
+        sbn = pool.run(2, "mesh_sync_bn_task", SBN_SHAPE, seed)[0]
+        sbn["seconds"] = time.perf_counter() - t2
+        parts["sync_bn_dp2"] = sbn
+        if max(v for k, v in sbn.items() if k != "seconds") > MESH_REL:
+            raise AssertionError(f"phase 38 (b) SyncBatchNorm: {sbn}")
+        log(f"  (b) SyncBatchNorm dp2 at {SBN_SHAPE}: {json.dumps(sbn)}")
+        t2 = time.perf_counter()
+        ring = pool.run(4, "mesh_ring_task", RING_SHAPE, seed)[0]
+        ring["seconds"] = time.perf_counter() - t2
+        parts["ring_sp4"] = ring
+        if max(ring[k] for k in ("out", "dq", "dk", "dv")) > MESH_REL:
+            raise AssertionError(f"phase 38 (b) ring: {ring}")
+        log(f"  (b) ring_attention sp4 causal {RING_SHAPE}: "
+            f"{json.dumps(ring)}")
+        t2 = time.perf_counter()
+        pipe = pool.run(2, "mesh_pipeline_task", seed, PIPE_MB, MESH_SEQ)
+        parts["gpipe_pp2"] = {"ranks": pipe,
+                              "seconds": time.perf_counter() - t2}
+        for r in pipe:
+            if r["loss_rel"] > MESH_REL or r["grad_rel"] > MESH_REL:
+                raise AssertionError(f"phase 38 (b) GPipe: {pipe}")
+        log(f"  (b) GPipe ERNIE-base pp2 ({PIPE_M} microbatches of "
+            f"{PIPE_MB} x {MESH_SEQ}): {json.dumps(pipe)}")
+        result["b"] = parts
+        result["host_staged_gloo_calls"] = dict(pool.staged)
+    finally:
+        pool.close()
+    log(f"  (b) ranks sharing the card over gloo: "
+        f"{time.perf_counter() - t1:.1f} s; host-staged gloo calls "
+        f"{json.dumps(result['host_staged_gloo_calls'])}")
+    if nccl:
+        t1 = time.perf_counter()
+        result["c"] = dropout_address_kernels(A, seed, dev)
+        log(f"  (c) dropout address on kernels #1-3: "
+            f"{json.dumps(result['c'])} ({time.perf_counter() - t1:.1f} s)")
+    result["seconds"] = time.perf_counter() - t0
+    result["card"] = card
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7381,7 +8080,25 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 38: output")
+    log("phase 38: multi-GPU training: (a) NCCL at world size 1, (b) "
+        f"{MESH_RANKS} ranks sharing the card over gloo (dp, tp, dp x tp, "
+        "ep, SyncBatchNorm, the sp ring, GPipe), (c) the flash kernels' "
+        "dropout address on shards")
+    mesh = mesh_phase(A, args.seed, card)
+    for kname in TRAIN_KERNELS:
+        row = kernels[kname]
+        row["launches_by_path"]["mesh_nccl_world1"] = \
+            mesh["a"]["launches"][kname]
+        row["launches_by_path"]["mesh_bf16_dp2xtp2"] = sum(
+            lc[kname] for lc in
+            mesh["b"]["bf16_dropout_dp2xtp2"]["launches_by_rank"])
+        row["launches"] = sum(row["launches_by_path"].values())
+    log("  multi-GPU summary " + json.dumps(mesh))
+    log(f"  phase 38 took {mesh['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 39: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

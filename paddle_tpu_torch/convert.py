@@ -50,6 +50,13 @@ own name (``param_12``); `names` ({JAX name: port name}, for example
 the port optimizer's names. Without it the keys stay, and the port's
 `set_state_dict` falls back to matching slots by position, as the JAX
 package's does.
+
+On a mesh (`parallel`), each rank takes its block of every tensor that
+its sharding rules split: `from_jax_state(np_state, rules, mesh)` and
+`from_jax_optimizer_state(np_opt, names, rules, mesh)` (a slot takes its
+parameter's block, as the mesh trainer's slots do). The full state comes
+back through `SpmdTrainer.sync_to_layer` or `full_params`, comparable
+array by array with the JAX trainer's.
 """
 from __future__ import annotations
 
@@ -59,11 +66,23 @@ import torch
 __all__ = ["from_jax_state", "from_jax_optimizer_state"]
 
 
-def from_jax_state(np_state):
+def _block(name, t, rules, mesh):
+    """This rank's block of tensor `name` under the rules (the whole
+    tensor without rules)."""
+    if rules is None:
+        return t
+    from .parallel.sharding import named_sharding
+
+    return named_sharding(rules.spec_for(name, t.dim()), mesh).shard(t)
+
+
+def from_jax_state(np_state, rules=None, mesh=None):
     """{name: numpy array} -> {name: CPU torch tensor} with the same
     names, dtypes kept: int8 stays int8, float64 arrays from an x64
     JAX process become float32 (the port's parameters are float32). A MoE
-    layer's `aux_loss_val` channel is dropped."""
+    layer's `aux_loss_val` channel is dropped. With `rules`
+    (`parallel.ShardingRules`), each tensor is this rank's block of it
+    on `mesh` (None: the installed one)."""
     out = {}
     for name, arr in np_state.items():
         if name.rsplit(".", 1)[-1] == "aux_loss_val":
@@ -71,15 +90,18 @@ def from_jax_state(np_state):
         arr = np.asarray(arr)
         if arr.dtype == np.float64:
             arr = arr.astype(np.float32)
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        out[name] = _block(name, t, rules, mesh)
     return out
 
 
-def from_jax_optimizer_state(np_state, names=None):
+def from_jax_optimizer_state(np_state, names=None, rules=None, mesh=None):
     """A JAX optimizer's `state_dict()` with numpy slots -> the port
     optimizer's: slots become CPU tensors (float64 -> float32, as above),
     `_step_count` and `LR_Scheduler` pass through, and each slot key's
-    parameter name is renamed through `names` where it has an entry."""
+    parameter name is renamed through `names` where it has an entry. With
+    `rules`, each slot is this rank's block of it, cut as its (renamed)
+    parameter is."""
     names = names or {}
     out = {}
     for key, value in np_state.items():
@@ -87,6 +109,7 @@ def from_jax_optimizer_state(np_state, names=None):
             out[key] = value
             continue
         pname, slot = key.rsplit("__", 1)
-        out[f"{names.get(pname, pname)}__{slot}"] = \
-            from_jax_state({key: value})[key]
+        pname = names.get(pname, pname)
+        t = from_jax_state({key: value})[key]
+        out[f"{pname}__{slot}"] = _block(pname, t, rules, mesh)
     return out

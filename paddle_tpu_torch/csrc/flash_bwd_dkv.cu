@@ -565,14 +565,17 @@ extern "C" int pt_flash_bwd_dkv(int device, int dtype, const void* q,
                                 int sk, int d, const long long* strides,
                                 float scale, int causal, unsigned int seed,
                                 unsigned int thresh, float inv_keep,
-                                int block_q, int block_k, void* stream) {
+                                int block_q, int block_k, int b0, int h0,
+                                int heads, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || (dtype < 0 || dtype > 2) || block_q < 0 ||
       block_k < 0 || (block_q > 0) != (block_k > 0) ||
-      (qseg == nullptr) != (kseg == nullptr))
+      (qseg == nullptr) != (kseg == nullptr) ||
+      drop_address_bad(block_q, H, b0, h0, heads))
     return (int)cudaErrorInvalidValue;
-  const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
+  const Dropout dr{seed, thresh, inv_keep, block_q, block_k, H, b0, h0,
+                   heads};
   const Strides4 st = Strides4::from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype >= 1) {

@@ -45,11 +45,25 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 // qi = row / block_q, r = row % block_q, and likewise for the key. So the
 // forward and both backward kernels (and the plain PyTorch versions)
 // regenerate identical bits whatever tile size each uses, in any order.
+// A launch on a shard of a larger call (a data-parallel rank's rows, a
+// tensor-parallel rank's heads) hashes the GLOBAL head index: local
+// (b, h) = (bh / H, bh % H) is (b0 + b, h0 + h) of a call with `heads`
+// heads, so every shard draws the bits of its slice of the whole call.
+// b0 = h0 = 0 and heads = H give bh itself.
 struct Dropout {
   unsigned int seed, thresh;
   float inv_keep;
   int block_q, block_k;
+  int H, b0, h0, heads;
 };
+
+// the global head index of local head bh
+__device__ __forceinline__ unsigned int drop_bh(const Dropout& dr,
+                                                unsigned int bh) {
+  const unsigned int H = (unsigned int)dr.H;
+  return ((unsigned int)dr.b0 + bh / H) * (unsigned int)dr.heads +
+         (unsigned int)dr.h0 + bh % H;
+}
 
 // the (seed, bh) and row parts of the hash's first xor, per thread
 __device__ __forceinline__ unsigned int drop_row_key(const Dropout& dr,
@@ -57,8 +71,13 @@ __device__ __forceinline__ unsigned int drop_row_key(const Dropout& dr,
                                                      int row) {
   const unsigned int qi = (unsigned int)(row / dr.block_q);
   const unsigned int r = (unsigned int)(row % dr.block_q);
-  return (dr.seed * 0x9E3779B9u) ^ (bh * 0x85EBCA6Bu) ^ (qi * 0xC2B2AE35u) ^
-         (r * 0x165667B1u);
+  return (dr.seed * 0x9E3779B9u) ^ (drop_bh(dr, bh) * 0x85EBCA6Bu) ^
+         (qi * 0xC2B2AE35u) ^ (r * 0x165667B1u);
+}
+
+// the entry points' check of a dropout address: 0 when it is legal
+inline int drop_address_bad(int block_q, int H, int b0, int h0, int heads) {
+  return block_q > 0 && (H < 1 || b0 < 0 || h0 < 0 || heads < h0 + H);
 }
 
 // the column part of the hash's first xor

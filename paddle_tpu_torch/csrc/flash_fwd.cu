@@ -1178,8 +1178,10 @@ extern "C" int pt_flash_fwd_vector_loads(const void* q, const void* k,
 // kseg: [B, sq] / [B, sk] int32 segment ids, non-decreasing along each
 // row, or both null; out [B, H, sq, d] contiguous; lse [B * H, sq]
 // float32. Dropout: seed, uint32 keep threshold, 1/keep and the logical
-// blocks (block_q = 0: no dropout). Returns the cudaError_t of the
-// launch.
+// blocks (block_q = 0: no dropout), and the shard's address in the whole
+// call: batch offset b0, head offset h0 and the call's head count
+// (`Dropout` in flash_common.cuh; 0, 0, H for an unsharded call).
+// Returns the cudaError_t of the launch.
 extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             const void* k, const void* v, const void* bias,
                             const void* qseg, const void* kseg, void* out,
@@ -1187,14 +1189,17 @@ extern "C" int pt_flash_fwd(int device, int dtype, const void* q,
                             const long long* strides,
                             float scale, int causal, unsigned int seed,
                             unsigned int thresh, float inv_keep, int block_q,
-                            int block_k, void* stream) {
+                            int block_k, int b0, int h0, int heads,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d < 1 || d > 128 || (dtype < 0 || dtype > 2) || block_q < 0 ||
       block_k < 0 || (block_q > 0) != (block_k > 0) ||
-      (qseg == nullptr) != (kseg == nullptr))
+      (qseg == nullptr) != (kseg == nullptr) ||
+      drop_address_bad(block_q, H, b0, h0, heads))
     return (int)cudaErrorInvalidValue;
-  const Dropout dr{seed, thresh, inv_keep, block_q, block_k};
+  const Dropout dr{seed, thresh, inv_keep, block_q, block_k, H, b0, h0,
+                   heads};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int route = pt_flash_fwd_route(dtype, sq, qseg != nullptr,
                                        block_q > 0);

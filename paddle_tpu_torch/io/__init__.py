@@ -408,9 +408,11 @@ class DevicePrefetcher:
     lands. On the CPU the batch passes through as tensors.
 
     Iterating ends the pump; `close()` ends it early. An error in the
-    source iterator is raised on the consumer's side. `sharding=` other
-    than None raises: sharded placement comes with the multi-GPU slice
-    (`ROADMAP.md` item 5).
+    source iterator is raised on the consumer's side. `sharding=` (a
+    `parallel.sharding.Sharding`, e.g. `parallel.batch_sharding(mesh)`
+    or a mesh trainer's `batch_sharding()`) hands each rank its block
+    of every tensor of the batch (`Sharding.shard`: its rows over the
+    batch axes), cut on the host before the copy.
     """
 
     _END = object()
@@ -419,10 +421,9 @@ class DevicePrefetcher:
         import queue
         import threading
 
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=...) comes with the multi-GPU "
-                "slice (torch.distributed); only sharding=None is ported")
+        if sharding is not None and not hasattr(sharding, "shard"):
+            raise TypeError("DevicePrefetcher(sharding=) takes a "
+                            "parallel.sharding.Sharding")
         self.device = resolve_device(device)
         self._q = queue.Queue(maxsize=max(1, depth))
         self._err = None
@@ -435,6 +436,8 @@ class DevicePrefetcher:
                 a = torch.as_tensor(a)
             if not isinstance(a, torch.Tensor):
                 return a
+            if sharding is not None:
+                a = sharding.shard(a)
             if cuda and a.device.type == "cpu":
                 a = a.pin_memory()
             return a.to(self.device, non_blocking=True)

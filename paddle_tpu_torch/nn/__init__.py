@@ -1,7 +1,6 @@
 """Layers of the port (Paddle's `nn`, the JAX package's `nn/__init__.py`):
 `Layer` and `ParamAttr`, `initializer`, `functional`, the layers, the
-RNNs, `MoELayer` and the gradient clips. `SyncBatchNorm` waits for the
-multi-card slice (ROADMAP item 5)."""
+RNNs, `MoELayer`, `SyncBatchNorm` and the gradient clips."""
 from torch.nn import Parameter
 
 from . import functional, initializer
@@ -22,8 +21,9 @@ from .layer.common import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AlphaDropout,
                            PixelShuffle, PReLU, ReLU, ReLU6, RMSNorm, SELU,
                            Sequential, Sigmoid, Silu, SmoothL1Loss, Softmax,
                            Softplus, Softshrink, Softsign, SpectralNorm,
-                           Swish, Tanh, Tanhshrink, Unfold, Upsample,
-                           UpsamplingBilinear2D, UpsamplingNearest2D)
+                           Swish, SyncBatchNorm, Tanh, Tanhshrink, Unfold,
+                           Upsample, UpsamplingBilinear2D,
+                           UpsamplingNearest2D)
 from .layer.layers import HookRemoveHelper, Layer, ParamAttr
 from .layer.moe import MoELayer
 from .layer.rnn import (GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase,
@@ -48,7 +48,7 @@ __all__ = [
     "Pad2D", "ParameterList", "PixelShuffle", "PReLU", "ReLU", "ReLU6",
     "RMSNorm", "SELU", "Sequential", "Sigmoid", "Silu", "SmoothL1Loss",
     "Softmax", "Softplus", "Softshrink", "Softsign", "SpectralNorm",
-    "Swish", "Tanh", "Tanhshrink", "Unfold", "Upsample",
+    "Swish", "SyncBatchNorm", "Tanh", "Tanhshrink", "Unfold", "Upsample",
     "UpsamplingBilinear2D", "UpsamplingNearest2D", "MoELayer", "GRU",
     "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN",
     "SimpleRNNCell", "MultiHeadAttention", "Transformer",

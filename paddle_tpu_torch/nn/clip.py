@@ -35,10 +35,21 @@ def by_device_and_dtype(tensors):
     return list(groups.values())
 
 
-def global_norm(grads):
+def global_norm(grads, reduce_sq=None):
     """sqrt(sum over tensors of sum(g.float32 ** 2)): a float32 0-d
-    tensor on the first gradient's device."""
+    tensor on the first gradient's device. Where some gradients are
+    blocks of parameters split over ranks (the mesh trainer's),
+    `reduce_sq` takes the vector of the tensors' squared norms, in their
+    order, and returns it with each block's entry summed over the ranks
+    that hold its parameter: the norm is then the whole gradients'."""
     dev = grads[0].device
+    if reduce_sq is not None:
+        sq = torch.empty(len(grads), dtype=torch.float32, device=dev)
+        for idx in by_device_and_dtype(grads):
+            norms = torch._foreach_norm([grads[i] for i in idx], 2,
+                                        dtype=torch.float32)
+            sq[idx] = torch.stack(norms).square().to(dev)
+        return reduce_sq(sq).sum().sqrt()
     parts = []
     for idx in by_device_and_dtype(grads):
         norms = torch._foreach_norm([grads[i] for i in idx], 2,
@@ -48,13 +59,14 @@ def global_norm(grads):
     return total.sqrt()
 
 
-def clip_by_global_norm(grads, clip_norm):
+def clip_by_global_norm(grads, clip_norm, reduce_sq=None):
     """The gradients scaled by min(1, clip_norm / max(norm, 1e-12)), each
-    in its own dtype (a new list; the inputs are not changed)."""
+    in its own dtype (a new list; the inputs are not changed);
+    `reduce_sq` as `global_norm`'s."""
     grads = list(grads)
     if not grads:
         return grads
-    norm = global_norm(grads)
+    norm = global_norm(grads, reduce_sq)
     # a tensor numerator: `float / tensor` is a reciprocal and a product
     scale = torch.full_like(norm, float(clip_norm)).div_(
         norm.clamp(min=1e-12)).clamp_(max=1.0)

@@ -123,7 +123,7 @@ def draw_seed(generator=None):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, dropout_seed=None,
-                                 segment_ids=None):
+                                 segment_ids=None, dropout_address=None):
     """Attention over [batch, heads, seq, dim] operands: the flash kernels
     on CUDA whenever the mask reduces to a per-key bias, their plain
     versions on the CPU (ops.attention.sdpa, which refuses a per-query
@@ -132,12 +132,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     (drawn with `draw_seed()` when None). segment_ids ([batch, seq]
     integer, non-decreasing along each row: the packed rows of
     `core.lod.pack_padded`) restrict attention to same-segment tokens
-    through the kernels' segment branch (the LoD-packed varlen path)."""
+    through the kernels' segment branch (the LoD-packed varlen path).
+    dropout_address (b0, h0, heads): the operands are a shard of a larger
+    call and draw its dropout bits (`ops.attention.DropSpec`)."""
     p = float(dropout_p or 0.0) if training else 0.0
     if p and dropout_seed is None:
         dropout_seed = draw_seed()
     return A.sdpa(query, key, value, attn_mask, is_causal, dropout_p=p,
-                  dropout_seed=dropout_seed, segment_ids=segment_ids)
+                  dropout_seed=dropout_seed, segment_ids=segment_ids,
+                  dropout_address=dropout_address)
 
 
 def linear_int8(x, weight_q, scale, bias=None):

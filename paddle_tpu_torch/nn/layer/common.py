@@ -377,12 +377,93 @@ class _BatchNormBase(nn.Module):
         self.register_buffer("_variance", torch.ones(num_features,
                                                      device=dev))
 
+    #: the process group whose ranks' batches together are the batch the
+    #: training statistics are of (`SyncBatchNorm`; the mesh trainer sets
+    #: it under data parallelism); None: this rank's batch
+    _sync_group = None
+
+    def _stats_group(self):
+        return self._sync_group
+
     def forward(self, x):
+        group = self._stats_group() if self.training and not \
+            self._use_global_stats else None
+        if group is not None:
+            return _sync_batch_norm(self, x, group)
         return F.batch_norm(x, self._mean, self._variance, self.weight,
                             self.bias, training=self.training,
                             momentum=self._momentum, epsilon=self._epsilon,
                             data_format=self._data_format,
                             use_global_stats=self._use_global_stats)
+
+
+def _sync_batch_norm(bn, x, group):
+    """Training batch norm over the batches of `group`'s ranks: the
+    per-channel sum, then the sum of squared deviations from the global
+    mean, each summed over the group (forward and backward: the ranks'
+    gradients are averaged afterwards), the biased variance, and the
+    running stats updated from the global ones. A group of one rank is
+    `F.batch_norm`."""
+    import torch.distributed as dist
+
+    from ...parallel.collectives import all_reduce_sum
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return F.batch_norm(x, bn._mean, bn._variance, bn.weight, bn.bias,
+                            training=True, momentum=bn._momentum,
+                            epsilon=bn._epsilon, data_format=bn._data_format)
+    c_axis = 1 if bn._data_format.startswith("NC") else x.dim() - 1
+    axes = [a for a in range(x.dim()) if a != c_axis]
+    shape = [1] * x.dim()
+    shape[c_axis] = x.shape[c_axis]
+    xf = x.float()
+    count = torch.tensor([float(x.numel() // x.shape[c_axis])],
+                         device=x.device)
+    sums = all_reduce_sum(torch.cat([xf.sum(axes), count]), group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    dev = xf - mean.reshape(shape)
+    var = all_reduce_sum(dev.square().sum(axes), group) / n
+    y = dev * torch.rsqrt(var + bn._epsilon).reshape(shape)
+    y = y * bn.weight.float().reshape(shape) + bn.bias.float().reshape(shape)
+    with torch.no_grad():
+        m = bn._momentum
+        bn._mean.copy_(m * bn._mean + (1.0 - m) * mean.detach())
+        bn._variance.copy_(m * bn._variance + (1.0 - m) * var.detach())
+    return y.to(x.dtype)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Batch norm whose training statistics are those of the whole
+    batch over the data-parallel ranks (reference:
+    operators/sync_batch_norm_op.cu, a sum of the partial moments): the
+    group is `_sync_group` when set (the mesh trainer sets its batch
+    axes' group), else the world's. At a world of one rank, and in eval,
+    it is `BatchNorm`."""
+
+    def _stats_group(self):
+        if self._sync_group is not None:
+            return self._sync_group
+        import torch.distributed as dist
+
+        return dist.group.WORLD if dist.is_initialized() else None
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Every batch norm of `layer` replaced by a SyncBatchNorm holding
+        the same parameters and buffers (the layer itself when it is
+        one); returns the converted layer."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(
+                layer, SyncBatchNorm):
+            out = SyncBatchNorm.__new__(SyncBatchNorm)
+            out.__dict__.update(layer.__dict__)
+            out._parameters = dict(layer._parameters)
+            out._buffers = dict(layer._buffers)
+            out._modules = dict(layer._modules)
+            return out
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 class BatchNorm1D(_BatchNormBase):

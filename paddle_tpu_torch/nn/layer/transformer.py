@@ -64,6 +64,11 @@ class MultiHeadAttention(nn.Module):
         #: CPU torch.Generator of the per-call attention-dropout seeds
         #: (None: torch's default CPU generator); SpmdTrainer binds its own
         self.seed_generator = None
+        #: on a mesh (`parallel.spmd`): (batch rank, first head, heads of
+        #: the whole layer) of this rank's shard, so that the in-kernel
+        #: dropout draws the bits of its rows and heads of the one-device
+        #: call (`ops.attention.DropSpec`); None on one device
+        self.dropout_shard = None
         kw = dict(device=device, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
@@ -81,12 +86,16 @@ class MultiHeadAttention(nn.Module):
     def _attend(self, q, k, v, attn_mask, is_causal, segment_ids=None):
         """Attention with in-kernel dropout in training: each call draws
         its own seed."""
-        seed = None
+        seed = address = None
         if self.training and self.dropout:
             seed = F.draw_seed(self.seed_generator)
+            if self.dropout_shard is not None:
+                rank, h0, heads = self.dropout_shard
+                address = (rank * q.shape[0], h0, heads)
         return F.scaled_dot_product_attention(
             q, k, v, attn_mask, self.dropout, is_causal, self.training,
-            dropout_seed=seed, segment_ids=segment_ids)
+            dropout_seed=seed, segment_ids=segment_ids,
+            dropout_address=address)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, is_causal=False, segment_ids=None):

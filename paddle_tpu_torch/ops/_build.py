@@ -57,8 +57,9 @@ _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _INTS = ctypes.POINTER(ctypes.c_int)
 #: the dropout arguments of the flash kernels: seed, keep threshold,
-#: 1/keep, logical block_q, block_k
-_DROP = [_U, _U, _F, _I, _I]
+#: 1/keep, logical block_q, block_k, and the shard's address in the
+#: whole call (batch offset, head offset, the call's head count)
+_DROP = [_U, _U, _F, _I, _I, _I, _I, _I]
 #: argtypes of each library's C entry point (see the .cu sources;
 #: tests/test_torch_signatures.py holds them against the sources' text).
 #: The tunable kernels take their plan's override (0 = the rule) before

@@ -189,10 +189,16 @@ def _scaled_q(q, s):
 # --------------------------------------------------------------------------
 
 #: in-kernel attention dropout of one call: probability p, the call's
-#: seed (a host int, read as uint32) and the logical blocks that address
-#: the bits
-DropSpec = collections.namedtuple("DropSpec", ["p", "seed", "block_q",
-                                               "block_k"])
+#: seed (a host int, read as uint32), the logical blocks that address
+#: the bits, and where the call's operands lie in a larger sharded call:
+#: batch offset b0, head offset h0 and that call's head count `heads`
+#: (None: the operands' own). The bits of local head (b, h) are those of
+#: global head (b0 + b) * heads + (h0 + h), so a data-parallel rank's
+#: rows and a tensor-parallel rank's heads draw their slice of the
+#: one-device call's mask.
+DropSpec = collections.namedtuple(
+    "DropSpec", ["p", "seed", "block_q", "block_k", "b0", "h0", "heads"],
+    defaults=(0, 0, None))
 _M32 = 0xFFFFFFFF
 
 
@@ -233,10 +239,12 @@ def _pick_blocks_heuristic(sq, sk, block_q=None, block_k=None):
     return _one(sq, block_q), _one(sk, block_k)
 
 
-def drop_spec(dropout_p, seed, sq, sk, block_q=None, block_k=None):
+def drop_spec(dropout_p, seed, sq, sk, block_q=None, block_k=None,
+              address=None):
     """The DropSpec of one attention call (None when dropout_p is 0).
     `seed` is an int or a one-element integer tensor (int32 in the JAX
-    package); it is read as uint32."""
+    package); it is read as uint32. `address`: (b0, h0, heads) of a
+    shard of a larger call (see DropSpec), or None."""
     if not dropout_p:
         return None
     if not 0.0 < dropout_p < 1.0:
@@ -248,7 +256,11 @@ def drop_spec(dropout_p, seed, sq, sk, block_q=None, block_k=None):
         seed = int(seed.reshape(-1)[0])
     bq, bk = _pick_blocks_heuristic(sq, sk, block_q, block_k)
     _check_drop_grid(sk, bk)
-    return DropSpec(float(dropout_p), int(seed) & _M32, int(bq), int(bk))
+    b0, h0, heads = address or (0, 0, None)
+    if b0 < 0 or h0 < 0 or (heads is not None and heads < h0 + 1):
+        raise ValueError(f"bad dropout address {address}")
+    return DropSpec(float(dropout_p), int(seed) & _M32, int(bq), int(bk),
+                    int(b0), int(h0), None if heads is None else int(heads))
 
 
 def _mul32(x, c):
@@ -273,16 +285,19 @@ def _hash_bits(seed, bh, qi, ki, r, c):
 
 
 def dropout_keep_reference(seed, b, h, sq, sk, block_q, block_k, dropout_p,
-                           device="cpu"):
+                           device="cpu", b0=0, h0=0, heads=None):
     """Keep mask [b*h, sq, sk] (bool) of the in-kernel attention dropout:
     the bits the kernels draw, computed with torch ops on `device`. Any
     sq / sk: a ragged tail row takes qi = row // block_q like every
-    other row."""
+    other row. b0, h0, heads: the shard's address in a larger call
+    (DropSpec); local head (i, j) hashes (b0 + i) * heads + (h0 + j)."""
     thresh, _ = _drop_consts(dropout_p)
     i64 = dict(dtype=torch.int64, device=device)
     rows = torch.arange(sq, **i64)
     cols = torch.arange(sk, **i64)
-    bh = torch.arange(b * h, **i64)[:, None, None]
+    heads = h if heads is None else heads
+    bh = ((torch.arange(b, **i64)[:, None] + b0) * heads
+          + torch.arange(h, **i64)[None] + h0).reshape(b * h, 1, 1)
     qi, r = (rows // block_q)[None, :, None], (rows % block_q)[None, :, None]
     ki, c = (cols // block_k)[None, None, :], (cols % block_k)[None, None, :]
     seed = torch.tensor(int(seed) & _M32, **i64)
@@ -291,7 +306,8 @@ def dropout_keep_reference(seed, b, h, sq, sk, block_q, block_k, dropout_p,
 
 def _keep4(drop, b, h, sq, sk, device):
     return dropout_keep_reference(drop.seed, b, h, sq, sk, drop.block_q,
-                                  drop.block_k, drop.p, device) \
+                                  drop.block_k, drop.p, device, drop.b0,
+                                  drop.h0, drop.heads) \
         .reshape(b, h, sq, sk)
 
 
@@ -488,13 +504,19 @@ def _check_bias(name, bias, b, n):
 _raise_on = _build.raise_on
 
 
-def _drop_args(drop):
-    """(seed, keep threshold, 1/keep, block_q, block_k) for the C entry
-    points; block_q 0 switches dropout off."""
+def _drop_args(drop, h):
+    """(seed, keep threshold, 1/keep, block_q, block_k, b0, h0, heads)
+    for the C entry points of a call with h heads; block_q 0 switches
+    dropout off."""
     if drop is None:
-        return 0, 0, 1.0, 0, 0
+        return 0, 0, 1.0, 0, 0, 0, 0, h
     thresh, inv_keep = _drop_consts(drop.p)
-    return drop.seed, thresh, inv_keep, drop.block_q, drop.block_k
+    heads = h if drop.heads is None else drop.heads
+    if heads < drop.h0 + h:
+        raise ValueError(f"dropout address: heads {heads} < h0 {drop.h0} + "
+                         f"{h} local heads")
+    return (drop.seed, thresh, inv_keep, drop.block_q, drop.block_k,
+            drop.b0, drop.h0, heads)
 
 
 def _row_strides(*ts):
@@ -585,7 +607,7 @@ def _flash_fwd_cuda(q, k, v, bias, is_causal, scale, dropout=None,
              None if bias is None else bias.data_ptr(), *_seg_ptrs(segs),
              out.data_ptr(), lse.data_ptr(), b, h, sq, sk, d, strides,
              float(_scale(d, scale)), int(bool(is_causal)),
-             *_drop_args(dropout),
+             *_drop_args(dropout, h),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", err)
     _count_fwd(q, k, v, strides, segs, dropout)
@@ -707,7 +729,7 @@ def _flash_bwd_dq_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              b, h, sq, sk, d, strides,
              float(_scale(d, scale)), int(bool(is_causal)),
-             *_drop_args(dropout),
+             *_drop_args(dropout, h),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dq", err)
     _count_bwd("flash_bwd_dq", q, k, v, g, strides, segs)
@@ -735,7 +757,7 @@ def _flash_bwd_dkv_cuda(q, k, v, bias, g, lse, delta, is_causal, scale,
              g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), None if db is None else db.data_ptr(), b, h, sq,
              sk, d, strides, float(_scale(d, scale)),
-             int(bool(is_causal)), *_drop_args(dropout),
+             int(bool(is_causal)), *_drop_args(dropout, h),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_bwd_dkv", err)
     _count_bwd("flash_bwd_dkv", q, k, v, g, strides, segs)
@@ -796,7 +818,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, bias=None, is_causal=False, scale=None,
                     block_q=None, block_k=None, dropout_p=0.0,
                     dropout_seed=None, segment_ids=None,
-                    kv_segment_ids=None):
+                    kv_segment_ids=None, dropout_address=None):
     """Differentiable flash attention over [b, h, s, d] operands (the
     JAX `flash_attention`): bias an optional [b, sk] float32 key bias
     (it gets a gradient when it requires one); dropout_p the in-kernel
@@ -807,10 +829,13 @@ def flash_attention(q, k, v, bias=None, is_causal=False, scale=None,
     segment_ids ([b, sq] integer, non-decreasing along each row: the
     `core/lod.pack_padded` layout) restrict attention to same-segment
     pairs, and the kernels skip the tiles that hold none;
-    kv_segment_ids ([b, sk]) defaults to segment_ids. Without gradients
+    kv_segment_ids ([b, sk]) defaults to segment_ids. dropout_address
+    (b0, h0, heads): the operands are rows and heads of a larger sharded
+    call, whose dropout bits they take (`DropSpec`). Without gradients
     to compute it runs the forward alone."""
     sq, sk = q.shape[2], k.shape[2]
-    dropout = drop_spec(dropout_p, dropout_seed, sq, sk, block_q, block_k)
+    dropout = drop_spec(dropout_p, dropout_seed, sq, sk, block_q, block_k,
+                        dropout_address)
     segs = _segments(segment_ids, kv_segment_ids, q, k) or (None, None)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
@@ -1540,7 +1565,7 @@ def paged_flash_verify(q, k_pages, v_pages, k_scale, v_scale, table,
 # --------------------------------------------------------------------------
 
 def sdpa(q, k, v, mask=None, is_causal=False, scale=None, dropout_p=0.0,
-         dropout_seed=None, segment_ids=None):
+         dropout_seed=None, segment_ids=None, dropout_address=None):
     """Attention dispatch (the JAX `sdpa`): the differentiable flash
     attention whenever the mask reduces to a per-key bias (none, or
     every padded batch), with in-kernel attention dropout when
@@ -1549,12 +1574,13 @@ def sdpa(q, k, v, mask=None, is_causal=False, scale=None, dropout_p=0.0,
     each row) are given, on every device. A richer mask runs the
     reference composition (with the segment mask folded in) on the CPU
     without dropout, and raises on any other device or with dropout:
-    no kernel takes such a mask."""
+    no kernel takes such a mask. dropout_address: see `flash_attention`."""
     bias = None if mask is None else _kv_bias(mask, q.shape[0], k.shape[2])
     if mask is None or bias is not None:
         return flash_attention(q, k, v, bias, is_causal, scale,
                                dropout_p=dropout_p, dropout_seed=dropout_seed,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids,
+                               dropout_address=dropout_address)
     if q.device.type == "cpu" and not dropout_p:
         if segment_ids is not None:
             if mask.dtype == torch.bool:

@@ -19,6 +19,14 @@ Python divisor as a product by its reciprocal.
 increment (`state.count`, a Python int), such as a schedule's
 `get_lr_traced` from `optimizer.lr`.
 
+`update(..., reduce_sq=)` is for gradients and parameters that are
+blocks of parameters split over ranks (`parallel.SpmdTrainer` under
+tensor or expert parallelism): `reduce_sq(names, sq)` takes the float32
+squared norms of the tensors of `names` and returns them with each
+block's entry summed over the ranks that hold its parameter. The rules
+that take a whole tensor's norm (Lamb's and LARS's trust ratios, the
+global-norm clip) then take the whole parameter's; the others ignore it.
+
 Rules: `sgd`, `momentum`, `adam` / `adamw` (with `decay_mask(name)`),
 `lamb`, `adamax`, `adagrad`, `adadelta`, `rmsprop`, `lars_momentum`;
 wrappers `clip_by_global_norm` and `dgc`; `from_eager` builds the rule
@@ -86,11 +94,24 @@ def _zeros(params):
     return {n: torch.zeros_like(p) for n, p in params.items()}
 
 
-def _sweep(rule, params, grads, slots, key=None):
+def _norms(xs):
+    """The float32 L2 norm of each tensor of a list, stacked."""
+    return torch.stack(torch._foreach_norm(xs, 2, dtype=torch.float32))
+
+
+def _whole_norms(names, reduce_sq):
+    """`_norms` of the tensors of `names` where some are blocks of
+    parameters split over ranks: the squared norms go through
+    `reduce_sq(names, sq)`, which sums each block's over the ranks that
+    hold its parameter."""
+    return lambda xs: reduce_sq(names, _norms(xs).square()).sqrt()
+
+
+def _sweep(rule, params, grads, slots, key=None, reduce_sq=None):
     """Run `rule(ps, gs, *slot_lists, group)` over each (device, dtype,
     key(name)) group of `params`, gradients cast to the parameter's
-    dtype. Returns (new params, [new slot dict, ...]) in `params`'
-    order."""
+    dtype; with `reduce_sq` also ``norms=`` the group's `_whole_norms`.
+    Returns (new params, [new slot dict, ...]) in `params`' order."""
     names = list(params)
     groups = {}
     for n in names:
@@ -102,7 +123,9 @@ def _sweep(rule, params, grads, slots, key=None):
         ps = [params[n] for n in group]
         gs = [grads[n] if grads[n].dtype == dtype else grads[n].to(dtype)
               for n in group]
-        out = rule(ps, gs, *[[s[n] for n in group] for s in slots], k)
+        kw = {} if reduce_sq is None else \
+            {"norms": _whole_norms(group, reduce_sq)}
+        out = rule(ps, gs, *[[s[n] for n in group] for s in slots], k, **kw)
         for j, n in enumerate(group):
             outs[n] = [lst[j] for lst in out]
     new_p = {n: outs[n][0] for n in names}
@@ -180,10 +203,10 @@ def adam_lists(ps, gs, ms, vs, lr, b1, b2, eps, c1, c2, wd_c, wd_d):
     return torch._foreach_sub(ps, upd), m, v
 
 
-def lamb_lists(ps, gs, ms, vs, lr, b1, b2, eps, c1, c2, wd):
+def lamb_lists(ps, gs, ms, vs, lr, b1, b2, eps, c1, c2, wd, norms=_norms):
     """Adam's moments, r = m_hat / (sqrt(v_hat) + eps) + wd * p, then p -
     lr * trust * r with trust = ||p|| / ||r|| (1 where either is 0),
-    norms in float32."""
+    norms in float32 (`norms`: the per-tensor norm function)."""
     m = torch._foreach_mul(ms, b1)
     torch._foreach_add_(m, torch._foreach_mul(gs, 1 - b1))
     gg = torch._foreach_mul(gs, gs)
@@ -197,8 +220,7 @@ def lamb_lists(ps, gs, ms, vs, lr, b1, b2, eps, c1, c2, wd):
     torch._foreach_div_(r, den)
     if wd:
         torch._foreach_add_(r, torch._foreach_mul(ps, wd))
-    w_norm = torch.stack(torch._foreach_norm(ps, 2, dtype=torch.float32))
-    r_norm = torch.stack(torch._foreach_norm(r, 2, dtype=torch.float32))
+    w_norm, r_norm = norms(ps), norms(r)
     trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                         1.0).to(ps[0].dtype)
     step = _scaled(r, trust * lr)
@@ -271,11 +293,10 @@ def rmsprop_lists(ps, gs, mss, mgs, moms, lr, rho, eps, mom, centered):
     return torch._foreach_sub(ps, m), ms, mg, m
 
 
-def lars_lists(ps, gs, vs, lr, mu, coeff, wd, eps):
+def lars_lists(ps, gs, vs, lr, mu, coeff, wd, eps, norms=_norms):
     """local = lr * coeff * ||p|| / (||g|| + wd * ||p|| + eps) (lr where
     ||p|| = 0); v = mu * v + local * (g + wd * p); p - v."""
-    pn = torch.stack(torch._foreach_norm(ps, 2, dtype=torch.float32))
-    gn = torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float32))
+    pn, gn = norms(ps), norms(gs)
     local = lr * coeff * pn / (gn + wd * pn + eps)
     local = torch.where(pn > 0, local, lr).to(ps[0].dtype)
     t = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
@@ -292,7 +313,7 @@ def sgd(learning_rate=0.01, weight_decay=0.0):
     def init(params):
         return ScaleState(count=0)
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, _ = _sweep(lambda ps, gs, k: sgd_lists(ps, gs, lr,
                                                       weight_decay),
@@ -311,7 +332,7 @@ def momentum(learning_rate=0.01, mu=0.9, weight_decay=0.0,
     def init(params):
         return MomentumState(count=0, velocity=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, (vel,) = _sweep(
             lambda ps, gs, vs, k: momentum_lists(
@@ -331,7 +352,7 @@ def adam(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8,
     def init(params):
         return AdamState(count=0, m=_zeros(params), v=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         t = state.count + 1
         lr = _resolve_lr(learning_rate, state.count)
         c1, c2 = bias_correction(beta1, t), bias_correction(beta2, t)
@@ -365,15 +386,15 @@ def lamb(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-6,
     def init(params):
         return AdamState(count=0, m=_zeros(params), v=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         t = state.count + 1
         lr = _resolve_lr(learning_rate, state.count)
         c1, c2 = bias_correction(beta1, t), bias_correction(beta2, t)
         new_p, (m, v) = _sweep(
-            lambda ps, gs, ms, vs, k: lamb_lists(
+            lambda ps, gs, ms, vs, k, **kw: lamb_lists(
                 ps, gs, ms, vs, lr, beta1, beta2, epsilon, c1, c2,
-                weight_decay),
-            params, grads, [state.m, state.v])
+                weight_decay, **kw),
+            params, grads, [state.m, state.v], reduce_sq=reduce_sq)
         return new_p, AdamState(t, m, v)
 
     return Transform(init, update)
@@ -386,7 +407,7 @@ def adamax(learning_rate=0.001, beta1=0.9, beta2=0.999, epsilon=1e-8):
     def init(params):
         return AdamaxState(count=0, m=_zeros(params), u=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         t = state.count + 1
         lr = _resolve_lr(learning_rate, state.count)
         lr_c1 = f32(f32(lr) / bias_correction(beta1, t))
@@ -406,7 +427,7 @@ def adagrad(learning_rate=0.001, epsilon=1e-6):
     def init(params):
         return AdagradState(count=0, moment=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, (acc,) = _sweep(
             lambda ps, gs, accs, k: adagrad_lists(ps, gs, accs, lr,
@@ -424,7 +445,7 @@ def adadelta(learning_rate=0.001, epsilon=1e-6, rho=0.95):
         return AdadeltaState(count=0, avg_sq_grad=_zeros(params),
                              avg_sq_upd=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, (eg, eu) = _sweep(
             lambda ps, gs, egs, eus, k: adadelta_lists(ps, gs, egs, eus,
@@ -445,7 +466,7 @@ def rmsprop(learning_rate=0.001, rho=0.95, epsilon=1e-6, momentum=0.0,
                             mean_grad=_zeros(params),
                             momentum=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, (ms, mg, mom) = _sweep(
             lambda ps, gs, a, b, c, k: rmsprop_lists(
@@ -466,13 +487,13 @@ def lars_momentum(learning_rate=0.01, mu=0.9, lars_coeff=0.001,
     def init(params):
         return LarsState(count=0, velocity=_zeros(params))
 
-    def update(params, grads, state):
+    def update(params, grads, state, reduce_sq=None):
         lr = _resolve_lr(learning_rate, state.count)
         new_p, (vel,) = _sweep(
-            lambda ps, gs, vs, k: lars_lists(
+            lambda ps, gs, vs, k, **kw: lars_lists(
                 ps, gs, vs, lr, mu, lars_coeff, lars_weight_decay,
-                epsilon),
-            params, grads, [state.velocity])
+                epsilon, **kw),
+            params, grads, [state.velocity], reduce_sq=reduce_sq)
         return new_p, LarsState(state.count + 1, vel)
 
     return Transform(init, update)
@@ -485,11 +506,14 @@ def clip_by_global_norm(tx, max_norm):
     def init(params):
         return tx.init(params)
 
-    def update(params, grads, state, **kw):
+    def update(params, grads, state, reduce_sq=None):
         names = list(grads)
-        scaled = _clip.clip_by_global_norm([grads[n] for n in names],
-                                           max_norm)
-        return tx.update(params, dict(zip(names, scaled)), state, **kw)
+        scaled = _clip.clip_by_global_norm(
+            [grads[n] for n in names], max_norm,
+            None if reduce_sq is None else
+            (lambda sq: reduce_sq(names, sq)))
+        return tx.update(params, dict(zip(names, scaled)), state,
+                         reduce_sq=reduce_sq)
 
     return Transform(init, update)
 
@@ -504,7 +528,7 @@ def dgc(tx, sparsity=0.99, rampup_begin_step=0):
     def init(params):
         return DgcState(inner=tx.init(params), residual=_zeros(params))
 
-    def update(params, grads, state, **kw):
+    def update(params, grads, state, reduce_sq=None):
         sent, resid = {}, {}
         for n, g in grads.items():
             acc = g + state.residual[n]
@@ -513,7 +537,8 @@ def dgc(tx, sparsity=0.99, rampup_begin_step=0):
             thresh = torch.topk(flat, k).values[-1]
             sent[n] = torch.where(acc.abs() >= thresh, acc, 0.0)
             resid[n] = acc - sent[n]
-        new_p, new_inner = tx.update(params, sent, state.inner, **kw)
+        new_p, new_inner = tx.update(params, sent, state.inner,
+                                     reduce_sq=reduce_sq)
         return new_p, DgcState(new_inner, resid)
 
     return Transform(init, update)

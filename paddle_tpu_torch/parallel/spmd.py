@@ -1,5 +1,5 @@
-"""The train step on one device (the JAX package's `SpmdTrainer`,
-without a mesh or sharding).
+"""The train step (the JAX package's `SpmdTrainer`), on one device or,
+with `mesh=`, on every rank of a mesh.
 
 One `step` is forward, backward and the optimizer update over the
 layer's parameters, kept in float32 ("master" weights). Under
@@ -27,9 +27,10 @@ masks).
 `remat=True` runs the forward under `torch.utils.checkpoint` (not
 reentrant): its activations are recomputed in the backward instead of
 kept. `checkpoint` restores only torch's default generators, so the
-trainer saves both of its own at the start of the forward and replays
-them for the recompute, which then draws the same seeds and masks: the
-gradients equal those without remat, bit for bit.
+trainer saves all of its own (the seeds', the masks' and, under tp, the
+split feed-forward's) at the start of the forward and replays them for
+the recompute, which then draws the same seeds and masks: the gradients
+equal those without remat, bit for bit.
 
 `grad_accum=N` splits each batch into N contiguous micro-batches (the
 JAX trainer's ``x.reshape((N, b // N) + ...)``), runs forward and
@@ -48,23 +49,63 @@ added once and its gradient reaches the router once. The recompute's aux
 losses are kept detached: their graph would hold every recomputed
 activation below them through the backward (on the card it raised
 remat's peak above the plain step's).
+
+On a mesh (`mesh=`, `rules=`, `batch_axes=`) every rank runs the
+trainer's entry points, each on its own device (the JAX trainer is one
+process driving every device):
+
+* the batch splits over `batch_axes` (the ones the mesh holds more than
+  once): a rank takes its rows of each micro-batch (`shard_batch`), and
+  its gradients are summed over those axes and divided by their ranks,
+  the mean over the global batch; the loss returned is the global one;
+* `rules` split parameters over the other axes (`layers.shard_layer`:
+  Megatron's tensor parallelism over tp, the experts over ep); the
+  trainer then works on a copy of the layer holding this rank's blocks,
+  and `sync_to_layer` gathers the full parameters back into the layer it
+  was given. The optimizer's slots take their parameter's block (the
+  JAX trainer's "ZeRO-lite"), and a global-norm clip and Lamb's and
+  LARS's trust ratios take the norms of the whole parameters (the
+  optimizer's `reduce_sq`). The parameters' and
+  gradients' other axes are replicas: every rank of them computes the
+  same update;
+* every batch norm normalises with the statistics of the global batch
+  (the JAX program's, which XLA computes over the mesh), and every MoE
+  layer routes over it;
+* the attention dropout of a rank draws the bits of its rows and heads
+  of the one-device call (`MultiHeadAttention.dropout_shard`), and the
+  hidden dropout masks of a batch rank differ from its peers' (seeded by
+  its batch index; ranks that hold the same activations draw the same
+  masks, and a tensor-parallel rank draws its own mask of the feed-
+  forward's split activations).
+
+With every axis of size one (world size 1) the trainer is the
+one-device trainer, bit for bit.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
-from ..nn.layer.common import Dropout
+from ..nn.layer.common import Dropout, _BatchNormBase
 from ..nn.layer.moe import MoELayer
-from ..nn.layer.transformer import MultiHeadAttention
+from ..nn.layer.transformer import MultiHeadAttention, TransformerEncoderLayer
 from ..optimizer import Optimizer
 from ..optimizer import functional as fopt
+from .collectives import all_gather_cat
+from .layers import ColumnParallelLinear, batch_axes_of, shard_layer
+from .mesh import get_mesh
+from .sharding import Sharding, batch_sharding
 
-__all__ = ["SpmdTrainer"]
+__all__ = ["SpmdTrainer", "spmd_data_parallel"]
+
+#: bytes of one bucket of the data-parallel gradient all-reduce
+_BUCKET_BYTES = 25 * 1024 * 1024
 
 
 def _dtype(d):
@@ -91,7 +132,16 @@ class SpmdTrainer:
 
     def __init__(self, layer, loss_fn, optimizer, compute_dtype=None,
                  device=None, generator=None, remat=False, grad_accum=1,
-                 moe_aux_weight=0.01):
+                 moe_aux_weight=0.01, mesh=None, rules=None,
+                 batch_axes=("dp",)):
+        if mesh is None and dist.is_initialized():
+            mesh = get_mesh()
+        if mesh is not None:
+            if device is None:
+                device = mesh.device
+            elif resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
         if isinstance(optimizer, Optimizer):
             optimizer = fopt.from_eager(optimizer)
         if not isinstance(optimizer, fopt.Transform):
@@ -101,7 +151,25 @@ class SpmdTrainer:
         if int(grad_accum) < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.device = resolve_device(device)
-        self.layer = layer.to(self.device)
+        self.mesh, self.rules = mesh, rules
+        self.batch_axes = tuple(batch_axes)
+        self._user_layer = layer.to(self.device)
+        self.layer = self._user_layer
+        self._bax = () if mesh is None else batch_axes_of(mesh, batch_axes)
+        self.param_shardings = {}
+        if mesh is not None and mesh.size > 1:
+            split = any(Sharding(mesh, rules.spec_for(n, p.ndim)).is_split
+                        for n, p in self.layer.named_parameters()) \
+                if rules is not None else False
+            if split:
+                self.layer = copy.deepcopy(self._user_layer)
+            self.param_shardings = shard_layer(self.layer, mesh, rules,
+                                               batch_axes)
+            if self._bax:
+                group = mesh.group_of(self._bax)
+                for m in self.layer.modules():
+                    if isinstance(m, _BatchNormBase):
+                        m._sync_group = group
         self.loss_fn = loss_fn
         self.tx = optimizer
         self.compute_dtype = _dtype(compute_dtype)
@@ -117,14 +185,36 @@ class SpmdTrainer:
                              "torch.Generator (attention-dropout seeds are "
                              "host ints)")
         self.generator = generator
+        seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+        # a batch rank's hidden-dropout masks differ from its peers'; the
+        # ranks holding the same activations (tp / ep peers) draw alike
+        bidx = self.mesh.coord(self._bax) if self._bax else 0
         self._mask_gen = torch.Generator(device=self.device).manual_seed(
-            int(torch.randint(0, 2 ** 62, (), generator=generator)))
+            (seed + bidx * 0x9E3779B97F4A7C15) % 2 ** 62)
+        #: the masks of the feed-forward's activations where they are
+        #: split over tp (each rank draws its own of its columns)
+        self._split_gen = None
         for m in self.layer.modules():
             if isinstance(m, MultiHeadAttention):
                 m.seed_generator = generator
             elif isinstance(m, Dropout):
                 m.generator = self._mask_gen
+        for m in self.layer.modules():
+            if isinstance(m, TransformerEncoderLayer) and isinstance(
+                    m.linear1, ColumnParallelLinear):
+                if self._split_gen is None:
+                    tidx = self.mesh.coord("tp") + 1
+                    self._split_gen = torch.Generator(
+                        device=self.device).manual_seed(
+                        (seed + bidx * 0x9E3779B97F4A7C15
+                         + tidx * 0xBF58476D1CE4E5B9) % 2 ** 62)
+                m.dropout_act.generator = self._split_gen
         self.params = dict(self.layer.named_parameters())
+        #: {name: group its blocks are spread over} of the split parameters
+        self._split_groups = {
+            n: self.mesh.group_of(sh.axes())
+            for n, sh in self.param_shardings.items()
+            if n in self.params and sh.is_split}
         for n, p in self.params.items():
             if p.dtype != torch.float32:
                 raise TypeError(f"parameter {n} is {p.dtype}: the trainer "
@@ -147,9 +237,140 @@ class SpmdTrainer:
         return dict(self.layer.named_buffers())
 
     def sync_to_layer(self):
-        """The JAX trainer writes its state back into the Layer here; the
-        port's parameters and buffers already live on the layer, so
-        there is nothing to do."""
+        """Write the trained state back into the layer the trainer was
+        given. Unsharded, the parameters and buffers already live there;
+        with split parameters each is gathered from the ranks' blocks
+        (collective: every rank calls it)."""
+        if self.layer is self._user_layer:
+            return
+        own = {**dict(self._user_layer.named_parameters()),
+               **dict(self._user_layer.named_buffers())}
+        with torch.no_grad():
+            for n, p in self.params.items():
+                sh = self.param_shardings.get(n)
+                full = sh.gather(p.detach()) if sh is not None and \
+                    sh.is_split else p.detach()
+                own[n].copy_(full)
+            for n, b in self.layer.named_buffers():
+                if n in own:
+                    own[n].copy_(b)
+
+    def full_params(self):
+        """{name: full parameter}: the blocks gathered (collective), the
+        rest as they are."""
+        out = {}
+        for n, p in self.params.items():
+            sh = self.param_shardings.get(n)
+            out[n] = sh.gather(p.detach()) if sh is not None and \
+                sh.is_split else p.detach()
+        return out
+
+    # ---------------------------------------------------------- the mesh
+    def _batch_group(self):
+        return self.mesh.group_of(self._bax) if self._bax else None
+
+    def _batch_parts(self):
+        n = 1
+        for a in self._bax:
+            n *= self.mesh.axis_size(a)
+        return n
+
+    def _local_rows(self, x, acc=None):
+        """This rank's rows of a global batch array: of each of the `acc`
+        (default `grad_accum`) micro-batches, the slice of its batch
+        index."""
+        t = _as_tensor(x)
+        if t is None or not self._bax:
+            return t
+        n, i = self._batch_parts(), self.mesh.coord(self._bax)
+        acc = self.grad_accum if acc is None else acc
+        b = t.shape[0]
+        if b % (n * acc):
+            raise ValueError(f"batch {b} does not split over {n} batch ranks "
+                             f"x grad_accum={acc}")
+        mb = b // (n * acc)
+        t = t.reshape((acc, n, mb) + tuple(t.shape[1:]))[:, i]
+        return t.reshape((acc * mb,) + tuple(t.shape[2:]))
+
+    def shard_batch(self, *arrays):
+        """This rank's rows of host batch arrays, on its device (the JAX
+        trainer places them over the mesh, the leading dim over the
+        batch axes)."""
+        return tuple(self._to_device(self._local_rows(a)) for a in arrays)
+
+    def batch_sharding(self, leading=0):
+        """The Sharding of a batch input over the batch axes (with this
+        trainer's micro-batch interleave: `shard` gives `shard_batch`'s
+        rows)."""
+        sh = batch_sharding(self.mesh, self.batch_axes, leading) \
+            if self.mesh is not None else None
+        if sh is None:
+            return None
+        trainer = self
+
+        class _Rows(Sharding):
+            def shard(self, full):
+                return trainer._local_rows(full)
+
+        return _Rows(self.mesh, sh.spec)
+
+    def _reduce_grads(self, grads):
+        """Sum each gradient over the batch axes its parameter is not split
+        on, in float32 buckets, and divide by the batch ranks: the mean
+        gradient of the global batch."""
+        if not self._bax:
+            return grads
+        n = self._batch_parts()
+        groups = {}
+        for name, g in grads.items():
+            sh = self.param_shardings.get(name)
+            axes = tuple(a for a in self._bax
+                         if sh is None or a not in sh.axes())
+            groups.setdefault(axes, []).append(name)
+        out = dict(grads)
+        for axes, names in groups.items():
+            group = self.mesh.group_of(axes)
+            bucket, size = [], 0
+            for i, name in enumerate(names):
+                bucket.append(name)
+                size += grads[name].numel() * 4
+                if size >= _BUCKET_BYTES or i == len(names) - 1:
+                    flat = torch.cat([grads[k].reshape(-1).float()
+                                      for k in bucket])
+                    if group is not None:
+                        dist.all_reduce(flat, group=group)
+                    flat = flat / torch.full((), float(n),
+                                             device=flat.device)
+                    ofs = 0
+                    for k in bucket:
+                        m = grads[k].numel()
+                        out[k] = flat[ofs:ofs + m].view_as(grads[k]).to(
+                            grads[k].dtype)
+                        ofs += m
+                    bucket, size = [], 0
+        return out
+
+    def _global_loss(self, loss):
+        if not self._bax:
+            return loss
+        t = loss.detach().clone()
+        dist.all_reduce(t, group=self._batch_group())
+        return t / torch.full((), float(self._batch_parts()),
+                              device=t.device)
+
+    def _reduce_sq(self, names, sq):
+        """The optimizer's `reduce_sq`: the squared norms `sq` of the
+        tensors of `names` with each split parameter's entry summed over
+        the ranks its blocks are spread over, one all-reduce a group (in
+        the order of the names, the same on every rank)."""
+        split = self._split_groups
+        for group in dict.fromkeys(split[n] for n in names if n in split):
+            idx = torch.tensor([i for i, n in enumerate(names)
+                                if split.get(n) is group], device=sq.device)
+            part = sq.index_select(0, idx)
+            dist.all_reduce(part, group=group)
+            sq = sq.index_copy(0, idx, part)
+        return sq
 
     def _apply_plain(self, inputs):
         cdt = self.compute_dtype
@@ -164,7 +385,8 @@ class SpmdTrainer:
     def _apply(self, inputs):
         if not self.remat:
             return self._apply_plain(inputs)
-        gens = (self.generator, self._mask_gen)
+        gens = [g for g in (self.generator, self._mask_gen,
+                            self._split_gen) if g is not None]
         start = [g.get_state() for g in gens]
         runs = []
 
@@ -204,14 +426,26 @@ class SpmdTrainer:
     def eval_step(self, inputs):
         """The layer's inference forward (BatchNorm on its running stats,
         no update) under the trainer's compute_dtype, without gradients;
-        returns the outputs."""
-        inputs = self._inputs(inputs)
+        returns the outputs (on a mesh, of the global batch: each rank
+        runs its rows and the outputs are gathered)."""
+        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
+            else (inputs,)
+        # contiguous rows (one micro-batch), so that the gathered outputs
+        # come back in the batch's order
+        inputs = tuple(self._to_device(self._local_rows(x, 1))
+                       for x in inputs)
         self.layer.eval()
         try:
             with torch.no_grad():
-                return self._apply_plain(inputs)
+                out = self._apply_plain(inputs)
         finally:
             self.layer.train()
+        if not self._bax:
+            return out
+        group, ranks = self._batch_group(), self.mesh.ranks_of(self._bax)
+        if isinstance(out, torch.Tensor):
+            return all_gather_cat(out, group, 0, ranks)
+        return type(out)(all_gather_cat(o, group, 0, ranks) for o in out)
 
     def _one_batch(self, inputs, labels):
         names = list(self.params)
@@ -226,7 +460,22 @@ class SpmdTrainer:
         """Forward and backward on one batch (over `grad_accum`
         micro-batches) without the update: (loss, {name: float32
         gradient}). The loss is a float32 0-d tensor on the device, not
-        synchronised."""
+        synchronised. On a mesh the batch is the global one: the rank
+        takes its rows, and the loss and gradients are the global
+        batch's (each gradient of this rank's block)."""
+        inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
+            else (inputs,)
+        return self._local_loss_and_grads(self.shard_batch(*inputs),
+                                          self.shard_batch(labels)[0])
+
+    def _local_loss_and_grads(self, inputs, labels):
+        loss, grads = self._loss_and_grads(inputs, labels)
+        if self._bax:
+            grads = self._reduce_grads(grads)
+            loss = self._global_loss(loss)
+        return loss, grads
+
+    def _loss_and_grads(self, inputs, labels):
         inputs = self._inputs(inputs)
         labels = self._to_device(labels)
         names = list(self.params)
@@ -257,14 +506,19 @@ class SpmdTrainer:
     def step(self, inputs, labels):
         """One forward + backward + update; returns the loss."""
         loss, grads = self.loss_and_grads(inputs, labels)
+        self._update(grads)
+        return loss
+
+    def _update(self, grads):
+        # split parameters: the rules' norms are the whole parameters'
+        kw = {"reduce_sq": self._reduce_sq} if self._split_groups else {}
         with torch.no_grad():
             names = list(self.params)
             new, self.opt_state = self.tx.update(
                 {n: p.detach() for n, p in self.params.items()}, grads,
-                self.opt_state)
+                self.opt_state, **kw)
             torch._foreach_copy_([self.params[n].detach() for n in names],
                                  [new[n] for n in names])
-        return loss
 
     def run_steps(self, inputs, labels, n_steps):
         """n_steps updates on one batch; returns the last loss."""
@@ -279,7 +533,11 @@ class SpmdTrainer:
         next chunk is pinned on the host and copied on a side stream once
         the current chunk's first step is queued, so both overlap that
         chunk's steps on the card (the JAX trainer's double-buffered
-        input), and the steps wait for that copy alone."""
+        input), and the steps wait for that copy alone. On a mesh the
+        batches come through `io.DevicePrefetcher(sharding=)`, which
+        hands each rank its rows on its device."""
+        if self._bax:
+            return self._run_epoch_sharded(batches)
         it = iter(batches)
         cuda = self.device.type == "cuda"
         side = torch.cuda.Stream(self.device) if cuda else None
@@ -323,3 +581,27 @@ class SpmdTrainer:
                 loss = self.step(inputs, labels)
             current = following
         return loss
+
+    def _run_epoch_sharded(self, batches):
+        from ..io import DevicePrefetcher
+
+        def pairs():
+            for inputs, labels in batches:
+                inputs = tuple(inputs) if isinstance(inputs, (list, tuple)) \
+                    else (inputs,)
+                yield inputs, labels
+
+        loss = None
+        pf = DevicePrefetcher(pairs(), sharding=self.batch_sharding(),
+                              depth=2, device=self.device)
+        for inputs, labels in pf:
+            loss, grads = self._local_loss_and_grads(inputs, labels)
+            self._update(grads)
+        return loss
+
+
+def spmd_data_parallel(layer, loss_fn, optimizer, **kw):
+    """A data-parallel trainer over the world (the installed mesh, by
+    default dp over every rank): CompiledProgram.with_data_parallel's
+    replacement."""
+    return SpmdTrainer(layer, loss_fn, optimizer, **kw)

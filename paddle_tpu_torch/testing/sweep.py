@@ -372,6 +372,8 @@ def cases():
     lay("Conv1D", mkp(nn.Conv1D, 3, 5, 3, padding=1), [_s((2, 3, 9), 81)])
     lay("GroupNorm", mkp(nn.GroupNorm, 2, 4), [img])
     lay("InstanceNorm2D", mkp(nn.InstanceNorm2D, 4), [img])
+    # one process: the batch norm of its batch (the ranks' sums: phase 38)
+    lay("SyncBatchNorm", lambda: nn.SyncBatchNorm(4, device="cpu"), [img])
     lay("LocalResponseNorm", mk(nn.LocalResponseNorm, 3), [img])
     lay("SpectralNorm", lambda: nn.SpectralNorm([6, 4, 3], 1, 2,
                                                 device="cpu"),

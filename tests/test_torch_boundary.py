@@ -120,3 +120,29 @@ def test_tooling_slice_is_scanned_and_imports_alone():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_multi_gpu_slice_is_scanned_and_imports_alone():
+    """parallel/ and distributed/ (the multi-GPU training slice) are among
+    the scanned sources, and importing them, the launcher's CLI module
+    included, loads no JAX."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "parallel/functional.py",
+                 "parallel/collectives.py", "parallel/layers.py",
+                 "parallel/spmd.py", "parallel/ring.py",
+                 "parallel/pipeline.py", "distributed/__init__.py",
+                 "distributed/collective.py", "distributed/parallel.py",
+                 "distributed/launch.py", "distributed/rendezvous.py"):
+        assert name in rel, name
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.parallel\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

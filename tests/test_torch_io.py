@@ -260,7 +260,9 @@ def test_device_prefetcher_raises_source_errors_and_refuses_sharding():
     next(it)
     with pytest.raises(ValueError, match="source broke"):
         next(it)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # a sharding is a parallel.sharding.Sharding (the multi-GPU slice
+    # ports it); an axis name alone is refused
+    with pytest.raises(TypeError, match="Sharding"):
         tio.DevicePrefetcher(iter([]), sharding="dp", device="cpu")
     p = tio.DevicePrefetcher(iter(range(100)), depth=1, device="cpu")
     p.close()

@@ -295,14 +295,14 @@ def test_dropout_layers_are_identity_in_eval():
 
 
 def test_every_jax_layer_is_ported_or_listed():
-    """The JAX `nn` names the port leaves out are exactly those
-    ROADMAP.md lists with the item that takes them."""
+    """Every JAX `nn` class is ported (SyncBatchNorm, the last one, came
+    with the multi-GPU training slice)."""
     import inspect
 
     jax_names = {n for n, v in vars(jnn).items()
                  if not n.startswith("_") and inspect.isclass(v)}
     missing = sorted(jax_names - set(tnn.__all__))
-    assert missing == ["SyncBatchNorm"], missing
+    assert missing == [], missing
 
 
 #: names of the port's `nn.functional` and `nn` before the library came
