@@ -525,10 +525,38 @@ Phases; any failure exits nonzero before the result lines:
     bias and dropout 0.1: each (batch, head) shard of dp=2 x tp=2,
     launched with its dropout address, gives the slice of the full
     call's out, lse, dq, dk and dv bit for bit.
-39. Output: a {"kernels": [...]} line for all eleven kernels (the
+39. Multi-GPU serving, fleet, checkpoints and the parameter server, each
+    part timed. (a) A one-rank NCCL world (dp=1): `ShardedServingEngine`
+    and its paged spec_k=4 twin serve the whole Transformer-base with the
+    one-card engines' tokens; a fleet collective step (amp, recompute,
+    gradient_merge k_steps 2) of ERNIE-base at phase 10's shape is the
+    `SpmdTrainer` step with the same kwargs, bit for bit (deterministic
+    algorithms on). Kernels #8 and #9 at the dp2 x tp2 serving's shard
+    shapes (column blocks of n / 2) against their plain versions under
+    phase 16's limits. (b) Four ranks sharing the card over gloo serve
+    Transformer-base at full width, its decoder cut to 2 layers (the
+    run's time): dp2 x tp2 in the gathered layout (dense; paged with
+    spec_k=4) and the megatron layout (dense with spec_k=4; paged), int8
+    + three LoRA tenants, and disaggregated prefill (prefill_dp 1), each
+    against its one-card engine on one rank, tokens request for request
+    (a divergence only at a top-2 margin below 1e-4) and one prefill's
+    logits through the blocks within 1e-3; kernels #1 and #4-#9 launched
+    on every rank. (c) `ErnieForPretraining` at ERNIE-base width (2
+    layers, float32, 4 x 512) on tp=2: the loss and every gradient
+    within 1e-5 relative L2 of one rank (the tied decoder's logits
+    gathered over tp). (d) `AsyncCheckpointer` save and restore, bitwise
+    on the card, with its retention; `save_sharded` on four ranks and
+    `load_sharded`, bitwise. (e) `launch_ps` with one pserver and two
+    trainers on the card: the parameter-server tests' CTR model
+    converges (loss below a third of its start); the trainers' pull and
+    push rates. Ranks sharing one card measure the code, not multi-GPU
+    speed.
+40. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
-    3, 5, 5b, 6, 14, 15 and 26-28, and over the training paths, phases
-    10, 22, 25, 32, 33, 36 (a) and 38 (a) and (b); the three training
+    3, 5, 5b, 6, 14, 15, 26-28 and 39 (a) and (b), and over the training
+    paths, phases 10, 22, 25, 32, 33, 36 (a), 38 (a) and (b) and 39 (a)
+    and (c); int8_matmul and lora_gather's over phases 13-16 and 39 (b);
+    the three training
     kernels' float16 instances in rows of their own, their launches from
     36 (b)), then
     the card's name and power limit, then {"ok": true, "device": {...}}
@@ -7418,6 +7446,698 @@ def mesh_phase(A, seed, card, dev="cuda", nccl=True):
     return result
 
 
+
+# ------------------------------------------------------------------ phase 39
+#: phase 39 (b): Transformer-base at full width (D_MODEL, HEADS, FFN, VOCAB)
+#: on four gloo ranks sharing the card, its decoder cut to SH_LAYERS
+#: layers to fit the run's time; SH_REQUESTS requests of 64-256-token
+#: prompts (three buckets), SH_NEW new tokens, a SH_SRC-row memory
+SH_LAYERS, SH_SLOTS, SH_REQUESTS, SH_NEW, SH_SRC, SH_MAX = 2, 4, 8, 16, 64, 288
+#: phase 39 (a): NCCL at world size 1, the whole 6-layer Transformer-base
+SH_A_REQUESTS = 8
+#: phase 39 (c): ErnieForPretraining at ERNIE-base width (2 layers) on tp=2
+PT_TP_LAYERS, PT_TP_BATCH, PT_TP_SEQ = 2, 4, 512
+#: phase 39 (e): the CTR model of the parameter-server tests on the card
+PS_STEPS, PS_ROWS, PS_SLOTS, PS_DIM, PS_VOCAB = 40, 4096, 3, 64, 2000
+
+
+def sh_stack(dev, seed, layers=SH_LAYERS):
+    """Transformer-base's decoder (cut to `layers`), embedding and
+    projection, seeded: every rank builds the same weights."""
+    from paddle_tpu_torch import nn
+
+    gen = torch.Generator().manual_seed(seed + 39)
+    dec = nn.TransformerDecoder(nn.TransformerDecoderLayer(
+        D_MODEL, HEADS, FFN, dropout=0.0, device=dev, generator=gen),
+        layers).eval()
+    emb = nn.Embedding(VOCAB, D_MODEL, device=dev, generator=gen).eval()
+    proj = nn.Linear(D_MODEL, VOCAB, device=dev, generator=gen).eval()
+    return dec, emb, proj
+
+
+def sh_requests(seed, n=SH_REQUESTS, lo=64, hi=257, tenants=None):
+    """(prompt, memory [SH_SRC, D], tenant) for phase 39's serves."""
+    rs = np.random.RandomState(seed + 390)
+    out = []
+    for i in range(n):
+        p = rs.randint(2, VOCAB, int(rs.randint(lo, hi)))
+        p[0] = 0
+        mem = rs.randn(SH_SRC, D_MODEL).astype(np.float32)
+        out.append((p, mem, None if tenants is None
+                    else tenants[i % len(tenants)]))
+    return out
+
+
+def sh_serve(eng, reqs, new=SH_NEW):
+    """Every request through `eng` (a synchronous drain); the tokens."""
+    from paddle_tpu_torch.serving import Request, Scheduler
+
+    sched = Scheduler(max_queue=64)
+    rs = [Request(p, m, max_new_tokens=new, eos_id=1, adapter=a)
+          for p, m, a in reqs]
+    for r in rs:
+        sched.submit(r)
+    eng.serve_until_idle(sched, 20000)
+    out = []
+    for i, r in enumerate(rs):
+        res = r.result(timeout=600)
+        if not res.ok:
+            raise AssertionError(f"phase 39: request {i} finished "
+                                 f"{res.finish_reason}: {res.error!r}")
+        out.append([int(t) for t in res.tokens])
+    return out
+
+
+def sh_pool(decoder):
+    from paddle_tpu_torch.serving import AdapterPool
+
+    pool = AdapterPool(decoder, capacity=3, rank=MT_RANK)
+    for i in range(3):
+        pool.register_random(f"tenant{i}", seed=100 + i, scale=0.05)
+    return pool
+
+
+def sharded_serve_task(rank, world, dev, spec):
+    """One serve of phase 39 (b) on a rank: the sharded engine on
+    `spec["mesh"]` (or, with no mesh, the one-card engine on rank 0 alone),
+    this rank's kernel launches over the serve, and the largest logit
+    difference of one prompt's prefill through this rank's blocks against
+    the whole layers."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.parallel import init_mesh
+    from paddle_tpu_torch.serving import ServingEngine, ShardedServingEngine
+    from paddle_tpu_torch.text.generation import _StepNet
+
+    dec, emb, proj = sh_stack(dev, spec["seed"])
+    kw = dict(spec["kw"])
+    if spec.get("tenants"):
+        kw["adapters"] = sh_pool(dec)
+    reqs = sh_requests(spec["seed"], tenants=spec.get("tenants"))
+    sync(dev)
+    A.reset_launches()
+    t0 = time.perf_counter()
+    if spec["mesh"] is None:
+        eng = ServingEngine(dec, emb, proj, device=dev, **kw)
+    else:
+        mesh = init_mesh(**spec["mesh"])
+        eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, **kw)
+    toks = sh_serve(eng, reqs)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launches())
+    logit_diff = None
+    if spec["mesh"] is not None and eng._decodes:
+        from paddle_tpu_torch.core.bucketing import pad_prompt_row
+
+        p, m, _ = reqs[0]
+        row, P0, Pb = pad_prompt_row(p, 1)
+        prompt = torch.as_tensor(row, device=dev)
+        mem = torch.as_tensor(m, device=dev)[None]
+        outs = []
+        for net in (eng._net, _StepNet(dec, emb, proj)):
+            inc = [ly.self_attn.gen_cache(None, max_length=Pb, batch_size=1,
+                                          dtype=mem.dtype)
+                   for ly in net.decoder.layers]
+            with torch.inference_mode():
+                outs.append(net.prefill(prompt, P0, mem, inc,
+                                        eng._pool_len)[0][0, :P0])
+        logit_diff = float((outs[0] - outs[1]).abs().max())
+    snap = eng.metrics.snapshot()
+    out = {"tokens": toks, "launches": launches, "seconds": seconds,
+           "logit_max_diff": logit_diff, "decodes": getattr(
+               eng, "_decodes", True),
+           "sharding": snap.get("sharding"),
+           "weights_bytes": eng.weights_bytes()}
+    if hasattr(eng, "_alloc"):
+        eng.flush_prefix_cache()
+        eng._alloc.check()
+        out["pages_free"] = [eng._alloc.pages_free, eng.num_pages]
+    if spec.get("tenants"):
+        kw["adapters"].check()
+    return out
+
+
+#: phase 39 (b)'s serves: (label, mesh, engine kwargs, tenants); the
+#: runs between them launch kernels #1 and #4-#9 on every rank
+SH_RUNS = (
+    ("gathered_dense", {"dp": 2, "tp": 2}, {}, None),
+    ("gathered_paged_spec4", {"dp": 2, "tp": 2},
+     {"paged": True, "page_size": PAGE, "spec_k": SPEC_K}, None),
+    ("megatron_dense_spec4", {"dp": 2, "tp": 2},
+     {"layout": "megatron", "spec_k": SPEC_K}, None),
+    ("megatron_paged", {"dp": 2, "tp": 2},
+     {"layout": "megatron", "paged": True, "page_size": PAGE}, None),
+    ("int8_lora_dp2xtp2", {"dp": 2, "tp": 2}, {"quantize": "int8"},
+     ["tenant0", "tenant1", None, "tenant2"]),
+    ("disaggregated_prefill_dp1", {"dp": 2, "tp": 2},
+     {"prefill": "disaggregated", "prefill_dp": 1, "max_joins_per_iter": 4},
+     None),
+)
+#: the kernels every rank of phase 39 (b) launches on its serves
+SH_KERNELS = ("flash_fwd", "flash_decode", "flash_verify",
+              "paged_flash_decode", "paged_flash_verify", "int8_matmul",
+              "lora_gather")
+
+
+def sh_tie_net(dev, seed, tenants, reqs):
+    """`same_tokens`'s margin function for phase 39's stack: the whole
+    layers on this process, under the request's tenant for a LoRA
+    serve."""
+    import types
+
+    dec, emb, proj = sh_stack(dev, seed)
+    net = types.SimpleNamespace(decoder=dec, embed=emb, project=proj)
+    if not tenants:
+        return net, None
+    from paddle_tpu_torch.ops import quant as Q
+    from paddle_tpu_torch.serving import quantize_net
+
+    pool = sh_pool(dec)
+    quantize_net(dec, emb, proj)
+    rows = {name: pool.acquire(name) for name in set(tenants) if name}
+
+    def margin(i, toks, j):
+        name = reqs[i][2]
+        ids = np.asarray([rows.get(name, 0)], np.int32)
+        with Q.lora_scope(ids, pool.banks()):
+            return top2_margin(net, reqs[i][0], torch.as_tensor(
+                reqs[i][1], device=dev), toks, j)
+
+    return net, margin
+
+
+def sharded_serving_phase(pool, seed, dev):
+    """Phase 39 (b): each serve on four ranks against its one-card
+    engine on one rank, tokens request for request (a divergence only at
+    a top-2 margin below TIE), the logits of one prefill through the
+    blocks within SH_LOGIT_ATOL, every kernel of SH_KERNELS launched on
+    every rank."""
+    out = {}
+    per_rank = [dict.fromkeys(_KERNEL_NAMES, 0) for _ in range(SH_RANKS)]
+    for label, mesh, kw, tenants in SH_RUNS:
+        t0 = time.perf_counter()
+        base = dict(seed=seed, kw=dict(kw, num_slots=SH_SLOTS,
+                                       max_len=SH_MAX), tenants=tenants)
+        one_kw = {k: v for k, v in base["kw"].items()
+                  if k not in ("layout", "prefill", "prefill_dp")}
+        want = pool.run(1, "sharded_serve_task",
+                        dict(base, kw=one_kw, mesh=None))[0]
+        got = pool.run(SH_RANKS, "sharded_serve_task", dict(base, mesh=mesh))
+        reqs = sh_requests(seed, tenants=tenants)
+        ties = 0
+        for r, g in enumerate(got):
+            if g["tokens"] != want["tokens"]:
+                net, margin = sh_tie_net(dev, seed, tenants, reqs)
+                ties = max(ties, same_tokens(
+                    f"phase 39 (b) {label} rank {r}", want["tokens"],
+                    g["tokens"], net, [q[0] for q in reqs],
+                    [torch.as_tensor(q[1], device=dev) for q in reqs],
+                    margin))
+            for k, v in g["launches"].items():
+                per_rank[r][k] = per_rank[r].get(k, 0) + v
+            if "pages_free" in g and g["pages_free"][0] != g["pages_free"][1]:
+                raise AssertionError(f"phase 39 (b) {label}: rank {r} "
+                                     f"leaked pages {g['pages_free']}")
+        diffs = [g["logit_max_diff"] for g in got
+                 if g["logit_max_diff"] is not None]
+        worst = max(diffs) if diffs else None
+        if worst is not None and worst > SH_LOGIT_ATOL:
+            raise AssertionError(f"phase 39 (b) {label}: the blocks' prefill "
+                                 f"logits differ by {worst} > "
+                                 f"{SH_LOGIT_ATOL}")
+        out[label] = {
+            "mesh": mesh, "kw": kw, "tied_requests": ties,
+            "tokens": sum(len(t) for t in want["tokens"]),
+            "logit_max_diff": worst,
+            "one_card_s": want["seconds"],
+            "rank_s": [round(g["seconds"], 3) for g in got],
+            "launches_by_rank": [{k: g["launches"].get(k, 0)
+                                  for k in SH_KERNELS} for g in got],
+            "sharding": got[0]["sharding"],
+            "seconds": time.perf_counter() - t0}
+        log(f"  (b) {label}: {json.dumps(out[label])}")
+    if dev != "cpu":
+        for r, lc in enumerate(per_rank):
+            missing = [k for k in SH_KERNELS if lc.get(k, 0) == 0]
+            if missing:
+                raise AssertionError(f"phase 39 (b): rank {r} never "
+                                     f"launched {missing}")
+    out["launches_by_rank"] = per_rank
+    return out
+
+
+#: the logits of one prefill through a rank's column blocks against the
+#: whole layers (float32, 2 layers, |logit| ~ 10): a block's product may
+#: round otherwise than the whole product's in cuBLAS; megatron sums
+#: partial products in another order
+SH_LOGIT_ATOL = 1e-3
+SH_RANKS = 4
+_KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_decode",
+                 "flash_verify", "paged_flash_decode", "paged_flash_verify",
+                 "int8_matmul", "lora_gather", "fused_conv_fwd",
+                 "fused_conv_bwd")
+
+
+def shard_kernel_cases(Q, g, parts=2):
+    """Kernels #8 and #9 at the column-block shapes of dp2 x tp2's serving
+    (n / parts of each of the decoder's and the vocabulary's widths): the
+    int8 matmul on a column block of W with its scales, the LoRA delta
+    with B cut to the block's columns."""
+    i8, lo = {}, {}
+    for d, n in QUANT_SHAPES:
+        w = torch.randn(d, n, generator=g, device="cuda") * \
+            (6.0 / (d + n)) ** 0.5
+        q, scale = Q.quantize_int8_weight(w)
+        c = n // parts
+        for m in (SH_SLOTS // 2, 4 * SH_SLOTS // 2, 256):
+            i8[f"m{m} {d}x{c} (block of {n})"] = (
+                torch.randn(m, d, generator=g, device="cuda"),
+                q[:, :c].contiguous(), scale[:c].contiguous())
+    cap = 3
+    for d, n in ((512, 512), (512, 2048), (2048, 512)):
+        A = torch.randn(cap, d, MT_RANK, generator=g, device="cuda") * 0.05
+        B = torch.randn(cap, MT_RANK, n, generator=g, device="cuda") * 0.05
+        A[0] = 0.0
+        B[0] = 0.0
+        c = n // parts
+        for b, s in ((SH_SLOTS // 2, 1), (SH_SLOTS // 2, SPEC_K), (1, 256)):
+            ids = [0, 1, 2, 1][:b] if b > 1 else [2]
+            lo[f"b{b} s{s} {d}x{c} (block of {n})"] = (
+                torch.randn(b, s, d, generator=g, device="cuda"), A,
+                B[:, :, :c].contiguous(), torch.tensor(ids,
+                                                       dtype=torch.int32))
+    return i8, lo
+
+
+def check_shard_kernels(Q, g):
+    """Phase 39 (b): kernels #8 and #9 at the shard shapes against their
+    plain versions under phase 16's limits (float32: REL_F32_QUANT of the
+    largest plain entry). Returns {kernel: max_abs_err}."""
+    i8, lo = shard_kernel_cases(Q, g)
+    errs = {}
+    for kname, cases, fn, plain in (
+            ("int8_matmul", i8, Q.int8_matmul, Q.int8_matmul_reference),
+            ("lora_gather", lo, Q.lora_delta, Q.lora_delta_reference)):
+        for cname, args in cases.items():
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            limit = REL_F32_QUANT * want.float().abs().max().item()
+            log(f"  (b) {kname:12s} {cname}: max_abs_err {e:.3e} (limit "
+                f"{limit:.3e})")
+            if not e <= limit:
+                raise AssertionError(f"phase 39: {kname} disagrees with its "
+                                     f"plain version at {cname}: {e}")
+            errs[kname] = max(errs.get(kname, 0.0), e)
+    return errs
+
+
+def sharded_world_one(A, seed, dev="cuda"):
+    """Phase 39 (a): on a one-rank NCCL world (dp=1), the sharded engine
+    and its paged spec twin serve the whole Transformer-base with the
+    one-card engines' tokens; a fleet collective step (amp, recompute,
+    gradient_merge k_steps 2) of ERNIE-base at phase 10's shape is the
+    SpmdTrainer step with the same kwargs, bit for bit."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        build_spmd_trainer
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import SpmdTrainer, init_mesh
+    from paddle_tpu_torch.parallel import mesh as M
+    from paddle_tpu_torch.serving import ServingEngine, ShardedServingEngine
+
+    model, embed, project = build_model(seed, dev)
+    reqs = sh_requests(seed + 1, n=SH_A_REQUESTS, lo=64, hi=513)
+    kws = {"dense": dict(num_slots=SLOTS, max_len=MAX_LEN),
+           "paged_spec": dict(num_slots=SLOTS, max_len=MAX_LEN, paged=True,
+                              page_size=PAGE, spec_k=SPEC_K)}
+    want = {k: sh_serve(ServingEngine(model.decoder, embed, project,
+                                      device=dev, **kw), reqs, NEW_TOKENS)
+            for k, kw in kws.items()}
+    st = fleet.DistributedStrategy()
+    st.amp = st.recompute = st.gradient_merge = True
+    st.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    inputs, labels = _mesh_batch(seed, E_BATCH, E_SEQ, dev)
+    old_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        bound = D.init_parallel_env(None if dev == "cuda" else dev)
+        mesh = init_mesh(dp=1)
+        out["group"] = {"backend": dist.get_backend(),
+                        "size": dist.get_world_size(), "device": str(bound)}
+        sync(dev)
+        A.reset_launches()
+        got = {}
+        for k, kw in kws.items():
+            eng = ShardedServingEngine(model.decoder, embed, project,
+                                       mesh=mesh, **kw)
+            got[k] = sh_serve(eng, reqs, NEW_TOKENS)
+            del eng
+        sync(dev)
+        out["serve_same_tokens"] = {k: got[k] == want[k] for k in kws}
+        fleet.fleet.init(is_collective=True, strategy=st, device=bound)
+
+        def step(build):
+            tr = build(_mesh_ernie(dev, seed, E_DROPOUT))
+            loss = tr.step(inputs, labels)
+            sync(dev)
+            return tr, loss
+
+        tr1, l1 = step(lambda m: build_spmd_trainer(
+            m, ce_loss, st, fopt.adamw(E_LR, weight_decay=0.01), mesh=mesh,
+            generator=torch.Generator().manual_seed(seed)))
+        p1 = {n: p.detach().clone() for n, p in tr1.params.items()}
+        del tr1
+        tr2, l2 = step(lambda m: SpmdTrainer(
+            m, ce_loss, fopt.adamw(E_LR, weight_decay=0.01), mesh=mesh,
+            compute_dtype="bfloat16", remat=True, grad_accum=2,
+            generator=torch.Generator().manual_seed(seed)))
+        out["fleet_step_bitwise"] = bool(torch.equal(l1, l2)) and all(
+            torch.equal(p1[n], p.detach()) for n, p in tr2.params.items())
+        out["fleet_loss"] = float(l1)
+        out["launches"] = dict(A.LAUNCHES)
+        del tr2
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_cfg
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        M._reset()
+    if not all(out["serve_same_tokens"].values()):
+        raise AssertionError(f"phase 39 (a): the one-rank NCCL sharded "
+                             f"engines' tokens are not the one-card "
+                             f"engines': {out['serve_same_tokens']}")
+    if not out["fleet_step_bitwise"]:
+        raise AssertionError("phase 39 (a): the fleet collective step is not "
+                             "the SpmdTrainer step with the same kwargs, "
+                             "bit for bit")
+    if dev != "cpu":
+        for k in ("flash_fwd", "flash_decode", "paged_flash_verify",
+                  "flash_bwd_dq", "flash_bwd_dkv"):
+            if not out["launches"].get(k):
+                raise AssertionError(f"phase 39 (a): {k} never launched")
+    return out
+
+
+def pretrain_tp_task(rank, world, dev, spec):
+    """Phase 39 (c): one float32 loss_and_grads of ErnieForPretraining
+    (ERNIE-base width, `spec["layers"]` layers) on `spec["mesh"]` (None:
+    one rank, kept as the reference on rank 0) with the Megatron rules;
+    rank 0 returns the loss's and the gradients' relative L2 errors
+    against the reference."""
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import (COMMON_TP_RULES, SpmdTrainer,
+                                           init_mesh)
+    from paddle_tpu_torch.text import ErnieConfig, ErnieForPretraining
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import attention as A
+
+    A.reset_launches()
+    mesh = init_mesh(**spec["mesh"]) if spec["mesh"] else init_mesh()
+    cfg = ErnieConfig.base(num_layers=spec["layers"], hidden_dropout=0.0,
+                           attn_dropout=0.0)
+    model = ErnieForPretraining(
+        cfg, device=dev, generator=torch.Generator().manual_seed(spec["seed"]))
+    tr = SpmdTrainer(model, pt_loss, fopt.sgd(0.1), device=dev, mesh=mesh,
+                     rules=COMMON_TP_RULES,
+                     generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(spec["seed"])
+    b, s = spec["b"], spec["s"]
+    ids = rs.randint(4, cfg.vocab_size, (b, s)).astype(np.int64)
+    labels = np.full((b, s + 1), -1, np.int64)
+    for row in range(b):
+        pos = rs.choice(s, int(0.15 * s), replace=False)
+        labels[row, pos] = ids[row, pos]
+        ids[row, pos] = 3
+    labels[:, s] = rs.randint(0, 2, b)
+    tt = np.zeros_like(ids)
+    tt[:, s // 2:] = 1
+    loss, grads = tr.loss_and_grads(
+        (ids, tt, np.ones((b, s), np.float32)), labels)
+    full = {}
+    for n, g in grads.items():
+        sh = tr.param_shardings.get(n)
+        full[n] = sh.gather(g) if sh is not None and sh.is_split else g
+    table = tuple(tr.params["ernie.embeddings.word_embeddings.weight"].shape)
+    launches = {k: v for k, v in _build.launches().items() if v}
+    if rank:
+        return {"launches": launches}
+    if not spec["mesh"]:
+        _MESH_REF["pretrain"] = (loss.detach(), full)
+        return {"loss": float(loss), "table": table}
+    ref_loss, ref = _MESH_REF.pop("pretrain")
+    grad_rel, grad_worst = _vec_rel(full, ref)
+    return {"loss": float(loss), "loss_rel": _rel(loss.detach()[None],
+                                                  ref_loss[None]),
+            "grad_rel": grad_rel, "grad_worst": grad_worst,
+            "table": table, "launches": launches}
+
+
+def pt_loss(outs, labels):
+    mlm, nsp = outs
+    tgt = labels[:, :-1]
+    return torch.nn.functional.cross_entropy(
+        mlm.float().reshape(-1, mlm.shape[-1]), tgt.reshape(-1),
+        ignore_index=-1) + torch.nn.functional.cross_entropy(
+        nsp.float(), labels[:, -1])
+
+
+def sharded_ckpt_task(rank, world, dev, spec):
+    """Phase 39 (d): this rank's blocks (tp-split columns / rows, dp
+    replicas) of seeded whole arrays on the card, `save_sharded` into
+    `spec["dir"]`."""
+    from paddle_tpu_torch.io.checkpoint import save_sharded
+    from paddle_tpu_torch.parallel import init_mesh, named_sharding
+
+    mesh = init_mesh(dp=2, tp=2)
+    full = sh_ckpt_state(spec["seed"], dev)
+    shardings, blocks = {}, {}
+    for name, t in full.items():
+        sh = named_sharding(SH_CKPT_SPECS.get(name, ()), mesh)
+        blocks[name] = sh.shard(t)
+        shardings[f"params/{name}"] = sh
+    save_sharded({"params": blocks}, spec["dir"], shardings=shardings)
+    return {n: tuple(b.shape) for n, b in blocks.items()}
+
+
+SH_CKPT_SPECS = {"q_proj.weight": (None, "tp"), "out_proj.weight": ("tp",
+                                                                     None),
+                 "word_embeddings.weight": ("tp", None)}
+
+
+def sh_ckpt_state(seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"q_proj.weight": torch.randn(E_HIDDEN, E_HIDDEN, generator=g,
+                                         device=dev),
+            "out_proj.weight": torch.randn(E_HIDDEN, E_HIDDEN, generator=g,
+                                           device=dev),
+            "word_embeddings.weight": torch.randn(18000, E_HIDDEN,
+                                                  generator=g, device=dev),
+            "norm.weight": torch.randn(E_HIDDEN, generator=g, device=dev)}
+
+
+def checkpoint_phase(pool, seed, dev):
+    """Phase 39 (d): AsyncCheckpointer save, then restore, bitwise on the
+    card (ERNIE-base's parameters and an AdamW state); save_sharded on
+    four ranks, load_sharded, bitwise against the whole arrays."""
+    import tempfile
+
+    from paddle_tpu_torch.io.checkpoint import AsyncCheckpointer, load_sharded
+
+    out = {}
+    d = tempfile.mkdtemp(prefix="phase39_ckpt_")
+    model = _mesh_ernie(dev, seed, 0.0, layers=2)
+    state = {"model": {n: p.detach() for n, p in model.named_parameters()},
+             "step": torch.tensor(5, device=dev)}
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in state["model"].values())
+    ck = AsyncCheckpointer(os.path.join(d, "async"), max_to_keep=2)
+    t0 = time.perf_counter()
+    for step in range(3):
+        ck.save(step, state)
+    t_save = time.perf_counter() - t0
+    ck.wait()
+    t_wait = time.perf_counter() - t0
+    got = ck.restore()
+    same = all(np.array_equal(got["model"][n], t.cpu().numpy())
+               for n, t in state["model"].items())
+    out["async"] = {"bitwise": same, "steps_kept": ck.all_steps(),
+                    "bytes_a_step": nbytes, "save_calls_s": t_save,
+                    "written_s": t_wait}
+    ck.close()
+    if not same or ck.all_steps() != [1, 2]:
+        raise AssertionError(f"phase 39 (d): {out['async']}")
+    t0 = time.perf_counter()
+    local = pool.run(SH_RANKS, "sharded_ckpt_task",
+                     dict(seed=seed, dir=os.path.join(d, "sharded")))
+    back = load_sharded(os.path.join(d, "sharded"))["params"]
+    full = sh_ckpt_state(seed, dev)
+    same = all(np.array_equal(back[n], t.cpu().numpy())
+               for n, t in full.items())
+    out["sharded"] = {"bitwise": same, "blocks_rank0": local[0],
+                      "seconds": time.perf_counter() - t0}
+    if not same:
+        raise AssertionError(f"phase 39 (d): load_sharded {out['sharded']}")
+    return out
+
+
+_PS_TRAINER = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.ps import DistributedLookupTable
+
+STEPS, ROWS, SLOTS, DIM, VOCAB = (int(a) for a in sys.argv[2:7])
+dev = torch.device(sys.argv[7])
+fleet.init(is_collective=False)
+comm = fleet.init_worker()
+tid = fleet.fleet._role_maker._worker_index()
+emb = DistributedLookupTable(comm, "slot_emb", dim=DIM)
+rs = np.random.RandomState(1)
+ids = rs.randint(0, VOCAB, (2 * ROWS, SLOTS)).astype(np.int64)
+truth = rs.rand(VOCAB) > 0.5
+labels = (truth[ids].sum(1) >= 2).astype(np.float32)
+ids, labels = ids[tid::2], torch.as_tensor(labels[tid::2], device=dev)
+comm.init_params({"w": np.zeros(DIM, np.float32)})
+losses, pull_s, push_s = [], 0.0, 0.0
+for step in range(STEPS):
+    t0 = time.perf_counter()
+    rows = torch.tensor(emb.lookup(ids), device=dev, requires_grad=True)
+    w = torch.tensor(comm.pull()["w"], device=dev, requires_grad=True)
+    t1 = time.perf_counter()
+    p = torch.sigmoid(rows.sum(1) @ w)
+    loss = -(labels * torch.log(p + 1e-6)
+             + (1 - labels) * torch.log(1 - p + 1e-6)).mean()
+    loss.backward()
+    losses.append(float(loss.detach()))
+    t2 = time.perf_counter()
+    emb.push_grad(ids, rows.grad)
+    comm.push({"w": w.grad})
+    comm.barrier(10 + step % 2)
+    t3 = time.perf_counter()
+    pull_s += t1 - t0
+    push_s += t3 - t2
+with open(os.path.join(sys.argv[1], f"trainer{tid}.json"), "w") as f:
+    json.dump({"losses": losses, "pull_s": pull_s, "push_s": push_s,
+               "rows": int(ids.size), "dim": DIM}, f)
+comm.barrier(99)
+fleet.stop_worker()
+'''
+
+
+def ps_phase(seed, dev="cuda"):
+    """Phase 39 (e): `launch_ps` with one pserver and two trainers on the
+    card: the parameter-server tests' CTR model (sparse slot embeddings
+    on the pserver under its adagrad rule, the dense tower's gradient by
+    autograd on the card) converges; the trainers' pull and push rates
+    (host clock: the RPCs plus the copies to and from the card)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.distributed.ps import _native
+
+    d = tempfile.mkdtemp(prefix="phase39_ps_")
+    script = os.path.join(d, "train_ps.py")
+    with open(script, "w") as f:
+        f.write(_PS_TRAINER)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    _native.load()
+    build = _native.build_info()
+    t1 = time.perf_counter()
+    rc = launch.launch_ps(
+        [script, d, str(PS_STEPS), str(PS_ROWS), str(PS_SLOTS), str(PS_DIM),
+         str(PS_VOCAB), str(dev)], num_servers=1, num_trainers=2,
+        server_optimizer="sgd", server_lr=0.2,
+        extra_env={"PYTHONPATH": root, "OMP_NUM_THREADS": "2"})
+    wall = time.perf_counter() - t1
+    if rc != 0:
+        raise AssertionError(f"phase 39 (e): launch_ps exited {rc}")
+    out = {"build_s": t1 - t0, "built": build.get("built"), "wall_s": wall,
+           "steps": PS_STEPS, "trainers": []}
+    for tid in range(2):
+        with open(os.path.join(d, f"trainer{tid}.json")) as f:
+            r = json.load(f)
+        losses = r["losses"]
+        row_bytes = r["rows"] * PS_SLOTS * r["dim"] * 4
+        t = {"loss_first": losses[0], "loss_last": losses[-1],
+             "pull_rows_per_s": r["rows"] * PS_SLOTS * PS_STEPS / r["pull_s"],
+             "pull_mb_per_s": row_bytes * PS_STEPS / r["pull_s"] / 1e6,
+             "push_rows_per_s": r["rows"] * PS_SLOTS * PS_STEPS / r["push_s"],
+             "push_mb_per_s": row_bytes * PS_STEPS / r["push_s"] / 1e6}
+        out["trainers"].append(t)
+        if not losses[-1] < losses[0] / 3:
+            raise AssertionError(f"phase 39 (e): trainer {tid} did not "
+                                 f"converge: {losses[0]} -> {losses[-1]}")
+    return out
+
+
+def sharded_phase(A, Q, g, seed, card, dev="cuda"):
+    """Phase 39 (a)-(e), each part's seconds printed."""
+    result = {}
+    t0 = time.perf_counter()
+    result["a"] = sharded_world_one(A, seed, dev)
+    result["a"]["seconds"] = time.perf_counter() - t0
+    log(f"  (a) one-rank NCCL world: {json.dumps(result['a'])}")
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        result["shard_kernels"] = check_shard_kernels(Q, g)
+        log(f"  (b) kernels #8 and #9 at the shard shapes: "
+            f"{json.dumps(result['shard_kernels'])} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    pool = MeshPool(SH_RANKS, dev)
+    try:
+        result["b"] = sharded_serving_phase(pool, seed, dev)
+        result["b"]["seconds"] = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        spec = dict(seed=seed, layers=PT_TP_LAYERS, b=PT_TP_BATCH,
+                    s=PT_TP_SEQ)
+        pool.run(1, "pretrain_tp_task", dict(spec, mesh=None))
+        ranks = pool.run(2, "pretrain_tp_task", dict(spec, mesh={"tp": 2}))
+        got = ranks[0]
+        got["launches_by_rank"] = [r["launches"] for r in ranks]
+        got["seconds"] = time.perf_counter() - t2
+        result["c"] = got
+        log(f"  (c) ErnieForPretraining (ERNIE-base width, {PT_TP_LAYERS} "
+            f"layers, {PT_TP_BATCH} x {PT_TP_SEQ}) tp=2 against one rank: "
+            f"{json.dumps(got)}")
+        # phase 38's judges: the gradient vector's relative L2 and each
+        # gradient's error over max(its norm, 1) (a key bias's gradient
+        # is zero up to rounding)
+        if not (got["loss_rel"] <= MESH_REL and got["grad_rel"] <= MESH_REL
+                and got["grad_worst"] <= MESH_REL):
+            raise AssertionError(f"phase 39 (c): {got}")
+        t2 = time.perf_counter()
+        result["d"] = checkpoint_phase(pool, seed, dev)
+        result["d"]["seconds"] = time.perf_counter() - t2
+        log(f"  (d) checkpoints: {json.dumps(result['d'])}")
+        result["host_staged_gloo_calls"] = dict(pool.staged)
+    finally:
+        pool.close()
+    t1 = time.perf_counter()
+    result["e"] = ps_phase(seed, dev)
+    result["e"]["seconds"] = time.perf_counter() - t1
+    log(f"  (e) launch_ps, 1 pserver + 2 trainers on {card}: "
+        f"{json.dumps(result['e'])}")
+    result["seconds"] = time.perf_counter() - t0
+    result["card"] = card
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8098,7 +8818,30 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 39: output")
+    log("phase 39: multi-GPU serving, fleet, checkpoints and the parameter "
+        "server: (a) NCCL at world size 1 (the sharded engines and a fleet "
+        f"step), (b) {SH_RANKS} ranks sharing the card over gloo serving "
+        f"Transformer-base ({SH_LAYERS} decoder layers, full width: gathered "
+        "and megatron, dense, paged, spec_k, int8 + LoRA, disaggregated "
+        "prefill), (c) tp pretraining's tied decoder, (d) async and sharded "
+        "checkpoints, (e) launch_ps")
+    sh = sharded_phase(A, Q, g, args.seed, card)
+    for kname in _KERNEL_NAMES:
+        row = kernels[kname]
+        a = sh["a"]["launches"].get(kname, 0)
+        b = sum(lc.get(kname, 0) for lc in sh["b"]["launches_by_rank"])
+        c = sum(lc.get(kname, 0) for lc in sh["c"]["launches_by_rank"])
+        for label, n in (("sharded_nccl_world1", a), ("sharded_4ranks", b),
+                         ("pretrain_tp2", c)):
+            if n:
+                row["launches_by_path"][label] = n
+        row["launches"] = sum(row["launches_by_path"].values())
+    log("  multi-GPU serving summary " + json.dumps(sh))
+    log(f"  phase 39 took {sh['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 40: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

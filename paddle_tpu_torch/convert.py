@@ -57,32 +57,47 @@ its sharding rules split: `from_jax_state(np_state, rules, mesh)` and
 parameter's block, as the mesh trainer's slots do). The full state comes
 back through `SpmdTrainer.sync_to_layer` or `full_params`, comparable
 array by array with the JAX trainer's.
+
+A sharded serving engine's rank holds blocks cut by the serving rules
+fitted to each shape (`parallel.fitted_sharding`: a split that does not
+divide a dim drops axes): `from_jax_state(np_state, serving_param_rules(
+layout), mesh, fitted=True)` gives a rank the blocks of the JAX engine's
+step net (`decoder.*`, `embed.weight`, `project.weight`) under either
+layout, fsdp included, as `serving.sharded.shard_serving_net` cuts them.
+
+A JAX parameter-server job's tables come across through `to_pserver`:
+its pservers' snapshot (the same C server, the same file format) loads
+into the port's pservers, and dense numpy parameters initialise theirs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state", "from_jax_optimizer_state"]
+__all__ = ["from_jax_state", "from_jax_optimizer_state", "to_pserver"]
 
 
-def _block(name, t, rules, mesh):
+def _block(name, t, rules, mesh, fitted=False):
     """This rank's block of tensor `name` under the rules (the whole
-    tensor without rules)."""
+    tensor without rules; `fitted`: the split fitted to the shape)."""
     if rules is None:
         return t
-    from .parallel.sharding import named_sharding
+    from .parallel.sharding import fitted_sharding, named_sharding
 
-    return named_sharding(rules.spec_for(name, t.dim()), mesh).shard(t)
+    spec = rules.spec_for(name, t.dim())
+    sh = fitted_sharding(tuple(t.shape), spec, mesh) if fitted else \
+        named_sharding(spec, mesh)
+    return sh.shard(t)
 
 
-def from_jax_state(np_state, rules=None, mesh=None):
+def from_jax_state(np_state, rules=None, mesh=None, fitted=False):
     """{name: numpy array} -> {name: CPU torch tensor} with the same
     names, dtypes kept: int8 stays int8, float64 arrays from an x64
     JAX process become float32 (the port's parameters are float32). A MoE
     layer's `aux_loss_val` channel is dropped. With `rules`
     (`parallel.ShardingRules`), each tensor is this rank's block of it
-    on `mesh` (None: the installed one)."""
+    on `mesh` (None: the installed one); `fitted` fits each split to the
+    tensor's shape, as the sharded serving engines do."""
     out = {}
     for name, arr in np_state.items():
         if name.rsplit(".", 1)[-1] == "aux_loss_val":
@@ -91,8 +106,24 @@ def from_jax_state(np_state, rules=None, mesh=None):
         if arr.dtype == np.float64:
             arr = arr.astype(np.float32)
         t = torch.from_numpy(np.ascontiguousarray(arr).copy())
-        out[name] = _block(name, t, rules, mesh)
+        out[name] = _block(name, t, rules, mesh, fitted)
     return out
+
+
+def to_pserver(comm, dense=None, snapshot_dir=None):
+    """Carry a JAX parameter-server job's tables to the port's pservers
+    behind `comm` (a `distributed.ps.Communicator`): `snapshot_dir` holds
+    the JAX pservers' snapshot (`checkpoint_notify(dir)` there, one
+    `pserver_<i>.ptps` a pserver), loaded into each of the port's, sparse
+    rows and their optimizer state included; `dense` ({name: numpy
+    array}) initialises the dense tables (float32, as the server holds
+    them)."""
+    if snapshot_dir is not None:
+        comm.checkpoint_notify(snapshot_dir, load=True)
+    for name, arr in (dense or {}).items():
+        arr = np.asarray(arr, np.float32)
+        comm._client_for(name).init_dense(name, arr)
+        comm._dense_shapes[name] = tuple(arr.shape)
 
 
 def from_jax_optimizer_state(np_state, names=None, rules=None, mesh=None):

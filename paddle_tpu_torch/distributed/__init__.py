@@ -21,6 +21,7 @@ collective the identity, as in the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import os
 import socket
@@ -31,8 +32,9 @@ import torch.distributed as dist
 __all__ = ["ReduceOp", "init_parallel_env", "get_rank", "get_world_size",
            "all_reduce", "broadcast", "all_gather", "scatter", "reduce",
            "barrier", "wait", "spawn", "all_reduce_mean_tree", "device",
-           "DataParallel", "collective", "launch", "rendezvous",
-           "STAGED_CALLS"]
+           "send_recv",
+           "DataParallel", "collective", "launch", "rendezvous", "fleet",
+           "ps", "STAGED_CALLS"]
 
 #: host-staged collective calls under gloo, by collective
 STAGED_CALLS = collections.Counter()
@@ -113,7 +115,16 @@ def init_parallel_env(device=None, init_method=None, timeout=None):
         kw["device_id"] = device
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, **kw)
+    # the group this call made is torn down before the interpreter's own
+    # teardown: a backend thread still running at exit can abort the
+    # process after its work is done
+    atexit.register(_destroy_at_exit)
     return device
+
+
+def _destroy_at_exit():
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def device():
@@ -263,21 +274,36 @@ def shift(tensor, group, offset=1):
     r = dist.get_rank(group)
     ranks = dist.get_process_group_ranks(
         dist.group.WORLD if group is None else group)
-    dst, src = ranks[(r + offset) % n], ranks[(r - offset) % n]
     out = torch.empty_like(tensor)
-    if _staged("send_recv", group, [tensor]):
-        host_out = torch.empty_like(tensor, device="cpu")
-        ops = [dist.P2POp(dist.isend, tensor.cpu().contiguous(), dst, group),
-               dist.P2POp(dist.irecv, host_out, src, group)]
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        out.copy_(host_out)
-        return out
-    ops = [dist.P2POp(dist.isend, tensor.contiguous(), dst, group),
-           dist.P2POp(dist.irecv, out, src, group)]
+    send_recv([(tensor, ranks[(r + offset) % n])],
+              [(out, ranks[(r - offset) % n])], group)
+    return out
+
+
+def send_recv(sends=(), recvs=(), group=None):
+    """Point to point in one batch: every (tensor, dst) of `sends` goes to
+    global rank dst and every (tensor, src) of `recvs` is filled in place
+    from global rank src (both sides post their messages to each other in
+    the same order). Under a gloo group CUDA tensors go through host
+    memory (`STAGED_CALLS["send_recv"]`); NCCL sends them as they are."""
+    tensors = [t for t, _ in sends] + [t for t, _ in recvs]
+    if not tensors:
+        return
+    staged = _staged("send_recv", group, tensors)
+    ops, back = [], []
+    for t, dst in sends:
+        t = t.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, t.cpu() if staged else t, dst,
+                              group))
+    for t, src in recvs:
+        buf = torch.empty_like(t, device="cpu") if staged else t
+        ops.append(dist.P2POp(dist.irecv, buf, src, group))
+        back.append((t, buf))
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    return out
+    if staged:
+        for t, buf in back:
+            t.copy_(buf)
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
@@ -327,4 +353,5 @@ def all_reduce_mean_tree(named_arrays, group=None):
 
 
 from . import collective, launch, rendezvous  # noqa: E402,F401
+from . import fleet, ps  # noqa: E402,F401
 from .parallel import DataParallel  # noqa: E402,F401

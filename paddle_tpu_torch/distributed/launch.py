@@ -11,8 +11,11 @@ Collective mode gives each rank the reference's environment
 PADDLE_CURRENT_ENDPOINT, TRAINING_ROLE) plus what `init_parallel_env`
 and torch.distributed read: PADDLE_MASTER, MASTER_ADDR / MASTER_PORT,
 RANK, WORLD_SIZE, LOCAL_RANK and PADDLE_LOCAL_RANK. The parameter-server
-mode (`launch_ps`, `--server_num`) comes with the port's parameter
-server and raises until then.
+mode (`launch_ps`, `--server_num N --worker_num M`) starts N pservers of
+the port's parameter server (`distributed/ps`) and M trainers:
+
+    python -m paddle_tpu_torch.distributed.launch --server_num 1 \
+        --worker_num 2 train_ps.py [args]
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ import sys
 import time
 
 __all__ = ["launch_collective", "launch_ps", "main"]
+
+#: seconds a pserver may take to listen before launch_ps gives up
+_SERVER_START_S = 120.0
 
 
 def _free_ports(n, host="127.0.0.1"):
@@ -116,11 +122,111 @@ def launch_collective(script_args, nproc=2, host="127.0.0.1",
 def launch_ps(script_args, num_servers=1, num_trainers=1,
               host="127.0.0.1", server_optimizer="sgd", server_lr=0.01,
               log_dir=None, extra_env=None):
-    """The parameter-server mode: not ported yet."""
-    raise NotImplementedError(
-        "launch_ps: the parameter server (distributed/ps) is not ported "
-        "yet; it comes with the second multi-GPU slice (ROADMAP.md item "
-        "5b)")
+    """Spawn pserver processes (`python -m paddle_tpu_torch.distributed.ps`,
+    the native PS server) and trainer processes (fleet/launch.py:227
+    launch_ps parity). Each pserver gets TRAINING_ROLE=PSERVER,
+    PADDLE_PORT, PADDLE_TRAINERS_NUM and POD_IP; each trainer
+    TRAINING_ROLE=TRAINER, PADDLE_TRAINER_ID, PADDLE_TRAINERS_NUM and
+    PADDLE_PSERVER_ENDPOINTS (what `fleet.init_worker` reads). The
+    trainers start once every pserver listens (its ready file, within
+    `_SERVER_START_S` seconds). The job ends when every trainer has
+    exited (the pservers are then stopped); a trainer or pserver that
+    dies first ends it with its code."""
+    import tempfile
+
+    ports = _free_ports(num_servers)
+    endpoints = ",".join(f"{host}:{p}" for p in ports)
+    procs, tags = [], []
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+    ready_dir = tempfile.mkdtemp(prefix="launch_ps_")
+    ready = [os.path.join(ready_dir, f"pserver{sid}") for sid in
+             range(num_servers)]
+    for sid, port in enumerate(ports):
+        env = dict(os.environ)
+        env.update({
+            "TRAINING_ROLE": "PSERVER",
+            "PADDLE_PORT": str(port),
+            "PADDLE_TRAINERS_NUM": str(num_trainers),
+            "POD_IP": host,
+        })
+        env.update(extra_env or {})
+        out = None
+        if log_dir:
+            out = open(os.path.join(log_dir, f"serverlog.{sid}"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.ps",
+             "--port", str(port), "--trainers", str(num_trainers),
+             "--optimizer", server_optimizer, "--lr", str(server_lr),
+             "--ready-file", ready[sid]],
+            env=env, stdout=out,
+            stderr=subprocess.STDOUT if out else None))
+        tags.append(f"pserver {sid}")
+    # the trainers connect at once: start them once every pserver listens
+    # (a pserver writes its ready file after binding its port)
+    deadline = time.time() + _SERVER_START_S
+    while not all(os.path.exists(f) for f in ready):
+        dead = [(i, p.poll()) for i, p in enumerate(procs)
+                if p.poll() is not None]
+        if dead or time.time() > deadline:
+            sys.stderr.write(
+                f"[launch] pserver {dead[0][0] if dead else '?'} "
+                f"{'exited ' + str(dead[0][1]) if dead else 'did not listen'}"
+                f" before the trainers started; terminating job\n")
+            terminate_procs(procs)
+            return (dead[0][1] or 1) if dead else 1
+        time.sleep(0.05)
+    import shutil
+
+    shutil.rmtree(ready_dir, ignore_errors=True)
+    trainer_procs = []
+    for rank in range(num_trainers):
+        env = dict(os.environ)
+        env.update({
+            "TRAINING_ROLE": "TRAINER",
+            "PADDLE_TRAINER_ID": str(rank),
+            "PADDLE_TRAINERS_NUM": str(num_trainers),
+            "PADDLE_PSERVER_ENDPOINTS": endpoints,
+        })
+        env.update(extra_env or {})
+        out = None
+        if log_dir:
+            out = open(os.path.join(log_dir, f"workerlog.{rank}"), "w")
+        trainer_procs.append(subprocess.Popen(
+            [sys.executable, *script_args], env=env, stdout=out,
+            stderr=subprocess.STDOUT if out else None))
+        tags.append(f"trainer {rank}")
+    all_procs = procs + trainer_procs
+    # trainers finishing cleanly ends the job; then stop servers
+    rc = 0
+    try:
+        while True:
+            t_alive = False
+            for i, p in enumerate(trainer_procs):
+                prc = p.poll()
+                if prc is None:
+                    t_alive = True
+                elif prc != 0:
+                    sys.stderr.write(
+                        f"[launch] trainer {i} exited {prc}; "
+                        "terminating job\n")
+                    terminate_procs(all_procs)
+                    return prc
+            for i, p in enumerate(procs):
+                prc = p.poll()
+                if prc is not None and t_alive:
+                    sys.stderr.write(
+                        f"[launch] pserver {i} died ({prc}); "
+                        "terminating job\n")
+                    terminate_procs(all_procs)
+                    return prc or 1
+            if not t_alive:
+                break
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        rc = 1
+    terminate_procs(procs)
+    return rc
 
 
 def main(argv=None):

@@ -11,10 +11,11 @@ to `DevicePrefetcher`, which pins and copies batches ahead of use.
 The samplers shuffle with numpy's global RNG (`np.random.permutation`),
 as the JAX package's do, so one numpy seed gives both packages the same
 batch order, and `hapi.Model.fit(resume=)` restores it from the
-snapshot's numpy RNG state. Parts that wait: `DataLoader.from_generator`
-(the static-graph reader, with `fluid/`), `io/crypto.py` (with
-`inference/`), the orbax-backed sharded checkpointer and
-`DevicePrefetcher(sharding=)` (with the multi-GPU slice).
+snapshot's numpy RNG state. `io.checkpoint` holds the crash-safe
+`CheckpointManager` and, on it, the JAX package's `AsyncCheckpointer`,
+`save_sharded` and `load_sharded` (no orbax). Parts that wait:
+`DataLoader.from_generator` (the static-graph reader, with `fluid/`) and
+`io/crypto.py` (with `inference/`).
 """
 from __future__ import annotations
 

@@ -20,8 +20,16 @@ a device tensor is copied to the host as numpy when `save()` is called,
 and comes back from `restore()` as a CPU tensor, which the caller loads
 onto its device (`load_state_dict` copies it into the parameters).
 
-The JAX package's orbax-backed `AsyncCheckpointer`, `save_sharded` and
-`load_sharded` (sharded arrays) come with the multi-GPU slice.
+`AsyncCheckpointer`, `save_sharded` and `load_sharded` are the JAX
+package's orbax-backed API, built here on `CheckpointManager` (no
+orbax): `AsyncCheckpointer` snapshots to host memory in `save` and
+writes on a background thread, with `max_to_keep` retention; under
+`save_sharded` every rank of a mesh writes the blocks it holds, with the
+split each carries, and `load_sharded` puts the global (logical) arrays
+back together in any process, as the JAX restore returns them. A mesh
+trainer takes its blocks back through the shard cut
+(`convert.from_jax_state(arrays, rules, mesh)` or
+`parallel.shard_tensor`).
 
 API:
     mgr = CheckpointManager(dir, max_to_keep=3, async_save=True)
@@ -46,7 +54,8 @@ from .serialization import _pack, _unpack
 _PT_WRITE = faults.point("checkpoint.write")
 _PT_READ = faults.point("checkpoint.read")
 
-__all__ = ["CheckpointManager", "CheckpointError", "CheckpointCorrupt"]
+__all__ = ["CheckpointManager", "CheckpointError", "CheckpointCorrupt",
+           "AsyncCheckpointer", "save_sharded", "load_sharded"]
 
 
 class CheckpointError(RuntimeError):
@@ -283,3 +292,199 @@ class CheckpointManager:
     def __exit__(self, *exc):
         self.wait()
         return False
+
+
+class AsyncCheckpointer:
+    """The JAX package's async checkpoint manager (save_persistables and
+    auto-checkpoint with background IO) on `CheckpointManager`: `save`
+    snapshots the tensors to host memory and returns, a background thread
+    writes the step (atomic, checksummed), an error there surfaces on
+    `wait` (or the next `save`), and the oldest steps beyond `max_to_keep`
+    are pruned. `restore` returns the newest valid step (or `step`) as
+    numpy arrays, as the orbax restore does."""
+
+    def __init__(self, directory, max_to_keep=3):
+        self._dir = os.path.abspath(directory)
+        self._mgr = CheckpointManager(self._dir, max_to_keep=max_to_keep,
+                                      async_save=True)
+
+    def save(self, step, state, force=False):
+        """Non-blocking: returns once the tensors are copied to the host;
+        the write continues in the background."""
+        self._mgr.save(int(step), state, force=force)
+
+    def wait(self):
+        self._mgr.wait()
+
+    def all_steps(self):
+        return self._mgr.all_steps()
+
+    def latest_step(self):
+        return self._mgr.latest_step()
+
+    def restore(self, step=None):
+        self._mgr.wait()
+        return self._mgr.restore(step, return_numpy=True)
+
+    def close(self):
+        self._mgr.close()
+
+
+_SHARDED_MANIFEST = "sharded.json"
+
+
+def _flatten(tree, prefix=""):
+    """A nested dict of tensors / arrays -> {"a/b/c": leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _unflatten(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _host_array(x):
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu")
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy(), "bfloat16"
+        return t.numpy(), None
+    return np.asarray(x), None
+
+
+def save_sharded(state, directory, shardings=None):
+    """One-shot sharded save (collective over the world's ranks when a
+    process group is up, else this process alone): every rank writes the
+    blocks it holds. `state` is a nested dict of tensors or arrays;
+    `shardings` maps a leaf's "/"-joined path (e.g.
+    ``"params/linear.weight"``) to the `parallel.Sharding` its block was
+    cut with (e.g. from `SpmdTrainer.param_shardings`); a leaf without
+    one is whole on every rank and rank 0 writes it. Of the ranks holding
+    the same block (replicas over the axes that do not split it) only the
+    first writes. Each rank's file carries its blocks' indices and a
+    CRC32; rank 0 publishes the manifest (the global shapes and splits)
+    once every rank has written, and renames the directory into place."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from .serialization import _pack
+
+    path = os.path.abspath(directory)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    tmp = path + ".tmp_sharded"
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    if world > 1:
+        dist.barrier()
+    shardings = shardings or {}
+    entries, blocks = {}, {}
+    for name, leaf in _flatten(state).items():
+        arr, tag = _host_array(leaf)
+        sh = shardings.get(name)
+        splits = [] if sh is None or not sh.is_split else [
+            (int(d), list(ax)) for d, ax in sh.splits]
+        if splits:
+            shape = list(arr.shape)
+            for d, ax in splits:
+                shape[d] *= sh.parts(ax)
+            split_axes = {a for _, ax in splits for a in ax}
+            replica = any(sh.mesh.coord(a) for a in sh.mesh.axis_names
+                          if a not in split_axes)
+            index = [int(sh.mesh.coord(tuple(ax))) for _, ax in splits]
+        else:
+            shape, replica, index = list(arr.shape), rank != 0, []
+        entries[name] = {"shape": shape, "dtype": tag or str(arr.dtype),
+                         "splits": splits,
+                         "parts": [int(sh.parts(ax)) for _, ax in splits]
+                         if splits else []}
+        if not replica:
+            blocks[name] = {"index": index, "data": _pack(arr)}
+    buf = pickle.dumps(blocks, protocol=4)
+    fname = f"rank_{rank:05d}.bin"
+    with open(os.path.join(tmp, fname), "wb") as f:
+        f.write(buf)
+        f.flush()
+        os.fsync(f.fileno())
+    meta = {"file": fname, "crc32": zlib.crc32(buf) & 0xFFFFFFFF,
+            "size": len(buf)}
+    if world > 1:
+        metas = [None] * world
+        dist.all_gather_object(metas, meta)
+    else:
+        metas = [meta]
+    if rank == 0:
+        with open(os.path.join(tmp, _SHARDED_MANIFEST), "w") as f:
+            json.dump({"format": 1, "world": world, "entries": entries,
+                       "ranks": metas}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        shutil.rmtree(path, ignore_errors=True)
+        os.rename(tmp, path)
+    if world > 1:
+        dist.barrier()
+
+
+def load_sharded(directory):
+    """The global (logical) arrays of a `save_sharded` directory, as a
+    nested dict of numpy arrays (bfloat16 leaves come back as float32);
+    every rank file is checked against its CRC32. No collective: any
+    process can read it."""
+    import pickle
+
+    import numpy as np
+
+    from .serialization import _unpack
+
+    path = os.path.abspath(directory)
+    try:
+        with open(os.path.join(path, _SHARDED_MANIFEST)) as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointCorrupt(f"{path}: missing/unreadable sharded "
+                                f"manifest ({e})")
+    entries = manifest["entries"]
+    out = {}
+    for name, e in entries.items():
+        dt = np.float32 if e["dtype"] == "bfloat16" else np.dtype(e["dtype"])
+        out[name] = (np.zeros(e["shape"], dt), np.zeros(
+            [int(np.prod(e["parts"] or [1]))], bool))
+    for meta in manifest["ranks"]:
+        with open(os.path.join(path, meta["file"]), "rb") as f:
+            buf = f.read()
+        if len(buf) != meta["size"] or \
+                (zlib.crc32(buf) & 0xFFFFFFFF) != meta["crc32"]:
+            raise CheckpointCorrupt(f"{path}: {meta['file']} failed its "
+                                    f"checksum (torn or corrupt write)")
+        for name, blk in pickle.loads(buf).items():
+            e = entries[name]
+            full, seen = out[name]
+            data = np.asarray(_unpack(blk["data"], True))
+            sl = [slice(None)] * len(e["shape"])
+            flat = 0
+            for (d, _), n, i in zip(e["splits"], e["parts"], blk["index"]):
+                step = e["shape"][d] // n
+                sl[d] = slice(i * step, (i + 1) * step)
+                flat = flat * n + i
+            full[tuple(sl)] = data
+            seen[flat] = True
+    for name, (full, seen) in out.items():
+        if not seen.all():
+            raise CheckpointCorrupt(f"{path}: {name!r} is missing blocks")
+    return _unflatten({n: v[0] for n, v in out.items()})

@@ -95,6 +95,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["NEG", "LAUNCHES", "reset_launches", "DropSpec", "drop_spec",
+           "decode_shardings",
            "dropout_keep_reference", "sdpa_reference", "segment_bias",
            "SEG_LAUNCHES", "ELEMENT_LOAD_LAUNCHES", "F16_LAUNCHES",
            "ROUTE_LAUNCHES",
@@ -1107,6 +1108,17 @@ def kv_verify_scope():
         yield
     finally:
         _SCOPE.verify = prev
+
+
+@contextlib.contextmanager
+def decode_shardings(specs=None):
+    """The JAX package's scope that annotates the decode kernels' operands
+    with the sharded serving pool's layout (`{"q", "kv", "pages", "out"}`
+    -> sharding) for XLA's partitioner. A multi-controller rank has
+    nothing to annotate: its decode kernels already see only its own dp
+    shard of the slots (the sharded engines run their bodies on this
+    rank's rows), so the scope keeps the JAX name and does nothing."""
+    yield
 
 
 def in_kv_verify_scope():

@@ -23,7 +23,7 @@ import torch
 from .. import distributed as D
 
 __all__ = ["copy_to", "reduce_from", "all_reduce_sum", "ppermute",
-           "all_to_all", "all_gather_cat", "gather_dim"]
+           "all_to_all", "all_gather_cat", "gather_dim", "gather_from"]
 
 
 def _n(group):
@@ -147,3 +147,26 @@ def gather_dim(x, group, dim, ranks):
     if _n(group) == 1:
         return x
     return _GatherDim.apply(x, group, dim % x.dim(), list(ranks))
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, ranks):
+        ctx.dim, ctx.n = dim, len(ranks)
+        ctx.i = ranks.index(torch.distributed.get_rank())
+        return all_gather_cat(x, group, dim, ranks)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, ctx.dim)[ctx.i].contiguous(), None, None, None
+
+
+def gather_from(x, group, dim, ranks):
+    """The ranks' tensors concatenated along `dim` in the order of `ranks`
+    (global ranks, this one among them); the gradient is this rank's
+    slice of the gradient as it is. Megatron's gather for a result that
+    every rank of the group goes on with alike (the peers' gradients are
+    the same, so summing them would count each `len(ranks)` times)."""
+    if _n(group) == 1:
+        return x
+    return _GatherFrom.apply(x, group, dim % x.dim(), list(ranks))

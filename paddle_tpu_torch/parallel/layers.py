@@ -63,7 +63,8 @@ class RowParallelLinear(Linear):
 
 
 class VocabParallelEmbedding(Embedding):
-    """An Embedding holding rows [_vocab_start, _vocab_start + rows)."""
+    """An Embedding holding rows [_vocab_start, _vocab_start + rows) of the
+    table; `_ranks` are the split axis' ranks in the order of their rows."""
 
     def forward(self, x):
         n = self.weight.shape[0]
@@ -222,6 +223,7 @@ def shard_layer(layer, mesh, rules, batch_axes=("dp",)):
                 raise NotImplementedError(f"{mname}: an embedding splits its "
                                           f"vocabulary rows only")
             mod._group = mesh.group_of(axes)
+            mod._ranks = mesh.ranks_of(axes)
             mod._vocab_start = mesh.coord(axes) * mod.weight.shape[0]
             mod.__class__ = VocabParallelEmbedding
             handled.add(prefix + "weight")

@@ -1,7 +1,8 @@
 """Continuous-batching serving over a dense or paged slot pool, with
 optional speculative decoding, LoRA tenants, int8 weights, chunked
-prefill, and traffic shaping (SLO classes, weighted fair queueing,
-preemption to the prefix cache)."""
+prefill, traffic shaping (SLO classes, weighted fair queueing,
+preemption to the prefix cache), and the mesh-sharded engines
+(`sharded.py`)."""
 from .adapters import AdapterPool, OutOfAdapters, quantize_net
 from .engine import (PagedServingEngine, ReplayDiverged, ServingEngine,
                      WatchdogTimeout)
@@ -10,10 +11,12 @@ from .paging import OutOfPages, PageAllocator, RadixPrefixCache
 from .scheduler import QueueFull, Request, RequestResult, Scheduler
 from .server import ServerCrashed, ServingServer
 from .shaping import BATCH, INTERACTIVE, ShapingScheduler, SLOClass
+from .sharded import ShardedPagedServingEngine, ShardedServingEngine
 
 __all__ = ["ServingEngine", "PagedServingEngine", "WatchdogTimeout",
            "ReplayDiverged", "AdapterPool", "OutOfAdapters", "quantize_net",
            "ServingMetrics", "OutOfPages", "PageAllocator",
            "RadixPrefixCache", "QueueFull", "Request", "RequestResult",
            "Scheduler", "ServerCrashed", "ServingServer", "ShapingScheduler",
-           "SLOClass", "INTERACTIVE", "BATCH"]
+           "SLOClass", "INTERACTIVE", "BATCH", "ShardedServingEngine",
+           "ShardedPagedServingEngine"]

@@ -133,6 +133,9 @@ class AdapterPool:
         self._free = list(range(self.capacity - 1, 0, -1))
         self._lru = collections.OrderedDict()   # zero-reference hot rows
         self.loads = 0
+        #: bumps on every bank write (a sharded engine re-cuts its column
+        #: blocks of the banks when it moves)
+        self.version = 0
         self.evictions = 0
         self.hits = 0
         self.misses = 0
@@ -294,6 +297,7 @@ class AdapterPool:
             self._A[i][row].copy_(torch.from_numpy(wa))
             self._B[i][row].copy_(torch.from_numpy(wb))
         self.loads += 1
+        self.version += 1
         if self._metrics is not None:
             self._metrics.record_adapter_load()
 

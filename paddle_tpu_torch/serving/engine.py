@@ -89,6 +89,24 @@ def _tensor_bytes(x):
     return 0
 
 
+def _reject_sharded_params(net, engine):
+    """A one-card engine refuses layers whose parameters are mesh blocks
+    (cut by `parallel.shard_layer` or a sharded serving engine): it would
+    serve a slice of the model silently. `ShardedServingEngine` takes
+    them."""
+    from ..parallel.layers import (ColumnParallelLinear, RowParallelLinear,
+                                   VocabParallelEmbedding)
+
+    cut = (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    for name, mod in net.named_modules():
+        if isinstance(mod, cut) or getattr(mod, "_serving_block", False):
+            raise ValueError(
+                f"{engine}: {name or 'the model'} holds mesh-sharded "
+                f"weights ({type(mod).__name__}); a one-card engine would "
+                f"serve a slice of it. Serve sharded layers with "
+                f"ShardedServingEngine(mesh=...)")
+
+
 class WatchdogTimeout(TimeoutError):
     """An engine op returned but overran its `watchdog_s` wall budget: it
     counts as a failed attempt (retried with backoff, then failed
@@ -222,6 +240,18 @@ class _EngineBase:
         """Run one prefill chunk, the slots in the middle of a chunked
         prefill taking turns; True when one ran. Default: no chunking."""
         return False
+
+    def _poll_pending(self, now):
+        """Advance asynchronous joins (the sharded engine's disaggregated
+        prefill): land every prefill that is ready and activate its slot.
+        True when any slot was activated. Default: joins are synchronous,
+        nothing to poll."""
+        return False
+
+    def _choose_slot(self, free):
+        """The slot a new request joins into (the sharded engine balances
+        the dp shards of the slot axis)."""
+        return free[0]
 
     def can_preempt(self, s):
         """True when slot `s` holds a request this engine could park
@@ -404,6 +434,9 @@ class _EngineBase:
             elif r.expired(now):
                 self._finish_slot(s, "timeout", now)
                 progress = True
+        # asynchronous joins: land the finished disaggregated prefills
+        if self._poll_pending(now):
+            progress = True
 
         def _queue_death(req):   # cancelled / expired while queued
             self._unpark(req)
@@ -435,7 +468,7 @@ class _EngineBase:
                 # head, joins stop for this iteration, decode drains
                 scheduler.push_front(r)
                 break
-            s = free[0]
+            s = self._choose_slot(free)
             r.state, r.slot = "RUNNING", s
             self.slots[s] = r
             if _trace._SESSION is not None:
@@ -636,6 +669,10 @@ class ServingEngine(_EngineBase):
         if adapters is not None:
             adapters.bind_metrics(self.metrics)
         self._net = _StepNet(decoder, embed, project).eval()
+        if not getattr(self, "_accepts_sharded_params", False):
+            _reject_sharded_params(
+                self._net, f"{type(self).__name__}"
+                f"{'(paged=True)' if paged else ''}")
         for name, p in [*self._net.named_parameters(),
                         *self._net.named_buffers()]:
             if p.device != self.device:
@@ -657,7 +694,7 @@ class ServingEngine(_EngineBase):
         self._pool_len = self.max_len + (spec_k or 0)
         self.layout = (PagedLayout(self) if isinstance(self, PagedServingEngine)
                        else DenseLayout(self))
-        self.placement = SinglePlacement(self)
+        self.placement = self._make_placement()
         self.stepper = SpecStepper(self) if spec_k else PlainStepper(self)
         self._state = None          # built on the first join
         self._mem_shape = None
@@ -671,6 +708,11 @@ class ServingEngine(_EngineBase):
         # run (one per key) surfaces as a "compile" span
         self._compiled = _trace.JitCache(self)
         self.metrics.set_memory_provider(self.memory_ledger)
+
+    def _make_placement(self):
+        """Where the bodies run (layers.py): one card here; the sharded
+        engine's `ShardedPlacement` holds its dp shard of the slots."""
+        return SinglePlacement(self)
 
     def _program(self, key, body):
         """`body` as the cached program at `key`: its first run bumps

@@ -11,7 +11,9 @@ three independent axes, one object each.
     attach (`pattach`), which prefills only a radix hit's divergent tail
     as one verify block through the pages.
   * A placement says where a body runs (`SinglePlacement`: one card, the
-    calling thread, inference mode).
+    calling thread, inference mode; `ShardedPlacement`: one rank of a
+    sharded engine's mesh, which holds its dp shard of the slot axis and
+    gathers the shards' tokens over the world).
   * A stepper owns the per-iteration decode dispatch: `PlainStepper` (one
     token per slot) or `SpecStepper` (an n-gram draft plus one k-token
     verify, with the adaptive effective-k controller).
@@ -40,6 +42,7 @@ from ..profiler import trace as _trace
 from . import tracing as _rt
 
 __all__ = ["CacheLayout", "DenseLayout", "PagedLayout", "SinglePlacement",
+           "ShardedPlacement", "ShardedDenseLayout", "ShardedPagedLayout",
            "PlainStepper", "SpecStepper"]
 
 
@@ -520,6 +523,294 @@ class SinglePlacement:
     def run(self, body, *args):
         with torch.inference_mode():
             return body(*args)
+
+
+def _slot_rows(state, lo, hi):
+    """The per-slot rows [lo, hi) of a pool state, as views (the pages and
+    the dense caches, whose rows a shard already holds alone, stay)."""
+    out = dict(state)
+    for k in ("tok", "bias", "hist", "plen", "pbk"):
+        if k in out:
+            out[k] = out[k][lo:hi]
+    if "static" in out:
+        out["static"] = [(k[lo:hi], v[lo:hi]) for k, v in out["static"]]
+    return out
+
+
+class _SlotView:
+    """The engine as one dp shard's bodies see it: `num_slots` is the
+    shard's, the pool state and the per-slot host arrays (adapter rows,
+    the paged write indices and page table) are sliced to its rows; the
+    rest is the engine's."""
+
+    def __init__(self, eng, lo, hi, state):
+        self._eng = eng
+        self.num_slots = hi - lo
+        self._state = state
+        self._adapter_rows = eng._adapter_rows[lo:hi]
+        if hasattr(eng, "_table"):
+            self._table = eng._table[lo:hi]
+            self._index = eng._index[lo:hi]
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
+
+    def _device_table(self):
+        eng = self._eng
+        return torch.as_tensor(
+            np.where(self._table < 0, eng.num_pages, self._table)
+            .astype(np.int32), device=eng.device)
+
+
+class ShardedPlacement(SinglePlacement):
+    """One rank of a sharded engine (`serving/sharded.py`): bodies run as
+    on one card, on this rank's own tensors (the decode kernels see only
+    its slots, so the JAX `decode_shardings` scope is a no-op here). The
+    slot axis splits over the decode slice's dp rows: shard g owns slots
+    [g * per, (g + 1) * per). The placement holds this rank's shard, the
+    local views the steps run on, and the exchange of the shards' tokens
+    over the world (each dp row's first rank speaks for its row)."""
+
+    def __init__(self, eng):
+        super().__init__(eng)
+        self._leaders = None
+
+    def run(self, body, *args):
+        from ..ops import attention as A
+
+        with torch.inference_mode(), A.decode_shardings():
+            return body(*args)
+
+    # ---- the dp shard of the slot axis ----
+    @property
+    def per(self):
+        eng = self.eng
+        return eng.num_slots // eng._pool_dp
+
+    def bounds(self):
+        """[lo, hi) of this rank's slots (empty on a prefill rank)."""
+        eng = self.eng
+        if not eng._decodes:
+            return 0, 0
+        g = eng._dp_row
+        return g * self.per, (g + 1) * self.per
+
+    def owns(self, s):
+        lo, hi = self.bounds()
+        return lo <= s < hi
+
+    def state_bounds(self):
+        """The slot rows of this rank's pool state that its shard's views
+        take: the dense pool holds only its shard ([0, per)); the paged
+        pool's slot rows are whole ([lo, hi))."""
+        lo, hi = self.bounds()
+        return (0, hi - lo) if self.eng._local_pool else (lo, hi)
+
+    def view(self):
+        lo, hi = self.bounds()
+        a, b = self.state_bounds()
+        return _SlotView(self.eng, lo, hi, _slot_rows(self.eng._state, a, b))
+
+    # ---- the shards' tokens over the world ----
+    def _collective_tensor(self, t):
+        import torch.distributed as dist
+
+        return t if dist.get_backend() == "nccl" else t.cpu()
+
+    def leaders(self):
+        """The global rank that speaks for each decode dp row."""
+        if self._leaders is None:
+            mesh = self.eng._mesh
+            idx = [0] * mesh.ranks.ndim
+            ax = mesh.axis_names.index("dp") if "dp" in mesh.axis_names \
+                else None
+            out = []
+            for g in range(self.eng._pool_dp):
+                if ax is not None:
+                    idx[ax] = g
+                out.append(int(mesh.ranks[tuple(idx)]))
+            self._leaders = out
+        return self._leaders
+
+    def gather(self, local, tail=(), dtype=torch.int64):
+        """Every shard's rows of a per-slot result ([per, *tail] here; a
+        prefill rank gives none), concatenated in slot order on every rank
+        of the world, as `dtype` on the engine's device."""
+        import torch.distributed as dist
+
+        from .. import distributed as D
+
+        eng = self.eng
+        if local is None:
+            local = torch.zeros((self.per,) + tuple(tail), dtype=torch.int64,
+                                device=eng.device)
+        local = local.to(torch.int64)
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return local.to(dtype)
+        parts = D.all_gather([], self._collective_tensor(local.contiguous()))
+        return torch.cat([parts[r] for r in self.leaders()], 0).to(
+            device=eng.device, dtype=dtype)
+
+    def agree(self, err):
+        """Raise on every rank when the step failed on any (`err`: this
+        rank's exception or None): one all-reduce of the flag."""
+        flag = torch.tensor([0 if err is None else 1], dtype=torch.int64,
+                            device=self.eng.device)
+        if int(self.max_over_world(flag).reshape(-1)[0]):
+            raise err if err is not None else RuntimeError(
+                "the step failed on another rank of the mesh")
+
+    def max_over_world(self, t):
+        """The elementwise max of an int64 tensor over every rank (the
+        owners' values; the others give -1)."""
+        import torch.distributed as dist
+
+        from .. import distributed as D
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return t
+        t = self._collective_tensor(t.to(torch.int64).contiguous())
+        return D.all_reduce(t, op=D.ReduceOp.MAX)
+
+
+class _ShardedSteps:
+    """The per-iteration bodies on a dp shard: each runs the one-card body
+    on this rank's local view and hands the stepper the whole slot axis,
+    gathered over the world (a prefill rank computes nothing and gives
+    nothing, but takes part in the exchange)."""
+
+    def _local(self, fn, agree=False):
+        """`fn()` with `self.eng` this rank's shard view (None on a
+        prefill rank). With `agree`, a failure on any rank raises on all
+        of them (after every rank's part of the exchange)."""
+        eng = self.eng
+        if not eng._decodes:
+            out = None
+        else:
+            self.eng = eng.placement.view()
+            try:
+                out = fn()
+            except Exception as e:
+                if not agree:
+                    raise
+                out = e
+            finally:
+                self.eng = eng
+        return out
+
+    def _gathered(self, local, parts):
+        """The exchange of a step's per-slot results ([(tail, dtype)] a
+        part), then the agreement that no rank failed."""
+        pl = self.eng.placement
+        err = local if isinstance(local, Exception) else None
+        vals = (None,) * len(parts) if err is not None or local is None \
+            else (local if isinstance(local, tuple) else (local,))
+        out = tuple(pl.gather(v, tail, dt)
+                    for v, (tail, dt) in zip(vals, parts))
+        pl.agree(err)
+        return out if len(out) > 1 else out[0]
+
+    def _lo_hi(self):
+        return self.eng.placement.bounds()
+
+    def step(self, active):
+        lo, hi = self._lo_hi()
+        local = self._local(lambda: super(_ShardedSteps, self).step(
+            active[lo:hi]), agree=True)
+        return self._gathered(local, [((), torch.int64)])
+
+    def draft(self):
+        local = self._local(lambda: super(_ShardedSteps, self).draft(),
+                            agree=True)
+        return self._gathered(local, [((self.eng.spec_k - 1,),
+                                       torch.int32)])
+
+    def spec_step(self, drafts, active, spec_on, k_eff):
+        lo, hi = self._lo_hi()
+        local = self._local(lambda: super(_ShardedSteps, self).spec_step(
+            drafts[lo:hi], active[lo:hi], spec_on[lo:hi], k_eff),
+            agree=True)
+        return self._gathered(local, [((self.eng.spec_k,), torch.int64),
+                                      ((), torch.int32)])
+
+
+class ShardedDenseLayout(_ShardedSteps, DenseLayout):
+    """The dense pool over a dp-sharded slot axis: a rank of dp row g
+    holds the rows of its shard only ([per, H, pool_len, D] a layer), a
+    join runs on the owner row's ranks alone (the others give -1 for
+    token 0, and the engine takes the owner's over the world), and the
+    steps run on the shard's rows. The disaggregated prefill's two
+    halves: `prefill` (a prefill rank: the prompt into batch-1 caches,
+    no pool) and `splice` (an owner rank: the travelled K/V into the
+    slot's rows)."""
+
+    def build_state(self, memory):
+        eng = self.eng
+        if not eng._decodes:
+            return {}
+        self.eng = _SlotView(eng, 0, eng.placement.per, None)
+        try:
+            return DenseLayout.build_state(self, memory)
+        finally:
+            self.eng = eng
+
+    def join(self, slot, prompt, length, memory, row=0):
+        eng = self.eng
+        if not eng.placement.owns(slot):
+            return torch.full((), -1, dtype=torch.int64, device=eng.device)
+        lo, _ = eng.placement.bounds()
+        return self._local(lambda: DenseLayout.join(
+            self, slot - lo, prompt, length, memory, row))
+
+    def prefill(self, prompt, length, memory, row=0):
+        """The prompt [1, Pb] (true length `length`) with `memory` [1, M,
+        D] into batch-1 caches under adapter bank row `row`: (token 0,
+        [(K, V)] per layer [1, H, Pb, D], the cross-attention [(K, V)],
+        the key-bias row [1, L])."""
+        eng = self.eng
+        Pb = prompt.shape[1]
+        inc0 = [layer.self_attn.gen_cache(None, max_length=Pb, batch_size=1,
+                                          dtype=memory.dtype)
+                for layer in eng._net.decoder.layers]
+        with eng._lora_ctx([row]):
+            logits, inc1, static1, bias_row = eng._net.prefill(
+                prompt, length, memory, inc0, eng._pool_len)
+        tok0 = logits[0, length - 1].argmax(-1)
+        return tok0, [(c.k, c.v) for c in inc1], list(static1), bias_row
+
+    def splice(self, slot, tok0, bias_row, kvs, statics, prompt, length):
+        """Land one travelled prefill in global slot `slot` (its owner's
+        rows; a no-op elsewhere): the rows the inline join writes, the
+        same values."""
+        eng = self.eng
+        if not eng.placement.owns(slot):
+            return None
+        lo, _ = eng.placement.bounds()
+        Pb = prompt.shape[1]
+
+        def land():
+            s = slot - lo
+            st = self.eng._state
+            for c, (k, v) in zip(st["inc"], kvs):
+                c.k[s, :, :Pb] = k[0]
+                c.v[s, :, :Pb] = v[0]
+                c.index[s] = Pb
+            self._cross_rows(st, s, statics)
+            st["bias"][s] = bias_row[0]
+            st["tok"][s] = tok0
+            self._spec_join_rows(s, prompt, length, Pb)
+
+        self._local(land)
+        return None
+
+
+class ShardedPagedLayout(_ShardedSteps, PagedLayout):
+    """The paged pool on a sharded engine: the pages and the slot rows stay
+    whole on every rank, so every join, attach, copy-on-write and partial
+    attach runs on every rank alike (the radix prefix cache shares prompt
+    pages between slots of any dp row, and a rank cannot read another's
+    memory); the steps run on this rank's dp shard of the slots and write
+    only their pages."""
 
 
 class PlainStepper:

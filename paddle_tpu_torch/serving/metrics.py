@@ -49,6 +49,21 @@ SNAPSHOT_DOCS = {
     "step_gap_ms": ("summary", "decode-step inter-arrival: the gap "
                                "co-resident requests see between tokens"),
     "queue_depth": ("summary", "scheduler depth sampled per iteration"),
+    # sharded pools: the section appears once any of these record
+    "sharding.prefill_step_ms": (
+        "summary", "prefill-slice step: dispatch -> the splice lands"),
+    "sharding.decode_step_ms": (
+        "summary", "decode-step latency (the token_latency reservoir)"),
+    "sharding.step_gap_ms": (
+        "summary", "decode-step inter-arrival co-resident requests see"),
+    "sharding.per_shard_occupancy": (
+        "gauge", "last-iteration occupancy per dp shard of the pool"),
+    "sharding.collective_ms": (
+        "counter", "host-timed cross-slice transfer milliseconds"),
+    "sharding.collective_events": (
+        "counter", "cross-slice transfers (splices, weight placement)"),
+    "sharding.collective_time_share": (
+        "gauge", "collective / (collective + prefill + decode) time"),
     "occupancy": ("summary", "occupied-slot fraction per iteration"),
     "goodput.useful_tokens": ("counter",
                               "tokens of requests that completed"),
@@ -300,6 +315,15 @@ class ServingMetrics:
         self.watermark_warnings = 0
         self._above_watermark = False
         self.step_gap_s = _Reservoir()
+        # sharded-serving accounting (the snapshot grows a "sharding"
+        # section once any of these record): the prefill-slice step of a
+        # disaggregated prefill (dispatch -> its splice lands), the
+        # engine-driven cross-slice transfers, the dp shards' occupancy
+        self._sharded = False
+        self.prefill_step_s = _Reservoir()
+        self.collective_s = 0.0
+        self.collective_events = 0
+        self.shard_occupancy = None
         # traffic shaping: chunked prefill, preemption, SLO classes, WFQ
         self._slo = False
         self.preemptions = 0
@@ -403,6 +427,23 @@ class ServingMetrics:
         with self._lock:
             self.step_gap_s.add(dt_s)
 
+    # ---- sharded serving ----
+    def record_prefill_step(self, dt_s):
+        """One disaggregated prefill landed: dispatch -> splice, polled at
+        iteration granularity."""
+        with self._lock:
+            self._sharded = True
+            self.prefill_step_s.add(dt_s)
+
+    def record_collective(self, dt_s):
+        """Host-timed cross-slice traffic the ENGINE moves: a prefill
+        slice's K/V landing in the decode slice, or the weights' placement
+        (a layer's own collectives inside a step are not counted here)."""
+        with self._lock:
+            self._sharded = True
+            self.collective_s += float(dt_s)
+            self.collective_events += 1
+
     # ---- traffic shaping ----
     def record_chunked_join(self):
         """A join went chunked: its prefill interleaves with decode steps
@@ -482,9 +523,13 @@ class ServingMetrics:
     def record_iteration(self, queue_depth, occupancy, pages_in_use=None,
                          pages_free=None, bytes_per_active_token=None,
                          trie_nodes=None, trie_pages=None,
-                         tenant_slots=None):
+                         tenant_slots=None, shard_occupancy=None):
         with self._lock:
             self.iterations += 1
+            if shard_occupancy is not None:
+                self._sharded = True
+                self.shard_occupancy = [round(float(x), 3)
+                                        for x in shard_occupancy]
             self.queue_depth.add(queue_depth)
             self.occupancy.add(occupancy)
             if tenant_slots is not None:
@@ -698,6 +743,18 @@ class ServingMetrics:
                           "bytes_per_step": self.bytes_per_step,
                           "model_flops_util": self.mfu_util.summary(),
                           "bandwidth_util": self.bw_util.summary()}
+        if self._sharded:
+            out["sharding"] = {
+                "prefill_step_ms": self.prefill_step_s.summary(1e3),
+                "decode_step_ms": self.token_latency_s.summary(1e3),
+                "step_gap_ms": self.step_gap_s.summary(1e3),
+                "per_shard_occupancy": self.shard_occupancy,
+                "collective_ms": round(self.collective_s * 1e3, 3),
+                "collective_events": self.collective_events,
+                "collective_time_share": round(
+                    self.collective_s / max(
+                        1e-9, self.collective_s + self.decode_time_s
+                        + sum(self.prefill_step_s._buf)), 4)}
         if self._tenancy:
             out["tenancy"] = {
                 "tenants": len(self.tokens_by_tenant),

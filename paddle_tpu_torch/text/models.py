@@ -165,7 +165,10 @@ class ErnieForSequenceClassification(nn.Module):
 class ErnieForPretraining(nn.Module):
     """ERNIE with its pretraining heads: returns (mlm_logits [B, S,
     vocab], nsp_logits [B, 2]). The masked-LM decoder is tied to the
-    word embeddings (it brings no weight of its own)."""
+    word embeddings (it brings no weight of its own). On a tp mesh, where
+    the table is split over vocabulary rows, each rank computes the logits
+    of its rows and they are gathered into the whole vocabulary, so the
+    loss is the one-rank loss."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
         super().__init__()
@@ -180,5 +183,17 @@ class ErnieForPretraining(nn.Module):
         seq_out, pooled = self.ernie(input_ids, token_type_ids,
                                      attention_mask=attention_mask)
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq_out)))
-        mlm_logits = h @ self.ernie.embeddings.word_embeddings.weight.T
+        table = self.ernie.embeddings.word_embeddings
+        group = getattr(table, "_group", None)
+        if group is None:
+            mlm_logits = h @ table.weight.T
+        else:
+            # a table split over vocabulary rows (tp): this rank's logit
+            # columns, gathered into the whole vocabulary; h's gradient
+            # sums the ranks' columns' parts, and the tied table's rows
+            # get the gradient of their own columns
+            from ..parallel.collectives import copy_to, gather_from
+
+            mlm_logits = gather_from(copy_to(h, group) @ table.weight.T,
+                                     group, -1, table._ranks)
         return mlm_logits, self.nsp(pooled)

@@ -52,12 +52,22 @@ class RankPool:
         self.tasks = 0
 
     def run(self, world, fn, *args):
+        return self.collect(self.submit(world, fn, *args))
+
+    def submit(self, world, fn, *args):
+        """Start a task on ranks 0 .. world - 1 and return at once (the
+        caller works meanwhile, e.g. runs the JAX side); `collect` waits
+        for its results."""
         if world > self.n:
             raise ValueError(f"a world of {world} in a pool of {self.n}")
         self.tasks += 1
         store = os.path.join(self.dir, f"store_{self.tasks}")
         for r in range(world):
             self.conns[r].send((fn, world, store, args))
+        return world, fn
+
+    def collect(self, task):
+        world, fn = task
         out, errs = [], []
         for r in range(world):
             if not self.conns[r].poll(TASK_SECONDS):
@@ -216,6 +226,48 @@ def train(rank, world, spec):
     return {"losses": losses, "params": full, "synced": synced,
             "local": local, "slots": slots, "convert_ok": convert_ok,
             "eval": evals}
+
+
+def pretrain_loss(outs, labels):
+    """The masked-LM (ignore -1) plus next-sentence loss of
+    `test_torch_pretraining.py`; labels [b, s + 1]."""
+    mlm, nsp = outs
+    tgt = labels[:, :-1]
+    mlm_loss = torch.nn.functional.cross_entropy(
+        mlm.float().reshape(-1, mlm.shape[-1]), tgt.reshape(-1),
+        ignore_index=-1)
+    return mlm_loss + torch.nn.functional.cross_entropy(nsp.float(),
+                                                        labels[:, -1])
+
+
+def pretrain_grads(rank, world, spec):
+    """One `loss_and_grads` of a seeded tiny `ErnieForPretraining` on
+    `spec["mesh"]` (Megatron's tp rules, the tied decoder included); rank
+    0 returns the loss, every gradient gathered whole, and the word
+    table's local shape."""
+    from paddle_tpu_torch.optimizer import functional as fopt
+    from paddle_tpu_torch.parallel import (COMMON_TP_RULES, SpmdTrainer,
+                                           init_mesh)
+    from paddle_tpu_torch.text import ErnieConfig, ErnieForPretraining
+
+    mesh = init_mesh(**spec["mesh"])
+    model = ErnieForPretraining(
+        ErnieConfig.tiny(**spec["cfg"]), device="cpu",
+        generator=torch.Generator().manual_seed(spec["seed"]))
+    tr = SpmdTrainer(model, pretrain_loss, fopt.sgd(0.1), device="cpu",
+                     mesh=mesh, rules=COMMON_TP_RULES,
+                     generator=torch.Generator().manual_seed(0))
+    inputs, labels = spec["batch"]
+    loss, grads = tr.loss_and_grads(inputs, labels)
+    full = {}
+    for n, g in grads.items():
+        sh = tr.param_shardings.get(n)
+        full[n] = sh.gather(g) if sh is not None and sh.is_split else g
+    table = "ernie.embeddings.word_embeddings.weight"
+    if rank:
+        return None
+    return {"loss": float(loss), "grads": to_np(full),
+            "table": tuple(tr.params[table].shape)}
 
 
 def many(rank, world, calls):
@@ -537,3 +589,328 @@ def assert_params(port, jax_params, limit=REL):
         b = np.asarray(jax_params[n], np.float64)
         err = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1.0)
         assert err <= limit, (n, err)
+
+
+# ------------------------------------------------------------ sharded serving
+def serving_stack(spec):
+    """The port's decoder, embedding and projection (`spec["dims"]`: D,
+    heads, ffn, vocab, layers) holding `spec["state"]` (the JAX stack's
+    numpy states)."""
+    from paddle_tpu_torch import convert, nn
+
+    D, H, FF, V, L = spec["dims"]
+    dec = nn.TransformerDecoder(
+        nn.TransformerDecoderLayer(D, H, FF, dropout=0.0, device="cpu"), L)
+    emb = nn.Embedding(V, D, device="cpu")
+    proj = nn.Linear(D, V, device="cpu")
+    for mod, st in zip((dec, emb, proj), spec["state"]):
+        mod.load_state_dict(convert.from_jax_state(st))
+        mod.eval()
+    return dec, emb, proj
+
+
+def _serve_requests(eng, reqs, max_iterations=3000, waves=None):
+    """Submit (prompt, memory, max_new, adapter) requests (in `waves` of
+    the given sizes, one wave every third iteration, else all at once)
+    and drain; returns the Request objects."""
+    from paddle_tpu_torch.serving import Request, Scheduler
+
+    sched = Scheduler(max_queue=256)
+    out = [Request(p, m, max_new_tokens=n, eos_id=1, adapter=a)
+           for p, m, n, a in reqs]
+    pending = list(out)
+    waves = list(waves or [len(out)])
+    it = 0
+    while pending or sched.depth() > 0 or eng.occupancy() > 0:
+        if pending and it % 3 == 0:
+            k = waves.pop(0) if waves else len(pending)
+            for r in pending[:k]:
+                sched.submit(r)
+            pending = pending[k:]
+        eng.run_iteration(sched)
+        it += 1
+        if it >= max_iterations:
+            raise RuntimeError(f"no convergence after {it} iterations")
+    return out
+
+
+def _result(r):
+    try:
+        res = r.result(timeout=5)
+    except Exception as e:       # a failed request's future raises
+        return {"error": type(e).__name__}
+    return {"tokens": [int(t) for t in res.tokens],
+            "reason": res.finish_reason,
+            "error": None if res.error is None else type(res.error).__name__}
+
+
+def sharded_serve(rank, world, spec):
+    """One sharded serve: `spec["mesh"]` (init_mesh kwargs), the engine's
+    kwargs `spec["kw"]`, adapters `spec["tenants"]` (capacity, rank,
+    {name: seed}), requests `spec["reqs"]` (optionally in `waves`),
+    fault plans `spec["faults"]` ([(point, kwargs)] armed around the
+    drain). Every rank returns its requests' results, the snapshot's
+    counters, its trace_counts keys and (paged) the pool's leak check."""
+    from paddle_tpu_torch.parallel import init_mesh
+    from paddle_tpu_torch.serving import AdapterPool, ShardedServingEngine
+    from paddle_tpu_torch.testing import faults
+
+    mesh = init_mesh(**spec["mesh"])
+    dec, emb, proj = serving_stack(spec)
+    kw = dict(spec["kw"])
+    pool = None
+    if spec.get("tenants"):
+        cap, r, names = spec["tenants"]
+        pool = AdapterPool(dec, capacity=cap, rank=r)
+        for name, seed in names.items():
+            pool.register_random(name, seed=seed)
+        kw["adapters"] = pool
+    eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, **kw)
+    plans = []
+    try:
+        for point, fkw in spec.get("faults", ()):
+            plans.append(faults.inject(point, **fkw))
+        reqs = _serve_requests(eng, spec["reqs"], waves=spec.get("waves"))
+    finally:
+        faults.reset()
+    snap = eng.metrics.snapshot()
+    out = {"results": [_result(r) for r in reqs],
+           "requests": snap["requests"], "joins": snap["joins"],
+           "tokens_out": snap["tokens_out"], "retries": snap["retries"],
+           "sharding": snap.get("sharding"),
+           "speculation": snap.get("speculation"),
+           "tenancy": snap.get("tenancy"),
+           "prefix": snap.get("prefix"),
+           "trace_keys": sorted(map(repr, eng.trace_counts)),
+           "trace_max": max(eng.trace_counts.values(), default=0),
+           "pending": len(eng._pending) + len(eng._pending_info),
+           "occupancy": eng.occupancy(),
+           "decodes": eng._decodes,
+           "weights_bytes": eng.weights_bytes(),
+           "last_error": snap["last_error"]}
+    if hasattr(eng, "_alloc"):
+        eng.flush_prefix_cache()
+        eng._alloc.check()
+        out["pages_free"] = (eng._alloc.pages_free, eng.num_pages)
+    if pool is not None:
+        pool.check()
+    return out
+
+
+
+def sharded_guard(rank, world, spec):
+    """The one-card engines' refusal of a decoder whose feed-forward
+    `shard_layer` cut over tp, and the sharded engine's serve of it."""
+    from paddle_tpu_torch.parallel import ShardingRules, init_mesh
+    from paddle_tpu_torch.parallel.layers import shard_layer
+    from paddle_tpu_torch.serving import ServingEngine, ShardedServingEngine
+
+    mesh = init_mesh(**spec["mesh"])
+    dec, emb, proj = serving_stack(spec)
+    shard_layer(dec, mesh, ShardingRules([
+        (r"linear1\.weight$", (None, "tp")),
+        (r"linear2\.weight$", ("tp", None))]))
+    out = {}
+    for key, kw in (("one_card", {}),
+                    ("one_card_paged", {"paged": True, "page_size": 8})):
+        try:
+            ServingEngine(dec, emb, proj, device="cpu", num_slots=4,
+                          max_len=32, **kw)
+        except ValueError as e:
+            out[key] = str(e)
+    eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, **spec["kw"])
+    out["results"] = [_result(r) for r in _serve_requests(eng, spec["reqs"])]
+    return out
+
+
+def sharded_validation(rank, world, spec):
+    """The sharded engine's construction errors on `spec["mesh"]`."""
+    from paddle_tpu_torch.parallel import init_mesh
+    from paddle_tpu_torch.serving import ShardedServingEngine
+
+    mesh = init_mesh(**spec["mesh"])
+    dec, emb, proj = serving_stack(spec)
+    out = {}
+
+    def err(key, exc, **kw):
+        try:
+            ShardedServingEngine(dec, emb, proj, mesh=mesh, **kw)
+        except exc as e:
+            out[key] = str(e)
+
+    if mesh.axis_size("dp") == 1:
+        err("dp", ValueError, prefill="disaggregated")
+        err("policy", ValueError, prefill="offline")
+        err("chunk", NotImplementedError, prefill_chunk=4)
+        err("paged_disaggregated", NotImplementedError, num_slots=2,
+            paged=True, prefill="disaggregated")
+    else:
+        err("slots", ValueError, num_slots=6)
+    return out
+
+
+def sharded_precompile(rank, world, spec):
+    """Two engines over the same weights precompiled through one AOT
+    cache directory (`spec["cache"]`): the reports, the second's program
+    cache after its warm start, then its serve."""
+    from paddle_tpu_torch.parallel import init_mesh
+    from paddle_tpu_torch.serving import ShardedServingEngine
+
+    mesh = init_mesh(**spec["mesh"])
+    D = spec["dims"][0]
+
+    def engine():
+        dec, emb, proj = serving_stack(spec)
+        return ShardedServingEngine(dec, emb, proj, mesh=mesh, **spec["kw"])
+
+    buckets = (1, 2, 4, 8)
+    e1 = engine()
+    cold = e1.precompile((4, D), prompt_buckets=buckets,
+                         cache=spec["cache"])
+    eng = engine()
+    warm = eng.precompile((4, D), prompt_buckets=buckets,
+                          cache=spec["cache"])
+    after = sorted(map(repr, eng.trace_counts))
+    reqs = _serve_requests(eng, spec["reqs"])
+    return {"cold": cold, "warm": warm, "trace_after_warm": after,
+            "results": [_result(r) for r in reqs],
+            "trace_max": max(eng.trace_counts.values(), default=0),
+            "fingerprint": eng._program_fingerprint()}
+
+
+def sharded_chaos(rank, world, spec):
+    """The chaos cells of the sharded serving tests on one engine, phase
+    by phase: `spec["phases"]` holds (requests, fault plans, iterations:
+    None drains, n runs n iterations under the plans and then drains
+    without them). Returns each phase's results and the engine's state
+    after all of them."""
+    from paddle_tpu_torch.parallel import init_mesh
+    from paddle_tpu_torch.serving import Request, Scheduler
+    from paddle_tpu_torch.serving import ShardedServingEngine
+    from paddle_tpu_torch.testing import faults
+
+    mesh = init_mesh(**spec["mesh"])
+    dec, emb, proj = serving_stack(spec)
+    eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, **spec["kw"])
+    sched = Scheduler(max_queue=256)
+    phases = []
+    for reqs, plans, iters in spec["phases"]:
+        rs = [Request(p, m, max_new_tokens=n, eos_id=1, adapter=a)
+              for p, m, n, a in reqs]
+        try:
+            for point, fkw in plans:
+                faults.inject(point, **fkw)
+            for r in rs:
+                sched.submit(r)
+            if iters is None:
+                eng.serve_until_idle(sched, 3000)
+            else:
+                for _ in range(iters):
+                    eng.run_iteration(sched)
+        finally:
+            faults.reset()
+        eng.serve_until_idle(sched, 3000)
+        phases.append([_result(r) for r in rs])
+    snap = eng.metrics.snapshot()
+    out = {"phases": phases, "retries": snap["retries"],
+           "failed": snap["requests"]["failed"],
+           "trace_max": max(eng.trace_counts.values(), default=0),
+           "pending": len(eng._pending) + len(eng._pending_info),
+           "occupancy": eng.occupancy()}
+    if hasattr(eng, "_alloc"):
+        eng.flush_prefix_cache()
+        eng._alloc.check()
+        out["pages_free"] = (eng._alloc.pages_free, eng.num_pages)
+    return out
+
+
+# ------------------------------------------------------------ fleet
+def fleet_metrics(rank, world):
+    """The JAX test's fleet metrics from each trainer's local statistics,
+    reduced by all-reduces over the gloo world."""
+    from paddle_tpu_torch.distributed.fleet import metrics
+
+    local = np.array([1.0 + rank, 10.0 * (rank + 1)])
+    pos, neg = np.zeros(4), np.zeros(4)
+    if rank == 0:
+        pos[3], neg[0] = 5, 5
+    else:
+        pos[2], neg[1] = 3, 4
+    return {"sum": metrics.sum(local).tolist(),
+            "max": metrics.max(torch.tensor(local)).tolist(),
+            "min": metrics.min(local).tolist(),
+            "auc": metrics.auc(pos, neg),
+            "acc": metrics.acc(np.array([8.0 + rank]), np.array([10.0])),
+            "mae": metrics.mae(np.array([1.0 + rank]), np.array([2.0])),
+            "mse": metrics.mse(np.array([4.0 * (rank + 1)]),
+                               np.array([2.0])),
+            "rmse": metrics.rmse(np.array([4.0 * (rank + 1)]),
+                                 np.array([2.0]))}
+
+
+def local_sgd(rank, world, k):
+    """LocalSGDSync over the world: each rank's parameters drift by its
+    own rate; every k-th call they are averaged."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        LocalSGDSync
+
+    sync = LocalSGDSync(k)
+    p = {"w": torch.zeros(3)}
+    seen = []
+    for _ in range(2 * k):
+        p = {"w": p["w"] + (rank + 1)}
+        p = sync.maybe_sync(p)
+        seen.append(p["w"].tolist())
+    return seen
+
+
+# ------------------------------------------------------------ checkpoints
+def sharded_save(rank, world, spec):
+    """This rank's blocks of `spec["state"]` (numpy, whole) under
+    `spec["specs"]` on `spec["mesh"]`, saved with `save_sharded`; the
+    global arrays loaded back and cut again equal the blocks."""
+    from paddle_tpu_torch.io.checkpoint import load_sharded, save_sharded
+    from paddle_tpu_torch.parallel import init_mesh, named_sharding
+
+    mesh = init_mesh(**spec["mesh"])
+    shardings, blocks = {}, {}
+    for name, full in spec["state"].items():
+        sh = named_sharding(spec["specs"].get(name, ()), mesh)
+        blocks[name] = sh.shard(torch.from_numpy(full))
+        shardings[f"params/{name}"] = sh
+    save_sharded({"params": blocks, "step": torch.tensor(7)},
+                 spec["dir"], shardings=shardings)
+    back = load_sharded(spec["dir"])["params"]
+    same = all(torch.equal(named_sharding(spec["specs"].get(n, ()), mesh)
+                           .shard(torch.from_numpy(back[n])), b)
+               for n, b in blocks.items())
+    return {"cut_back_equal": same,
+            "local": {n: tuple(b.shape) for n, b in blocks.items()}}
+
+
+def serving_blocks(rank, world, spec):
+    """For each weight layout: the blocks a sharded engine's rank holds
+    equal `convert.from_jax_state(..., serving_param_rules(layout), mesh,
+    fitted=True)` of the step net's numpy state."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.parallel import init_mesh, serving_param_rules
+    from paddle_tpu_torch.serving import ShardedServingEngine
+
+    mesh = init_mesh(**spec["mesh"])
+    dec, emb, proj = serving_stack(spec)
+    full = {**{f"decoder.{k}": v for k, v in spec["state"][0].items()},
+            **{f"embed.{k}": v for k, v in spec["state"][1].items()},
+            **{f"project.{k}": v for k, v in spec["state"][2].items()}}
+    out = {}
+    for layout in ("gathered", "megatron"):
+        eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, layout=layout,
+                                   num_slots=2, max_len=16)
+        cut = convert.from_jax_state(full, serving_param_rules(layout),
+                                     mesh, fitted=True)
+        held = eng._net.state_dict()
+        out[layout] = {
+            "equal": set(held) == set(cut) and all(
+                torch.equal(held[n], cut[n]) for n in cut),
+            "split": sorted(n for n in cut if cut[n].shape !=
+                            tuple(full[n].shape))}
+    return out

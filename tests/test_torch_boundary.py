@@ -1,6 +1,8 @@
 """The port stands alone: `paddle_tpu_torch` and `chip_smoke.py` import
-neither JAX nor the JAX package, and the port's entry points run on the
-CUDA card unless the caller asks for the CPU."""
+neither JAX nor the JAX package (nor `ml_dtypes` or `orbax`, which the
+card's machine lacks), the port never loads the JAX package's native
+library (`csrc/build/libptcore.so`), and the port's entry points run on
+the CUDA card unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -11,7 +13,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes", "orbax")
 
 
 def _forbidden(module):
@@ -145,4 +147,49 @@ def test_multi_gpu_slice_is_scanned_and_imports_alone():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_second_multi_gpu_slice_is_scanned_and_loads_no_libptcore():
+    """serving/sharded.py, distributed/fleet and distributed/ps are among
+    the scanned sources; importing them and running a parameter-server
+    round trip (the server built from ps_server.cc alone) loads no
+    forbidden module and maps no `libptcore`; no port source names it."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("serving/sharded.py", "distributed/fleet/__init__.py",
+                 "distributed/fleet/strategy.py",
+                 "distributed/fleet/strategy_compiler.py",
+                 "distributed/fleet/meta_optimizers.py",
+                 "distributed/fleet/role_maker.py",
+                 "distributed/fleet/metrics.py",
+                 "distributed/fleet/utils/fs.py",
+                 "distributed/fleet/parameter_server/runtime.py",
+                 "distributed/ps/__init__.py", "distributed/ps/__main__.py",
+                 "distributed/ps/_native.py"):
+        assert name in rel, name
+    for path in _port_files():
+        with open(path) as f:
+            assert "libptcore" not in f.read(), path
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import paddle_tpu_torch.serving.sharded\n"
+        "import paddle_tpu_torch.distributed.fleet\n"
+        "from paddle_tpu_torch.distributed import ps\n"
+        "srv = ps.PsServer(port=0)\n"
+        "c = ps.PsClient('127.0.0.1', srv.port)\n"
+        "c.init_dense('w', np.ones(3, np.float32))\n"
+        "assert c.pull_dense('w', (3,)).sum() == 3\n"
+        "c.pull_sparse_bf16('e', np.arange(4), 2)\n"
+        "c.close(); srv.stop()\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "bad += ['libptcore'] if 'libptcore' in maps else []\n"
+        "bad += [] if 'libptps' in maps else ['no libptps']\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -77,8 +77,11 @@ def test_spawn_and_launch_collective_run_two_ranks_each(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import sys; sys.exit(3)\n")
     assert launch.launch_collective([str(bad)], nproc=2) == 3
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        launch.main(["--server_num", "1", str(script)])
+    # the parameter-server mode: a trainer that fails ends the job with
+    # its code and the pserver is stopped (the full launch_ps run is in
+    # test_torch_ps.py)
+    assert launch.main(["--server_num", "1", "--worker_num", "1",
+                        str(bad)]) == 3
     assert launch._free_ports(2)[0] > 0
 
 

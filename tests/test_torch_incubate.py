@@ -9,6 +9,7 @@ binary file of the same seeded generator equal the JAX module's byte for
 byte (the port's own copy of `write_multislot_binary`).
 """
 import io
+import os
 
 import numpy as np
 import pytest
@@ -176,8 +177,21 @@ def test_train_epoch_range_torn_meta_and_refusals(tmp_path, monkeypatch):
     with pytest.warns(UserWarning, match="unreadable"):
         tr = tckpt.TrainEpochRange(2, "t")
     assert [e for e in tr.get()] == [0, 1]
-    with pytest.raises(NotImplementedError, match="parameter server"):
-        tckpt.TrainEpochRange(2, "t", ps_communicator=object())
+    # a parameter-server communicator snapshots its tables each epoch
+    # (the real servers' round trip is in test_torch_ps.py)
+    notes = []
+
+    class Comm:
+        def checkpoint_notify(self, dirname, load=False):
+            notes.append((os.path.basename(dirname), load))
+
+    monkeypatch.setenv("PADDLE_JOB_ID", "job2")
+    assert [e for e in tckpt.TrainEpochRange(
+        2, "t", ps_communicator=Comm()).get()] == [0, 1]
+    assert notes == [("job2_t_ps_e0", False), ("job2_t_ps_e1", False)]
+    assert [e for e in tckpt.TrainEpochRange(
+        3, "t", ps_communicator=Comm()).get()] == [2]
+    assert notes[2] == ("job2_t_ps_e1", True)
     monkeypatch.delenv("PADDLE_JOB_ID")
     assert not tckpt.AutoCheckpointChecker().valid()
     assert [e for e in tckpt.TrainEpochRange(2, "t").get()] == [0, 1]

@@ -327,6 +327,46 @@ def test_tp_sharded_params_and_step_match_jax(pool, ernie_jax, mesh):
     assert got["convert_ok"] is True
 
 
+def _pretrain_batch(b=4, s=16, vocab=512, seed=3):
+    """(ids, token types, mask), labels [b, s + 1]: the same count of
+    masked-LM targets in every row, so the dp mean of the rows' means is
+    the batch's mean."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(4, vocab, (b, s)).astype(np.int64)
+    tt = np.zeros((b, s), np.int64)
+    tt[:, s // 2:] = 1
+    mask = np.ones((b, s), np.float32)
+    labels = np.full((b, s + 1), -1, np.int64)
+    for row in range(b):
+        pos = rs.choice(s, 3, replace=False)
+        labels[row, pos] = ids[row, pos]
+        ids[row, pos] = 3
+    labels[:, s] = rs.randint(0, 2, b)
+    return (ids, tt, mask), labels
+
+
+@pytest.mark.parametrize("mesh", [{"tp": 2}, {"dp": 2, "tp": 2}],
+                         ids=["tp2", "dp2xtp2"])
+def test_tp_pretraining_tied_decoder_is_the_one_rank_step(pool, mesh):
+    """ErnieForPretraining's masked-LM decoder is tied to the word table,
+    which tp splits over vocabulary rows: each rank's logits of its rows
+    are gathered into the whole vocabulary, so the loss and every
+    gradient (the tied table's rows getting both the lookup's and the
+    decoder's parts) are the one-rank step's, within 1e-5 relative L2."""
+    spec = dict(cfg=dict(NO_DROPOUT, vocab_size=512), seed=5,
+                batch=_pretrain_batch())
+    one = pool.run(1, "pretrain_grads", dict(spec, mesh={"dp": 1}))[0]
+    world = int(np.prod(list(mesh.values())))
+    got = pool.run(world, "pretrain_grads", dict(spec, mesh=mesh))[0]
+    assert got["table"][0] == 512 // 2 and one["table"][0] == 512
+    assert rel_l2([got["loss"]], [one["loss"]]) <= REL
+    assert set(got["grads"]) == set(one["grads"])
+    for n, g in one["grads"].items():
+        err = rel_l2(got["grads"][n], g) if np.linalg.norm(g) > 1e-6 \
+            else float(np.abs(got["grads"][n] - g).max())
+        assert err <= REL, (n, err)
+
+
 def test_lamb_on_tp_takes_the_whole_parameters_norms(pool, ernie_jax):
     """Lamb's trust ratio ||p|| / ||r|| over a tp=2 mesh is the whole
     parameter's (the blocks' squared norms summed over tp), as on one

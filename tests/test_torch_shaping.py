@@ -675,7 +675,8 @@ def test_metrics_reset_keeps_identity():
 
 def test_snapshot_keys_are_documented():
     """A snapshot with every section recorded (the mfu one since the
-    cost accounting, the cold_start one since precompile) flattens to
+    cost accounting, the cold_start one since precompile, the sharding
+    one since the sharded engines) flattens to
     exactly the keys of SNAPSHOT_DOCS, and the slo section has the JAX
     keys."""
     m = ServingMetrics()
@@ -685,7 +686,10 @@ def test_snapshot_keys_are_documented():
     m.record_token("base")
     m.record_iteration(1, 0.5, pages_in_use=1, pages_free=2,
                        bytes_per_active_token=3.0, trie_nodes=1,
-                       trie_pages=1, tenant_slots={"base": 1})
+                       trie_pages=1, tenant_slots={"base": 1},
+                       shard_occupancy=[0.5, 0.25])
+    m.record_prefill_step(0.02)
+    m.record_collective(0.001)
     m.record_prefix("whole", 4, 4)
     m.record_spec_step(1, 3, 2, 0.001, 0.002, k_eff=4, variant="dense")
     m.record_chunked_join()
