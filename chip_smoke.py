@@ -551,11 +551,41 @@ Phases; any failure exits nonzero before the result lines:
     converges (loss below a third of its start); the trainers' pull and
     push rates. Ranks sharing one card measure the code, not multi-GPU
     speed.
-40. Output: a {"kernels": [...]} line for all eleven kernels (the
+40. The eager remainder, each part judged. (a) The repo's CTR-DNN
+    (`bench.py:678`: 8 slots of a 1,000,000 x 16 float32
+    `nn.Embedding(sparse=True)`, batch 4096, tower 128 -> 64 (ReLU) -> 1,
+    MSE on ids.sum(-1) % 2; weights and ids from --seed): the table's
+    gradient a sparse COO tensor of B*S = 32768 rows; 100 steps of
+    `Adam(lazy_mode=True)`: the loss falls, rows no id touched stay
+    bitwise where they were and every touched row moves, one step's peak
+    memory growth after a warm-up step stays below one dense [V, D]
+    float32 gradient (64 MB), two runs from one seed give the same bits,
+    3 steps equal the CPU run within 1e-5 relative L2 (each parameter,
+    the losses); examples/s and the step time, beside the same loop with
+    `sparse=False` and dense Adam. (b) SGD, Momentum (and Nesterov) and
+    non-lazy Adam over the sparse gradient against the dense one, 3
+    steps at a 50,000-row table: 1e-5 relative L2. (c) The gradient
+    pushed each step by `Communicator.push` to a `PsServer` (20 steps
+    float32, 5 on the bf16 wire): the server's rows equal its rule
+    (adagrad) replayed locally within 1e-6. (d) A `paddle.grad(
+    create_graph=True)` gradient penalty through conv, a `PyLayer` and a
+    linear layer: card against CPU within 1e-5 relative L2. (e)
+    `text.ernie_base()` forward, float32, b8 s128, ragged mask: flash_fwd
+    launched, outputs within 1e-4 of the CPU run's largest entry. (f) An
+    `ImperativeQuantAware` LeNet, 20 Adam steps: float64 card against
+    CPU within 1e-9; float32 with `torch.cuda.set_sync_debug_mode`: no
+    host sync in the forward passes (the moving max stays on the card).
+    (g) Transformer-base cut to 2 layers with a recording
+    `ServingCallback`: its token count equals the tokens served, one join
+    and one finish a request; with the join fault armed and
+    `eager_fallback=True` a request gets `generate_eager`'s tokens;
+    `paddle.seed` twice gives the same `distribution` samples.
+41. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
     3, 5, 5b, 6, 14, 15, 26-28 and 39 (a) and (b), and over the training
-    paths, phases 10, 22, 25, 32, 33, 36 (a), 38 (a) and (b) and 39 (a)
-    and (c); int8_matmul and lora_gather's over phases 13-16 and 39 (b);
+    paths, phases 10, 22, 25, 32, 33, 36 (a), 38 (a) and (b), 39 (a)
+    and (c) and 40 (e); int8_matmul and lora_gather's over phases 13-16
+    and 39 (b);
     the three training
     kernels' float16 instances in rows of their own, their launches from
     36 (b)), then
@@ -738,6 +768,13 @@ def card_line():
 
 
 # ---------------------------------------------------------------- timing
+
+#: idle host seconds at each edge of a counted profiler window, one a
+#: try where a count is retried (`amp_train`): kineto drops a device
+#: record that it places outside its window, and it can lose the first
+#: records of a session
+PROFILE_PADS_S = (0.05, 0.5, 2.0)
+
 
 def device_ms(fn, runs=25, sleep_cycles=4_000_000):
     """Median device time of fn() in ms: each run is queued behind a
@@ -1926,19 +1963,21 @@ def int8_serve(A, model, embed, project, prompts, mems, fp32_tokens):
 
 
 def profile_call(label, fn, kernel_names, summary=None):
-    """fn() under torch.profiler: wall, the device's busy share, and
-    device time by kernel group (also into `summary`, a dict, when
-    given). Returns the profile's kernel rows, or None when it recorded
+    """fn() under torch.profiler, in a window with idle edges
+    (`PROFILE_PADS_S`): wall, the device's busy share, and device time by
+    kernel group (also into `summary`, a dict, when given). Returns the profile's kernel rows, or None when it recorded
     no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PADS_S[0])
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PADS_S[0])
     rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
@@ -5929,22 +5968,45 @@ AMP_PROF_ITERS = 4
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-def profiled_kernel_counts(fn):
+def profiled_kernel_counts(fn, pad_s=PROFILE_PADS_S[0]):
     """{(kernel, "bf16" | "f16"): launches} of the three training kernels'
     wgmma instances in one fn() under torch.profiler (device activity
-    alone), by the kernels' demangled names."""
+    alone), by the kernels' demangled names. The window opens on a device
+    sleep and `pad_s` of idle host time and closes on `pad_s` more, so
+    fn()'s kernels lie clear of both edges. Logs where fn()'s first
+    device event starts and its last ends in the window, against the
+    host's clock: where the two disagree, the device's timestamps are
+    offset from the window's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+        h1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        h2 = time.perf_counter()
+        time.sleep(pad_s)
     out = {}
     for _, n, key in kernel_rows(prof):
         for kname in TRAIN_KERNELS:
             if f"{kname}_mma<" in key:
                 dt = "f16" if "__half" in key else "bf16"
                 out[(kname, dt)] = out.get((kname, dt), 0) + n
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name),
+                 key=lambda e: e.time_range.start)
+    if evs:
+        log(f"      profiled window (pad {pad_s} s): {len(evs)} device "
+            f"events of the step, the first starting at "
+            f"{evs[0].time_range.start / 1e3:.3f} ms of the window (the "
+            f"host began the step at {(h1 - h0) * 1e3:.3f} ms), the last "
+            f"ending at {max(e.time_range.end for e in evs) / 1e3:.3f} ms "
+            f"(the host saw it done at {(h2 - h0) * 1e3:.3f} ms)")
     return out
 
 
@@ -6015,12 +6077,14 @@ def amp_train(A, seed, amp_dtype, steps, init_scale):
     f16_launches = {k: A.F16_LAUNCHES[k] for k in TRAIN_KERNELS}
     tag = "f16" if f16 else "bf16"
     # the profiler drops a kernel record now and then late in this long
-    # process (as phases 5-6 see, `one_launch_a_call`): a step that reads
-    # short of E_LAYERS launches of a kernel, and no more than that of
-    # any, is profiled again, up to three steps; the judge below takes
-    # the last
-    for _ in range(3):
-        profiled = profiled_kernel_counts(step)
+    # process (as phases 5-6 see, `one_launch_a_call`; here one flash_fwd
+    # of the step, in each of three windows of one process, never in a
+    # fresh one): a step that reads short of E_LAYERS
+    # launches of a kernel, and no more than that of any, is profiled
+    # again in a window with wider idle edges, up to three steps; the
+    # judge below takes the last
+    for pad_s in PROFILE_PADS_S:
+        profiled = profiled_kernel_counts(step, pad_s)
         short = [k for k in TRAIN_KERNELS
                  if profiled.get((k, tag), 0) < E_LAYERS]
         if not short or any(n > E_LAYERS for n in profiled.values()):
@@ -8138,6 +8202,629 @@ def sharded_phase(A, Q, g, seed, card, dev="cuda"):
     return result
 
 
+# ------------------------------------------- the eager remainder (40)
+#: phase 40 (a): the repo's CTR-DNN (`bench.py:678`, config 5): 8 slots of
+#: a 1,000,000 x 16 float32 table, batch 4096, tower 128 -> 64 (ReLU) ->
+#: 1, MSE on ids.sum(-1) % 2; lazy Adam at the bench's 1e-3
+CTR_VOCAB, CTR_DIM, CTR_SLOTS, CTR_BATCH, CTR_HIDDEN = 1_000_000, 16, 8, \
+    4096, 64
+CTR_STEPS, CTR_LR, CTR_CPU_STEPS, CTR_DENSE_STEPS = 100, 1e-3, 3, 20
+CTR_REL = 1e-5
+#: (b) the sparse rules against their dense twins at a smaller table
+SR_VOCAB, SR_BATCH, SR_STEPS = 50_000, 1024, 3
+#: (c) pushes to a PsServer (its sparse rule: adagrad at SGD's lr)
+PS40_STEPS, PS40_BF16_STEPS, PS40_LR = 20, 5, 0.01
+#: (e) ERNIE-base forward; (f) the QAT LeNet; (g) the 2-layer serve
+EB_BATCH, EB_SEQ = 8, 128
+QAT_BATCH, QAT_STEPS = 64, 20
+CB_LAYERS, CB_REQUESTS, CB_SLOTS, CB_NEW, CB_SRC, CB_MAX = 2, 8, 4, 16, \
+    64, 512
+
+
+class CtrDnn(torch.nn.Module):
+    """`bench.py:678`'s CTR-DNN on the port: the sparse-gradient table
+    and the ReLU tower."""
+
+    def __init__(self, seed, device, sparse=True, vocab=None):
+        super().__init__()
+        from paddle_tpu_torch import nn
+
+        g = torch.Generator().manual_seed(seed)
+        self.emb = nn.Embedding(vocab or CTR_VOCAB, CTR_DIM, sparse=sparse,
+                                device=device, generator=g)
+        self.fc1 = nn.Linear(CTR_SLOTS * CTR_DIM, CTR_HIDDEN, device=device,
+                             generator=g)
+        self.fc2 = nn.Linear(CTR_HIDDEN, 1, device=device, generator=g)
+
+    def forward(self, ids):
+        h = self.emb(ids).reshape(ids.shape[0], -1)
+        return self.fc2(torch.relu(self.fc1(h)))
+
+
+def ctr_batches(seed, n, dev, vocab=None, batch=None):
+    """n (ids [B, S], labels [B, 1]) batches drawn on `dev` from --seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.randint(0, vocab or CTR_VOCAB,
+                            (batch or CTR_BATCH, CTR_SLOTS), generator=g,
+                            device=dev)
+        out.append((ids, (ids.sum(-1, keepdim=True) % 2).float()))
+    return out
+
+
+def ctr_step(model, opt, ids, y):
+    loss = ((model(ids) - y) ** 2).mean()
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ctr_train(seed, dev, steps, sparse=True, batches=None, lazy=True):
+    """The phase 40 (a) loop: `steps` lazy-Adam steps (dense Adam with
+    sparse=False); returns (model, losses [steps], seconds a step after
+    the first, peak bytes one step adds over the allocated ones)."""
+    from paddle_tpu_torch import optimizer
+
+    model = CtrDnn(seed, dev, sparse=sparse)
+    opt = optimizer.Adam(CTR_LR, parameters=list(model.parameters()),
+                         lazy_mode=lazy)
+    batches = batches or ctr_batches(seed + 1, steps, dev)
+    losses = [ctr_step(model, opt, *batches[0])]        # warm-up: slots
+    peak = None
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses.append(ctr_step(model, opt, *batches[1]))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        t0 = time.perf_counter()
+        for ids, y in batches[2:steps]:
+            losses.append(ctr_step(model, opt, ids, y))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / max(steps - 2, 1)
+    else:
+        t0 = time.perf_counter()
+        for ids, y in batches[1:steps]:
+            losses.append(ctr_step(model, opt, ids, y))
+        step_s = (time.perf_counter() - t0) / max(steps - 1, 1)
+    return model, torch.stack(losses).cpu(), step_s, peak
+
+
+def ctr_profile(seed, dev, sparse, batches, steps=5):
+    """Where a CTR-DNN step's time goes: `steps` steps (after two
+    unprofiled ones) under torch.profiler, host wall against device busy
+    time, the top device kernels and the top host ops by self time.
+    None on the CPU."""
+    if torch.device(dev).type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import optimizer
+
+    model = CtrDnn(seed, dev, sparse=sparse)
+    opt = optimizer.Adam(CTR_LR, parameters=list(model.parameters()),
+                         lazy_mode=sparse)
+    for ids, y in batches[:2]:
+        ctr_step(model, opt, ids, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for ids, y in batches[2:2 + steps]:
+            ctr_step(model, opt, ids, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = kernel_rows(p)
+    busy = sum(r[0] for r in rows) / steps
+    host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps,
+                    e.key) for e in p.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)[:8]
+    out = {"wall_ms_a_step": wall, "device_busy_ms_a_step": busy,
+           "kernels_a_step": sum(r[1] for r in rows) / steps,
+           "top_kernels": [(round(ms / steps, 4), n // steps, k[:60])
+                           for ms, n, k in sorted(rows, reverse=True)[:6]],
+           "top_host_ops": [(round(ms, 4), n, k[:60]) for ms, n, k in host]}
+    log(f"  (a) {'sparse' if sparse else 'dense'} step profile: wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"{out['kernels_a_step']:.0f} kernels; top kernels "
+        f"{out['top_kernels']}; top host ops {out['top_host_ops']}")
+    return out
+
+
+def ctr_phase(seed, card, dev="cuda"):
+    """Phase 40 (a): CTR-DNN at `bench.py:678`'s width through the sparse
+    path (`nn.Embedding(sparse=True)` -> row-sparse gradient -> lazy
+    Adam), on the card."""
+    from paddle_tpu_torch.sparse import SelectedRows
+
+    V, D = CTR_VOCAB, CTR_DIM
+    batches = ctr_batches(seed + 1, CTR_STEPS, dev)
+    # one backward alone: the gradient's rows and form
+    probe = CtrDnn(seed, dev)
+    ((probe(batches[0][0]) - batches[0][1]) ** 2).mean().backward()
+    g = probe.emb.weight.grad
+    rows = SelectedRows(g)
+    if g.layout != torch.sparse_coo or rows.rows.numel() != \
+            CTR_BATCH * CTR_SLOTS:
+        raise AssertionError(f"the table's gradient is {g.layout} with "
+                             f"{rows.rows.numel()} rows, not a sparse COO "
+                             f"tensor of B*S = {CTR_BATCH * CTR_SLOTS}")
+    w0 = probe.emb.weight.detach().clone()
+    del probe, g, rows
+    runs = [ctr_train(seed, dev, CTR_STEPS, batches=batches)
+            for _ in range(2)]
+    (model, losses, step_s, peak), (model2, losses2, _, peak2) = runs
+    same = torch.equal(losses, losses2) and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                           model2.state_dict().values()))
+    if not same:
+        raise AssertionError("two runs from one seed differ")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if not bool(torch.isfinite(losses).all()) or not last < first:
+        raise AssertionError(f"the loss did not fall: {first} -> {last}")
+    touched = torch.zeros(V, dtype=torch.bool, device=dev)
+    for ids, _ in batches:
+        touched[ids.reshape(-1)] = True
+    w = model.emb.weight.detach()
+    untouched_same = torch.equal(w[~touched], w0[~touched])
+    moved = int((w[touched] != w0[touched]).any(1).sum())
+    n_touched = int(touched.sum())
+    if not untouched_same or moved != n_touched:
+        raise AssertionError(f"untouched rows moved ({not untouched_same}) "
+                             f"or touched rows stayed ({moved} of "
+                             f"{n_touched} moved)")
+    dense_bytes = V * D * 4
+    if peak is not None and peak >= dense_bytes:
+        raise AssertionError(f"one step's peak grew {peak} bytes, past one "
+                             f"dense [V, D] gradient ({dense_bytes})")
+    del model2
+    # the same steps on the CPU through the same code
+    cpu_batches = [(i.cpu(), y.cpu()) for i, y in batches[:CTR_CPU_STEPS]]
+    card3, l3, _, _ = ctr_train(seed, dev, CTR_CPU_STEPS,
+                                batches=batches[:CTR_CPU_STEPS])
+    cpu3, lc3, _, _ = ctr_train(seed, "cpu", CTR_CPU_STEPS,
+                                batches=cpu_batches)
+    cmp = {k: _rel(v.detach().cpu(), cpu3.state_dict()[k].detach())
+           for k, v in card3.state_dict().items()}
+    w0c = w0.cpu()
+    upd = _rel(card3.emb.weight.detach().cpu() - w0c,
+               cpu3.emb.weight.detach() - w0c)
+    cmp["losses"] = _rel(l3, lc3)
+    del card3, cpu3
+    bad = {k: v for k, v in cmp.items() if not v <= CTR_REL}
+    if bad:
+        raise AssertionError(f"card against CPU past {CTR_REL}: {bad}")
+    # the dense yardstick: sparse=False, dense Adam, the same batches
+    _, dl, dense_s, dense_peak = ctr_train(
+        seed, dev, CTR_DENSE_STEPS, sparse=False, lazy=False,
+        batches=batches[:CTR_DENSE_STEPS])
+    prof = {"sparse": ctr_profile(seed, dev, True, batches),
+            "dense": ctr_profile(seed, dev, False, batches)}
+    out = {"card": card, "steps": CTR_STEPS, "loss_first10": first,
+           "loss_last10": last, "grad_rows": CTR_BATCH * CTR_SLOTS,
+           "step_ms": step_s * 1e3, "examples_per_s": CTR_BATCH / step_s,
+           "step_peak_growth_bytes": peak, "dense_grad_bytes": dense_bytes,
+           "two_runs_bitwise": same, "touched_rows": n_touched,
+           "untouched_rows_bitwise": untouched_same,
+           "card_vs_cpu_rel_l2": cmp, "update_rel_l2": upd,
+           "dense_yardstick": {"step_ms": dense_s * 1e3,
+                               "examples_per_s": CTR_BATCH / dense_s,
+                               "step_peak_growth_bytes": dense_peak,
+                               "loss_last": float(dl[-1])},
+           "profile": prof}
+    log(f"  (a) CTR-DNN {V} x {D}, b{CTR_BATCH} x {CTR_SLOTS} slots, lazy "
+        f"Adam {CTR_STEPS} steps: loss {first:.4f} -> {last:.4f}; "
+        f"{out['examples_per_s']:.0f} examples/s ({out['step_ms']:.3f} ms a "
+        f"step), dense yardstick "
+        f"{out['dense_yardstick']['examples_per_s']:.0f} examples/s "
+        f"({dense_s * 1e3:.3f} ms); one step's peak +{peak} bytes (dense "
+        f"+{dense_peak}; one dense gradient {dense_bytes}); card vs CPU "
+        f"{cmp} ({card})")
+    return out
+
+
+def sparse_rules_phase(seed, dev="cuda"):
+    """Phase 40 (b): SGD, Momentum (and Nesterov) and non-lazy Adam over
+    the row-sparse gradient against the same optimizers over the dense
+    one, 3 steps at a smaller table: final parameters within 1e-5
+    relative L2."""
+    from paddle_tpu_torch import optimizer
+
+    cases = [("SGD", optimizer.SGD, dict(learning_rate=0.1)),
+             ("Momentum", optimizer.Momentum,
+              dict(learning_rate=0.1, momentum=0.9)),
+             ("Momentum nesterov", optimizer.Momentum,
+              dict(learning_rate=0.1, momentum=0.9, use_nesterov=True)),
+             ("Adam", optimizer.Adam, dict(learning_rate=0.01))]
+    batches = ctr_batches(seed + 2, SR_STEPS, dev, vocab=SR_VOCAB,
+                          batch=SR_BATCH)
+    out = {}
+    for name, cls, kw in cases:
+        params = []
+        for sparse in (True, False):
+            m = CtrDnn(seed, dev, sparse=sparse, vocab=SR_VOCAB)
+            opt = cls(parameters=list(m.parameters()), **kw)
+            for ids, y in batches:
+                ctr_step(m, opt, ids, y)
+            params.append(m.state_dict())
+        errs = {k: _rel(params[0][k], params[1][k]) for k in params[0]}
+        out[name] = errs
+        if not max(errs.values()) <= CTR_REL:
+            raise AssertionError(f"{name}: sparse against dense {errs}")
+    log(f"  (b) sparse against dense rules, {SR_VOCAB} x {CTR_DIM}, "
+        f"b{SR_BATCH}, {SR_STEPS} steps, relative L2: " + json.dumps(
+            {k: max(v.values()) for k, v in out.items()}))
+    return out
+
+
+def ps_push_phase(seed, dev="cuda"):
+    """Phase 40 (c): the table's row-sparse gradient pushed each step by
+    `Communicator.push` to a `PsServer` (optimizer "sgd"; its sparse rule
+    is adagrad), float32 then on the bf16 wire; the server's rows against
+    the same rule replayed locally in float32 on the merged rows."""
+    from paddle_tpu_torch.distributed.ps import Communicator, PsServer
+    from paddle_tpu_torch.sparse import SelectedRows
+
+    model = CtrDnn(seed, dev)
+    batches = ctr_batches(seed + 3, PS40_STEPS + PS40_BF16_STEPS, dev)
+    srv = PsServer(port=0, trainers=1, optimizer="sgd", lr=PS40_LR)
+    out = {}
+    try:
+        comm = Communicator([f"127.0.0.1:{srv.port}"], mode="sync")
+        cli = comm.clients[0]
+        for wire, sl in (("float32", batches[:PS40_STEPS]),
+                         ("bfloat16", batches[PS40_STEPS:])):
+            table = f"emb_{wire}"
+            uniq = torch.unique(torch.cat([i.reshape(-1) for i, _ in sl]))
+            keys = uniq.cpu().numpy()
+            ref = torch.from_numpy(cli.pull_sparse(table, keys, CTR_DIM))
+            acc = torch.zeros_like(ref)
+            t_push, n_rows, parts = 0.0, 0, {}
+            for ids, y in sl:
+                ((model(ids) - y) ** 2).mean().backward()
+                m = SelectedRows(model.emb.weight.grad).merge()
+                for p in model.parameters():
+                    p.grad = None
+                vals = m.values if wire == "float32" else \
+                    m.values.to(torch.bfloat16)
+                _sync(dev)
+                t0 = time.perf_counter()
+                comm.push({table: SelectedRows(m.rows, vals, CTR_VOCAB)})
+                t_push += time.perf_counter() - t0
+                n_rows += m.rows.numel()
+                if not parts:
+                    # the push's parts once: the merge on the card, the
+                    # readback, the RPC of the same rows (to another table)
+                    t1 = time.perf_counter()
+                    mm = SelectedRows(m.rows, vals, CTR_VOCAB).merge()
+                    _sync(dev)
+                    t2 = time.perf_counter()
+                    rr, vv = mm.rows.cpu().numpy(), mm.values.float().cpu()
+                    t3 = time.perf_counter()
+                    cli.push_sparse(table + "_probe", rr, vv.numpy())
+                    t4 = time.perf_counter()
+                    parts.update(merge_ms=(t2 - t1) * 1e3,
+                                 readback_ms=(t3 - t2) * 1e3,
+                                 rpc_ms=(t4 - t3) * 1e3,
+                                 push_ms=(t1 - t0) * 1e3)
+                # the server's rule on the merged rows, in float32
+                j = torch.searchsorted(uniq, m.rows).cpu()
+                g = vals.float().cpu()
+                a = acc[j] + g * g
+                acc[j] = a
+                ref[j] = ref[j] - (PS40_LR * g) / (torch.sqrt(a) + 1e-8)
+            got = torch.from_numpy(cli.pull_sparse(table, keys, CTR_DIM))
+            err = float((got - ref).abs().max())
+            out[wire] = {"steps": len(sl), "rows": int(keys.size),
+                         "max_abs_err": err,
+                         "push_rows_per_s": n_rows / t_push,
+                         "first_push_parts": parts}
+            if not err <= 1e-6:
+                raise AssertionError(f"pserver rows ({wire} wire) differ "
+                                     f"from the local replay by {err}")
+        comm.close()
+    finally:
+        srv.stop()
+    log(f"  (c) Communicator.push of the row-sparse gradient to a PsServer: "
+        + json.dumps(out))
+    return out
+
+
+def grad_api_phase(seed, dev="cuda"):
+    """Phase 40 (d): a `paddle.grad(create_graph=True)` gradient penalty
+    through a conv + linear stack with a PyLayer, on the card against the
+    CPU (float32): the penalty, the input gradient and the weights'
+    second-order gradients within 1e-5 relative L2."""
+    import paddle_tpu_torch as paddle
+
+    class Cube(paddle.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensor
+            return g * 3.0 * x * x
+
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn(8, 3, 32, 32, generator=g)
+    wc0 = torch.randn(16, 3, 3, 3, generator=g) * 0.2
+    wl0 = torch.randn(16 * 32 * 32, 10, generator=g) * 0.01
+
+    def run(d):
+        x, wc, wl = (t.to(d).requires_grad_() for t in (x0, wc0, wl0))
+        h = paddle.nn.functional.conv2d(x, wc, padding=1)
+        h = Cube.apply(torch.tanh(h))
+        out = (h.reshape(8, -1) @ wl).square().sum()
+        (gx,) = paddle.grad(out, [x], create_graph=True)
+        pen = (gx * gx).sum()
+        pen.backward()
+        return [t.detach().cpu() for t in (pen, gx, wc.grad, wl.grad)]
+
+    card, cpu = run(dev), run("cpu")
+    errs = [_rel(a, b) for a, b in zip(card, cpu)]
+    if not max(errs) <= CTR_REL:
+        raise AssertionError(f"gradient penalty card against CPU: {errs}")
+    log(f"  (d) paddle.grad(create_graph=True) penalty through conv + "
+        f"PyLayer + linear, card against CPU relative L2 (penalty, dx, "
+        f"dconv, dlinear): {errs}")
+    return errs
+
+
+def ernie_base_phase(A, seed, dev="cuda"):
+    """Phase 40 (e): `text.ernie_base()` forward in float32 at b8 s128
+    with a ragged mask on the card: flash_fwd launched (12 layers), the
+    sequence and pooled outputs within 1e-4 of the CPU run's largest
+    entry."""
+    from paddle_tpu_torch.text import ernie_base
+
+    g = torch.Generator().manual_seed(seed)
+    card = ernie_base(device=dev, generator=g, hidden_dropout=0.0,
+                      attn_dropout=0.0).eval()
+    cpu = copy.deepcopy(card).to("cpu")
+    rs = np.random.RandomState(seed)
+    ids = torch.as_tensor(rs.randint(1, 18000, (EB_BATCH, EB_SEQ)))
+    mask = torch.ones(EB_BATCH, EB_SEQ)
+    for i, n in enumerate(rs.randint(EB_SEQ // 2, EB_SEQ + 1, EB_BATCH)):
+        mask[i, n:] = 0
+    A.reset_launches()
+    with torch.no_grad():
+        seq, pooled = card(ids.to(dev), attention_mask=mask.to(dev))
+        _sync(dev)
+        launches = dict(A.LAUNCHES)
+        cseq, cpooled = cpu(ids, attention_mask=mask)
+    errs = [rel_err(seq, cseq), rel_err(pooled, cpooled)]
+    if dev != "cpu" and launches["flash_fwd"] < 1:
+        raise AssertionError("ernie_base never launched flash_fwd")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"ernie_base card against CPU: {errs}")
+    log(f"  (e) ernie_base() forward b{EB_BATCH} s{EB_SEQ} fp32: flash_fwd "
+        f"launches {launches['flash_fwd']}, card against CPU (of the "
+        f"largest entry) seq {errs[0]:.2e}, pooled {errs[1]:.2e}")
+    del card, cpu
+    return {"launches": launches, "rel_err": errs}
+
+
+def _syncs(caught):
+    """The host syncs among warnings caught under
+    `torch.cuda.set_sync_debug_mode("warn")`."""
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def qat_phase(seed, dev="cuda"):
+    """Phase 40 (f): `ImperativeQuantAware` LeNet, Adam, QAT_STEPS steps
+    on one MNIST-shaped batch from --seed (the loss must fall): (1)
+    float64 on the card against the CPU (losses rtol 1e-9, parameters 1e-9 relative L2: the same
+    arithmetic, and a fake-quant grid shared at this precision);
+    (2) float32 on the card with sync debugging on: the forward passes
+    after the first (the moving max) must not sync the host; the syncs of
+    each step and their sources, and the float32 card-vs-CPU divergence,
+    are printed."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.slim import ImperativeQuantAware
+    from paddle_tpu_torch.vision.models import LeNet
+
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn(QAT_BATCH, 1, 28, 28, generator=g)
+    y0 = torch.randint(0, 10, (QAT_BATCH,), generator=g)
+
+    def train(d, dtype, count_syncs=False):
+        net = LeNet(device="cpu", generator=torch.Generator().manual_seed(
+            seed)).to(dtype)
+        ImperativeQuantAware().quantize(net)
+        net = net.to(d)
+        opt = optimizer.Adam(1e-3, parameters=list(net.parameters()))
+        losses, syncs = [], {"forward": [], "backward_step": [],
+                             "sources": []}
+        import warnings
+
+        x, y = x0.to(d, dtype), y0.to(d)
+        for _ in range(QAT_STEPS):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                if count_syncs:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    logits = net(x)
+                    n_fwd = _syncs(w)
+                    loss = torch.nn.functional.cross_entropy(logits, y)
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                finally:
+                    if count_syncs:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs["forward"].append(n_fwd)
+                syncs["backward_step"].append(_syncs(w) - n_fwd)
+                syncs["sources"] += sorted({
+                    f"{os.path.basename(c.filename)}:{c.lineno}"
+                    for c in w if "synchroniz" in str(c.message)})
+            losses.append(loss.detach())
+        return torch.stack(losses).cpu(), {k: v.detach().cpu() for k, v in
+                                           net.state_dict().items()}, syncs
+
+    l64, p64, _ = train(dev, torch.float64)
+    c64, q64, _ = train("cpu", torch.float64)
+    e64 = [_rel(l64, c64)] + [_rel(p64[k], q64[k]) for k in p64]
+    if not max(e64) <= 1e-9:
+        raise AssertionError(f"QAT float64 card against CPU: {max(e64)}")
+    l32, p32, syncs = train(dev, torch.float32,
+                            count_syncs=torch.device(dev).type == "cuda")
+    c32, q32, _ = train("cpu", torch.float32)
+    e32 = {"losses": _rel(l32, c32),
+           **{k: _rel(p32[k], q32[k]) for k in p32}}
+    if any(syncs["forward"][1:]):
+        raise AssertionError(f"the QAT forward synced the host after its "
+                             f"first step: {syncs}")
+    if not bool(torch.isfinite(l32).all()) or not l32[-5:].mean() < \
+            l32[:5].mean():
+        raise AssertionError(f"QAT LeNet float32 did not train: {l32}")
+    out = {"float64_rel_l2": max(e64), "float32_rel_l2": e32,
+           "syncs": syncs, "loss_first": float(l32[0]),
+           "loss_last": float(l32[-1])}
+    log(f"  (f) QAT LeNet {QAT_STEPS} steps: " + json.dumps(out))
+    return out
+
+
+def callbacks_phase(A, seed, dev="cuda"):
+    """Phase 40 (g): a 2-layer Transformer-base engine with a recording
+    ServingCallback: its token count equals the tokens served, one join
+    and one finish a request; with the join fault armed and
+    eager_fallback=True the request gets `generate_eager`'s tokens;
+    `paddle.seed` twice gives the same `distribution` samples."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.bucketing import bucket_size
+    from paddle_tpu_torch.serving import (ServingCallback, ServingEngine,
+                                          ServingServer)
+    from paddle_tpu_torch.testing import faults
+    from paddle_tpu_torch.text.generation import generate_eager
+
+    gen = torch.Generator().manual_seed(seed)
+    model = nn.Transformer(D_MODEL, HEADS, CB_LAYERS, CB_LAYERS, FFN,
+                           dropout=0.0, device=dev, generator=gen).eval()
+    embed = nn.Embedding(VOCAB, D_MODEL, device=dev, generator=gen).eval()
+    project = nn.Linear(D_MODEL, VOCAB, device=dev, generator=gen).eval()
+    rs = np.random.RandomState(seed)
+    src = torch.as_tensor(rs.randint(2, VOCAB, (CB_REQUESTS, CB_SRC)),
+                          device=dev)
+    with torch.inference_mode():
+        memory = model.encoder(embed(src), None)
+    prompts = []
+    for _ in range(CB_REQUESTS):
+        p = rs.randint(2, VOCAB, int(rs.randint(64, 257)))
+        p[0] = 0
+        prompts.append(p)
+
+    class Rec(ServingCallback):
+        def __init__(self):
+            self.n = {"submit": 0, "join": 0, "token": 0, "finish": 0}
+
+        def on_submit(self, r):
+            self.n["submit"] += 1
+
+        def on_join(self, r, s):
+            self.n["join"] += 1
+
+        def on_token(self, r, t):
+            self.n["token"] += 1
+
+        def on_finish(self, r):
+            self.n["finish"] += 1
+
+    rec = Rec()
+    eng = ServingEngine(model.decoder, embed, project, num_slots=CB_SLOTS,
+                        max_len=CB_MAX, device=dev, callbacks=[rec],
+                        eager_fallback=True, max_attempts=2,
+                        backoff_base_s=0.0)
+    A.reset_launches()
+    srv = ServingServer(eng, max_queue=CB_REQUESTS)
+    try:
+        reqs = [srv.submit(p, memory[i], max_new_tokens=CB_NEW, eos_id=1)
+                for i, p in enumerate(prompts)]
+        res = [r.result(timeout=600) for r in reqs]
+    finally:
+        srv.shutdown(drain=True, timeout=60)
+    launches = dict(A.LAUNCHES)
+    served = sum(len(r.tokens) for r in res)
+    snap = eng.metrics.snapshot()
+    want = {"submit": CB_REQUESTS, "join": CB_REQUESTS, "token": served,
+            "finish": CB_REQUESTS}
+    counts = dict(rec.n)
+    if counts != want or snap["tokens_out"] != served or \
+            not all(r.ok for r in res):
+        raise AssertionError(f"callback counts {counts}, want {want} "
+                             f"(tokens_out {snap['tokens_out']})")
+    # a join that fails every attempt: the eager fallback serves it
+    from paddle_tpu_torch.serving import Request, Scheduler
+
+    sched = Scheduler(max_queue=4)
+    r = Request(prompts[0], memory[0], max_new_tokens=CB_NEW, eos_id=1)
+    with faults.inject("serving.prefill", on="always"):
+        sched.submit(r)
+        eng.serve_until_idle(sched, max_iterations=50)
+    faults.reset()
+    try:
+        got = list(r.result(timeout=60).tokens)
+    except Exception as e:
+        raise AssertionError(f"the eager fallback failed: "
+                             f"{eng.metrics.snapshot()['last_error']}") \
+            from e
+    P = len(prompts[0])
+    with torch.inference_mode():
+        toks, lens = generate_eager(
+            model.decoder, embed, project, memory[0][None],
+            prompts[0][None], [P], eos_id=1, max_new_tokens=CB_NEW,
+            pad_prompt_to=bucket_size(P))
+    want_toks = list(toks[0][:min(int(lens[0]), CB_NEW)])
+    if got != want_toks or eng.metrics.snapshot()["fallbacks"] != 1:
+        raise AssertionError(f"eager fallback gave {got}, generate_eager "
+                             f"{want_toks}")
+    # paddle.seed repeats distribution draws on the card
+    loc = torch.zeros(4, device=dev)
+    d = paddle.distribution.Normal(loc, torch.ones(4, device=dev))
+    paddle.seed(seed)
+    a = d.sample([3])
+    paddle.seed(seed)
+    if not torch.equal(a, d.sample([3])):
+        raise AssertionError("paddle.seed did not repeat the samples")
+    out = {"callbacks": counts, "tokens_served": served,
+           "fallback_tokens": len(got), "launches": {
+               k: v for k, v in launches.items() if v}}
+    log(f"  (g) 2-layer Transformer-base with a recording callback: "
+        + json.dumps(out))
+    return out
+
+
+def eager_remainder_phase(A, seed, card, dev="cuda"):
+    """Phase 40 (a)-(g). Returns (summary, {path: {kernel: launches}} of
+    (e) and (g))."""
+    t0 = time.perf_counter()
+    out = {"card": card}
+    out["ctr"] = ctr_phase(seed, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache() if torch.device(dev).type == "cuda" else None
+    out["sparse_rules"] = sparse_rules_phase(seed, dev)
+    out["ps_push"] = ps_push_phase(seed, dev)
+    out["grad_api"] = grad_api_phase(seed, dev)
+    out["ernie_base"] = ernie_base_phase(A, seed, dev)
+    out["qat"] = qat_phase(seed, dev)
+    out["callbacks"] = callbacks_phase(A, seed, dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"ernie_base_fwd": out["ernie_base"]["launches"],
+                 "callbacks_serve": out["callbacks"]["launches"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8841,7 +9528,25 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 40: output")
+    log("phase 40: the eager remainder: (a) CTR-DNN at bench.py:678's "
+        "width through the sparse embedding gradient and lazy Adam, (b) "
+        "the sparse rules against the dense ones, (c) the PS push of the "
+        "gradient's rows, (d) paddle.grad double grad and PyLayer, (e) "
+        "ernie_base(), (f) eager QAT, (g) serving callbacks, the eager "
+        "fallback and paddle.seed")
+    eager, eager_launches = eager_remainder_phase(A, args.seed, card)
+    for label, counts in eager_launches.items():
+        for kname, n in counts.items():
+            if n:
+                row = kernels[kname]
+                row["launches_by_path"][label] = n
+                row["launches"] = sum(row["launches_by_path"].values())
+    log("  eager remainder summary " + json.dumps(eager))
+    log(f"  phase 40 took {eager['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 41: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

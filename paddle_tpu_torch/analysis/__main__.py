@@ -6,6 +6,9 @@
                                                      #   port source changed
     python -m paddle_tpu_torch.analysis --json       # machine-readable
     python -m paddle_tpu_torch.analysis --no-programs  # AST/repo lints only
+    python -m paddle_tpu_torch.analysis --device cpu   # the program lints
+                                                     #   on the CPU (default:
+                                                     #   the CUDA card)
     python -m paddle_tpu_torch.analysis --write-baseline  # re-seed the
                                                      #   allowlist (fill in
                                                      #   the justifications)
@@ -15,8 +18,10 @@ repo lints (PTA201 lock discipline over serving/, tuning/, profiler/ and
 optimizer/fused.py, PTA202 snapshot()/SNAPSHOT_DOCS sync, PTA203 the
 fault-point registry, PTA204 host calls in program bodies), and the
 program lints (every program `ServingEngine.precompile()` readies on the
-tiny CPU check engines, plus the multi-tensor optimizer step, run once
-under an aten-op recorder: PTA102, PTA103, PTA104).
+tiny check engines, plus the multi-tensor optimizer step, run once under
+an aten-op recorder: PTA102, PTA103, PTA104). The program half runs on
+the CUDA card unless `--device cpu` asks for the host; with no card it
+raises and lints nothing.
 
 Exit status is the gate: 0 when every finding has a justified entry in
 the committed `paddle_tpu_torch/analysis/baseline.json`, 1 otherwise.
@@ -38,6 +43,9 @@ def main(argv=None):
                          "paddle_tpu_torch/ source changed")
     ap.add_argument("--no-programs", action="store_true",
                     help="skip the program lints: AST + repo lints only")
+    ap.add_argument("--device", default=None,
+                    help="where the program lints run: the CUDA card "
+                         "(default) or cpu")
     ap.add_argument("--baseline", default=None,
                     help="baseline path (default: the package's "
                          "analysis/baseline.json)")
@@ -49,7 +57,7 @@ def main(argv=None):
     from . import Baseline, render_text, runner
 
     report = runner.run(programs=not args.no_programs, fast=args.fast,
-                        baseline_path=args.baseline)
+                        baseline_path=args.baseline, device=args.device)
     if args.write_baseline:
         path = args.baseline or runner.BASELINE_PATH
         entries, seen = [], set()

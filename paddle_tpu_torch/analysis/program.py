@@ -223,20 +223,22 @@ def analyze_engine(engine, memory=(4, 32), *, dtype="float32",
     return findings
 
 
-def analyze_fused_optimizer(large_bytes=4096, n=64):
+def analyze_fused_optimizer(large_bytes=4096, n=64, device=None):
     """Lint the multi-tensor optimizer step (optimizer/fused.py): one Adam
-    step over a small dense bag, audited like a serving program. The
-    parameters and the moment slots are the carries: each must be
-    updated in place."""
+    step over a small dense bag on `device` (None: the card), audited
+    like a serving program. The parameters and the moment slots are the
+    carries: each must be updated in place."""
     from .. import optimizer as opt_mod
+    from ..core.device import resolve_device
     from ..optimizer import fused
 
+    dev = resolve_device(device)
     g = torch.Generator().manual_seed(0)
-    params = [torch.nn.Parameter(torch.randn(n, n, generator=g))
+    params = [torch.nn.Parameter(torch.randn(n, n, generator=g).to(dev))
               for _ in range(2)]
     opt = opt_mod.Adam(0.01, parameters=params)
     for p in params:
-        p.grad = torch.randn(n, n, generator=g)
+        p.grad = torch.randn(n, n, generator=g).to(dev)
     opt.step()           # the slots exist after the first step
     dense = [(p, p.grad) for p in params]
     state = {"params": params,

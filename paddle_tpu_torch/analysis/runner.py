@@ -8,17 +8,21 @@ Two halves with different costs:
     (PTA202 snapshot/doc sync, PTA203 the fault-point registry against
     the injections in the port and in tests/test_torch_*.py). Pure
     source reads, sub-second.
-  * `program_findings()` — builds throwaway tiny engines on the CPU (or
-    at any width on the card: `build_check_engines(device=, width=)`),
+  * `program_findings(device=)` — builds throwaway tiny engines on the
+    card (device=None, through `core.device.resolve_device`) or on the
+    CPU when asked (`device="cpu"`), at any width
+    (`build_check_engines(device=, width=)`),
     runs every program `precompile()` would ready once on a scratch pool
     under the op recorder, plus the multi-tensor optimizer step, and
     applies the program rules. No sharded engine: the port serves on one
     card.
 
-`run()` combines them, filters against the committed baseline
+`run(device=)` combines them, filters against the committed baseline
 (`paddle_tpu_torch/analysis/baseline.json`), and (for the fast mode)
-caches program findings keyed on a digest of every port source: any edit
-under paddle_tpu_torch/ invalidates the cache.
+caches program findings keyed on the device and a digest of every port
+source: any edit under paddle_tpu_torch/ invalidates the cache. Like
+every entry point, the program half runs on the card unless the caller
+asks for the CPU; with no card it raises and lints nothing.
 """
 from __future__ import annotations
 
@@ -85,7 +89,7 @@ def static_findings(root=None):
 # program half
 # ----------------------------------------------------------------------
 
-def _small_stack(seed=7, D=32, H=2, V=17, layers=2, ffn=64, device="cpu"):
+def _small_stack(seed=7, D=32, H=2, V=17, layers=2, ffn=64, device=None):
     import torch
 
     from .. import nn
@@ -101,16 +105,19 @@ def _small_stack(seed=7, D=32, H=2, V=17, layers=2, ffn=64, device="cpu"):
     return dec, embed, proj
 
 
-def build_check_engines(device="cpu", width=None):
+def build_check_engines(device=None, width=None):
     """[(label, engine)] throwaway engines covering the program matrix:
     dense step, dense spec (draft + verify), paged (pjoin / attach / cow /
     pattach / pstep), paged spec (draft + pverify), multi-tenant (int8
     base weights and an adapter pool), radix with adapters, chunked dense
     and chunked paged. `width` = (D, heads, vocab, layers, ffn, slots,
     max_len, page) (default: the `_small_stack` tiny stack, 4 slots of 32
-    positions); the card's phase runs Transformer-base."""
+    positions); the card's phase runs Transformer-base. device=None is
+    the card."""
+    from ..core.device import resolve_device
     from ..serving import AdapterPool, ServingEngine
 
+    device = resolve_device(device)
     D, H, V, layers, ffn, S, L, page = width or (32, 2, 17, 2, 64, 4, 32, 8)
 
     def stack(seed):
@@ -140,17 +147,20 @@ def build_check_engines(device="cpu", width=None):
     return out
 
 
-def program_findings(large_bytes=CHECK_LARGE_BYTES, device="cpu",
+def program_findings(large_bytes=CHECK_LARGE_BYTES, device=None,
                      width=None, memory=(4, 32), prompt_buckets=(8,)):
+    from ..core.device import resolve_device
     from .program import analyze_engine, analyze_fused_optimizer
 
+    device = resolve_device(device)
     findings = []
     mem = memory if width is None else (memory[0], width[0])
     for _label, eng in build_check_engines(device, width):
         findings.extend(analyze_engine(eng, mem,
                                        prompt_buckets=prompt_buckets,
                                        large_bytes=large_bytes))
-    findings += analyze_fused_optimizer(large_bytes=large_bytes)
+    findings += analyze_fused_optimizer(large_bytes=large_bytes,
+                                        device=device)
     return findings
 
 
@@ -180,9 +190,9 @@ def _source_digest():
     return h.hexdigest()
 
 
-def _cached_program_findings(root, fast):
+def _cached_program_findings(root, fast, device):
     cache_path = os.path.join(root, CACHE_NAME)
-    digest = _source_digest()
+    digest = f"{device}:{_source_digest()}"
     if fast and os.path.exists(cache_path):
         try:
             with open(cache_path) as f:
@@ -193,7 +203,7 @@ def _cached_program_findings(root, fast):
                         for d in raw["findings"]], "hit"
         except (OSError, ValueError, KeyError):
             pass
-    findings = program_findings()
+    findings = program_findings(device=device)
     try:
         tmp = cache_path + f".tmp-{os.getpid()}"
         with open(tmp, "w") as f:
@@ -205,8 +215,10 @@ def _cached_program_findings(root, fast):
     return findings, "miss"
 
 
-def run(root=None, *, programs=True, fast=False, baseline_path=None):
-    """The full gate. Returns a report dict:
+def run(root=None, *, programs=True, fast=False, baseline_path=None,
+        device=None):
+    """The full gate; the program half on `device` (None: the card,
+    raising without one; "cpu" when asked). Returns a report dict:
 
         {"findings", "new", "baselined", "stale_baseline", "cache", "ok"}
 
@@ -214,10 +226,16 @@ def run(root=None, *, programs=True, fast=False, baseline_path=None):
     baseline entries are reported (delete them — the ratchet) but do
     not fail the gate on their own."""
     root = root or repo_root()
-    findings = static_findings(root)
     cache = None
     if programs:
-        prog, cache = _cached_program_findings(root, fast)
+        from ..core.device import resolve_device
+
+        # before any lint: no card and no explicit CPU is an error here,
+        # never a quiet run on the host
+        device = resolve_device(device)
+    findings = static_findings(root)
+    if programs:
+        prog, cache = _cached_program_findings(root, fast, device)
         findings = findings + prog
     baseline_path = baseline_path or BASELINE_PATH
     baseline = Baseline.load(baseline_path) \

@@ -9,14 +9,28 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "set_default_device", "default_device"]
+
+#: what device=None means: "cuda" until `paddle.set_device` names another
+_DEFAULT = ["cuda"]
+
+
+def set_default_device(device):
+    """Make device=None mean `device` ("cpu", "cuda", "cuda:1"): the
+    caller asking for it, as `paddle.set_device("cpu")` does."""
+    _DEFAULT[0] = str(torch.device(device))
+
+
+def default_device():
+    """What device=None resolves to ("cuda" unless set)."""
+    return _DEFAULT[0]
 
 
 def resolve_device(device=None):
     """`torch.device` for an entry point's `device=` argument; None
-    means "cuda". Raises RuntimeError when CUDA is asked for and no
-    card is present."""
-    dev = torch.device("cuda" if device is None else device)
+    means "cuda" (or what `set_default_device` named). Raises
+    RuntimeError when CUDA is asked for and no card is present."""
+    dev = torch.device(_DEFAULT[0] if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "paddle_tpu_torch runs on a CUDA device by default and none "

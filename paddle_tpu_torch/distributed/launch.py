@@ -130,8 +130,9 @@ def launch_ps(script_args, num_servers=1, num_trainers=1,
     PADDLE_PSERVER_ENDPOINTS (what `fleet.init_worker` reads). The
     trainers start once every pserver listens (its ready file, within
     `_SERVER_START_S` seconds). The job ends when every trainer has
-    exited (the pservers are then stopped); a trainer or pserver that
-    dies first ends it with its code."""
+    exited (the pservers are then stopped); a trainer that fails, or a
+    pserver that fails before the trainers are done, ends it with its
+    code (a pserver a trainer shut down exits 0 and ends nothing)."""
     import tempfile
 
     ports = _free_ports(num_servers)
@@ -214,12 +215,15 @@ def launch_ps(script_args, num_servers=1, num_trainers=1,
                     return prc
             for i, p in enumerate(procs):
                 prc = p.poll()
-                if prc is not None and t_alive:
+                # a pserver that exits 0 was shut down by a trainer's
+                # request (`shutdown_server`): the trainers may still be
+                # finishing, so only a failing pserver ends the job
+                if prc not in (None, 0) and t_alive:
                     sys.stderr.write(
                         f"[launch] pserver {i} died ({prc}); "
                         "terminating job\n")
                     terminate_procs(all_procs)
-                    return prc or 1
+                    return prc
             if not t_alive:
                 break
             time.sleep(0.2)

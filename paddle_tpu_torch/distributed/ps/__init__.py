@@ -16,9 +16,10 @@ parameter's name.
 Differences from the JAX module: the bf16 wire takes and gives torch
 bfloat16 tensors (their 16-bit patterns; both round to nearest even, so
 the bytes are the JAX client's); a device copy is `.to(device)`; a
-SelectedRows gradient in `Communicator.push` waits for the port's
-`sparse/` module (the sparse path is `DistributedLookupTable.push_grad`
-and `Communicator.push_rows`).
+row-sparse gradient in `Communicator.push` (a `sparse.SelectedRows` or
+the torch sparse COO tensor `nn.Embedding(sparse=True)` leaves in
+`.grad`) is merged on its device (`SelectedRows.merge`, deterministic)
+before the one readback, where the JAX client merges on the host.
 """
 from __future__ import annotations
 
@@ -379,17 +380,28 @@ class Communicator:
     # ---------------- sync/async dense path ----------------
     def push(self, named_grads):
         """Dense grads (numpy arrays or tensors, any device) go to
-        push_dense. A SelectedRows gradient (the sparse embedding
-        backward of the JAX package) waits for the port's `sparse/`
-        module and is refused; the sparse path is
-        `DistributedLookupTable.push_grad` / `push_rows`."""
-        for n, g in named_grads.items():
-            if hasattr(g, "rows") and hasattr(g, "height"):
-                raise NotImplementedError(
-                    f"Communicator.push({n!r}): a SelectedRows gradient "
-                    f"needs the port's sparse module (ROADMAP item 7); push "
-                    f"the rows with DistributedLookupTable.push_grad")
-        dense = {n: _host(g) for n, g in named_grads.items()}
+        push_dense. A row-sparse gradient (a `SelectedRows`, or the torch
+        sparse COO tensor of `nn.Embedding(sparse=True)`) goes straight
+        to push_sparse as (rows, values), never densified: fill rows
+        dropped and duplicates merged on its device, then one readback;
+        bfloat16 values ride the bf16 wire where the client speaks it
+        (as `MergedSparseStream` ships them)."""
+        from ...sparse import SelectedRows, is_sparse_grad
+
+        sparse = {n: g for n, g in named_grads.items() if is_sparse_grad(g)}
+        for name, g in sparse.items():
+            sr = g if isinstance(g, SelectedRows) else SelectedRows(g)
+            m = sr.merge()
+            rows = m.rows.detach().to("cpu").numpy()
+            vals = m.values.detach().reshape(rows.size, -1).to("cpu")
+            cli = self._client_for(name)
+            if vals.dtype == torch.bfloat16 and \
+                    hasattr(cli, "push_sparse_bf16"):
+                cli.push_sparse_bf16(name, rows, vals.contiguous())
+            else:
+                cli.push_sparse(name, rows, vals.float().numpy())
+        dense = {n: _host(g) for n, g in named_grads.items()
+                 if n not in sparse}
         if not dense:
             return
         if self.mode == "async":
@@ -407,20 +419,6 @@ class Communicator:
             # the grad is neither lost nor parked on a dead queue
         for name, g in dense.items():
             self._client_for(name).push_dense(name, g)
-
-    def push_rows(self, name, rows, vals, height=None):
-        """A sparse gradient as (row ids, values): rows past `height` (a
-        shape-stable fill) dropped, duplicates merged on the host, one
-        push_sparse (the JAX push's SelectedRows path)."""
-        rows = np.asarray(rows, np.int64).ravel()
-        vals = np.asarray(_host(vals), np.float32).reshape(rows.size, -1)
-        if height is not None:
-            keep = rows < height
-            rows, vals = rows[keep], vals[keep]
-        uniq, inv = np.unique(rows, return_inverse=True)
-        merged = np.zeros((uniq.size, vals.shape[1]), vals.dtype)
-        np.add.at(merged, inv, vals)
-        self._client_for(name).push_sparse(name, uniq, merged)
 
     def pull(self, force=False):
         """force=True bypasses the async recv-thread cache and does a
@@ -864,8 +862,10 @@ class MergedSparseStream(SparsePrefetcher):
                 cli.push_sparse(self._name, flat[keep.numpy()],
                                 vals[keep].float().numpy())
         else:
-            self._comm.push_rows(self._name, ids.ravel(),
-                                 vals.float().numpy(), self._height)
+            from ...sparse import SelectedRows
+
+            self._comm.push({self._name: SelectedRows(
+                ids.ravel(), vals.float(), self._height)})
         self.push_seconds += time.perf_counter() - t0
 
     def push_async(self, ids, grads):

@@ -53,4 +53,12 @@ __all__ = [
     "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase", "SimpleRNN",
     "SimpleRNNCell", "MultiHeadAttention", "Transformer",
     "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",
-    "TransformerEncoderLayer"]
+    "TransformerEncoderLayer", "utils_spectral_norm"]
+
+
+def utils_spectral_norm(*a, **k):
+    """Raises, as the JAX package's does (`nn.SpectralNorm` is the layer
+    form)."""
+    raise NotImplementedError(
+        "utils_spectral_norm is not implemented (the JAX package's raises "
+        "too); use nn.SpectralNorm")

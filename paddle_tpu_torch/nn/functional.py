@@ -5,9 +5,9 @@ losses, interpolation and the vision helpers.
 
 Randomness (dropout, alpha dropout, Gumbel noise) comes from
 `generator`, a torch.Generator on the input's device (None: that
-device's default generator). `embedding(sparse=True)` raises: a sparse
-gradient needs the port's `sparse/` package (ROADMAP item 7), and the
-port's optimizers refuse one. `ctc_loss` runs the alpha recursion of
+device's default generator). `embedding(sparse=True)` gives a leaf
+weight a row-sparse gradient (`sparse.SelectedRows` wraps it), which the
+optimizers' sparse rules apply. `ctc_loss` runs the alpha recursion of
 `ops/sequence_losses.py` over a float32 log-softmax, as the JAX package
 does.
 """
@@ -405,14 +405,44 @@ def linear(x, weight, bias=None):
     return K.linear(x, weight, bias)
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """The lookup whose weight gradient is row-sparse: an uncoalesced
+    torch sparse COO tensor of the weight's shape holding one row a
+    looked-up id (indices [1, B*S], values [B*S, D]), so no dense [V, D]
+    gradient is built (`sparse.SelectedRows` wraps it). A `padding_idx`
+    lookup keeps its entry with zero values."""
+
+    @staticmethod
+    def forward(ctx, ids, weight, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.padding_idx = padding_idx
+        ctx.weight_shape = tuple(weight.shape)
+        return K.embedding(ids, weight, padding_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..sparse import _coo
+
+        (ids,) = ctx.saved_tensors
+        # a copy: the gradient must not alias the caller's ids (nor two
+        # gradients one another, which AccumulateGrad would merge)
+        flat = ids.reshape(-1).to(torch.int64, copy=True)
+        vals = g.reshape((-1,) + ctx.weight_shape[1:])
+        if ctx.padding_idx is not None and ctx.padding_idx >= 0:
+            vals = vals * (flat != ctx.padding_idx)[:, None].to(vals.dtype)
+        return None, _coo(flat[None], vals, ctx.weight_shape), None
+
+
 def embedding(x, weight, padding_idx=None, sparse=False):
-    """Rows of `weight` at the ids x; rows at `padding_idx` are zero.
-    `sparse=True` raises: the port has no sparse gradients yet (ROADMAP
-    item 7, `sparse/`), and its optimizers refuse one."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True) needs the port's sparse/ package "
-            "(ROADMAP item 7); use sparse=False")
+    """Rows of `weight` at the ids x; rows at `padding_idx` are zero and
+    get no gradient. `sparse=True` makes the weight's gradient row-sparse
+    (`_SparseEmbedding`) where the weight is a leaf that takes a
+    gradient; a derived weight (a cast, a scaled or sliced table) needs
+    a dense gradient to flow upstream, so it takes the dense lookup, as
+    in the JAX package."""
+    if sparse and weight.is_leaf and weight.requires_grad \
+            and torch.is_grad_enabled():
+        return _SparseEmbedding.apply(x, weight, padding_idx)
     return K.embedding(x, weight, padding_idx)
 
 

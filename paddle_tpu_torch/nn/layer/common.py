@@ -202,14 +202,22 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     """Token lookup; weight [num_embeddings, dim] ~ N(0, 1), or after
-    `quantize_int8()` the int8 `weight_q` with `weight_scale`."""
+    `quantize_int8()` the int8 `weight_q` with `weight_scale`.
+    `padding_idx`: that row starts at zero, and its lookups give zeros
+    and no gradient. `sparse=True`: the weight's gradient is row-sparse
+    (`F.embedding`), for the sparse optimizer rules and the PS push."""
 
-    def __init__(self, num_embeddings, embedding_dim, *, device=None,
-                 generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, *, device=None, generator=None):
         super().__init__()
+        self._padding_idx = padding_idx
+        self._sparse = bool(sparse)
         self.weight = _param(
             (num_embeddings, embedding_dim), resolve_device(device),
             lambda t: t.normal_(0.0, 1.0, generator=generator))
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def quantize_int8(self):
         """Serving-time vocabulary-table quantization: the [V, D] table
@@ -223,6 +231,9 @@ class Embedding(nn.Module):
         if self.weight is None:
             return F.embedding_int8(x, self.weight_q, self.weight_scale,
                                     self._weight_dtype)
+        if self._sparse or self._padding_idx is not None:
+            return F.embedding(x, self.weight, self._padding_idx,
+                               self._sparse)
         return _embedding(x, self.weight)
 
 

@@ -27,9 +27,23 @@ A Parameter's `optimize_attr = {"learning_rate": m}` scales its rate;
 update into the parameter.
 
 Refused, where the JAX package would act otherwise: an `L1Decay` weight
-decay (the JAX optimizers decay it as L2), a weight decay on Adamax,
-Adagrad, Adadelta or RMSProp (their rules apply none), and sparse
-gradients (they come with the port's `sparse/` slice).
+decay (the JAX optimizers decay it as L2), and a weight decay on Adamax,
+Adagrad, Adadelta or RMSProp (their rules apply none).
+
+**Sparse gradients.** A parameter whose `.grad` is row-sparse (a torch
+sparse COO tensor, as `nn.Embedding(sparse=True)` gives) takes its
+optimizer's sparse rule, the JAX package's (`_sgd_sparse_rule`,
+`_momentum_sparse_rule` with Nesterov, `_adam_sparse_rule`, whose
+moments decay on every row, and Adam's and AdamW's `lazy_mode`, which
+reads and writes only the touched rows of the parameter and of both
+moments); the dense parameters of the same step still take the
+multi-tensor path. The rows are merged first (`SelectedRows.merge`: a
+stable sort, each row's values summed in their order), and each rule
+writes its unique rows by gather, update and scatter, never by an
+atomic add, so a step repeats bit for bit on the card. As in JAX, a
+weight decay or a `grad_clip` over a sparse gradient raises, so does
+`multi_precision`, and the other optimizers raise naming the rule they
+lack.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ import numpy as np
 import torch
 
 from ..regularizer import L1Decay
+from ..sparse import SelectedRows
 from . import functional
 from . import lr
 from .lr import LRScheduler
@@ -185,34 +200,61 @@ class Optimizer:
         raise NotImplementedError
 
     def _collect(self):
-        """This step's dense (param, grad) pairs."""
-        dense = []
+        """This step's (param, grad) pairs, split into (dense, sparse)."""
+        dense, sparse = [], []
         for p in self._parameters:
             if not p.requires_grad or p.grad is None:
                 continue
-            if p.grad.layout != torch.strided:
-                raise NotImplementedError(
-                    "sparse gradients are not supported by the port's "
-                    "optimizers yet; they come with its sparse/ slice")
-            dense.append((p, p.grad))
-        return dense
+            (dense if p.grad.layout == torch.strided else sparse).append(
+                (p, p.grad))
+        return dense, sparse
 
     @torch.no_grad()
     def step(self):
         self._step_count += 1
-        dense = self._collect()
-        if not dense:
-            return
-        from . import fused
+        dense, sparse = self._collect()
+        if self._grad_clip is not None and sparse:
+            raise NotImplementedError(
+                "grad_clip over sparse (SelectedRows) gradients is not "
+                "supported; clip densely or drop the clip")
+        if dense:
+            from . import fused
 
-        if fused.supported(self) and \
-                len({id(p) for p, _ in dense}) == len(dense):
-            fused.apply(self, dense)
-        else:
-            pg = self._grad_clip(dense) if self._grad_clip is not None \
-                else dense
-            for p, g in pg:
-                self._update_param(p, g)
+            if fused.supported(self) and \
+                    len({id(p) for p, _ in dense}) == len(dense):
+                fused.apply(self, dense)
+            else:
+                pg = self._grad_clip(dense) if self._grad_clip is not None \
+                    else dense
+                for p, g in pg:
+                    self._update_param(p, g)
+        for p, g in sparse:
+            if g.layout != torch.sparse_coo or g.sparse_dim() != 1:
+                raise NotImplementedError(
+                    f"only row-sparse gradients (a sparse COO tensor with "
+                    f"one sparse dim, as nn.Embedding(sparse=True) gives) "
+                    f"have sparse rules; got {g.layout} with "
+                    f"{g.sparse_dim()} sparse dims")
+            if self._decay_value(p):
+                raise ValueError(
+                    "weight_decay/regularization is not supported with "
+                    "sparse (SelectedRows) gradients, as in the reference's "
+                    "lookup_table is_sparse=True")
+            if self._mp_enabled(p):
+                raise NotImplementedError(
+                    "multi_precision is not supported with sparse "
+                    "(SelectedRows) gradients")
+            g = SelectedRows(g).merge()
+            self._update_param_sparse(p, g.rows, g.values.to(p.dtype),
+                                      self._lr_for(p))
+
+    def _update_param_sparse(self, p, rows, vals, lr):
+        """The sparse rule: parameter `p` (updated in place) at merged
+        `rows` (unique, ascending) with their gradient `vals`, at rate
+        `lr`, in the JAX rule's order of operations."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no sparse (SelectedRows) update "
+            f"rule; use SGD/Momentum/Adam for sparse embedding training")
 
     def _update_param(self, p, g):
         """The per-parameter path: the functional rule on one tensor."""
@@ -274,6 +316,10 @@ class SGD(Optimizer):
     def _fused_tx(self, lrv, wd):
         return functional.sgd(lrv, wd)
 
+    def _update_param_sparse(self, p, rows, vals, lr):
+        """p[rows] -= lr * g (`_sgd_sparse_rule`)."""
+        p[rows] = p[rows] - vals * lr
+
 
 class Momentum(Optimizer):
     _fused_slots = ("velocity",)
@@ -290,6 +336,20 @@ class Momentum(Optimizer):
     def _fused_tx(self, lrv, wd):
         return functional.momentum(lrv, self._momentum, wd,
                                    self._use_nesterov)
+
+    def _update_param_sparse(self, p, rows, vals, lr):
+        """`_momentum_sparse_rule`: v = mu * v on every row, + g on its
+        rows; p -= lr * v (Nesterov: p -= lr * mu * v on every row, then
+        lr * g on the gradient's rows)."""
+        vel = self._slots(p)["velocity"]
+        mu = self._momentum
+        vel.mul_(mu)
+        vel[rows] = vel[rows] + vals
+        if self._use_nesterov:
+            p.sub_(vel * (lr * mu))
+            p[rows] = p[rows] - vals * lr
+        else:
+            p.sub_(vel * lr)
 
 
 class Adam(Optimizer):
@@ -309,6 +369,33 @@ class Adam(Optimizer):
     def _fused_tx(self, lrv, wd):
         return functional.adam(lrv, self._beta1, self._beta2, self._eps,
                                wd, decoupled=self._decoupled_wd)
+
+    def _update_param_sparse(self, p, rows, vals, lr):
+        """`_adam_sparse_rule` (m and v decay on every row, the gradient
+        adds on its rows, every row moves) or, with `lazy_mode`,
+        `_adam_sparse_lazy_rule` (only the gradient's rows of p, m and v
+        are read and written)."""
+        slots = self._slots(p)
+        m, v = slots["moment1"], slots["moment2"]
+        b1, b2, eps = self._beta1, self._beta2, self._eps
+        t = self._step_count
+        c1 = functional.bias_correction(b1, t)
+        c2 = functional.bias_correction(b2, t)
+        if self._lazy_mode:
+            m_r = m[rows] * b1 + vals * (1 - b1)
+            v_r = v[rows] * b2 + vals * (1 - b2) * vals
+            den = functional._div([v_r], c2)[0].sqrt_().add_(eps)
+            upd = functional._div([m_r], c1)[0].mul_(lr).div_(den)
+            p[rows] = p[rows] - upd
+            m[rows] = m_r
+            v[rows] = v_r
+            return
+        m.mul_(b1)
+        m[rows] = m[rows] + vals * (1 - b1)
+        v.mul_(b2)
+        v[rows] = v[rows] + vals * (1 - b2) * vals
+        den = functional._div([v], c2)[0].sqrt_().add_(eps)
+        p.sub_(functional._div([m], c1)[0].mul_(lr).div_(den))
 
 
 class AdamW(Adam):

@@ -61,7 +61,7 @@ from ..testing import faults
 from . import tracing as _rt
 from .layers import (DenseLayout, PagedLayout, PlainStepper, SinglePlacement,
                      SpecStepper)
-from .metrics import ServingMetrics
+from .metrics import CallbackList, ServingMetrics
 from .paging import (PageAllocator, RadixPrefixCache, pages_for,
                      resolve_kv_dtype)
 
@@ -144,9 +144,10 @@ class _EngineBase:
     the port writes its pool in place and donates no carry."""
 
     def __init__(self, num_slots, *, max_joins_per_iter=2, metrics=None,
-                 clock=time.monotonic, max_attempts=3, backoff_base_s=0.01,
-                 backoff_cap_s=0.5, watchdog_s=None, sleep=time.sleep,
-                 hbm_budget_bytes=None, hbm_watermark=0.9):
+                 callbacks=(), clock=time.monotonic, max_attempts=3,
+                 backoff_base_s=0.01, backoff_cap_s=0.5, watchdog_s=None,
+                 sleep=time.sleep, hbm_budget_bytes=None,
+                 hbm_watermark=0.9):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         self.num_slots = int(num_slots)
@@ -154,6 +155,16 @@ class _EngineBase:
         self.clock = clock
         self.metrics = metrics if metrics is not None else \
             ServingMetrics(clock=clock)
+        # the ServingCallback hooks; a raising hook is recorded as the
+        # error "callback.<hook>" and serving goes on
+        self._cbs = CallbackList(
+            callbacks, on_error=lambda hook, e: self.metrics.record_error(
+                f"callback.{hook}", e))
+        # token-0 delivery: the joins of an admission round return device
+        # scalars that one host sync resolves after the last join;
+        # sync_tok0 = True syncs each join's token 0 as it returns (the
+        # JAX engine's before-and-after switch)
+        self.sync_tok0 = False
         self.slots = [None] * self.num_slots   # Request | None
         # slots holding a request whose prompt is still being prefilled
         # chunk by chunk: occupied for admission, out of the decode step
@@ -340,18 +351,28 @@ class _EngineBase:
                 slo.name, r.first_token_at - r.submitted_at, tpot,
                 slo.ttft_target_s, slo.tpot_target_s)
         r.finish(reason, now)
+        self._cbs.emit("on_finish", r)
 
     def _release_failed(self, s, r, where, exc):
-        """A join or chunk failed every attempt: THIS request fails and
-        frees its slot; its writes were slot-local, the pool keeps
-        serving."""
+        """A join or chunk failed every attempt: THIS request frees its
+        slot (its writes were slot-local, the pool keeps serving) and
+        fails, unless a failed join degrades to the eager path
+        (`_join_fallback`)."""
         self.slots[s] = None
         self._evict(s)
         self._unpark(r)
         r.slot = None
         self.metrics.record_error(where, exc)
+        if where == "slot_join" and self._join_fallback(r):
+            return
         r.fail(exc, self.clock())
         self.metrics.record_finish("error", len(r.tokens))
+        self._cbs.emit("on_finish", r)
+
+    def _join_fallback(self, r):
+        """Serve a request whose join failed every attempt some other way;
+        True when it did. Default: no fallback."""
+        return False
 
     def _fail_active(self, exc):
         """A decode step failed every attempt: the batched step is
@@ -366,6 +387,7 @@ class _EngineBase:
             self._evict(s)
             self.metrics.record_finish("error", len(r.tokens))
             r.finish("error", now, error=exc)
+            self._cbs.emit("on_finish", r)
         self._reset_pool()
 
     def _replay_diverged(self, r, i, tok, now):
@@ -382,6 +404,28 @@ class _EngineBase:
         self.metrics.record_error("replay", e)
         self.metrics.record_finish("error", len(r.tokens))
         r.finish("error", now, error=e)
+        self._cbs.emit("on_finish", r)
+
+    def _emit_token(self, r, tok, now):
+        """Hand one token to the request and its observers: the token
+        list, the counters, the first-token time, the callbacks and the
+        stream."""
+        r.tokens.append(tok)
+        self.metrics.record_token(self._tenant_of(r))
+        if r.first_token_at is None:
+            r.first_token_at = now
+            if r._trace is not None:
+                _rt.on_first_token(r)
+            if r.submitted_at is not None:
+                self.metrics.record_first_token(now - r.submitted_at)
+        self._cbs.emit("on_token", r, tok)
+        if r.stream_cb is not None:
+            try:
+                r.stream_cb(r, tok)
+            except Exception as e:
+                # a broken streaming callback must not stall the pool;
+                # the failure is recorded, never swallowed
+                self.metrics.record_error("stream_cb", e)
 
     def _deliver(self, r, tok, now):
         if r.state == "DONE":
@@ -397,21 +441,7 @@ class _EngineBase:
             r._replay -= 1
             self.metrics.record_replay_token()
             return
-        r.tokens.append(tok)
-        self.metrics.record_token(self._tenant_of(r))
-        if r.first_token_at is None:
-            r.first_token_at = now
-            if r._trace is not None:
-                _rt.on_first_token(r)
-            if r.submitted_at is not None:
-                self.metrics.record_first_token(now - r.submitted_at)
-        if r.stream_cb is not None:
-            try:
-                r.stream_cb(r, tok)
-            except Exception as e:
-                # a broken streaming callback must not stall the pool;
-                # the failure is recorded, never swallowed
-                self.metrics.record_error("stream_cb", e)
+        self._emit_token(r, tok, now)
         if r.eos_id is not None and tok == r.eos_id:
             self._finish_slot(r.slot, "eos", now)
         elif len(r.tokens) >= r.max_new_tokens:
@@ -441,6 +471,7 @@ class _EngineBase:
         def _queue_death(req):   # cancelled / expired while queued
             self._unpark(req)
             self.metrics.record_finish(req.finish_reason, len(req.tokens))
+            self._cbs.emit("on_finish", req)
 
         joins = 0
         tok0s = []   # (request, device token 0), synced after the loop
@@ -462,6 +493,7 @@ class _EngineBase:
                 self.metrics.record_error("admit", e)
                 r.fail(e, now)
                 self.metrics.record_finish("error", len(r.tokens))
+                self._cbs.emit("on_finish", r)
                 continue
             if not self._admission_gate(r):
                 # resource backpressure: the request stays queued at the
@@ -491,8 +523,13 @@ class _EngineBase:
                 # armed at the preemption
                 self.metrics.record_resume()
             self.metrics.record_join()
-            if tok is not None:      # None: a chunked prefill's token 0
-                tok0s.append((r, tok))   # comes with its final chunk
+            self._cbs.emit("on_join", r, s)
+            if tok is None:          # a chunked prefill's token 0 comes
+                continue             # with its final chunk
+            if self.sync_tok0:
+                self._deliver(r, int(tok), self.clock())
+            else:
+                tok0s.append((r, tok))
         if tok0s:
             # one host sync for the whole admission round's first tokens
             firsts = torch.stack([t for _, t in tok0s]).cpu().tolist()
@@ -553,6 +590,9 @@ class _EngineBase:
         lag_fn = getattr(scheduler, "wfq_lag_by_tenant", None)
         if lag_fn is not None:
             self.metrics.set_wfq_lag(lag_fn())
+        self._cbs.emit("on_iteration", {
+            "queue_depth": scheduler.depth(),
+            "occupancy": self.occupancy(), "joins": joins})
         if self.metrics.budget_bytes > 0:
             ledger = self.memory_ledger()
             if ledger is not None:
@@ -604,7 +644,11 @@ class ServingEngine(_EngineBase):
     Fault isolation and retries: `max_attempts`, `backoff_base_s`,
     `backoff_cap_s`, `watchdog_s`, `sleep` (see `_EngineBase`);
     `hbm_budget_bytes` arms the memory watermark at `hbm_watermark` of
-    it.
+    it. `eager_fallback=True`: a request whose join fails every attempt
+    is served alone by `text.generation.generate_eager` on the base
+    model (the JAX engine's degradation: a tenant's request too), its
+    tokens delivered at once (`fallbacks` counts them). `callbacks=`:
+    `ServingCallback`s (`serving/metrics.py`).
 
     Speculative decoding: `spec_k >= 2` turns the batched decode step
     into an n-gram draft (`spec_ngram`) plus one spec_k-token verify,
@@ -632,9 +676,11 @@ class ServingEngine(_EngineBase):
                  spec_k=None, spec_ngram=2, spec_adapt=True,
                  spec_adapt_low=0.15, spec_adapt_high=0.6,
                  spec_adapt_patience=4, spec_adapt_alpha=0.3, adapters=None,
-                 quantize=None, prefill_chunk=None, **kw):
+                 quantize=None, prefill_chunk=None, eager_fallback=False,
+                 **kw):
         super().__init__(num_slots, max_joins_per_iter=max_joins_per_iter,
                          metrics=metrics, clock=clock, **kw)
+        self.eager_fallback = bool(eager_fallback)
         if prefill_chunk is not None:
             prefill_chunk = int(prefill_chunk)
             if prefill_chunk < 2 or prefill_chunk & (prefill_chunk - 1):
@@ -1173,6 +1219,44 @@ class ServingEngine(_EngineBase):
         join = self._program(("join", Pb), self.layout.join)
         return self._pinned_join(s, r, lambda row: self.placement.run(
             join, s, prompt, P0, memory[None], row))
+
+    # ---- graceful degradation: a solo eager serve ----
+    def _join_fallback(self, r):
+        """`eager_fallback=True`: serve the request alone on the eager
+        concat-cache path (slower, but the caller gets its exact tokens);
+        a failing eager run is recorded and the request fails as it would
+        have."""
+        if not self.eager_fallback:
+            return False
+        try:
+            toks, n = self._run_eager(r)
+        except Exception as e:
+            self.metrics.record_error("eager_fallback", e)
+            return False
+        self.metrics.record_fallback()
+        now = self.clock()
+        for t in toks[:n]:
+            self._emit_token(r, int(t), now)
+        reason = ("eos" if r.eos_id is not None and r.tokens and
+                  r.tokens[-1] == r.eos_id else "length")
+        self.metrics.record_finish(reason, len(r.tokens))
+        r.finish(reason, now)
+        self._cbs.emit("on_finish", r)
+        return True
+
+    def _run_eager(self, r):
+        from ..text.generation import generate_eager
+
+        net = self._net
+        eos = int(r.eos_id) if r.eos_id is not None else -1
+        P = int(r.prompt.shape[0])
+        with torch.inference_mode():
+            toks, lens = generate_eager(
+                net.decoder, net.embed, net.project,
+                r.memory.to(self.device)[None], r.prompt[None], [P],
+                bos_id=0, eos_id=eos, max_new_tokens=r.max_new_tokens,
+                pad_prompt_to=bucket_size(max(1, P)))
+        return toks[0], min(int(lens[0]), r.max_new_tokens)
 
     # ---- chunked prefill ----
     def _chunk_begin(self, s, r, prompt_b, P0, Pb, memory):
@@ -1928,4 +2012,5 @@ class PagedServingEngine(ServingEngine):
         self.metrics.record_error("out_of_pages", exc)
         self.metrics.record_finish("error", len(r.tokens))
         r.finish("error", now, error=exc)
+        self._cbs.emit("on_finish", r)
 

@@ -12,7 +12,13 @@ watermark) once an engine registers its ledger, and the "slo" section
 TTFT / TPOT attainment, WFQ lag) once a traffic-shaping feature records.
 The section and key names are the JAX package's (`serving/metrics.py`);
 `SNAPSHOT_DOCS` documents every key a snapshot can hold. Thread-safe;
-`snapshot()` may be called from any thread at any time."""
+`snapshot()` may be called from any thread at any time.
+
+`to_prometheus(snapshot, tracer=)` renders a snapshot in Prometheus'
+text format; `ServingCallback` is the engines' hook surface (`callbacks=`
+on every engine: on_submit, on_reject, on_join, on_token, on_finish,
+on_iteration), fanned out by `CallbackList`, which records a raising
+hook as an error instead of letting it stop the pool."""
 from __future__ import annotations
 
 import threading
@@ -20,7 +26,8 @@ import time
 
 import numpy as np
 
-__all__ = ["ServingMetrics", "SNAPSHOT_DOCS", "flatten_snapshot"]
+__all__ = ["ServingMetrics", "SNAPSHOT_DOCS", "flatten_snapshot",
+           "to_prometheus", "ServingCallback", "CallbackList"]
 
 #: Every key `ServingMetrics.snapshot()` can emit, flattened with "."
 #: (a reservoir summary is one key whose value is the {n, mean, p50, p99,
@@ -38,6 +45,7 @@ SNAPSHOT_DOCS = {
     "errors": ("counter", "internal failures recorded anywhere"),
     "last_error": ("info", "last recorded error {where, type, message, at}"),
     "retries": ("counter", "engine ops retried after a failed attempt"),
+    "fallbacks": ("counter", "requests degraded to the solo eager path"),
     "joins": ("counter", "successful slot joins"),
     "iterations": ("counter", "engine iterations run"),
     "tokens_out": ("counter",
@@ -197,6 +205,109 @@ def flatten_snapshot(snap, _prefix=""):
     return out
 
 
+def _prom_escape(s):
+    return (str(s).replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
+
+
+def to_prometheus(snapshot, tracer=None, prefix="paddle_tpu_serving"):
+    """Render a snapshot() (plus, optionally, a `profiler.trace.Tracer`
+    session's counters) in the Prometheus text exposition format, as the
+    JAX package does: one HELP / TYPE head a key from `SNAPSHOT_DOCS`
+    (unknown keys as gauges), reservoir summaries by `stat`, info dicts
+    as labels, lists by `index`."""
+    lines = []
+
+    def head(name, kind, doc):
+        lines.append(f"# HELP {name} {doc}")
+        lines.append(f"# TYPE {name} "
+                     f"{'counter' if kind == 'counter' else 'gauge'}")
+
+    flat = flatten_snapshot(snapshot)
+    for key in sorted(flat):
+        kind, doc = SNAPSHOT_DOCS.get(key, ("gauge", ""))
+        v = flat[key]
+        name = prefix + "_" + key.replace(".", "_")
+        if v is None:
+            continue
+        if isinstance(v, dict) and set(v) <= _SUMMARY_KEYS:
+            head(name, "gauge", doc)
+            for stat in sorted(v):
+                lines.append(f'{name}{{stat="{stat}"}} {float(v[stat])}')
+        elif kind == "info" and isinstance(v, dict):
+            head(name, "gauge", doc)
+            labels = ",".join(f'{lk}="{_prom_escape(lv)}"'
+                              for lk, lv in sorted(v.items()))
+            lines.append(f"{name}{{{labels}}} 1")
+        elif isinstance(v, (list, tuple)):
+            head(name, kind, doc)
+            for i, sv in enumerate(v):
+                lines.append(f'{name}{{index="{i}"}} {float(sv)}')
+        elif isinstance(v, (int, float)):
+            head(name, kind, doc)
+            lines.append(f"{name} {float(v)}")
+    if tracer is not None:
+        name = prefix + "_tracer_events"
+        head(name, "counter", "tracer session counters")
+        for cname in sorted(tracer.counters):
+            lines.append(f'{name}{{counter="{_prom_escape(cname)}"}} '
+                         f'{float(tracer.counters[cname])}')
+        head(prefix + "_tracer_spans_dropped", "counter",
+             "spans overwritten past the ring-buffer capacity")
+        lines.append(f"{prefix}_tracer_spans_dropped "
+                     f"{float(tracer.dropped)}")
+    return "\n".join(lines) + "\n"
+
+
+class ServingCallback:
+    """hapi-style hooks: subclass, override what you need, pass instances
+    to the engine (`callbacks=`). Every hook is a no-op by default; hooks
+    run on the engine thread (`on_submit` / `on_reject` on the caller's),
+    so keep them cheap."""
+
+    def on_submit(self, request):
+        pass
+
+    def on_reject(self, request, reason):
+        pass
+
+    def on_join(self, request, slot):
+        pass
+
+    def on_token(self, request, token):
+        pass
+
+    def on_finish(self, request):
+        pass
+
+    def on_iteration(self, stats):
+        pass
+
+
+class CallbackList:
+    """Fan-out invoker (as hapi.callbacks.CallbackList): an exception in
+    one hook never stops the serving loop; it goes to `on_error(hook_name,
+    exc)` (the engines record it as `callback.<hook>`)."""
+
+    def __init__(self, callbacks=(), on_error=None):
+        self.callbacks = list(callbacks)
+        self.on_error = on_error
+
+    def append(self, cb):
+        self.callbacks.append(cb)
+
+    def emit(self, name, *args):
+        for cb in self.callbacks:
+            fn = getattr(cb, name, None)
+            if fn is None:
+                continue
+            try:
+                fn(*args)
+            except Exception as e:
+                if self.on_error is not None:
+                    self.on_error(name, e)
+
+
 def _jain(tokens_by_tenant):
     """Jain's fairness index over per-tenant delivered tokens:
     (sum x)^2 / (n * sum x^2), 1.0 when every tenant got an equal share,
@@ -309,6 +420,7 @@ class ServingMetrics:
         self.adapter_waits = 0
         # fault isolation (the retry layer) and the goodput split
         self.retries = 0
+        self.fallbacks = 0          # requests degraded to the eager path
         self.retry_tokens = 0
         self.useful_tokens = 0
         self.wasted_tokens = 0
@@ -414,6 +526,10 @@ class ServingMetrics:
             self.errors += 1
             self.last_error = {"where": where, "type": type(exc).__name__,
                                "message": str(exc), "at": self._clock()}
+
+    def record_fallback(self):
+        with self._lock:
+            self.fallbacks += 1
 
     def record_retry(self, where, n_tokens=0):
         """A failed engine op is being retried; for a decode step
@@ -671,6 +787,7 @@ class ServingMetrics:
                 "errors": self.errors,
                 "last_error": self.last_error,
                 "retries": self.retries,
+                "fallbacks": self.fallbacks,
                 "joins": self.joins,
                 "iterations": self.iterations,
                 "tokens_out": self.tokens_out,

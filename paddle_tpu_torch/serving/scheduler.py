@@ -20,10 +20,15 @@ import numpy as np
 import torch
 
 from ..profiler import trace as _trace
+from ..testing import faults
 from . import tracing as _rt
 
 __all__ = ["QueueFull", "Request", "RequestResult", "Scheduler",
            "FINISH_REASONS"]
+
+#: fault point of admission: an injected raise is a submit that was lost
+#: before queueing (the caller sees it; the server counts a reject)
+_PT_ADMIT = faults.point("scheduler.admit")
 
 #: terminal finish reasons
 FINISH_REASONS = ("eos", "length", "cancelled", "timeout", "drain",
@@ -163,6 +168,7 @@ class Scheduler:
         """Enqueue, or raise QueueFull past the high-water mark /
         RuntimeError after drain started. Sets `submitted_at`."""
         now = self.clock()
+        _PT_ADMIT()
         with self._lock:
             if self._draining:
                 raise RuntimeError("scheduler is draining: admission "

@@ -82,10 +82,12 @@ class ServingServer:
         self.engine.admit_check(r)   # fail fast, before queueing
         try:
             self.scheduler.submit(r)
-        except Exception:
+        except Exception as e:
             self.engine.metrics.record_reject()
+            self.engine._cbs.emit("on_reject", r, type(e).__name__)
             raise
         self.engine.metrics.record_submit()
+        self.engine._cbs.emit("on_submit", r)
         self._wake.set()
         return r
 
@@ -125,6 +127,7 @@ class ServingServer:
         for r in doomed:
             r.fail(exc, now)
             self.engine.metrics.record_finish("error", len(r.tokens))
+            self.engine._cbs.emit("on_finish", r)
 
     def shutdown(self, drain=True, timeout=None):
         """drain=True: close admission, run accepted work to completion,
@@ -149,5 +152,6 @@ class ServingServer:
             for r in self.scheduler.abort_queued("shutdown", now):
                 self.engine.metrics.record_finish(r.finish_reason,
                                                   len(r.tokens))
+                self.engine._cbs.emit("on_finish", r)
             self.engine.abort_active("shutdown", now)
         self._started = False

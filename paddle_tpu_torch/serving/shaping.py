@@ -47,7 +47,7 @@ import time
 
 from ..profiler import trace as _trace
 from . import tracing as _rt
-from .scheduler import QueueFull
+from .scheduler import _PT_ADMIT, QueueFull
 
 __all__ = ["SLOClass", "INTERACTIVE", "BATCH", "ShapingScheduler"]
 
@@ -183,6 +183,7 @@ class ShapingScheduler:
         names), or raise QueueFull — at the high-water mark like the
         FIFO, and additionally for gated batch-class admission."""
         now = self.clock()
+        _PT_ADMIT()
         cls = self._resolve_class(request)
         with self._lock:
             if self._draining:

@@ -629,6 +629,7 @@ class ShardedServingEngine(ServingEngine):
         self.metrics.record_error("prefill_splice", e)
         r.fail(e, self.clock())
         self.metrics.record_finish("error", len(r.tokens))
+        self._cbs.emit("on_finish", r)
 
     def _finish_splice(self, s, r, tok0):
         self._pending.discard(s)

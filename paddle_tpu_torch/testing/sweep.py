@@ -30,6 +30,7 @@ EXCLUDED = {
                  "dropout2d", "alpha_dropout", "gumbel_softmax",
                  "Dropout2D", "AlphaDropout")},
     "draw_seed": "a host int drawn from a CPU generator",
+    "utils_spectral_norm": "raises, as the JAX package's does",
     "scaled_dot_product_attention": "a hand kernel's wrapper (phases 2, 9)",
     "linear_int8": "a hand kernel's wrapper (phase 13)",
     "embedding_int8": "a hand kernel's wrapper (phase 13)",

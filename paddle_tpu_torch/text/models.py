@@ -30,7 +30,8 @@ from ..nn.layer.common import Dropout, Embedding, LayerNorm, Linear, Tanh
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieModel",
-           "ErnieForSequenceClassification", "ErnieForPretraining"]
+           "ErnieForSequenceClassification", "ErnieForPretraining",
+           "ernie_base", "ernie_tiny"]
 
 
 class ErnieConfig:
@@ -197,3 +198,16 @@ class ErnieForPretraining(nn.Module):
             mlm_logits = gather_from(copy_to(h, group) @ table.weight.T,
                                      group, -1, table._ranks)
         return mlm_logits, self.nsp(pooled)
+
+
+def ernie_base(*, device=None, generator=None, **kw):
+    """ErnieModel at base width (`ErnieConfig.base(**kw)`) on `device`
+    (None: the card)."""
+    return ErnieModel(ErnieConfig.base(**kw), device=device,
+                      generator=generator)
+
+
+def ernie_tiny(*, device=None, generator=None, **kw):
+    """ErnieModel at the tiny test width (`ErnieConfig.tiny(**kw)`)."""
+    return ErnieModel(ErnieConfig.tiny(**kw), device=device,
+                      generator=generator)

@@ -665,7 +665,23 @@ def sharded_serve(rank, world, spec):
         for name, seed in names.items():
             pool.register_random(name, seed=seed)
         kw["adapters"] = pool
+    events = []
+    if spec.get("record_callbacks"):
+        from paddle_tpu_torch.serving import ServingCallback
+
+        class Rec(ServingCallback):
+            def on_join(self, request, slot):
+                events.append(("join", slot))
+
+            def on_token(self, request, token):
+                events.append(("token", int(token)))
+
+            def on_finish(self, request):
+                events.append(("finish", request.finish_reason))
+
+        kw["callbacks"] = [Rec()]
     eng = ShardedServingEngine(dec, emb, proj, mesh=mesh, **kw)
+    eng.sync_tok0 = bool(spec.get("sync_tok0", False))
     plans = []
     try:
         for point, fkw in spec.get("faults", ()):
@@ -687,7 +703,7 @@ def sharded_serve(rank, world, spec):
            "occupancy": eng.occupancy(),
            "decodes": eng._decodes,
            "weights_bytes": eng.weights_bytes(),
-           "last_error": snap["last_error"]}
+           "last_error": snap["last_error"], "events": events}
     if hasattr(eng, "_alloc"):
         eng.flush_prefix_cache()
         eng._alloc.check()

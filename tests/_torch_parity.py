@@ -4,7 +4,26 @@ torch tensors, through torch autograd) on the same numpy inputs, and
 return the outputs and the gradients of <outputs, a fixed random
 cotangent> with respect to chosen inputs, as numpy arrays."""
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def keep_global_rng():
+    """Leave the global random state as the test found it: the JAX
+    package's key chain (which its layers' initialisers and `seed` move),
+    torch's default CPU generator and numpy's global one. JAX tests that
+    a worker runs later draw their initial weights from that chain, and
+    some of their thresholds hold only for the draws their usual order
+    gives."""
+    from paddle_tpu.core import random as jrandom
+
+    saved = (jrandom._key, jrandom._seed_value, torch.get_rng_state(),
+             np.random.get_state())
+    yield
+    jrandom._key, jrandom._seed_value = saved[0], saved[1]
+    torch.set_rng_state(saved[2])
+    np.random.set_state(saved[3])
 
 
 def _cot(shape, seed):

@@ -327,7 +327,8 @@ def test_pta105_waits_for_multi_card_serving():
 
     assert "PTA105" in AN.RULES
     assert "sharded" not in inspect.signature(AN.analyze_program).parameters
-    labels = [label for label, _ in runner.build_check_engines()]
+    labels = [label for label, _ in
+              runner.build_check_engines(device="cpu")]
     assert not any("shard" in label for label in labels)
 
 
@@ -346,7 +347,7 @@ def test_real_tree_program_gate_green():
     entry is stale. The pools are written in place (no PTA102) and no
     program reads a device value on the host (no PTA104 outside the
     baselined optimizer helper)."""
-    rep = AN.run(fast=False)
+    rep = AN.run(fast=False, device="cpu")
     assert rep["ok"], [f.as_dict() for f in rep["new"]]
     assert rep["stale_baseline"] == []
     assert all("FusedOptimizerStep" in f.baseline_key
@@ -363,17 +364,43 @@ def test_cli_exit_code_is_the_gate(tmp_path, capsys, monkeypatch):
     # a program finding the baseline does not justify fails the gate (the
     # static half is the test above's)
     monkeypatch.setattr(runner, "static_findings", lambda root=None: [])
-    monkeypatch.setattr(runner, "program_findings", lambda: [AN.Finding(
-        "PTA104", "Eng:('step',)", "m", baseline_key="Eng:step:aten.item")])
-    assert main(["--json"]) == 1
+    monkeypatch.setattr(runner, "program_findings", lambda device: [
+        AN.Finding("PTA104", "Eng:('step',)", "m",
+                   baseline_key="Eng:step:aten.item")])
+    assert main(["--json", "--device", "cpu"]) == 1
     bad = tmp_path / "b.json"
     AN.Baseline([{"rule": "PTA104", "match": "Eng:step:*",
                   "justification": "j"}]).save(bad)
-    assert main(["--baseline", str(bad)]) == 0
+    assert main(["--baseline", str(bad), "--device", "cpu"]) == 0
+
+
+@pytest.mark.skipif(torch.cuda.is_available(),
+                    reason="checks the refusal on a machine without a card")
+def test_program_lints_default_to_the_card_and_never_fall_back(monkeypatch):
+    """With no device the program half is asked of the CUDA card: on a
+    machine without one, `run()`, the CLI, `program_findings()` and
+    `analyze_fused_optimizer()` raise `resolve_device`'s error, and no
+    lint runs on the CPU in its place."""
+    ran = []
+    monkeypatch.setattr(runner, "static_findings",
+                        lambda root=None: ran.append("static") or [])
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        AN.run(fast=False)
+    from paddle_tpu_torch.analysis.__main__ import main
+
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        main(["--json"])
+    for fn in (runner.program_findings, runner.build_check_engines,
+               AN.analyze_fused_optimizer):
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            fn()
+    assert ran == []
+    # the source lints alone need no device
+    assert AN.run(programs=False)["cache"] is None and ran == ["static"]
 
 
 def test_analyze_engine_leaves_counters_and_sentinel_quiet():
-    dec, emb, proj = runner._small_stack(seed=21)
+    dec, emb, proj = runner._small_stack(seed=21, device="cpu")
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(dec, emb, proj, num_slots=2, max_len=32,

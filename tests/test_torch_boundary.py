@@ -193,3 +193,38 @@ def test_second_multi_gpu_slice_is_scanned_and_loads_no_libptcore():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_eager_remainder_slice_is_scanned_and_imports_alone():
+    """sparse/, autograd/, distribution/, slim/, utils/, device/,
+    dataset/, text/datasets and the places are among the scanned
+    sources; importing them (and the top level's new names) loads no
+    forbidden module, and nothing of the slice asks for the CPU on its
+    own: device=None stays the card until `set_device("cpu")`."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("sparse/__init__.py", "autograd/__init__.py",
+                 "distribution/__init__.py", "slim/__init__.py",
+                 "slim/quant.py", "utils/__init__.py", "utils/flags.py",
+                 "utils/monitor.py", "utils/cpp_extension.py",
+                 "device/__init__.py", "core/place.py", "core/random.py",
+                 "dataset/__init__.py", "dataset/common.py",
+                 "dataset/mnist.py", "text/datasets/__init__.py",
+                 "text/datasets/wmt.py", "text/datasets/conll05.py"):
+        assert name in rel, name
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch as p\n"
+        "import paddle_tpu_torch.sparse, paddle_tpu_torch.distribution\n"
+        "import paddle_tpu_torch.slim, paddle_tpu_torch.utils\n"
+        "import paddle_tpu_torch.dataset, paddle_tpu_torch.text.datasets\n"
+        "assert p.get_device() == 'gpu:0', p.get_device()\n"
+        "assert p.get_flags('FLAGS_check_nan_inf') == "
+        "{'FLAGS_check_nan_inf': False}\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -253,9 +253,15 @@ def test_gumbel_softmax_soft_and_hard():
 
 
 def test_sparse_embedding_and_other_modes_raise():
-    w = torch.randn(4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        TF.embedding(torch.tensor([1, 2]), w, sparse=True)
+    """`embedding(sparse=True)` (ROADMAP item 7, done) gives the leaf
+    weight a row-sparse gradient equal to the dense one; the modes the
+    port does not compute still raise."""
+    w = torch.randn(4, 3, requires_grad=True)
+    TF.embedding(torch.tensor([1, 2, 1]), w, sparse=True).sum().backward()
+    assert w.grad.layout == torch.sparse_coo and w.grad._nnz() == 3
+    wd = w.detach().clone().requires_grad_(True)
+    TF.embedding(torch.tensor([1, 2, 1]), wd).sum().backward()
+    assert torch.equal(w.grad.to_dense(), wd.grad)
     with pytest.raises(NotImplementedError):
         TF.grid_sample(torch.randn(1, 1, 3, 3), torch.zeros(1, 2, 2, 2),
                        mode="nearest")

@@ -403,11 +403,17 @@ def test_weight_decay_regularizers():
 
 
 def test_sparse_gradients_are_refused():
+    """Row-sparse gradients have sparse rules (`tests/test_torch_sparse.py`,
+    ROADMAP item 7); a gradient sparse in both dims has none and is
+    refused."""
     p = torch.nn.Parameter(torch.zeros(4, 3))
     opt = topt.SGD(0.1, parameters=[p])
     p.grad = torch.zeros(4, 3).to_sparse()
     with pytest.raises(NotImplementedError, match="sparse"):
         opt.step()
+    p.grad = torch.ones(4, 3).to_sparse(1)
+    opt.step()
+    assert torch.equal(p.detach(), torch.full((4, 3), -0.1))
 
 
 def test_named_parameters_reach_the_decay_rule_on_the_ernie_recipe():

@@ -210,23 +210,60 @@ def test_sparse_lookup_geo_delta_and_heartbeat():
 
 
 def test_selected_rows_push_waits_and_rows_push_merges():
-    """A SelectedRows gradient waits for the port's sparse module; the
-    rows path merges duplicates on the host and drops fill rows."""
-    class SelectedRows:
-        rows, values, height = np.array([1]), np.ones((1, 4)), 8
+    """A SelectedRows gradient (and the torch sparse COO tensor an
+    `Embedding(sparse=True)` leaves in `.grad`) goes to push_sparse as
+    rows: duplicates merged before the push, as the JAX test of the
+    communicator asserts (row 3 sees ONE adagrad gradient of 2, delta 1,
+    not two of 1), with the same pulls as the JAX client pushing the JAX
+    SelectedRows; fill rows past the height are dropped."""
+    from paddle_tpu.distributed.ps import Communicator as JComm
+    from paddle_tpu.sparse import SelectedRows as JRows
+    from paddle_tpu_torch.sparse import SelectedRows
+
+    D = 4
+    rows = np.array([3, 3, 8])
+    vals = np.arange(12, dtype=np.float32).reshape(3, D) / 7
+    got = {}
+    for side in ("jax", "port"):
+        srv = _jax_server(trainers=1, optimizer="adagrad", lr=1.0) \
+            if side == "jax" else _server(optimizer="adagrad", lr=1.0)
+        try:
+            cls = JComm if side == "jax" else Communicator
+            comm = cls([f"127.0.0.1:{srv.port}"], mode="sync")
+            cli = comm.clients[0]
+            before = cli.pull_sparse("emb", np.array([3, 8], np.int64), D)
+            g = JRows(rows, vals, 100) if side == "jax" else \
+                SelectedRows(torch.from_numpy(rows), torch.from_numpy(vals),
+                             100)
+            comm.push({"emb": g})
+            after = cli.pull_sparse("emb", np.array([3, 8], np.int64), D)
+            got[side] = (before, after)
+            if side == "port":
+                ones = SelectedRows(torch.tensor([3, 3, 8]),
+                                    torch.ones(3, D), 100)
+                b1 = cli.pull_sparse("ones", np.array([3, 8], np.int64), D)
+                comm.push({"ones": ones.to_sparse()})
+                a1 = cli.pull_sparse("ones", np.array([3, 8], np.int64), D)
+                np.testing.assert_allclose(b1 - a1, 1.0, atol=1e-5)
+        finally:
+            srv.stop()
+    np.testing.assert_array_equal(got["port"][0], got["jax"][0])
+    np.testing.assert_array_equal(got["port"][1], got["jax"][1])
 
     srv = _server(lr=0.5)
     try:
         comm = Communicator([f"127.0.0.1:{srv.port}"])
-        with pytest.raises(NotImplementedError, match="item 7"):
-            comm.push({"emb": SelectedRows()})
         table = DistributedLookupTable(comm, "emb", dim=4)
         before = table.lookup(np.arange(3))
-        comm.push_rows("emb", [1, 1, 2, 9], np.ones((4, 4), np.float32),
-                       height=8)
+        comm.push({"emb": SelectedRows(torch.tensor([1, 1, 2, 9]),
+                                       torch.ones(4, 4), 8)})
         after = table.lookup(np.arange(3))
         np.testing.assert_array_equal(after[0], before[0])
         assert (after[1:] < before[1:]).all()
+        # the sparse rule is adagrad (delta = lr * g / sqrt(sum g^2)):
+        # row 1's two ones merged into one gradient of 2 move it by lr,
+        # as row 2's single one does (unmerged: 0.5 + 0.5 / sqrt(2))
+        np.testing.assert_allclose(before[1:] - after[1:], 0.5, rtol=1e-6)
         comm.close()
     finally:
         srv.stop()
@@ -261,6 +298,31 @@ else:
     comm.barrier(99)
 fleet.stop_worker()
 """
+
+
+_EARLY_SHUTDOWN = """
+import sys, time
+from paddle_tpu_torch.distributed import fleet
+
+fleet.init(is_collective=False)
+comm = fleet.init_worker()
+comm.barrier(1)
+if fleet.fleet._role_maker._worker_index() == 0:
+    comm.clients[0].shutdown_server()
+time.sleep(1.5)        # still finishing when the pserver has exited 0
+"""
+
+
+def test_launch_ps_a_pserver_shut_down_by_a_trainer_ends_nothing(tmp_path):
+    """A trainer's `shutdown_server` makes the pserver exit 0 while the
+    trainers are still finishing: the job waits for them and ends 0 (it
+    used to read the clean exit as a death and end 1)."""
+    script = tmp_path / "early.py"
+    script.write_text(_EARLY_SHUTDOWN)
+    env = {"PYTHONPATH": ROOT, "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    assert launch.launch_ps([str(script)], num_servers=1, num_trainers=2,
+                            extra_env=env) == 0
 
 
 def test_launch_ps_one_pserver_two_trainers_converge(tmp_path):

@@ -154,6 +154,42 @@ def test_gathered_dp2_fsdp2_tp2_equals_the_jax_sharded_engine(pool):
     assert got[0]["weights_bytes"] == jeng.weights_bytes()
 
 
+def test_sync_tok0_and_callbacks_on_dp2_equal_the_jax_sharded_engine(pool):
+    """`sync_tok0 = True` (each join's token 0 synced as it returns) and a
+    recording `ServingCallback` on the dp2 mesh: the tokens are the JAX
+    sharded engine's under the same switch, and every rank's hooks saw
+    one join a request, one token a delivered token and one finish a
+    request, with the JAX engine's slots."""
+    from paddle_tpu.serving import ServingCallback as JCallback
+
+    stack = jax_stack(23)
+    reqs = requests(24, 6)
+    kw = dict(num_slots=4, max_len=32)
+    task = pool.submit(2, "sharded_serve", rank_spec(
+        stack, reqs, {"dp": 2}, kw, sync_tok0=True, record_callbacks=True))
+    events = []
+
+    class Rec(JCallback):
+        def on_join(self, request, slot):
+            events.append(("join", slot))
+
+        def on_token(self, request, token):
+            events.append(("token", int(token)))
+
+        def on_finish(self, request):
+            events.append(("finish", request.finish_reason))
+
+    jeng = JShardedEngine(*stack, mesh=jax_init_mesh(
+        dp=2, devices=jax.devices()[:2]), callbacks=[Rec()], **kw)
+    jeng.sync_tok0 = True
+    want, jsnap, jeng = jax_serve(jeng, reqs)
+    got = pool.collect(task)
+    assert_same(got, want, jsnap, jeng)
+    for g in got:
+        assert g["events"] == events
+    assert [e[0] for e in events].count("finish") == len(reqs)
+
+
 @pytest.mark.parametrize("case", ["megatron", "spec"])
 def test_megatron_and_spec_on_dp2_tp2_equal_the_jax_sharded_engine(pool,
                                                                    case):
