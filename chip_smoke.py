@@ -580,12 +580,35 @@ Phases; any failure exits nonzero before the result lines:
     and one finish a request; with the join fault armed and
     `eager_fallback=True` a request gets `generate_eager`'s tokens;
     `paddle.seed` twice gives the same `distribution` samples.
-41. Output: a {"kernels": [...]} line for all eleven kernels (the
+41. The static graph, each part judged. (a) A post-LN ERNIE encoder at
+    `ErnieConfig.base` width (vocab 18000, hidden 768, 12 layers, 12
+    heads, FFN 3072, 513 positions, 2 types; float32, GELU; weights from
+    --seed) built from the port's `fluid.layers` with each layer's
+    attention as matmul(q, k^T, alpha) + a [B, 1, 1, T] key-padding bias
+    -> softmax -> matmul, saved by `save_inference_model` and served by
+    `inference.create_predictor(Config(dir))` at b8 s128 with lengths
+    ragged over 64-128: the loaded program holds 12 `fused_sdpa` and no
+    softmax; flash_fwd's launches grow by exactly 12 a run, every one on
+    a float32 tensor-core route; the outputs within 1e-4 of the largest
+    entry against the same artifact on the CPU (`disable_gpu()`) and
+    against `switch_ir_optim(False)` on the card; the valid rows bit for
+    bit unchanged when the padded positions' ids change. Prints the
+    median latency a batch (CUDA events, 25 runs) and sequences/s, the
+    host time a run against its device time (torch.profiler) and the ops
+    interpreted, beside the eager `text.ernie_base()` forward at the same
+    shape. (b) `bench.py`'s static LeNet (batch 256, Adam 1e-3, images
+    and labels from --seed): 200 `Executor.run` steps, the loss below
+    half its start; `run_n(3)` equals three runs bit for bit; 3 steps
+    on the card equal the CPU within 1e-5 relative L2 (each parameter,
+    the losses); images/s. (c) The `__model__` and `__params__` written
+    on the card equal those written on the CPU byte for byte, and a
+    load -> save round trip is byte-identical.
+42. Output: a {"kernels": [...]} line for all eleven kernels (the
     attention kernels' launches summed over every serving path, phases
-    3, 5, 5b, 6, 14, 15, 26-28 and 39 (a) and (b), and over the training
-    paths, phases 10, 22, 25, 32, 33, 36 (a), 38 (a) and (b), 39 (a)
-    and (c) and 40 (e); int8_matmul and lora_gather's over phases 13-16
-    and 39 (b);
+    3, 5, 5b, 6, 14, 15, 26-28, 39 (a) and (b) and 41 (a), and over the
+    training paths, phases 10, 22, 25, 32, 33, 36 (a), 38 (a) and (b),
+    39 (a) and (c) and 40 (e); int8_matmul and lora_gather's over phases
+    13-16 and 39 (b);
     the three training
     kernels' float16 instances in rows of their own, their launches from
     36 (b)), then
@@ -599,6 +622,7 @@ import copy
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -8825,6 +8849,412 @@ def eager_remainder_phase(A, seed, card, dev="cuda"):
                  "callbacks_serve": out["callbacks"]["launches"]}
 
 
+# ------------------------------------------------- phase 41: static graph
+
+#: phase 41 (a): `ErnieConfig.base`'s widths (`paddle_tpu/text/models.py:17`)
+SE_VOCAB, SE_HIDDEN, SE_LAYERS, SE_HEADS, SE_FFN, SE_POS, SE_TYPES = \
+    18000, 768, 12, 12, 3072, 513, 2
+SE_BATCH, SE_SEQ, SE_RUNS = 8, 128, 25
+#: phase 41 (b): `bench.py:569`'s static LeNet
+LN_BATCH, LN_STEPS = 256, 200
+
+
+def static_ernie(fluid, seq=SE_SEQ, vocab=SE_VOCAB, hidden=SE_HIDDEN,
+                 layers=SE_LAYERS, heads=SE_HEADS, ffn=SE_FFN,
+                 max_pos=SE_POS, type_vocab=SE_TYPES):
+    """A post-LN ERNIE encoder from fluid layers: word + position +
+    sentence embeddings, LayerNorm, `layers` blocks of attention
+    (matmul(q, k^T, alpha=d^-0.5) + a [B, 1, 1, T] key-padding bias ->
+    softmax -> matmul, the pattern `multihead_matmul_fuse_pass` matches)
+    and a GELU feed-forward, and the tanh pooler over the first token.
+    Returns (main, startup, feed names, [seq, pooled])."""
+    L = fluid.layers
+    dh = hidden // heads
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        ids = L.data("src_ids", [seq], dtype="int64")
+        pos = L.data("pos_ids", [seq], dtype="int64")
+        sent = L.data("sent_ids", [seq], dtype="int64")
+        mask = L.data("input_mask", [seq], dtype="float32")
+        emb = L.embedding(ids, [vocab, hidden], param_attr="word_embedding")
+        emb = emb + L.embedding(pos, [max_pos, hidden],
+                                param_attr="pos_embedding")
+        emb = emb + L.embedding(sent, [type_vocab, hidden],
+                                param_attr="sent_embedding")
+        x = L.layer_norm(emb, begin_norm_axis=2)
+        bias = L.reshape(L.scale(mask, scale=10000.0, bias=-10000.0),
+                         [0, 1, 1, seq])
+
+        def heads_of(t):
+            return L.transpose(L.reshape(t, [0, 0, heads, dh]),
+                               [0, 2, 1, 3])
+
+        for _ in range(layers):
+            q = heads_of(L.fc(x, hidden, num_flatten_dims=2))
+            k = heads_of(L.fc(x, hidden, num_flatten_dims=2))
+            v = heads_of(L.fc(x, hidden, num_flatten_dims=2))
+            s = L.matmul(q, k, transpose_y=True, alpha=dh ** -0.5)
+            p = L.softmax(L.elementwise_add(s, bias))
+            o = L.reshape(L.transpose(L.matmul(p, v), [0, 2, 1, 3]),
+                          [0, 0, hidden])
+            x = L.layer_norm(x + L.fc(o, hidden, num_flatten_dims=2),
+                             begin_norm_axis=2)
+            f = L.fc(x, ffn, num_flatten_dims=2, act="gelu")
+            x = L.layer_norm(x + L.fc(f, hidden, num_flatten_dims=2),
+                             begin_norm_axis=2)
+        cls = L.reshape(L.slice(x, axes=[1], starts=[0], ends=[1]),
+                        [-1, hidden])
+        pooled = L.fc(cls, hidden, act="tanh")
+    return main, startup, ["src_ids", "pos_ids", "sent_ids",
+                           "input_mask"], [x, pooled]
+
+
+def static_params(startup, seed, std=0.02):
+    """{name: float32 array} for the startup program's persistables from
+    `seed`: weights normal(0, std), LayerNorm scales 1, biases 0."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for v in startup.global_block().vars.values():
+        if not v.persistable:
+            continue
+        shape = [int(d) for d in v.shape]
+        if v.name.endswith(".b_0"):
+            out[v.name] = np.zeros(shape, np.float32)
+        elif v.name.startswith("layer_norm") and v.name.endswith(".w_0"):
+            out[v.name] = np.ones(shape, np.float32)
+        else:
+            out[v.name] = rng.standard_normal(shape, np.float32) * \
+                np.float32(std)
+    return out
+
+
+def static_feed(seed, batch=SE_BATCH, seq=SE_SEQ, vocab=SE_VOCAB):
+    """ids, positions, sentence ids and a 0/1 mask with lengths ragged
+    over [seq / 2, seq]."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(seq // 2, seq + 1, batch)
+    lens[0] = seq
+    return {"src_ids": rs.randint(1, vocab, (batch, seq)).astype(np.int64),
+            "pos_ids": np.tile(np.arange(seq, dtype=np.int64), (batch, 1)),
+            "sent_ids": (np.arange(seq)[None, :] >= seq // 2).astype(
+                np.int64).repeat(batch, 0),
+            "input_mask": (np.arange(seq)[None, :] < lens[:, None]).astype(
+                np.float32)}
+
+
+def _same_files(d1, d2, names=("__model__", "__params__")):
+    for name in names:
+        with open(os.path.join(d1, name), "rb") as a, \
+                open(os.path.join(d2, name), "rb") as b:
+            if a.read() != b.read():
+                return False
+    return True
+
+
+def static_wire(fluid, work, art, dev):
+    """Phase 41 (c): the artifact loaded on the card and saved again, and
+    loaded on the CPU and saved again, equal the CPU-written files byte
+    for byte."""
+    out = {}
+    for label, place in (("card", dev), ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            prog, feeds, fetches = fluid.io.load_inference_model(art, exe)
+            where = {str(t.device.type) for t in scope._values.values()}
+            again = os.path.join(work, f"again_{label}")
+            fluid.io.save_inference_model(again, feeds, fetches, exe,
+                                          main_program=prog)
+        out[label] = {"devices": sorted(where),
+                      "identical": _same_files(art, again)}
+        shutil.rmtree(again)
+        del scope
+    if not (out["card"]["identical"] and out["cpu"]["identical"]):
+        raise AssertionError(f"static wire: files differ {out}")
+    if out["card"]["devices"] != ["cuda"]:
+        raise AssertionError(f"static wire: card load placed {out}")
+    sizes = {n: os.path.getsize(os.path.join(art, n))
+             for n in ("__model__", "__params__")}
+    log(f"  (c) __model__ {sizes['__model__']} B, __params__ "
+        f"{sizes['__params__']} B: the card's and the CPU's load -> save "
+        f"equal the CPU-written files byte for byte")
+    return {**out, "bytes": sizes}
+
+
+def static_serving(A, seed, work, dev="cuda"):
+    """Phase 41 (a) and (c). Returns (summary, flash_fwd launches of one
+    served run)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.text import ernie_base
+
+    t0 = time.perf_counter()
+    main, startup, feeds, outs = static_ernie(fluid)
+    scope = fluid.Scope()
+    for name, arr in static_params(startup, seed).items():
+        scope._values[name] = torch.from_numpy(arr)
+    art = os.path.join(work, "ernie_base")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(art, feeds, outs,
+                                      fluid.Executor(fluid.CPUPlace()),
+                                      main_program=main)
+    del scope
+    built = time.perf_counter() - t0
+    wire = static_wire(fluid, work, art, dev)
+
+    pred = inference.create_predictor(inference.Config(art))
+    if pred.device.type != "cuda":
+        raise AssertionError(f"static predictor on {pred.device}")
+    types = [op.type for op in pred._program.global_block().ops]
+    n_sdpa = types.count("fused_sdpa")
+    if n_sdpa != SE_LAYERS or "softmax" in types:
+        raise AssertionError(f"static ERNIE program: {n_sdpa} fused_sdpa, "
+                             f"softmax {'softmax' in types}")
+    feed = static_feed(seed)
+    names = pred.get_input_names()
+    pred.run([feed[n] for n in names])        # first run: kernels warm
+    torch.cuda.synchronize()
+    A.reset_launches()
+    seq, pooled = pred.run([feed[n] for n in names])
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    routes = {k: v for k, v in A.ROUTE_LAUNCHES.items() if v}
+    tc = routes.get("flash_fwd:tf32x3", 0) + \
+        routes.get("flash_fwd:tf32x3_short", 0)
+    if launches["flash_fwd"] != SE_LAYERS or tc != SE_LAYERS:
+        raise AssertionError(f"static ERNIE run: flash_fwd {launches}, "
+                             f"routes {routes}")
+
+    cfg = inference.Config(art)
+    cfg.disable_gpu()
+    cpu = inference.create_predictor(cfg)
+    cseq, cpooled = cpu.run([feed[n] for n in names])
+    del cpu
+    errs_cpu = [rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                for a, b in ((seq, cseq), (pooled, cpooled))]
+    cfg = inference.Config(art)
+    cfg.switch_ir_optim(False)
+    raw = inference.create_predictor(cfg)
+    rseq, rpooled = raw.run([feed[n] for n in names])
+    raw_types = [op.type for op in raw._program.global_block().ops]
+    del raw
+    errs_raw = [rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                for a, b in ((seq, rseq), (pooled, rpooled))]
+    if not max(errs_cpu + errs_raw) <= 1e-4:
+        raise AssertionError(f"static ERNIE: card against CPU {errs_cpu}, "
+                             f"against the unfused program {errs_raw}")
+    if "fused_sdpa" in raw_types:
+        raise AssertionError("switch_ir_optim(False) fused the attention")
+    pad = feed["input_mask"] == 0
+    other = dict(feed)
+    other["src_ids"] = np.where(pad, (feed["src_ids"] + 7) % SE_VOCAB,
+                                feed["src_ids"])
+    seq2, pooled2 = pred.run([other[n] for n in names])
+    if not (np.array_equal(seq[~pad], seq2[~pad])
+            and np.array_equal(pooled, pooled2)):
+        raise AssertionError("static ERNIE: the valid rows moved when the "
+                             "padded ids changed")
+
+    # timing: the whole Predictor.run (feeds up, fetches down), CUDA
+    # events; then the host time a run issues and its device time
+    def one():
+        pred.run([feed[n] for n in names])
+
+    one()
+    times = []
+    for _ in range(SE_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        one()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    latency = float(np.median(times))
+    exe, prog = pred._exe, pred._program
+    dfeed = {n: torch.from_numpy(feed[n]).to(dev) for n in names}
+    hosts, synced, walls = [], [], []
+    for _ in range(SE_RUNS):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        exe.run(prog, dfeed, pred._fetch_vars, scope=pred._scope,
+                return_numpy=False)
+        hosts.append(1e3 * (time.perf_counter() - h0))
+        torch.cuda.synchronize()
+        synced.append(1e3 * (time.perf_counter() - h0))
+        h0 = time.perf_counter()
+        one()
+        walls.append(1e3 * (time.perf_counter() - h0))
+    host_ms = float(np.median(hosts))
+    synced_ms, wall_ms = float(np.median(synced)), float(np.median(walls))
+    ops = exe.last_ops_run
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA,
+                             ProfilerActivity.CPU]) as prof:
+        exe.run(prog, dfeed, pred._fetch_vars, scope=pred._scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    device_busy = sum(r[0] for r in rows)
+    top = sorted(rows, reverse=True)[:5]
+    del pred
+
+    g = torch.Generator().manual_seed(seed)
+    eager = ernie_base(device=dev, generator=g, hidden_dropout=0.0,
+                       attn_dropout=0.0).eval()
+    ids = torch.from_numpy(feed["src_ids"]).to(dev)
+    amask = torch.from_numpy(feed["input_mask"]).to(dev)
+    with torch.no_grad():
+        eager_ms = device_ms(lambda: eager(ids, attention_mask=amask))
+    del eager
+    out = {"program_ops": len(types), "fused_sdpa": n_sdpa,
+           "launches": launches["flash_fwd"], "routes": routes,
+           "rel_err_cpu": errs_cpu, "rel_err_unfused": errs_raw,
+           "latency_ms": latency, "seq_per_s": SE_BATCH / latency * 1e3,
+           "host_ms_per_run": host_ms, "device_ms_per_run": device_busy,
+           "issued_and_synced_ms": synced_ms, "run_wall_ms": wall_ms,
+           "ops_per_run": ops, "top_kernels": [list(r) for r in top],
+           "eager_ernie_base_ms": eager_ms,
+           "eager_seq_per_s": SE_BATCH / eager_ms * 1e3,
+           "build_save_s": built, "wire": wire}
+    log(f"  (a) static ERNIE-base b{SE_BATCH} s{SE_SEQ}: {n_sdpa} fused_sdpa "
+        f"of {len(types)} ops; flash_fwd {launches['flash_fwd']} a run "
+        f"{routes}; card against CPU {errs_cpu[0]:.2e} / "
+        f"{errs_cpu[1]:.2e}, against the unfused program {errs_raw[0]:.2e} "
+        f"/ {errs_raw[1]:.2e}; valid rows unchanged bit for bit")
+    log(f"      latency {latency:.3f} ms a batch ({out['seq_per_s']:.1f} "
+        f"seq/s; host clock {wall_ms:.3f}); host {host_ms:.3f} ms a run "
+        f"issuing {ops} ops ({synced_ms:.3f} to the device's end), device "
+        f"busy {device_busy:.3f} ms; eager ernie_base() {eager_ms:.3f} ms "
+        f"({out['eager_seq_per_s']:.1f} seq/s)")
+    return out, launches["flash_fwd"]
+
+
+def static_lenet(fluid, make_optimizer=None):
+    """`bench.py:569`'s static LeNet: conv-pool x2, fc x3, softmax cross
+    entropy, minimized by `make_optimizer(fluid)` (Adam 1e-3)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[1, 28, 28], dtype="float32")
+        lbl = fluid.layers.data("lbl", shape=[1], dtype="int64")
+        c1 = fluid.layers.conv2d(img, 6, 5, padding=2, act="relu")
+        p1 = fluid.layers.pool2d(c1, 2, "max", 2)
+        c2 = fluid.layers.conv2d(p1, 16, 5, act="relu")
+        p2 = fluid.layers.pool2d(c2, 2, "max", 2)
+        f1 = fluid.layers.fc(p2, 120, act="relu")
+        f2 = fluid.layers.fc(f1, 84, act="relu")
+        logits = fluid.layers.fc(f2, 10)
+        loss = fluid.layers.reduce_mean(
+            fluid.layers.softmax_with_cross_entropy(logits, lbl))
+        opt = make_optimizer(fluid) if make_optimizer else \
+            fluid.optimizer.Adam(1e-3)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def lenet_batch(seed, batch=LN_BATCH):
+    """Images of 10 seeded class templates plus noise, and their labels."""
+    rs = np.random.RandomState(seed)
+    templates = rs.standard_normal((10, 1, 28, 28)).astype(np.float32)
+    lbl = rs.randint(0, 10, (batch, 1)).astype(np.int64)
+    img = templates[lbl[:, 0]] + np.float32(0.5) * \
+        rs.standard_normal((batch, 1, 28, 28)).astype(np.float32)
+    return {"img": img, "lbl": lbl}
+
+
+def _clone_scope(fluid, scope, dev):
+    out = fluid.Scope()
+    out._values = {n: t.detach().to(dev, copy=True)
+                   for n, t in scope._values.items()}
+    return out
+
+
+def static_training(seed, dev="cuda"):
+    """Phase 41 (b)."""
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss = static_lenet(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    batch = lenet_batch(seed)
+    card = fluid.Executor()
+    if card.device.type != "cuda":
+        raise AssertionError(f"Executor() on {card.device}")
+    cpu = fluid.Executor(fluid.CPUPlace())
+    # 3 steps, card against CPU
+    s_card, s_cpu = _clone_scope(fluid, init, dev), \
+        _clone_scope(fluid, init, "cpu")
+    l_card = [card.run(main, batch, [loss], scope=s_card)[0]
+              for _ in range(3)]
+    l_cpu = [cpu.run(main, batch, [loss], scope=s_cpu)[0] for _ in range(3)]
+    errs = {n: _rel(s_card._values[n].cpu(), s_cpu._values[n])
+            for n in s_cpu._values}
+    errs["losses"] = _rel(torch.tensor(np.array(l_card)),
+                          torch.tensor(np.array(l_cpu)))
+    worst = max(errs.values())
+    if not worst <= 1e-5:
+        raise AssertionError(f"static LeNet card against CPU: {errs}")
+    # run_n(3) against three runs, bit for bit: cuDNN's deterministic
+    # convolutions (its default algorithms may accumulate the weight
+    # gradient in another order each call)
+    s_a, s_b = _clone_scope(fluid, init, dev), _clone_scope(fluid, init, dev)
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        three = [card.run(main, dbatch, [loss], scope=s_a)[0]
+                 for _ in range(3)][-1]
+        n3 = card.run_n(main, dbatch, [loss], n=3, scope=s_b)[0]
+    finally:
+        torch.backends.cudnn.deterministic = was
+    same = bool(np.array_equal(three, n3)) and all(
+        torch.equal(s_a._values[n], s_b._values[n]) for n in s_a._values)
+    if not same:
+        raise AssertionError("static LeNet: run_n(3) differs from 3 runs")
+    # 200 steps on the card, the batch on the device
+    scope = _clone_scope(fluid, init, dev)
+    first = card.run(main, dbatch, [loss], scope=scope)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LN_STEPS - 2):
+        card.run(main, dbatch, [loss], scope=scope, return_numpy=False)
+    last = card.run(main, dbatch, [loss], scope=scope)[0]
+    wall = time.perf_counter() - t0
+    if not float(last) < 0.5 * float(first):
+        raise AssertionError(f"static LeNet: loss {first} -> {last} in "
+                             f"{LN_STEPS} steps")
+    ips = (LN_STEPS - 1) * LN_BATCH / wall
+    out = {"loss_first": float(first), "loss_last": float(last),
+           "imgs_per_s": ips, "step_ms": 1e3 * wall / (LN_STEPS - 1),
+           "ops_per_step": card.last_ops_run,
+           "card_vs_cpu_worst_rel_l2": worst, "run_n_bitwise": same}
+    log(f"  (b) static LeNet b{LN_BATCH} Adam: loss {float(first):.4f} -> "
+        f"{float(last):.4f} in {LN_STEPS} steps, {ips:.1f} images/s "
+        f"({out['step_ms']:.3f} ms a step, {card.last_ops_run} ops run); "
+        f"run_n(3) == 3 runs bitwise; card against CPU worst {worst:.2e}")
+    return out
+
+
+def static_phase(A, seed, card, dev="cuda"):
+    """Phase 41 (a)-(c). Returns (summary, {path: {kernel: launches}})."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="static_phase_")
+    try:
+        out = {"card": card}
+        out["serving"], n_fwd = static_serving(A, seed, work, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["training"] = static_training(seed, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out, {"static_ernie_serve": {"flash_fwd": n_fwd}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9546,7 +9976,21 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 41: output")
+    log("phase 41: the static graph: (a) static ERNIE-base through "
+        "create_predictor and fused_sdpa, (b) static LeNet training, (c) "
+        "the wire format")
+    static, static_launches = static_phase(A, args.seed, card)
+    for label, counts in static_launches.items():
+        for kname, n in counts.items():
+            row = kernels[kname]
+            row["launches_by_path"][label] = n
+            row["launches"] = sum(row["launches_by_path"].values())
+    log("  static graph summary " + json.dumps(static))
+    log(f"  phase 41 took {static['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 42: output")
     kernels = list(kernels.values())
     print(json.dumps({"kernels": kernels}))
     print(card)

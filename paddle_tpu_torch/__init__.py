@@ -4,7 +4,8 @@ A package of its own beside `paddle_tpu` (the JAX reference, which it
 never imports). Layout mirrors the reference: `core/`, `ops/`, `nn/`,
 `text/`, `vision/`, `optimizer/`, `parallel/`, `distributed/`,
 `serving/`, `io/`, `metric/`, `hapi/`, `tensor/`, `autograd/`,
-`sparse/`, `distribution/`, `slim/`, `device/`, `utils/`, `dataset/`.
+`sparse/`, `distribution/`, `slim/`, `device/`, `utils/`, `dataset/`,
+`fluid/`, `static/`, `inference/` (the static graph).
 The attention, int8 matmul, gathered-LoRA and fused 1x1-conv +
 BatchNorm kernels are hand-written CUDA C++ in `csrc/`, built
 with nvcc at first use (`ops/_build.py`). Entry points run on the CUDA
@@ -24,9 +25,9 @@ The tensor functions sit at the top level as in Paddle (`paddle.concat`,
 and the dtype names; they are plain functions, and `torch.Tensor` is
 not patched.
 """
-from . import (autograd, dataset, device, distributed, distribution, hapi,
-               io, metric, nn, optimizer, parallel, slim, sparse, tensor,
-               text, utils, vision)
+from . import (autograd, dataset, device, distributed, distribution, fluid,
+               hapi, inference, io, metric, nn, optimizer, parallel, slim,
+               sparse, static, tensor, text, utils, vision)
 from .autograd import enable_grad, grad, is_grad_enabled, no_grad
 from .core.device import resolve_device
 from .core.dtypes import get_default_dtype, set_default_dtype
@@ -35,6 +36,8 @@ from .core.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace,
                          is_compiled_with_tpu, is_compiled_with_xpu,
                          set_device)
 from .core.random import get_seed, seed
+from .framework import (disable_static, enable_static, in_dygraph_mode,
+                        in_dynamic_mode)
 from .hapi import Model, summary
 from .hapi import callbacks
 from .io import load, save
@@ -57,19 +60,9 @@ __all__ = ["Model", "ParamAttr", "callbacks", "distributed",
            "CUDAPinnedPlace", "TPUPlace", "XPUPlace", "set_device",
            "get_device", "is_compiled_with_cuda", "is_compiled_with_tpu",
            "is_compiled_with_xpu", "get_flags", "set_flags", "Tensor",
-           "enable_static", "in_dynamic_mode",
+           "enable_static", "disable_static", "in_dynamic_mode",
+           "in_dygraph_mode", "fluid", "static", "inference",
            "bool_", "bfloat16", "float16", "float32", "float64", "int8",
            "int16", "int32", "int64", "uint8", "complex64",
            "complex128"] + list(_tensor_names)
 
-
-def enable_static():
-    raise NotImplementedError(
-        "enable_static: the port's static stack waits for ROADMAP item 8; "
-        "the port runs eagerly")
-
-
-def in_dynamic_mode():
-    raise NotImplementedError(
-        "in_dynamic_mode: the port's static stack waits for ROADMAP item "
-        "8; the port runs eagerly")

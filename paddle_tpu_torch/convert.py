@@ -65,6 +65,16 @@ layout), mesh, fitted=True)` gives a rank the blocks of the JAX engine's
 step net (`decoder.*`, `embed.weight`, `project.weight`) under either
 layout, fsdp included, as `serving.sharded.shard_serving_net` cuts them.
 
+A JAX static-graph `Scope` (after the JAX startup program ran, say)
+comes across through `from_jax_scope`: its values as numpy arrays fill
+the port's `fluid.Scope` on a device, so the port's Executor runs a
+program on the JAX package's weights (the two packages' initializers
+draw from different generators):
+
+    values = {n: np.asarray(v) for n, v in jax_scope._values.items()
+              if v is not None}
+    from_jax_scope(values, port_scope, device="cpu")
+
 A JAX parameter-server job's tables come across through `to_pserver`:
 its pservers' snapshot (the same C server, the same file format) loads
 into the port's pservers, and dense numpy parameters initialise theirs.
@@ -74,7 +84,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state", "from_jax_optimizer_state", "to_pserver"]
+__all__ = ["from_jax_state", "from_jax_optimizer_state", "to_pserver",
+           "from_jax_scope"]
 
 
 def _block(name, t, rules, mesh, fitted=False):
@@ -144,3 +155,24 @@ def from_jax_optimizer_state(np_state, names=None, rules=None, mesh=None):
         t = from_jax_state({key: value})[key]
         out[f"{pname}__{slot}"] = _block(pname, t, rules, mesh)
     return out
+
+
+def from_jax_scope(values, scope=None, device="cpu"):
+    """Fill the port's static `Scope` (None: the global one) with a JAX
+    Scope's values, {name: numpy array}, as tensors on `device`. Dtypes
+    are kept (a static program's float64 stays float64, as in the JAX
+    Scope); a bfloat16 array (ml_dtypes) becomes a torch bfloat16
+    tensor. Returns the scope."""
+    from .core.device import resolve_device
+    from .fluid.executor import global_scope
+
+    scope = global_scope() if scope is None else scope
+    dev = resolve_device(device)
+    for name, arr in values.items():
+        arr = np.asarray(arr)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        scope._values[name] = t.to(dev)
+    return scope

@@ -14,9 +14,10 @@ amp -> bfloat16 compute, recompute -> remat, gradient_merge ->
 grad_accum, lars / lamb / dgc -> the functional rules) instead of
 program rewrites. The parameter-server mode runs on `distributed.ps`
 (`init_server` / `run_server` / `init_worker` / `stop_worker`).
-`save_inference_model` and `save_persistables` need the static graph's
-`fluid.io`, which the port does not have yet (ROADMAP item 8): they
-raise.
+`save_inference_model` and `save_persistables` delegate to the static
+graph's `fluid.io`, and `MetaOptimizer.minimize` on a static program's
+loss to the inner fluid optimizer (with the recompute checkpoints), as
+the JAX package's do.
 """
 from __future__ import annotations
 
@@ -30,12 +31,6 @@ from .strategy import DistributedStrategy  # noqa: F401
 __all__ = ["Fleet", "MetaOptimizer", "UtilBase", "fleet", "util",
            "DistributedStrategy", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "Role", "metrics"]
-
-
-def _static_graph(what):
-    return NotImplementedError(
-        f"fleet.{what} needs the static graph's fluid.io, which the port "
-        f"does not have yet (ROADMAP item 8)")
 
 
 class Fleet:
@@ -141,10 +136,15 @@ class Fleet:
     def save_inference_model(self, executor, dirname, feeded_var_names,
                              target_vars, main_program=None,
                              export_for_deployment=True):
-        raise _static_graph("save_inference_model")
+        from ...fluid.io import save_inference_model
+
+        return save_inference_model(dirname, feeded_var_names, target_vars,
+                                    executor, main_program)
 
     def save_persistables(self, executor, dirname, main_program=None):
-        raise _static_graph("save_persistables")
+        from ...fluid.io import save_persistables
+
+        return save_persistables(executor, dirname, main_program)
 
 
 class MetaOptimizer:
@@ -174,9 +174,19 @@ class MetaOptimizer:
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         """Eager: backward, then the inner optimizer's step. A static
-        graph's loss needs the port's static stack (ROADMAP item 8)."""
-        if hasattr(loss, "block"):
-            raise _static_graph("MetaOptimizer.minimize on a program")
+        graph's loss: the inner fluid optimizer's `minimize`, wrapped in a
+        `RecomputeOptimizer` with the strategy's checkpoints when
+        recompute is on (the JAX package's order)."""
+        if hasattr(loss, "block"):  # static graph program
+            from ...fluid.optimizer import RecomputeOptimizer
+
+            s, opt = self._strategy, self._inner
+            if s.recompute:
+                opt = RecomputeOptimizer(opt)
+                opt._set_checkpoints(s.recompute_configs.get(
+                    "checkpoints", []))
+            return opt.minimize(loss, startup_program, parameter_list,
+                                no_grad_set)
         loss.backward()
         self.step()
         return None, None

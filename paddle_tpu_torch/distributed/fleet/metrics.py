@@ -54,14 +54,18 @@ def _maybe_init_from_env():
 
 
 def _resolve(x, scope=None):
-    """A numpy array, a tensor (any device) or a sequence of numbers.
-    Variable names of a static-graph scope wait for the port's static
-    stack (ROADMAP item 8)."""
-    if isinstance(x, str):
-        raise NotImplementedError(
-            f"fleet.metrics: a variable name ({x!r}) needs the static "
-            f"graph's scope, which the port does not have yet (ROADMAP "
-            f"item 8); pass the array")
+    """A numpy array, a tensor (any device), a sequence of numbers, or a
+    static-graph variable (a fluid Variable or its name), read from
+    `scope` (None: the fluid global scope), as the JAX package reads
+    it."""
+    if isinstance(x, str) or (hasattr(x, "block") and hasattr(x, "name")):
+        from ...fluid.executor import _to_numpy, global_scope
+
+        name = x if isinstance(x, str) else x.name
+        scope = global_scope() if scope is None else scope
+        if scope.find_var(name) is None:
+            raise KeyError(f"fleet.metrics: variable {name!r} not in scope")
+        return _to_numpy(scope.get_value(name)).astype(np.float64)
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu").double().numpy()
     return np.asarray(x)

@@ -15,7 +15,7 @@ package's Python float, with no host sync a step. Scales divide by a 0-d
 float64 tensor of the bound, never by a Python number (CUDA multiplies
 by a Python divisor's reciprocal, one rounding more).
 
-Waiting for the port's static stack (ROADMAP item 8), each raising:
+Waiting for ROADMAP item 8d (static slim and `jit/`), each raising:
 `PostTrainingQuantization` / `quant_post_static`, the static-graph QAT
 passes, and `save_quantized_model` (its export runs `jit.save`).
 """
@@ -31,7 +31,7 @@ __all__ = ["fake_quant", "QuantedLinear", "QuantedConv2D",
            "ImperativeQuantAware", "PostTrainingQuantization",
            "quant_post_static"]
 
-_ITEM8 = "waits for the port's static stack (ROADMAP item 8)"
+_ITEM8 = "waits for the port's static slim and jit (ROADMAP item 8d)"
 
 
 class _FakeQuant(torch.autograd.Function):

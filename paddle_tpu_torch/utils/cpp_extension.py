@@ -7,8 +7,10 @@ its elementwise symbol as an eager op. The kernel runs on the host: the
 op copies its input to a float32 host array, runs the kernel and puts
 the result back on the input's device, as the JAX package's
 `pure_callback` does. The op is opaque to autograd, as reference custom
-ops are without a registered gradient kernel. The static-graph lowering
-(`op.static_layer`) waits for the port's static stack (ROADMAP item 8).
+ops are without a registered gradient kernel. `register_custom_op` also
+registers the op's static lowering (op type `op_name`, inputs {X},
+outputs {Out}) and its fluid layer, `op.static_layer(x)`, as the JAX
+package does.
 
 Expected C symbol:  void <name>(const float* x, float* out, long long n)
 """
@@ -77,10 +79,22 @@ def register_custom_op(op_name, lib, symbol=None):
              out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), host.size)
         return torch.from_numpy(out).to(t.device)
 
+    # static lowering: the same host kernel on the op's input
+    from ..fluid import lowering
+
+    @lowering.register(op_name)
+    def _lower(ctx, op):
+        ctx.out(op, "Out", eager(ctx.inp(op, "X")))
+
+    # fluid layer sugar
     def static_layer(x, name=None):
-        raise NotImplementedError(
-            f"custom op {op_name!r}: the static-graph lowering waits for the "
-            f"port's static stack (ROADMAP item 8); call the op eagerly")
+        from ..fluid.layer_helper import LayerHelper
+
+        helper = LayerHelper(op_name, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+        helper.append_op(type=op_name, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs={})
+        return out
 
     eager.static_layer = static_layer
     return eager

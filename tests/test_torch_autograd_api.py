@@ -207,9 +207,15 @@ def test_top_level_names():
                  "XPUPlace", "autograd", "distribution", "sparse", "utils",
                  "slim", "dataset", "device", "text"):
         assert hasattr(jp, name) and hasattr(tp, name), name
-    for fn in (tp.enable_static, tp.in_dynamic_mode):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+    try:
+        for m in (jp, tp):
+            assert m.in_dynamic_mode()
+            m.enable_static()
+            assert not m.in_dynamic_mode()
+    finally:
+        jp.disable_static()
+        tp.disable_static()
+    assert tp.in_dynamic_mode()
     for m in (jp, tp):
         with pytest.raises(NotImplementedError):
             m.nn.utils_spectral_norm(None)

@@ -228,3 +228,37 @@ def test_eager_remainder_slice_is_scanned_and_imports_alone():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_static_slice_is_scanned_and_imports_alone():
+    """fluid/, static/, inference/, the wire codec and ptc_format are
+    among the scanned sources; importing them (and building a program)
+    loads no forbidden module and no protobuf, and the Executor and the
+    Predictor default to the card."""
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("fluid/__init__.py", "fluid/framework.py",
+                 "fluid/lowering.py", "fluid/executor.py", "fluid/ir.py",
+                 "fluid/io.py", "fluid/backward.py", "fluid/optimizer.py",
+                 "fluid/layers/nn.py", "static/__init__.py",
+                 "inference/__init__.py", "core/program_pb.py",
+                 "core/ptc_format.py", "framework.py"):
+        assert name in rel, name
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.fluid as fluid\n"
+        "import paddle_tpu_torch.static, paddle_tpu_torch.inference\n"
+        "main = fluid.Program()\n"
+        "with fluid.program_guard(main, fluid.Program()):\n"
+        "    x = fluid.layers.data('x', [3])\n"
+        "    fluid.layers.fc(x, 2)\n"
+        "fluid.io.model_bytes(main, ['x'], [])\n"
+        "assert fluid.executor.place_device(fluid.CPUPlace()).type == "
+        "'cpu'\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} or m.startswith('google.protobuf'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

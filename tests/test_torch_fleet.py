@@ -6,7 +6,7 @@ gradient_merge (k_steps 2) against the JAX trainer's step on the same
 weights and batch, and bit for bit against the port's `SpmdTrainer` with
 the same kwargs; the distributed metrics as all-reduces over two gloo
 ranks (the port of `tests/test_fleet_metrics.py`); `LocalSGDSync`; the
-file systems; the static-graph saves that wait for ROADMAP item 8.
+file systems; the static-graph saves, which delegate to `fluid.io`.
 
 Limits: the amp step runs bfloat16 products on float32 masters in both
 packages, whose CPU matmuls round the bf16 products in their own order:
@@ -226,7 +226,23 @@ def test_local_fs_hdfs_shell_pipe_and_static_saves(tmp_path):
     assert "-mkdir -p /data/new" in log.read_text()
     with pytest.raises(ExecuteError, match="not found"):
         HDFSClient(cmd_prefix=[str(tmp_path / "nope")]).mkdirs("/x")
-    for call in (lambda: fleet.save_inference_model(None, "d", [], []),
-                 lambda: fleet.save_persistables(None, "d")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    # the static-graph saves delegate to fluid.io, as the JAX fleet's do
+    import paddle_tpu_torch.fluid as tfluid
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data("x", [3], dtype="float32")
+        y = tfluid.layers.fc(x, 2)
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    with tfluid.scope_guard(scope):
+        fleet.save_inference_model(exe, str(tmp_path / "inf"), ["x"], [y],
+                                   main_program=main)
+        fleet.save_persistables(exe, str(tmp_path / "pers"), main)
+        tfluid.io.save_inference_model(str(tmp_path / "ref"), ["x"], [y],
+                                       exe, main_program=main)
+    for name in ("__model__", "__params__"):
+        assert (tmp_path / "inf" / name).read_bytes() == \
+            (tmp_path / "ref" / name).read_bytes()
+    assert (tmp_path / "pers" / "__params__").exists()

@@ -7,7 +7,7 @@ does; `FLAGS_check_nan_inf` raises at the op that made a NaN or an Inf
 (forward and backward) and stops when cleared; `FLAGS_cudnn_deterministic`
 turns torch's deterministic algorithms on and off; the stat registry
 counts as JAX's does under four threads; a g++-built custom op gives the
-JAX op's output eagerly, and its static lowering waits for item 8.
+JAX op's output eagerly and through its static lowering.
 """
 import threading
 
@@ -129,8 +129,17 @@ def test_custom_cpp_op_eager(tmp_path):
     assert got.shape == (2, 2) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(),
                                   jop(jp.to_tensor(x)).numpy())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        top.static_layer(None)
+    # the static lowering: the op in a fluid program, run by the Executor
+    import paddle_tpu_torch.fluid as tfluid
+
+    main = tfluid.Program()
+    with tfluid.program_guard(main, tfluid.Program()):
+        xv = tfluid.layers.data("x", [2, 2], dtype="float32",
+                                append_batch_size=False)
+        yv = top.static_layer(xv)
+    static, = tfluid.Executor(tfluid.CPUPlace()).run(
+        main, {"x": x}, [yv], scope=tfluid.Scope())
+    np.testing.assert_array_equal(static, got.numpy())
     with pytest.raises(RuntimeError, match="build failed"):
         bad = tmp_path / "bad.cc"
         bad.write_text("not c++")
